@@ -1,0 +1,119 @@
+"""Convert the JAX package's flax variables into the port's state_dict.
+
+The inverse of ``elektronn3_tpu/models/torch_import.py``:
+
+- conv kernels (kd, kh, kw, I, O) become torch weights (O, I, kd, kh, kw);
+- transposed-conv kernels become (I, O, kd, kh, kw) with their spatial
+  taps flipped (flax's ConvTranspose correlates with the flipped kernel
+  relative to torch's);
+- per-parent flax ``BatchNorm_<n>`` slots map, in order of n, onto the
+  port's ``norm{k}`` modules: ``scale``/``bias`` params become
+  ``weight``/``bias``, ``batch_stats`` ``mean``/``var`` become
+  ``running_mean``/``running_var``.
+
+Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing here
+imports JAX.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_NORM_RE = re.compile(r"^(?:Batch|Group|Layer|Instance)Norm_(\d+)$")
+
+
+def conv_weight_from_flax(kernel) -> np.ndarray:
+    """flax conv kernel (*spatial, I, O) -> torch weight (O, I, *spatial)."""
+    k = np.asarray(kernel)
+    nd = k.ndim
+    return np.ascontiguousarray(
+        np.transpose(k, (nd - 1, nd - 2) + tuple(range(nd - 2))))
+
+
+def convtranspose_weight_from_flax(kernel) -> np.ndarray:
+    """flax ConvTranspose kernel (*spatial, I, O) -> torch
+    ConvTranspose weight (I, O, *spatial), spatial taps flipped."""
+    k = np.asarray(kernel)
+    nd = k.ndim
+    w = np.transpose(k, (nd - 2, nd - 1) + tuple(range(nd - 2)))
+    return np.ascontiguousarray(np.flip(w, axis=tuple(range(2, nd))))
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict:
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "keys"):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = v
+    return out
+
+
+def _flax_module_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """torch state_dict key -> (flax module path, leaf name)."""
+    parts = key.split(".")
+    out = []
+    i = 0
+    while i < len(parts) - 1:
+        p = parts[i]
+        if p in ("down_convs", "up_convs"):
+            out.append(("down_" if p == "down_convs" else "up_")
+                       + parts[i + 1])
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    return tuple(out), parts[-1]
+
+
+def state_dict_from_flax(variables: Mapping[str, Any],
+                         model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` for ``model`` (the port's UNet) holding the
+    parameters and batch statistics of flax ``variables`` (a dict with
+    'params' and 'batch_stats' of numpy-convertible arrays) of the
+    equivalent JAX model. ``num_batches_tracked`` keeps the model's
+    value. Raises on a missing entry or a shape mismatch."""
+    params = _flatten(variables["params"])
+    stats = _flatten(variables.get("batch_stats", {}))
+    slots: Dict[Tuple[str, ...], list] = {}
+    for path in params:
+        for d in range(len(path) - 1):
+            m = _NORM_RE.match(path[d])
+            if m and path[d] not in slots.setdefault(path[:d], []):
+                slots[path[:d]].append(path[d])
+    for lst in slots.values():
+        lst.sort(key=lambda n: int(_NORM_RE.match(n).group(1)))
+
+    out = {}
+    for key, ref in model.state_dict().items():
+        mod, leaf = _flax_module_path(key)
+        if leaf == "num_batches_tracked":
+            out[key] = ref.clone()
+            continue
+        if mod and re.fullmatch(r"norm\d+", mod[-1]):
+            parent, k = mod[:-1], int(mod[-1][len("norm"):])
+            if k >= len(slots.get(parent, [])):
+                raise KeyError(f"{key}: no flax norm slot {k} under "
+                               f"{'/'.join(parent)}")
+            base = parent + (slots[parent][k],)
+            src = {"weight": (params, "scale"), "bias": (params, "bias"),
+                   "running_mean": (stats, "mean"),
+                   "running_var": (stats, "var")}[leaf]
+            val = np.asarray(src[0][base + (src[1],)])
+        elif leaf == "weight":
+            kernel = params[mod + ("kernel",)]
+            val = (convtranspose_weight_from_flax(kernel)
+                   if mod[-1] == "upconv" else conv_weight_from_flax(kernel))
+        else:
+            val = np.asarray(params[mod + (leaf,)])
+        if tuple(val.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: flax shape {tuple(val.shape)} != "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.as_tensor(np.array(val, dtype=np.float32),
+                                   dtype=ref.dtype)
+    return out

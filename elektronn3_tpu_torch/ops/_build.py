@@ -1,0 +1,128 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``
+(Hopper) into one shared library with a plain C interface, which is
+loaded with ``ctypes``. Nothing links against PyTorch's headers, so a
+build takes seconds, not minutes. The library lands in
+``elektronn3_tpu_torch/_build/`` under a name that carries a hash of the
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded. Concurrent builders write to a temporary name and rename
+it into place.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("conv_bnact.cu", "pool_bnact.cu", "upconv_bnact.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of each C entry point (csrc/*.cu, extern "C").
+_SIGNATURES = {
+    "e3_conv_bnact": (_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_pool_bnact": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_upconv_bnact": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None   # time of this process's build
+build_log: str = ""                      # nvcc's output of that build
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on
+    ``PATH``, else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and Path(home, "bin", "nvcc").exists():
+        return str(Path(home, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the port's CUDA kernels are "
+        "built from elektronn3_tpu_torch/csrc at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the build directory unless a library
+    of the same sources and flags is already there. ``verbose`` adds
+    ``-Xptxas=-v`` (registers, shared memory and spills per kernel; the
+    code is the same) and keeps nvcc's output in :data:`build_log`."""
+    global build_seconds, build_log
+    extra = ("-Xptxas=-v",) if verbose else ()
+    BUILD_DIR.mkdir(exist_ok=True)
+    out = BUILD_DIR / f"libe3kernels-{_digest()}.so"
+    if out.exists():
+        return out
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", tmp,
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
