@@ -7,10 +7,12 @@ rewritten by hand for NVIDIA Hopper (``csrc/``, built with ``nvcc`` for
 
 Subpackages mirror the JAX package:
 
-- ``models``: the U-Net (inference forward) and the flax->torch
-  parameter converter
-- ``modules``: activations, normalization, batch-norm prologues
-- ``ops``: the fused level ops and their kernels' loader
+- ``models``: the U-Net (training and inference forward) and the
+  converter between flax variables and the port's state_dict
+- ``modules``: activations, normalization, batch-norm prologues, losses
+- ``ops``: the fused level ops (autograd functions) and their kernels'
+  loader
+- ``training``: the train step and the ``Trainer`` loop
 - ``inference``: tiled prediction (``Predictor``)
 """
 

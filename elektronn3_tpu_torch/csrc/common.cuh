@@ -24,12 +24,49 @@ __device__ __forceinline__ float act_fwd(float v, int act) {
   return v;
 }
 
-// The prologue a = act(x * inv + shift), with the multiply and the add
+// act'(pre) as the JAX kernels take it (flat_fused.py _act_deriv):
+// relu passes where pre > 0.
+__device__ __forceinline__ float act_grad(float pre, int act) {
+  if (act == ACT_RELU) return pre > 0.0f ? 1.0f : 0.0f;
+  if (act == ACT_LEAKY) return pre > 0.0f ? 1.0f : kLeakySlope;
+  return 1.0f;
+}
+
+// The pre-activation x * inv + shift, with the multiply and the add
 // rounded separately (no fused multiply-add), as the plain PyTorch
 // version computes it, so both give the same float32 value.
+__device__ __forceinline__ float pre_act(float x, float inv, float shift) {
+  return __fadd_rn(__fmul_rn(x, inv), shift);
+}
+
+// The prologue a = act(x * inv + shift).
 __device__ __forceinline__ float prologue(float x, float inv, float shift,
                                           int act) {
-  return act_fwd(__fadd_rn(__fmul_rn(x, inv), shift), act);
+  return act_fwd(pre_act(x, inv, shift), act);
+}
+
+// dy_tot = dy + ds + 2 * y * dq: the statistics cotangent folded into
+// the output cotangent on load, in the plain version's order.
+__device__ __forceinline__ float dy_tot(float dy, float y, float ds,
+                                        float dq) {
+  return __fadd_rn(__fadd_rn(dy, ds), __fmul_rn(2.0f * y, dq));
+}
+
+// Reduce-scatter of 32 per-lane values over a warp: on return v[0] of
+// lane l holds the warp's sum of v[l]. 31 shuffles.
+__device__ __forceinline__ float warp_reduce_scatter32(float* v) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int j = 0; j < off; ++j) {
+      const float send = upper ? v[j] : v[j + off];
+      const float keep = upper ? v[j + off] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  return v[0];
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -70,6 +107,20 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
 #pragma unroll
   for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(h[i]);
+}
+
+// Load 8 channels of a row of ``ci`` channels from channel ``cb`` on,
+// vectorized when ``ci % 8 == 0``, else one by one with channels past
+// ``ci`` read as 0.
+template <typename T>
+__device__ __forceinline__ void load8_tail(const T* p, int ci, int cb,
+                                           float* v) {
+  if (ci % 8 == 0) {
+    load8(p, v);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = (cb + c < ci) ? to_f(p[c]) : 0.0f;
+  }
 }
 
 // Store 8 consecutive channels from float32 (16-byte aligned).

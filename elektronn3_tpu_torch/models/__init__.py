@@ -1,6 +1,8 @@
-"""Model zoo of the port. Ported so far: the U-Net (inference forward)."""
+"""Model zoo of the port. Ported so far: the U-Net (training and
+inference forward)."""
 
-from elektronn3_tpu_torch.models.convert import state_dict_from_flax
+from elektronn3_tpu_torch.models.convert import (
+    flax_from_state_dict, state_dict_from_flax)
 from elektronn3_tpu_torch.models.unet import UNet
 
-__all__ = ["UNet", "state_dict_from_flax"]
+__all__ = ["UNet", "flax_from_state_dict", "state_dict_from_flax"]

@@ -1,6 +1,8 @@
-"""Convert the JAX package's flax variables into the port's state_dict.
+"""Convert between the JAX package's flax variables and the port's
+state_dict, in both directions.
 
-The inverse of ``elektronn3_tpu/models/torch_import.py``:
+``state_dict_from_flax`` is the inverse of
+``elektronn3_tpu/models/torch_import.py``:
 
 - conv kernels (kd, kh, kw, I, O) become torch weights (O, I, kd, kh, kw);
 - transposed-conv kernels become (I, O, kd, kh, kw) with their spatial
@@ -11,6 +13,13 @@ The inverse of ``elektronn3_tpu/models/torch_import.py``:
   ``weight``/``bias``, ``batch_stats`` ``mean``/``var`` become
   ``running_mean``/``running_var``.
 
+``flax_from_state_dict`` goes back: it fills the tree of given flax
+variables from torch tensors, so the port's running statistics after a
+training step can be held against JAX's ``batch_stats``. A gradient maps
+like the parameter it belongs to (every map above is a transpose or a
+flip), so the same function turns the port's parameter grads into the
+flax grad tree.
+
 Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing here
 imports JAX.
 """
@@ -18,7 +27,7 @@ imports JAX.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +51,21 @@ def convtranspose_weight_from_flax(kernel) -> np.ndarray:
     nd = k.ndim
     w = np.transpose(k, (nd - 2, nd - 1) + tuple(range(nd - 2)))
     return np.ascontiguousarray(np.flip(w, axis=tuple(range(2, nd))))
+
+
+def conv_weight_to_flax(weight) -> np.ndarray:
+    """torch conv weight (O, I, *spatial) -> flax kernel (*spatial, I, O)."""
+    w = np.asarray(weight)
+    nd = w.ndim
+    return np.ascontiguousarray(np.transpose(w, tuple(range(2, nd)) + (1, 0)))
+
+
+def convtranspose_weight_to_flax(weight) -> np.ndarray:
+    """torch ConvTranspose weight (I, O, *spatial) -> flax kernel
+    (*spatial, I, O), spatial taps flipped."""
+    w = np.flip(np.asarray(weight), axis=tuple(range(2, np.ndim(weight))))
+    nd = w.ndim
+    return np.ascontiguousarray(np.transpose(w, tuple(range(2, nd)) + (0, 1)))
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict:
@@ -71,6 +95,73 @@ def _flax_module_path(key: str) -> Tuple[Tuple[str, ...], str]:
     return tuple(out), parts[-1]
 
 
+def _norm_slots(params: Mapping) -> Dict[Tuple[str, ...], list]:
+    """Per parent module path, its flax norm slot names in order of n."""
+    slots: Dict[Tuple[str, ...], list] = {}
+    for path in params:
+        for d in range(len(path) - 1):
+            m = _NORM_RE.match(path[d])
+            if m and path[d] not in slots.setdefault(path[:d], []):
+                slots[path[:d]].append(path[d])
+    for lst in slots.values():
+        lst.sort(key=lambda n: int(_NORM_RE.match(n).group(1)))
+    return slots
+
+
+def _torch_key(path: Tuple[str, ...], slots) -> str:
+    """flax leaf path (without the collection) -> torch state_dict key."""
+    out = []
+    for d, p in enumerate(path[:-1]):
+        m = re.fullmatch(r"(down|up)_(\d+)", p)
+        if m:
+            out += [m.group(1) + "_convs", m.group(2)]
+        elif _NORM_RE.match(p):
+            out.append(f"norm{slots[path[:d]].index(p)}")
+        else:
+            out.append(p)
+    leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",
+            "mean": "running_mean", "var": "running_var"}[path[-1]]
+    return ".".join(out + [leaf])
+
+
+def flax_from_state_dict(tensors: Mapping[str, Any],
+                         variables: Mapping[str, Any],
+                         collections: Sequence[str] = ("params",
+                                                       "batch_stats"),
+                         ) -> Dict[str, Dict]:
+    """The flax collections of ``variables`` (their tree, with numpy
+    leaves) filled from ``tensors``, a mapping of the port's state_dict
+    keys to tensors: the parameters and running statistics of
+    ``model.state_dict()``, or ``{name: p.grad for name, p in
+    model.named_parameters()}`` with ``collections=("params",)`` for the
+    flax grad tree. Raises on a missing key or a shape mismatch."""
+    params = _flatten(variables["params"])
+    slots = _norm_slots(params)
+    out: Dict[str, Dict] = {}
+    for coll in collections:
+        tree: Dict = {}
+        for path, ref in _flatten(variables.get(coll, {})).items():
+            key = _torch_key(path, slots)
+            if key not in tensors:
+                raise KeyError(f"{'/'.join((coll,) + path)}: no tensor "
+                               f"{key!r}")
+            t = tensors[key]
+            v = np.asarray(t.detach().float().cpu() if
+                           isinstance(t, torch.Tensor) else t, np.float32)
+            if path[-1] == "kernel":
+                v = (convtranspose_weight_to_flax(v) if path[-2] == "upconv"
+                     else conv_weight_to_flax(v))
+            if v.shape != np.shape(ref):
+                raise ValueError(f"{key}: shape {v.shape} != flax "
+                                 f"{np.shape(ref)}")
+            node = tree
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = v
+        out[coll] = tree
+    return out
+
+
 def state_dict_from_flax(variables: Mapping[str, Any],
                          model: nn.Module) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` for ``model`` (the port's UNet) holding the
@@ -80,14 +171,7 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     value. Raises on a missing entry or a shape mismatch."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
-    slots: Dict[Tuple[str, ...], list] = {}
-    for path in params:
-        for d in range(len(path) - 1):
-            m = _NORM_RE.match(path[d])
-            if m and path[d] not in slots.setdefault(path[:d], []):
-                slots[path[:d]].append(path[d])
-    for lst in slots.values():
-        lst.sort(key=lambda n: int(_NORM_RE.match(n).group(1)))
+    slots = _norm_slots(params)
 
     out = {}
     for key, ref in model.state_dict().items():

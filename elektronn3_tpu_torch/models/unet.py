@@ -1,4 +1,5 @@
-"""The configurable 3D U-Net, inference forward, on NDHWC tensors.
+"""The configurable 3D U-Net, training and inference forward, on NDHWC
+tensors.
 
 Counterpart of the JAX package's ``models/unet.py`` (reference
 elektronn3/models/unet.py:550-935). The public layout is the JAX
@@ -24,8 +25,15 @@ Level plan, decided from level structure alone:
 A level whose structure the kernels do not take (odd H or W, an odd
 depth under a (2, 2, 2) pool, an activation without a kernel prologue)
 runs plain torch, and the reason is logged once per input shape. This is
-a plan declared from shapes, not a fallback on failure. Eval only: the
-batch norms use running statistics.
+a plan declared from shapes, not a fallback on failure.
+
+In training (``model.train()``) the kernel levels take their batch
+statistics from the convs' side outputs (``want_stats``) and build each
+consumer's prologue from them (``bn_train_prologue``, as
+``_want_stats``/``_stats_prologue`` do in JAX); the plain levels use
+``apply_norm``'s batch statistics. Gradients come from the ops'
+backward kernels and, elsewhere, from autograd. In eval the batch norms
+use running statistics and the forward builds no autograd graph.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elektronn3_tpu_torch.modules.flat_norm import (
-    bn_eval_prologue, identity_prologue, norm_kind)
+    bn_eval_prologue, bn_train_prologue, identity_prologue, norm_kind)
 from elektronn3_tpu_torch.modules.layers import (
     apply_norm, conv_kernel, get_activation, get_normalization, pool_window)
 from elektronn3_tpu_torch.ops import fused
@@ -105,18 +113,38 @@ def _plain_conv(x: torch.Tensor, conv: nn.Conv3d,
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def _kernel_bias(conv: nn.Conv3d, dtype: torch.dtype) -> torch.Tensor:
-    """A 3x3 conv's bias as the JAX executors add it: the C=32 executor
-    rounds it to the model dtype (flat_fused.py conv_bnact_flat), the
-    C=64 executor adds the float32 parameter."""
-    return conv.bias.to(dtype) if conv.out_channels == 32 else conv.bias
+def _kernel_params(conv: nn.Conv3d, dtype: torch.dtype,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A 3x3 conv's (weight, bias) as the JAX executors pass them: the
+    C=32 executor rounds both to the model dtype (flat_fused.py
+    conv_bnact_flat), so their gradients come back through that cast;
+    the C=64 executor takes the float32 parameters."""
+    if conv.out_channels == 32:
+        return conv.weight.to(dtype), conv.bias.to(dtype)
+    return conv.weight, conv.bias
 
 
-def _norm_pro(norm: Optional[nn.BatchNorm3d], channels: int,
-              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _norm_pro(norm: Optional[nn.BatchNorm3d], out) -> Tuple[
+        torch.Tensor, torch.Tensor]:
+    """The (inv, shift) prologue of a kernel op's output ``out``: (y, s,
+    q) in training, where the norm takes the batch statistics (s, q),
+    else the output alone, whose norm takes the running statistics."""
+    y = out[0] if isinstance(out, tuple) else out
     if norm is None:
-        return identity_prologue(channels, device)
+        return identity_prologue(y.shape[-1], y.device)
+    if isinstance(out, tuple):
+        return bn_train_prologue(norm, out[1], out[2], y.numel() // y.shape[-1])
     return bn_eval_prologue(norm)
+
+
+def _raw(out) -> torch.Tensor:
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _stats(norm: Optional[nn.BatchNorm3d]) -> bool:
+    """Whether a conv feeding ``norm`` returns its batch statistics:
+    batch norm in training (``_want_stats`` of the JAX UNet)."""
+    return norm is not None and norm.training
 
 
 class DownConv(nn.Module):
@@ -150,17 +178,21 @@ class DownConv(nn.Module):
         window = pool_window(3, self.planar)
         if kernels:
             act = _KERNEL_ACTS[self.activation]
-            c = self.conv1.out_channels
-            # conv1 adds its float32 bias in both JAX executors (the
-            # C=32 one through conv1_bnstats_flat).
-            y1 = fused.conv_bnact([x], None, None, self.conv1.weight,
-                                  self.conv1.bias, "linear",
-                                  reference=reference)
-            inv1, shift1 = _norm_pro(self.norm0, c, x.device)
-            y2 = fused.conv_bnact([y1], inv1, shift1, self.conv2.weight,
-                                  _kernel_bias(self.conv2, self.dtype), act,
-                                  reference=reference)
-            inv2, shift2 = _norm_pro(self.norm1, c, x.device)
+            # conv1 takes the float32 weight and bias in both JAX
+            # executors (the C=32 one through conv1_bnstats_flat); its
+            # input is the network input (or the pool), which gets no
+            # input gradient kernel unless it requires one.
+            out1 = fused.conv_bnact([x], None, None, self.conv1.weight,
+                                    self.conv1.bias, "linear",
+                                    want_stats=_stats(self.norm0),
+                                    reference=reference)
+            inv1, shift1 = _norm_pro(self.norm0, out1)
+            w2, b2 = _kernel_params(self.conv2, self.dtype)
+            out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
+                                    want_stats=_stats(self.norm1),
+                                    reference=reference)
+            inv2, shift2 = _norm_pro(self.norm1, out2)
+            y2 = _raw(out2)
             skip = FusedActs(y2, inv2, shift2)
             return (fused.pool_bnact(y2, inv2, shift2, act, window,
                                      reference=reference), skip)
@@ -207,30 +239,33 @@ class UpConv(nn.Module):
         level's output (a tensor, or :class:`FusedActs` from a kernel
         decoder level). Returns :class:`FusedActs` on the kernel plan,
         a tensor otherwise."""
-        c = self.conv1.out_channels
         if kernels:
             act = _KERNEL_ACTS[self.activation]
-            dev = enc.raw.device
+            # The upconv takes the float32 weight and bias in both JAX
+            # upconv kernels (upconv222_bn_flat64, upconv122_from_flat64).
             if isinstance(dec, FusedActs):
-                yu = fused.upconv_bnact(dec.raw, dec.inv, dec.shift,
-                                        self.upconv.weight, self.upconv.bias,
-                                        act, reference=reference)
+                outu = fused.upconv_bnact(
+                    dec.raw, dec.inv, dec.shift, self.upconv.weight,
+                    self.upconv.bias, act, want_stats=_stats(self.norm0),
+                    reference=reference)
             else:
-                yu = fused.upconv_bnact(dec, None, None, self.upconv.weight,
-                                        self.upconv.bias, "linear",
-                                        reference=reference)
-            invu, shiftu = _norm_pro(self.norm0, c, dev)
-            y1 = fused.conv_bnact(
-                [yu, enc.raw], torch.cat([invu, enc.inv]),
-                torch.cat([shiftu, enc.shift]), self.conv1.weight,
-                _kernel_bias(self.conv1, self.dtype), act,
-                reference=reference)
-            inv1, shift1 = _norm_pro(self.norm1, c, dev)
-            y2 = fused.conv_bnact([y1], inv1, shift1, self.conv2.weight,
-                                  _kernel_bias(self.conv2, self.dtype), act,
-                                  reference=reference)
-            inv2, shift2 = _norm_pro(self.norm2, c, dev)
-            return FusedActs(y2, inv2, shift2)
+                outu = fused.upconv_bnact(
+                    dec, None, None, self.upconv.weight, self.upconv.bias,
+                    "linear", want_stats=_stats(self.norm0),
+                    reference=reference)
+            invu, shiftu = _norm_pro(self.norm0, outu)
+            w1, b1 = _kernel_params(self.conv1, self.dtype)
+            out1 = fused.conv_bnact(
+                [_raw(outu), enc.raw], torch.cat([invu, enc.inv]),
+                torch.cat([shiftu, enc.shift]), w1, b1, act,
+                want_stats=_stats(self.norm1), reference=reference)
+            inv1, shift1 = _norm_pro(self.norm1, out1)
+            w2, b2 = _kernel_params(self.conv2, self.dtype)
+            out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
+                                    want_stats=_stats(self.norm2),
+                                    reference=reference)
+            inv2, shift2 = _norm_pro(self.norm2, out2)
+            return FusedActs(_raw(out2), inv2, shift2)
         act = get_activation(self.activation)
         if isinstance(dec, FusedActs):
             dec = fused.materialize(dec, _KERNEL_ACTS[self.activation])
@@ -248,7 +283,7 @@ class UpConv(nn.Module):
 
 
 class UNet(nn.Module):
-    """Configurable 3D U-Net for dense prediction, inference forward.
+    """Configurable 3D U-Net for dense prediction.
 
     Input: channels-last ``(N, D, H, W, in_channels)``. Output: logits
     ``(N, D, H, W, out_channels)``, bfloat16 for a bfloat16 model,
@@ -364,17 +399,19 @@ class UNet(nn.Module):
         self._plans[key] = kernels
         return kernels
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, *,
                 reference: bool = False) -> torch.Tensor:
-        """Eval forward of a channels-last batch (no autograd graph).
-        ``reference=True`` runs every kernel's plain PyTorch version
-        instead, on any device (to hold the kernels against it on the
-        card)."""
+        """Forward of a channels-last batch: with batch statistics and an
+        autograd graph in training, with running statistics and no graph
+        in eval. ``reference=True`` runs every kernel's plain PyTorch
+        version instead, on any device (to hold the kernels against it
+        on the card)."""
         if self.training:
-            raise NotImplementedError(
-                "the port implements the inference forward only; call "
-                "model.eval()")
+            return self._forward(x, reference)
+        with torch.no_grad():
+            return self._forward(x, reference)
+
+    def _forward(self, x: torch.Tensor, reference: bool) -> torch.Tensor:
         if x.dim() != 5 or x.shape[-1] != self.in_channels:
             raise ValueError(
                 f"Input shape {tuple(x.shape)}: expected channels-last "

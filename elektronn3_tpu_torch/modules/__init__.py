@@ -1,2 +1,2 @@
 """NN building blocks (activations, normalization, batch-norm
-prologues) for the port's models."""
+prologues, losses) for the port's models."""

@@ -5,8 +5,14 @@ Counterpart of the JAX package's ``modules/flat_norm.py``. There a
 or the running statistics (eval) into the per-lane (inv, shift) vectors
 its consumer kernel applies on load. The port keeps its batch-norm
 state in ``nn.BatchNorm3d`` modules (the reference's ``norm{k}`` names)
-and implements the eval branch here; the vectors are per channel, with
+and implements both branches here; the vectors are per channel, with
 no lane tiling.
+
+Training follows ``FlatBNStats`` and flax's ``BatchNorm``: the biased
+batch variance, and the running update ``ra = 0.9 * ra + 0.1 * batch``
+(flax momentum 0.9, i.e. the module's torch-style ``momentum`` of 0.1
+as the weight of the batch value), written into the module's buffers
+outside autograd.
 """
 
 from __future__ import annotations
@@ -27,6 +33,37 @@ def bn_eval_prologue(norm: nn.BatchNorm3d) -> Tuple[torch.Tensor,
     var = torch.clamp_min(norm.running_var.float(), 0.0)
     inv = torch.rsqrt(var + norm.eps) * norm.weight.float()
     shift = norm.bias.float() - norm.running_mean.float() * inv
+    return inv, shift
+
+
+def update_running_stats(norm: nn.BatchNorm3d, mean: torch.Tensor,
+                         var: torch.Tensor) -> None:
+    """``ra = (1 - m) * ra + m * batch`` for the running mean and
+    variance, m = ``norm.momentum`` (0.1: flax's momentum 0.9), in
+    float32 and without autograd."""
+    m = norm.momentum
+    with torch.no_grad():
+        for buf, val in ((norm.running_mean, mean), (norm.running_var, var)):
+            buf.copy_((1.0 - m) * buf.float() + m * val.detach().float())
+
+
+def bn_train_prologue(norm: nn.BatchNorm3d, s: torch.Tensor,
+                      q: torch.Tensor, count: int,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(inv, shift) from a kernel's statistics side outputs, the
+    per-channel float32 sum ``s`` and sum of squares ``q`` of the stored
+    output over ``count`` voxels (``FlatBNStats`` in training):
+    ``mean = s / count``, biased ``var = q / count - mean ** 2``. The
+    running statistics take the unclamped variance, as in JAX; the
+    prologue clamps it at 0 against cancellation. Differentiable in
+    ``s``, ``q`` and the affine parameters, which is how the statistics
+    cotangents reach the kernels."""
+    mean = s / count
+    var = q / count - mean * mean
+    update_running_stats(norm, mean, var)
+    inv = torch.rsqrt(torch.clamp_min(var, 0.0) + norm.eps) \
+        * norm.weight.float()
+    shift = norm.bias.float() - mean * inv
     return inv, shift
 
 

@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from elektronn3_tpu_torch.modules.flat_norm import bn_eval_prologue
+from elektronn3_tpu_torch.modules.flat_norm import (
+    bn_eval_prologue, update_running_stats)
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
@@ -64,17 +65,28 @@ def get_normalization(norm: Optional[str], channels: int,
 
 def apply_norm(norm_layer: Optional[nn.Module],
                x: torch.Tensor) -> torch.Tensor:
-    """Apply a norm layer to an NDHWC tensor with running statistics
-    (the inference forward), computing in float32 and rounding to
-    ``x``'s dtype once."""
+    """Apply a batch norm layer to an NDHWC tensor, computing in float32
+    and rounding to ``x``'s dtype once.
+
+    Eval: the running statistics. Training: flax ``BatchNorm``'s
+    statistics of the batch, ``mean = E[x]`` and the biased
+    ``var = max(E[x^2] - mean^2, 0)``, normalized as ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` and differentiable through the
+    statistics; the running statistics get flax's momentum update (see
+    ``update_running_stats``). ``F.batch_norm(training=True)`` would
+    update ``running_var`` with the unbiased variance instead."""
     if norm_layer is None:
         return x
-    if norm_layer.training:
-        raise NotImplementedError(
-            "batch statistics in training are not ported yet; call "
-            "model.eval()")
-    inv, shift = bn_eval_prologue(norm_layer)
-    return (x.float() * inv + shift).to(x.dtype)
+    if not norm_layer.training:
+        inv, shift = bn_eval_prologue(norm_layer)
+        return (x.float() * inv + shift).to(x.dtype)
+    xf = x.float()
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dims)
+    var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+    update_running_stats(norm_layer, mean, var)
+    mul = torch.rsqrt(var + norm_layer.eps) * norm_layer.weight.float()
+    return ((xf - mean) * mul + norm_layer.bias.float()).to(x.dtype)
 
 
 def conv_kernel(kernel_size: Union[int, Sequence[int]], dim: int,

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 The sources are compiled at first use with ``nvcc`` for ``sm_90a``
-(Hopper) into one shared library with a plain C interface, which is
+(Hopper), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, which is
 loaded with ``ctypes``. Nothing links against PyTorch's headers, so a
 build takes seconds, not minutes. The library lands in
 ``elektronn3_tpu_torch/_build/`` under a name that carries a hash of the
@@ -29,20 +30,30 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("conv_bnact.cu", "pool_bnact.cu", "upconv_bnact.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("conv_bnact.cu", "conv_bnact_bwd.cu", "pool_bnact.cu",
+           "upconv_bnact.cu")
+HEADERS = ("common.cuh", "conv_bnact.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of each C entry point (csrc/*.cu, extern "C").
 _SIGNATURES = {
     "e3_conv_bnact": (_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _P),
+                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_bnact_dgrad": (_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I,
+                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P),
+    "e3_conv_bnact_wgrad": (_I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                            _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "e3_pool_bnact": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "e3_upconv_bnact": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _P),
+    "e3_pool_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _P),
+    "e3_upconv_bnact": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P),
+    "e3_upconv_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -79,7 +90,8 @@ def _digest() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into the build directory unless a library
-    of the same sources and flags is already there. ``verbose`` adds
+    of the same sources and flags is already there: one ``nvcc -c`` per
+    source, run in parallel, then one link. ``verbose`` adds
     ``-Xptxas=-v`` (registers, shared memory and spills per kernel; the
     code is the same) and keeps nvcc's output in :data:`build_log`."""
     global build_seconds, build_log
@@ -88,23 +100,34 @@ def build(verbose: bool = False) -> Path:
     out = BUILD_DIR / f"libe3kernels-{_digest()}.so"
     if out.exists():
         return out
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    try:
+    logs = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp, Path(s).stem + ".o")) for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c", "-o", o,
+                 str(CSRC / s)] for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        for cmd, p in zip(cmds, procs):
+            log = p.communicate()[0]
+            logs.append(log)
+            if p.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        lib = str(Path(tmp, "lib.so"))
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
+    build_log = "".join(logs)
     return out
 
 

@@ -5,32 +5,56 @@ Counterpart of the JAX package's ``ops/flat_fused.py`` and
 ``ops/flat_fused64.py``. There the 32- and 64-channel executors are
 separate because of TPU lane packing (128-lane rows holding 4 or 2
 w-positions); on a GPU the activations stay plain contiguous NDHWC and
-one op covers both. What carries over is the fusion contract:
+one op covers both. What carries over is the fusion contract
+(flat_fused.py:11-40):
 
 - a level's activation is carried RAW, as the conv output plus the
   per-channel (inv, shift) of its batch norm (:class:`FusedActs`);
 - the consumer applies ``act(x * inv + shift)`` (the "prologue") as it
-  loads its input, so no normalized tensor is ever written.
+  loads its input, so no normalized tensor is ever written;
+- in training a conv also returns the per-channel float32 (sum, sumsq)
+  of its stored, dtype-rounded output (``want_stats``), from which the
+  batch norm of the next consumer is computed;
+- each op is a ``torch.autograd.Function`` whose backward is the merged
+  backward of the JAX kernels: the statistics cotangent is folded into
+  the incoming one on load, ``dy_tot = dy + ds + 2 * y * dq``, and one
+  pass gives the input grads, the prologue grads (dinv, dshift) and the
+  weight and bias grads.
 
-Three kernels (``csrc/``) cover the seven TPU kernels on the inference
-path:
+Kernels (``csrc/``), forward and backward:
 
-- :func:`conv_bnact` (K1): prologue + (kd, 3, 3) 'same' conv over one or
-  two inputs (the concat merge) + bias;
-- :func:`pool_bnact` (K2): prologue + (1, 2, 2) / (2, 2, 2) max pool;
-- :func:`upconv_bnact` (K3): optional prologue + stride-equals-kernel
-  transposed conv + bias.
+- :func:`conv_bnact`: K1 ``conv_bnact`` (prologue + (kd, 3, 3) 'same'
+  conv over one or two inputs + bias [+ statistics]); backward K4
+  ``conv_bnact_dgrad`` (dx, dinv, dshift) and K5 ``conv_bnact_wgrad``
+  (dW, db);
+- :func:`pool_bnact`: K2 ``pool_bnact`` (prologue + (1, 2, 2) / (2, 2, 2)
+  max pool); backward K6 ``pool_bnact_bwd``;
+- :func:`upconv_bnact`: K3 ``upconv_bnact`` (optional prologue + stride
+  equals kernel transposed conv + bias [+ statistics]); backward K7
+  ``upconv_bnact_bwd``.
 
-Each op dispatches on its input's device: a CPU tensor goes to the
-plain PyTorch version beside it (same signature, same rounding points),
-a CUDA tensor to the kernel, which raises if it cannot launch. No path
-falls back from one to the other. ``reference=True`` selects the plain
-version explicitly (used to hold a kernel against it on the card).
+Each kernel has a wrapper ``*_kernel`` and a plain PyTorch version
+``*_plain`` beside it (same signature, same rounding points). Each op's
+autograd Function picks one pair for forward and backward from its
+input's device: a CPU tensor goes to the plain versions, a CUDA tensor
+to the kernels, which raise if they cannot launch. No path falls back
+from one to the other. ``reference=True`` selects the plain versions
+on any device (to hold a whole model against them on the card). Every
+op checks its kernels' shape contract first, on every device, so a CPU
+call refuses what the card refuses.
 
 Rounding follows the JAX kernels: the prologue runs in float32 on the
 stored value; the prologued operand and the weights are rounded to the
 activation dtype before the multiply; accumulation and the bias add are
-float32; the output is rounded once to the activation dtype.
+float32; the output is rounded once to the activation dtype. Backward
+(``_fused_conv_bwd_kernel``, flat_fused.py:517-661): ``dy_tot`` is
+float32 and the bias grad is summed from it; ``dy_tot`` is rounded to
+the activation dtype before the dgrad and wgrad products; the wgrad
+operand is the recomputed prologued input rounded to the dtype;
+``gm = g * act'(x * inv + shift)`` is float32, ``dinv = sum(gm * x)``,
+``dshift = sum(gm)`` and ``dx = gm * inv`` rounded once; halo voxels
+carry no gradient. A max-pool tie routes the gradient to every tied
+element (flat_fused.py:42-45), not to one as torch's pool does.
 """
 
 from __future__ import annotations
@@ -48,7 +72,9 @@ _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches
 # its kernel and nowhere else; plain-version calls do not count.
-LAUNCHES = {"conv_bnact": 0, "pool_bnact": 0, "upconv_bnact": 0}
+LAUNCHES = {"conv_bnact": 0, "pool_bnact": 0, "upconv_bnact": 0,
+            "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0,
+            "pool_bnact_bwd": 0, "upconv_bnact_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -66,9 +92,10 @@ class FusedActs(NamedTuple):
 
 
 def act_fwd(pre: torch.Tensor, act: str) -> torch.Tensor:
-    """Prologue activation (flat_fused.py ``_act_fwd``)."""
+    """Prologue activation (flat_fused.py ``_act_fwd``). ``torch.relu``
+    passes the gradient where ``pre > 0``, as ``_act_deriv`` does."""
     if act == "relu":
-        return torch.clamp_min(pre, 0.0)
+        return torch.relu(pre)
     if act == "leaky":
         return torch.where(pre > 0, pre, LEAKY_SLOPE * pre)
     if act == "linear":
@@ -76,14 +103,28 @@ def act_fwd(pre: torch.Tensor, act: str) -> torch.Tensor:
     raise NotImplementedError(act)
 
 
+def act_grad(pre: torch.Tensor, act: str) -> torch.Tensor:
+    """``act'(pre)`` in float32 (flat_fused.py ``_act_deriv``)."""
+    if act == "relu":
+        return (pre > 0).float()
+    if act == "leaky":
+        return torch.where(pre > 0, 1.0, LEAKY_SLOPE)
+    if act == "linear":
+        return torch.ones_like(pre)
+    raise NotImplementedError(act)
+
+
+def _pre(x: torch.Tensor, inv: Optional[torch.Tensor],
+         shift: Optional[torch.Tensor]) -> torch.Tensor:
+    xf = x.float()
+    return xf if inv is None else xf * inv + shift
+
+
 def prologue(x: torch.Tensor, inv: Optional[torch.Tensor],
              shift: Optional[torch.Tensor], act: str) -> torch.Tensor:
     """``act(x * inv + shift)`` in float32 over the channel (last) axis;
     ``inv is None`` means the identity norm."""
-    xf = x.float()
-    if inv is not None:
-        xf = xf * inv + shift
-    return act_fwd(xf, act)
+    return act_fwd(_pre(x, inv, shift), act)
 
 
 def materialize(acts: FusedActs, act: str) -> torch.Tensor:
@@ -97,19 +138,60 @@ def head_bnact(acts: FusedActs, act: str, weight: torch.Tensor,
                bias: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """Prologue, then the 1x1 conv head as one GEMM, logits in
     ``out_dtype`` (``head_bnact_from_flat``; XLA in JAX, plain torch
-    here). The prologued operand stays float32; weight and bias arrive
-    in the model dtype and are widened to float32."""
+    here, differentiated by autograd). The prologued operand stays
+    float32; weight and bias arrive in the model dtype and are widened
+    to float32. Autograd gives ``_head_bwd``'s (flat_fused.py:1796)
+    rounding points: float32 throughout, ``dx`` rounded once."""
     a = prologue(acts.raw, acts.inv, acts.shift, act)
     w2 = weight.reshape(weight.shape[0], -1).float()
     return (a @ w2.t() + bias.float()).to(out_dtype)
 
 
-def _check_cuda(t: torch.Tensor, what: str) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+def channel_stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel float32 (sum, sumsq) of a stored channels-last
+    tensor (flat_fused.py ``channel_stats_dense``)."""
+    yf = y.float()
+    dims = tuple(range(y.dim() - 1))
+    return yf.sum(dims), (yf * yf).sum(dims)
+
+
+def _dy_tot(dy: Optional[torch.Tensor], y: torch.Tensor,
+            ds: Optional[torch.Tensor], dq: Optional[torch.Tensor],
+            ) -> torch.Tensor:
+    """``dy + ds + 2 * y * dq`` in float32 (``dy_tot``; a missing
+    cotangent is zero)."""
+    t = torch.zeros(y.shape, dtype=torch.float32, device=y.device) \
+        if dy is None else dy.float()
+    if ds is not None:
+        t = t + ds
+    if dq is not None:
+        t = t + 2.0 * y.float() * dq
+    return t
+
+
+def _sum_vox(t: torch.Tensor) -> torch.Tensor:
+    return t.sum(tuple(range(t.dim() - 1)))
+
+
+def _plain(t: torch.Tensor, reference: bool) -> bool:
+    return reference or t.device.type == "cpu"
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _check_dtype(t: torch.Tensor, what: str) -> None:
     if t.dtype not in _DTYPE_ID:
         raise ValueError(f"{what}: dtype {t.dtype} has no kernel "
                          "(float32 or bfloat16)")
+
+
+def _check_cuda(t: torch.Tensor, what: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    _check_dtype(t, what)
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous NDHWC tensor")
     if t.data_ptr() % 16:
@@ -122,71 +204,144 @@ def _vec(v: Optional[torch.Tensor], c: int, fill: float,
         return torch.full((c,), fill, dtype=torch.float32, device=device)
     if v.shape != (c,):
         raise ValueError(f"prologue vector shape {tuple(v.shape)} != ({c},)")
-    return v.to(device=device, dtype=torch.float32).contiguous()
+    return v.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+def _stat_cts(ds: Optional[torch.Tensor], dq: Optional[torch.Tensor],
+              c: int, device: torch.device):
+    """The statistics cotangents for a kernel: both None (no statistics
+    cotangent), or both (c,) float32 vectors with a missing one zero."""
+    if ds is None and dq is None:
+        return None, None
+    return _vec(ds, c, 0.0, device), _vec(dq, c, 0.0, device)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _cuda_grad(dy: Optional[torch.Tensor], y: torch.Tensor,
+               what: str) -> torch.Tensor:
+    g = torch.zeros_like(y) if dy is None else dy.to(y.dtype).contiguous()
+    _check_cuda(g, what)
+    return g
+
+
 # ---------------------------------------------------------------------------
-# K1 conv_bnact
+# K1 conv_bnact (forward), K4 conv_bnact_dgrad and K5 conv_bnact_wgrad
+# (backward)
 # ---------------------------------------------------------------------------
 
-def conv_bnact_plain(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
-                     shift: Optional[torch.Tensor], weight: torch.Tensor,
-                     bias: torch.Tensor, act: str) -> torch.Tensor:
-    """Plain version of :func:`conv_bnact`. The concat is materialized
-    here; the kernel reads the inputs side by side."""
+def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
+                   dgrad: bool) -> None:
+    """The shape contract of K1 (and of K4 when an input or prologue
+    gradient is wanted, and K5): one or two NDHWC inputs of one shape
+    and dtype; a (C_out, sum C_i, kd, 3, 3) weight with kd in {1, 3} and
+    C_out % 32 == 0; any C_i (the CUDA-core body stages a per-channel
+    tail); N * D <= 65535. K4 writes 32-channel blocks of the inputs'
+    grads, so it needs each C_i % 32 == 0."""
+    if len(xs) not in (1, 2):
+        raise ValueError(f"conv_bnact takes 1 or 2 inputs, got {len(xs)}")
+    x0 = xs[0]
+    for x in xs:
+        _check_dtype(x, "conv_bnact")
+        if x.dim() != 5 or x.shape[:4] != x0.shape[:4] \
+                or x.dtype != x0.dtype or x.device != x0.device:
+            raise ValueError("conv_bnact inputs must share (N, D, H, W), "
+                             "dtype and device")
+    cins = [x.shape[4] for x in xs]
+    cout, cin, kd, kh, kw = weight.shape
+    if cin != sum(cins) or kd not in (1, 3) or (kh, kw) != (3, 3):
+        raise ValueError(f"conv_bnact weight {tuple(weight.shape)} does not "
+                         f"fit inputs with channels {cins}")
+    if cout % 32:
+        raise ValueError(f"conv_bnact: C_out % 32 required, got {cout}")
+    if x0.shape[0] * x0.shape[1] > 65535:
+        raise ValueError(f"conv_bnact: N * D = {x0.shape[0] * x0.shape[1]}"
+                         " > 65535")
+    if dgrad and any(c % 32 for c in cins):
+        raise ValueError(f"conv_bnact: the input gradient (K4) needs each "
+                         f"C_in % 32 == 0, got {cins}")
+
+
+def conv_bnact_fwd_plain(xs: Sequence[torch.Tensor],
+                         inv: Optional[torch.Tensor],
+                         shift: Optional[torch.Tensor],
+                         weight: torch.Tensor, bias: torch.Tensor, act: str,
+                         want_stats: bool = False):
+    """Plain version of K1: returns (y, s, q), the statistics None
+    unless ``want_stats``. The concat is materialized here; the kernel
+    reads the inputs side by side."""
     dtype = xs[0].dtype
     x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
     a = prologue(x, inv, shift, act).to(dtype).float()
     kd = weight.shape[2]
     y = F.conv3d(a.permute(0, 4, 1, 2, 3), weight.to(dtype).float(),
                  bias.float(), padding=(kd // 2, 1, 1))
-    return y.permute(0, 2, 3, 4, 1).to(dtype).contiguous()
+    y = y.permute(0, 2, 3, 4, 1).to(dtype).contiguous()
+    s, q = channel_stats(y) if want_stats else (None, None)
+    return y, s, q
 
 
-def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
-               shift: Optional[torch.Tensor], weight: torch.Tensor,
-               bias: torch.Tensor, act: str, *,
-               reference: bool = False) -> torch.Tensor:
-    """Prologue + (kd, 3, 3) 'same' conv + bias over NDHWC inputs.
+def conv_bnact_dgrad_plain(xs: Sequence[torch.Tensor],
+                           inv: Optional[torch.Tensor],
+                           shift: Optional[torch.Tensor],
+                           weight: torch.Tensor, y: torch.Tensor,
+                           dy: Optional[torch.Tensor],
+                           ds: Optional[torch.Tensor],
+                           dq: Optional[torch.Tensor], act: str):
+    """Plain version of K4, written out (not autograd through the
+    forward): (dxs, dinv, dshift), dinv and dshift None when ``inv`` is
+    None."""
+    dtype = xs[0].dtype
+    x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
+    kd = weight.shape[2]
+    g = _dy_tot(dy, y, ds, dq).to(dtype).float().permute(0, 4, 1, 2, 3)
+    gin = torch.nn.grad.conv3d_input(
+        (x.shape[0], x.shape[4]) + tuple(x.shape[1:4]),
+        weight.to(dtype).float(), g, padding=(kd // 2, 1, 1))
+    gm = gin.permute(0, 2, 3, 4, 1) * act_grad(_pre(x, inv, shift), act)
+    dinv = dshift = None
+    if inv is not None:
+        dinv = _sum_vox(gm * x.float())
+        dshift = _sum_vox(gm)
+        gm = gm * inv
+    dxs = torch.split(gm.to(dtype), [xx.shape[-1] for xx in xs], dim=-1)
+    return [d.contiguous() for d in dxs], dinv, dshift
 
-    Args:
-        xs: one or two (N, D, H, W, C_i) tensors of one dtype (a merge
-            conv's inputs in concat order).
-        inv, shift: (sum C_i,) float32 prologue vectors, or None for the
-            identity norm.
-        weight: (C_out, sum C_i, kd, 3, 3) conv weight, kd in {1, 3}.
-        bias: (C_out,) bias, added in float32.
-        act: 'relu', 'leaky' or 'linear'.
-        reference: run the plain version whatever the device.
-    Returns:
-        (N, D, H, W, C_out) raw conv output in the inputs' dtype.
-    """
-    if reference or xs[0].device.type == "cpu":
-        return conv_bnact_plain(xs, inv, shift, weight, bias, act)
-    if len(xs) not in (1, 2):
-        raise ValueError(f"conv_bnact takes 1 or 2 inputs, got {len(xs)}")
+
+def conv_bnact_wgrad_plain(xs: Sequence[torch.Tensor],
+                           inv: Optional[torch.Tensor],
+                           shift: Optional[torch.Tensor],
+                           weight: torch.Tensor, y: torch.Tensor,
+                           dy: Optional[torch.Tensor],
+                           ds: Optional[torch.Tensor],
+                           dq: Optional[torch.Tensor], act: str):
+    """Plain version of K5: float32 (dW, db), dW of ``weight``'s shape,
+    from the recomputed prologued input rounded to the dtype."""
+    dtype = xs[0].dtype
+    x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
+    kd = weight.shape[2]
+    t = _dy_tot(dy, y, ds, dq)
+    g = t.to(dtype).float().permute(0, 4, 1, 2, 3)
+    a = prologue(x, inv, shift, act).to(dtype).float().permute(0, 4, 1, 2, 3)
+    dw = torch.nn.grad.conv3d_weight(a, weight.shape, g,
+                                     padding=(kd // 2, 1, 1))
+    return dw, _sum_vox(t)
+
+
+def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
+    """K1 on CUDA tensors: (y, s, q) as :func:`conv_bnact_fwd_plain`."""
     x0 = xs[0]
     for x in xs:
         _check_cuda(x, "conv_bnact")
-        if x.dim() != 5 or x.shape[:4] != x0.shape[:4] \
-                or x.dtype != x0.dtype or x.device != x0.device:
-            raise ValueError("conv_bnact inputs must share (N, D, H, W), "
-                             "dtype and device")
     n, d, h, w = x0.shape[:4]
     cins = [x.shape[4] for x in xs]
-    cout, cin, kd, kh, kw = weight.shape
-    if cin != sum(cins) or kd not in (1, 3) or (kh, kw) != (3, 3):
-        raise ValueError(f"conv_bnact weight {tuple(weight.shape)} does not "
-                         f"fit inputs with channels {cins}")
-    if cout % 32 or any(c != 1 and c % 8 for c in cins):
-        raise ValueError(f"conv_bnact: C_out % 32 and each C_in in 1 or "
-                         f"% 8 required, got {cout}, {cins}")
-    if n * d > 65535:
-        raise ValueError(f"conv_bnact: N * D = {n * d} > 65535")
+    cout, cin, kd = weight.shape[:3]
     dev = x0.device
     dtype = x0.dtype
     inv = _vec(inv, cin, 1.0, dev)
@@ -197,6 +352,10 @@ def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
         .permute(2, 3, 4, 1, 0).contiguous()
     b = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((n, d, h, w, cout), dtype=dtype, device=dev)
+    s = q = None
+    if want_stats:
+        s = torch.zeros(cout, dtype=torch.float32, device=dev)
+        q = torch.zeros(cout, dtype=torch.float32, device=dev)
     x1 = xs[1] if len(xs) > 1 else None
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -206,44 +365,205 @@ def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
             _ptr(x1), cins[1] if x1 is not None else 0,
             invs[1].data_ptr() if x1 is not None else None,
             shifts[1].data_ptr() if x1 is not None else None,
-            wt.data_ptr(), b.data_ptr(), y.data_ptr(),
-            n, d, h, w, cout, kd, _ACT_ID[act],
-            torch.cuda.current_stream(dev).cuda_stream)
+            wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
+            n, d, h, w, cout, kd, _ACT_ID[act], _stream(dev))
     _build.check(rc, "conv_bnact")
     LAUNCHES["conv_bnact"] += 1
-    return y
+    return y, s, q
+
+
+def _conv_bwd_args(xs, inv, shift, weight, y, dy, ds, dq, what):
+    for x in xs:
+        _check_cuda(x, what)
+    dev = xs[0].device
+    cin = weight.shape[1]
+    ds, dq = _stat_cts(ds, dq, weight.shape[0], dev)
+    return (_cuda_grad(dy, y, what), ds, dq, _vec(inv, cin, 1.0, dev),
+            _vec(shift, cin, 0.0, dev),
+            weight.detach().to(device=dev, dtype=xs[0].dtype).float())
+
+
+def conv_bnact_dgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
+    """K4: (dxs, dinv, dshift) of :func:`conv_bnact` from the output
+    cotangent ``dy`` and the statistics cotangents ``ds``, ``dq`` (each
+    may be None), as :func:`conv_bnact_dgrad_plain`."""
+    g, ds, dq, inv_v, shift_v, wq = _conv_bwd_args(
+        xs, inv, shift, weight, y, dy, ds, dq, "conv_bnact_dgrad")
+    x0 = xs[0]
+    n, d, h, w = x0.shape[:4]
+    cins = [x.shape[4] for x in xs]
+    cout, cin, kd = weight.shape[:3]
+    x1 = xs[1] if len(xs) > 1 else None
+    # K1's 'same' conv of dy_tot with the flipped, transposed weights:
+    # (kd, 3, 3, C_out, C_in).
+    wt = wq.flip(2, 3, 4).permute(2, 3, 4, 0, 1).contiguous()
+    dxs = [torch.empty_like(x) for x in xs]
+    dinv = torch.zeros(cin, dtype=torch.float32, device=x0.device)
+    dshift = torch.zeros(cin, dtype=torch.float32, device=x0.device)
+    lib = _build.library()
+    with torch.cuda.device(x0.device):
+        rc = lib.e3_conv_bnact_dgrad(
+            _DTYPE_ID[x0.dtype], len(xs), g.data_ptr(), y.data_ptr(),
+            _ptr(ds), _ptr(dq), cout, wt.data_ptr(), x0.data_ptr(), cins[0],
+            _ptr(x1), cins[1] if x1 is not None else 0, inv_v.data_ptr(),
+            shift_v.data_ptr(), dxs[0].data_ptr(),
+            dxs[1].data_ptr() if x1 is not None else None, dinv.data_ptr(),
+            dshift.data_ptr(), n, d, h, w, kd, _ACT_ID[act],
+            _stream(x0.device))
+    _build.check(rc, "conv_bnact_dgrad")
+    LAUNCHES["conv_bnact_dgrad"] += 1
+    if inv is None:
+        return dxs, None, None
+    return dxs, dinv, dshift
+
+
+def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
+    """K5: float32 (dW, db), dW in ``weight``'s shape, as
+    :func:`conv_bnact_wgrad_plain`."""
+    g, ds, dq, inv_v, shift_v, _ = _conv_bwd_args(
+        xs, inv, shift, weight, y, dy, ds, dq, "conv_bnact_wgrad")
+    x0 = xs[0]
+    n, d, h, w = x0.shape[:4]
+    cins = [x.shape[4] for x in xs]
+    cout, cin, kd = weight.shape[:3]
+    x1 = xs[1] if len(xs) > 1 else None
+    dwt = torch.zeros((kd, 3, 3, cin, cout), dtype=torch.float32,
+                      device=x0.device)
+    db = torch.zeros(cout, dtype=torch.float32, device=x0.device)
+    lib = _build.library()
+    with torch.cuda.device(x0.device):
+        rc = lib.e3_conv_bnact_wgrad(
+            _DTYPE_ID[x0.dtype], len(xs), x0.data_ptr(), cins[0], _ptr(x1),
+            cins[1] if x1 is not None else 0, inv_v.data_ptr(),
+            shift_v.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(ds),
+            _ptr(dq), cout, dwt.data_ptr(), db.data_ptr(), n, d, h, w, kd,
+            _ACT_ID[act], _stream(x0.device))
+    _build.check(rc, "conv_bnact_wgrad")
+    LAUNCHES["conv_bnact_wgrad"] += 1
+    return dwt.permute(4, 3, 0, 1, 2), db
+
+
+class _ConvBnAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, act, want_stats, reference, x0, x1, inv, shift,
+                weight, bias):
+        xs = [x0] if x1 is None else [x0, x1]
+        ctx.plain = _plain(x0, reference)
+        fwd = conv_bnact_fwd_plain if ctx.plain else conv_bnact_fwd_kernel
+        y, s, q = fwd(xs, inv, shift, weight, bias, act, want_stats)
+        ctx.save_for_backward(x0, x1, inv, shift, weight, y)
+        ctx.act = act
+        ctx.bias_dtype = bias.dtype
+        ctx.set_materialize_grads(False)
+        return (y, s, q) if want_stats else y
+
+    @staticmethod
+    def backward(ctx, dy, ds=None, dq=None):
+        """K4 only when an input or prologue gradient is wanted (not for
+        the network input, ``_conv1_bwd``), K5 always."""
+        x0, x1, inv, shift, weight, y = ctx.saved_tensors
+        if ctx.plain:
+            dgrad, wgrad = conv_bnact_dgrad_plain, conv_bnact_wgrad_plain
+        else:
+            dgrad, wgrad = conv_bnact_dgrad_kernel, conv_bnact_wgrad_kernel
+        args = ([x0] if x1 is None else [x0, x1], inv, shift, weight, y,
+                dy, ds, dq, ctx.act)
+        dx0 = dx1 = dinv = dshift = None
+        if any(ctx.needs_input_grad[3:7]):
+            dxs, dinv, dshift = dgrad(*args)
+            dx0, dx1 = (dxs + [None])[:2]
+        dw, db = wgrad(*args)
+        return (None, None, None, dx0, dx1, dinv, dshift,
+                dw.to(weight.dtype), db.to(ctx.bias_dtype))
+
+
+def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
+               shift: Optional[torch.Tensor], weight: torch.Tensor,
+               bias: torch.Tensor, act: str, *, want_stats: bool = False,
+               reference: bool = False):
+    """Prologue + (kd, 3, 3) 'same' conv + bias over NDHWC inputs.
+
+    Args:
+        xs: one or two (N, D, H, W, C_i) tensors of one dtype (a merge
+            conv's inputs in concat order).
+        inv, shift: (sum C_i,) float32 prologue vectors, or None for the
+            identity norm.
+        weight: (C_out, sum C_i, kd, 3, 3) conv weight, kd in {1, 3}; it
+            is rounded to the inputs' dtype at use, and its gradient
+            comes back in its own dtype.
+        bias: (C_out,) bias, added in float32.
+        act: 'relu', 'leaky' or 'linear'.
+        want_stats: also return the per-channel float32 (sum, sumsq) of
+            the stored output.
+        reference: run the plain versions whatever the device.
+    Returns:
+        (N, D, H, W, C_out) raw conv output in the inputs' dtype, or
+        (y, s, q) with ``want_stats``. Differentiable in every tensor
+        argument.
+    """
+    xs = list(xs)
+    _conv_contract(xs, weight, _needs_grad(*xs, inv, shift))
+    return _ConvBnAct.apply(act, want_stats, reference, xs[0],
+                            xs[1] if len(xs) > 1 else None, inv, shift,
+                            weight, bias)
 
 
 # ---------------------------------------------------------------------------
-# K2 pool_bnact
+# K2 pool_bnact (forward) and K6 pool_bnact_bwd (backward)
 # ---------------------------------------------------------------------------
 
-def pool_bnact_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
-                     shift: Optional[torch.Tensor], act: str,
-                     window: Tuple[int, int, int]) -> torch.Tensor:
-    """Plain version of :func:`pool_bnact`."""
-    a = prologue(x, inv, shift, act)
-    y = F.max_pool3d(a.permute(0, 4, 1, 2, 3), window, window)
-    return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
-
-
-def pool_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
-               shift: Optional[torch.Tensor], act: str,
-               window: Tuple[int, int, int], *,
-               reference: bool = False) -> torch.Tensor:
-    """Prologue, then a max pool over ``window`` ((1, 2, 2) or
-    (2, 2, 2), stride = window) of an NDHWC tensor whose pooled dims
-    divide evenly. Returns the pooled tensor in ``x``'s dtype; the raw
-    ``x`` itself is the level's skip."""
-    window = tuple(window)
-    if reference or x.device.type == "cpu":
-        return pool_bnact_plain(x, inv, shift, act, window)
-    _check_cuda(x, "pool_bnact")
+def _pool_contract(x: torch.Tensor, window: Tuple[int, int, int],
+                   grad: bool) -> None:
+    """K2's shape contract: an NDHWC tensor whose pooled dims divide by
+    the window, C % 8 == 0. K6 sums its prologue gradients per block
+    for one group of 8 channels per thread, so it also needs C <= 512
+    with C / 8 dividing 256."""
+    _check_dtype(x, "pool_bnact")
+    if x.dim() != 5:
+        raise ValueError(f"pool_bnact: expected NDHWC, got {tuple(x.shape)}")
     n, d, h, w, c = x.shape
     if window not in ((1, 2, 2), (2, 2, 2)) or d % window[0] or h % 2 \
             or w % 2 or c % 8:
         raise ValueError(f"pool_bnact: window {window} on {tuple(x.shape)} "
                          "needs even pooled dims and C % 8 == 0")
+    if grad and (c > 512 or 256 % (c // 8)):
+        raise ValueError(f"pool_bnact backward (K6): C={c} needs C <= 512 "
+                         "and C / 8 dividing 256")
+
+
+def pool_bnact_fwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
+                         shift: Optional[torch.Tensor], act: str,
+                         window: Tuple[int, int, int]) -> torch.Tensor:
+    """Plain version of K2."""
+    a = prologue(x, inv, shift, act)
+    y = F.max_pool3d(a.permute(0, 4, 1, 2, 3), window, window)
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
+
+
+def pool_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
+                         shift: Optional[torch.Tensor], act: str,
+                         window: Tuple[int, int, int],
+                         dpool: torch.Tensor):
+    """Plain version of K6: (dx, dinv, dshift). The window maxima are
+    recomputed from the prologued float32 values and the cotangent goes
+    to EVERY element equal to its window's max."""
+    n, d, h, w, c = x.shape
+    kd = window[0]
+    pre = _pre(x, inv, shift)
+    a = act_fwd(pre, act).view(n, d // kd, kd, h // 2, 2, w // 2, 2, c)
+    sel = a == a.amax(dim=(2, 4, 6), keepdim=True)
+    dp = dpool.float().view(n, d // kd, 1, h // 2, 1, w // 2, 1, c)
+    dpre = (dp * sel).view(n, d, h, w, c) * act_grad(pre, act)
+    if inv is None:
+        return dpre.to(x.dtype), None, None
+    return ((dpre * inv).to(x.dtype), _sum_vox(dpre * x.float()),
+            _sum_vox(dpre))
+
+
+def pool_bnact_fwd_kernel(x, inv, shift, act, window):
+    """K2 on CUDA tensors, as :func:`pool_bnact_fwd_plain`."""
+    _check_cuda(x, "pool_bnact")
+    n, d, h, w, c = x.shape
     dev = x.device
     inv = _vec(inv, c, 1.0, dev)
     shift = _vec(shift, c, 0.0, dev)
@@ -254,32 +574,232 @@ def pool_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
         rc = lib.e3_pool_bnact(
             _DTYPE_ID[x.dtype], x.data_ptr(), inv.data_ptr(),
             shift.data_ptr(), y.data_ptr(), n, d, h, w, c, window[0],
-            _ACT_ID[act], torch.cuda.current_stream(dev).cuda_stream)
+            _ACT_ID[act], _stream(dev))
     _build.check(rc, "pool_bnact")
     LAUNCHES["pool_bnact"] += 1
     return y
 
 
+def pool_bnact_bwd_kernel(x, inv, shift, act, window, dpool):
+    """K6: (dx, dinv, dshift), as :func:`pool_bnact_bwd_plain`."""
+    _check_cuda(x, "pool_bnact backward")
+    n, d, h, w, c = x.shape
+    dev = x.device
+    inv_v = _vec(inv, c, 1.0, dev)
+    shift_v = _vec(shift, c, 0.0, dev)
+    dp = dpool.to(x.dtype).contiguous()
+    _check_cuda(dp, "pool_bnact backward")
+    dx = torch.empty_like(x)
+    dinv = torch.zeros(c, dtype=torch.float32, device=dev)
+    dshift = torch.zeros(c, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.e3_pool_bnact_bwd(
+            _DTYPE_ID[x.dtype], x.data_ptr(), inv_v.data_ptr(),
+            shift_v.data_ptr(), dp.data_ptr(), dx.data_ptr(),
+            dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, c, window[0],
+            _ACT_ID[act], _stream(dev))
+    _build.check(rc, "pool_bnact_bwd")
+    LAUNCHES["pool_bnact_bwd"] += 1
+    if inv is None:
+        return dx, None, None
+    return dx, dinv, dshift
+
+
+class _PoolBnAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, act, window, reference, x, inv, shift):
+        ctx.save_for_backward(x, inv, shift)
+        ctx.act, ctx.window = act, window
+        ctx.plain = _plain(x, reference)
+        fwd = pool_bnact_fwd_plain if ctx.plain else pool_bnact_fwd_kernel
+        return fwd(x, inv, shift, act, window)
+
+    @staticmethod
+    def backward(ctx, dpool):
+        x, inv, shift = ctx.saved_tensors
+        bwd = pool_bnact_bwd_plain if ctx.plain else pool_bnact_bwd_kernel
+        dx, dinv, dshift = bwd(x, inv, shift, ctx.act, ctx.window, dpool)
+        return None, None, None, dx, dinv, dshift
+
+
+def pool_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
+               shift: Optional[torch.Tensor], act: str,
+               window: Tuple[int, int, int], *,
+               reference: bool = False) -> torch.Tensor:
+    """Prologue, then a max pool over ``window`` ((1, 2, 2) or
+    (2, 2, 2), stride = window) of an NDHWC tensor whose pooled dims
+    divide evenly. Returns the pooled tensor in ``x``'s dtype; the raw
+    ``x`` itself is the level's skip (in JAX the skip's cotangent is
+    added inside the pool backward, ``pool_bnact_flat_skip``; here
+    autograd adds the two grads of ``x``)."""
+    window = tuple(window)
+    _pool_contract(x, window, _needs_grad(x, inv, shift))
+    return _PoolBnAct.apply(act, window, reference, x, inv, shift)
+
+
 # ---------------------------------------------------------------------------
-# K3 upconv_bnact
+# K3 upconv_bnact (forward) and K7 upconv_bnact_bwd (backward)
 # ---------------------------------------------------------------------------
 
-def upconv_bnact_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
-                       shift: Optional[torch.Tensor], weight: torch.Tensor,
-                       bias: torch.Tensor, act: str) -> torch.Tensor:
-    """Plain version of :func:`upconv_bnact`."""
+def _upconv_contract(x: torch.Tensor, weight: torch.Tensor,
+                     grad: bool) -> None:
+    """K3's shape contract: an NDHWC input, a (C_in, C_out, 1|2, 2, 2)
+    weight with C_in % 16 == 0 and C_out % 32 == 0. K7 works in groups
+    of 32 input channels, so a gradient needs C_in % 32 == 0."""
+    _check_dtype(x, "upconv_bnact")
+    if x.dim() != 5:
+        raise ValueError(f"upconv_bnact: expected NDHWC, got "
+                         f"{tuple(x.shape)}")
+    wcin, cout, kd, kh, kw = weight.shape
+    if wcin != x.shape[4] or kd not in (1, 2) or (kh, kw) != (2, 2) \
+            or wcin % 16 or cout % 32:
+        raise ValueError(f"upconv_bnact: weight {tuple(weight.shape)} on "
+                         f"{tuple(x.shape)} needs C_in % 16, C_out % 32 and "
+                         "a (1|2, 2, 2) kernel")
+    if grad and wcin % 32:
+        raise ValueError(f"upconv_bnact backward (K7): C_in % 32 required, "
+                         f"got {wcin}")
+
+
+def upconv_bnact_fwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
+                           shift: Optional[torch.Tensor],
+                           weight: torch.Tensor, bias: torch.Tensor,
+                           act: str, want_stats: bool = False):
+    """Plain version of K3: (y, s, q)."""
     dtype = x.dtype
     a = prologue(x, inv, shift, act).to(dtype).float()
     y = F.conv_transpose3d(a.permute(0, 4, 1, 2, 3),
                            weight.to(dtype).float(), bias.float(),
                            stride=tuple(weight.shape[2:]))
-    return y.permute(0, 2, 3, 4, 1).to(dtype).contiguous()
+    y = y.permute(0, 2, 3, 4, 1).to(dtype).contiguous()
+    s, q = channel_stats(y) if want_stats else (None, None)
+    return y, s, q
+
+
+def upconv_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
+                           shift: Optional[torch.Tensor],
+                           weight: torch.Tensor, y: torch.Tensor,
+                           dy: Optional[torch.Tensor],
+                           ds: Optional[torch.Tensor],
+                           dq: Optional[torch.Tensor], act: str,
+                           input_grad: bool = True):
+    """Plain version of K7: (dx, dinv, dshift, dW, db). Each input
+    voxel feeds kd * 4 output voxels, one per weight tap, so both
+    products are per-voxel GEMMs over (tap, C_out)."""
+    dtype = x.dtype
+    n, d, h, w, cin = x.shape
+    cout, kd = weight.shape[1], weight.shape[2]
+    t = _dy_tot(dy, y, ds, dq)
+    db = _sum_vox(t)
+    g = t.to(dtype).float().view(n, d, kd, h, 2, w, 2, cout)
+    wq = weight.to(dtype).float()
+    a = prologue(x, inv, shift, act).to(dtype).float()
+    dw = torch.einsum("ndhwi,ndahbwco->ioabc", a, g)
+    if not input_grad:
+        return None, None, None, dw, db
+    da = torch.einsum("ndahbwco,ioabc->ndhwi", g, wq)
+    gm = da * act_grad(_pre(x, inv, shift), act)
+    if inv is None:
+        return gm.to(dtype), None, None, dw, db
+    return ((gm * inv).to(dtype), _sum_vox(gm * x.float()), _sum_vox(gm),
+            dw, db)
+
+
+def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
+    """K3 on CUDA tensors: (y, s, q) as :func:`upconv_bnact_fwd_plain`."""
+    _check_cuda(x, "upconv_bnact")
+    n, d, h, w, cin = x.shape
+    cout, kd = weight.shape[1], weight.shape[2]
+    dev = x.device
+    dtype = x.dtype
+    inv = _vec(inv, cin, 1.0, dev)
+    shift = _vec(shift, cin, 0.0, dev)
+    wt = weight.detach().to(device=dev, dtype=dtype).float() \
+        .permute(2, 3, 4, 0, 1).contiguous()
+    b = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
+    y = torch.empty((n, kd * d, 2 * h, 2 * w, cout), dtype=dtype, device=dev)
+    s = q = None
+    if want_stats:
+        s = torch.zeros(cout, dtype=torch.float32, device=dev)
+        q = torch.zeros(cout, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.e3_upconv_bnact(
+            _DTYPE_ID[dtype], x.data_ptr(), inv.data_ptr(), shift.data_ptr(),
+            wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
+            n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
+    _build.check(rc, "upconv_bnact")
+    LAUNCHES["upconv_bnact"] += 1
+    return y, s, q
+
+
+def upconv_bnact_bwd_kernel(x, inv, shift, weight, y, dy, ds, dq, act,
+                            input_grad=True):
+    """K7: (dx, dinv, dshift, dW, db), as
+    :func:`upconv_bnact_bwd_plain`."""
+    _check_cuda(x, "upconv_bnact backward")
+    n, d, h, w, cin = x.shape
+    cout, kd = weight.shape[1], weight.shape[2]
+    dev = x.device
+    dtype = x.dtype
+    g = _cuda_grad(dy, y, "upconv_bnact backward")
+    ds, dq = _stat_cts(ds, dq, cout, dev)
+    inv_v = _vec(inv, cin, 1.0, dev)
+    shift_v = _vec(shift, cin, 0.0, dev)
+    wt = weight.detach().to(device=dev, dtype=dtype).float() \
+        .permute(2, 3, 4, 0, 1).contiguous()
+    dx = torch.empty_like(x) if input_grad else None
+    dinv = torch.zeros(cin, dtype=torch.float32, device=dev)
+    dshift = torch.zeros(cin, dtype=torch.float32, device=dev)
+    dwt = torch.zeros((kd, 2, 2, cin, cout), dtype=torch.float32,
+                      device=dev)
+    db = torch.zeros(cout, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.e3_upconv_bnact_bwd(
+            _DTYPE_ID[dtype], x.data_ptr(), inv_v.data_ptr(),
+            shift_v.data_ptr(), wt.data_ptr(), g.data_ptr(), y.data_ptr(),
+            _ptr(ds), _ptr(dq), _ptr(dx), dinv.data_ptr(),
+            dshift.data_ptr(), dwt.data_ptr(), db.data_ptr(),
+            n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
+    _build.check(rc, "upconv_bnact_bwd")
+    LAUNCHES["upconv_bnact_bwd"] += 1
+    if inv is None or not input_grad:
+        dinv = dshift = None
+    return dx, dinv, dshift, dwt.permute(3, 4, 0, 1, 2), db
+
+
+class _UpconvBnAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, act, want_stats, reference, x, inv, shift, weight,
+                bias):
+        ctx.plain = _plain(x, reference)
+        fwd = upconv_bnact_fwd_plain if ctx.plain \
+            else upconv_bnact_fwd_kernel
+        y, s, q = fwd(x, inv, shift, weight, bias, act, want_stats)
+        ctx.save_for_backward(x, inv, shift, weight, y)
+        ctx.act = act
+        ctx.bias_dtype = bias.dtype
+        ctx.set_materialize_grads(False)
+        return (y, s, q) if want_stats else y
+
+    @staticmethod
+    def backward(ctx, dy, ds=None, dq=None):
+        x, inv, shift, weight, y = ctx.saved_tensors
+        bwd = upconv_bnact_bwd_plain if ctx.plain \
+            else upconv_bnact_bwd_kernel
+        dx, dinv, dshift, dw, db = bwd(
+            x, inv, shift, weight, y, dy, ds, dq, ctx.act,
+            any(ctx.needs_input_grad[3:6]))
+        return (None, None, None, dx, dinv, dshift, dw.to(weight.dtype),
+                db.to(ctx.bias_dtype))
 
 
 def upconv_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
                  shift: Optional[torch.Tensor], weight: torch.Tensor,
-                 bias: torch.Tensor, act: str, *,
-                 reference: bool = False) -> torch.Tensor:
+                 bias: torch.Tensor, act: str, *, want_stats: bool = False,
+                 reference: bool = False):
     """Optional prologue, then a transposed conv whose kernel equals its
     stride, (1, 2, 2) or (2, 2, 2), plus bias.
 
@@ -289,33 +809,12 @@ def upconv_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
         inv, shift: (C_in,) float32 prologue vectors, or None.
         weight: (C_in, C_out, kd, 2, 2) torch ConvTranspose3d weight.
         bias: (C_out,).
+        want_stats: also return the output's per-channel float32
+            (sum, sumsq).
     Returns:
-        (N, kd * D, 2 H, 2 W, C_out) in ``x``'s dtype.
+        (N, kd * D, 2 H, 2 W, C_out) in ``x``'s dtype, or (y, s, q).
+        Differentiable in every tensor argument.
     """
-    if reference or x.device.type == "cpu":
-        return upconv_bnact_plain(x, inv, shift, weight, bias, act)
-    _check_cuda(x, "upconv_bnact")
-    n, d, h, w, cin = x.shape
-    wcin, cout, kd, kh, kw = weight.shape
-    if wcin != cin or kd not in (1, 2) or (kh, kw) != (2, 2) \
-            or cin % 16 or cout % 32:
-        raise ValueError(f"upconv_bnact: weight {tuple(weight.shape)} on "
-                         f"{tuple(x.shape)} needs C_in % 16, C_out % 32 and "
-                         "a (1|2, 2, 2) kernel")
-    dev = x.device
-    dtype = x.dtype
-    inv = _vec(inv, cin, 1.0, dev)
-    shift = _vec(shift, cin, 0.0, dev)
-    wt = weight.detach().to(device=dev, dtype=dtype).float() \
-        .permute(2, 3, 4, 0, 1).contiguous()
-    b = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
-    y = torch.empty((n, kd * d, 2 * h, 2 * w, cout), dtype=dtype, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.e3_upconv_bnact(
-            _DTYPE_ID[dtype], x.data_ptr(), inv.data_ptr(), shift.data_ptr(),
-            wt.data_ptr(), b.data_ptr(), y.data_ptr(), n, d, h, w, cin, cout,
-            kd, _ACT_ID[act], torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "upconv_bnact")
-    LAUNCHES["upconv_bnact"] += 1
-    return y
+    _upconv_contract(x, weight, _needs_grad(x, inv, shift, weight, bias))
+    return _UpconvBnAct.apply(act, want_stats, reference, x, inv, shift,
+                              weight, bias)

@@ -215,7 +215,9 @@ def test_port_package_never_imports_jax():
     for f in pkg.rglob("*.py"):
         assert not bad.search(f.read_text()), f
     code = ("import sys, elektronn3_tpu_torch.models, "
-            "elektronn3_tpu_torch.inference, elektronn3_tpu_torch.ops.fused;"
+            "elektronn3_tpu_torch.inference, elektronn3_tpu_torch.ops.fused, "
+            "elektronn3_tpu_torch.training, "
+            "elektronn3_tpu_torch.modules.loss;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'elektronn3_tpu')];"
             "assert not bad, bad")
