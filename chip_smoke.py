@@ -2,49 +2,84 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's two paths (``elektronn3_tpu_torch``; no JAX) at the
-headline model's full width and checks them:
+Drives the port's paths (``elektronn3_tpu_torch``; no JAX) at full model
+width and checks them: the headline 3D UNet's serving and training
+paths, then the same two paths of the 2D UNet of
+``examples/train_simple2d.py``.
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the hand-written kernels of ``elektronn3_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the build time
    and each kernel's registers;
 3. holds the forward kernels K1-K3 against their plain PyTorch versions
-   at the shapes of one Predictor tile (128, 256, 256), in bfloat16 and
-   float32, and times both;
-4. holds the statistics outputs of K1 and K3 and the backward kernels
-   K4-K7 against their plain versions at the shapes of ``bench.py``'s
-   training step (batch 8 of (44, 88, 88): levels (44, 88, 88) x 32,
-   (44, 44, 44) x 64, (22, 22, 22) x 128), in bfloat16 and float32, and
-   times both;
-5. builds the headline UNet (n_blocks=4, start_filts=32, planar L0,
+   at the shapes of one 3D Predictor tile (128, 256, 256), in bfloat16
+   and float32, and times both;
+4. holds the outputs of K1 and K3 with and without statistics, K2 and
+   the backward kernels K4-K7 against their plain versions at the
+   shapes of ``bench.py``'s training step (batch 8 of (44, 88, 88): levels
+   (44, 88, 88) x 32, (44, 44, 44) x 64, (22, 22, 22) x 128), in
+   bfloat16 and float32, and times both;
+5. the same at the 2D model's training shapes, on the kernels' D=1
+   view (batch 8 of (640, 640): L0 (1, 640, 640) x 32, L1 (1, 320, 320)
+   x 64 with its (1, 2, 2) pool, which is row 16/17 of the kernel table
+   in PERF.md, the up_1 upconv from the dense (1, 160, 160) x 128, row
+   19/20, and the C=128 pool and 256->128 upconv of the next slice),
+   where the serving builds of K1 and K3 are also held at the tiled 2D
+   Predictor's batch of 4 and timed at batch 8 (the whole-image
+   request's shapes);
+6. builds the headline UNet (n_blocks=4, start_filts=32, planar L0,
    batch norm, bfloat16) with seeded weights and random running
    statistics and holds ``forward`` against ``forward(reference=True)``
    on one tile;
-6. runs Predictor requests on a seeded (1, 1, 64, 256, 256) volume
+7. runs Predictor requests on a seeded (1, 1, 64, 256, 256) volume
    (tile (64, 128, 128), overlap (32, 64, 64), batch 2): bfloat16
    probabilities twice (the second timed, with the kernels' launch
    counts reset just before it) and a uint8 argmax; checks the outputs
    and that K1-K3 launched (the serving path);
-7. trains the headline UNet (bf16, ``CEDiceLoss(1, 1)``, Adam 1e-3) at
+8. trains the headline UNet (bf16, ``CEDiceLoss(1, 1)``, Adam 1e-3) at
    ``bench.py``'s shapes: 3 warm-up and 20 timed steps over 5
    device-resident batches on the kernel path (launch counts reset just
    before the timed steps: every kernel must launch), the plain path,
    and the kernel path again; a falling loss on a fixed, learnable
-   batch; then one
-   step's loss, parameter gradients and new running statistics against
-   the same step through ``reference=True``, in float32 and bfloat16;
-8. runs ``Trainer.run(max_steps=4)`` on a small in-memory dataset into a
-   temporary directory and resumes a second Trainer from what it wrote.
+   batch; then one step's loss, parameter gradients and new running
+   statistics against the same step through ``reference=True``, in
+   float32 and bfloat16;
+9. runs ``Trainer.run(max_steps=4)`` on a small in-memory dataset into a
+   temporary directory and resumes a second Trainer from what it wrote;
+10. the 2D UNet (n_blocks=4, start_filts=32, dim=2, batch norm,
+    bfloat16): ``forward`` against ``forward(reference=True)`` on a
+    batch of 8 (640, 640) images; a whole-image Predictor request on
+    (8, 1, 640, 640) and a tiled one on a seeded (1, 1, 2560, 2560)
+    image (tile (512, 512), overlap (64, 64), batch 4), timed after a
+    warm-up, in MPix/s, with K2 and K3 launched at the row-16 and row-19
+    shapes; then steps 8 and 9 at batch 8 of (640, 640), with K2, K3, K6
+    and K7 launched at the row-16, 19, 17 and 20 shapes.
 
-``--profile`` also profiles three kernel-path training steps with
-``torch.profiler`` and prints the device time by kernel.
+Every timed variant also prints its bound, the least time the card
+could take for its work: the larger of its operations over the card's
+peak rate for their type (bf16 products at 989 TFLOP/s; the pool's
+float32 compare and prologue at 67 TFLOP/s) and its bytes (each input
+read once, each output written once, as the call takes and returns
+them) over 3.35 TB/s, the published H100 SXM figures at 700 W. And, for
+bfloat16, the time of the library call (cuDNN through torch, on
+channels-last tensors; a 2D op on a D=1 view) that computes the same
+function, or, where the kernel fuses a prologue or a statistics
+epilogue that no single call has, the library op on the
+already-prologued input ("lib*" in the line).
+
+``--profile`` also profiles three kernel-path training steps of each
+model with ``torch.profiler`` and prints the device time by kernel.
 
 Any failed check raises, and the script exits non-zero. The last lines
-are a JSON object with each kernel's numbers, the card's name and power
-limit, then ``{"ok": true, "device": {...}}``.
+are a JSON object with each kernel's numbers (``ms``, ``plain_ms``,
+``bound_ms`` and ``library_ms`` sum the bfloat16 variants that
+``totals_over`` names; ``variants`` lists every
+variant's own numbers; ``launches`` sums the four paths), the card's
+name and power limit, then ``{"ok": true, "device": {...}}``.
 """
 
+import collections
+import contextlib
 import copy
 import json
 import re
@@ -55,6 +90,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 TILE = (128, 256, 256)             # one Predictor input tile (D, H, W)
 L1 = (128, 128, 128)               # its level 1
@@ -63,13 +99,20 @@ BATCH = 8                          # bench.py's training step
 PATCH = (44, 88, 88)               # its L0
 TL1 = (44, 44, 44)
 TL2 = (22, 22, 22)
+IMAGE = (640, 640)                 # the 2D model's training image
+P0, P1, P2, P3 = ((1, 640, 640), (1, 320, 320), (1, 160, 160),
+                  (1, 80, 80))     # its levels on the D=1 view
 WARMUP, STEPS, N_BATCHES = 3, 20, 5
 # check_train_step: a gradient leaf may differ from the reference step's
 # by this many times the reference step's own difference under a one-ulp
 # input change (the noise), plus a relative term. On an H100 the leaves
-# whose bound the noise sets differ by at most 2.3 times the noise in
+# whose bound the noise sets differ by up to about 2.4 times the noise in
 # float32 and 0.8 times in bfloat16 (PERF.md gives the readings).
 NOISE_FACTOR = 3
+# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
+PEAK_BF16 = 989e12                 # FLOP/s, tensor cores
+PEAK_F32 = 67e12                   # FLOP/s, outside the tensor cores
+HBM = 3.35e12                      # bytes/s
 _F = "elektronn3_tpu/ops/flat_fused.py"
 _F64 = "elektronn3_tpu/ops/flat_fused64.py"
 SOURCES = {
@@ -78,10 +121,13 @@ SOURCES = {
                    f" {_F64}:1087 conv3_bnact_flat64"),
     "pool_bnact": ("elektronn3_tpu_torch/csrc/pool_bnact.cu",
                    f"{_F}:1454 pool_bnact_flat_skip; {_F64}:1597 "
-                   "pool222_bnact_flat64_skip"),
+                   f"pool222_bnact_flat64_skip; {_F64}:1805 "
+                   f"pool122_bnact_flat64_skip ({_F64}:1682 "
+                   "pool122_bnact_flat64)"),
     "upconv_bnact": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
                      f"{_F64}:1977 upconv222_bn_flat64; {_F64}:2657 "
-                     "upconv122_from_flat64"),
+                     f"upconv122_from_flat64; {_F64}:2281 "
+                     "upconv122_bn_flat64"),
     "conv_bnact_dgrad": ("elektronn3_tpu_torch/csrc/conv_bnact_bwd.cu",
                          f"{_F}:742 _conv_bnact_bwd (dgrad); {_F64}:1139 "
                          "_conv64_bwd (dgrad)"),
@@ -90,29 +136,53 @@ SOURCES = {
                          f"_conv64_bwd (wgrad); {_F}:2091 _conv1_bwd"),
     "pool_bnact_bwd": ("elektronn3_tpu_torch/csrc/pool_bnact.cu",
                        f"{_F}:1367 _pool_bwd_impl; {_F64}:1519 "
-                       "_pool64_bwd_impl"),
+                       f"_pool64_bwd_impl; {_F64}:1731 _pool122_bwd_impl"),
     "upconv_bnact_bwd": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
                          f"{_F64}:2044 _upconv64_bwd; {_F64}:2732 "
-                         "_upconv122_f64_bwd"),
+                         f"_upconv122_f64_bwd; {_F64}:2347 "
+                         "_upconv122_64_bwd"),
 }
-# Forward variants at the Predictor tile's shapes:
-# (kernel, label, level shape, input channels, C_out, kd / window, prologue)
+# The kernel launches that stand for rows 16, 17, 19 and 20 on the 2D
+# path (as recorded by ``record_shapes``): the (1, 2, 2) pool at C=64
+# and its backward, the (1, 2, 2) upconv 128->64 from a dense input (no
+# prologue) and its backward.
+ROW_SHAPES = {16: ("pool_bnact", 64, (1, 2, 2)),
+              17: ("pool_bnact_bwd", 64, (1, 2, 2)),
+              19: ("upconv_bnact", 128, 64, 1, False),
+              20: ("upconv_bnact_bwd", 128, 64, 1, False)}
+# The variants each kernel's totals in the JSON line sum (bfloat16): the
+# forward kernels' serving variants at the 3D Predictor tile, the
+# backward kernels' at bench.py's 3D training shapes, so that the totals
+# stay comparable when variants are added. Every other variant
+# (statistics outputs, the training K2 forward, the 2D shapes) is
+# printed and listed under ``variants`` only.
+_TILE_SERVING = ("bf16 serving variants at the 3D Predictor tile "
+                 "(1,128,256,256)")
+_BENCH = ("bf16 variants at bench.py's 3D training shapes (batch 8 of "
+          "(44,88,88))")
+TOTALS_OVER = {"conv_bnact": _TILE_SERVING, "pool_bnact": _TILE_SERVING,
+               "upconv_bnact": _TILE_SERVING, "conv_bnact_dgrad": _BENCH,
+               "conv_bnact_wgrad": _BENCH, "pool_bnact_bwd": _BENCH,
+               "upconv_bnact_bwd": _BENCH}
+# Forward variants at the 3D Predictor tile's shapes (batch 1):
+# (kind, label, level shape, input channels, C_out, kd / window, prologue)
+FWD = {"conv": "conv_bnact", "pool": "pool_bnact", "upconv": "upconv_bnact"}
 VARIANTS = [
-    ("conv_bnact", "L0 conv1 1->32 kd1", TILE, (1,), 32, 1, False),
-    ("conv_bnact", "L0 conv2 32->32 kd1", TILE, (32,), 32, 1, True),
-    ("conv_bnact", "up_2 merge 32+32->32 kd1", TILE, (32, 32), 32, 1, True),
-    ("conv_bnact", "L1 conv1 32->64 kd3", L1, (32,), 64, 3, False),
-    ("conv_bnact", "L1 conv2 64->64 kd3", L1, (64,), 64, 3, True),
-    ("conv_bnact", "up_1 merge 64+64->64 kd3", L1, (64, 64), 64, 3, True),
-    ("pool_bnact", "L0 pool (1,2,2) C=32", TILE, (32,), 32, (1, 2, 2), True),
-    ("pool_bnact", "L1 pool (2,2,2) C=64", L1, (64,), 64, (2, 2, 2), True),
-    ("upconv_bnact", "up_1 (2,2,2) 128->64", L2, (128,), 64, 2, False),
-    ("upconv_bnact", "up_2 (1,2,2) 64->32", L1, (64,), 32, 1, True),
+    ("conv", "L0 conv1 1->32 kd1", TILE, (1,), 32, 1, False),
+    ("conv", "L0 conv2 32->32 kd1", TILE, (32,), 32, 1, True),
+    ("conv", "up_2 merge 32+32->32 kd1", TILE, (32, 32), 32, 1, True),
+    ("conv", "L1 conv1 32->64 kd3", L1, (32,), 64, 3, False),
+    ("conv", "L1 conv2 64->64 kd3", L1, (64,), 64, 3, True),
+    ("conv", "up_1 merge 64+64->64 kd3", L1, (64, 64), 64, 3, True),
+    ("pool", "L0 pool (1,2,2) C=32", TILE, (32,), 32, (1, 2, 2), True),
+    ("pool", "L1 pool (2,2,2) C=64", L1, (64,), 64, (2, 2, 2), True),
+    ("upconv", "up_1 (2,2,2) 128->64", L2, (128,), 64, 2, False),
+    ("upconv", "up_2 (1,2,2) 64->32", L1, (64,), 32, 1, True),
 ]
-# Training variants at bench.py's shapes (batch 8), same fields. A conv
-# variant checks the statistics outputs of K1, then K4 (unless its input
-# is the network input) and K5; an upconv one the statistics of K3, then
-# K7; a pool one K6.
+# Training variants (batch 8), same fields. A conv variant checks the
+# statistics outputs of K1, then K4 (unless its input is the network
+# input) and K5; an upconv one the statistics of K3, then K7; a pool one
+# K2, then K6. First bench.py's 3D shapes, then the 2D model's.
 TRAIN_VARIANTS = [
     ("conv", "L0 conv1 1->32 kd1", PATCH, (1,), 32, 1, False),
     ("conv", "L0 conv2 32->32 kd1", PATCH, (32,), 32, 1, True),
@@ -124,6 +194,22 @@ TRAIN_VARIANTS = [
     ("pool", "L1 pool (2,2,2) C=64", TL1, (64,), 64, (2, 2, 2), True),
     ("upconv", "up_1 (2,2,2) 128->64", TL2, (128,), 64, 2, False),
     ("upconv", "up_2 (1,2,2) 64->32", TL1, (64,), 32, 1, True),
+]
+TRAIN_VARIANTS_2D = [
+    ("conv", "2D L0 conv1 1->32", P0, (1,), 32, 1, False),
+    ("conv", "2D L0 conv2 32->32", P0, (32,), 32, 1, True),
+    ("conv", "2D up_2 merge 32+32->32", P0, (32, 32), 32, 1, True),
+    ("conv", "2D L1 conv1 32->64", P1, (32,), 64, 1, False),
+    ("conv", "2D L1 conv2 64->64", P1, (64,), 64, 1, True),
+    ("conv", "2D up_1 merge 64+64->64", P1, (64, 64), 64, 1, True),
+    ("pool", "2D L0 pool (1,2,2) C=32", P0, (32,), 32, (1, 2, 2), True),
+    ("pool", "2D L1 pool (1,2,2) C=64 [row 16/17]", P1, (64,), 64,
+     (1, 2, 2), True),
+    ("pool", "2D L2 pool (1,2,2) C=128", P2, (128,), 128, (1, 2, 2), True),
+    ("upconv", "2D up_1 (1,2,2) 128->64 dense [row 19/20]", P2, (128,), 64,
+     1, False),
+    ("upconv", "2D up_0 (1,2,2) 256->128 dense", P3, (256,), 128, 1, False),
+    ("upconv", "2D up_2 (1,2,2) 64->32", P1, (64,), 32, 1, True),
 ]
 
 
@@ -142,6 +228,89 @@ def cuda_ms(fn, reps=3):
     return t0.elapsed_time(t1) / reps
 
 
+def nbytes(*ts):
+    """Bytes of the tensors in ``ts`` (nested lists and tuples; anything
+    else skipped)."""
+    total = 0
+    for t in ts:
+        if isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(flops, peak, *tensors):
+    """(ms, 'operations' or 'bytes'): the least time of ``flops`` at
+    ``peak`` and of moving ``tensors`` (the call's inputs and outputs)
+    once at the memory rate, and which of the two binds."""
+    t_ops = flops / peak * 1e3
+    t_mem = nbytes(*tensors) / HBM * 1e3
+    return (t_ops, "operations") if t_ops > t_mem else (t_mem, "bytes")
+
+
+def lib_input(xs, inv, shift, act):
+    """The library ops' input (bf16): the concat of ``xs``, prologued
+    when ``inv`` is given, as a channels-first view of its
+    channels-last memory; 2D (N, C, H, W) when D = 1."""
+    from elektronn3_tpu_torch.ops.fused import prologue
+    x = torch.cat(xs, -1) if len(xs) > 1 else xs[0]
+    if inv is not None:
+        x = prologue(x, inv, shift, act).to(x.dtype)
+    return lib_view(x)
+
+
+def lib_view(x):
+    """A channels-last (N, D, H, W, C) tensor as a channels-first view
+    (a channels_last memory format): (N, C, H, W) when D = 1."""
+    if x.shape[1] == 1:
+        return x[:, 0].permute(0, 3, 1, 2)
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def library_calls(kind, a, w, b, kdw, dyv=None):
+    """The library calls (cuDNN through torch, bf16) beside a variant of
+    ``kind`` on the input view ``a`` (see :func:`lib_input`), by the
+    kernel each stands beside: the forward op and, given the output
+    cotangent's view ``dyv``, the backward ops. A transposed conv's
+    backward is two calls: its input gradient is the strided conv of dy
+    with the same weight, its weight gradient that conv's weight
+    gradient."""
+    two_d = a.dim() == 4
+    grad = torch.nn.grad
+    if kind == "pool":
+        win = tuple(kdw[1:]) if two_d else tuple(kdw)
+        pool = F.max_pool2d if two_d else F.max_pool3d
+        calls = {"pool_bnact": lambda: pool(a, win, win)}
+        if dyv is not None:
+            back = (torch.ops.aten.max_pool2d_with_indices_backward if two_d
+                    else torch.ops.aten.max_pool3d_with_indices_backward)
+            idx = pool(a, win, win, return_indices=True)[1]
+            n = len(win)
+            calls["pool_bnact_bwd"] = lambda: back(
+                dyv, a, list(win), list(win), [0] * n, [1] * n, False, idx)
+        return calls
+    wq = w.to(torch.bfloat16)
+    wq = wq[:, :, 0] if two_d else wq
+    bq = b.to(torch.bfloat16)
+    conv = F.conv2d if two_d else F.conv3d
+    conv_weight = grad.conv2d_weight if two_d else grad.conv3d_weight
+    if kind == "conv":
+        pad = 1 if two_d else (kdw // 2, 1, 1)
+        conv_input = grad.conv2d_input if two_d else grad.conv3d_input
+        return {"conv_bnact": lambda: conv(a, wq, bq, padding=pad),
+                "conv_bnact_dgrad": lambda: conv_input(a.shape, wq, dyv,
+                                                       padding=pad),
+                "conv_bnact_wgrad": lambda: conv_weight(a, wq.shape, dyv,
+                                                        padding=pad)}
+    stride = 2 if two_d else (kdw, 2, 2)
+    convt = F.conv_transpose2d if two_d else F.conv_transpose3d
+    return {"upconv_bnact": lambda: convt(a, wq, bq, stride=stride),
+            "upconv_bnact_bwd": lambda: (
+                conv(dyv, wq, stride=stride),
+                conv_weight(dyv, wq.shape, a, stride=stride))}
+
+
 def bf16_ulp(r):
     _, e = torch.frexp(r)
     return torch.ldexp(torch.ones_like(r), e - 8)
@@ -155,10 +324,10 @@ def check_close(got, ref, dtype, what):
     err = (got - ref).abs()
     scale = float(ref.abs().max())
     if dtype == torch.bfloat16:
-        bound = 1e-2 * scale + bf16_ulp(ref)
+        bound_ = 1e-2 * scale + bf16_ulp(ref)
     else:
-        bound = torch.full_like(ref, 1e-4 * scale)
-    if not bool(torch.isfinite(got).all()) or not bool((err <= bound).all()):
+        bound_ = torch.full_like(ref, 1e-4 * scale)
+    if not bool(torch.isfinite(got).all()) or not bool((err <= bound_).all()):
         raise AssertionError(f"{what}: max abs err {float(err.max())} "
                              f"over bound (max|ref| {scale})")
     return float(err.max())
@@ -185,88 +354,171 @@ def rand_on_card(seed):
     return rnd
 
 
-def make_case(fused, kernel, shape, cins, cout, kdw, pro, dtype, seed):
-    """Inputs for one forward variant (as served: no statistics);
-    returns (kernel call, plain call), each giving the output tensor."""
-    rnd = rand_on_card(seed)
-    xs = [rnd(1, *shape, c).to(dtype) for c in cins]
-    cin = sum(cins)
-    inv = rnd(cin) if pro else None          # negative scales included
-    shift = rnd(cin, scale=0.5) if pro else None
-    act = "relu" if pro else "linear"
-    if kernel == "conv_bnact":
-        std = (2.0 / ((cin + cout) * kdw * 9)) ** 0.5
-        w, b = rnd(cout, cin, kdw, 3, 3, scale=std), rnd(cout, scale=0.1)
-        args = (xs, inv, shift, w, b, act, False)
-        run, plain = fused.conv_bnact_fwd_kernel, fused.conv_bnact_fwd_plain
-    elif kernel == "pool_bnact":
-        args = (xs[0], inv, shift, act, kdw)
-        run, plain = fused.pool_bnact_fwd_kernel, fused.pool_bnact_fwd_plain
-        return (lambda: run(*args)), (lambda: plain(*args))
-    else:
-        std = (2.0 / ((cin + cout) * kdw * 4)) ** 0.5
-        w, b = rnd(cin, cout, kdw, 2, 2, scale=std), rnd(cout, scale=0.1)
-        args = (xs[0], inv, shift, w, b, act, False)
-        run, plain = (fused.upconv_bnact_fwd_kernel,
-                      fused.upconv_bnact_fwd_plain)
-    return (lambda: run(*args)[0]), (lambda: plain(*args)[0])
-
-
 class Stats:
-    """Per kernel: the largest error and the bf16 times at the path's
-    shapes."""
+    """Every timed variant's numbers, by kernel."""
 
     def __init__(self):
-        self.k = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-                  for name in SOURCES}
+        self.rows = {name: [] for name in SOURCES}
 
-    def add(self, kernel, label, dtype, err, ms, plain_ms, time_it=True):
-        s = self.k[kernel]
-        s["err"] = max(s["err"], err)
-        if dtype == torch.bfloat16 and time_it:
-            s["ms"] += ms
-            s["plain_ms"] += plain_ms
-        print(f"kernel {kernel:16s} {label:34s} {str(dtype)[6:]:8s} "
-              f"max_abs_err {err:.3e}  {ms:9.3f} ms  plain "
-              f"{plain_ms:9.3f} ms", flush=True)
+    def add(self, kernel, label, dtype, err, ms, plain_ms, bnd, lib,
+            lib_exact, total=False):
+        """One variant: ``bnd`` is :func:`bound`'s (ms, term); ``lib``
+        the library time (bf16 only, else None), ``lib_exact`` whether
+        that call computes the kernel's whole function; ``total`` whether
+        a bf16 variant counts in the kernel's totals (see
+        :meth:`totals`)."""
+        b_ms, b_by = bnd
+        bf16 = dtype == torch.bfloat16
+        self.rows[kernel].append(dict(
+            label=label, dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib,
+            library_op=("same function" if lib_exact
+                        else "op without prologue/statistics")
+            if bf16 else None, in_total=total and bf16))
+        libs = f"  lib{'' if lib_exact else '*'} {lib:8.3f} ms" if bf16 \
+            else ""
+        print(f"kernel {kernel:16s} {label:42s} {str(dtype)[6:]:8s} "
+              f"err {err:.3e} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
+              f"bound {b_ms:8.3f} ms ({b_by[:3]}, {b_ms / ms:6.1%})" + libs,
+              flush=True)
+
+    def totals(self, kernel):
+        """The JSON line's numbers for ``kernel``: ``ms``, ``plain_ms``,
+        ``library_ms`` and ``bound_ms`` sum the bfloat16 variants of
+        TOTALS_OVER[kernel] (the variants added with ``total``), and
+        ``bound_by`` names the term that binds the larger part of that
+        bound; ``max_abs_err`` is the largest over every variant, and
+        ``variants`` holds every variant's own numbers."""
+        rows = [r for r in self.rows[kernel] if r["in_total"]]
+        by = {"bytes": 0.0, "operations": 0.0}
+        for r in rows:
+            by[r["bound_by"]] += r["bound_ms"]
+        return dict(
+            max_abs_err=max(r["max_abs_err"] for r in self.rows[kernel]),
+            ms=sum(r["ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(by.values()), bound_by=max(by, key=by.get),
+            library_ms=sum(r["library_ms"] for r in rows),
+            totals_over=TOTALS_OVER[kernel], variants=self.rows[kernel])
+
+
+def conv_flops(m, cin, cout, kd):
+    return 2.0 * m * cin * cout * kd * 9
+
+
+def upconv_flops(m_in, cin, cout, kd):
+    return 2.0 * m_in * cin * cout * kd * 4
 
 
 def kernel_phase(fused, stats):
-    """K1-K3 at the Predictor tile's shapes."""
-    for seed, (kernel, label, shape, cins, cout, kdw, pro) in \
+    """K1-K3 as served (no statistics) at the 3D Predictor tile's
+    shapes."""
+    for seed, (kind, label, shape, cins, cout, kdw, pro) in \
             enumerate(VARIANTS):
+        name = FWD[kind]
         for dtype in (torch.bfloat16, torch.float32):
-            run, plain = make_case(fused, kernel, shape, cins, cout, kdw,
-                                   pro, dtype, seed)
+            bf16 = dtype == torch.bfloat16
+            rnd = rand_on_card(seed)
+            xs = [rnd(1, *shape, c).to(dtype) for c in cins]
+            cin = sum(cins)
+            inv = rnd(cin) if pro else None      # negative scales included
+            shift = rnd(cin, scale=0.5) if pro else None
+            act = "relu" if pro else "linear"
+            m = xs[0].numel() // cins[0]
+            w = b = None
+            if kind == "pool":
+                args = (xs[0], inv, shift, act, kdw)
+                run = lambda: fused.pool_bnact_fwd_kernel(*args)    # noqa
+                plain = lambda: fused.pool_bnact_fwd_plain(*args)   # noqa
+                flops, peak = 4.0 * xs[0].numel(), PEAK_F32
+            elif kind == "conv":
+                std = (2.0 / ((cin + cout) * kdw * 9)) ** 0.5
+                w, b = rnd(cout, cin, kdw, 3, 3, scale=std), rnd(cout,
+                                                                scale=0.1)
+                args = (xs, inv, shift, w, b, act, False)
+                run = lambda: fused.conv_bnact_fwd_kernel(*args)[0]  # noqa
+                plain = lambda: fused.conv_bnact_fwd_plain(*args)[0]  # noqa
+                flops, peak = conv_flops(m, cin, cout, kdw), PEAK_BF16
+            else:
+                std = (2.0 / ((cin + cout) * kdw * 4)) ** 0.5
+                w, b = rnd(cin, cout, kdw, 2, 2, scale=std), rnd(cout,
+                                                                scale=0.1)
+                args = (xs[0], inv, shift, w, b, act, False)
+                run = lambda: fused.upconv_bnact_fwd_kernel(*args)[0]  # noqa
+                plain = lambda: fused.upconv_bnact_fwd_plain(*args)[0]  # noqa
+                flops, peak = upconv_flops(m, cin, cout, kdw), PEAK_BF16
             got = run()
             torch.cuda.synchronize()
             ref = plain()
-            err = check_close(got, ref, dtype, f"{label} {dtype}")
+            if kind == "pool":
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K2 {label} {dtype}: not exact")
+                err = 0.0
+            else:
+                err = check_close(got, ref, dtype, f"{label} {dtype}")
+            bnd = bound(flops, peak if bf16 else PEAK_F32, args, got)
+            lib = None
+            if bf16:
+                a = lib_input(xs, inv, shift, act)
+                lib = cuda_ms(library_calls(kind, a, w, b, kdw)[name])
+                del a
             del got, ref
-            stats.add(kernel, label, dtype, err, cuda_ms(run),
-                      cuda_ms(plain))
+            stats.add(name, label, dtype, err, cuda_ms(run), cuda_ms(plain),
+                      bnd, lib, not pro and len(xs) == 1, total=True)
+            del xs, args
             torch.cuda.empty_cache()
 
 
-def train_kernel_phase(fused, stats):
-    """The statistics outputs of K1 and K3 and K4-K7 at bench.py's
-    shapes. Forward statistics are held against the plain sums of the
-    kernel's own stored output (the same values: only the order of the
-    sum differs). The statistics variants are printed but not added to
-    K1's and K3's times (those stay the Predictor tile's)."""
+def _batch_head(kind, fargs, n):
+    """A conv's or upconv's forward arguments on the first ``n``
+    samples."""
+    x, inv, shift = fargs
+    x = [xi[:n] for xi in x] if kind == "conv" else x[:n]
+    return x, inv, shift
+
+
+def train_kernel_phase(fused, stats, variants, total, serve):
+    """K1 and K3 with and without statistics, K2 and K4-K7 at training
+    shapes (batch 8), each against its plain version. A forward output
+    is held against the plain output; the statistics against the plain
+    sums of the kernel's own stored output (the same values: only the
+    order of the sum differs) and, in float32, against the plain
+    statistics. The serving builds (no statistics) are held at batch 8
+    and, with ``serve``, at the tiled 2D Predictor's batch of 4 too,
+    and timed at batch 8. ``total``: the backward variants count in the
+    kernels' totals."""
     for seed, (kind, label, shape, cins, cout, kdw, pro) in \
-            enumerate(TRAIN_VARIANTS):
+            enumerate(variants):
         for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            peak = PEAK_BF16 if bf16 else PEAK_F32
             rnd = rand_on_card(100 + seed)
             xs = [rnd(BATCH, *shape, c).to(dtype) for c in cins]
             cin = sum(cins)
             inv = rnd(cin) if pro else None
             shift = rnd(cin, scale=0.5) if pro else None
             act = "relu" if pro else "linear"
+            m = xs[0].numel() // cins[0]
+            a = lib_input(xs, inv, shift, act) if bf16 else None
             if kind == "pool":
-                dp_shape = (BATCH, shape[0] // kdw[0], shape[1] // 2,
-                            shape[2] // 2, cin)
-                dp = rnd(*dp_shape).to(dtype)
+                fwd_args = (xs[0], inv, shift, act, kdw)
+                run = lambda: fused.pool_bnact_fwd_kernel(*fwd_args)  # noqa
+                plain = lambda: fused.pool_bnact_fwd_plain(*fwd_args)  # noqa
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K2 {label} {dtype}: not exact")
+                dp = rnd(*got.shape).to(dtype)
+                libs = library_calls(kind, a, None, None, kdw,
+                                     lib_view(dp)) if bf16 else {}
+                stats.add("pool_bnact", label, dtype, 0.0, cuda_ms(run),
+                          cuda_ms(plain),
+                          bound(4.0 * xs[0].numel(), PEAK_F32, fwd_args,
+                                got),
+                          cuda_ms(libs["pool_bnact"]) if bf16 else None,
+                          False)
+                del got, ref
                 args = (xs[0], inv, shift, act, kdw, dp)
                 run = lambda: fused.pool_bnact_bwd_kernel(*args)   # noqa
                 plain = lambda: fused.pool_bnact_bwd_plain(*args)  # noqa
@@ -276,14 +528,18 @@ def train_kernel_phase(fused, stats):
                     raise AssertionError(f"K6 {label}: dx not exact")
                 err = max(check_sum(got[1], ref[1], f"K6 {label} dinv"),
                           check_sum(got[2], ref[2], f"K6 {label} dshift"))
+                bnd = bound(10.0 * xs[0].numel(), PEAK_F32, args, got)
                 del got, ref
-                stats.add("pool_bnact_bwd", label, dtype, err,
-                          cuda_ms(run), cuda_ms(plain))
+                stats.add("pool_bnact_bwd", label, dtype, err, cuda_ms(run),
+                          cuda_ms(plain), bnd,
+                          cuda_ms(libs["pool_bnact_bwd"]) if bf16 else None,
+                          False, total)
+                del xs, a, dp, args, libs
+                torch.cuda.empty_cache()
                 continue
             if kind == "conv":
                 std = (2.0 / ((cin + cout) * kdw * 9)) ** 0.5
                 w = rnd(cout, cin, kdw, 3, 3, scale=std)
-                fwd_name = "conv_bnact"
                 fwd, fwd_plain = (fused.conv_bnact_fwd_kernel,
                                   fused.conv_bnact_fwd_plain)
                 bwds = [("conv_bnact_wgrad", fused.conv_bnact_wgrad_kernel,
@@ -293,31 +549,58 @@ def train_kernel_phase(fused, stats):
                                     fused.conv_bnact_dgrad_kernel,
                                     fused.conv_bnact_dgrad_plain))
                 fargs = (xs, inv, shift)
+                flops = conv_flops(m, cin, cout, kdw)
+                bwd_flops = flops
             else:
                 std = (2.0 / ((cin + cout) * kdw * 4)) ** 0.5
                 w = rnd(cin, cout, kdw, 2, 2, scale=std)
-                fwd_name = "upconv_bnact"
                 fwd, fwd_plain = (fused.upconv_bnact_fwd_kernel,
                                   fused.upconv_bnact_fwd_plain)
                 bwds = [("upconv_bnact_bwd", fused.upconv_bnact_bwd_kernel,
                          fused.upconv_bnact_bwd_plain)]
                 fargs = (xs[0], inv, shift)
+                flops = upconv_flops(m, cin, cout, kdw)
+                bwd_flops = 2 * flops                   # dgrad and wgrad
             b = rnd(cout, scale=0.1)
             y, s, q = fwd(*fargs, w, b, act, True)
+            y_serve = fwd(*fargs, w, b, act, False)[0]
+            y_plain, rs, rq = fwd_plain(*fargs, w, b, act, True)
             torch.cuda.synchronize()
+            err = check_close(y, y_plain, dtype, f"{label} {dtype} output")
+            serve_err = check_close(y_serve, y_plain, dtype,
+                                    f"{label} {dtype} serving output")
+            del y_serve, y_plain
+            if serve:
+                head = _batch_head(kind, fargs, 4)
+                got = fwd(*head, w, b, act, False)[0]
+                ref = fwd_plain(*head, w, b, act, False)[0]
+                torch.cuda.synchronize()
+                serve_err = max(serve_err, check_close(
+                    got, ref, dtype, f"{label} {dtype} serving batch 4"))
+                del head, got, ref
             ks, kq = fused.channel_stats(y)
-            err = max(check_sum(s, ks, f"{label} sum"),
+            err = max(err, check_sum(s, ks, f"{label} sum"),
                       check_sum(q, kq, f"{label} sumsq"))
-            _, rs, rq = fwd_plain(*fargs, w, b, act, True)
             if dtype == torch.float32:
                 err = max(err, check_sum(s, rs, f"{label} sum vs plain"),
                           check_sum(q, rq, f"{label} sumsq vs plain"))
+            bnd = bound(flops, peak, fargs, w, b, y, s, q)
             del s, q, ks, kq, rs, rq
-            stats.add(fwd_name, label + " +stats", dtype, err,
+            dy = rnd(*y.shape, scale=0.1).to(dtype)
+            libs = library_calls(kind, a, w, b, kdw, lib_view(dy)) \
+                if bf16 else {}
+            lib = cuda_ms(libs[FWD[kind]]) if bf16 else None
+            stats.add(FWD[kind], label + " +stats", dtype, err,
                       cuda_ms(lambda: fwd(*fargs, w, b, act, True)),
                       cuda_ms(lambda: fwd_plain(*fargs, w, b, act, True)),
-                      time_it=False)
-            dy = rnd(*y.shape, scale=0.1).to(dtype)
+                      bnd, lib, False)
+            if serve:
+                stats.add(FWD[kind], label + " serving", dtype, serve_err,
+                          cuda_ms(lambda: fwd(*fargs, w, b, act, False)),
+                          cuda_ms(lambda: fwd_plain(*fargs, w, b, act,
+                                                    False)),
+                          bound(flops, peak, fargs, w, b, y), lib,
+                          not pro and len(xs) == 1)
             ds, dq = rnd(cout, scale=1e-3), rnd(cout, scale=1e-4)
             bargs = (*fargs, w, y, dy, ds, dq, act)
             for name, kfn, pfn in bwds:
@@ -338,10 +621,13 @@ def train_kernel_phase(fused, stats):
                     else:
                         err = max(err, check_sum(g, r, f"{name} {label} "
                                                  f"{what}"))
+                bnd = bound(bwd_flops, peak, bargs, got)
                 del got, ref
                 stats.add(name, label, dtype, err, cuda_ms(run),
-                          cuda_ms(plain))
-            del y, dy, xs
+                          cuda_ms(plain), bnd,
+                          cuda_ms(libs[name]) if bf16 else None, False,
+                          total)
+            del y, dy, xs, a, bargs, fargs, libs
             torch.cuda.empty_cache()
 
 
@@ -354,11 +640,51 @@ def _bwd_named(name, out):
     return [out[0]], out[1], out[2], out[3], out[4]
 
 
+@contextlib.contextmanager
+def record_shapes(fused):
+    """Count the K2, K3, K6 and K7 launches made inside the block by
+    (kernel, channels, window or (C_out, kd, prologue))."""
+    seen = collections.Counter()
+    names = ("pool_bnact_fwd_kernel", "pool_bnact_bwd_kernel",
+             "upconv_bnact_fwd_kernel", "upconv_bnact_bwd_kernel")
+    real = {n: getattr(fused, n) for n in names}
+
+    def wrap(n):
+        def f(x, inv, shift, *rest):
+            if n.startswith("pool"):
+                key = (n.replace("_fwd_kernel", "").replace("_kernel", ""),
+                       x.shape[-1], tuple(rest[1]))
+            else:
+                w = rest[0]
+                key = (n.replace("_fwd_kernel", "").replace("_kernel", ""),
+                       x.shape[-1], w.shape[1], w.shape[2], inv is not None)
+            seen[key] += 1
+            return real[n](x, inv, shift, *rest)
+        return f
+    for n in names:
+        setattr(fused, n, wrap(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(fused, n, real[n])
+
+
+def check_rows(seen, rows, what):
+    missing = [r for r in rows if ROW_SHAPES[r] not in seen]
+    if missing:
+        raise AssertionError(f"{what}: no launch at the shapes of rows "
+                             f"{missing} (launched: {sorted(seen)})")
+    print(f"{what}: launches at the shapes of rows "
+          + ", ".join(f"{r} {ROW_SHAPES[r]}: {seen[ROW_SHAPES[r]]}"
+                      for r in rows), flush=True)
+
+
 def randomize_norms(model, seed):
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm3d):
+            if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)):
                 c = m.num_features
                 m.weight.copy_(torch.randn(c, generator=g))
                 m.bias.copy_(0.2 * torch.randn(c, generator=g))
@@ -372,30 +698,71 @@ def headline_unet(UNet, seed, dtype=torch.bfloat16):
                 device="cuda", generator=torch.Generator().manual_seed(seed))
 
 
-def predictor_phase(UNet, Predictor, fused):
-    # -- model: kernels against the reference forward on one tile --------
-    model = headline_unet(UNet, 0).eval()
-    randomize_norms(model, 1)
-    x = torch.randn((1, *TILE, 1), generator=torch.Generator().manual_seed(2))
-    x = x.cuda()
+def unet_2d(UNet, seed, dtype=torch.bfloat16):
+    """examples/train_simple2d.py's model."""
+    return UNet(in_channels=1, out_channels=2, n_blocks=4, start_filts=32,
+                activation="relu", normalization="batch", dim=2,
+                dtype=dtype, device="cuda",
+                generator=torch.Generator().manual_seed(seed))
+
+
+def check_forward(model, x, what):
+    """An eval forward through the kernels against forward(reference=
+    True) on the same input: max abs err <= 5e-2 max|ref| (bf16)."""
     with torch.inference_mode():
         y = model(x)
         y_ref = model(x, reference=True)
     torch.cuda.synchronize()
-    if y.shape != (1, *TILE, 2) or y.dtype != torch.bfloat16:
-        raise AssertionError(f"model output {tuple(y.shape)} {y.dtype}")
+    if y.shape != x.shape[:-1] + (2,) or y.dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: output {tuple(y.shape)} {y.dtype}")
     err = (y.float() - y_ref.float()).abs().max().item()
     scale = y_ref.float().abs().max().item()
     if not (bool(torch.isfinite(y).all()) and err <= 5e-2 * scale):
-        raise AssertionError(f"UNet forward vs reference: err {err}, "
-                             f"max|ref| {scale}")
-    print(f"model: UNet bf16 forward vs reference on {(1, *TILE, 1)}: max "
-          f"abs err {err:.4e} (max|ref| {scale:.4e}, bound 5e-2 x)",
-          flush=True)
-    del y, y_ref, x
+        raise AssertionError(f"{what} vs reference: err {err}, max|ref| "
+                             f"{scale}")
+    print(f"model: {what} vs reference on {tuple(x.shape)}: max abs err "
+          f"{err:.4e} (max|ref| {scale:.4e}, bound 5e-2 x)", flush=True)
+
+
+def check_probs(probs, ids, shape, what):
+    """Finite probabilities of ``shape`` summing to 1, and uint8 argmax
+    ids that agree with them where the margin is above bf16 rounding."""
+    if probs.shape != shape or not np.isfinite(probs).all():
+        raise AssertionError(f"{what} probabilities: bad shape or "
+                             "non-finite")
+    if np.abs(probs.sum(1) - 1.0).max() > 1e-2:
+        raise AssertionError(f"{what} probabilities sum to 1 within "
+                             f"{np.abs(probs.sum(1) - 1).max()}")
+    if ids.dtype != np.uint8 or ids.shape != (shape[0], 1) + shape[2:]:
+        raise AssertionError(f"{what} argmax output {ids.dtype} "
+                             f"{ids.shape}")
+    margin = np.abs(probs[:, 1] - probs[:, 0])
+    agree = (ids[:, 0] == probs.argmax(1)) | (margin <= 2.0 ** -7)
+    if not agree.all():
+        raise AssertionError(f"{what} argmax disagrees with the "
+                             f"probabilities at {int((~agree).sum())} "
+                             "pixels")
+
+
+def check_launched(launches, names, what):
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {what} path: "
+                             f"{missing}")
+
+
+SERVING = ("conv_bnact", "pool_bnact", "upconv_bnact")
+
+
+def predictor_phase(UNet, Predictor, fused):
+    model = headline_unet(UNet, 0).eval()
+    randomize_norms(model, 1)
+    x = torch.randn((1, *TILE, 1),
+                    generator=torch.Generator().manual_seed(2)).cuda()
+    check_forward(model, x, "UNet bf16 forward")
+    del x
     torch.cuda.empty_cache()
 
-    # -- Predictor requests (the serving path) ---------------------------
     vol = torch.randn((1, 1, 64, 256, 256),
                       generator=torch.Generator().manual_seed(3)).numpy()
     kw = dict(tile_shape=(64, 128, 128), overlap_shape=(32, 64, 64),
@@ -416,23 +783,60 @@ def predictor_phase(UNet, Predictor, fused):
     dt_ids = time.perf_counter() - t0
     print(f"predictor: uint8 argmax {ids.shape} in {dt_ids:.3f} s = "
           f"{vol.size / dt_ids / 1e6:.2f} MVox/s", flush=True)
-    if probs.shape != (1, 2, 64, 256, 256) or not np.isfinite(probs).all():
-        raise AssertionError("probabilities: bad shape or non-finite")
-    if np.abs(probs.sum(1) - 1.0).max() > 1e-2:
-        raise AssertionError(
-            f"probabilities sum to 1 within {np.abs(probs.sum(1) - 1).max()}")
-    if ids.dtype != np.uint8 or ids.shape != (1, 1, 64, 256, 256):
-        raise AssertionError(f"argmax output {ids.dtype} {ids.shape}")
-    margin = np.abs(probs[:, 1] - probs[:, 0])
-    agree = (ids[:, 0] == probs.argmax(1)) | (margin <= 2.0 ** -7)
-    if not agree.all():
-        raise AssertionError(f"argmax disagrees with the probabilities at "
-                             f"{int((~agree).sum())} voxels")
-    missing = [k for k in ("conv_bnact", "pool_bnact", "upconv_bnact")
-               if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the serving path: "
-                             f"{missing}")
+    check_probs(probs, ids, (1, 2, 64, 256, 256), "3D")
+    check_launched(launches, SERVING, "3D serving")
+    return launches
+
+
+def predictor_2d_phase(UNet, Predictor, fused):
+    """The 2D model: the forward check on a batch of 8 images, then a
+    whole-image request on (8, 1, 640, 640) and a tiled request on
+    (1, 1, 2560, 2560), each after a warm-up request; the launch counts
+    cover the two timed requests."""
+    model = unet_2d(UNet, 0).eval()
+    randomize_norms(model, 1)
+    x = torch.randn((BATCH, *IMAGE, 1),
+                    generator=torch.Generator().manual_seed(2)).cuda()
+    check_forward(model, x, "2D UNet bf16 forward")
+    del x
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(3)
+    images = rng.standard_normal((BATCH, 1, *IMAGE), np.float32)
+    big = rng.standard_normal((1, 1, 2560, 2560), np.float32)
+    tiled_kw = dict(tile_shape=(512, 512), overlap_shape=(64, 64),
+                    batch_size=4, float16=True)
+    whole = Predictor(model, float16=True)
+    tiled = Predictor(model, **tiled_kw)
+    with record_shapes(fused) as seen:
+        whole.predict(images)                          # warm-up requests
+        tiled.predict(big)
+    torch.cuda.synchronize()
+    check_rows(seen, (16, 19), "predictor 2D (warm-up requests)")
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    probs = whole.predict(images)
+    dt_w = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probs_big = tiled.predict(big)
+    dt_t = time.perf_counter() - t0
+    launches = dict(fused.LAUNCHES)
+    print(f"predictor 2D: whole-image bf16 probabilities {probs.shape} in "
+          f"{dt_w:.3f} s = {images.size / dt_w / 1e6:.2f} MPix/s; tiled "
+          f"{probs_big.shape} (tile 512, overlap 64, batch 4) in "
+          f"{dt_t:.3f} s = {big.size / dt_t / 1e6:.2f} MPix/s; launches "
+          f"{launches}", flush=True)
+    t0 = time.perf_counter()
+    ids = Predictor(model, argmax_with_threshold=True,
+                    **tiled_kw).predict(big)
+    dt_ids = time.perf_counter() - t0
+    print(f"predictor 2D: tiled uint8 argmax {ids.shape} in {dt_ids:.3f} s"
+          f" = {big.size / dt_ids / 1e6:.2f} MPix/s", flush=True)
+    ids_whole = Predictor(model, argmax_with_threshold=True,
+                          float16=True).predict(images)
+    check_probs(probs, ids_whole, (BATCH, 2, *IMAGE), "2D whole-image")
+    check_probs(probs_big, ids, (1, 2, 2560, 2560), "2D tiled")
+    check_launched(launches, SERVING, "2D serving")
     return launches
 
 
@@ -445,7 +849,7 @@ def _step_grads(model, crit, x, y, reference):
                                   for n, p in model.named_parameters()}
 
 
-def check_train_step(UNet, crit, x, y):
+def check_train_step(build, crit, x, y):
     """One step's loss, parameter gradients and new running statistics
     on the kernel path against the same step through reference=True,
     from equal parameters and running statistics, in float32 and in
@@ -453,7 +857,7 @@ def check_train_step(UNet, crit, x, y):
     |g - r| <= rel |r| + NOISE_FACTOR |r' - r|, with rel 1e-3 (float32)
     or 1e-2 (bf16) and r' the reference step on an input moved by about one ulp
     of the dtype (2^-23 or 2^-8 relative, seeded): the step's own
-    rounding noise. A batch norm over 2.7 M voxels makes a weight
+    rounding noise. A batch norm over millions of voxels makes a weight
     gradient the small difference of large float32 sums (and in bf16
     each term is rounded before the weight-gradient product, as in JAX),
     so that noise can be a large share of a leaf; the kernels sum in
@@ -467,7 +871,7 @@ def check_train_step(UNet, crit, x, y):
     for dtype, rel, ulp, zero in ((torch.float32, 1e-3, 2.0 ** -23, 1e-4),
                                   (torch.bfloat16, 1e-2, 2.0 ** -8, 1e-2)):
         bf16 = dtype == torch.bfloat16
-        model = headline_unet(UNet, 4, dtype)
+        model = build(4, dtype)
         ref_model = copy.deepcopy(model)
         lk, grads = _step_grads(model, crit, x, y, False)
         lr, ref = _step_grads(ref_model, crit, x, y, True)
@@ -495,11 +899,11 @@ def check_train_step(UNet, crit, x, y):
             err = float((g - r).norm())
             rn = float(r.norm())
             nz = float((moved[name] - r).norm())
-            bound = rel * rn + NOISE_FACTOR * nz
-            rows.append((err / max(bound, 1e-30), name, err, nz, rn))
-            if not bool(torch.isfinite(g).all()) or err > bound:
+            bound_ = rel * rn + NOISE_FACTOR * nz
+            rows.append((err / max(bound_, 1e-30), name, err, nz, rn))
+            if not bool(torch.isfinite(g).all()) or err > bound_:
                 failures.append(f"{dtype} grad {name}: |g - r| {err} > "
-                                f"bound {bound} (noise {nz}, |r| {rn})")
+                                f"bound {bound_} (noise {nz}, |r| {rn})")
         rows.sort(reverse=True)
         for q, n, e, nz, rn in rows:
             print(f"  leaf {str(dtype)[6:]:8s} {n:28s} |g-r| {e:.3e}  "
@@ -557,14 +961,18 @@ def timed_steps(train_step, model, crit, opt, batches, reference,
     return dt
 
 
-def train_phase(UNet, CEDiceLoss, train_step, fused):
+def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
+                rows=()):
+    """Timed training steps of ``build``'s model on batches of ``shape``
+    (kernels, plain, kernels again), every kernel launched, the
+    ``rows``' shapes launched, a falling loss, and one step against the
+    reference."""
     crit = CEDiceLoss(1.0, 1.0)
-    shape = (BATCH, *PATCH, 1)
     g = torch.Generator(device="cuda").manual_seed(7)
     batches = [(torch.randn(shape, generator=g, device="cuda"),
                 torch.randint(0, 2, shape[:-1], generator=g, device="cuda"))
                for _ in range(N_BATCHES)]
-    model = headline_unet(UNet, 4)
+    model = build(4, torch.bfloat16)
 
     vox = int(np.prod(shape))
     plain_model = copy.deepcopy(model)
@@ -579,31 +987,33 @@ def train_phase(UNet, CEDiceLoss, train_step, fused):
     dt_p = timed_steps(train_step, plain_model, crit, plain_opt, batches,
                        True)
     peak_p = torch.cuda.max_memory_allocated() / 1e9
+    del plain_model, plain_opt
     dt_k2 = timed_steps(train_step, model, crit, opt, batches, False)
-    for what, dt in (("kernels", dt_k), ("plain", dt_p),
-                     ("kernels again", dt_k2)):
-        print(f"train: {what:13s} step {dt * 1e3:9.2f} ms = "
-              f"{vox / dt / 1e6:7.2f} MVox/s (batch {BATCH} of {PATCH}, "
-              f"bf16, CEDiceLoss, Adam)", flush=True)
-    print(f"train: peak device memory {peak:.2f} GB (kernels), "
+    for label, dt in (("kernels", dt_k), ("plain", dt_p),
+                      ("kernels again", dt_k2)):
+        print(f"train {what}: {label:13s} step {dt * 1e3:9.2f} ms = "
+              f"{vox / dt / 1e6:7.2f} {unit}/s (batch {shape[0]} of "
+              f"{shape[1:-1]}, bf16, CEDiceLoss, Adam)", flush=True)
+    print(f"train {what}: peak device memory {peak:.2f} GB (kernels), "
           f"{peak_p:.2f} GB (plain); launches over {STEPS} steps "
           f"{launches}", flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the training path: "
-                             f"{missing}")
+    check_launched(launches, SOURCES, f"{what} training")
 
     # A fixed batch whose target is learnable from the input (the sign
     # of x; the timed batches' targets are noise).
     fixed = (batches[0][0], (batches[0][0][..., 0] > 0).long())
-    losses = [float(train_step(model, crit, opt, *fixed))
-              for _ in range(10)]
+    with record_shapes(fused) as seen:
+        losses = [float(train_step(model, crit, opt, *fixed))
+                  for _ in range(10)]
+    if rows:
+        check_rows(seen, rows, f"train {what} (10 fixed-batch steps)")
     if not (np.isfinite(losses).all() and losses[-1] < 0.9 * losses[0]):
         raise AssertionError(f"loss on a fixed batch does not fall: "
                              f"{losses}")
-    print(f"train: loss on a fixed batch (target: sign of the input) over "
-          f"10 steps {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
-    check_train_step(UNet, crit, *batches[0])
+    print(f"train {what}: loss on a fixed batch (target: sign of the "
+          f"input) over 10 steps {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+    check_train_step(build, crit, *batches[0])
     return launches, model, crit, opt, batches
 
 
@@ -619,9 +1029,9 @@ def profile_phase(train_step, model, crit, opt, batches):
 
 
 class Patches(torch.utils.data.Dataset):
-    """Seeded (1, D, H, W) inputs and (D, H, W) class targets."""
+    """Seeded (1, *spatial) inputs and (*spatial) class targets."""
 
-    def __init__(self, n, shape=(1, *PATCH), seed=0):
+    def __init__(self, n, shape, seed=0):
         rng = np.random.default_rng(seed)
         self.inp = rng.normal(size=(n,) + shape).astype(np.float32)
         self.target = rng.integers(0, 2, size=(n,) + shape[1:])
@@ -633,27 +1043,28 @@ class Patches(torch.utils.data.Dataset):
         return {"inp": self.inp[i], "target": self.target[i]}
 
 
-def trainer_phase(UNet, CEDiceLoss, Trainer):
+def trainer_phase(build, sample, what, CEDiceLoss, Trainer):
     with tempfile.TemporaryDirectory() as root:
-        model = headline_unet(UNet, 5)
-        tr = Trainer(model, CEDiceLoss(1.0, 1.0), train_dataset=Patches(8),
-                     batch_size=2, save_root=root, exp_name="smoke",
-                     nan_check_interval=2)
+        model = build(5, torch.bfloat16)
+        tr = Trainer(model, CEDiceLoss(1.0, 1.0),
+                     train_dataset=Patches(8, sample), batch_size=2,
+                     save_root=root, exp_name="smoke", nan_check_interval=2)
         tr.run(max_steps=4)
         if tr.step != 4 or not np.isfinite(tr.last_stats["tr_loss"]).all():
             raise AssertionError(f"Trainer.run: step {tr.step}, losses "
                                  f"{tr.last_stats['tr_loss']}")
-        tr2 = Trainer(headline_unet(UNet, 6), CEDiceLoss(1.0, 1.0),
-                      train_dataset=Patches(8), batch_size=2,
+        tr2 = Trainer(build(6, torch.bfloat16), CEDiceLoss(1.0, 1.0),
+                      train_dataset=Patches(8, sample), batch_size=2,
                       save_root=root, exp_name="resumed")
         tr2.load_state(f"{tr.save_path}/state_dict_final.pth")
         a, b = model.state_dict(), tr2.model.state_dict()
         if tr2.step != 4 or not all(torch.equal(a[k], b[k]) for k in a):
             raise AssertionError("load_state did not restore the run")
-        print(f"trainer: run(max_steps=4) batch 2 of {PATCH}: losses "
-              f"{[round(v, 4) for v in tr.last_stats['tr_loss']]}, last "
-              f"epoch {tr.last_misc['tr_speed_vx']:.2f} MVx/s; load_state "
-              f"restored step {tr2.step} and every tensor", flush=True)
+        print(f"trainer {what}: run(max_steps=4) batch 2 of {sample[1:]}: "
+              f"losses {[round(v, 4) for v in tr.last_stats['tr_loss']]}, "
+              f"last epoch {tr.last_misc['tr_speed_vx']:.2f} M/s; "
+              f"load_state restored step {tr2.step} and every tensor",
+              flush=True)
 
 
 def main():
@@ -675,6 +1086,7 @@ def main():
           flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    profiling = "--profile" in sys.argv[1:]
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
@@ -691,25 +1103,46 @@ def main():
         elif "registers" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}")
 
+    def build3d(seed, dtype):
+        return headline_unet(UNet, seed, dtype)
+
+    def build2d(seed, dtype):
+        return unet_2d(UNet, seed, dtype)
+
     stats = Stats()
     kernel_phase(fused, stats)
-    train_kernel_phase(fused, stats)
-    pred_launches = predictor_phase(UNet, Predictor, fused)
-    train_launches, model, crit, opt, batches = train_phase(
-        UNet, CEDiceLoss, train_step, fused)
-    if "--profile" in sys.argv[1:]:
+    train_kernel_phase(fused, stats, TRAIN_VARIANTS, total=True,
+                       serve=False)
+    train_kernel_phase(fused, stats, TRAIN_VARIANTS_2D, total=False,
+                       serve=True)
+
+    launches = {"predictor": predictor_phase(UNet, Predictor, fused)}
+    launches["train"], model, crit, opt, batches = train_phase(
+        build3d, (BATCH, *PATCH, 1), "3D", "MVox", CEDiceLoss, train_step,
+        fused)
+    if profiling:
         profile_phase(train_step, model, crit, opt, batches)
     del model, opt, batches
     torch.cuda.empty_cache()
-    trainer_phase(UNet, CEDiceLoss, Trainer)
+    trainer_phase(build3d, (1, *PATCH), "3D", CEDiceLoss, Trainer)
+
+    launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
+    torch.cuda.empty_cache()
+    launches["train_2d"], model, crit, opt, batches = train_phase(
+        build2d, (BATCH, *IMAGE, 1), "2D", "MPix", CEDiceLoss, train_step,
+        fused, rows=(16, 17, 19, 20))
+    if profiling:
+        profile_phase(train_step, model, crit, opt, batches)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    trainer_phase(build2d, (1, 256, 256), "2D", CEDiceLoss, Trainer)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
-         "replaces": SOURCES[k][1], "launches": train_launches[k],
-         "launches_by_path": {"predictor": pred_launches[k],
-                              "train": train_launches[k]},
-         "max_abs_err": stats.k[k]["err"], "ms": stats.k[k]["ms"],
-         "plain_ms": stats.k[k]["plain_ms"]} for k in SOURCES]}))
+         "replaces": SOURCES[k][1],
+         "launches": sum(path[k] for path in launches.values()),
+         "launches_by_path": {p: n[k] for p, n in launches.items()},
+         **stats.totals(k)} for k in SOURCES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

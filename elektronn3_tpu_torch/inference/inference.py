@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``inference/inference.py`` (reference
 elektronn3/inference/inference.py). The public layout is the reference's:
 ``Predictor.predict`` takes and returns channels-first numpy arrays
-``(N, C, D, H, W)``; on the device everything is channels-last.
+``(N, C, D, H, W)``, or ``(N, C, H, W)`` for a 2D model; on the device
+everything is channels-last.
 
 - :func:`tiled_apply` cuts the (zero-padded) input into tiles of one
   shape, packs them along the batch axis and streams them through the
@@ -142,14 +143,16 @@ class Predictor:
     """Tiled, batched inference of a channels-last model on large inputs.
 
     Args (a subset of the JAX Predictor's, reference inference.py:246):
-        model: an ``nn.Module`` mapping channels-last ``(N, D, H, W, C)``
-            to ``(N, D, H, W, C_out)`` logits (the port's UNet). It is
-            put in eval mode.
+        model: an ``nn.Module`` mapping channels-last ``(N, *spatial,
+            C)`` to ``(N, *spatial, C_out)`` logits (the port's UNet, 3D
+            or 2D). It is put in eval mode.
         device: where to run; default: the device of the model's
-            parameters.
+            parameters (the card, unless the model was built on the
+            CPU).
         batch_size: tiles per model call.
         tile_shape: output tile shape; None predicts the whole input at
-            once.
+            once. Its length is the spatial rank of the inputs; without
+            it the rank is the model's ``dim`` (3 if it has none).
         overlap_shape: tile overlap on each side.
         out_channels: the model's class count (default: the model's
             ``out_channels``, else probed).
@@ -193,6 +196,8 @@ class Predictor:
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.tile_shape = None if tile_shape is None else tuple(tile_shape)
+        self.spatial_ndim = len(self.tile_shape) if self.tile_shape \
+            else getattr(model, "dim", 3)
         self.overlap_shape = None if overlap_shape is None \
             else tuple(overlap_shape)
         self.out_channels = out_channels if out_channels is not None \
@@ -232,7 +237,7 @@ class Predictor:
         if crop_lo is not None:
             out = out[(slice(None),) + tuple(
                 slice(lo, lo + sz) for lo, sz in zip(crop_lo, crop_size))]
-        return out.to(self.out_dtype).permute(0, 4, 1, 2, 3).contiguous()
+        return out.to(self.out_dtype).movedim(-1, 1).contiguous()
 
     def _predict(self, inp_ncf: np.ndarray,
                  crop_lo: Optional[Tuple[int, ...]] = None,
@@ -255,7 +260,7 @@ class Predictor:
         (uint8 class ids with an argmax head, probabilities or logits
         otherwise)."""
         inp = np.asarray(inp, np.float32)
-        while inp.ndim < 5:
+        while inp.ndim < self.spatial_ndim + 2:
             inp = inp[None]
         out_channels = self.out_channels
         if out_channels is None:

@@ -4,10 +4,11 @@ state_dict, in both directions.
 ``state_dict_from_flax`` is the inverse of
 ``elektronn3_tpu/models/torch_import.py``:
 
-- conv kernels (kd, kh, kw, I, O) become torch weights (O, I, kd, kh, kw);
-- transposed-conv kernels become (I, O, kd, kh, kw) with their spatial
-  taps flipped (flax's ConvTranspose correlates with the flipped kernel
-  relative to torch's);
+- conv kernels (kd, kh, kw, I, O) become torch weights (O, I, kd, kh, kw),
+  and a 2D model's (kh, kw, I, O) become (O, I, kh, kw);
+- transposed-conv kernels become (I, O, kd, kh, kw), or (I, O, kh, kw)
+  in 2D, with their spatial taps flipped (flax's ConvTranspose
+  correlates with the flipped kernel relative to torch's);
 - per-parent flax ``BatchNorm_<n>`` slots map, in order of n, onto the
   port's ``norm{k}`` modules: ``scale``/``bias`` params become
   ``weight``/``bias``, ``batch_stats`` ``mean``/``var`` become
@@ -20,6 +21,8 @@ like the parameter it belongs to (every map above is a transpose or a
 flip), so the same function turns the port's parameter grads into the
 flax grad tree.
 
+The JAX fused executors create a 2D model's parameters in the XLA
+path's 2D shapes (``_p2d``), so one tree serves both executors.
 Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing here
 imports JAX.
 """

@@ -1,14 +1,15 @@
-"""The configurable 3D U-Net, training and inference forward, on NDHWC
-tensors.
+"""The configurable U-Net (3D or 2D), training and inference forward,
+on channels-last tensors.
 
 Counterpart of the JAX package's ``models/unet.py`` (reference
 elektronn3/models/unet.py:550-935). The public layout is the JAX
 package's: ``UNet.forward`` takes and returns channels-last
-``(N, D, H, W, C)``. Module names are the reference's torch names
-(``down_convs.{i}.conv1``, ``.norm0``, ``up_convs.{i}.upconv``,
-``conv_final``), so ``state_dict()`` maps onto the flax tree through
-``elektronn3_tpu/models/torch_import.py`` unchanged
-(:mod:`elektronn3_tpu_torch.models.convert` goes the other way).
+``(N, D, H, W, C)`` (``(N, H, W, C)`` for ``dim=2``). Module names are
+the reference's torch names (``down_convs.{i}.conv1``, ``.norm0``,
+``up_convs.{i}.upconv``, ``conv_final``), so ``state_dict()`` maps onto
+the flax tree through ``elektronn3_tpu/models/torch_import.py``
+unchanged (:mod:`elektronn3_tpu_torch.models.convert` goes the other
+way).
 
 Level plan, decided from level structure alone:
 
@@ -21,6 +22,16 @@ Level plan, decided from level structure alone:
   conv over [upconv output, skip] without building the concat;
 - C >= 128 levels, the bottom level and the 1x1 head run plain torch,
   as those run in XLA in the JAX headline plan.
+
+A 2D model (``dim=2``) holds 2D parameters (``nn.Conv2d``,
+``nn.ConvTranspose2d``, ``nn.BatchNorm2d``) and carries 4-D tensors.
+Every 2D level counts as planar: a kernel level runs the same ops as a
+planar 3D level on the D=1 view (the input ``x.unsqueeze(1)``, conv
+weights ``w.unsqueeze(2)`` with kd=1, upconv weights ``w.unsqueeze(2)``
+as a (1, 2, 2) kernel, the (1, 2, 2) pool window; the views carry the
+gradient back to the 2D parameters), as the JAX package's
+``_lift2d``/``_k2d``/``_drop2d`` do. A plain 2D level runs the library
+2D ops.
 
 A level whose structure the kernels do not take (odd H or W, an odd
 depth under a (2, 2, 2) pool, an activation without a kernel prologue)
@@ -49,22 +60,39 @@ from torch import nn
 from elektronn3_tpu_torch.modules.flat_norm import (
     bn_eval_prologue, bn_train_prologue, identity_prologue, norm_kind)
 from elektronn3_tpu_torch.modules.layers import (
-    apply_norm, conv_kernel, get_activation, get_normalization, pool_window)
+    apply_norm, ceil_maxpool, conv_kernel, get_activation, get_normalization,
+    pool_window)
 from elektronn3_tpu_torch.ops import fused
 from elektronn3_tpu_torch.ops.fused import FusedActs
 
 logger = logging.getLogger("elektronn3_tpu_torch")
 
 _KERNEL_ACTS = {"relu": "relu", "leaky": "leaky", "lrelu": "leaky"}
+# Every 2D-or-3D choice is made from the model's ``dim`` through these
+# tables and the helpers below, never from a tensor's rank.
+_CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+_CONVT = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+_CONV_FN = {2: F.conv2d, 3: F.conv3d}
+_CONVT_FN = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
-def _ceil_maxpool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
-    """Max pool with ceil_mode=True semantics (the reference DownConv's
-    MaxPool(ceil_mode=True)): no input element is dropped at odd
-    sizes."""
-    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), tuple(window), tuple(window),
-                     ceil_mode=True)
-    return y.permute(0, 2, 3, 4, 1)
+def _lift(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A ``dim``-D model's activation as the kernels' 5-D form: a 2D
+    (N, H, W, C) tensor as the (N, 1, H, W, C) view, a 3D one
+    unchanged."""
+    return x.unsqueeze(1) if dim == 2 else x
+
+
+def _drop(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inverse of :func:`_lift`."""
+    return x.squeeze(1) if dim == 2 else x
+
+
+def _w5(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """A ``dim``-D model's weight in the kernels' 5-D form: a 2D conv
+    weight (O, I, 3, 3) or transposed-conv weight (I, O, 2, 2) as the
+    kd=1 (O, I, 1, 3, 3) or (I, O, 1, 2, 2); a 3D weight unchanged."""
+    return w.unsqueeze(2) if dim == 2 else w
 
 
 def autocrop(from_down: torch.Tensor, from_up: torch.Tensor,
@@ -105,26 +133,28 @@ def _init_conv(conv: nn.Module, gen: torch.Generator) -> None:
         conv.bias.zero_()
 
 
-def _plain_conv(x: torch.Tensor, conv: nn.Conv3d,
-                dtype: torch.dtype) -> torch.Tensor:
-    """Library conv on an NDHWC tensor (channels_last_3d view)."""
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(dtype),
-                 conv.bias.to(dtype), padding=conv.padding)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+def _plain_conv(x: torch.Tensor, conv: nn.Module, dtype: torch.dtype,
+                dim: int) -> torch.Tensor:
+    """Library conv of a ``dim``-D model on a channels-last tensor (a
+    channels_last view)."""
+    y = _CONV_FN[dim](x.movedim(-1, 1), conv.weight.to(dtype),
+                      conv.bias.to(dtype), padding=conv.padding)
+    return y.movedim(1, -1).contiguous()
 
 
-def _kernel_params(conv: nn.Conv3d, dtype: torch.dtype,
+def _kernel_params(conv: nn.Module, dtype: torch.dtype, dim: int,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A 3x3 conv's (weight, bias) as the JAX executors pass them: the
-    C=32 executor rounds both to the model dtype (flat_fused.py
-    conv_bnact_flat), so their gradients come back through that cast;
-    the C=64 executor takes the float32 parameters."""
+    """A 3x3 conv's (weight, bias) as the JAX executors pass them, the
+    weight in the kernels' 5-D form: the C=32 executor rounds both to
+    the model dtype (flat_fused.py conv_bnact_flat), so their gradients
+    come back through that cast; the C=64 executor takes the float32
+    parameters."""
     if conv.out_channels == 32:
-        return conv.weight.to(dtype), conv.bias.to(dtype)
-    return conv.weight, conv.bias
+        return _w5(conv.weight.to(dtype), dim), conv.bias.to(dtype)
+    return _w5(conv.weight, dim), conv.bias
 
 
-def _norm_pro(norm: Optional[nn.BatchNorm3d], out) -> Tuple[
+def _norm_pro(norm: Optional[nn.Module], out) -> Tuple[
         torch.Tensor, torch.Tensor]:
     """The (inv, shift) prologue of a kernel op's output ``out``: (y, s,
     q) in training, where the norm takes the batch statistics (s, q),
@@ -141,7 +171,7 @@ def _raw(out) -> torch.Tensor:
     return out[0] if isinstance(out, tuple) else out
 
 
-def _stats(norm: Optional[nn.BatchNorm3d]) -> bool:
+def _stats(norm: Optional[nn.Module]) -> bool:
     """Whether a conv feeding ``norm`` returns its batch statistics:
     batch norm in training (``_want_stats`` of the JAX UNet)."""
     return norm is not None and norm.training
@@ -155,54 +185,61 @@ class DownConv(nn.Module):
                  pooling: bool = True, planar: bool = False,
                  activation: str = "relu", normalization: str = "batch",
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, dim: int = 3):
         super().__init__()
-        ks = conv_kernel(3, 3, planar)
+        ks = conv_kernel(3, dim, planar)
         pad = tuple(k // 2 for k in ks)
         self.pooling = pooling
         self.planar = planar
         self.activation = activation
         self.dtype = dtype
-        self.conv1 = nn.Conv3d(in_channels, out_channels, ks, padding=pad,
-                               device=device)
-        self.conv2 = nn.Conv3d(out_channels, out_channels, ks, padding=pad,
-                               device=device)
-        self.norm0 = get_normalization(normalization, out_channels, device)
-        self.norm1 = get_normalization(normalization, out_channels, device)
+        self.dim = dim
+        self.conv1 = _CONV[dim](in_channels, out_channels, ks, padding=pad,
+                                device=device)
+        self.conv2 = _CONV[dim](out_channels, out_channels, ks, padding=pad,
+                                device=device)
+        self.norm0 = get_normalization(normalization, out_channels, device,
+                                       dim)
+        self.norm1 = get_normalization(normalization, out_channels, device,
+                                       dim)
 
     def forward(self, x: torch.Tensor, kernels: bool = False,
                 reference: bool = False):
         """Returns (output, skip). On the kernel plan the output is the
         pooled tensor and the skip is :class:`FusedActs` of conv2's raw
-        output; otherwise both are plain tensors."""
-        window = pool_window(3, self.planar)
+        output (5-D, the D=1 view for a 2D model); otherwise both are
+        plain tensors."""
         if kernels:
             act = _KERNEL_ACTS[self.activation]
             # conv1 takes the float32 weight and bias in both JAX
             # executors (the C=32 one through conv1_bnstats_flat); its
             # input is the network input (or the pool), which gets no
             # input gradient kernel unless it requires one.
-            out1 = fused.conv_bnact([x], None, None, self.conv1.weight,
-                                    self.conv1.bias, "linear",
-                                    want_stats=_stats(self.norm0),
+            out1 = fused.conv_bnact([_lift(x, self.dim)], None, None,
+                                    _w5(self.conv1.weight, self.dim),
+                                    self.conv1.bias,
+                                    "linear", want_stats=_stats(self.norm0),
                                     reference=reference)
             inv1, shift1 = _norm_pro(self.norm0, out1)
-            w2, b2 = _kernel_params(self.conv2, self.dtype)
+            w2, b2 = _kernel_params(self.conv2, self.dtype, self.dim)
             out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
                                     want_stats=_stats(self.norm1),
                                     reference=reference)
             inv2, shift2 = _norm_pro(self.norm1, out2)
             y2 = _raw(out2)
             skip = FusedActs(y2, inv2, shift2)
-            return (fused.pool_bnact(y2, inv2, shift2, act, window,
-                                     reference=reference), skip)
+            pooled = fused.pool_bnact(
+                y2, inv2, shift2, act,
+                pool_window(3, self.planar or self.dim == 2),
+                reference=reference)
+            return _drop(pooled, self.dim), skip
         act = get_activation(self.activation)
         y = act(apply_norm(self.norm0, _plain_conv(x, self.conv1,
-                                                   self.dtype)))
+                                                   self.dtype, self.dim)))
         y = act(apply_norm(self.norm1, _plain_conv(y, self.conv2,
-                                                   self.dtype)))
+                                                   self.dtype, self.dim)))
         if self.pooling:
-            return _ceil_maxpool(y, window), y
+            return ceil_maxpool(y, pool_window(self.dim, self.planar)), y
         return y, y
 
 
@@ -215,52 +252,57 @@ class UpConv(nn.Module):
                  planar: bool = False, activation: str = "relu",
                  normalization: str = "batch",
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, dim: int = 3):
         super().__init__()
-        ks = conv_kernel(3, 3, planar)
+        ks = conv_kernel(3, dim, planar)
         pad = tuple(k // 2 for k in ks)
-        win = pool_window(3, planar)
+        win = pool_window(dim, planar)
         self.planar = planar
         self.activation = activation
         self.dtype = dtype
-        self.upconv = nn.ConvTranspose3d(in_channels, out_channels, win,
-                                         stride=win, device=device)
-        self.conv1 = nn.Conv3d(2 * out_channels, out_channels, ks,
-                               padding=pad, device=device)
-        self.conv2 = nn.Conv3d(out_channels, out_channels, ks, padding=pad,
-                               device=device)
-        self.norm0 = get_normalization(normalization, out_channels, device)
-        self.norm1 = get_normalization(normalization, out_channels, device)
-        self.norm2 = get_normalization(normalization, out_channels, device)
+        self.dim = dim
+        self.upconv = _CONVT[dim](in_channels, out_channels, win, stride=win,
+                                  device=device)
+        self.conv1 = _CONV[dim](2 * out_channels, out_channels, ks,
+                                padding=pad, device=device)
+        self.conv2 = _CONV[dim](out_channels, out_channels, ks, padding=pad,
+                                device=device)
+        self.norm0 = get_normalization(normalization, out_channels, device,
+                                       dim)
+        self.norm1 = get_normalization(normalization, out_channels, device,
+                                       dim)
+        self.norm2 = get_normalization(normalization, out_channels, device,
+                                       dim)
 
     def forward(self, enc, dec, kernels: bool = False,
                 reference: bool = False):
         """``enc`` is the skip of the same level, ``dec`` the deeper
         level's output (a tensor, or :class:`FusedActs` from a kernel
-        decoder level). Returns :class:`FusedActs` on the kernel plan,
-        a tensor otherwise."""
+        decoder level). Returns :class:`FusedActs` (5-D) on the kernel
+        plan, a tensor otherwise."""
         if kernels:
             act = _KERNEL_ACTS[self.activation]
-            # The upconv takes the float32 weight and bias in both JAX
-            # upconv kernels (upconv222_bn_flat64, upconv122_from_flat64).
+            # The upconv takes the float32 weight and bias in every JAX
+            # upconv kernel of this plan (upconv222_bn_flat64,
+            # upconv122_bn_flat64, upconv122_from_flat64).
+            wu = _w5(self.upconv.weight, self.dim)
             if isinstance(dec, FusedActs):
                 outu = fused.upconv_bnact(
-                    dec.raw, dec.inv, dec.shift, self.upconv.weight,
-                    self.upconv.bias, act, want_stats=_stats(self.norm0),
-                    reference=reference)
+                    dec.raw, dec.inv, dec.shift, wu, self.upconv.bias, act,
+                    want_stats=_stats(self.norm0), reference=reference)
             else:
                 outu = fused.upconv_bnact(
-                    dec, None, None, self.upconv.weight, self.upconv.bias,
+                    _lift(dec, self.dim), None, None, wu, self.upconv.bias,
                     "linear", want_stats=_stats(self.norm0),
                     reference=reference)
             invu, shiftu = _norm_pro(self.norm0, outu)
-            w1, b1 = _kernel_params(self.conv1, self.dtype)
+            w1, b1 = _kernel_params(self.conv1, self.dtype, self.dim)
             out1 = fused.conv_bnact(
                 [_raw(outu), enc.raw], torch.cat([invu, enc.inv]),
                 torch.cat([shiftu, enc.shift]), w1, b1, act,
                 want_stats=_stats(self.norm1), reference=reference)
             inv1, shift1 = _norm_pro(self.norm1, out1)
-            w2, b2 = _kernel_params(self.conv2, self.dtype)
+            w2, b2 = _kernel_params(self.conv2, self.dtype, self.dim)
             out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
                                     want_stats=_stats(self.norm2),
                                     reference=reference)
@@ -268,26 +310,26 @@ class UpConv(nn.Module):
             return FusedActs(_raw(out2), inv2, shift2)
         act = get_activation(self.activation)
         if isinstance(dec, FusedActs):
-            dec = fused.materialize(dec, _KERNEL_ACTS[self.activation])
-        up = F.conv_transpose3d(
-            dec.permute(0, 4, 1, 2, 3), self.upconv.weight.to(self.dtype),
+            dec = _drop(fused.materialize(dec, _KERNEL_ACTS[self.activation]),
+                        self.dim)
+        up = _CONVT_FN[self.dim](
+            dec.movedim(-1, 1), self.upconv.weight.to(self.dtype),
             self.upconv.bias.to(self.dtype), stride=self.upconv.stride)
-        up = up.permute(0, 2, 3, 4, 1)
-        enc, up = autocrop(enc, up)
+        enc, up = autocrop(enc, up.movedim(1, -1))
         up = act(apply_norm(self.norm0, up))
         y = torch.cat([up, enc], dim=-1)
         y = act(apply_norm(self.norm1, _plain_conv(y, self.conv1,
-                                                   self.dtype)))
+                                                   self.dtype, self.dim)))
         return act(apply_norm(self.norm2, _plain_conv(y, self.conv2,
-                                                      self.dtype)))
+                                                      self.dtype, self.dim)))
 
 
 class UNet(nn.Module):
-    """Configurable 3D U-Net for dense prediction.
+    """Configurable 3D or 2D U-Net for dense prediction.
 
-    Input: channels-last ``(N, D, H, W, in_channels)``. Output: logits
-    ``(N, D, H, W, out_channels)``, bfloat16 for a bfloat16 model,
-    float32 otherwise.
+    Input: channels-last ``(N, D, H, W, in_channels)``, or ``(N, H, W,
+    in_channels)`` for ``dim=2``. Output: logits in the same layout with
+    ``out_channels``, bfloat16 for a bfloat16 model, float32 otherwise.
 
     Parameters are float32; ``dtype`` is the activation (compute)
     dtype, to which weights are cast at use, as the JAX package's
@@ -295,27 +337,40 @@ class UNet(nn.Module):
     biases zero, drawn from ``generator`` (a fresh one seeded 0 if
     None) on the CPU and moved to ``device``.
 
-    Ported configuration surface: the JAX UNet's defaults ``dim=3``,
+    ``device`` defaults to the CUDA card (``torch.device("cuda")``);
+    without one, construction raises unless the caller asks for the CPU
+    (``device="cpu"``), so a model never runs on the CPU unasked. The
+    ``Predictor`` and the ``Trainer`` follow the model's device.
+
+    Ported configuration surface: the JAX UNet's defaults
     ``up_mode='transpose'``, ``merge_mode='concat'``, ``conv_mode='same'``,
-    ``full_norm=True``, ``logit_dtype=None``, with normalization 'batch'
-    or 'none'.
+    ``full_norm=True``, ``logit_dtype=None``, with ``dim`` 3 or 2 and
+    normalization 'batch' or 'none'.
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 2,
                  n_blocks: int = 3, start_filts: int = 32,
                  planar_blocks: Sequence[int] = (),
                  activation: str = "relu", normalization: str = "batch",
-                 dtype: torch.dtype = torch.float32,
+                 dim: int = 3, dtype: torch.dtype = torch.float32,
                  device: Union[None, str, torch.device] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if n_blocks < 1:
             raise ValueError("n_blocks must be > 0")
+        if dim not in (2, 3):
+            raise ValueError("dim has to be 2 or 3")
         if planar_blocks and (max(planar_blocks) >= n_blocks
                               or min(planar_blocks) < 0):
             raise ValueError("planar_blocks has invalid value range")
         norm_kind(normalization, start_filts)   # validates the name
         get_activation(activation)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "UNet: no CUDA device, and the model runs on the card "
+                    "by default; pass device='cpu' to build it on the CPU.")
+            device = torch.device("cuda")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.n_blocks = n_blocks
@@ -323,11 +378,12 @@ class UNet(nn.Module):
         self.planar_blocks = tuple(planar_blocks)
         self.activation = activation
         self.normalization = normalization
+        self.dim = dim
         self.dtype = dtype
         self._plans: Dict[Tuple[int, ...], List[bool]] = {}
 
         common = dict(activation=activation, normalization=normalization,
-                      dtype=dtype, device=device)
+                      dtype=dtype, device=device, dim=dim)
         self.down_convs = nn.ModuleList()
         outs = in_channels
         for i in range(n_blocks):
@@ -343,12 +399,12 @@ class UNet(nn.Module):
             level = n_blocks - 2 - i
             self.up_convs.append(UpConv(
                 ins, outs, planar=level in self.planar_blocks, **common))
-        self.conv_final = nn.Conv3d(outs, out_channels, 1, device=device)
+        self.conv_final = _CONV[dim](outs, out_channels, 1, device=device)
 
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         for m in self.modules():
-            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+            if isinstance(m, (_CONV[dim], _CONVT[dim])):
                 _init_conv(m, gen)
 
     def _logit_dtype(self) -> torch.dtype:
@@ -358,12 +414,17 @@ class UNet(nn.Module):
         return torch.bfloat16 if self.dtype == torch.bfloat16 \
             else torch.float32
 
+    def _planar(self, i: int) -> bool:
+        """Level ``i`` pools and convolves in-plane only: a planar block,
+        or any level of a 2D model (the D=1 view)."""
+        return self.dim == 2 or i in self.planar_blocks
+
     def _kernel_decline_reason(self, i: int, D: int, H: int,
                                W: int) -> Optional[str]:
         """None if encoder level ``i`` (and its decoder level) runs the
         kernels at level shape (D, H, W), else the reason it does not."""
         ch = self.start_filts * 2 ** i
-        planar = i in self.planar_blocks
+        planar = self._planar(i)
         if self.activation not in _KERNEL_ACTS:
             return f"activation {self.activation!r} has no kernel prologue"
         if i == self.n_blocks - 1:
@@ -379,12 +440,13 @@ class UNet(nn.Module):
         return None
 
     def plan(self, shape: Sequence[int]) -> List[bool]:
-        """Per-level kernel plan for an input of ``shape`` (N, D, H, W,
-        C); each level's decline reason is logged once per shape."""
-        key = tuple(shape[1:4])
+        """Per-level kernel plan for an input of ``shape`` ((N, D, H, W,
+        C), or (N, H, W, C) for a 2D model, whose levels have D = 1);
+        each level's decline reason is logged once per shape."""
+        key = tuple(shape[1:-1])
         if key in self._plans:
             return self._plans[key]
-        D, H, W = key
+        D, H, W = key if self.dim == 3 else (1,) + key
         kernels = []
         for i in range(self.n_blocks):
             reason = self._kernel_decline_reason(i, D, H, W)
@@ -394,7 +456,7 @@ class UNet(nn.Module):
                             self.start_filts * 2 ** i, D, H, W, reason)
             if i < self.n_blocks - 1:
                 H, W = -(-H // 2), -(-W // 2)
-                if i not in self.planar_blocks:
+                if not self._planar(i):
                     D = -(-D // 2)
         self._plans[key] = kernels
         return kernels
@@ -412,10 +474,11 @@ class UNet(nn.Module):
             return self._forward(x, reference)
 
     def _forward(self, x: torch.Tensor, reference: bool) -> torch.Tensor:
-        if x.dim() != 5 or x.shape[-1] != self.in_channels:
+        if x.dim() != self.dim + 2 or x.shape[-1] != self.in_channels:
+            layout = "N, D, H, W" if self.dim == 3 else "N, H, W"
             raise ValueError(
                 f"Input shape {tuple(x.shape)}: expected channels-last "
-                f"(N, D, H, W, {self.in_channels}).")
+                f"({layout}, {self.in_channels}).")
         kernels = self.plan(x.shape)
         x = x.to(self.dtype).contiguous()
         skips = []
@@ -430,8 +493,9 @@ class UNet(nn.Module):
             # The C=32 head rounds its weight and bias to the model
             # dtype before the float32 GEMM (head_bnact_from_flat).
             return fused.head_bnact(
-                x, _KERNEL_ACTS[self.activation],
+                x._replace(raw=_drop(x.raw, self.dim)),
+                _KERNEL_ACTS[self.activation],
                 self.conv_final.weight.to(self.dtype),
                 self.conv_final.bias.to(self.dtype), self._logit_dtype())
-        return _plain_conv(x, self.conv_final,
-                           self.dtype).to(self._logit_dtype())
+        return _plain_conv(x, self.conv_final, self.dtype,
+                           self.dim).to(self._logit_dtype())

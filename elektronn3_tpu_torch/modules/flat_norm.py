@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``modules/flat_norm.py``. There a
 ``FlatBNStats`` module turns kernel statistics side outputs (training)
 or the running statistics (eval) into the per-lane (inv, shift) vectors
 its consumer kernel applies on load. The port keeps its batch-norm
-state in ``nn.BatchNorm3d`` modules (the reference's ``norm{k}`` names)
+state in ``nn.BatchNorm3d`` (``nn.BatchNorm2d`` for a 2D model) modules
+(the reference's ``norm{k}`` names)
 and implements both branches here; the vectors are per channel, with
 no lane tiling.
 
@@ -23,8 +24,8 @@ import torch
 from torch import nn
 
 
-def bn_eval_prologue(norm: nn.BatchNorm3d) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
+def bn_eval_prologue(norm: nn.Module) -> Tuple[torch.Tensor,
+                                              torch.Tensor]:
     """(inv, shift) float32 per channel from running statistics:
     ``inv = scale * rsqrt(max(var, 0) + eps)``, ``shift = bias - mean *
     inv`` (``FlatBNStats`` with ``use_running_average=True``). The clamp
@@ -36,7 +37,7 @@ def bn_eval_prologue(norm: nn.BatchNorm3d) -> Tuple[torch.Tensor,
     return inv, shift
 
 
-def update_running_stats(norm: nn.BatchNorm3d, mean: torch.Tensor,
+def update_running_stats(norm: nn.Module, mean: torch.Tensor,
                          var: torch.Tensor) -> None:
     """``ra = (1 - m) * ra + m * batch`` for the running mean and
     variance, m = ``norm.momentum`` (0.1: flax's momentum 0.9), in
@@ -47,7 +48,7 @@ def update_running_stats(norm: nn.BatchNorm3d, mean: torch.Tensor,
             buf.copy_((1.0 - m) * buf.float() + m * val.detach().float())
 
 
-def bn_train_prologue(norm: nn.BatchNorm3d, s: torch.Tensor,
+def bn_train_prologue(norm: nn.Module, s: torch.Tensor,
                       q: torch.Tensor, count: int,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(inv, shift) from a kernel's statistics side outputs, the

@@ -1,9 +1,9 @@
 """Core building blocks: activations, normalization, kernel helpers.
 
 Counterpart of the JAX package's ``modules/layers.py`` (reference
-elektronn3/models/unet.py:77-199). Tensors are channels-last NDHWC, as
-in the JAX package; a block that needs PyTorch's NCDHW convention views
-them with ``permute`` and no copy.
+elektronn3/models/unet.py:77-199). Tensors are channels-last NDHWC (NHWC
+in 2D), as in the JAX package; a block that needs PyTorch's
+channels-first convention views them with ``movedim`` and no copy.
 """
 
 from __future__ import annotations
@@ -48,17 +48,19 @@ def get_activation(activation: Union[str, Callable]) -> Callable:
 
 
 def get_normalization(norm: Optional[str], channels: int,
-                      device: Optional[torch.device] = None,
+                      device: Optional[torch.device] = None, dim: int = 3,
                       ) -> Optional[nn.Module]:
     """Build a normalization layer by name: 'batch' gives
-    ``nn.BatchNorm3d`` (eps 1e-5; torch momentum 0.1 is flax's 0.9),
-    'none'/None gives None. Group and instance norm are not ported
-    yet."""
+    ``nn.BatchNorm3d`` (``nn.BatchNorm2d`` for ``dim=2``; eps 1e-5;
+    torch momentum 0.1 is flax's 0.9), 'none'/None gives None. Only the
+    module's buffers and affine parameters are used (``apply_norm`` and
+    the prologue vectors of ``flat_norm``), the same for both ranks.
+    Group and instance norm are not ported yet."""
     if norm is None or norm == "none":
         return None
     if norm == "batch":
-        return nn.BatchNorm3d(channels, eps=1e-5, momentum=0.1,
-                              device=device)
+        cls = nn.BatchNorm2d if dim == 2 else nn.BatchNorm3d
+        return cls(channels, eps=1e-5, momentum=0.1, device=device)
     raise NotImplementedError(
         f"normalization {norm!r} is not ported yet (batch and none are)")
 
@@ -87,6 +89,16 @@ def apply_norm(norm_layer: Optional[nn.Module],
     update_running_stats(norm_layer, mean, var)
     mul = torch.rsqrt(var + norm_layer.eps) * norm_layer.weight.float()
     return ((xf - mean) * mul + norm_layer.bias.float()).to(x.dtype)
+
+
+def ceil_maxpool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """Max pool of a channels-last (N, *spatial, C) tensor, 2 or 3
+    spatial dims, stride = window, with ceil_mode=True semantics (the
+    reference DownConv's MaxPool(ceil_mode=True)): no input element is
+    dropped at odd sizes."""
+    pool = F.max_pool2d if len(window) == 2 else F.max_pool3d
+    y = pool(x.movedim(-1, 1), tuple(window), tuple(window), ceil_mode=True)
+    return y.movedim(1, -1)
 
 
 def conv_kernel(kernel_size: Union[int, Sequence[int]], dim: int,

@@ -21,17 +21,25 @@ one op covers both. What carries over is the fusion contract
   pass gives the input grads, the prologue grads (dinv, dshift) and the
   weight and bias grads.
 
-Kernels (``csrc/``), forward and backward:
+Kernels (``csrc/``), forward and backward, with the rows of the TPU
+kernel table in PERF.md each one stands for:
 
 - :func:`conv_bnact`: K1 ``conv_bnact`` (prologue + (kd, 3, 3) 'same'
-  conv over one or two inputs + bias [+ statistics]); backward K4
-  ``conv_bnact_dgrad`` (dx, dinv, dshift) and K5 ``conv_bnact_wgrad``
-  (dW, db);
+  conv over one or two inputs + bias [+ statistics]; rows 1, 3, 4);
+  backward K4 ``conv_bnact_dgrad`` (dx, dinv, dshift) and K5
+  ``conv_bnact_wgrad`` (dW, db; rows 8, 13, 14);
 - :func:`pool_bnact`: K2 ``pool_bnact`` (prologue + (1, 2, 2) / (2, 2, 2)
-  max pool); backward K6 ``pool_bnact_bwd``;
+  max pool; rows 2, 5, 16); backward K6 ``pool_bnact_bwd`` (rows 10,
+  15, 17);
 - :func:`upconv_bnact`: K3 ``upconv_bnact`` (optional prologue + stride
-  equals kernel transposed conv + bias [+ statistics]); backward K7
-  ``upconv_bnact_bwd``.
+  equals kernel transposed conv + bias [+ statistics]; rows 6, 7, 19);
+  backward K7 ``upconv_bnact_bwd`` (rows 18, 20, 21).
+
+A 2D model reaches the same ops on its D=1 view: a 2D level's conv is
+the kd=1 conv, its pool the (1, 2, 2) window and its upconv the
+(1, 2, 2) kernel, with N * D = N. Rows 16/17 (the C=64 executor's
+(1, 2, 2) pool) and 19/20 (its (1, 2, 2) upconv from a dense input)
+are those shapes at C=64; their TPU lane packing is not carried over.
 
 Each kernel has a wrapper ``*_kernel`` and a plain PyTorch version
 ``*_plain`` beside it (same signature, same rounding points). Each op's

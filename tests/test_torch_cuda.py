@@ -5,7 +5,8 @@ only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Shapes are small and ragged (odd H and W, partial tiles). Tolerances:
+Shapes are small and ragged (odd H and W, partial tiles); the 2D
+model's shapes run on the D=1 view (N * D = N). Tolerances:
 float32 1e-4 of the output's scale (TF32 off in the reference);
 bfloat16 1e-2 of the scale plus one bfloat16 ulp of each stored value,
 since the kernel and the reference sum in different orders before the
@@ -50,17 +51,22 @@ def _assert_sum(got, ref, tol=1e-3):
         (err, scale)
 
 
+# (input channels, kd, activation, C_out, (N, D)): the 3D levels'
+# convs, then the 2D model's L1 convs (32->64, 64->64, the 64+64 merge)
+# at kd=1 on a batch of 8 D=1 planes.
 CONV_CASES = [
-    ((1,), 1, "linear"), ((3,), 1, "linear"), ((32,), 1, "relu"),
-    ((32, 32), 1, "relu"), ((32,), 3, "linear"), ((64,), 3, "leaky"),
-    ((64, 64), 3, "relu")]
+    ((1,), 1, "linear", 32, (2, 5)), ((3,), 1, "linear", 32, (2, 5)),
+    ((32,), 1, "relu", 32, (2, 5)), ((32, 32), 1, "relu", 32, (2, 5)),
+    ((32,), 3, "linear", 64, (2, 5)), ((64,), 3, "leaky", 64, (2, 5)),
+    ((64, 64), 3, "relu", 64, (2, 5)),
+    ((32,), 1, "relu", 64, (8, 1)), ((64,), 1, "leaky", 64, (8, 1)),
+    ((64, 64), 1, "relu", 64, (8, 1))]
 
 
-def _conv_case(dev, dtype, cins, kd, seed=0):
+def _conv_case(dev, dtype, cins, kd, cout, nd, seed=0):
     g = torch.Generator().manual_seed(seed)
-    xs = [torch.randn(2, 5, 13, 37, c, generator=g).to(dev, dtype)
+    xs = [torch.randn(*nd, 13, 37, c, generator=g).to(dev, dtype)
           for c in cins]
-    cout = 64 if kd == 3 else 32
     w = (0.1 * torch.randn(cout, sum(cins), kd, 3, 3, generator=g)).to(dev)
     b = torch.randn(cout, generator=g).to(dev)
     inv = torch.randn(sum(cins), generator=g).to(dev)
@@ -71,12 +77,13 @@ def _conv_case(dev, dtype, cins, kd, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_stats", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cins,kd,act", CONV_CASES)
-def test_cuda_conv_bnact_matches_plain(dtype, cins, kd, act, want_stats):
+@pytest.mark.parametrize("cins,kd,act,cout,nd", CONV_CASES)
+def test_cuda_conv_bnact_matches_plain(dtype, cins, kd, act, cout, nd,
+                                       want_stats):
     """K1 as the Predictor runs it (no statistics) and as training runs
     it (``want_stats``: a separate instantiation of the kernel)."""
     dev = _cuda()
-    xs, inv, shift, w, b, _ = _conv_case(dev, dtype, cins, kd)
+    xs, inv, shift, w, b, _ = _conv_case(dev, dtype, cins, kd, cout, nd)
     fused.reset_launches()
     got, s, q = fused.conv_bnact_fwd_kernel(xs, inv, shift, w, b, act,
                                             want_stats)
@@ -100,13 +107,15 @@ def test_cuda_conv_bnact_matches_plain(dtype, cins, kd, act, want_stats):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cins,kd,act", CONV_CASES)
-def test_cuda_conv_bnact_backward_matches_plain(dtype, cins, kd, act):
+@pytest.mark.parametrize("cins,kd,act,cout,nd", CONV_CASES)
+def test_cuda_conv_bnact_backward_matches_plain(dtype, cins, kd, act, cout,
+                                                nd):
     """K4 (dx, dinv, dshift; not for the network input's C_in of 1 or
     3) and K5 (dW, db) against the plain backward, with nonzero
     statistics cotangents."""
     dev = _cuda()
-    xs, inv, shift, w, b, g = _conv_case(dev, dtype, cins, kd, seed=1)
+    xs, inv, shift, w, b, g = _conv_case(dev, dtype, cins, kd, cout, nd,
+                                         seed=1)
     y, _, _ = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, act)
     cout = y.shape[-1]
     dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, dtype)
@@ -133,11 +142,15 @@ def test_cuda_conv_bnact_backward_matches_plain(dtype, cins, kd, act):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("window,c", [((1, 2, 2), 32), ((2, 2, 2), 64)])
-def test_cuda_pool_bnact_matches_plain(dtype, window, c):
+@pytest.mark.parametrize("window,c,nd", [
+    ((1, 2, 2), 32, (2, 4)), ((2, 2, 2), 64, (2, 4)),
+    ((1, 2, 2), 64, (8, 1)), ((1, 2, 2), 128, (8, 1))])
+def test_cuda_pool_bnact_matches_plain(dtype, window, c, nd):
+    """K2; (1, 2, 2) at C=64 and 128 on D=1 planes is row 16 (the 2D
+    model's L1 pool) and its C=128 form."""
     dev = _cuda()
     g = torch.Generator().manual_seed(1)
-    x = torch.randn(2, 4, 6, 10, c, generator=g).to(dev, dtype)
+    x = torch.randn(*nd, 6, 10, c, generator=g).to(dev, dtype)
     inv = torch.randn(c, generator=g).to(dev)
     shift = torch.randn(c, generator=g).to(dev)
     got = fused.pool_bnact(x, inv, shift, "relu", window)
@@ -148,16 +161,17 @@ def test_cuda_pool_bnact_matches_plain(dtype, window, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("window,c,tie", [((1, 2, 2), 32, False),
-                                          ((2, 2, 2), 64, False),
-                                          ((1, 2, 2), 32, True)])
-def test_cuda_pool_bnact_backward_matches_plain(dtype, window, c, tie):
+@pytest.mark.parametrize("window,c,tie,nd", [
+    ((1, 2, 2), 32, False, (2, 4)), ((2, 2, 2), 64, False, (2, 4)),
+    ((1, 2, 2), 32, True, (2, 4)), ((1, 2, 2), 64, False, (8, 1)),
+    ((1, 2, 2), 128, False, (8, 1)), ((1, 2, 2), 128, True, (8, 1))])
+def test_cuda_pool_bnact_backward_matches_plain(dtype, window, c, tie, nd):
     """K6: dx is exact (the same products); dinv and dshift are sums.
     ``tie`` quantizes x so windows hold exact ties, whose gradient goes
-    to every tied element."""
+    to every tied element. At C=128 a block sums 16 channel groups."""
     dev = _cuda()
     g = torch.Generator().manual_seed(4)
-    x = torch.randn(2, 4, 6, 10, c, generator=g)
+    x = torch.randn(*nd, 6, 10, c, generator=g)
     if tie:
         x = torch.round(2 * x) / 2
     x = x.to(dev, dtype)
@@ -179,12 +193,16 @@ def test_cuda_pool_bnact_backward_matches_plain(dtype, window, c, tie):
     _assert_sum(dshift, rdshift)
 
 
-UPCONV_CASES = [(128, 64, 2, False), (64, 32, 1, True)]
+# (C_in, C_out, kd, prologue, (N, D)): the 3D levels' upconvs, then
+# the (1, 2, 2) upconv from a dense input on D=1 planes: 128->64 is row
+# 19 (the 2D model's up_1), 256->128 its C=128 form.
+UPCONV_CASES = [(128, 64, 2, False, (2, 3)), (64, 32, 1, True, (2, 3)),
+                (128, 64, 1, False, (8, 1)), (256, 128, 1, False, (8, 1))]
 
 
-def _upconv_case(dev, dtype, cin, cout, kd, pro, seed=2):
+def _upconv_case(dev, dtype, cin, cout, kd, pro, nd, seed=2):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(2, 3, 5, 7, cin, generator=g).to(dev, dtype)
+    x = torch.randn(*nd, 5, 7, cin, generator=g).to(dev, dtype)
     w = (0.1 * torch.randn(cin, cout, kd, 2, 2, generator=g)).to(dev)
     b = torch.randn(cout, generator=g).to(dev)
     inv = torch.randn(cin, generator=g).to(dev) if pro else None
@@ -195,13 +213,13 @@ def _upconv_case(dev, dtype, cin, cout, kd, pro, seed=2):
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_stats", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout,kd,pro", UPCONV_CASES)
-def test_cuda_upconv_bnact_matches_plain(dtype, cin, cout, kd, pro,
+@pytest.mark.parametrize("cin,cout,kd,pro,nd", UPCONV_CASES)
+def test_cuda_upconv_bnact_matches_plain(dtype, cin, cout, kd, pro, nd,
                                          want_stats):
     """K3 without statistics (the Predictor) and with them (training)."""
     dev = _cuda()
     x, inv, shift, w, b, act, _ = _upconv_case(dev, dtype, cin, cout, kd,
-                                               pro)
+                                               pro, nd)
     fused.reset_launches()
     got, s, q = fused.upconv_bnact_fwd_kernel(x, inv, shift, w, b, act,
                                               want_stats)
@@ -223,12 +241,12 @@ def test_cuda_upconv_bnact_matches_plain(dtype, cin, cout, kd, pro,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout,kd,pro", UPCONV_CASES)
+@pytest.mark.parametrize("cin,cout,kd,pro,nd", UPCONV_CASES)
 def test_cuda_upconv_bnact_backward_matches_plain(dtype, cin, cout, kd,
-                                                  pro):
+                                                  pro, nd):
     dev = _cuda()
     x, inv, shift, w, b, act, g = _upconv_case(dev, dtype, cin, cout, kd,
-                                               pro, seed=5)
+                                               pro, nd, seed=5)
     y, _, _ = fused.upconv_bnact_fwd_plain(x, inv, shift, w, b, act)
     dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, dtype)
     ds = torch.randn(cout, generator=g).to(dev)
@@ -269,6 +287,51 @@ def test_cuda_unet_matches_reference_forward(dtype):
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((y.float() - ref.float()).abs().max()) <= \
         tol * float(ref.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unet_2d_matches_reference_forward(dtype):
+    """The 2D model of train_simple2d.py at a small, ragged input: L0
+    and L1 run the kernels on the D=1 view (L1's pool is row 16, the
+    up_1 upconv from L2's dense output row 19), and the forward tracks
+    forward(reference=True)."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    m = UNet(n_blocks=4, start_filts=32, dim=2, dtype=dtype, device=dev,
+             generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(3, 44, 76, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    fused.reset_launches()
+    y = m(x)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == {
+        "conv_bnact": 8, "pool_bnact": 2, "upconv_bnact": 2,
+        "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0, "pool_bnact_bwd": 0,
+        "upconv_bnact_bwd": 0}
+    ref = m(x, reference=True)
+    assert y.shape == (3, 44, 76, 2)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_unet_defaults_to_the_card():
+    """``UNet()`` with no device builds on the card, and the Predictor,
+    which follows the model, predicts there through the kernels."""
+    import numpy as np
+    from elektronn3_tpu_torch.inference import Predictor
+    from elektronn3_tpu_torch.models import UNet
+    _cuda()
+    m = UNet(dim=2)
+    assert all(p.device.type == "cuda" for p in m.parameters())
+    pred = Predictor(m)
+    assert pred.device.type == "cuda"
+    fused.reset_launches()
+    out = pred.predict(np.zeros((1, 1, 32, 48), np.float32))
+    assert out.shape == (1, 2, 32, 48)
+    assert fused.LAUNCHES["conv_bnact"] > 0
 
 
 @pytest.mark.cuda

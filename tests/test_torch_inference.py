@@ -32,7 +32,7 @@ def models():
                 .astype(np.float32)
             bn["var"] = rng.uniform(0.5, 1.5, size=bn["var"].shape) \
                 .astype(np.float32)
-    pm = UNet(**KW)
+    pm = UNet(device="cpu", **KW)
     pm.load_state_dict(state_dict_from_flax(v, pm))
     vol = rng.normal(size=VOLUME).astype(np.float32)
     return jm, v, pm, vol
@@ -66,7 +66,7 @@ def test_predictor_argmax_matches_jax(models, thr):
 
 def test_predictor_bf16_probabilities(models):
     _, _, pm, vol = models
-    m16 = UNet(dtype=torch.bfloat16, **KW)
+    m16 = UNet(dtype=torch.bfloat16, device="cpu", **KW)
     m16.load_state_dict(pm.state_dict())
     out = Predictor(m16, float16=True, **TILED).predict(vol)
     assert out.dtype == np.float32 and out.shape == (1, 2) + VOLUME[2:]

@@ -116,7 +116,7 @@ def _jax_step(model, v, x, y, crit):
 
 
 def _port_model(v, **kw):
-    m = UNet(**kw)
+    m = UNet(device="cpu", **kw)
     m.load_state_dict(state_dict_from_flax(jax.device_get(v), m))
     return m
 
@@ -356,7 +356,7 @@ class _Patches(torch.utils.data.Dataset):
 
 def _small_unet(seed=0):
     return UNet(n_blocks=2, start_filts=32, planar_blocks=(0,),
-                generator=torch.Generator().manual_seed(seed))
+                device="cpu", generator=torch.Generator().manual_seed(seed))
 
 
 def test_trainer_runs_and_resumes(tmp_path):

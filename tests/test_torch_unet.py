@@ -105,7 +105,7 @@ def jax_runs():
 @pytest.fixture(scope="module")
 def port_model(jax_runs):
     v = jax_runs[0]
-    m = UNet(**KW).eval()
+    m = UNet(device="cpu", **KW).eval()
     m.load_state_dict(state_dict_from_flax(jax.device_get(v), m))
     return m
 
@@ -171,7 +171,7 @@ def test_port_declined_level_matches_jax(jax_runs, port_model, caplog, w,
 
 
 def test_port_bf16_forward_tracks_f32(jax_runs, port_model):
-    m16 = UNet(dtype=torch.bfloat16, **KW).eval()
+    m16 = UNet(dtype=torch.bfloat16, device="cpu", **KW).eval()
     m16.load_state_dict(port_model.state_dict())
     x = torch.from_numpy(jax_runs[1])
     with torch.no_grad():
@@ -195,9 +195,10 @@ def test_converter_round_trip_is_exact(jax_runs, port_model):
 
 
 def test_seeded_init_is_reproducible():
-    a = UNet(generator=torch.Generator().manual_seed(5), **KW).state_dict()
-    b = UNet(generator=torch.Generator().manual_seed(5), **KW).state_dict()
-    c = UNet(generator=torch.Generator().manual_seed(6), **KW).state_dict()
+    def init(seed):
+        return UNet(generator=torch.Generator().manual_seed(seed),
+                    device="cpu", **KW).state_dict()
+    a, b, c = init(5), init(5), init(6)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["down_convs.1.conv1.weight"],
                            c["down_convs.1.conv1.weight"])
