@@ -4,8 +4,10 @@
 
 Drives the port's paths (``elektronn3_tpu_torch``; no JAX) at full model
 width and checks them: the headline 3D UNet's serving and training
-paths, then the same two paths of the 2D UNet of
-``examples/train_simple2d.py``.
+paths, the same two paths of the 2D UNet of
+``examples/train_simple2d.py``, then those of the start_filts=64 3D UNet
+of ``BASELINE.md``'s coverage matrix, whose C=128 level runs the
+kernels.
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the hand-written kernels of ``elektronn3_tpu_torch/csrc`` with
@@ -23,19 +25,33 @@ paths, then the same two paths of the 2D UNet of
    view (batch 8 of (640, 640): L0 (1, 640, 640) x 32, L1 (1, 320, 320)
    x 64 with its (1, 2, 2) pool, which is row 16/17 of the kernel table
    in PERF.md, the up_1 upconv from the dense (1, 160, 160) x 128, row
-   19/20, and the C=128 pool and 256->128 upconv of the next slice),
-   where the serving builds of K1 and K3 are also held at the tiled 2D
-   Predictor's batch of 4 and timed at batch 8 (the whole-image
-   request's shapes);
+   19/20, and the C=128 pool and 256->128 upconv), where the serving
+   builds of K1 and K3 are also held at the tiled 2D Predictor's batch
+   of 4 and timed at batch 8 (the whole-image request's shapes);
+5a. K1-K3 as served at the 3D Predictor tile's C=128 level (64, 64, 64)
+   (its convs, its (2, 2, 2) pool, up_0 256->128 from the dense level 3
+   and up_1 128->64 from the carried C=128 activation, row 24's
+   (2, 2, 2) form), the same at the start_filts=64 model's levels of that
+   tile (L0 (128, 256, 256) x 64 planar, L1 (128, 128, 128) x 128, up_1
+   256->128 from the dense (64, 64, 64), up_2 128->64 from the carried
+   C=128 activation, row 24), and step 4 at the training shapes of rows
+   11/12 (the (1, 2, 2) upconv 64->32 from a dense (44, 44, 44) x 64) and
+   of the
+   start_filts=64 model (L0 (44, 88, 88) x 64 planar, L1 (44, 44, 44) x
+   128, up_1 256->128 from the dense (22, 22, 22), up_2 128->64 from the
+   carried C=128 activation, rows 24/25); these variants are listed but
+   not summed in the totals;
 6. builds the headline UNet (n_blocks=4, start_filts=32, planar L0,
    batch norm, bfloat16) with seeded weights and random running
    statistics and holds ``forward`` against ``forward(reference=True)``
-   on one tile;
+   on one input tile (128, 256, 256), whose L2 (64^3 voxels at C=128)
+   the default ``pallas_flat='auto'`` puts on the kernels;
 7. runs Predictor requests on a seeded (1, 1, 64, 256, 256) volume
-   (tile (64, 128, 128), overlap (32, 64, 64), batch 2): bfloat16
-   probabilities twice (the second timed, with the kernels' launch
-   counts reset just before it) and a uint8 argmax; checks the outputs
-   and that K1-K3 launched (the serving path);
+   (tile (64, 128, 128), overlap (32, 64, 64), batch 2): a warm-up
+   request with the upconv launches recorded by shape (row 24's
+   (2, 2, 2) form), bfloat16 probabilities timed with the kernels'
+   launch counts reset just before it, and a uint8 argmax; checks the
+   outputs and that K1-K3 launched (the serving path);
 8. trains the headline UNet (bf16, ``CEDiceLoss(1, 1)``, Adam 1e-3) at
    ``bench.py``'s shapes: 3 warm-up and 20 timed steps over 5
    device-resident batches on the kernel path (launch counts reset just
@@ -53,7 +69,22 @@ paths, then the same two paths of the 2D UNet of
     image (tile (512, 512), overlap (64, 64), batch 4), timed after a
     warm-up, in MPix/s, with K2 and K3 launched at the row-16 and row-19
     shapes; then steps 8 and 9 at batch 8 of (640, 640), with K2, K3, K6
-    and K7 launched at the row-16, 19, 17 and 20 shapes.
+    and K7 launched at the row-16, 19, 17 and 20 shapes;
+11. rows 11/12: one headline training step on a batch of 2 of
+    (45, 88, 88), whose L1 depth is odd, so L1 declines and L0's decoder
+    upconv takes its dense output (K3/K7 at the row-11/12 shapes), and
+    the step against ``reference=True`` as in step 8;
+12. the start_filts=64 UNet (n_blocks=4, planar L0, batch norm, bf16):
+    steps 6 and 7 with the upconv from the carried C=128 activation
+    launched (row 24), then steps 8 and 9 at ``bench.py``'s shapes with
+    K3 and K7 launched at the row-24 and row-25 shapes;
+13. the card's numbers for JAX's C=128 voxel gate: the sf=64 step on
+    the kernel plan, with ``FUSED128_MIN_VOX`` raised to 300,000, above
+    L1's 85,184 voxels (L1 and its decoder on the library, L0 on the
+    kernels), with ``pallas_flat=False``, and on the kernel plan again;
+    then the headline 3D Predictor request with L2 on the kernels and on
+    the library (the raised constant) in turn, five requests of each
+    after a warm-up pair.
 
 Every timed variant also prints its bound, the least time the card
 could take for its work: the larger of its operations over the card's
@@ -74,8 +105,9 @@ Any failed check raises, and the script exits non-zero. The last lines
 are a JSON object with each kernel's numbers (``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` sum the bfloat16 variants that
 ``totals_over`` names; ``variants`` lists every
-variant's own numbers; ``launches`` sums the four paths), the card's
-name and power limit, then ``{"ok": true, "device": {...}}``.
+variant's own numbers; ``launches`` sums the six paths whose counts
+``launches_by_path`` gives), the card's name and power limit, then
+``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -99,10 +131,13 @@ BATCH = 8                          # bench.py's training step
 PATCH = (44, 88, 88)               # its L0
 TL1 = (44, 44, 44)
 TL2 = (22, 22, 22)
+ODD_L1 = (45, 88, 88)              # an odd L1 depth: L1 declines
+L3 = (32, 32, 32)                  # the Predictor tile's level 3
 IMAGE = (640, 640)                 # the 2D model's training image
 P0, P1, P2, P3 = ((1, 640, 640), (1, 320, 320), (1, 160, 160),
                   (1, 80, 80))     # its levels on the D=1 view
 WARMUP, STEPS, N_BATCHES = 3, 20, 5
+CROSSOVER_PAIRS = 5                # timed request pairs, kernels / library
 # check_train_step: a gradient leaf may differ from the reference step's
 # by this many times the reference step's own difference under a one-ulp
 # input change (the noise), plus a relative term. On an H100 the leaves
@@ -127,7 +162,9 @@ SOURCES = {
     "upconv_bnact": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
                      f"{_F64}:1977 upconv222_bn_flat64; {_F64}:2657 "
                      f"upconv122_from_flat64; {_F64}:2281 "
-                     "upconv122_bn_flat64"),
+                     f"upconv122_bn_flat64; {_F64}:3374 upconv222_f64in; "
+                     f"{_F64}:3385 upconv122_f64in; {_F}:1604 "
+                     "upconv_bn_flat"),
     "conv_bnact_dgrad": ("elektronn3_tpu_torch/csrc/conv_bnact_bwd.cu",
                          f"{_F}:742 _conv_bnact_bwd (dgrad); {_F64}:1139 "
                          "_conv64_bwd (dgrad)"),
@@ -140,16 +177,26 @@ SOURCES = {
     "upconv_bnact_bwd": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
                          f"{_F64}:2044 _upconv64_bwd; {_F64}:2732 "
                          f"_upconv122_f64_bwd; {_F64}:2347 "
-                         "_upconv122_64_bwd"),
+                         f"_upconv122_64_bwd; {_F64}:3393 "
+                         f"_upconv_f64in_bwd_call; {_F}:1669 _upconv_bwd"),
 }
-# The kernel launches that stand for rows 16, 17, 19 and 20 on the 2D
-# path (as recorded by ``record_shapes``): the (1, 2, 2) pool at C=64
-# and its backward, the (1, 2, 2) upconv 128->64 from a dense input (no
-# prologue) and its backward.
+# The kernel launches that stand for rows of the kernel table in PERF.md
+# (as recorded by ``record_shapes``): on the 2D path rows 16, 17, 19 and
+# 20, the (1, 2, 2) pool at C=64 and its backward, the (1, 2, 2) upconv
+# 128->64 from a dense input (no prologue) and its backward; rows 24 and
+# 25, the upconv 128->64 from a carried C=128 activation (with its
+# prologue) and its backward, (1, 2, 2) on the sf=64 paths and (2, 2, 2)
+# ("24/222") on the headline Predictor; rows 11 and 12, the (1, 2, 2)
+# upconv 64->32 from a dense input and its backward, where L1 declines.
 ROW_SHAPES = {16: ("pool_bnact", 64, (1, 2, 2)),
               17: ("pool_bnact_bwd", 64, (1, 2, 2)),
               19: ("upconv_bnact", 128, 64, 1, False),
-              20: ("upconv_bnact_bwd", 128, 64, 1, False)}
+              20: ("upconv_bnact_bwd", 128, 64, 1, False),
+              24: ("upconv_bnact", 128, 64, 1, True),
+              "24/222": ("upconv_bnact", 128, 64, 2, True),
+              25: ("upconv_bnact_bwd", 128, 64, 1, True),
+              11: ("upconv_bnact", 64, 32, 1, False),
+              12: ("upconv_bnact_bwd", 64, 32, 1, False)}
 # The variants each kernel's totals in the JSON line sum (bfloat16): the
 # forward kernels' serving variants at the 3D Predictor tile, the
 # backward kernels' at bench.py's 3D training shapes, so that the totals
@@ -210,6 +257,64 @@ TRAIN_VARIANTS_2D = [
      1, False),
     ("upconv", "2D up_0 (1,2,2) 256->128 dense", P3, (256,), 128, 1, False),
     ("upconv", "2D up_2 (1,2,2) 64->32", P1, (64,), 32, 1, True),
+]
+# The 3D Predictor tile's C=128 level (1, 64, 64, 64), which its input
+# tile's 262,144 voxels put on the kernels: serving builds, batch 1.
+VARIANTS_TILE_C128 = [
+    ("conv", "tile L2 conv1 64->128 kd3", L2, (64,), 128, 3, True),
+    ("conv", "tile L2 conv2 128->128 kd3", L2, (128,), 128, 3, True),
+    ("conv", "tile up_0 merge 128+128->128 kd3", L2, (128, 128), 128, 3,
+     True),
+    ("pool", "tile L2 pool (2,2,2) C=128", L2, (128,), 128, (2, 2, 2), True),
+    ("upconv", "tile up_0 (2,2,2) 256->128 dense", L3, (256,), 128, 2,
+     False),
+    ("upconv", "tile up_1 (2,2,2) 128->64 carry [row 24]", L2, (128,), 64,
+     2, True),
+]
+# The start_filts=64 model's levels at the same Predictor input tile,
+# serving builds, batch 1: L0 planar (128, 256, 256) x 64, L1 (128, 128,
+# 128) x 128, up_1 from L2's dense (64, 64, 64) x 256, up_2 from up_1's
+# carried C=128 activation (row 24).
+VARIANTS_SF64_TILE = [
+    ("conv", "sf64 tile L0 conv1 1->64 kd1", TILE, (1,), 64, 1, False),
+    ("conv", "sf64 tile L0 conv2 64->64 kd1", TILE, (64,), 64, 1, True),
+    ("conv", "sf64 tile up_2 merge 64+64->64 kd1", TILE, (64, 64), 64, 1,
+     True),
+    ("conv", "sf64 tile L1 conv1 64->128 kd3", L1, (64,), 128, 3, True),
+    ("conv", "sf64 tile L1 conv2 128->128 kd3", L1, (128,), 128, 3, True),
+    ("conv", "sf64 tile up_1 merge 128+128->128 kd3", L1, (128, 128), 128,
+     3, True),
+    ("pool", "sf64 tile L0 pool (1,2,2) C=64", TILE, (64,), 64, (1, 2, 2),
+     True),
+    ("pool", "sf64 tile L1 pool (2,2,2) C=128", L1, (128,), 128, (2, 2, 2),
+     True),
+    ("upconv", "sf64 tile up_1 (2,2,2) 256->128 dense", L2, (256,), 128, 2,
+     False),
+    ("upconv", "sf64 tile up_2 (1,2,2) 128->64 carry [row 24]", L1, (128,),
+     64, 1, True),
+]
+# Training shapes (batch 8) of rows 11/12 on the headline model (L0's
+# decoder upconv from L1's dense output, where L1 declines) and of the
+# start_filts=64 model at bench.py's (44, 88, 88): L0 planar C=64, L1
+# C=128 kd=3, up_1 from L2's dense C=256 output, up_2 from up_1's
+# carried C=128 activation (rows 24/25).
+TRAIN_VARIANTS_SF64 = [
+    ("upconv", "up_2 (1,2,2) 64->32 dense [row 11/12]", TL1, (64,), 32, 1,
+     False),
+    ("conv", "sf64 L0 conv1 1->64 kd1", PATCH, (1,), 64, 1, False),
+    ("conv", "sf64 L0 conv2 64->64 kd1", PATCH, (64,), 64, 1, True),
+    ("conv", "sf64 up_2 merge 64+64->64 kd1", PATCH, (64, 64), 64, 1, True),
+    ("pool", "sf64 L0 pool (1,2,2) C=64", PATCH, (64,), 64, (1, 2, 2), True),
+    ("conv", "sf64 L1 conv1 64->128 kd3", TL1, (64,), 128, 3, True),
+    ("conv", "sf64 L1 conv2 128->128 kd3", TL1, (128,), 128, 3, True),
+    ("conv", "sf64 up_1 merge 128+128->128 kd3", TL1, (128, 128), 128, 3,
+     True),
+    ("pool", "sf64 L1 pool (2,2,2) C=128", TL1, (128,), 128, (2, 2, 2),
+     True),
+    ("upconv", "sf64 up_1 (2,2,2) 256->128 dense", TL2, (256,), 128, 2,
+     False),
+    ("upconv", "sf64 up_2 (1,2,2) 128->64 carry [row 24/25]", TL1, (128,),
+     64, 1, True),
 ]
 
 
@@ -411,11 +516,11 @@ def upconv_flops(m_in, cin, cout, kd):
     return 2.0 * m_in * cin * cout * kd * 4
 
 
-def kernel_phase(fused, stats):
+def kernel_phase(fused, stats, variants, total):
     """K1-K3 as served (no statistics) at the 3D Predictor tile's
-    shapes."""
+    shapes; ``total``: the variants count in the kernels' totals."""
     for seed, (kind, label, shape, cins, cout, kdw, pro) in \
-            enumerate(VARIANTS):
+            enumerate(variants):
         name = FWD[kind]
         for dtype in (torch.bfloat16, torch.float32):
             bf16 = dtype == torch.bfloat16
@@ -465,7 +570,7 @@ def kernel_phase(fused, stats):
                 del a
             del got, ref
             stats.add(name, label, dtype, err, cuda_ms(run), cuda_ms(plain),
-                      bnd, lib, not pro and len(xs) == 1, total=True)
+                      bnd, lib, not pro and len(xs) == 1, total=total)
             del xs, args
             torch.cuda.empty_cache()
 
@@ -698,6 +803,15 @@ def headline_unet(UNet, seed, dtype=torch.bfloat16):
                 device="cuda", generator=torch.Generator().manual_seed(seed))
 
 
+def sf64_unet(UNet, seed, dtype=torch.bfloat16, pallas_flat="auto"):
+    """The start_filts=64 3D model of BASELINE.md's coverage matrix
+    (benchmark/coverage_bench.py)."""
+    return UNet(in_channels=1, out_channels=2, n_blocks=4, start_filts=64,
+                planar_blocks=(0,), normalization="batch", dtype=dtype,
+                device="cuda", pallas_flat=pallas_flat,
+                generator=torch.Generator().manual_seed(seed))
+
+
 def unet_2d(UNet, seed, dtype=torch.bfloat16):
     """examples/train_simple2d.py's model."""
     return UNet(in_channels=1, out_channels=2, n_blocks=4, start_filts=32,
@@ -752,39 +866,52 @@ def check_launched(launches, names, what):
 
 
 SERVING = ("conv_bnact", "pool_bnact", "upconv_bnact")
+PREDICT_KW = dict(tile_shape=(64, 128, 128), overlap_shape=(32, 64, 64),
+                  float16=True, batch_size=2)
 
 
-def predictor_phase(UNet, Predictor, fused):
-    model = headline_unet(UNet, 0).eval()
+def seeded_volume():
+    return torch.randn((1, 1, 64, 256, 256),
+                       generator=torch.Generator().manual_seed(3)).numpy()
+
+
+def predictor_phase(build, what, Predictor, fused, rows):
+    """A model of ``build``: the forward check on one input tile, then
+    Predictor requests on a seeded (1, 1, 64, 256, 256) volume: a warm-up
+    request (launches recorded by shape: ``rows``), bf16 probabilities
+    timed with the launch counts reset just before, a uint8 argmax."""
+    model = build(0, torch.bfloat16).eval()
     randomize_norms(model, 1)
     x = torch.randn((1, *TILE, 1),
                     generator=torch.Generator().manual_seed(2)).cuda()
-    check_forward(model, x, "UNet bf16 forward")
+    print(f"model {what}: plan at the input tile {model.plan(x.shape)}",
+          flush=True)
+    check_forward(model, x, f"{what} UNet bf16 forward")
     del x
     torch.cuda.empty_cache()
 
-    vol = torch.randn((1, 1, 64, 256, 256),
-                      generator=torch.Generator().manual_seed(3)).numpy()
-    kw = dict(tile_shape=(64, 128, 128), overlap_shape=(32, 64, 64),
-              float16=True, batch_size=2)
-    pred = Predictor(model, **kw)
-    pred.predict(vol)                                  # warm-up request
+    vol = seeded_volume()
+    pred = Predictor(model, **PREDICT_KW)
+    with record_shapes(fused) as seen:
+        pred.predict(vol)                              # warm-up request
     torch.cuda.synchronize()
+    check_rows(seen, rows, f"predictor {what} (warm-up request)")
     fused.reset_launches()
     t0 = time.perf_counter()
     probs = pred.predict(vol)
     dt = time.perf_counter() - t0
     launches = dict(fused.LAUNCHES)
-    print(f"predictor: bf16 probabilities {probs.shape} in {dt:.3f} s = "
-          f"{vol.size / dt / 1e6:.2f} MVox/s; launches {launches}",
-          flush=True)
+    print(f"predictor {what}: bf16 probabilities {probs.shape} in "
+          f"{dt:.3f} s = {vol.size / dt / 1e6:.2f} MVox/s; launches "
+          f"{launches}", flush=True)
     t0 = time.perf_counter()
-    ids = Predictor(model, argmax_with_threshold=True, **kw).predict(vol)
+    ids = Predictor(model, argmax_with_threshold=True,
+                    **PREDICT_KW).predict(vol)
     dt_ids = time.perf_counter() - t0
-    print(f"predictor: uint8 argmax {ids.shape} in {dt_ids:.3f} s = "
+    print(f"predictor {what}: uint8 argmax {ids.shape} in {dt_ids:.3f} s = "
           f"{vol.size / dt_ids / 1e6:.2f} MVox/s", flush=True)
-    check_probs(probs, ids, (1, 2, 64, 256, 256), "3D")
-    check_launched(launches, SERVING, "3D serving")
+    check_probs(probs, ids, (1, 2, 64, 256, 256), what)
+    check_launched(launches, SERVING, f"{what} serving")
     return launches
 
 
@@ -1017,6 +1144,94 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
     return launches, model, crit, opt, batches
 
 
+def odd_l1_phase(build, CEDiceLoss, fused):
+    """Rows 11/12: the headline model on a batch of 2 of (45, 88, 88),
+    whose L1 has an odd depth under the (2, 2, 2) pool and declines, so
+    L0's decoder upconv takes L1's dense output. One training step with
+    the launches recorded by shape, then one step against
+    reference=True (``check_train_step``)."""
+    crit = CEDiceLoss(1.0, 1.0)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    shape = (2, *ODD_L1, 1)
+    x = torch.randn(shape, generator=g, device="cuda")
+    y = torch.randint(0, 2, shape[:-1], generator=g, device="cuda")
+    model = build(4, torch.bfloat16)
+    plan = model.plan(shape)
+    if plan != [True, False, False, False]:
+        raise AssertionError(f"odd L1 depth: plan {plan}")
+    with record_shapes(fused) as seen:
+        _step_grads(model, crit, x, y, False)
+    torch.cuda.synchronize()
+    check_rows(seen, (11, 12), f"train 3D odd L1 {ODD_L1} (one step)")
+    del model
+    check_train_step(build, crit, x, y)
+
+
+def crossover_phase(UNet, Predictor, CEDiceLoss, train_step, unet_mod):
+    """The card's numbers for JAX's C=128 voxel gate: the sf=64 training
+    step (bench.py's loop) on the kernel plan (L1 on the kernels), on the
+    library arm (FUSED128_MIN_VOX raised above L1's 85,184 voxels: L1 and
+    its decoder on the library, L0 on the kernels) and with
+    pallas_flat=False, then the kernel plan again; the headline 3D
+    Predictor request with L2 on the kernels and on the library (the
+    same raised constant, above its input tile's L2 of 262,144 voxels),
+    one request of each in turn, CROSSOVER_PAIRS times after a warm-up
+    pair, through one Predictor (the plan follows the constant)."""
+    default = unet_mod.FUSED128_MIN_VOX
+    raised = 300_000
+    crit = CEDiceLoss(1.0, 1.0)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = (BATCH, *PATCH, 1)
+    batches = [(torch.randn(shape, generator=g, device="cuda"),
+                torch.randint(0, 2, shape[:-1], generator=g, device="cuda"))
+               for _ in range(N_BATCHES)]
+    vox = int(np.prod(shape))
+    try:
+        for label, gate, pf in (("kernel plan", default, "auto"),
+                                ("library arm", raised, "auto"),
+                                ("pallas_flat=False", default, False),
+                                ("kernel plan again", default, "auto")):
+            unet_mod.FUSED128_MIN_VOX = gate
+            model = sf64_unet(UNet, 4, pallas_flat=pf)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            dt = timed_steps(train_step, model, crit, opt, batches, False)
+            print(f"crossover sf64 step, {label:17s} (plan "
+                  f"{model.plan(shape)}, FUSED128_MIN_VOX {gate}): "
+                  f"{dt * 1e3:9.2f} ms = {vox / dt / 1e6:7.2f} MVox/s",
+                  flush=True)
+            del model, opt
+            torch.cuda.empty_cache()
+        del batches
+        vol = seeded_volume()
+        model = headline_unet(UNet, 0).eval()
+        randomize_norms(model, 1)
+        pred = Predictor(model, **PREDICT_KW)
+        arms = (("L2 on the kernels", default),
+                ("L2 on the library", raised))
+        readings = {label: [] for label, _ in arms}
+        for rep in range(1 + CROSSOVER_PAIRS):    # the first pair warms up
+            for label, gate in arms:
+                unet_mod.FUSED128_MIN_VOX = gate
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred.predict(vol)
+                if rep:
+                    readings[label].append(
+                        vol.size / (time.perf_counter() - t0) / 1e6)
+        for label, gate in arms:
+            unet_mod.FUSED128_MIN_VOX = gate
+            r = readings[label]
+            print(f"crossover headline predictor, {label} (plan "
+                  f"{model.plan((2, *TILE, 1))}), {len(r)} requests "
+                  f"alternating with the other plan: "
+                  + " ".join(f"{v:.2f}" for v in r)
+                  + f" MVox/s, median {float(np.median(r)):.2f}", flush=True)
+        del model, pred
+        torch.cuda.empty_cache()
+    finally:
+        unet_mod.FUSED128_MIN_VOX = default
+
+
 def profile_phase(train_step, model, crit, opt, batches):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1078,6 +1293,7 @@ def main():
 
     from elektronn3_tpu_torch.inference import Predictor
     from elektronn3_tpu_torch.models import UNet
+    from elektronn3_tpu_torch.models import unet as unet_mod
     from elektronn3_tpu_torch.modules.loss import CEDiceLoss
     from elektronn3_tpu_torch.ops import _build, fused
     from elektronn3_tpu_torch.training import Trainer, train_step
@@ -1109,14 +1325,22 @@ def main():
     def build2d(seed, dtype):
         return unet_2d(UNet, seed, dtype)
 
+    def build_sf64(seed, dtype):
+        return sf64_unet(UNet, seed, dtype)
+
     stats = Stats()
-    kernel_phase(fused, stats)
+    kernel_phase(fused, stats, VARIANTS, total=True)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS, total=True,
                        serve=False)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS_2D, total=False,
                        serve=True)
+    kernel_phase(fused, stats, VARIANTS_TILE_C128, total=False)
+    kernel_phase(fused, stats, VARIANTS_SF64_TILE, total=False)
+    train_kernel_phase(fused, stats, TRAIN_VARIANTS_SF64, total=False,
+                       serve=False)
 
-    launches = {"predictor": predictor_phase(UNet, Predictor, fused)}
+    launches = {"predictor": predictor_phase(build3d, "3D", Predictor,
+                                             fused, ("24/222",))}
     launches["train"], model, crit, opt, batches = train_phase(
         build3d, (BATCH, *PATCH, 1), "3D", "MVox", CEDiceLoss, train_step,
         fused)
@@ -1136,6 +1360,21 @@ def main():
     del model, opt, batches
     torch.cuda.empty_cache()
     trainer_phase(build2d, (1, 256, 256), "2D", CEDiceLoss, Trainer)
+
+    odd_l1_phase(build3d, CEDiceLoss, fused)
+    torch.cuda.empty_cache()
+    launches["predictor_sf64"] = predictor_phase(build_sf64, "sf64",
+                                                 Predictor, fused, (24,))
+    torch.cuda.empty_cache()
+    launches["train_sf64"], model, crit, opt, batches = train_phase(
+        build_sf64, (BATCH, *PATCH, 1), "sf64", "MVox", CEDiceLoss,
+        train_step, fused, rows=(24, 25))
+    if profiling:
+        profile_phase(train_step, model, crit, opt, batches)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    trainer_phase(build_sf64, (1, *PATCH), "sf64", CEDiceLoss, Trainer)
+    crossover_phase(UNet, Predictor, CEDiceLoss, train_step, unet_mod)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],

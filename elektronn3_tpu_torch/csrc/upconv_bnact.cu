@@ -23,6 +23,14 @@
 //                                              _upconv64_bwd_kernel)
 //   ops/flat_fused64.py::upconv122_from_flat64 (_upconv122_f64_fwd_kernel,
 //                                              _upconv122_f64_bwd_kernel)
+//   ops/flat_fused64.py::upconv122_bn_flat64   (and _upconv122_64_bwd)
+//   ops/flat_fused64.py::upconv222_f64in, upconv122_f64in
+//                                              (_upconv_f64in_bwd_call: the
+//                                              carried C=128 or 256 input)
+//   ops/flat_fused.py::upconv_bn_flat          (and _upconv_bwd)
+// Nothing here is sized by the channel counts: input channels are
+// staged UCK (BCO, BCI) at a time and output channels are split over
+// blocks of 32, so C_in 128 and 256 run the same code as 64.
 //
 // What bounds them on the card: device-memory bandwidth for the output
 // (kd*4 output voxels per input voxel, cout <= cin) at 32 to 128 FLOP

@@ -11,17 +11,30 @@ the flax tree through ``elektronn3_tpu/models/torch_import.py``
 unchanged (:mod:`elektronn3_tpu_torch.models.convert` goes the other
 way).
 
-Level plan, decided from level structure alone:
+Level plan, decided from level shapes alone (``UNet.plan``), as the
+JAX UNet's ``pallas_flat`` plans its executors:
 
 - a planar C=32 level runs the kernels of the JAX C=32 executor: conv1
   and conv2 through :func:`~elektronn3_tpu_torch.ops.fused.conv_bnact`
   with kd=1, the pool through ``pool_bnact`` (1, 2, 2);
-- a C=64 level runs the C=64 executor's: kd=3 and a (2, 2, 2) pool, or
-  kd=1 and (1, 2, 2) if planar;
+- a C=64 or C=128 level runs the C=64 executor's (which JAX also runs
+  at C=128): kd=3 and a (2, 2, 2) pool, or kd=1 and (1, 2, 2) if
+  planar;
 - the decoder level of such a level runs ``upconv_bnact`` and the merge
-  conv over [upconv output, skip] without building the concat;
-- C >= 128 levels, the bottom level and the 1x1 head run plain torch,
-  as those run in XLA in the JAX headline plan.
+  conv over [upconv output, skip] without building the concat. Its
+  upconv takes the deeper level's output as it comes: a plain tensor
+  from a library level, or the carried activation (:class:`FusedActs`)
+  of a kernel decoder level, whose prologue the upconv applies on load
+  (JAX's ``upconv222_f64in``/``upconv122_f64in`` at C_in=128 and
+  ``upconv122_from_flat64`` at 64);
+- C >= 256 levels, the bottom level and the 1x1 head run plain torch,
+  as those run in XLA in JAX.
+
+``pallas_flat`` is the JAX argument: False runs every level on the
+library ops; True every level the kernels take by structure; ``'auto'``
+(the default) the same, except that a C=128 level of fewer than
+:data:`FUSED128_MIN_VOX` voxels runs the library ops (JAX's C=128 voxel
+gate, with JAX's value).
 
 A 2D model (``dim=2``) holds 2D parameters (``nn.Conv2d``,
 ``nn.ConvTranspose2d``, ``nn.BatchNorm2d``) and carries 4-D tensors.
@@ -68,6 +81,11 @@ from elektronn3_tpu_torch.ops.fused import FusedActs
 logger = logging.getLogger("elektronn3_tpu_torch")
 
 _KERNEL_ACTS = {"relu": "relu", "leaky": "leaky", "lrelu": "leaky"}
+# Under pallas_flat='auto', a C=128 level of fewer voxels (D * H * W)
+# than this runs the library ops: JAX's _FUSED128_MIN_VOX
+# (elektronn3_tpu/models/unet.py:79), the same value. The planner reads
+# it when it plans a shape.
+FUSED128_MIN_VOX = 60_000
 # Every 2D-or-3D choice is made from the model's ``dim`` through these
 # tables and the helpers below, never from a tensor's rank.
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
@@ -344,8 +362,18 @@ class UNet(nn.Module):
 
     Ported configuration surface: the JAX UNet's defaults
     ``up_mode='transpose'``, ``merge_mode='concat'``, ``conv_mode='same'``,
-    ``full_norm=True``, ``logit_dtype=None``, with ``dim`` 3 or 2 and
-    normalization 'batch' or 'none'.
+    ``full_norm=True``, ``logit_dtype=None``, with ``dim`` 3 or 2,
+    normalization 'batch' or 'none', and ``pallas_flat`` True, False or
+    'auto' (see the module docstring; :meth:`plan` gives the levels).
+
+    JAX gates of ``pallas_flat`` that the port does not carry over,
+    because they model the TPU, not the function: 'auto''s test of the
+    backend and of bf16; the scoped-VMEM estimates
+    (``conv64_vmem_bytes``, ``bwd_ki_split``) and the per-chunk row
+    bounds ``_FUSED_ROWS_*``; the C=32 executor's ``W % 8``; the decoder
+    carry's ``(W // 2) % 2``; the 2D H-tiling. Where JAX declines for one
+    of these, the port runs the kernels, and its result is still JAX's
+    (tests/test_torch_headline_rows.py holds one shape for each).
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 2,
@@ -354,10 +382,15 @@ class UNet(nn.Module):
                  activation: str = "relu", normalization: str = "batch",
                  dim: int = 3, dtype: torch.dtype = torch.float32,
                  device: Union[None, str, torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pallas_flat: Union[bool, str] = "auto"):
         super().__init__()
         if n_blocks < 1:
             raise ValueError("n_blocks must be > 0")
+        if not (pallas_flat is True or pallas_flat is False
+                or pallas_flat == "auto"):
+            raise ValueError(f"pallas_flat must be True, False or 'auto', "
+                             f"got {pallas_flat!r}")
         if dim not in (2, 3):
             raise ValueError("dim has to be 2 or 3")
         if planar_blocks and (max(planar_blocks) >= n_blocks
@@ -380,7 +413,8 @@ class UNet(nn.Module):
         self.normalization = normalization
         self.dim = dim
         self.dtype = dtype
-        self._plans: Dict[Tuple[int, ...], List[bool]] = {}
+        self.pallas_flat = pallas_flat
+        self._plans: Dict[tuple, List[bool]] = {}
 
         common = dict(activation=activation, normalization=normalization,
                       dtype=dtype, device=device, dim=dim)
@@ -422,19 +456,27 @@ class UNet(nn.Module):
     def _kernel_decline_reason(self, i: int, D: int, H: int,
                                W: int) -> Optional[str]:
         """None if encoder level ``i`` (and its decoder level) runs the
-        kernels at level shape (D, H, W), else the reason it does not."""
+        kernels at level shape (D, H, W), else the reason it does not
+        (JAX's ``_fused_decline_reason``, TPU gates aside)."""
         ch = self.start_filts * 2 ** i
         planar = self._planar(i)
+        if self.pallas_flat is False:
+            return "pallas_flat=False runs the library ops"
         if self.activation not in _KERNEL_ACTS:
             return f"activation {self.activation!r} has no kernel prologue"
         if i == self.n_blocks - 1:
             return "bottom level runs plain torch"
-        if ch not in (32, 64):
-            return f"C={ch} runs plain torch (kernels cover C=32 and 64)"
+        if ch not in (32, 64, 128):
+            return (f"C={ch} runs plain torch (kernels cover C=32, 64 and "
+                    "128)")
         if ch == 32 and not planar:
             return "C=32 kernels are planar-only"
         if H % 2 or W % 2:
             return f"odd level shape H={H}, W={W}"
+        if self.pallas_flat == "auto" and ch == 128 \
+                and D * H * W < FUSED128_MIN_VOX:
+            return (f"C=128 level too small for the kernels ({D * H * W} "
+                    f"vox < {FUSED128_MIN_VOX}; pallas_flat=True forces)")
         if not planar and D % 2:
             return f"odd depth D={D} with (2,2,2) pooling"
         return None
@@ -442,16 +484,19 @@ class UNet(nn.Module):
     def plan(self, shape: Sequence[int]) -> List[bool]:
         """Per-level kernel plan for an input of ``shape`` ((N, D, H, W,
         C), or (N, H, W, C) for a 2D model, whose levels have D = 1);
-        each level's decline reason is logged once per shape."""
-        key = tuple(shape[1:-1])
+        each level's decline reason is logged once per shape (none under
+        ``pallas_flat=False``, as in JAX). Plans are kept per shape,
+        ``pallas_flat`` and :data:`FUSED128_MIN_VOX`: a change of either
+        applies from the next call on, to every shape."""
+        key = (tuple(shape[1:-1]), self.pallas_flat, FUSED128_MIN_VOX)
         if key in self._plans:
             return self._plans[key]
-        D, H, W = key if self.dim == 3 else (1,) + key
+        D, H, W = key[0] if self.dim == 3 else (1,) + key[0]
         kernels = []
         for i in range(self.n_blocks):
             reason = self._kernel_decline_reason(i, D, H, W)
             kernels.append(reason is None)
-            if reason is not None:
+            if reason is not None and self.pallas_flat is not False:
                 logger.info("UNet level %d (C=%d, %dx%dx%d): %s.", i,
                             self.start_filts * 2 ** i, D, H, W, reason)
             if i < self.n_blocks - 1:
@@ -490,8 +535,9 @@ class UNet(nn.Module):
             level = self.n_blocks - 2 - i
             x = up(skips[level], x, kernels[level], reference)
         if isinstance(x, FusedActs):
-            # The C=32 head rounds its weight and bias to the model
-            # dtype before the float32 GEMM (head_bnact_from_flat).
+            # Both JAX heads round the weight and bias to the model
+            # dtype before the float32 GEMM (head_bnact_from_flat at
+            # C=32, head_bnact_from_flat64 at C=64, unet.py:763-764).
             return fused.head_bnact(
                 x._replace(raw=_drop(x.raw, self.dim)),
                 _KERNEL_ACTS[self.activation],

@@ -32,14 +32,19 @@ kernel table in PERF.md each one stands for:
   max pool; rows 2, 5, 16); backward K6 ``pool_bnact_bwd`` (rows 10,
   15, 17);
 - :func:`upconv_bnact`: K3 ``upconv_bnact`` (optional prologue + stride
-  equals kernel transposed conv + bias [+ statistics]; rows 6, 7, 19);
-  backward K7 ``upconv_bnact_bwd`` (rows 18, 20, 21).
+  equals kernel transposed conv + bias [+ statistics]; rows 6, 7, 11,
+  19, 24); backward K7 ``upconv_bnact_bwd`` (rows 12, 18, 20, 21, 25).
 
 A 2D model reaches the same ops on its D=1 view: a 2D level's conv is
 the kd=1 conv, its pool the (1, 2, 2) window and its upconv the
 (1, 2, 2) kernel, with N * D = N. Rows 16/17 (the C=64 executor's
 (1, 2, 2) pool) and 19/20 (its (1, 2, 2) upconv from a dense input)
 are those shapes at C=64; their TPU lane packing is not carried over.
+The C=64 executor's C=128 form (a C=128 level: its convs at C_out=128
+over 2 or 4 lane chunks, its pool, and the upconv of a carried C=128 or
+256 activation, rows 24/25) is the same ops at those channel counts;
+rows 11/12 (the C=32 executor's upconv from a dense 64-channel input)
+are K3/K7 from a dense input into 32 channels.
 
 Each kernel has a wrapper ``*_kernel`` and a plain PyTorch version
 ``*_plain`` beside it (same signature, same rounding points). Each op's

@@ -16,9 +16,12 @@ float32, and the default device.
   input JAX's ``pallas_flat=True`` plan is the port's level by level:
   L0 (12 x 32, C=32) and L1 (6 x 16, C=64) fused, L2 (3 x 8, C=128)
   declined for its odd H, so the up level into L1 takes L2's dense
-  output through row 19 at 128->64, as the port's K3 does. (At an even
-  L2, ``pallas_flat=True`` would fuse L2 too, with no voxel gate, and
-  the up level would take row 24 instead.) The eval forward against
+  output through row 19 at 128->64, as the port's K3 does, the port
+  model being built with its default ``pallas_flat='auto'`` here. (At
+  an even L2, ``pallas_flat=True`` fuses L2 too, with no voxel gate, and
+  the up level takes row 24 instead: tests/test_torch_headline_rows.py
+  and tests/test_torch_sf64.py hold the port built with
+  ``pallas_flat=True`` against JAX there.) The eval forward against
   both JAX executors (2e-4), and one training step: loss within 1e-5
   relative, every gradient and new running statistic within 1e-3 of
   its scale + 1e-6 (the bounds of tests/test_torch_train.py).

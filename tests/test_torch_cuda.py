@@ -53,14 +53,18 @@ def _assert_sum(got, ref, tol=1e-3):
 
 # (input channels, kd, activation, C_out, (N, D)): the 3D levels'
 # convs, then the 2D model's L1 convs (32->64, 64->64, the 64+64 merge)
-# at kd=1 on a batch of 8 D=1 planes.
+# at kd=1 on a batch of 8 D=1 planes, then a C=128 level's (64->128,
+# 128->128 and the 128+128 merge at kd=3; the planar 128+128 merge).
 CONV_CASES = [
     ((1,), 1, "linear", 32, (2, 5)), ((3,), 1, "linear", 32, (2, 5)),
     ((32,), 1, "relu", 32, (2, 5)), ((32, 32), 1, "relu", 32, (2, 5)),
     ((32,), 3, "linear", 64, (2, 5)), ((64,), 3, "leaky", 64, (2, 5)),
     ((64, 64), 3, "relu", 64, (2, 5)),
     ((32,), 1, "relu", 64, (8, 1)), ((64,), 1, "leaky", 64, (8, 1)),
-    ((64, 64), 1, "relu", 64, (8, 1))]
+    ((64, 64), 1, "relu", 64, (8, 1)),
+    ((64,), 3, "linear", 128, (2, 4)), ((128,), 3, "leaky", 128, (2, 4)),
+    ((128, 128), 3, "relu", 128, (2, 3)), ((128, 128), 1, "relu", 128,
+                                           (2, 3))]
 
 
 def _conv_case(dev, dtype, cins, kd, cout, nd, seed=0):
@@ -144,7 +148,8 @@ def test_cuda_conv_bnact_backward_matches_plain(dtype, cins, kd, act, cout,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,c,nd", [
     ((1, 2, 2), 32, (2, 4)), ((2, 2, 2), 64, (2, 4)),
-    ((1, 2, 2), 64, (8, 1)), ((1, 2, 2), 128, (8, 1))])
+    ((1, 2, 2), 64, (8, 1)), ((1, 2, 2), 128, (8, 1)),
+    ((2, 2, 2), 128, (2, 4))])
 def test_cuda_pool_bnact_matches_plain(dtype, window, c, nd):
     """K2; (1, 2, 2) at C=64 and 128 on D=1 planes is row 16 (the 2D
     model's L1 pool) and its C=128 form."""
@@ -164,7 +169,8 @@ def test_cuda_pool_bnact_matches_plain(dtype, window, c, nd):
 @pytest.mark.parametrize("window,c,tie,nd", [
     ((1, 2, 2), 32, False, (2, 4)), ((2, 2, 2), 64, False, (2, 4)),
     ((1, 2, 2), 32, True, (2, 4)), ((1, 2, 2), 64, False, (8, 1)),
-    ((1, 2, 2), 128, False, (8, 1)), ((1, 2, 2), 128, True, (8, 1))])
+    ((1, 2, 2), 128, False, (8, 1)), ((1, 2, 2), 128, True, (8, 1)),
+    ((2, 2, 2), 128, False, (2, 4)), ((2, 2, 2), 128, True, (2, 4))])
 def test_cuda_pool_bnact_backward_matches_plain(dtype, window, c, tie, nd):
     """K6: dx is exact (the same products); dinv and dshift are sums.
     ``tie`` quantizes x so windows hold exact ties, whose gradient goes
@@ -195,9 +201,14 @@ def test_cuda_pool_bnact_backward_matches_plain(dtype, window, c, tie, nd):
 
 # (C_in, C_out, kd, prologue, (N, D)): the 3D levels' upconvs, then
 # the (1, 2, 2) upconv from a dense input on D=1 planes: 128->64 is row
-# 19 (the 2D model's up_1), 256->128 its C=128 form.
+# 19 (the 2D model's up_1), 256->128 its C=128 form; then the carried
+# C=128 and C=256 activations with their prologue, both depths (row 24:
+# 128->64; 256->128 the sf=64 up_1 from dense, here with a prologue).
 UPCONV_CASES = [(128, 64, 2, False, (2, 3)), (64, 32, 1, True, (2, 3)),
-                (128, 64, 1, False, (8, 1)), (256, 128, 1, False, (8, 1))]
+                (128, 64, 1, False, (8, 1)), (256, 128, 1, False, (8, 1)),
+                (128, 64, 1, True, (2, 3)), (128, 64, 2, True, (2, 3)),
+                (256, 128, 1, True, (2, 3)), (256, 128, 2, True, (2, 3)),
+                (256, 128, 2, False, (2, 3))]
 
 
 def _upconv_case(dev, dtype, cin, cout, kd, pro, nd, seed=2):
@@ -365,3 +376,29 @@ def test_cuda_kernels_index_past_2_31_elements():
     ref = fused.upconv_bnact(xs[:, -1:], inv, shift, wu, b, "relu",
                              reference=True)
     _assert_kernel(y[:, -2:], ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unet_sf64_matches_reference_forward(dtype):
+    """The start_filts=64 model with ``pallas_flat=True`` at a small,
+    ragged input: L0 (C=64, planar) and L1 (C=128) run the kernels, up_2
+    takes the carried C=128 activation (row 24, kd=1), and the forward
+    tracks forward(reference=True)."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    m = UNet(n_blocks=4, start_filts=64, planar_blocks=(0,), dtype=dtype,
+             device=dev, pallas_flat=True,
+             generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    assert m.plan(x.shape) == [True, True, False, False]
+    fused.reset_launches()
+    y = m(x)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["conv_bnact"] == 8
+    assert fused.LAUNCHES["upconv_bnact"] == 2
+    ref = m(x, reference=True)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
