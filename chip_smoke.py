@@ -7,7 +7,8 @@ width and checks them: the headline 3D UNet's serving and training
 paths, the same two paths of the 2D UNet of
 ``examples/train_simple2d.py``, then those of the start_filts=64 3D UNet
 of ``BASELINE.md``'s coverage matrix, whose C=128 level runs the
-kernels.
+kernels, and those of the headline 3D UNet with ``normalization=
+'batchp'``, whose library levels' batch norms run the kernels K8-K11.
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the hand-written kernels of ``elektronn3_tpu_torch/csrc`` with
@@ -41,6 +42,12 @@ kernels.
    128, up_1 256->128 from the dense (22, 22, 22), up_2 128->64 from the
    carried C=128 activation, rows 24/25); these variants are listed but
    not summed in the totals;
+5b. holds the 'batchp' batch norm's kernels against their plain versions
+   at (R, C) = the activation seen as rows, bf16 and f32: K8-K11 at the
+   'batchp' headline step's library levels ((85184, 128): L2 and up_0,
+   8 x 22^3 at C=128; (10648, 256): the bottom L3), at a ragged R, at
+   the ``pallas_flat=False`` step's L0 and L1 (batch 8), and K9 at the
+   Predictor tile's L3 (one tile, and the request's batch of 2);
 6. builds the headline UNet (n_blocks=4, start_filts=32, planar L0,
    batch norm, bfloat16) with seeded weights and random running
    statistics and holds ``forward`` against ``forward(reference=True)``
@@ -84,7 +91,16 @@ kernels.
     kernels), with ``pallas_flat=False``, and on the kernel plan again;
     then the headline 3D Predictor request with L2 on the kernels and on
     the library (the raised constant) in turn, five requests of each
-    after a warm-up pair.
+    after a warm-up pair;
+14. the headline UNet with ``normalization='batchp'`` (bf16): steps 6
+    and 7 with K9 launched at the tile's L3 (rows 30/tile and
+    30/request), then steps 8 and 9, with K8-K11 launched at the shapes
+    of rows 29, 30 and 31 and the step times printed beside the 'batch'
+    model's of step 8;
+15. the same model with ``pallas_flat=False`` (its 17 norms on K8-K11,
+    K1-K7 not launched): the forward check, timed steps (kernels and
+    plain) at batch 2 of (44, 88, 88) and one step against
+    ``reference=True``.
 
 Every timed variant also prints its bound, the least time the card
 could take for its work: the larger of its operations over the card's
@@ -99,13 +115,14 @@ epilogue that no single call has, the library op on the
 already-prologued input ("lib*" in the line).
 
 ``--profile`` also profiles three kernel-path training steps of each
-model with ``torch.profiler`` and prints the device time by kernel.
+model (the 'batchp' one too) with ``torch.profiler`` and prints the
+device time by kernel.
 
 Any failed check raises, and the script exits non-zero. The last lines
 are a JSON object with each kernel's numbers (``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` sum the bfloat16 variants that
 ``totals_over`` names; ``variants`` lists every
-variant's own numbers; ``launches`` sums the six paths whose counts
+variant's own numbers; ``launches`` sums the nine paths whose counts
 ``launches_by_path`` gives), the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.
 """
@@ -144,12 +161,18 @@ CROSSOVER_PAIRS = 5                # timed request pairs, kernels / library
 # whose bound the noise sets differ by up to about 2.4 times the noise in
 # float32 and 0.8 times in bfloat16 (PERF.md gives the readings).
 NOISE_FACTOR = 3
+# K8's and K10's float32 sums against their plain versions: within this
+# share of max|ref|. On an H100 they differ by up to about 2e-6 of it
+# (summing order; x with mean 3, R up to 2.7M), and dropping a ragged
+# last block of 69 rows out of 85,221 moves K8's sums by about 8e-4.
+BN_SUM_TOL = 1e-5
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BF16 = 989e12                 # FLOP/s, tensor cores
 PEAK_F32 = 67e12                   # FLOP/s, outside the tensor cores
 HBM = 3.35e12                      # bytes/s
 _F = "elektronn3_tpu/ops/flat_fused.py"
 _F64 = "elektronn3_tpu/ops/flat_fused64.py"
+_BN = "elektronn3_tpu/ops/pallas_bn.py"
 SOURCES = {
     "conv_bnact": ("elektronn3_tpu_torch/csrc/conv_bnact.cu",
                    f"{_F}:689 conv_bnact_flat; {_F}:2020 conv1_bnstats_flat;"
@@ -179,7 +202,20 @@ SOURCES = {
                          f"_upconv122_f64_bwd; {_F64}:2347 "
                          f"_upconv122_64_bwd; {_F64}:3393 "
                          f"_upconv_f64in_bwd_call; {_F}:1669 _upconv_bwd"),
+    "bn_stats": ("elektronn3_tpu_torch/csrc/batch_norm.cu",
+                 f"{_BN}:75 _bn_stats"),
+    "bn_normalize": ("elektronn3_tpu_torch/csrc/batch_norm.cu",
+                     f"{_BN}:94 _bn_normalize ({_BN}:255 "
+                     "batch_norm_inference)"),
+    "bn_bwd_reduce": ("elektronn3_tpu_torch/csrc/batch_norm.cu",
+                      f"{_BN}:188 _bn_bwd (its pallas_call :199)"),
+    "bn_bwd_dx": ("elektronn3_tpu_torch/csrc/batch_norm.cu",
+                  f"{_BN}:188 _bn_bwd (its pallas_call :228)"),
 }
+# K8-K11 run only the 'batchp' norm's library levels; K1-K7 every model's
+# kernel levels.
+BN_KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
+FUSED_KERNELS = tuple(k for k in SOURCES if k not in BN_KERNELS)
 # The kernel launches that stand for rows of the kernel table in PERF.md
 # (as recorded by ``record_shapes``): on the 2D path rows 16, 17, 19 and
 # 20, the (1, 2, 2) pool at C=64 and its backward, the (1, 2, 2) upconv
@@ -196,7 +232,38 @@ ROW_SHAPES = {16: ("pool_bnact", 64, (1, 2, 2)),
               "24/222": ("upconv_bnact", 128, 64, 2, True),
               25: ("upconv_bnact_bwd", 128, 64, 1, True),
               11: ("upconv_bnact", 64, 32, 1, False),
-              12: ("upconv_bnact_bwd", 64, 32, 1, False)}
+              12: ("upconv_bnact_bwd", 64, 32, 1, False),
+              29: ("bn_stats", 85_184, 128),
+              "29/L3": ("bn_stats", 10_648, 256),
+              30: ("bn_normalize", 85_184, 128),
+              "30/L3": ("bn_normalize", 10_648, 256),
+              31: ("bn_bwd_reduce", 85_184, 128),
+              "31/L3": ("bn_bwd_reduce", 10_648, 256),
+              "31/dx": ("bn_bwd_dx", 85_184, 128),
+              "31/dx L3": ("bn_bwd_dx", 10_648, 256),
+              "30/tile": ("bn_normalize", 32_768, 256),
+              "30/request": ("bn_normalize", 65_536, 256)}
+# The 'batchp' headline model's rows (K8-K11 at (R, C)): its training
+# step's library levels L2 (8 x 22^3 = 85,184 voxels, C=128, under the
+# C=128 gate; two norms), up_0 (the same; three) and the bottom L3 (8 x
+# 11^3 = 10,648, C=256; two); in serving the Predictor tile's L3 (32^3
+# a tile: 32,768 for the forward check's one tile, 65,536 for the
+# request's batch of 2).
+BATCHP_TRAIN_ROWS = (29, "29/L3", 30, "30/L3", 31, "31/L3", "31/dx",
+                     "31/dx L3")
+BATCHP_SERVE_ROWS = ("30/tile", "30/request")
+# The 'batchp' pallas_flat=False step (batchp_library_phase, batch 2 of
+# (44, 88, 88)): every level's norms on K8-K11, at L0 (681,472 voxels,
+# C=32) and up_2, L1 (170,368, 64) and up_1, L2 (21,296, 128) and up_0,
+# and the bottom L3 (2,662, 256).
+BATCHP_LIBRARY_SHAPES = {"L0": (681_472, 32), "L1": (170_368, 64),
+                         "L2": (21_296, 128), "L3": (2_662, 256)}
+_BN_ROW = {"bn_stats": "29", "bn_normalize": "30", "bn_bwd_reduce": "31",
+           "bn_bwd_dx": "31/dx"}
+BATCHP_LIBRARY_ROWS = tuple(f"{_BN_ROW[k]} lib {lvl}" for k in BN_KERNELS
+                            for lvl in BATCHP_LIBRARY_SHAPES)
+ROW_SHAPES.update({f"{_BN_ROW[k]} lib {lvl}": (k, *rc) for k in BN_KERNELS
+                   for lvl, rc in BATCHP_LIBRARY_SHAPES.items()})
 # The variants each kernel's totals in the JSON line sum (bfloat16): the
 # forward kernels' serving variants at the 3D Predictor tile, the
 # backward kernels' at bench.py's 3D training shapes, so that the totals
@@ -207,10 +274,14 @@ _TILE_SERVING = ("bf16 serving variants at the 3D Predictor tile "
                  "(1,128,256,256)")
 _BENCH = ("bf16 variants at bench.py's 3D training shapes (batch 8 of "
           "(44,88,88))")
+_BN_BENCH = ("bf16 variants at the 'batchp' headline step's library "
+             "levels, bench.py's batch 8 of (44,88,88): (R, C) = "
+             "(85184, 128) and (10648, 256)")
 TOTALS_OVER = {"conv_bnact": _TILE_SERVING, "pool_bnact": _TILE_SERVING,
                "upconv_bnact": _TILE_SERVING, "conv_bnact_dgrad": _BENCH,
                "conv_bnact_wgrad": _BENCH, "pool_bnact_bwd": _BENCH,
-               "upconv_bnact_bwd": _BENCH}
+               "upconv_bnact_bwd": _BENCH, **dict.fromkeys(BN_KERNELS,
+                                                           _BN_BENCH)}
 # Forward variants at the 3D Predictor tile's shapes (batch 1):
 # (kind, label, level shape, input channels, C_out, kd / window, prologue)
 FWD = {"conv": "conv_bnact", "pool": "pool_bnact", "upconv": "upconv_bnact"}
@@ -316,6 +387,23 @@ TRAIN_VARIANTS_SF64 = [
     ("upconv", "sf64 up_2 (1,2,2) 128->64 carry [row 24/25]", TL1, (128,),
      64, 1, True),
 ]
+# K8-K11 ('batchp'): (label, R, C, training, in the totals). Training
+# variants hold K8, K9, K10 and K11; serving ones K9 alone. The bench
+# step's library levels, a ragged R, the pallas_flat=False step's L0 and
+# L1 at bench.py's batch 8 and its four levels at the batch of 2 that
+# batchp_library_phase runs, the Predictor tile's L3.
+BN_VARIANTS = [
+    ("bench L2/up_0 (8,22,22,22) C=128", 85_184, 128, True, True),
+    ("bench L3 (8,11,11,11) C=256", 10_648, 256, True, True),
+    ("ragged R=85,184+37 C=128", 85_221, 128, True, False),
+    ("pallas_flat=False L0 (8,44,88,88) C=32", 2_725_888, 32, True, False),
+    ("pallas_flat=False L1 (8,44,44,44) C=64", 681_472, 64, True, False),
+    *((f"pallas_flat=False {lvl} batch 2 R={r} C={c}", r, c, True, False)
+      for lvl, (r, c) in BATCHP_LIBRARY_SHAPES.items()),
+    ("tile L3 (1,32,32,32) C=256 serving", 32_768, 256, False, False),
+    ("request L3 (2,32,32,32) C=256 serving", 65_536, 256, False, False),
+]
+STEP_MS = {}   # train_phase's step times by model: (kernels, plain, again)
 
 
 def cuda_ms(fn, reps=3):
@@ -440,7 +528,7 @@ def check_close(got, ref, dtype, what):
 
 def check_sum(got, ref, what, tol=1e-3):
     """A float32 sum over voxels (statistics, dinv, dshift, dW, db), the
-    same terms summed in another order: |got - ref| <= 1e-3 max|ref|.
+    same terms summed in another order: |got - ref| <= tol max|ref|.
     Returns the max abs error."""
     got, ref = got.float(), ref.float()
     err = float((got - ref).abs().max())
@@ -466,21 +554,23 @@ class Stats:
         self.rows = {name: [] for name in SOURCES}
 
     def add(self, kernel, label, dtype, err, ms, plain_ms, bnd, lib,
-            lib_exact, total=False):
+            lib_exact, total=False, lib_op=None):
         """One variant: ``bnd`` is :func:`bound`'s (ms, term); ``lib``
         the library time (bf16 only, else None), ``lib_exact`` whether
-        that call computes the kernel's whole function; ``total`` whether
-        a bf16 variant counts in the kernel's totals (see
-        :meth:`totals`)."""
+        that call computes the kernel's whole function (True) or not
+        (False), ``lib_op`` what the call is (by default "same function"
+        or "op without prologue/statistics"); ``total`` whether a bf16
+        variant counts in the kernel's totals (see :meth:`totals`)."""
         b_ms, b_by = bnd
         bf16 = dtype == torch.bfloat16
+        if lib_op is None:
+            lib_op = ("same function" if lib_exact
+                      else "op without prologue/statistics")
         self.rows[kernel].append(dict(
             label=label, dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib,
-            library_op=("same function" if lib_exact
-                        else "op without prologue/statistics")
-            if bf16 else None, in_total=total and bf16))
+            library_ms=lib, library_op=lib_op if bf16 else None,
+            in_total=total and bf16))
         libs = f"  lib{'' if lib_exact else '*'} {lib:8.3f} ms" if bf16 \
             else ""
         print(f"kernel {kernel:16s} {label:42s} {str(dtype)[6:]:8s} "
@@ -745,14 +835,114 @@ def _bwd_named(name, out):
     return [out[0]], out[1], out[2], out[3], out[4]
 
 
+def bn_kernel_phase(bn, stats):
+    """K8-K11 at BN_VARIANTS' (R, C), bf16 and f32, against their plain
+    versions on the same operands (x with mean 3, a random cotangent;
+    K9 and K11 get the op's own per-channel vectors, ``fold_forward``
+    and ``fold_backward`` of K8's and K10's sums). K8's and K10's
+    float32 sums are held to BN_SUM_TOL. Library calls (bf16, on the
+    (R, C) view, which is the channels-last activation): K8
+    ``torch.batch_norm_stats`` (per-channel mean and invstd: the same
+    statistics); K9 ``F.batch_norm(training=False)`` from the batch's
+    statistics (the same function); K10 ``native_batch_norm_backward``
+    for dgamma and dbeta (the same function); K11 the same call for dx,
+    which also reduces (all of row 31)."""
+    eps = 1e-5
+    bwd = torch.ops.aten.native_batch_norm_backward
+    for seed, (label, r, c, train, total) in enumerate(BN_VARIANTS):
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            rnd = rand_on_card(200 + seed)
+            x = (3.0 + 2.0 * rnd(r, c)).to(dtype)
+            gamma, beta = rnd(c), rnd(c, scale=0.5)
+            sums = bn.bn_stats_kernel(x)
+            torch.cuda.synchronize()
+            ref = bn.bn_stats_plain(x)
+            mean, var, inv, scale, shift = bn.fold_forward(sums, r, gamma,
+                                                           beta, eps)
+            if train:
+                err = max(check_sum(sums[0], ref[0], f"K8 {label} sum",
+                                    BN_SUM_TOL),
+                          check_sum(sums[1], ref[1], f"K8 {label} sumsq",
+                                    BN_SUM_TOL))
+                lib = cuda_ms(lambda: torch.batch_norm_stats(x, eps)) \
+                    if bf16 else None
+                stats.add("bn_stats", label, dtype, err,
+                          cuda_ms(lambda: bn.bn_stats_kernel(x)),
+                          cuda_ms(lambda: bn.bn_stats_plain(x)),
+                          bound(3.0 * r * c, PEAK_F32, x, sums), lib, True,
+                          total, "torch.batch_norm_stats: mean and invstd")
+            args = (x, scale, shift)
+            y = bn.bn_normalize_kernel(*args)
+            torch.cuda.synchronize()
+            err = check_close(y, bn.bn_normalize_plain(*args), dtype,
+                              f"K9 {label}")
+            lib = cuda_ms(lambda: F.batch_norm(
+                x, mean, var, gamma, beta, False, 0.0, eps)) \
+                if bf16 else None
+            stats.add("bn_normalize", label, dtype, err,
+                      cuda_ms(lambda: bn.bn_normalize_kernel(*args)),
+                      cuda_ms(lambda: bn.bn_normalize_plain(*args)),
+                      bound(2.0 * r * c, PEAK_F32, args, y), lib, True,
+                      total)
+            del y, args
+            if not train:
+                del x
+                torch.cuda.empty_cache()
+                continue
+            gy = rnd(r, c).to(dtype)
+            rargs = (gy, x, mean, inv)
+            red = bn.bn_bwd_reduce_kernel(*rargs)
+            torch.cuda.synchronize()
+            rref = bn.bn_bwd_reduce_plain(*rargs)
+            err = max(check_sum(red[0], rref[0], f"K10 {label} sum g",
+                                BN_SUM_TOL),
+                      check_sum(red[1], rref[1], f"K10 {label} sum g xhat",
+                                BN_SUM_TOL))
+            libs = {}
+            if bf16:
+                for k, mask in (("bn_bwd_reduce", [False, True, True]),
+                                ("bn_bwd_dx", [True, False, False])):
+                    libs[k] = cuda_ms(lambda m=mask: bwd(
+                        gy, x, gamma, None, None, mean, inv, True, eps, m))
+            stats.add("bn_bwd_reduce", label, dtype, err,
+                      cuda_ms(lambda: bn.bn_bwd_reduce_kernel(*rargs)),
+                      cuda_ms(lambda: bn.bn_bwd_reduce_plain(*rargs)),
+                      bound(4.0 * r * c, PEAK_F32, rargs, red),
+                      libs.get("bn_bwd_reduce"), True, total)
+            dargs = (gy, x, *bn.fold_backward(red, r, gamma, mean, inv))
+            dx = bn.bn_bwd_dx_kernel(*dargs)
+            torch.cuda.synchronize()
+            err = check_close(dx, bn.bn_bwd_dx_plain(*dargs), dtype,
+                              f"K11 {label}")
+            stats.add("bn_bwd_dx", label, dtype, err,
+                      cuda_ms(lambda: bn.bn_bwd_dx_kernel(*dargs)),
+                      cuda_ms(lambda: bn.bn_bwd_dx_plain(*dargs)),
+                      bound(5.0 * r * c, PEAK_F32, dargs, dx),
+                      libs.get("bn_bwd_dx"), False, total,
+                      "native_batch_norm_backward for dx: reduces too "
+                      "(all of row 31)")
+            del x, gy, dx, rargs, dargs
+            torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
-def record_shapes(fused):
+def record_shapes(fused, bn=None):
     """Count the K2, K3, K6 and K7 launches made inside the block by
-    (kernel, channels, window or (C_out, kd, prologue))."""
+    (kernel, channels, window or (C_out, kd, prologue)) and, given the
+    ``bn`` module (``ops/pallas_bn``), K8-K11's by (kernel, R, C)."""
     seen = collections.Counter()
     names = ("pool_bnact_fwd_kernel", "pool_bnact_bwd_kernel",
              "upconv_bnact_fwd_kernel", "upconv_bnact_bwd_kernel")
     real = {n: getattr(fused, n) for n in names}
+    bn_names = tuple(f"{k}_kernel" for k in BN_KERNELS) if bn else ()
+    bn_real = {n: getattr(bn, n) for n in bn_names}
+
+    def wrap_bn(n):
+        def f(x2d, *rest):
+            seen[(n[:-len("_kernel")],) + tuple(x2d.shape)] += 1
+            return bn_real[n](x2d, *rest)
+        return f
 
     def wrap(n):
         def f(x, inv, shift, *rest):
@@ -768,11 +958,15 @@ def record_shapes(fused):
         return f
     for n in names:
         setattr(fused, n, wrap(n))
+    for n in bn_names:
+        setattr(bn, n, wrap_bn(n))
     try:
         yield seen
     finally:
         for n in names:
             setattr(fused, n, real[n])
+        for n in bn_names:
+            setattr(bn, n, bn_real[n])
 
 
 def check_rows(seen, rows, what):
@@ -797,10 +991,12 @@ def randomize_norms(model, seed):
                 m.running_var.copy_(0.5 + torch.rand(c, generator=g))
 
 
-def headline_unet(UNet, seed, dtype=torch.bfloat16):
+def headline_unet(UNet, seed, dtype=torch.bfloat16, normalization="batch",
+                  pallas_flat="auto"):
     return UNet(in_channels=1, out_channels=2, n_blocks=4, start_filts=32,
-                planar_blocks=(0,), normalization="batch", dtype=dtype,
-                device="cuda", generator=torch.Generator().manual_seed(seed))
+                planar_blocks=(0,), normalization=normalization, dtype=dtype,
+                device="cuda", pallas_flat=pallas_flat,
+                generator=torch.Generator().manual_seed(seed))
 
 
 def sf64_unet(UNet, seed, dtype=torch.bfloat16, pallas_flat="auto"):
@@ -875,27 +1071,30 @@ def seeded_volume():
                        generator=torch.Generator().manual_seed(3)).numpy()
 
 
-def predictor_phase(build, what, Predictor, fused, rows):
+def predictor_phase(build, what, Predictor, fused, rows, kernels=SERVING,
+                    bn=None):
     """A model of ``build``: the forward check on one input tile, then
     Predictor requests on a seeded (1, 1, 64, 256, 256) volume: a warm-up
-    request (launches recorded by shape: ``rows``), bf16 probabilities
-    timed with the launch counts reset just before, a uint8 argmax."""
+    request (launches of the forward check and that request recorded by
+    shape: ``rows``), bf16 probabilities timed with the launch counts
+    reset just before (every kernel of ``kernels`` launched), a uint8
+    argmax."""
     model = build(0, torch.bfloat16).eval()
     randomize_norms(model, 1)
     x = torch.randn((1, *TILE, 1),
                     generator=torch.Generator().manual_seed(2)).cuda()
     print(f"model {what}: plan at the input tile {model.plan(x.shape)}",
           flush=True)
-    check_forward(model, x, f"{what} UNet bf16 forward")
-    del x
-    torch.cuda.empty_cache()
-
     vol = seeded_volume()
     pred = Predictor(model, **PREDICT_KW)
-    with record_shapes(fused) as seen:
+    with record_shapes(fused, bn) as seen:
+        check_forward(model, x, f"{what} UNet bf16 forward")
+        del x
+        torch.cuda.empty_cache()
         pred.predict(vol)                              # warm-up request
     torch.cuda.synchronize()
-    check_rows(seen, rows, f"predictor {what} (warm-up request)")
+    check_rows(seen, rows, f"predictor {what} (forward check and warm-up "
+               "request)")
     fused.reset_launches()
     t0 = time.perf_counter()
     probs = pred.predict(vol)
@@ -911,7 +1110,7 @@ def predictor_phase(build, what, Predictor, fused, rows):
     print(f"predictor {what}: uint8 argmax {ids.shape} in {dt_ids:.3f} s = "
           f"{vol.size / dt_ids / 1e6:.2f} MVox/s", flush=True)
     check_probs(probs, ids, (1, 2, 64, 256, 256), what)
-    check_launched(launches, SERVING, f"{what} serving")
+    check_launched(launches, kernels, f"{what} serving")
     return launches
 
 
@@ -976,7 +1175,7 @@ def _step_grads(model, crit, x, y, reference):
                                   for n, p in model.named_parameters()}
 
 
-def check_train_step(build, crit, x, y):
+def check_train_step(build, crit, x, y, zero_bf16=1e-2):
     """One step's loss, parameter gradients and new running statistics
     on the kernel path against the same step through reference=True,
     from equal parameters and running statistics, in float32 and in
@@ -990,13 +1189,14 @@ def check_train_step(build, crit, x, y):
     so that noise can be a large share of a leaf; the kernels sum in
     another order than the plain versions. The bias of a conv that
     feeds a batch norm has an exact gradient of 0: both of its computed
-    gradients must be at most 1e-4 (float32) or 1e-2 (bf16) of the
-    weight gradient's norm. The loss within 1e-4 (float32) or 1e-2
+    gradients must be at most 1e-4 (float32) or ``zero_bf16`` (bf16) of
+    the weight gradient's norm. The loss within 1e-4 (float32) or 1e-2
     (bf16) relative; each running statistic within 1e-3 (float32) or
     5e-2 (bf16) of its max."""
     failures = []
     for dtype, rel, ulp, zero in ((torch.float32, 1e-3, 2.0 ** -23, 1e-4),
-                                  (torch.bfloat16, 1e-2, 2.0 ** -8, 1e-2)):
+                                  (torch.bfloat16, 1e-2, 2.0 ** -8,
+                                   zero_bf16)):
         bf16 = dtype == torch.bfloat16
         model = build(4, dtype)
         ref_model = copy.deepcopy(model)
@@ -1011,17 +1211,19 @@ def check_train_step(build, crit, x, y):
                 * abs(lr)):
             failures.append(f"{dtype} loss {lk} vs reference {lr}")
         rows = []
-        worst_zero = 0.0
+        worst_zero = [0.0, 0.0]
         for name, g in grads.items():
             r = ref[name]
             if name.endswith(".bias") and name != "conv_final.bias" \
                     and "norm" not in name:
                 wnorm = float(ref[name[:-len("bias")] + "weight"].norm())
-                q = max(float(g.norm()), float(r.norm())) / wnorm
-                worst_zero = max(worst_zero, q)
+                qg, qr = float(g.norm()) / wnorm, float(r.norm()) / wnorm
+                q = max(qg, qr)
+                worst_zero = [max(worst_zero[0], qg), max(worst_zero[1], qr)]
                 if not bool(torch.isfinite(g).all()) or q > zero:
                     failures.append(f"{dtype} grad {name} (exactly 0): "
-                                    f"{q} of the weight gradient")
+                                    f"{qg} (kernels) and {qr} (reference) "
+                                    "of the weight gradient")
                 continue
             err = float((g - r).norm())
             rn = float(r.norm())
@@ -1057,8 +1259,8 @@ def check_train_step(build, crit, x, y):
                   f"|r| {rn:.3e})" for q, n, e, nz, rn in rows[:4])
               + f"; worst err/noise {worst_noise:.3f} ({by_noise[1]}); "
               f"worst err/|r| {max(t[2] / max(t[4], 1e-30) for t in rows):.2e}"
-              f"; biases "
-              f"before a batch norm at most {worst_zero:.2e} of their "
+              f"; biases before a batch norm at most {worst_zero[0]:.2e} "
+              f"(kernels) and {worst_zero[1]:.2e} (reference) of their "
               f"weight gradient; running statistics max rel err "
               f"{worst_buf:.3e}", flush=True)
         del model, ref_model
@@ -1089,10 +1291,11 @@ def timed_steps(train_step, model, crit, opt, batches, reference,
 
 
 def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
-                rows=()):
+                rows=(), kernels=FUSED_KERNELS, bn=None):
     """Timed training steps of ``build``'s model on batches of ``shape``
-    (kernels, plain, kernels again), every kernel launched, the
-    ``rows``' shapes launched, a falling loss, and one step against the
+    (kernels, plain, kernels again), every kernel of ``kernels``
+    launched, the ``rows``' shapes launched (``bn``: the 'batchp'
+    kernels' too), a falling loss, and one step against the
     reference."""
     crit = CEDiceLoss(1.0, 1.0)
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1116,6 +1319,7 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
     peak_p = torch.cuda.max_memory_allocated() / 1e9
     del plain_model, plain_opt
     dt_k2 = timed_steps(train_step, model, crit, opt, batches, False)
+    STEP_MS[what] = (dt_k * 1e3, dt_p * 1e3, dt_k2 * 1e3)
     for label, dt in (("kernels", dt_k), ("plain", dt_p),
                       ("kernels again", dt_k2)):
         print(f"train {what}: {label:13s} step {dt * 1e3:9.2f} ms = "
@@ -1124,12 +1328,12 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
     print(f"train {what}: peak device memory {peak:.2f} GB (kernels), "
           f"{peak_p:.2f} GB (plain); launches over {STEPS} steps "
           f"{launches}", flush=True)
-    check_launched(launches, SOURCES, f"{what} training")
+    check_launched(launches, kernels, f"{what} training")
 
     # A fixed batch whose target is learnable from the input (the sign
     # of x; the timed batches' targets are noise).
     fixed = (batches[0][0], (batches[0][0][..., 0] > 0).long())
-    with record_shapes(fused) as seen:
+    with record_shapes(fused, bn) as seen:
         losses = [float(train_step(model, crit, opt, *fixed))
                   for _ in range(10)]
     if rows:
@@ -1165,6 +1369,71 @@ def odd_l1_phase(build, CEDiceLoss, fused):
     check_rows(seen, (11, 12), f"train 3D odd L1 {ODD_L1} (one step)")
     del model
     check_train_step(build, crit, x, y)
+
+
+def batchp_library_phase(build, CEDiceLoss, train_step, fused, bn):
+    """The 'batchp' headline model with ``pallas_flat=False``: every
+    level on the library ops, its 17 norms on K8-K11. The forward check
+    on one Predictor input tile, then timed steps at batch 2 of
+    (44, 88, 88) (kernels, plain; counts reset just before the kernels'
+    timed steps: K8-K11 launched, K1-K7 not), one more step with the
+    launches recorded by shape (K8-K11 at every level's (R, C),
+    BATCHP_LIBRARY_ROWS), and one step against reference=True
+    (``check_train_step``)."""
+    model = build(0, torch.bfloat16).eval()
+    randomize_norms(model, 1)
+    x = torch.randn((1, *TILE, 1),
+                    generator=torch.Generator().manual_seed(2)).cuda()
+    check_forward(model, x, "batchp pallas_flat=False UNet bf16 forward")
+    del model, x
+    torch.cuda.empty_cache()
+    crit = CEDiceLoss(1.0, 1.0)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shape = (2, *PATCH, 1)
+    batches = [(torch.randn(shape, generator=g, device="cuda"),
+                torch.randint(0, 2, shape[:-1], generator=g, device="cuda"))
+               for _ in range(N_BATCHES)]
+    model = build(4, torch.bfloat16)
+    if model.plan(shape) != [False] * 4:
+        raise AssertionError(f"pallas_flat=False plan {model.plan(shape)}")
+    plain_model = copy.deepcopy(model)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    dt_k = timed_steps(train_step, model, crit, opt, batches, False,
+                       fused.reset_launches)
+    launches = dict(fused.LAUNCHES)
+    dt_p = timed_steps(train_step, plain_model, crit,
+                       torch.optim.Adam(plain_model.parameters(), lr=1e-3),
+                       batches, True)
+    vox = int(np.prod(shape))
+    for label, dt in (("kernels", dt_k), ("plain", dt_p)):
+        print(f"train batchp pallas_flat=False: {label:8s} step "
+              f"{dt * 1e3:9.2f} ms = {vox / dt / 1e6:7.2f} MVox/s (batch 2 "
+              f"of {PATCH}, bf16, CEDiceLoss, Adam)", flush=True)
+    print(f"train batchp pallas_flat=False: launches over {STEPS} steps "
+          f"{launches}", flush=True)
+    check_launched(launches, BN_KERNELS, "batchp pallas_flat=False training")
+    if any(launches[k] for k in FUSED_KERNELS):
+        raise AssertionError(f"pallas_flat=False launched K1-K7: {launches}")
+    with record_shapes(fused, bn) as seen:
+        train_step(model, crit, opt, *batches[0])
+    torch.cuda.synchronize()
+    check_rows(seen, BATCHP_LIBRARY_ROWS,
+               "train batchp pallas_flat=False (one step)")
+    del model, plain_model, batches, opt
+    torch.cuda.empty_cache()
+    x = torch.randn(shape, generator=g, device="cuda")
+    # On the library path a conv's bias gradient is the sum of its batch
+    # norm's dx, which K11 (like JAX's _bn_bwd) stores in bf16: over L0's
+    # 681,472 voxels the rounding leaves the exactly-0 gradient of L0
+    # conv1's bias (1 input channel, a small weight gradient) at about
+    # 1.5e-2 of the weight gradient's norm on an H100, on the kernels and
+    # on the reference alike, above the 1e-2 that the kernel levels'
+    # float32 bias sums meet.
+    check_train_step(build, crit, x, torch.randint(0, 2, shape[:-1],
+                                                   generator=g,
+                                                   device="cuda"),
+                     zero_bf16=5e-2)
+    return launches
 
 
 def crossover_phase(UNet, Predictor, CEDiceLoss, train_step, unet_mod):
@@ -1295,7 +1564,7 @@ def main():
     from elektronn3_tpu_torch.models import UNet
     from elektronn3_tpu_torch.models import unet as unet_mod
     from elektronn3_tpu_torch.modules.loss import CEDiceLoss
-    from elektronn3_tpu_torch.ops import _build, fused
+    from elektronn3_tpu_torch.ops import _build, fused, pallas_bn
     from elektronn3_tpu_torch.training import Trainer, train_step
 
     print(f"card: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}",
@@ -1328,6 +1597,13 @@ def main():
     def build_sf64(seed, dtype):
         return sf64_unet(UNet, seed, dtype)
 
+    def build_batchp(seed, dtype):
+        return headline_unet(UNet, seed, dtype, normalization="batchp")
+
+    def build_batchp_library(seed, dtype):
+        return headline_unet(UNet, seed, dtype, normalization="batchp",
+                             pallas_flat=False)
+
     stats = Stats()
     kernel_phase(fused, stats, VARIANTS, total=True)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS, total=True,
@@ -1338,6 +1614,7 @@ def main():
     kernel_phase(fused, stats, VARIANTS_SF64_TILE, total=False)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS_SF64, total=False,
                        serve=False)
+    bn_kernel_phase(pallas_bn, stats)
 
     launches = {"predictor": predictor_phase(build3d, "3D", Predictor,
                                              fused, ("24/222",))}
@@ -1375,6 +1652,25 @@ def main():
     torch.cuda.empty_cache()
     trainer_phase(build_sf64, (1, *PATCH), "sf64", CEDiceLoss, Trainer)
     crossover_phase(UNet, Predictor, CEDiceLoss, train_step, unet_mod)
+
+    launches["predictor_batchp"] = predictor_phase(
+        build_batchp, "batchp", Predictor, fused, BATCHP_SERVE_ROWS,
+        SERVING + ("bn_normalize",), pallas_bn)
+    torch.cuda.empty_cache()
+    launches["train_batchp"], model, crit, opt, batches = train_phase(
+        build_batchp, (BATCH, *PATCH, 1), "batchp", "MVox", CEDiceLoss,
+        train_step, fused, BATCHP_TRAIN_ROWS, tuple(SOURCES), pallas_bn)
+    if profiling:
+        profile_phase(train_step, model, crit, opt, batches)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    print("train batchp against batch in this run (kernels, plain, "
+          "kernels again; ms): " + "; ".join(
+              f"{k} {', '.join(f'{v:.2f}' for v in STEP_MS[k])}"
+              for k in ("3D", "batchp")), flush=True)
+    trainer_phase(build_batchp, (1, *PATCH), "batchp", CEDiceLoss, Trainer)
+    launches["train_batchp_library"] = batchp_library_phase(
+        build_batchp_library, CEDiceLoss, train_step, fused, pallas_bn)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],

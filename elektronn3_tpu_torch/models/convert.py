@@ -9,8 +9,10 @@ state_dict, in both directions.
 - transposed-conv kernels become (I, O, kd, kh, kw), or (I, O, kh, kw)
   in 2D, with their spatial taps flipped (flax's ConvTranspose
   correlates with the flipped kernel relative to torch's);
-- per-parent flax ``BatchNorm_<n>`` slots map, in order of n, onto the
-  port's ``norm{k}`` modules: ``scale``/``bias`` params become
+- per-parent flax ``BatchNorm_<n>`` slots (``PallasBatchNorm_<n>`` for
+  ``normalization='batchp'``: every level of the XLA executor, the
+  library levels of the fused one) map, in order of n, onto the port's
+  ``norm{k}`` modules: ``scale``/``bias`` params become
   ``weight``/``bias``, ``batch_stats`` ``mean``/``var`` become
   ``running_mean``/``running_var``.
 
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_NORM_RE = re.compile(r"^(?:Batch|Group|Layer|Instance)Norm_(\d+)$")
+_NORM_RE = re.compile(
+    r"^(?:Batch|Group|Layer|Instance|PallasBatch)Norm_(\d+)$")
 
 
 def conv_weight_from_flax(kernel) -> np.ndarray:

@@ -28,7 +28,11 @@ JAX UNet's ``pallas_flat`` plans its executors:
   (JAX's ``upconv222_f64in``/``upconv122_f64in`` at C_in=128 and
   ``upconv122_from_flat64`` at 64);
 - C >= 256 levels, the bottom level and the 1x1 head run plain torch,
-  as those run in XLA in JAX.
+  as those run in XLA in JAX. Under ``normalization='batchp'`` the batch
+  norms of every level on the library ops run the hand-written kernels
+  of ``ops/pallas_bn.py`` (K8-K11), as they run ``PallasBatchNorm`` in
+  JAX, while a kernel level takes its statistics from its convs as
+  under ``'batch'``.
 
 ``pallas_flat`` is the JAX argument: False runs every level on the
 library ops; True every level the kernels take by structure; ``'auto'``
@@ -252,10 +256,10 @@ class DownConv(nn.Module):
                 reference=reference)
             return _drop(pooled, self.dim), skip
         act = get_activation(self.activation)
-        y = act(apply_norm(self.norm0, _plain_conv(x, self.conv1,
-                                                   self.dtype, self.dim)))
-        y = act(apply_norm(self.norm1, _plain_conv(y, self.conv2,
-                                                   self.dtype, self.dim)))
+        y = act(apply_norm(self.norm0, _plain_conv(x, self.conv1, self.dtype,
+                                                   self.dim), reference))
+        y = act(apply_norm(self.norm1, _plain_conv(y, self.conv2, self.dtype,
+                                                   self.dim), reference))
         if self.pooling:
             return ceil_maxpool(y, pool_window(self.dim, self.planar)), y
         return y, y
@@ -334,12 +338,13 @@ class UpConv(nn.Module):
             dec.movedim(-1, 1), self.upconv.weight.to(self.dtype),
             self.upconv.bias.to(self.dtype), stride=self.upconv.stride)
         enc, up = autocrop(enc, up.movedim(1, -1))
-        up = act(apply_norm(self.norm0, up))
+        up = act(apply_norm(self.norm0, up, reference))
         y = torch.cat([up, enc], dim=-1)
-        y = act(apply_norm(self.norm1, _plain_conv(y, self.conv1,
-                                                   self.dtype, self.dim)))
+        y = act(apply_norm(self.norm1, _plain_conv(y, self.conv1, self.dtype,
+                                                   self.dim), reference))
         return act(apply_norm(self.norm2, _plain_conv(y, self.conv2,
-                                                      self.dtype, self.dim)))
+                                                      self.dtype, self.dim),
+                              reference))
 
 
 class UNet(nn.Module):
@@ -363,8 +368,9 @@ class UNet(nn.Module):
     Ported configuration surface: the JAX UNet's defaults
     ``up_mode='transpose'``, ``merge_mode='concat'``, ``conv_mode='same'``,
     ``full_norm=True``, ``logit_dtype=None``, with ``dim`` 3 or 2,
-    normalization 'batch' or 'none', and ``pallas_flat`` True, False or
-    'auto' (see the module docstring; :meth:`plan` gives the levels).
+    normalization 'batch', 'batchp' or 'none' ('batchp' plans as 'batch'
+    does), and ``pallas_flat`` True, False or 'auto' (see the module
+    docstring; :meth:`plan` gives the levels).
 
     JAX gates of ``pallas_flat`` that the port does not carry over,
     because they model the TPU, not the function: 'auto''s test of the

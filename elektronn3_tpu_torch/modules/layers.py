@@ -16,6 +16,8 @@ from torch import nn
 
 from elektronn3_tpu_torch.modules.flat_norm import (
     bn_eval_prologue, update_running_stats)
+from elektronn3_tpu_torch.modules.pallas_norm import (
+    PallasBatchNorm, PallasBatchNorm2d, PallasBatchNorm3d)
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
@@ -52,33 +54,44 @@ def get_normalization(norm: Optional[str], channels: int,
                       ) -> Optional[nn.Module]:
     """Build a normalization layer by name: 'batch' gives
     ``nn.BatchNorm3d`` (``nn.BatchNorm2d`` for ``dim=2``; eps 1e-5;
-    torch momentum 0.1 is flax's 0.9), 'none'/None gives None. Only the
-    module's buffers and affine parameters are used (``apply_norm`` and
-    the prologue vectors of ``flat_norm``), the same for both ranks.
-    Group and instance norm are not ported yet."""
+    torch momentum 0.1 is flax's 0.9), 'batchp' the same with the
+    hand-written kernels of ``ops/pallas_bn.py`` as its forward
+    (``PallasBatchNorm3d``/``2d``), 'none'/None gives None. The
+    prologue vectors of ``flat_norm`` use only a module's buffers and
+    affine parameters, the same for every rank and kind. Group and
+    instance norm are not ported yet."""
     if norm is None or norm == "none":
         return None
     if norm == "batch":
         cls = nn.BatchNorm2d if dim == 2 else nn.BatchNorm3d
-        return cls(channels, eps=1e-5, momentum=0.1, device=device)
-    raise NotImplementedError(
-        f"normalization {norm!r} is not ported yet (batch and none are)")
+    elif norm == "batchp":
+        cls = PallasBatchNorm2d if dim == 2 else PallasBatchNorm3d
+    else:
+        raise NotImplementedError(
+            f"normalization {norm!r} is not ported yet (batch, batchp and "
+            "none are)")
+    return cls(channels, eps=1e-5, momentum=0.1, device=device)
 
 
-def apply_norm(norm_layer: Optional[nn.Module],
-               x: torch.Tensor) -> torch.Tensor:
+def apply_norm(norm_layer: Optional[nn.Module], x: torch.Tensor,
+               reference: bool = False) -> torch.Tensor:
     """Apply a batch norm layer to an NDHWC tensor, computing in float32
     and rounding to ``x``'s dtype once.
 
-    Eval: the running statistics. Training: flax ``BatchNorm``'s
-    statistics of the batch, ``mean = E[x]`` and the biased
-    ``var = max(E[x^2] - mean^2, 0)``, normalized as ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias`` and differentiable through the
-    statistics; the running statistics get flax's momentum update (see
-    ``update_running_stats``). ``F.batch_norm(training=True)`` would
-    update ``running_var`` with the unbiased variance instead."""
+    A ``PallasBatchNorm`` ('batchp') runs its op (``ops/pallas_bn.py``;
+    ``reference`` selects the plain versions of its kernels). An
+    ``nn.BatchNorm`` ('batch') runs here in plain torch. Eval: the
+    running statistics. Training: flax ``BatchNorm``'s statistics of the
+    batch, ``mean = E[x]`` and the biased ``var = max(E[x^2] - mean^2,
+    0)``, normalized as ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` and differentiable through the statistics; the running
+    statistics get flax's momentum update (see ``update_running_stats``).
+    ``F.batch_norm(training=True)`` would update ``running_var`` with
+    the unbiased variance instead."""
     if norm_layer is None:
         return x
+    if isinstance(norm_layer, PallasBatchNorm):
+        return norm_layer(x.contiguous(), reference)
     if not norm_layer.training:
         inv, shift = bn_eval_prologue(norm_layer)
         return (x.float() * inv + shift).to(x.dtype)

@@ -31,13 +31,14 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv_bnact.cu", "conv_bnact_bwd.cu", "pool_bnact.cu",
-           "upconv_bnact.cu")
+           "upconv_bnact.cu", "batch_norm.cu")
 HEADERS = ("common.cuh", "conv_bnact.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # argtypes of each C entry point (csrc/*.cu, extern "C").
 _SIGNATURES = {
     "e3_conv_bnact": (_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -54,6 +55,10 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P),
     "e3_upconv_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_bn_stats": (_I, _P, _P, _P, _L, _I, _I, _I, _P),
+    "e3_bn_normalize": (_I, _P, _P, _P, _P, _L, _I, _P),
+    "e3_bn_bwd_reduce": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "e3_bn_bwd_dx": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -83,11 +83,13 @@ LEAKY_SLOPE = 0.1  # matches modules/layers.py leaky activation
 _ACT_ID = {"linear": 0, "relu": 1, "leaky": 2}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches per wrapper. Each wrapper adds one where it launches
-# its kernel and nowhere else; plain-version calls do not count.
+# Kernel launches per wrapper, K1-K7 here and K8-K11 of ops/pallas_bn.py.
+# Each wrapper adds one where it launches its kernel and nowhere else;
+# plain-version calls do not count.
 LAUNCHES = {"conv_bnact": 0, "pool_bnact": 0, "upconv_bnact": 0,
             "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0,
-            "pool_bnact_bwd": 0, "upconv_bnact_bwd": 0}
+            "pool_bnact_bwd": 0, "upconv_bnact_bwd": 0, "bn_stats": 0,
+            "bn_normalize": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
 
 
 def reset_launches() -> None:

@@ -1,5 +1,7 @@
 """Each hand-written CUDA kernel of the port against its plain PyTorch
-version, on the card (marked ``cuda``; skips without a CUDA device).
+version, on the card (marked ``cuda``; skips without a CUDA device):
+K1-K7 (``ops/fused.py``) and the 'batchp' batch norm's K8-K11
+(``ops/pallas_bn.py``).
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch:
 
@@ -19,7 +21,7 @@ scale.
 import pytest
 import torch
 
-from elektronn3_tpu_torch.ops import fused
+from elektronn3_tpu_torch.ops import fused, pallas_bn
 
 
 def _cuda():
@@ -28,6 +30,11 @@ def _cuda():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+# The 'batchp' kernels K8-K11 launch on no 'batch' model's path.
+_NO_BN = {"bn_stats": 0, "bn_normalize": 0, "bn_bwd_reduce": 0,
+          "bn_bwd_dx": 0}
 
 
 def _assert_kernel(got, ref):
@@ -41,6 +48,11 @@ def _assert_kernel(got, ref):
         bound = 1e-4 * scale
     err = (got - ref).abs()
     assert bool(torch.all(err <= bound)), float(err.max())
+
+
+# K8's and K10's float32 sums: within this share of max|ref| (summing
+# order alone; a dropped ragged block of rows moves them by far more).
+BN_SUM_TOL = 1e-5
 
 
 def _assert_sum(got, ref, tol=1e-3):
@@ -293,7 +305,7 @@ def test_cuda_unet_matches_reference_forward(dtype):
     assert fused.LAUNCHES == {"conv_bnact": 8, "pool_bnact": 2,
                               "upconv_bnact": 2, "conv_bnact_dgrad": 0,
                               "conv_bnact_wgrad": 0, "pool_bnact_bwd": 0,
-                              "upconv_bnact_bwd": 0}
+                              "upconv_bnact_bwd": 0, **_NO_BN}
     ref = m(x, reference=True)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((y.float() - ref.float()).abs().max()) <= \
@@ -319,7 +331,7 @@ def test_cuda_unet_2d_matches_reference_forward(dtype):
     assert fused.LAUNCHES == {
         "conv_bnact": 8, "pool_bnact": 2, "upconv_bnact": 2,
         "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0, "pool_bnact_bwd": 0,
-        "upconv_bnact_bwd": 0}
+        "upconv_bnact_bwd": 0, **_NO_BN}
     ref = m(x, reference=True)
     assert y.shape == (3, 44, 76, 2)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
@@ -400,5 +412,160 @@ def test_cuda_unet_sf64_matches_reference_forward(dtype):
     assert fused.LAUNCHES["upconv_bnact"] == 2
     ref = m(x, reference=True)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
+
+
+# (C, R): every channel count of the headline models' levels, at R
+# under one reduction block, ragged across blocks, and past 1024 blocks'
+# worth of minimum rows (so each block reads more than its minimum).
+BN_CASES = [(c, r) for c in (32, 64, 128, 256, 512)
+            for r in (5, 1059, 300_001)]
+
+
+def _bn_case(dev, dtype, c, r, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    x = (3.0 + 2.0 * torch.randn(r, c, generator=g)).to(dev, dtype)
+    gy = torch.randn(r, c, generator=g).to(dev, dtype)
+    gamma = torch.randn(c, generator=g).to(dev)
+    beta = torch.randn(c, generator=g).to(dev)
+    return x, gy, gamma, beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,r", BN_CASES)
+def test_cuda_batch_norm_kernels_match_plain(dtype, c, r):
+    """K8 (sums) and K10 (sums) against their plain versions on the same
+    operands within BN_SUM_TOL, K9 and K11 (one rounding of the same
+    float32 values, from the op's own glue) as _assert_kernel, each
+    launched once."""
+    dev = _cuda()
+    x, gy, gamma, beta = _bn_case(dev, dtype, c, r)
+    fused.reset_launches()
+    sums = pallas_bn.bn_stats_kernel(x)
+    for got, ref in zip(sums, pallas_bn.bn_stats_plain(x)):
+        _assert_sum(got, ref, BN_SUM_TOL)
+    mean, _, inv, scale, shift = pallas_bn.fold_forward(sums, r, gamma, beta,
+                                                        1e-5)
+    _assert_kernel(pallas_bn.bn_normalize_kernel(x, scale, shift),
+                   pallas_bn.bn_normalize_plain(x, scale, shift))
+    red = pallas_bn.bn_bwd_reduce_kernel(gy, x, mean, inv)
+    for got, ref in zip(red, pallas_bn.bn_bwd_reduce_plain(gy, x, mean, inv)):
+        _assert_sum(got, ref, BN_SUM_TOL)
+    abc = pallas_bn.fold_backward(red, r, gamma, mean, inv)
+    _assert_kernel(pallas_bn.bn_bwd_dx_kernel(gy, x, *abc),
+                   pallas_bn.bn_bwd_dx_plain(gy, x, *abc))
+    torch.cuda.synchronize()
+    assert {k: fused.LAUNCHES[k] for k in _NO_BN} == dict.fromkeys(_NO_BN, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_batch_norm_sums_are_the_same_bits_on_a_rerun(dtype):
+    """K8 and K10 reduce in a fixed order without atomics."""
+    dev = _cuda()
+    x, gy, gamma, _ = _bn_case(dev, dtype, 64, 681_472 + 37)
+    mean, inv = x.float().mean(0), torch.rsqrt(x.float().var(0) + 1e-5)
+    for fn, args in ((pallas_bn.bn_stats_kernel, (x,)),
+                     (pallas_bn.bn_bwd_reduce_kernel, (gy, x, mean, inv))):
+        first = fn(*args)
+        for _ in range(3):
+            assert torch.equal(fn(*args), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_batch_norm_ops_match_reference(dtype):
+    """The autograd op (K8, K9 forward; K10, K11 backward) and the eval
+    op (K9) on a 5-D channels-last tensor against reference=True: the
+    mean and dgamma, dbeta (K8's and K10's sums, scaled) within
+    BN_SUM_TOL, the variance (E[x^2] - mean^2 cancels) within 1e-4."""
+    dev = _cuda()
+    x, gy, gamma, beta = _bn_case(dev, dtype, 128, 2 * 11 * 13 * 7)
+    x, gy = x.view(2, 11, 13, 7, 128), gy.view(2, 11, 13, 7, 128)
+    outs = []
+    for reference in (False, True):
+        xr, gr, br = (t.clone().requires_grad_(True) for t in (x, gamma,
+                                                              beta))
+        y, mean, var = pallas_bn.batch_norm_train(xr, gr, br,
+                                                  reference=reference)
+        y.backward(gy)
+        ye = pallas_bn.batch_norm_inference(x, gamma, beta, mean, var,
+                                            reference=reference)
+        outs.append((y, mean, var, xr.grad, gr.grad, br.grad, ye))
+    for i, (got, ref) in enumerate(zip(*outs)):
+        if i in (1, 4, 5):
+            _assert_sum(got, ref, BN_SUM_TOL)
+        elif i == 2:
+            _assert_sum(got, ref, 1e-4)
+        else:
+            _assert_kernel(got, ref)
+
+
+def _step_grads(m, x, t, reference):
+    from elektronn3_tpu_torch.modules.loss import CEDiceLoss
+    m.zero_grad(set_to_none=True)
+    loss = CEDiceLoss(1.0, 1.0)(m.train()(x, reference=reference), t)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.float().clone()
+                                  for n, p in m.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unet_batchp_matches_reference(dtype):
+    """The headline structure with 'batchp' at a small, ragged input: its
+    library levels (L2, L3, up_0) run K8-K11 in training and K9 in eval,
+    and the training loss, every gradient leaf and the eval forward
+    track reference=True. A leaf is held as chip_smoke.py's
+    check_train_step holds it, in the L2 norm: |g - r| <= rel |r| + 3
+    |r' - r|, r' the reference step on an input moved by about one ulp
+    (the step's own rounding noise; a fixed relative bound alone does
+    not hold even for the 'batch' model's K1-K7, whose weight gradients
+    are small differences of large float32 sums); the bias of a conv
+    that feeds a batch norm, whose exact gradient is 0, within ``zero``
+    of its weight gradient's norm."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    m = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,), dtype=dtype,
+             normalization="batchp", device=dev,
+             generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    t = (x[..., 0] > 0).long()
+    bf16 = dtype == torch.bfloat16
+    tol = 5e-2 if bf16 else 1e-4
+    rel, ulp, zero = (1e-2, 2.0 ** -8, 1e-2) if bf16 else \
+        (1e-3, 2.0 ** -23, 1e-4)
+    fused.reset_launches()
+    lk, grads = _step_grads(m, x, t, False)
+    assert all(fused.LAUNCHES[k] == 7 for k in _NO_BN)
+    lr, ref = _step_grads(m, x, t, True)
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(11))
+    _, moved = _step_grads(m, x * (1 + ulp * noise.to(dev)), t, True)
+    assert abs(lk - lr) <= tol * abs(lr)
+    bad = []
+    for name, g in grads.items():
+        r = ref[name]
+        if not bool(torch.isfinite(g).all()):
+            bad.append((name, "not finite"))
+        elif name.endswith(".bias") and "norm" not in name \
+                and name != "conv_final.bias":
+            wnorm = float(ref[name[:-len("bias")] + "weight"].norm())
+            q = max(float(g.norm()), float(r.norm())) / wnorm
+            if q > zero:
+                bad.append((name, "bias", q))
+        else:
+            err = float((g - r).norm())
+            bnd = rel * float(r.norm()) + 3 * float((moved[name] - r).norm())
+            if err > bnd:
+                bad.append((name, err, bnd))
+    assert not bad, bad
+    m.eval()
+    fused.reset_launches()
+    y = m(x)
+    assert fused.LAUNCHES["bn_normalize"] == 7
+    ref = m(x, reference=True)
     assert float((y.float() - ref.float()).abs().max()) <= \
         tol * float(ref.float().abs().max())
