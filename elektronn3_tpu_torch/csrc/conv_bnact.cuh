@@ -187,9 +187,11 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   const int tx = threadIdx.x % TW;
   const int ty = threadIdx.x / TW;
   const int tiles_w = (a.wd + TW - 1) / TW;
-  const int h0 = (blockIdx.x / tiles_w) * TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
-  const int nd = blockIdx.y;  // n * d + depth index
+  const int tiles = ((a.h + TH - 1) / TH) * tiles_w;
+  const int tile = blockIdx.x % tiles;
+  const int nd = blockIdx.x / tiles;  // n * d + depth index
+  const int h0 = (tile / tiles_w) * TH;
+  const int w0 = (tile % tiles_w) * TW;
   const int n = nd / a.d;
   const int d = nd % a.d;
   const int co0 = blockIdx.z * COG;
@@ -328,9 +330,11 @@ __global__ void __launch_bounds__(256) conv_body_mma_kernel(
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tiles_w = (a.wd + MW - 1) / MW;
-  const int h0 = (blockIdx.x / tiles_w) * MH;
-  const int w0 = (blockIdx.x % tiles_w) * MW;
-  const int nd = blockIdx.y;
+  const int tiles = ((a.h + MH - 1) / MH) * tiles_w;
+  const int tile = blockIdx.x % tiles;
+  const int nd = blockIdx.x / tiles;
+  const int h0 = (tile / tiles_w) * MH;
+  const int w0 = (tile % tiles_w) * MW;
   const int n = nd / a.d;
   const int d = nd % a.d;
   const int co0 = blockIdx.z * COG;
@@ -460,33 +464,39 @@ __global__ void __launch_bounds__(256) conv_body_mma_kernel(
 
 // Launch the body that fits: tensor cores for bf16 when every staged
 // channel count is a multiple of 16, else the CUDA cores. ST: the block
-// sums (statistics, or dinv and dshift).
+// sums (statistics, or dinv and dshift). grid.x walks the (h, w) tiles
+// of every (n, depth) slab, the slab index outermost, so N * D is not
+// bounded by grid.y's 65535; a grid.x past 2^31 - 1 is refused.
 template <bool DG, bool ST>
-void launch_conv_body_st(const ConvArgs& a, int dtype, cudaStream_t s) {
+cudaError_t launch_conv_body_st(const ConvArgs& a, int dtype,
+                                cudaStream_t s) {
   const bool mma = dtype == DT_BF16 && a.cin[0] % MCK == 0
       && (a.nin < 2 || a.cin[1] % MCK == 0);
-  if (mma) {
-    const int tiles = ((a.h + MH - 1) / MH) * ((a.wd + MW - 1) / MW);
-    conv_body_mma_kernel<DG, ST>
-        <<<dim3(tiles, a.n * a.d, a.cout / COG), 256, 0, s>>>(a);
-  } else {
-    const int tiles = ((a.h + TH - 1) / TH) * ((a.wd + TW - 1) / TW);
-    const dim3 grid(tiles, a.n * a.d, a.cout / COG);
-    if (dtype == DT_BF16)
-      conv_body_kernel<DG, ST, __nv_bfloat16><<<grid, NT, 0, s>>>(a);
-    else
-      conv_body_kernel<DG, ST, float><<<grid, NT, 0, s>>>(a);
-  }
+  const int64_t tiles = mma
+      ? (int64_t)((a.h + MH - 1) / MH) * ((a.wd + MW - 1) / MW)
+      : (int64_t)((a.h + TH - 1) / TH) * ((a.wd + TW - 1) / TW);
+  const int64_t blocks = tiles * a.n * a.d;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, 1, a.cout / COG);
+  if (mma)
+    conv_body_mma_kernel<DG, ST><<<grid, 256, 0, s>>>(a);
+  else if (dtype == DT_BF16)
+    conv_body_kernel<DG, ST, __nv_bfloat16><<<grid, NT, 0, s>>>(a);
+  else
+    conv_body_kernel<DG, ST, float><<<grid, NT, 0, s>>>(a);
+  return cudaSuccess;
 }
 
 template <bool DG>
 int launch_conv_body(const ConvArgs& a, int dtype, cudaStream_t s) {
+  cudaError_t rc;
   if constexpr (DG)
-    launch_conv_body_st<true, true>(a, dtype, s);
+    rc = launch_conv_body_st<true, true>(a, dtype, s);
   else if (a.s != nullptr)
-    launch_conv_body_st<false, true>(a, dtype, s);
+    rc = launch_conv_body_st<false, true>(a, dtype, s);
   else
-    launch_conv_body_st<false, false>(a, dtype, s);
+    rc = launch_conv_body_st<false, false>(a, dtype, s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,18 +27,32 @@ JAX UNet's ``pallas_flat`` plans its executors:
   of a kernel decoder level, whose prologue the upconv applies on load
   (JAX's ``upconv222_f64in``/``upconv122_f64in`` at C_in=128 and
   ``upconv122_from_flat64`` at 64);
+- under ``pallas_flat=True``, a planar 3D level of C=32 or 64 whose
+  activation has no kernel prologue (silu, swish, gelu, tanh) runs
+  JAX's semi-fused flat executor (``_flat_level_ok``), and so does its
+  decoder level: conv2, the decoder's merge conv over [upconv output,
+  skip] and its conv2 through
+  :func:`~elektronn3_tpu_torch.ops.flat_conv.flat_conv3` (K1 with the
+  identity prologue; backward K4/K5), conv1, the upconv and the head on
+  the library ops (XLA in JAX), each batch norm as JAX's
+  ``FlatBatchNorm`` (:func:`~elektronn3_tpu_torch.modules.flat_norm.
+  flat_batch_norm`) followed by the activation, and the pool through
+  ``pool_flat``; the skip is the activated tensor;
 - C >= 256 levels, the bottom level and the 1x1 head run plain torch,
-  as those run in XLA in JAX. Under ``normalization='batchp'`` the batch
-  norms of every level on the library ops run the hand-written kernels
-  of ``ops/pallas_bn.py`` (K8-K11), as they run ``PallasBatchNorm`` in
-  JAX, while a kernel level takes its statistics from its convs as
-  under ``'batch'``.
+  as those run in XLA in JAX (a bottom level that is flat runs the flat
+  executor's encoder without its pool). Under
+  ``normalization='batchp'`` the batch norms of every level on the
+  library ops run the hand-written kernels of ``ops/pallas_bn.py``
+  (K8-K11), as they run ``PallasBatchNorm`` in JAX, while a kernel
+  level takes its statistics from its convs as under ``'batch'``.
 
 ``pallas_flat`` is the JAX argument: False runs every level on the
-library ops; True every level the kernels take by structure; ``'auto'``
-(the default) the same, except that a C=128 level of fewer than
-:data:`FUSED128_MIN_VOX` voxels runs the library ops (JAX's C=128 voxel
-gate, with JAX's value).
+library ops; True every level the kernels take by structure, and the
+flat levels; ``'auto'`` (the default) the kernel levels alone, except
+that a C=128 level of fewer than :data:`FUSED128_MIN_VOX` voxels runs
+the library ops (JAX's C=128 voxel gate, with JAX's value).
+:meth:`UNet.level_kinds` gives each level's kind, :meth:`UNet.plan`
+whether it runs the kernels.
 
 A 2D model (``dim=2``) holds 2D parameters (``nn.Conv2d``,
 ``nn.ConvTranspose2d``, ``nn.BatchNorm2d``) and carries 4-D tensors.
@@ -52,8 +66,9 @@ gradient back to the 2D parameters), as the JAX package's
 
 A level whose structure the kernels do not take (odd H or W, an odd
 depth under a (2, 2, 2) pool, an activation without a kernel prologue)
-runs plain torch, and the reason is logged once per input shape. This is
-a plan declared from shapes, not a fallback on failure.
+and that is not flat runs plain torch, and the reason is logged once
+per input shape, as is each flat level. This is a plan declared from
+shapes, not a fallback on failure.
 
 In training (``model.train()``) the kernel levels take their batch
 statistics from the convs' side outputs (``want_stats``) and build each
@@ -75,16 +90,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from elektronn3_tpu_torch.modules.flat_norm import (
-    bn_eval_prologue, bn_train_prologue, identity_prologue, norm_kind)
+    bn_eval_prologue, bn_train_prologue, flat_batch_norm, identity_prologue,
+    norm_kind)
 from elektronn3_tpu_torch.modules.layers import (
     apply_norm, ceil_maxpool, conv_kernel, get_activation, get_normalization,
     pool_window)
 from elektronn3_tpu_torch.ops import fused
+from elektronn3_tpu_torch.ops.flat_conv import flat_conv3, pool_flat
 from elektronn3_tpu_torch.ops.fused import FusedActs
 
 logger = logging.getLogger("elektronn3_tpu_torch")
 
 _KERNEL_ACTS = {"relu": "relu", "leaky": "leaky", "lrelu": "leaky"}
+# The flat executor's activations: JAX's _FLAT_SAFE_ACTS
+# (elektronn3_tpu/models/unet.py:72-73) without those that have a
+# kernel prologue (their levels run the kernels) and without 'prelu'
+# (not ported).
+_FLAT_ACTS = ("silu", "swish", "gelu", "tanh")
 # Under pallas_flat='auto', a C=128 level of fewer voxels (D * H * W)
 # than this runs the library ops: JAX's _FUSED128_MIN_VOX
 # (elektronn3_tpu/models/unet.py:79), the same value. The planner reads
@@ -199,6 +221,11 @@ def _stats(norm: Optional[nn.Module]) -> bool:
     return norm is not None and norm.training
 
 
+def _side_stats(out) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The (s, q) statistics of a kernel op's output, None without."""
+    return out[1:] if isinstance(out, tuple) else None
+
+
 class DownConv(nn.Module):
     """Two convolutions + optional max pool (reference unet.py:202-253):
     conv -> norm -> act -> conv -> norm -> act -> pool."""
@@ -225,13 +252,14 @@ class DownConv(nn.Module):
         self.norm1 = get_normalization(normalization, out_channels, device,
                                        dim)
 
-    def forward(self, x: torch.Tensor, kernels: bool = False,
+    def forward(self, x: torch.Tensor, kind: str = "library",
                 reference: bool = False):
-        """Returns (output, skip). On the kernel plan the output is the
+        """Returns (output, skip); ``kind`` is the level's
+        (:meth:`UNet.level_kinds`). On 'kernels' the output is the
         pooled tensor and the skip is :class:`FusedActs` of conv2's raw
         output (5-D, the D=1 view for a 2D model); otherwise both are
         plain tensors."""
-        if kernels:
+        if kind == "kernels":
             act = _KERNEL_ACTS[self.activation]
             # conv1 takes the float32 weight and bias in both JAX
             # executors (the C=32 one through conv1_bnstats_flat); its
@@ -256,8 +284,19 @@ class DownConv(nn.Module):
                 reference=reference)
             return _drop(pooled, self.dim), skip
         act = get_activation(self.activation)
-        y = act(apply_norm(self.norm0, _plain_conv(x, self.conv1, self.dtype,
-                                                   self.dim), reference))
+        y = _plain_conv(x, self.conv1, self.dtype, self.dim)
+        if kind == "flat":
+            # JAX's flat DownConv (elektronn3_tpu/models/unet.py:960-993):
+            # conv1 on the library (XLA there), FlatBatchNorm, conv2
+            # through flat_conv3 (row 26), FlatBatchNorm, the pool.
+            y = act(flat_batch_norm(self.norm0, y))
+            out2 = flat_conv3([y], self.conv2.weight, self.conv2.bias,
+                              want_stats=_stats(self.norm1),
+                              reference=reference)
+            y = act(flat_batch_norm(self.norm1, _raw(out2),
+                                    _side_stats(out2)))
+            return (pool_flat(y) if self.pooling else y), y
+        y = act(apply_norm(self.norm0, y, reference))
         y = act(apply_norm(self.norm1, _plain_conv(y, self.conv2, self.dtype,
                                                    self.dim), reference))
         if self.pooling:
@@ -296,13 +335,14 @@ class UpConv(nn.Module):
         self.norm2 = get_normalization(normalization, out_channels, device,
                                        dim)
 
-    def forward(self, enc, dec, kernels: bool = False,
+    def forward(self, enc, dec, kind: str = "library",
                 reference: bool = False):
         """``enc`` is the skip of the same level, ``dec`` the deeper
         level's output (a tensor, or :class:`FusedActs` from a kernel
-        decoder level). Returns :class:`FusedActs` (5-D) on the kernel
-        plan, a tensor otherwise."""
-        if kernels:
+        decoder level); ``kind`` is the level's
+        (:meth:`UNet.level_kinds`). Returns :class:`FusedActs` (5-D) on
+        'kernels', a tensor otherwise."""
+        if kind == "kernels":
             act = _KERNEL_ACTS[self.activation]
             # The upconv takes the float32 weight and bias in every JAX
             # upconv kernel of this plan (upconv222_bn_flat64,
@@ -338,6 +378,21 @@ class UpConv(nn.Module):
             dec.movedim(-1, 1), self.upconv.weight.to(self.dtype),
             self.upconv.bias.to(self.dtype), stride=self.upconv.stride)
         enc, up = autocrop(enc, up.movedim(1, -1))
+        if kind == "flat":
+            # JAX's flat UpConv (elektronn3_tpu/models/unet.py:1245-1278):
+            # the upconv on the library (XLA there), FlatBatchNorm, the
+            # merge conv over [up, enc] and conv2 through flat_conv3.
+            up = act(flat_batch_norm(self.norm0, up))
+            out1 = flat_conv3([up, enc], self.conv1.weight, self.conv1.bias,
+                              want_stats=_stats(self.norm1),
+                              reference=reference)
+            y = act(flat_batch_norm(self.norm1, _raw(out1),
+                                    _side_stats(out1)))
+            out2 = flat_conv3([y], self.conv2.weight, self.conv2.bias,
+                              want_stats=_stats(self.norm2),
+                              reference=reference)
+            return act(flat_batch_norm(self.norm2, _raw(out2),
+                                       _side_stats(out2)))
         up = act(apply_norm(self.norm0, up, reference))
         y = torch.cat([up, enc], dim=-1)
         y = act(apply_norm(self.norm1, _plain_conv(y, self.conv1, self.dtype,
@@ -368,9 +423,13 @@ class UNet(nn.Module):
     Ported configuration surface: the JAX UNet's defaults
     ``up_mode='transpose'``, ``merge_mode='concat'``, ``conv_mode='same'``,
     ``full_norm=True``, ``logit_dtype=None``, with ``dim`` 3 or 2,
-    normalization 'batch', 'batchp' or 'none' ('batchp' plans as 'batch'
-    does), and ``pallas_flat`` True, False or 'auto' (see the module
-    docstring; :meth:`plan` gives the levels).
+    normalization 'batch', 'batchp' or 'none' ('batchp' plans its kernel
+    levels as 'batch' does; as in JAX, no 'batchp' level is flat),
+    activations 'relu', 'leaky' (kernel levels), 'silu', 'swish',
+    'gelu', 'tanh' (flat levels under ``pallas_flat=True``) and the
+    rest of ``get_activation`` (library levels), and ``pallas_flat``
+    True, False or 'auto' (see the module docstring;
+    :meth:`level_kinds` gives the levels).
 
     JAX gates of ``pallas_flat`` that the port does not carry over,
     because they model the TPU, not the function: 'auto''s test of the
@@ -420,7 +479,7 @@ class UNet(nn.Module):
         self.dim = dim
         self.dtype = dtype
         self.pallas_flat = pallas_flat
-        self._plans: Dict[tuple, List[bool]] = {}
+        self._plans: Dict[tuple, List[str]] = {}
 
         common = dict(activation=activation, normalization=normalization,
                       dtype=dtype, device=device, dim=dim)
@@ -487,30 +546,63 @@ class UNet(nn.Module):
             return f"odd depth D={D} with (2,2,2) pooling"
         return None
 
-    def plan(self, shape: Sequence[int]) -> List[bool]:
-        """Per-level kernel plan for an input of ``shape`` ((N, D, H, W,
-        C), or (N, H, W, C) for a 2D model, whose levels have D = 1);
-        each level's decline reason is logged once per shape (none under
-        ``pallas_flat=False``, as in JAX). Plans are kept per shape,
-        ``pallas_flat`` and :data:`FUSED128_MIN_VOX`: a change of either
-        applies from the next call on, to every shape."""
+    def _flat_level(self, i: int, H: int, W: int) -> bool:
+        """Whether encoder level ``i`` (and its decoder level) at level
+        shape (., H, W) runs the semi-fused flat executor, where the
+        kernels decline it: JAX's ``_flat_level_ok``
+        (elektronn3_tpu/models/unet.py:1404-1419) with its TPU gates
+        dropped. ``pallas_flat=True`` only (never 'auto', as in JAX), a
+        planar 3D level of C=32 or 64, 'batch' or 'none' norm, an
+        activation of ``_FLAT_ACTS``, even H and W."""
+        return (self.pallas_flat is True and self.dim == 3
+                and i in self.planar_blocks
+                and self.start_filts * 2 ** i in (32, 64)
+                and self.normalization in ("batch", "none")
+                and self.activation in _FLAT_ACTS
+                and H % 2 == 0 and W % 2 == 0)
+
+    def level_kinds(self, shape: Sequence[int]) -> List[str]:
+        """Per-level executor for an input of ``shape`` ((N, D, H, W, C),
+        or (N, H, W, C) for a 2D model, whose levels have D = 1):
+        'kernels' (K1-K7 with the fused prologues), 'flat' (the
+        semi-fused flat executor, :meth:`_flat_level`) or 'library'.
+        Each flat level, and each other level's decline reason, is
+        logged once per shape (no reason under ``pallas_flat=False``, as
+        in JAX). Kinds are kept per shape, ``pallas_flat`` and
+        :data:`FUSED128_MIN_VOX`: a change of either applies from the
+        next call on, to every shape."""
         key = (tuple(shape[1:-1]), self.pallas_flat, FUSED128_MIN_VOX)
         if key in self._plans:
             return self._plans[key]
         D, H, W = key[0] if self.dim == 3 else (1,) + key[0]
-        kernels = []
+        kinds = []
         for i in range(self.n_blocks):
+            ch = self.start_filts * 2 ** i
             reason = self._kernel_decline_reason(i, D, H, W)
-            kernels.append(reason is None)
-            if reason is not None and self.pallas_flat is not False:
-                logger.info("UNet level %d (C=%d, %dx%dx%d): %s.", i,
-                            self.start_filts * 2 ** i, D, H, W, reason)
+            if reason is None:
+                kinds.append("kernels")
+            elif self._flat_level(i, H, W):
+                kinds.append("flat")
+                logger.info("UNet level %d (C=%d, %dx%dx%d): the flat "
+                            "executor, K1 for its 3x3 convs after conv1 "
+                            "(the fused kernels decline: %s).", i, ch, D,
+                            H, W, reason)
+            else:
+                kinds.append("library")
+                if self.pallas_flat is not False:
+                    logger.info("UNet level %d (C=%d, %dx%dx%d): %s.", i,
+                                ch, D, H, W, reason)
             if i < self.n_blocks - 1:
                 H, W = -(-H // 2), -(-W // 2)
                 if not self._planar(i):
                     D = -(-D // 2)
-        self._plans[key] = kernels
-        return kernels
+        self._plans[key] = kinds
+        return kinds
+
+    def plan(self, shape: Sequence[int]) -> List[bool]:
+        """Per-level kernel plan for an input of ``shape``: True where
+        :meth:`level_kinds` says 'kernels'."""
+        return [k == "kernels" for k in self.level_kinds(shape)]
 
     def forward(self, x: torch.Tensor, *,
                 reference: bool = False) -> torch.Tensor:
@@ -530,16 +622,16 @@ class UNet(nn.Module):
             raise ValueError(
                 f"Input shape {tuple(x.shape)}: expected channels-last "
                 f"({layout}, {self.in_channels}).")
-        kernels = self.plan(x.shape)
+        kinds = self.level_kinds(x.shape)
         x = x.to(self.dtype).contiguous()
         skips = []
         for i, down in enumerate(self.down_convs):
-            x, skip = down(x, kernels[i], reference)
+            x, skip = down(x, kinds[i], reference)
             skips.append(skip)
         x = skips.pop()   # the bottom level does not pool
         for i, up in enumerate(self.up_convs):
             level = self.n_blocks - 2 - i
-            x = up(skips[level], x, kernels[level], reference)
+            x = up(skips[level], x, kinds[level], reference)
         if isinstance(x, FusedActs):
             # Both JAX heads round the weight and bias to the model
             # dtype before the float32 GEMM (head_bnact_from_flat at

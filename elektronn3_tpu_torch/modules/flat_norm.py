@@ -1,13 +1,15 @@
-"""Batch-norm prologue vectors for the fused ops.
+"""Batch-norm prologue vectors for the fused ops, and the flat
+executor's batch norm.
 
 Counterpart of the JAX package's ``modules/flat_norm.py``. There a
 ``FlatBNStats`` module turns kernel statistics side outputs (training)
 or the running statistics (eval) into the per-lane (inv, shift) vectors
-its consumer kernel applies on load. The port keeps its batch-norm
-state in ``nn.BatchNorm3d`` (``nn.BatchNorm2d`` for a 2D model) modules
-(the reference's ``norm{k}`` names)
-and implements both branches here; the vectors are per channel, with
-no lane tiling.
+its consumer kernel applies on load, and ``FlatBatchNorm`` normalizes
+the semi-fused flat executor's activations. The port keeps its
+batch-norm state in ``nn.BatchNorm3d`` (``nn.BatchNorm2d`` for a 2D
+model) modules (the reference's ``norm{k}`` names) and implements both
+here (:func:`flat_batch_norm`); the vectors are per channel, with no
+lane tiling.
 
 Training follows ``FlatBNStats`` and flax's ``BatchNorm``: the biased
 batch variance, and the running update ``ra = 0.9 * ra + 0.1 * batch``
@@ -22,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from elektronn3_tpu_torch.ops.fused import channel_stats
 
 
 def bn_eval_prologue(norm: nn.Module) -> Tuple[torch.Tensor,
@@ -89,3 +93,25 @@ def norm_kind(norm: Optional[str], channels: int) -> Tuple[str, int]:
         g = int(norm[len("group"):]) if len(norm) > len("group") else 8
         return "group", g
     raise ValueError(f"Unknown normalization: {norm!r}")
+
+
+def flat_batch_norm(norm: Optional[nn.Module], x: torch.Tensor,
+                    stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    ) -> torch.Tensor:
+    """JAX's ``FlatBatchNorm`` (modules/flat_norm.py:33-110) on an NDHWC
+    tensor: in training the per-channel float32 sum and sum of squares
+    of the stored, dtype-rounded ``x`` (``stats``, when the conv that
+    produced ``x`` returned them, else a plain reduction here) through
+    :func:`bn_train_prologue`; in eval the running statistics
+    (:func:`bn_eval_prologue`). The output is ``x * inv + shift`` in
+    float32, rounded to ``x``'s dtype once (not ``apply_norm``'s ``(x -
+    mean) * mul + bias``). ``norm`` None is the identity ('none')."""
+    if norm is None:
+        return x
+    if not norm.training:
+        inv, shift = bn_eval_prologue(norm)
+    else:
+        inv, shift = bn_train_prologue(
+            norm, *(channel_stats(x) if stats is None else stats),
+            x.numel() // x.shape[-1])
+    return (x.float() * inv + shift).to(x.dtype)

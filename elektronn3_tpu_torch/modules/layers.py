@@ -24,13 +24,20 @@ def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.1)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's 'gelu' (flax ``nn.gelu``, i.e. ``jax.nn.gelu``
+    with its default ``approximate=True``): the tanh form, not the
+    exact erf form of ``F.gelu``'s default."""
+    return F.gelu(x, approximate="tanh")
+
+
 _ACTIVATIONS = {
     "relu": F.relu,
     "silu": F.silu,
     "swish": F.silu,
     "leaky": leaky_relu01,
     "lrelu": leaky_relu01,
-    "gelu": F.gelu,
+    "gelu": gelu_tanh,
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
     "lin": lambda x: x,

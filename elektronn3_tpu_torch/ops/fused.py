@@ -257,8 +257,8 @@ def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
     gradient is wanted, and K5): one or two NDHWC inputs of one shape
     and dtype; a (C_out, sum C_i, kd, 3, 3) weight with kd in {1, 3} and
     C_out % 32 == 0; any C_i (the CUDA-core body stages a per-channel
-    tail); N * D <= 65535. K4 writes 32-channel blocks of the inputs'
-    grads, so it needs each C_i % 32 == 0."""
+    tail). K4 writes 32-channel blocks of the inputs' grads, so it needs
+    each C_i % 32 == 0."""
     if len(xs) not in (1, 2):
         raise ValueError(f"conv_bnact takes 1 or 2 inputs, got {len(xs)}")
     x0 = xs[0]
@@ -275,9 +275,6 @@ def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
                          f"fit inputs with channels {cins}")
     if cout % 32:
         raise ValueError(f"conv_bnact: C_out % 32 required, got {cout}")
-    if x0.shape[0] * x0.shape[1] > 65535:
-        raise ValueError(f"conv_bnact: N * D = {x0.shape[0] * x0.shape[1]}"
-                         " > 65535")
     if dgrad and any(c % 32 for c in cins):
         raise ValueError(f"conv_bnact: the input gradient (K4) needs each "
                          f"C_in % 32 == 0, got {cins}")

@@ -1,7 +1,9 @@
 """Each hand-written CUDA kernel of the port against its plain PyTorch
 version, on the card (marked ``cuda``; skips without a CUDA device):
-K1-K7 (``ops/fused.py``) and the 'batchp' batch norm's K8-K11
-(``ops/pallas_bn.py``).
+K1-K7 (``ops/fused.py``), the 'batchp' batch norm's K8-K11
+(``ops/pallas_bn.py``), and the flat executor's ``flat_conv3`` and
+``conv_direct`` (``ops/flat_conv.py``, ``ops/pallas_conv.py``: K1, K4
+and K5 without a prologue).
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch:
 
@@ -512,38 +514,26 @@ def _step_grads(m, x, t, reference):
                                   for n, p in m.named_parameters()}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_unet_batchp_matches_reference(dtype):
-    """The headline structure with 'batchp' at a small, ragged input: its
-    library levels (L2, L3, up_0) run K8-K11 in training and K9 in eval,
-    and the training loss, every gradient leaf and the eval forward
-    track reference=True. A leaf is held as chip_smoke.py's
-    check_train_step holds it, in the L2 norm: |g - r| <= rel |r| + 3
-    |r' - r|, r' the reference step on an input moved by about one ulp
-    (the step's own rounding noise; a fixed relative bound alone does
-    not hold even for the 'batch' model's K1-K7, whose weight gradients
-    are small differences of large float32 sums); the bias of a conv
-    that feeds a batch norm, whose exact gradient is 0, within ``zero``
-    of its weight gradient's norm."""
-    from elektronn3_tpu_torch.models import UNet
-    dev = _cuda()
-    m = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,), dtype=dtype,
-             normalization="batchp", device=dev,
-             generator=torch.Generator().manual_seed(0))
-    x = torch.randn(2, 8, 24, 40, 1,
-                    generator=torch.Generator().manual_seed(1)).to(dev)
-    t = (x[..., 0] > 0).long()
+def _check_step_against_reference(m, x, t, dtype):
+    """One training step's loss and every gradient leaf against the same
+    step through reference=True, as chip_smoke.py's check_train_step
+    holds them, in the L2 norm: |g - r| <= rel |r| + 3 |r' - r|, r' the
+    reference step on an input moved by about one ulp (the step's own
+    rounding noise; a fixed relative bound alone does not hold even for
+    the 'batch' model's K1-K7, whose weight gradients are small
+    differences of large float32 sums); the bias of a conv that feeds a
+    batch norm, whose exact gradient is 0, within ``zero`` of its weight
+    gradient's norm. Returns the kernels' step's launch counts."""
     bf16 = dtype == torch.bfloat16
     tol = 5e-2 if bf16 else 1e-4
     rel, ulp, zero = (1e-2, 2.0 ** -8, 1e-2) if bf16 else \
         (1e-3, 2.0 ** -23, 1e-4)
     fused.reset_launches()
     lk, grads = _step_grads(m, x, t, False)
-    assert all(fused.LAUNCHES[k] == 7 for k in _NO_BN)
+    launches = dict(fused.LAUNCHES)
     lr, ref = _step_grads(m, x, t, True)
     noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(11))
-    _, moved = _step_grads(m, x * (1 + ulp * noise.to(dev)), t, True)
+    _, moved = _step_grads(m, x * (1 + ulp * noise.to(x.device)), t, True)
     assert abs(lk - lr) <= tol * abs(lr)
     bad = []
     for name, g in grads.items():
@@ -562,10 +552,165 @@ def test_cuda_unet_batchp_matches_reference(dtype):
             if err > bnd:
                 bad.append((name, err, bnd))
     assert not bad, bad
+    return launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unet_batchp_matches_reference(dtype):
+    """The headline structure with 'batchp' at a small, ragged input: its
+    library levels (L2, L3, up_0) run K8-K11 in training and K9 in eval,
+    and the training loss, every gradient leaf and the eval forward
+    track reference=True (``_check_step_against_reference``)."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    m = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,), dtype=dtype,
+             normalization="batchp", device=dev,
+             generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    t = (x[..., 0] > 0).long()
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    launches = _check_step_against_reference(m, x, t, dtype)
+    assert all(launches[k] == 7 for k in _NO_BN)
     m.eval()
     fused.reset_launches()
     y = m(x)
     assert fused.LAUNCHES["bn_normalize"] == 7
     ref = m(x, reference=True)
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The flat executor (rows 26/27 on K1/K4/K5), row 28 and N * D > 65535
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cins,kd,cout", [
+    ((32,), 1, 32), ((32, 32), 1, 32), ((64,), 1, 64), ((64, 64), 1, 64),
+    ((32,), 3, 64)])
+def test_cuda_flat_conv3_matches_plain(dtype, cins, kd, cout):
+    """``flat_conv3`` with statistics and its backward (K1 with the
+    identity prologue, K4, K5) against ``reference=True``, from float32
+    parameters that both round to the dtype; nonzero statistics
+    cotangents."""
+    from elektronn3_tpu_torch.ops import flat_conv
+    dev = _cuda()
+    g = torch.Generator().manual_seed(5)
+    xs0 = [torch.randn(2, 3, 13, 38, c, generator=g).to(dev, dtype)
+           for c in cins]
+    w0 = (0.1 * torch.randn(cout, sum(cins), kd, 3, 3, generator=g)).to(dev)
+    b0 = torch.randn(cout, generator=g).to(dev)
+    dy = (0.1 * torch.randn(2, 3, 13, 38, cout, generator=g)).to(dev, dtype)
+    ds = torch.randn(cout, generator=g).to(dev)
+    dq = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    outs = []
+    for reference in (False, True):
+        xs = [x.clone().requires_grad_(True) for x in xs0]
+        w = w0.clone().requires_grad_(True)
+        b = b0.clone().requires_grad_(True)
+        fused.reset_launches()
+        y, s, q = flat_conv.flat_conv3(xs, w, b, want_stats=True,
+                                       reference=reference)
+        torch.autograd.backward((y, s, q), (dy, ds, dq))
+        torch.cuda.synchronize()
+        n = 0 if reference else 1
+        assert (fused.LAUNCHES["conv_bnact"], fused.LAUNCHES[
+            "conv_bnact_dgrad"], fused.LAUNCHES["conv_bnact_wgrad"]) == \
+            (n, n, n)
+        outs.append((y, s, q, [x.grad for x in xs], w.grad, b.grad))
+    (y, s, q, dxs, dw, db), (ry, rs, rq, rdxs, rdw, rdb) = outs
+    _assert_kernel(y, ry)
+    _assert_sum(s, rs, 1e-3 if dtype == torch.float32 else 1e-2)
+    _assert_sum(q, rq, 1e-3 if dtype == torch.float32 else 1e-2)
+    for a, r in zip(dxs, rdxs):
+        _assert_kernel(a, r)
+    if dtype == torch.bfloat16:         # dW and db come back bf16-rounded
+        _assert_kernel(dw.to(dtype), rdw.to(dtype))
+        _assert_kernel(db.to(dtype), rdb.to(dtype))
+    else:
+        _assert_sum(dw, rdw)
+        _assert_sum(db, rdb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("planar,cin,cout", [(True, 32, 32), (True, 64, 32),
+                                             (False, 64, 64),
+                                             (False, 128, 64)])
+def test_cuda_conv_direct_matches_plain(dtype, planar, cin, cout):
+    """Row 28: K1 with a zero bias, kd 1 (planar) and 3."""
+    from elektronn3_tpu_torch.ops import pallas_conv
+    dev = _cuda()
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 5, 13, 37, cin, generator=g).to(dev, dtype)
+    kd = 1 if planar else 3
+    w = (0.1 * torch.randn(cout, cin, kd, 3, 3, generator=g)).to(dev)
+    fused.reset_launches()
+    y = pallas_conv.conv_direct(x, w, planar)
+    assert fused.LAUNCHES["conv_bnact"] == 1
+    ref = pallas_conv.conv_direct(x, w, planar, reference=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype
+    _assert_kernel(y, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_conv_past_65535_depth_slabs(dtype):
+    """K1 and K4 at N * D = 65,536 (grid.x walks the slabs): the forward
+    and the input gradient against their plain versions."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(7)
+    xs = [torch.randn(2, 32768, 4, 8, 32, generator=g).to(dev, dtype)]
+    w = (0.1 * torch.randn(32, 32, 1, 3, 3, generator=g)).to(dev)
+    b = torch.randn(32, generator=g).to(dev)
+    inv = torch.randn(32, generator=g).to(dev)
+    shift = torch.randn(32, generator=g).to(dev)
+    y, _, _ = fused.conv_bnact_fwd_kernel(xs, inv, shift, w, b, "relu",
+                                          False)
+    ref, _, _ = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, "relu")
+    torch.cuda.synchronize()
+    _assert_kernel(y, ref)
+    dy = (0.1 * torch.randn(ref.shape, generator=g)).to(dev, dtype)
+    args = (xs, inv, shift, w, ref, dy, None, None, "relu")
+    dxs, dinv, dshift = fused.conv_bnact_dgrad_kernel(*args)
+    rdxs, rdinv, rdshift = fused.conv_bnact_dgrad_plain(*args)
+    torch.cuda.synchronize()
+    _assert_kernel(dxs[0], rdxs[0])
+    _assert_sum(dinv, rdinv)
+    _assert_sum(dshift, rdshift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unet_silu_flat_matches_reference(dtype):
+    """The headline structure with ``activation='silu'`` and
+    ``pallas_flat=True``: L0 and its decoder level are flat, so a step
+    launches K1, K4 and K5 three times each and nothing else of K1-K7,
+    and tracks reference=True (``_check_step_against_reference``); the
+    eval forward launches K1 three times and tracks it too."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    m = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,), dtype=dtype,
+             activation="silu", pallas_flat=True, device=dev,
+             generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    assert m.level_kinds(x.shape) == ["flat", "library", "library",
+                                      "library"]
+    t = (x[..., 0] > 0).long()
+    launches = _check_step_against_reference(m, x, t, dtype)
+    assert launches == {**dict.fromkeys(launches, 0), "conv_bnact": 3,
+                        "conv_bnact_dgrad": 3, "conv_bnact_wgrad": 3}
+    m.eval()
+    fused.reset_launches()
+    y = m(x)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv_bnact": 3}
+    ref = m(x, reference=True)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((y.float() - ref.float()).abs().max()) <= \
         tol * float(ref.float().abs().max())
