@@ -9,10 +9,12 @@ paths, the same two paths of the 2D UNet of
 of ``BASELINE.md``'s coverage matrix, whose C=128 level runs the
 kernels, those of the headline 3D UNet with ``normalization=
 'batchp'``, whose library levels' batch norms run the kernels K8-K11,
-and those of the headline 3D UNet with ``activation='silu'`` and
+those of the headline 3D UNet with ``activation='silu'`` and
 ``pallas_flat=True``, whose L0 and decoder level run JAX's semi-fused
 flat executor (rows 26/27: ``flat_conv3`` on K1, K4 and K5 without a
-prologue).
+prologue), and those of the headline 3D UNet with ``vup=True``, whose L0
+decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
+22 and 23: ``ops/vup.py``).
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the hand-written kernels of ``elektronn3_tpu_torch/csrc`` with
@@ -117,7 +119,20 @@ prologue).
     9 with K1, K4 and K5 launched three times a step (L0 conv2, the up_2
     merge and conv2) and K2, K3, K6, K7 none, rows 26/27 recorded; then
     the same step with ``pallas_flat=False`` (every level on the library;
-    JAX calls its flat executor "never profitable"), timed beside it.
+    JAX calls its flat executor "never profitable"), timed beside it;
+18. the vup path: its five kernels (``conv_vup`` with and without
+    statistics, ``upconv_stats``, ``conv_vup_dgrad``, ``conv_vup_wgrad``,
+    ``upconv_stats_bwd``) against their plain versions at bench.py's up_2
+    (carry (8, 44, 44, 44, 64), skip (8, 44, 88, 88, 32)) and
+    ``conv_vup`` as served at the Predictor tile's up_2, bf16 and f32;
+    then the headline UNet with ``vup=True`` (bf16): steps 6 and 7 with
+    ``conv_vup`` once a model call in place of up_2's K1 merge and K3,
+    then steps 8 and 9 with the five entries once a step and K1, K3, K4,
+    K5, K7 one launch fewer a step than step 8's, rows 9, 22, 23 and 1's
+    vup mode recorded at the bench shapes; then the same timed step with
+    ``vup`` off and on in turn (off, on, on, off), each arm's peak
+    allocated memory beside the other's (the vup arm must hold at least
+    150 MB less: it never stores the 174.4 MB upconv output).
 
 Every timed variant also prints its bound, the least time the card
 could take for its work: the larger of its operations over the card's
@@ -139,8 +154,9 @@ Any failed check raises, and the script exits non-zero. The last lines
 are a JSON object with each kernel's numbers (``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` sum the bfloat16 variants that
 ``totals_over`` names; ``variants`` lists every
-variant's own numbers; ``launches`` sums the twelve paths whose counts
-``launches_by_path`` gives), the card's name and power limit, then
+variant's own numbers; ``launches`` sums the fourteen paths whose
+counts ``launches_by_path`` gives; the vup entries launch on the two vup
+paths alone), the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -233,11 +249,32 @@ SOURCES = {
                       f"{_BN}:188 _bn_bwd (its pallas_call :199)"),
     "bn_bwd_dx": ("elektronn3_tpu_torch/csrc/batch_norm.cu",
                   f"{_BN}:188 _bn_bwd (its pallas_call :228)"),
+    "conv_vup": ("elektronn3_tpu_torch/csrc/conv_vup.cu",
+                 f"{_F}:899 conv_bnact_flat_vup (row 1's pallas_call {_F}:415"
+                 f" in its vup mode, {_F}:238 _vup_scratch)"),
+    "conv_vup_dgrad": ("elektronn3_tpu_torch/csrc/conv_vup.cu",
+                       f"{_F}:950 _conv_vup_bwd (row 9, its pallas_call "
+                       ":1054): dgrad and the chain into the carry (the "
+                       "chain: csrc/upconv_bnact.cu e3_conv_vup_chain)"),
+    "conv_vup_wgrad": ("elektronn3_tpu_torch/csrc/conv_bnact_bwd.cu",
+                       f"{_F}:950 _conv_vup_bwd (row 9, :1054): the merge "
+                       "conv's dW and db"),
+    "upconv_stats": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
+                     f"{_F64}:2930 upconv122_stats_from_flat64 (row 22, its "
+                     "pallas_call :2976)"),
+    "upconv_stats_bwd": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
+                         f"{_F64}:2996 _upconv122_stats_bwd (row 23, its "
+                         "pallas_call :3059)"),
 }
 # K8-K11 run only the 'batchp' norm's library levels; K1-K7 every model's
 # kernel levels.
 BN_KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
 FUSED_KERNELS = tuple(k for k in SOURCES if k not in BN_KERNELS)
+# The vup path's entries launch only on a vup=True model's paths; K1-K7
+# on every model's kernel levels.
+VUP_KERNELS = ("conv_vup", "conv_vup_dgrad", "conv_vup_wgrad",
+               "upconv_stats", "upconv_stats_bwd")
+K1_K7 = tuple(k for k in FUSED_KERNELS if k not in VUP_KERNELS)
 # The kernel launches that stand for rows of the kernel table in PERF.md
 # (as recorded by ``record_shapes``): on the 2D path rows 16, 17, 19 and
 # 20, the (1, 2, 2) pool at C=64 and its backward, the (1, 2, 2) upconv
@@ -273,7 +310,18 @@ ROW_SHAPES = {16: ("pool_bnact", 64, (1, 2, 2)),
               "26/dgrad merge": ("conv_bnact_dgrad", (32, 32), 32, 1,
                                  False),
               27: ("conv_bnact_wgrad", (32,), 32, 1, False),
-              "27/merge": ("conv_bnact_wgrad", (32, 32), 32, 1, False)}
+              "27/merge": ("conv_bnact_wgrad", (32, 32), 32, 1, False),
+              # Rows 1 (vup mode), 9, 22, 23: the vup entries by the
+              # carry's shape, at bench.py's up_2 and the Predictor's.
+              "1/vup": ("conv_vup", (BATCH, *TL1, 64)),
+              9: ("conv_vup_dgrad", (BATCH, *TL1, 64)),
+              "9/wgrad": ("conv_vup_wgrad", (BATCH, *TL1, 64)),
+              22: ("upconv_stats", (BATCH, *TL1, 64)),
+              23: ("upconv_stats_bwd", (BATCH, *TL1, 64)),
+              "1/vup tile": ("conv_vup", (1, *L1, 64)),
+              "1/vup request": ("conv_vup", (2, *L1, 64))}
+VUP_TRAIN_ROWS = ("1/vup", 9, "9/wgrad", 22, 23)
+VUP_SERVE_ROWS = ("1/vup tile", "1/vup request")
 FLAT_SERVE_ROWS = (26, "26/merge")
 FLAT_TRAIN_ROWS = (26, "26/merge", "26/dgrad", "26/dgrad merge", 27,
                    "27/merge")
@@ -319,7 +367,9 @@ TOTALS_OVER = {"conv_bnact": _TILE_SERVING, "pool_bnact": _TILE_SERVING,
                "upconv_bnact": _TILE_SERVING, "conv_bnact_dgrad": _BENCH,
                "conv_bnact_wgrad": _BENCH, "pool_bnact_bwd": _BENCH,
                "upconv_bnact_bwd": _BENCH, **dict.fromkeys(BN_KERNELS,
-                                                           _BN_BENCH)}
+                                                           _BN_BENCH),
+               "conv_vup": _TILE_SERVING,
+               **dict.fromkeys(VUP_KERNELS[1:], _BENCH)}
 # Forward variants at the 3D Predictor tile's shapes (batch 1):
 # (kind, label, level shape, input channels, C_out, kd / window, prologue)
 FWD = {"conv": "conv_bnact", "pool": "pool_bnact", "upconv": "upconv_bnact"}
@@ -1057,9 +1107,20 @@ def bn_kernel_phase(bn, stats):
 def record_shapes(fused, bn=None):
     """Count the K1-K7 launches made inside the block by (kernel,
     channels, window or (C_out, kd, prologue)), a conv's channels by
-    input ((C_0,) or (C_0, C_1)), and, given the ``bn`` module
-    (``ops/pallas_bn``), K8-K11's by (kernel, R, C)."""
+    input ((C_0,) or (C_0, C_1)), the vup entries' by (entry, the
+    carry's shape), and, given the ``bn`` module (``ops/pallas_bn``),
+    K8-K11's by (kernel, R, C)."""
+    from elektronn3_tpu_torch.ops import vup
     seen = collections.Counter()
+    vup_names = {f"{k}_kernel": k for k in VUP_KERNELS[1:]}
+    vup_names["conv_vup_fwd_kernel"] = "conv_vup"
+    vup_real = {n: getattr(vup, n) for n in vup_names}
+
+    def wrap_vup(n):
+        def f(carry, *rest):
+            seen[(vup_names[n], tuple(carry.shape))] += 1
+            return vup_real[n](carry, *rest)
+        return f
     names = ("pool_bnact_fwd_kernel", "pool_bnact_bwd_kernel",
              "upconv_bnact_fwd_kernel", "upconv_bnact_bwd_kernel",
              "conv_bnact_fwd_kernel", "conv_bnact_dgrad_kernel",
@@ -1095,6 +1156,8 @@ def record_shapes(fused, bn=None):
         setattr(fused, n, wrap(n))
     for n in bn_names:
         setattr(bn, n, wrap_bn(n))
+    for n in vup_names:
+        setattr(vup, n, wrap_vup(n))
     try:
         yield seen
     finally:
@@ -1102,6 +1165,8 @@ def record_shapes(fused, bn=None):
             setattr(fused, n, real[n])
         for n in bn_names:
             setattr(bn, n, bn_real[n])
+        for n in vup_names:
+            setattr(vup, n, vup_real[n])
 
 
 def check_rows(seen, rows, what):
@@ -1112,6 +1177,145 @@ def check_rows(seen, rows, what):
     print(f"{what}: launches at the shapes of rows "
           + ", ".join(f"{r} {ROW_SHAPES[r]}: {seen[ROW_SHAPES[r]]}"
                       for r in rows), flush=True)
+
+
+# The vup entries' variants: (label, carry shape, skip shape, training).
+# bench.py's up_2 (training: every entry) and the 3D Predictor tile's
+# (serving: conv_vup without statistics).
+VUP_VARIANTS = [
+    ("vup bench up_2 64->32 [rows 1-vup/9/22/23]", (BATCH, *TL1, 64),
+     (BATCH, *PATCH, 32), True),
+    ("vup tile up_2 64->32 [row 1-vup]", (1, *L1, 64), (1, *TILE, 32),
+     False),
+]
+
+
+def vup_kernel_phase(vup, stats):
+    """The vup entries against their plain versions on the same inputs
+    (relu prologues with negative scales, random statistics
+    cotangents), bf16 and f32: ``conv_vup`` as served (and, in training,
+    with statistics), ``upconv_stats``, ``conv_vup_dgrad`` (dcarry and
+    dskip elementwise, the sums as sums), ``conv_vup_wgrad`` and
+    ``upconv_stats_bwd``. Library calls (bf16, cuDNN through torch,
+    channels-last): ``conv_transpose3d`` plus ``conv3d`` on the
+    prologued inputs for ``conv_vup``; ``conv_transpose3d`` plus
+    ``torch.batch_norm_stats`` for ``upconv_stats``; the two convs'
+    backward calls for the backward entries (the merge conv's input or
+    weight gradient, the transposed conv's input and weight gradients):
+    each computes less than the kernel (no prologue, no chain), "lib*".
+    The bound counts the upconv recompute as work: 2 * 64 * 32 FLOP per
+    output voxel for each use of the upconv output."""
+    from elektronn3_tpu_torch.ops.fused import channel_stats, prologue
+    grad = torch.nn.grad
+    for seed, (label, cshape, sshape, train) in enumerate(VUP_VARIANTS):
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            peak = PEAK_BF16 if bf16 else PEAK_F32
+            rnd = rand_on_card(500 + seed)
+            carry = rnd(*cshape).to(dtype)
+            skip = rnd(*sshape).to(dtype)
+            up = (carry, rnd(64), rnd(64, scale=0.5),
+                  rnd(64, 32, 1, 2, 2, scale=(2.0 / (96 * 4)) ** 0.5),
+                  rnd(32, scale=0.1))
+            args = (*up, skip, rnd(64), rnd(64, scale=0.5),
+                    rnd(32, 64, 1, 3, 3, scale=(2.0 / (96 * 9)) ** 0.5),
+                    rnd(32, scale=0.1))
+            m = skip.numel() // 32
+            f_up, f_merge = 2.0 * m * 64 * 32, 2.0 * m * 64 * 32 * 9
+            libs = {}
+            if bf16:
+                a_c = lib_view(prologue(carry, up[1], up[2], "relu")
+                               .to(dtype))
+                u = lib_view(vup._upconv_plain(*up, "relu"))
+                a_m = lib_input([u.permute(0, 2, 3, 4, 1), skip], args[6],
+                                args[7], "relu")
+                wuq, buq = up[3].to(dtype), up[4].to(dtype)
+                wq, bq = args[8].to(dtype), args[9].to(dtype)
+                st = (1, 2, 2)
+                convt = F.conv_transpose3d
+                libs["conv_vup"] = lambda: (
+                    convt(a_c, wuq, buq, stride=st),
+                    F.conv3d(a_m, wq, bq, padding=(0, 1, 1)))
+                libs["upconv_stats"] = lambda: torch.batch_norm_stats(
+                    convt(a_c, wuq, buq, stride=st), 1e-5)
+                dyv = lib_view(rnd(*sshape, scale=0.1).to(dtype))
+
+                def convt_bwd():    # u's values serve as its cotangent
+                    return (F.conv3d(u, wuq, stride=st),
+                            grad.conv3d_weight(u, wuq.shape, a_c, stride=st))
+                libs["upconv_stats_bwd"] = convt_bwd
+                libs["conv_vup_dgrad"] = lambda: (
+                    grad.conv3d_input(a_m.shape, wq, dyv, padding=(0, 1, 1)),
+                    convt_bwd())
+                libs["conv_vup_wgrad"] = lambda: grad.conv3d_weight(
+                    a_m, wq.shape, dyv, padding=(0, 1, 1))
+                libs = {k: cuda_ms(f) for k, f in libs.items()}
+            for want in (False, True) if train else (False,):
+                run = lambda: vup.conv_vup_fwd_kernel(   # noqa
+                    *args, "relu", "relu", want)
+                plain = lambda: vup.conv_vup_fwd_plain(  # noqa
+                    *args, "relu", "relu", want)
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                err = check_close(got[0], ref[0], dtype, f"{label} {dtype}")
+                if want:
+                    ks, kq = channel_stats(got[0])
+                    err = max(err, check_sum(got[1], ks, f"{label} sum"),
+                              check_sum(got[2], kq, f"{label} sumsq"))
+                    if not bf16:
+                        err = max(err, check_sum(got[1], ref[1], label),
+                                  check_sum(got[2], ref[2], label))
+                bnd = bound(f_up + f_merge, peak, args, got)
+                del got, ref
+                stats.add("conv_vup", label + (" +stats" if want
+                                               else " serving"), dtype,
+                          err, cuda_ms(run), cuda_ms(plain), bnd,
+                          libs.get("conv_vup"), False,
+                          total=not train and not want,
+                          lib_op="conv_transpose3d + conv3d on the "
+                          "prologued inputs")
+            if not train:
+                del carry, skip, up, args, libs
+                torch.cuda.empty_cache()
+                continue
+            run = lambda: vup.upconv_stats_kernel(*up, "relu")   # noqa
+            plain = lambda: vup.upconv_stats_plain(*up, "relu")  # noqa
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            err = max(check_sum(got[0], ref[0], f"{label} upconv sum"),
+                      check_sum(got[1], ref[1], f"{label} upconv sumsq"))
+            stats.add("upconv_stats", label, dtype, err, cuda_ms(run),
+                      cuda_ms(plain), bound(f_up, peak, up, got),
+                      libs.get("upconv_stats"), False, total=True,
+                      lib_op="conv_transpose3d + torch.batch_norm_stats")
+            y = vup.conv_vup_fwd_plain(*args, "relu", "relu")[0]
+            ds, dq = rnd(32, scale=1e-3), rnd(32, scale=1e-4)
+            bargs = (*args[:9], y, rnd(*y.shape, scale=0.1).to(dtype), ds,
+                     dq, "relu", "relu")
+            for name, flops, elementwise in (
+                    ("conv_vup_dgrad", 3 * f_up + f_merge, (0, 5)),
+                    ("conv_vup_wgrad", f_up + f_merge, ()),
+                    ("upconv_stats_bwd", 3 * f_up, (0,))):
+                fargs = (*up, ds, dq, "relu") if name == "upconv_stats_bwd" \
+                    else bargs
+                kfn = getattr(vup, f"{name}_kernel")
+                pfn = getattr(vup, f"{name}_plain")
+                run = lambda: kfn(*fargs)      # noqa
+                plain = lambda: pfn(*fargs)    # noqa
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                err = 0.0
+                for i, (g, r) in enumerate(zip(got, ref)):
+                    what = f"{name} {label} {dtype} output {i}"
+                    err = max(err, check_close(g, r, dtype, what)
+                              if i in elementwise else check_sum(g, r, what))
+                bnd = bound(flops, peak, fargs, got)
+                del got, ref
+                stats.add(name, label, dtype, err, cuda_ms(run),
+                          cuda_ms(plain), bnd, libs.get(name), False,
+                          total=True, lib_op="the two convs' backward calls")
+            del carry, skip, up, args, bargs, y, libs
+            torch.cuda.empty_cache()
 
 
 def randomize_norms(model, seed):
@@ -1127,11 +1331,11 @@ def randomize_norms(model, seed):
 
 
 def headline_unet(UNet, seed, dtype=torch.bfloat16, normalization="batch",
-                  pallas_flat="auto", activation="relu"):
+                  pallas_flat="auto", activation="relu", vup=False):
     return UNet(in_channels=1, out_channels=2, n_blocks=4, start_filts=32,
                 planar_blocks=(0,), activation=activation,
                 normalization=normalization, dtype=dtype, device="cuda",
-                pallas_flat=pallas_flat,
+                pallas_flat=pallas_flat, vup=vup,
                 generator=torch.Generator().manual_seed(seed))
 
 
@@ -1445,7 +1649,7 @@ def bench_batches(shape):
 
 
 def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
-                rows=(), kernels=FUSED_KERNELS, bn=None, zero_bf16=1e-2):
+                rows=(), kernels=K1_K7, bn=None, zero_bf16=1e-2):
     """Timed training steps of ``build``'s model on batches of ``shape``
     (kernels, plain, kernels again), every kernel of ``kernels``
     launched, the ``rows``' shapes launched (``bn``: the 'batchp'
@@ -1673,6 +1877,40 @@ def silu_library_phase(build, CEDiceLoss, train_step, fused):
     return launches
 
 
+def vup_pair_phase(build, CEDiceLoss, train_step, fused):
+    """The headline step at bench.py's shapes with ``vup`` off and on in
+    turn (off, on, on, off), each arm a fresh model of the same seed, the
+    same timed loop and batches as train_phase's, the peak allocated
+    memory reset just before each arm's timed steps (the model, its Adam
+    state and the batches are live in both arms). Each vup arm's peak
+    must be at least 150 MB under each ``vup=False`` arm's: the vup path
+    never stores the upconv output of up_2 (174.4 MB in bf16)."""
+    shape = (BATCH, *PATCH, 1)
+    batches = bench_batches(shape)
+    crit = CEDiceLoss(1.0, 1.0)
+    readings = {False: [], True: []}
+    for on in (False, True, True, False):
+        model = build(4, torch.bfloat16, on)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        dt = timed_steps(train_step, model, crit, opt, batches, False,
+                         torch.cuda.reset_peak_memory_stats)
+        readings[on].append((dt * 1e3, torch.cuda.max_memory_allocated()))
+        del model, opt
+        torch.cuda.empty_cache()
+    for on in (False, True):
+        print(f"train vup={on!s:5s}: step " + ", ".join(
+            f"{ms:.2f}" for ms, _ in readings[on]) + " ms; peak allocated "
+            + ", ".join(f"{b / 1e6:.1f}" for _, b in readings[on])
+            + " MB", flush=True)
+    saved = min(b for _, b in readings[False]) - max(
+        b for _, b in readings[True])
+    print(f"train vup: peak allocated {saved / 1e6:.1f} MB under vup=False "
+          f"(batch {BATCH} of {PATCH}, bf16)", flush=True)
+    if saved < 150e6:
+        raise AssertionError(f"vup step's peak only {saved / 1e6:.1f} MB "
+                             "under vup=False's")
+
+
 def profile_phase(train_step, model, crit, opt, batches):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1736,7 +1974,8 @@ def main():
     from elektronn3_tpu_torch.models import UNet
     from elektronn3_tpu_torch.models import unet as unet_mod
     from elektronn3_tpu_torch.modules.loss import CEDiceLoss
-    from elektronn3_tpu_torch.ops import _build, fused, pallas_bn, pallas_conv
+    from elektronn3_tpu_torch.ops import (_build, fused, pallas_bn,
+                                         pallas_conv, vup)
     from elektronn3_tpu_torch.training import Trainer, train_step
 
     print(f"card: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}",
@@ -1783,6 +2022,9 @@ def main():
     def build_silu_library(seed, dtype):
         return headline_unet(UNet, seed, dtype, activation="silu",
                              pallas_flat=False)
+
+    def build_vup(seed, dtype, vup=True):
+        return headline_unet(UNet, seed, dtype, vup=vup)
 
     stats = Stats()
     kernel_phase(fused, stats, VARIANTS, total=True)
@@ -1844,7 +2086,7 @@ def main():
     torch.cuda.empty_cache()
     launches["train_batchp"], model, crit, opt, batches = train_phase(
         build_batchp, (BATCH, *PATCH, 1), "batchp", "MVox", CEDiceLoss,
-        train_step, fused, BATCHP_TRAIN_ROWS, tuple(SOURCES), pallas_bn)
+        train_step, fused, BATCHP_TRAIN_ROWS, K1_K7 + BN_KERNELS, pallas_bn)
     if profiling:
         profile_phase(train_step, model, crit, opt, batches)
     del model, opt, batches
@@ -1883,6 +2125,38 @@ def main():
     trainer_phase(build_silu, (1, *PATCH), "silu", CEDiceLoss, Trainer)
     launches["train_silu_library"] = silu_library_phase(
         build_silu_library, CEDiceLoss, train_step, fused)
+    torch.cuda.empty_cache()
+
+    vup_kernel_phase(vup, stats)
+    launches["predictor_vup"] = predictor_phase(
+        build_vup, "vup", Predictor, fused, VUP_SERVE_ROWS,
+        SERVING + ("conv_vup",), per_call={"conv_bnact": 11, "pool_bnact": 3,
+                                           "upconv_bnact": 2, "conv_vup": 1})
+    torch.cuda.empty_cache()
+    launches["train_vup"], model, crit, opt, batches = train_phase(
+        build_vup, (BATCH, *PATCH, 1), "vup", "MVox", CEDiceLoss, train_step,
+        fused, VUP_TRAIN_ROWS, K1_K7 + VUP_KERNELS)
+    # up_2's K3, K7 and its merge's K1, K4, K5 give way to the five vup
+    # entries; every other launch as on the 'batch' headline step.
+    per_step = {"conv_bnact": 7, "pool_bnact": 2, "upconv_bnact": 1,
+                "conv_bnact_dgrad": 6, "conv_bnact_wgrad": 7,
+                "pool_bnact_bwd": 2, "upconv_bnact_bwd": 1,
+                **dict.fromkeys(VUP_KERNELS, 1)}
+    want = {k: per_step.get(k, 0) * STEPS for k in SOURCES}
+    if launches["train_vup"] != want:
+        raise AssertionError(f"vup training launches {launches['train_vup']}"
+                             f", expected {want}")
+    if profiling:
+        profile_phase(train_step, model, crit, opt, batches)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    trainer_phase(build_vup, (1, *PATCH), "vup", CEDiceLoss, Trainer)
+    vup_pair_phase(build_vup, CEDiceLoss, train_step, fused)
+    stray = {p: {k: n[k] for k in VUP_KERNELS if n[k]}
+             for p, n in launches.items() if "vup" not in p}
+    if any(stray.values()):
+        raise AssertionError(f"vup entries launched off the vup paths: "
+                             f"{stray}")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],

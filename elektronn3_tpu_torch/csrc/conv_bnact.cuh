@@ -40,11 +40,21 @@
 //     taps and 32 output channels.
 // Zero padding is applied AFTER the load step (a halo voxel is 0, not
 // act(0 * inv + shift)), so halo voxels carry no gradient either.
+//
+// The vup instantiations (VUP = true; the vup merge conv of
+// conv_vup.cu, JAX's conv_bnact_flat_vup) take input 0 VIRTUAL: the
+// (1, 2, 2) upconv of the deeper level's carry (ConvArgs::vup),
+// recomputed per staged voxel by upconv_value8 (upconv_vup.cuh). The
+// forward stages act(u * inv0 + shift0) of that value u; the dgrad
+// epilogue recomputes u for act' and dinv0, and stores
+// E = round(gm * inv0), the cotangent of the upconv output, where dx0
+// would go. Every other instantiation compiles exactly as before.
 #pragma once
 
 #include <mma.h>
 
 #include "common.cuh"
+#include "upconv_vup.cuh"
 
 namespace {
 
@@ -84,6 +94,7 @@ struct ConvArgs {
   float* dinv;        // (ce[0] + ce[1],) prologue gradients
   float* dshift;
   int n, d, h, wd, cout, kd, act;
+  VupArgs vup;        // vup instantiations: input 0's carry (kd == 1)
 };
 
 // Load 8 (NC = 8) or 16 staged values of voxel ``vox`` from channel
@@ -124,13 +135,47 @@ __device__ __forceinline__ void load_operand(const ConvArgs& a, int i,
   }
 }
 
+// The staged value of virtual input 0 (vup forward): the prologue
+// act(u * inv0 + shift0) of the recomputed upconv output u at voxel
+// (nz, gh, gw), nz the n * d + depth index; not yet rounded.
+template <typename T, int NC>
+__device__ __forceinline__ void vup_operand(const ConvArgs& a, int64_t nz,
+                                            int gh, int gw, int cb,
+                                            float* v) {
+  const int64_t cv = vup_parent(nz, gh, gw, a.h, a.wd);
+  const int sub = vup_sub(gh, gw);
+#pragma unroll
+  for (int g = 0; g < NC / 8; ++g)
+    upconv_value8<T>(a.vup, cv, sub, cb + 8 * g, v + 8 * g);
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    v[c] = prologue(v[c], a.inv[0][cb + c], a.shift[0][cb + c], a.act);
+}
+
+// One staged value group of operand i at voxel (gh, gw) of plane
+// ``plane`` (= nz * h): load_operand, or the vup forward's virtual
+// input 0.
+template <bool DG, bool VUP, typename T, int NC>
+__device__ __forceinline__ void stage_operand(const ConvArgs& a, int i,
+                                              int64_t plane, int64_t nz,
+                                              int gh, int gw, int cb,
+                                              float* v) {
+  if constexpr (VUP && !DG) {
+    if (i == 0) {
+      vup_operand<T, NC>(a, nz, gh, gw, cb, v);
+      return;
+    }
+  }
+  load_operand<DG, T, NC>(a, i, (plane + gh) * a.wd + gw, cb, v);
+}
+
 // Epilogue of 8 consecutive output channels o .. o + 7 of voxel ``vox``
 // from their float32 sums ``acc``. Forward: bias, store, and (ST) the
 // rounded values' sums into st (8 sums, then 8 sums of squares). Dgrad:
 // the prologue gradient as described at the top; st gets dinv then
 // dshift. ST is a template argument so that the forward without
 // statistics (serving) keeps no sums in registers.
-template <bool DG, bool ST, typename T>
+template <bool DG, bool ST, typename T, bool VUP = false>
 __device__ __forceinline__ void epilogue8(const ConvArgs& a, int64_t vox,
                                           int o, const float* acc,
                                           float* st) {
@@ -152,7 +197,19 @@ __device__ __forceinline__ void epilogue8(const ConvArgs& a, int64_t vox,
   const int cl = o - (i ? a.ce[0] : 0);
   const int ci = a.ce[i];
   float x[8], r[8];
-  load8(static_cast<const T*>(a.xe[i]) + vox * ci + cl, x);
+  if constexpr (VUP) {
+    if (i == 0) {  // the recomputed upconv output, the forward's bits
+      const int ww = (int)(vox % a.wd);
+      const int64_t t = vox / a.wd;
+      upconv_value8<T>(a.vup, vup_parent(t / a.h, (int)(t % a.h), ww, a.h,
+                                         a.wd),
+                       vup_sub((int)(t % a.h), ww), cl, x);
+    } else {
+      load8(static_cast<const T*>(a.xe[i]) + vox * ci + cl, x);
+    }
+  } else {
+    load8(static_cast<const T*>(a.xe[i]) + vox * ci + cl, x);
+  }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float inv = a.einv[o + j];
@@ -178,7 +235,7 @@ __device__ __forceinline__ void flush_block_sums(float (*red)[COG],
   }
 }
 
-template <bool DG, bool ST, typename T>
+template <bool DG, bool ST, typename T, bool VUP = false>
 __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   __shared__ float s_in[CK][HH][HW];
   __shared__ __align__(16) float s_w[9][CK][COG];
@@ -220,7 +277,8 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
           const int gw = w0 + hx - 1;
           float v[CK];
           if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd) {
-            load_operand<DG, T, CK>(a, i, (plane + gh) * a.wd + gw, cb, v);
+            stage_operand<DG, VUP, T, CK>(a, i, plane, (int64_t)n * a.d + zd,
+                                          gh, gw, cb, v);
 #pragma unroll
             for (int c = 0; c < CK; ++c)
               v[c] = (cb + c < ci) ? round_to<T>(v[c]) : 0.0f;
@@ -285,7 +343,8 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
     const int64_t vox = ((int64_t)nd * a.h + h) * a.wd + w;
 #pragma unroll
     for (int q = 0; q < COG / 8; ++q)
-      epilogue8<DG, ST, T>(a, vox, co0 + 8 * q, &acc[r][8 * q], st[q]);
+      epilogue8<DG, ST, T, VUP>(a, vox, co0 + 8 * q, &acc[r][8 * q],
+                                st[q]);
   }
   if (!ST) return;
   float st0[COG], st1[COG];
@@ -317,7 +376,7 @@ constexpr int MHH = MH + 2;         // staged rows (with halo)
 constexpr int MHW = MW + 2;         // staged columns (with halo)
 constexpr int SEG = MW / 16;        // 16-voxel segments per warp
 
-template <bool DG, bool ST>
+template <bool DG, bool ST, bool VUP = false>
 __global__ void __launch_bounds__(256) conv_body_mma_kernel(
     const ConvArgs a) {
   using namespace nvcuda;
@@ -362,8 +421,8 @@ __global__ void __launch_bounds__(256) conv_body_mma_kernel(
           const int gw = w0 + p % MHW - 1;
           float v[MCK];
           if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd) {
-            load_operand<DG, __nv_bfloat16, MCK>(
-                a, i, (plane + gh) * a.wd + gw, cb, v);
+            stage_operand<DG, VUP, __nv_bfloat16, MCK>(
+                a, i, plane, (int64_t)n * a.d + zd, gh, gw, cb, v);
           } else {
 #pragma unroll
             for (int c = 0; c < MCK; ++c) v[c] = 0.0f;
@@ -429,7 +488,7 @@ __global__ void __launch_bounds__(256) conv_body_mma_kernel(
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           r[j] = s_out[warp][vox_l * 16 + half * 8 + j];
-        epilogue8<DG, ST, __nv_bfloat16>(
+        epilogue8<DG, ST, __nv_bfloat16, VUP>(
             a, ((int64_t)nd * a.h + h) * a.wd + w, co0 + f * 16 + half * 8,
             r, st[f]);
       }
@@ -467,7 +526,7 @@ __global__ void __launch_bounds__(256) conv_body_mma_kernel(
 // sums (statistics, or dinv and dshift). grid.x walks the (h, w) tiles
 // of every (n, depth) slab, the slab index outermost, so N * D is not
 // bounded by grid.y's 65535; a grid.x past 2^31 - 1 is refused.
-template <bool DG, bool ST>
+template <bool DG, bool ST, bool VUP = false>
 cudaError_t launch_conv_body_st(const ConvArgs& a, int dtype,
                                 cudaStream_t s) {
   const bool mma = dtype == DT_BF16 && a.cin[0] % MCK == 0
@@ -479,23 +538,23 @@ cudaError_t launch_conv_body_st(const ConvArgs& a, int dtype,
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, 1, a.cout / COG);
   if (mma)
-    conv_body_mma_kernel<DG, ST><<<grid, 256, 0, s>>>(a);
+    conv_body_mma_kernel<DG, ST, VUP><<<grid, 256, 0, s>>>(a);
   else if (dtype == DT_BF16)
-    conv_body_kernel<DG, ST, __nv_bfloat16><<<grid, NT, 0, s>>>(a);
+    conv_body_kernel<DG, ST, __nv_bfloat16, VUP><<<grid, NT, 0, s>>>(a);
   else
-    conv_body_kernel<DG, ST, float><<<grid, NT, 0, s>>>(a);
+    conv_body_kernel<DG, ST, float, VUP><<<grid, NT, 0, s>>>(a);
   return cudaSuccess;
 }
 
-template <bool DG>
+template <bool DG, bool VUP = false>
 int launch_conv_body(const ConvArgs& a, int dtype, cudaStream_t s) {
   cudaError_t rc;
   if constexpr (DG)
-    rc = launch_conv_body_st<true, true>(a, dtype, s);
+    rc = launch_conv_body_st<true, true, VUP>(a, dtype, s);
   else if (a.s != nullptr)
-    rc = launch_conv_body_st<false, true>(a, dtype, s);
+    rc = launch_conv_body_st<false, true, VUP>(a, dtype, s);
   else
-    rc = launch_conv_body_st<false, false>(a, dtype, s);
+    rc = launch_conv_body_st<false, false, VUP>(a, dtype, s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,13 @@
 // first channel group. What bounds K5: arithmetic on the CUDA cores
 // (each staged value serves 9 taps x 8 output channels per thread); a
 // tensor-core body is later work.
+//
+// e3_conv_vup_wgrad is K5 for the vup merge conv (VUP = true): its
+// input 0 is the recomputed (1, 2, 2) upconv of the carry
+// (upconv_vup.cuh), prologued and rounded as K1's vup staging does. It
+// replaces the wgrad half of ops/flat_fused.py::_conv_vup_bwd.
+#include <type_traits>
+
 #include "conv_bnact.cuh"
 
 namespace {
@@ -59,8 +66,16 @@ struct WgradArgs {
   int n, d, h, wd, cout, kd, act;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(WNT) conv_wgrad_kernel(const WgradArgs a) {
+// K5's arguments for the vup merge conv: input 0's carry (kd == 1). A
+// type of its own, so that K5's other instantiations keep the argument
+// layout, and the code, they compile to without it.
+struct WgradVupArgs : WgradArgs {
+  VupArgs vup;
+};
+
+template <typename T, typename Args = WgradArgs>
+__global__ void __launch_bounds__(WNT) conv_wgrad_kernel(const Args a) {
+  constexpr bool VUP = std::is_same<Args, WgradVupArgs>::value;
   __shared__ float s_a[WCI][WTH + 2][WTW + 2];
   __shared__ __align__(16) float s_g[WV][WCO];
   __shared__ float s_db[WCO];
@@ -121,7 +136,16 @@ __global__ void __launch_bounds__(WNT) conv_wgrad_kernel(const WgradArgs a) {
       float v[8];
       if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd) {
         const int c0 = cb + 8 * g;
-        load8_tail(x + ((zplane + gh) * a.wd + gw) * ci + c0, ci, c0, v);
+        if constexpr (VUP) {
+          if (i == 0)
+            upconv_value8<T>(a.vup, vup_parent(nd + dz, gh, gw, a.h, a.wd),
+                             vup_sub(gh, gw), c0, v);
+          else
+            load8_tail(x + ((zplane + gh) * a.wd + gw) * ci + c0, ci, c0,
+                       v);
+        } else {
+          load8_tail(x + ((zplane + gh) * a.wd + gw) * ci + c0, ci, c0, v);
+        }
 #pragma unroll
         for (int c = 0; c < 8; ++c)
           v[c] = (c0 + c < ci)
@@ -257,6 +281,30 @@ extern "C" int e3_conv_bnact_dgrad(int dtype, int nin, const void* dy,
   return launch_conv_body<true>(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+// K5's grid: enough voxel splits for 4 blocks an SM over the (channel
+// group, depth tap) blocks, at most one a tile.
+template <typename Args>
+int launch_wgrad(const Args& a, int dtype, void* stream) {
+  const int groups = a.groups0 + (a.cin[1] + WCI - 1) / WCI;
+  const int per_split = groups * (a.cout / WCO) * a.kd;
+  const int64_t ntiles = (int64_t)a.n * a.d * ((a.h + WTH - 1) / WTH)
+      * ((a.wd + WTW - 1) / WTW);
+  int64_t splits = (4 * (int64_t)sm_count() + per_split - 1) / per_split;
+  if (splits > ntiles) splits = ntiles;
+  if (splits < 1) splits = 1;
+  const dim3 grid((unsigned)splits, groups * (a.cout / WCO), a.kd);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == e3::DT_BF16)
+    conv_wgrad_kernel<__nv_bfloat16, Args><<<grid, WNT, 0, s>>>(a);
+  else
+    conv_wgrad_kernel<float, Args><<<grid, WNT, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 extern "C" int e3_conv_bnact_wgrad(int dtype, int nin, const void* x0,
                                    int c0, const void* x1, int c1,
                                    const float* inv, const float* shift,
@@ -287,18 +335,42 @@ extern "C" int e3_conv_bnact_wgrad(int dtype, int nin, const void* x0,
   a.cout = cout;
   a.kd = kd;
   a.act = act;
-  const int groups = a.groups0 + (a.cin[1] + WCI - 1) / WCI;
-  const int per_split = groups * (cout / WCO) * kd;
-  const int64_t ntiles = (int64_t)n * d * ((h + WTH - 1) / WTH)
-      * ((wd + WTW - 1) / WTW);
-  int64_t splits = (4 * (int64_t)sm_count() + per_split - 1) / per_split;
-  if (splits > ntiles) splits = ntiles;
-  if (splits < 1) splits = 1;
-  const dim3 grid((unsigned)splits, groups * (cout / WCO), kd);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == e3::DT_BF16)
-    conv_wgrad_kernel<__nv_bfloat16><<<grid, WNT, 0, s>>>(a);
-  else
-    conv_wgrad_kernel<float><<<grid, WNT, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_wgrad(a, dtype, stream);
+}
+
+// K5 of the vup merge conv: input 0 is the recomputed upconv output of
+// the carry (cu channels), input 1 the skip (cs); kd = 1.
+extern "C" int e3_conv_vup_wgrad(int dtype, const void* carry, int cc,
+                                 const float* invc, const float* shiftc,
+                                 const float* wu, const float* bu, int cu,
+                                 int actc, const void* skip, int cs,
+                                 const float* inv, const float* shift,
+                                 const void* dy, const void* y,
+                                 const float* ds, const float* dq,
+                                 int cout, float* dw, float* db, int n,
+                                 int d, int h, int wd, int act,
+                                 void* stream) {
+  WgradVupArgs a = {};
+  a.x[1] = skip;
+  a.cin[0] = cu;
+  a.cin[1] = cs;
+  a.nin = 2;
+  a.groups0 = (cu + WCI - 1) / WCI;
+  a.inv = inv;
+  a.shift = shift;
+  a.dy = dy;
+  a.y = y;
+  a.ds = ds;
+  a.dq = dq;
+  a.dw = dw;
+  a.db = db;
+  a.n = n;
+  a.d = d;
+  a.h = h;
+  a.wd = wd;
+  a.cout = cout;
+  a.kd = 1;
+  a.act = act;
+  a.vup = vup_args(carry, cc, invc, shiftc, wu, bu, cu, actc);
+  return launch_wgrad(a, dtype, stream);
 }

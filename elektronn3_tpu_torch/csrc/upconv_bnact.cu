@@ -45,7 +45,28 @@
 // atomics after a warp-shuffle and shared-memory reduction inside the
 // block: one atomic per channel (or weight) and block. Their order, and
 // so the last bits of each sum, changes from run to run.
+//
+// The vup path (JAX's upconv of the C=64 carry that is never stored)
+// adds three entries here, each on the recompute of upconv_vup.cuh:
+//   e3_upconv_stats (row 22, ops/flat_fused64.py::
+//     upconv122_stats_from_flat64): the per-channel sum and sum of
+//     squares of the rounded upconv output, recomputed per voxel;
+//     nothing else is stored. Bound by that recompute (2 * cc FLOP per
+//     output value on the CUDA cores) and by the carry read.
+//   e3_upconv_stats_bwd (row 23, _upconv122_stats_bwd): one pass forms
+//     dy_tot = ds + 2 y dq on the recomputed y, sums it in float32 (the
+//     bias gradient) and stores it rounded, E, into a scratch of the
+//     upconv output's shape; then the chain below on that E.
+//   e3_conv_vup_chain (row 9's chain, ops/flat_fused.py::_conv_vup_bwd):
+//     K7's dgrad and wgrad bodies on E, the upconv output's cotangent
+//     that e3_conv_vup_dgrad (conv_vup.cu) stored rounded: dcarry,
+//     dinvc, dshiftc and dWu. The bias gradient of the chain is summed
+//     from the float32 cotangent before E is rounded, as JAX sums it, so
+//     K7's db of E goes to a scratch that the caller drops.
+//   Each upconv recompute runs once per output value; the chain reads E
+//   (in the activation dtype, as JAX rounds it) once per use.
 #include "common.cuh"
+#include "upconv_vup.cuh"
 
 namespace {
 
@@ -75,6 +96,7 @@ struct UpArgs {
   float* dw;          // (kd, 2, 2, cin, cout)
   float* db;          // (cout,)
   int n, d, h, wd, cin, cout, kd, act;
+  VupArgs vup;        // the vup entries: x is this carry (kd == 1)
 };
 
 // Output voxel of input voxel v at sub-position sub = (a, b, c).
@@ -453,6 +475,70 @@ __global__ void __launch_bounds__(NT) upconv_wgrad_kernel(const UpArgs a) {
   }
 }
 
+// -- Rows 22 and 23: one pass over the recomputed upconv output. Thread
+// (sub-position, 8-channel group g) of each of a block's 16 voxels in
+// flight; a grid-stride walk over the carry's voxels keeps each
+// thread's (sub, g), so it sums 8 channels in registers; lanes of one g
+// reduce by shuffles, then the block in shared memory, then one atomic
+// per channel and block. Row 22 (DYT = false): the sums of y and y^2
+// into (s, q). Row 23 (DYT = true): dy_tot = ds + 2 y dq, its float32
+// sum into s (the bias gradient), and dy_tot rounded into a.dx (E, of
+// the upconv output's shape).
+template <typename T, bool DYT>
+__global__ void __launch_bounds__(NT) upconv_pass_kernel(const UpArgs a) {
+  __shared__ float s_red[2][COG];
+  const int g = threadIdx.x % 4;
+  const int sub = (threadIdx.x / 4) % 4;
+  const int co0 = blockIdx.y * COG;
+  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
+  if (threadIdx.x < 2 * COG) s_red[threadIdx.x / COG][threadIdx.x % COG] = 0;
+  float st[8], sq[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) st[j] = sq[j] = 0.0f;
+  for (int64_t v = (int64_t)blockIdx.x * (NT / 16) + threadIdx.x / 16;
+       v < total; v += (int64_t)gridDim.x * (NT / 16)) {
+    float y[8];
+    upconv_value8<T>(a.vup, v, sub, co0 + 8 * g, y);
+    if constexpr (DYT) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[j] = dy_tot(0.0f, y[j], a.ds[co0 + 8 * g + j],
+                      a.dq[co0 + 8 * g + j]);
+        st[j] += y[j];
+      }
+      store8(static_cast<T*>(a.dx) + out_voxel(a, v, sub) * a.cout + co0
+                 + 8 * g,
+             y);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        st[j] += y[j];
+        sq[j] = fmaf(y[j], y[j], sq[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      st[j] += __shfl_xor_sync(0xffffffffu, st[j], off);
+      sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], off);
+    }
+  __syncthreads();  // s_red's initialization is visible
+  if (threadIdx.x % 32 < 4) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      atomicAdd(&s_red[0][8 * g + j], st[j]);
+      atomicAdd(&s_red[1][8 * g + j], sq[j]);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < COG) {
+    atomicAdd(a.s + co0 + threadIdx.x, s_red[0][threadIdx.x]);
+    if (!DYT) atomicAdd(a.q + co0 + threadIdx.x, s_red[1][threadIdx.x]);
+  }
+}
+
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -462,6 +548,34 @@ int sm_count() {
     if (count <= 0) count = 132;
   }
   return count;
+}
+
+// K7's two kernels: dgrad (when dx is given), then wgrad. dinv,
+// dshift, dw and db must be zeroed by the caller.
+int launch_upconv_bwd(const UpArgs& a, int dtype, void* stream) {
+  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool bf16 = dtype == e3::DT_BF16;
+  if (a.dx != nullptr) {
+    const dim3 grid((unsigned)((total + BV - 1) / BV), a.cin / BCI);
+    if (bf16)
+      upconv_dgrad_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a);
+    else
+      upconv_dgrad_kernel<float><<<grid, NT, 0, st>>>(a);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  const int64_t ntiles = (total + WVT - 1) / WVT;
+  const int per_split = (a.cin / BCI) * (a.cout / COG);
+  int64_t splits = (4 * (int64_t)sm_count() + per_split - 1) / per_split;
+  if (splits > ntiles) splits = ntiles;
+  if (splits < 1) splits = 1;
+  const dim3 grid((unsigned)splits, a.cin / BCI, a.cout / COG);
+  if (bf16)
+    upconv_wgrad_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a);
+  else
+    upconv_wgrad_kernel<float><<<grid, NT, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -532,27 +646,113 @@ extern "C" int e3_upconv_bnact_bwd(int dtype, const void* x,
   a.cout = cout;
   a.kd = kd;
   a.act = act;
-  const int64_t total = (int64_t)n * d * h * wd;
+  return launch_upconv_bwd(a, dtype, stream);
+}
+
+namespace {
+
+UpArgs vup_up_args(const void* carry, const float* invc,
+                   const float* shiftc, const float* wu, const float* bu,
+                   int n, int d, int h, int wd, int cc, int cu, int actc) {
+  UpArgs a = {};
+  a.x = carry;
+  a.inv = invc;
+  a.shift = shiftc;
+  a.wt = wu;
+  a.n = n;
+  a.d = d;
+  a.h = h;
+  a.wd = wd;
+  a.cin = cc;
+  a.cout = cu;
+  a.kd = 1;
+  a.act = actc;
+  a.vup = vup_args(carry, cc, invc, shiftc, wu, bu, cu, actc);
+  return a;
+}
+
+// The one-pass kernel over the carry's voxels, at most 8 blocks an SM.
+template <bool DYT>
+int launch_upconv_pass(const UpArgs& a, int dtype, void* stream) {
+  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
+  int64_t blocks = (total + NT / 16 - 1) / (NT / 16);
+  const int64_t cap = 8 * (int64_t)sm_count();
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  const dim3 grid((unsigned)blocks, a.cout / COG);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool bf16 = dtype == e3::DT_BF16;
-  if (dx != nullptr) {
-    const dim3 grid((unsigned)((total + BV - 1) / BV), cin / BCI);
-    if (bf16)
-      upconv_dgrad_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a);
-    else
-      upconv_dgrad_kernel<float><<<grid, NT, 0, st>>>(a);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-  }
-  const int64_t ntiles = (total + WVT - 1) / WVT;
-  const int per_split = (cin / BCI) * (cout / COG);
-  int64_t splits = (4 * (int64_t)sm_count() + per_split - 1) / per_split;
-  if (splits > ntiles) splits = ntiles;
-  if (splits < 1) splits = 1;
-  const dim3 grid((unsigned)splits, cin / BCI, cout / COG);
-  if (bf16)
-    upconv_wgrad_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a);
+  if (dtype == e3::DT_BF16)
+    upconv_pass_kernel<__nv_bfloat16, DYT><<<grid, NT, 0, st>>>(a);
   else
-    upconv_wgrad_kernel<float><<<grid, NT, 0, st>>>(a);
+    upconv_pass_kernel<float, DYT><<<grid, NT, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Row 22: s and q (cu,) must be zeroed by the caller. (n, d, h, wd) are
+// the carry's dims.
+extern "C" int e3_upconv_stats(int dtype, const void* carry,
+                               const float* invc, const float* shiftc,
+                               const float* wu, const float* bu, float* s,
+                               float* q, int n, int d, int h, int wd, int cc,
+                               int cu, int actc, void* stream) {
+  UpArgs a = vup_up_args(carry, invc, shiftc, wu, bu, n, d, h, wd, cc, cu,
+                         actc);
+  a.s = s;
+  a.q = q;
+  return launch_upconv_pass<false>(a, dtype, stream);
+}
+
+// Row 23: from the statistics cotangents ds, dq (cu,), E = round(ds +
+// 2 y dq) into ``e`` (n, d, 2 h, 2 wd, cu) and its float32 sum into dbu,
+// then the chain into dcarry, dinvc, dshiftc and dwu. dbu, dinvc,
+// dshiftc, dwu and ``db`` (cu,; K7's sum of E, not a result) must be
+// zeroed by the caller.
+extern "C" int e3_upconv_stats_bwd(int dtype, const void* carry,
+                                   const float* invc, const float* shiftc,
+                                   const float* wu, const float* bu,
+                                   const float* ds, const float* dq,
+                                   void* e, void* dcarry, float* dinvc,
+                                   float* dshiftc, float* dwu, float* dbu,
+                                   float* db, int n, int d, int h, int wd,
+                                   int cc, int cu, int actc, void* stream) {
+  UpArgs a = vup_up_args(carry, invc, shiftc, wu, bu, n, d, h, wd, cc, cu,
+                         actc);
+  a.ds = ds;
+  a.dq = dq;
+  a.dx = e;
+  a.s = dbu;
+  const int rc = launch_upconv_pass<true>(a, dtype, stream);
+  if (rc != 0) return rc;
+  UpArgs c = vup_up_args(carry, invc, shiftc, wu, nullptr, n, d, h, wd, cc,
+                         cu, actc);
+  c.dy = e;
+  c.dx = dcarry;
+  c.dinv = dinvc;
+  c.dshift = dshiftc;
+  c.dw = dwu;
+  c.db = db;
+  return launch_upconv_bwd(c, dtype, stream);
+}
+
+// Row 9's chain: from E (n, d, 2 h, 2 wd, cu), the rounded cotangent of
+// the upconv output, into dcarry, dinvc, dshiftc and dwu (zeroed by the
+// caller); ``db`` (cu,) receives K7's sum of E and is not a result.
+extern "C" int e3_conv_vup_chain(int dtype, const void* carry,
+                                 const float* invc, const float* shiftc,
+                                 const float* wu, const void* e,
+                                 void* dcarry, float* dinvc, float* dshiftc,
+                                 float* dwu, float* db, int n, int d, int h,
+                                 int wd, int cc, int cu, int actc,
+                                 void* stream) {
+  UpArgs a = vup_up_args(carry, invc, shiftc, wu, nullptr, n, d, h, wd, cc,
+                         cu, actc);
+  a.dy = e;
+  a.dx = dcarry;
+  a.dinv = dinvc;
+  a.dshift = dshiftc;
+  a.dw = dwu;
+  a.db = db;
+  return launch_upconv_bwd(a, dtype, stream);
 }

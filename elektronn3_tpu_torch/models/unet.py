@@ -27,6 +27,14 @@ JAX UNet's ``pallas_flat`` plans its executors:
   of a kernel decoder level, whose prologue the upconv applies on load
   (JAX's ``upconv222_f64in``/``upconv122_f64in`` at C_in=128 and
   ``upconv122_from_flat64`` at 64);
+- with ``vup=True`` (JAX's opt-in vup path, ``E3TPU_VUP=1`` there), a
+  planar C=32 kernel decoder level whose deeper level is a kernel
+  decoder level (a carried C=64 activation) takes no upconv output:
+  :func:`~elektronn3_tpu_torch.ops.vup.conv_vup` recomputes the
+  (1, 2, 2) upconv of the carry as the merge conv reads it, and
+  :func:`~elektronn3_tpu_torch.ops.vup.upconv_stats` gives its batch
+  statistics in training (rows 1's vup mode, 9, 22 and 23). The same
+  parameters and batch-statistics slots as the materializing path;
 - under ``pallas_flat=True``, a planar 3D level of C=32 or 64 whose
   activation has no kernel prologue (silu, swish, gelu, tanh) runs
   JAX's semi-fused flat executor (``_flat_level_ok``), and so does its
@@ -95,7 +103,7 @@ from elektronn3_tpu_torch.modules.flat_norm import (
 from elektronn3_tpu_torch.modules.layers import (
     apply_norm, ceil_maxpool, conv_kernel, get_activation, get_normalization,
     pool_window)
-from elektronn3_tpu_torch.ops import fused
+from elektronn3_tpu_torch.ops import fused, vup
 from elektronn3_tpu_torch.ops.flat_conv import flat_conv3, pool_flat
 from elektronn3_tpu_torch.ops.fused import FusedActs
 
@@ -335,19 +343,68 @@ class UpConv(nn.Module):
         self.norm2 = get_normalization(normalization, out_channels, device,
                                        dim)
 
+    def _vup_ok(self, dec) -> bool:
+        """Whether this 'kernels' level takes the vup branch (JAX's
+        ``vup_ok``, its TPU tiling and lane gates aside): an in-plane
+        (kd=1) level of 32 channels whose deeper input is the carried
+        activation of a 64-channel kernel decoder level."""
+        return (self.upconv.out_channels == 32
+                and (self.planar or self.dim == 2)
+                and isinstance(dec, FusedActs) and dec.raw.shape[-1] == 64)
+
+    def _vup_upconv_prologue(self, dec: FusedActs, wu: torch.Tensor,
+                             act: str, reference: bool):
+        """(inv, shift) of the never-stored upconv output's batch norm:
+        from the statistics pass in training (JAX's
+        ``_VupUpconv.stats``), the running statistics in eval (JAX runs
+        no pass there)."""
+        norm = self.norm0
+        if norm is None:
+            return identity_prologue(self.upconv.out_channels,
+                                     dec.raw.device)
+        if not norm.training:
+            return bn_eval_prologue(norm)
+        s, q = vup.upconv_stats(dec.raw, dec.inv, dec.shift, wu,
+                                self.upconv.bias, act, reference=reference)
+        return bn_train_prologue(norm, s, q, 4 * dec.raw[..., 0].numel())
+
+    def _kernel_tail(self, out1, act: str, reference: bool) -> FusedActs:
+        """A kernel decoder level after its merge conv: conv2 on the
+        merge's carried output, and the level's carry."""
+        inv1, shift1 = _norm_pro(self.norm1, out1)
+        w2, b2 = _kernel_params(self.conv2, self.dtype, self.dim)
+        out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
+                                want_stats=_stats(self.norm2),
+                                reference=reference)
+        inv2, shift2 = _norm_pro(self.norm2, out2)
+        return FusedActs(_raw(out2), inv2, shift2)
+
     def forward(self, enc, dec, kind: str = "library",
-                reference: bool = False):
+                reference: bool = False, vup_on: bool = False):
         """``enc`` is the skip of the same level, ``dec`` the deeper
         level's output (a tensor, or :class:`FusedActs` from a kernel
         decoder level); ``kind`` is the level's
-        (:meth:`UNet.level_kinds`). Returns :class:`FusedActs` (5-D) on
-        'kernels', a tensor otherwise."""
+        (:meth:`UNet.level_kinds`); ``vup_on`` the model's ``vup``.
+        Returns :class:`FusedActs` (5-D) on 'kernels', a tensor
+        otherwise."""
         if kind == "kernels":
             act = _KERNEL_ACTS[self.activation]
             # The upconv takes the float32 weight and bias in every JAX
             # upconv kernel of this plan (upconv222_bn_flat64,
             # upconv122_bn_flat64, upconv122_from_flat64).
             wu = _w5(self.upconv.weight, self.dim)
+            w1, b1 = _kernel_params(self.conv1, self.dtype, self.dim)
+            if vup_on and self._vup_ok(dec):
+                # JAX's batch-statistics slot order (unet.py:1182-1207):
+                # the upconv's norm, then conv1's, then conv2's.
+                invu, shiftu = self._vup_upconv_prologue(dec, wu, act,
+                                                         reference)
+                out1 = vup.conv_vup(
+                    dec.raw, dec.inv, dec.shift, wu, self.upconv.bias,
+                    enc.raw, torch.cat([invu, enc.inv]),
+                    torch.cat([shiftu, enc.shift]), w1, b1, act, act,
+                    want_stats=_stats(self.norm1), reference=reference)
+                return self._kernel_tail(out1, act, reference)
             if isinstance(dec, FusedActs):
                 outu = fused.upconv_bnact(
                     dec.raw, dec.inv, dec.shift, wu, self.upconv.bias, act,
@@ -358,18 +415,11 @@ class UpConv(nn.Module):
                     "linear", want_stats=_stats(self.norm0),
                     reference=reference)
             invu, shiftu = _norm_pro(self.norm0, outu)
-            w1, b1 = _kernel_params(self.conv1, self.dtype, self.dim)
             out1 = fused.conv_bnact(
                 [_raw(outu), enc.raw], torch.cat([invu, enc.inv]),
                 torch.cat([shiftu, enc.shift]), w1, b1, act,
                 want_stats=_stats(self.norm1), reference=reference)
-            inv1, shift1 = _norm_pro(self.norm1, out1)
-            w2, b2 = _kernel_params(self.conv2, self.dtype, self.dim)
-            out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
-                                    want_stats=_stats(self.norm2),
-                                    reference=reference)
-            inv2, shift2 = _norm_pro(self.norm2, out2)
-            return FusedActs(_raw(out2), inv2, shift2)
+            return self._kernel_tail(out1, act, reference)
         act = get_activation(self.activation)
         if isinstance(dec, FusedActs):
             dec = _drop(fused.materialize(dec, _KERNEL_ACTS[self.activation]),
@@ -427,18 +477,27 @@ class UNet(nn.Module):
     levels as 'batch' does; as in JAX, no 'batchp' level is flat),
     activations 'relu', 'leaky' (kernel levels), 'silu', 'swish',
     'gelu', 'tanh' (flat levels under ``pallas_flat=True``) and the
-    rest of ``get_activation`` (library levels), and ``pallas_flat``
+    rest of ``get_activation`` (library levels), ``pallas_flat``
     True, False or 'auto' (see the module docstring;
-    :meth:`level_kinds` gives the levels).
+    :meth:`level_kinds` gives the levels), and ``vup`` True or False
+    (default False, as JAX's ``E3TPU_VUP``; the port reads no
+    environment variable, and anything but a bool, ``'auto'`` included,
+    raises: JAX's ``'auto'`` turns the path on). ``vup`` changes no
+    level kind, parameter or batch-statistics slot, only how a planar
+    C=32 kernel decoder level over a C=64 carry computes (see the
+    module docstring).
 
     JAX gates of ``pallas_flat`` that the port does not carry over,
     because they model the TPU, not the function: 'auto''s test of the
     backend and of bf16; the scoped-VMEM estimates
     (``conv64_vmem_bytes``, ``bwd_ki_split``) and the per-chunk row
     bounds ``_FUSED_ROWS_*``; the C=32 executor's ``W % 8``; the decoder
-    carry's ``(W // 2) % 2``; the 2D H-tiling. Where JAX declines for one
-    of these, the port runs the kernels, and its result is still JAX's
-    (tests/test_torch_headline_rows.py holds one shape for each).
+    carry's ``(W // 2) % 2``; the 2D H-tiling; and, on the vup path, the
+    ``W1 % 2`` assert of the upconv's 128-lane rows (flat_fused.py:893):
+    the port's vup takes every even H and W its kernel levels take.
+    Where JAX declines for one of these, the port runs the kernels, and
+    its result is still JAX's (tests/test_torch_headline_rows.py holds
+    one shape for each, tests/test_torch_vup.py the vup one).
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 2,
@@ -448,10 +507,13 @@ class UNet(nn.Module):
                  dim: int = 3, dtype: torch.dtype = torch.float32,
                  device: Union[None, str, torch.device] = None,
                  generator: Optional[torch.Generator] = None,
-                 pallas_flat: Union[bool, str] = "auto"):
+                 pallas_flat: Union[bool, str] = "auto",
+                 vup: bool = False):
         super().__init__()
         if n_blocks < 1:
             raise ValueError("n_blocks must be > 0")
+        if vup is not True and vup is not False:
+            raise ValueError(f"vup must be True or False, got {vup!r}")
         if not (pallas_flat is True or pallas_flat is False
                 or pallas_flat == "auto"):
             raise ValueError(f"pallas_flat must be True, False or 'auto', "
@@ -479,6 +541,7 @@ class UNet(nn.Module):
         self.dim = dim
         self.dtype = dtype
         self.pallas_flat = pallas_flat
+        self.vup = vup
         self._plans: Dict[tuple, List[str]] = {}
 
         common = dict(activation=activation, normalization=normalization,
@@ -631,7 +694,7 @@ class UNet(nn.Module):
         x = skips.pop()   # the bottom level does not pool
         for i, up in enumerate(self.up_convs):
             level = self.n_blocks - 2 - i
-            x = up(skips[level], x, kinds[level], reference)
+            x = up(skips[level], x, kinds[level], reference, self.vup)
         if isinstance(x, FusedActs):
             # Both JAX heads round the weight and bias to the model
             # dtype before the float32 GEMM (head_bnact_from_flat at

@@ -31,8 +31,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv_bnact.cu", "conv_bnact_bwd.cu", "pool_bnact.cu",
-           "upconv_bnact.cu", "batch_norm.cu")
-HEADERS = ("common.cuh", "conv_bnact.cuh")
+           "upconv_bnact.cu", "batch_norm.cu", "conv_vup.cu")
+HEADERS = ("common.cuh", "conv_bnact.cuh", "upconv_vup.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -59,6 +59,20 @@ _SIGNATURES = {
     "e3_bn_normalize": (_I, _P, _P, _P, _P, _L, _I, _P),
     "e3_bn_bwd_reduce": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     "e3_bn_bwd_dx": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _P),
+    "e3_conv_vup": (_I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
+                    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_vup_dgrad": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
+                          _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _P),
+    "e3_conv_vup_wgrad": (_I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P,
+                          _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                          _I, _P),
+    "e3_conv_vup_chain": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _I, _P),
+    "e3_upconv_stats": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
+    "e3_upconv_stats_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

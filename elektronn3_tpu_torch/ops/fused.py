@@ -83,13 +83,15 @@ LEAKY_SLOPE = 0.1  # matches modules/layers.py leaky activation
 _ACT_ID = {"linear": 0, "relu": 1, "leaky": 2}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches per wrapper, K1-K7 here and K8-K11 of ops/pallas_bn.py.
-# Each wrapper adds one where it launches its kernel and nowhere else;
-# plain-version calls do not count.
+# Kernel launches per wrapper, K1-K7 here, K8-K11 of ops/pallas_bn.py
+# and the vup path's five of ops/vup.py. Each wrapper adds one where it
+# launches its kernel and nowhere else; plain-version calls do not count.
 LAUNCHES = {"conv_bnact": 0, "pool_bnact": 0, "upconv_bnact": 0,
             "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0,
             "pool_bnact_bwd": 0, "upconv_bnact_bwd": 0, "bn_stats": 0,
-            "bn_normalize": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+            "bn_normalize": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
+            "conv_vup": 0, "conv_vup_dgrad": 0, "conv_vup_wgrad": 0,
+            "upconv_stats": 0, "upconv_stats_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -299,6 +301,27 @@ def conv_bnact_fwd_plain(xs: Sequence[torch.Tensor],
     return y, s, q
 
 
+def conv_bnact_dgrad_gm(xs: Sequence[torch.Tensor],
+                        inv: Optional[torch.Tensor],
+                        shift: Optional[torch.Tensor],
+                        weight: torch.Tensor, y: torch.Tensor,
+                        dy: Optional[torch.Tensor],
+                        ds: Optional[torch.Tensor],
+                        dq: Optional[torch.Tensor], act: str
+                        ) -> torch.Tensor:
+    """K4's float32 ``gm = g * act'(x * inv + shift)`` over the concat
+    of ``xs``, g the gradient of the prologued input: the step before
+    K4's epilogue multiplies by ``inv`` and rounds."""
+    dtype = xs[0].dtype
+    x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
+    kd = weight.shape[2]
+    g = _dy_tot(dy, y, ds, dq).to(dtype).float().permute(0, 4, 1, 2, 3)
+    gin = torch.nn.grad.conv3d_input(
+        (x.shape[0], x.shape[4]) + tuple(x.shape[1:4]),
+        weight.to(dtype).float(), g, padding=(kd // 2, 1, 1))
+    return gin.permute(0, 2, 3, 4, 1) * act_grad(_pre(x, inv, shift), act)
+
+
 def conv_bnact_dgrad_plain(xs: Sequence[torch.Tensor],
                            inv: Optional[torch.Tensor],
                            shift: Optional[torch.Tensor],
@@ -311,12 +334,7 @@ def conv_bnact_dgrad_plain(xs: Sequence[torch.Tensor],
     None."""
     dtype = xs[0].dtype
     x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
-    kd = weight.shape[2]
-    g = _dy_tot(dy, y, ds, dq).to(dtype).float().permute(0, 4, 1, 2, 3)
-    gin = torch.nn.grad.conv3d_input(
-        (x.shape[0], x.shape[4]) + tuple(x.shape[1:4]),
-        weight.to(dtype).float(), g, padding=(kd // 2, 1, 1))
-    gm = gin.permute(0, 2, 3, 4, 1) * act_grad(_pre(x, inv, shift), act)
+    gm = conv_bnact_dgrad_gm(xs, inv, shift, weight, y, dy, ds, dq, act)
     dinv = dshift = None
     if inv is not None:
         dinv = _sum_vox(gm * x.float())

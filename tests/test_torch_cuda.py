@@ -1,9 +1,10 @@
 """Each hand-written CUDA kernel of the port against its plain PyTorch
 version, on the card (marked ``cuda``; skips without a CUDA device):
 K1-K7 (``ops/fused.py``), the 'batchp' batch norm's K8-K11
-(``ops/pallas_bn.py``), and the flat executor's ``flat_conv3`` and
+(``ops/pallas_bn.py``), the flat executor's ``flat_conv3`` and
 ``conv_direct`` (``ops/flat_conv.py``, ``ops/pallas_conv.py``: K1, K4
-and K5 without a prologue).
+and K5 without a prologue), and the vup path's five entries
+(``ops/vup.py``: rows 1's vup mode, 9, 22 and 23).
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch:
 
@@ -35,6 +36,9 @@ def _cuda():
 
 
 # The 'batchp' kernels K8-K11 launch on no 'batch' model's path.
+# The vup path's kernels launch only where a model has vup=True.
+_NO_VUP = {"conv_vup": 0, "conv_vup_dgrad": 0, "conv_vup_wgrad": 0,
+           "upconv_stats": 0, "upconv_stats_bwd": 0}
 _NO_BN = {"bn_stats": 0, "bn_normalize": 0, "bn_bwd_reduce": 0,
           "bn_bwd_dx": 0}
 
@@ -307,7 +311,8 @@ def test_cuda_unet_matches_reference_forward(dtype):
     assert fused.LAUNCHES == {"conv_bnact": 8, "pool_bnact": 2,
                               "upconv_bnact": 2, "conv_bnact_dgrad": 0,
                               "conv_bnact_wgrad": 0, "pool_bnact_bwd": 0,
-                              "upconv_bnact_bwd": 0, **_NO_BN}
+                              "upconv_bnact_bwd": 0, **_NO_BN,
+                              **_NO_VUP}
     ref = m(x, reference=True)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((y.float() - ref.float()).abs().max()) <= \
@@ -333,7 +338,7 @@ def test_cuda_unet_2d_matches_reference_forward(dtype):
     assert fused.LAUNCHES == {
         "conv_bnact": 8, "pool_bnact": 2, "upconv_bnact": 2,
         "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0, "pool_bnact_bwd": 0,
-        "upconv_bnact_bwd": 0, **_NO_BN}
+        "upconv_bnact_bwd": 0, **_NO_BN, **_NO_VUP}
     ref = m(x, reference=True)
     assert y.shape == (3, 44, 76, 2)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
@@ -710,6 +715,132 @@ def test_cuda_unet_silu_flat_matches_reference(dtype):
     y = m(x)
     assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
                               "conv_bnact": 3}
+    ref = m(x, reference=True)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The vup path (ops/vup.py): rows 1's vup mode, 9, 22 and 23
+# ---------------------------------------------------------------------------
+
+# (N, D, H, W) of the merge level: H / 2 and W / 2 odd, a partial tile
+# of both conv bodies (16 x 32 on the CUDA cores, 8 x 64 on WMMA).
+VUP_SHAPES = [(2, 3, 10, 14), (1, 2, 18, 70)]
+
+
+def _vup_case(dev, dtype, shape, seed=0):
+    """(carry, invc, shiftc, wu, bu, skip, inv, shift, w, b) of a C=64
+    carry under a 32-channel merge level, torch layouts."""
+    n, d, h, w = shape
+    g = torch.Generator().manual_seed(seed)
+    carry = torch.randn(n, d, h // 2, w // 2, 64, generator=g).to(dev, dtype)
+    invc, shiftc = torch.randn(64, generator=g), torch.randn(64, generator=g)
+    wu = 0.2 * torch.randn(64, 32, 1, 2, 2, generator=g)
+    bu = 0.1 * torch.randn(32, generator=g)
+    skip = torch.randn(n, d, h, w, 32, generator=g).to(dev, dtype)
+    inv, shift = torch.randn(64, generator=g), torch.randn(64, generator=g)
+    wt = 0.1 * torch.randn(32, 64, 1, 3, 3, generator=g)
+    b = torch.randn(32, generator=g)
+    return [carry, invc.to(dev), shiftc.to(dev), wu.to(dev), bu.to(dev),
+            skip, inv.to(dev), shift.to(dev), wt.to(dev), b.to(dev)], g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_stats", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VUP_SHAPES, ids=str)
+def test_cuda_vup_forward_matches_plain(shape, dtype, want_stats):
+    """``conv_vup`` (K1's body recomputing input 0) with and without
+    statistics, and ``upconv_stats`` (row 22), against their plain
+    versions; the statistics of the stored output against the plain sums
+    of the kernel's own output."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    args, _ = _vup_case(dev, dtype, shape)
+    fused.reset_launches()
+    got, s, q = vup.conv_vup_fwd_kernel(*args, "relu", "relu", want_stats)
+    su, qu = vup.upconv_stats_kernel(*args[:5], "relu")
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv_vup": 1, "upconv_stats": 1}
+    ref, rs, rq = vup.conv_vup_fwd_plain(*args, "relu", "relu", want_stats)
+    rsu, rqu = vup.upconv_stats_plain(*args[:5], "relu")
+    torch.cuda.synchronize()
+    _assert_kernel(got, ref)
+    _assert_sum(su, rsu)
+    _assert_sum(qu, rqu)
+    if want_stats:
+        ks, kq = fused.channel_stats(got)
+        _assert_sum(s, ks)
+        _assert_sum(q, kq)
+    else:
+        assert s is None and q is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VUP_SHAPES, ids=str)
+def test_cuda_vup_backward_matches_plain(shape, dtype):
+    """``conv_vup_dgrad`` (K4's body, then the chain into the carry),
+    ``conv_vup_wgrad`` (K5's body) and ``upconv_stats_bwd`` (row 23)
+    against their plain versions, with nonzero statistics cotangents."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    args, g = _vup_case(dev, dtype, shape, seed=1)
+    y = vup.conv_vup_fwd_plain(*args, "relu", "relu")[0]
+    dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, dtype)
+    ds = torch.randn(32, generator=g).to(dev)
+    dq = (0.1 * torch.randn(32, generator=g)).to(dev)
+    bargs = (*args[:9], y, dy, ds, dq, "relu", "relu")
+    fused.reset_launches()
+    got = vup.conv_vup_dgrad_kernel(*bargs)
+    gw = vup.conv_vup_wgrad_kernel(*bargs)
+    gs = vup.upconv_stats_bwd_kernel(*args[:5], ds, dq, "relu")
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv_vup_dgrad": 1, "conv_vup_wgrad": 1,
+                              "upconv_stats_bwd": 1}
+    ref = vup.conv_vup_dgrad_plain(*bargs)
+    rw = vup.conv_vup_wgrad_plain(*bargs)
+    rs = vup.upconv_stats_bwd_plain(*args[:5], ds, dq, "relu")
+    torch.cuda.synchronize()
+    # (dcarry, dinvc, dshiftc, dwu, dbu, dskip, dinv, dshift)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        (_assert_kernel if i in (0, 5) else _assert_sum)(a, r)
+    for a, r in zip(gw, rw):
+        _assert_sum(a, r)
+    for i, (a, r) in enumerate(zip(gs, rs)):
+        (_assert_kernel if i == 0 else _assert_sum)(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unet_vup_matches_reference(dtype):
+    """The headline structure with ``vup=True``: a step launches the
+    five vup entries once each and no upconv into L0 (K3 and K7 once,
+    for up_1), tracks reference=True (``_check_step_against_reference``),
+    and the eval forward launches ``conv_vup`` and tracks it too."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    m = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,), dtype=dtype,
+             vup=True, device=dev, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    t = (x[..., 0] > 0).long()
+    launches = _check_step_against_reference(m, x, t, dtype)
+    assert launches == {**dict.fromkeys(launches, 0), "conv_bnact": 7,
+                        "pool_bnact": 2, "upconv_bnact": 1,
+                        "conv_bnact_dgrad": 6, "conv_bnact_wgrad": 7,
+                        "pool_bnact_bwd": 2, "upconv_bnact_bwd": 1,
+                        "conv_vup": 1, "conv_vup_dgrad": 1,
+                        "conv_vup_wgrad": 1, "upconv_stats": 1,
+                        "upconv_stats_bwd": 1}
+    m.eval()
+    fused.reset_launches()
+    y = m(x)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv_bnact": 7, "pool_bnact": 2,
+                              "upconv_bnact": 1, "conv_vup": 1}
     ref = m(x, reference=True)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((y.float() - ref.float()).abs().max()) <= \

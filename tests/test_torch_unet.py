@@ -219,6 +219,7 @@ def test_port_package_never_imports_jax():
             "elektronn3_tpu_torch.inference, elektronn3_tpu_torch.ops.fused, "
             "elektronn3_tpu_torch.ops.flat_conv, "
             "elektronn3_tpu_torch.ops.pallas_conv, "
+            "elektronn3_tpu_torch.ops.vup, "
             "elektronn3_tpu_torch.training, "
             "elektronn3_tpu_torch.modules.loss;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
