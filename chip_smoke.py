@@ -134,6 +134,13 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
     allocated memory beside the other's (the vup arm must hold at least
     150 MB less: it never stores the 174.4 MB upconv output).
 
+Each time is a mean from CUDA events after a warm-up, over at least 3
+calls and as many as fill 20 ms (at most 100). Each K1 and K3 line also
+names the body that ran (``body``: the tensor-core bodies
+``csrc/conv_tc.cu`` and ``csrc/upconv_tc.cu`` for bfloat16, the
+CUDA-core bodies for float32 and K1's one-channel input), as do the
+JSON line's ``variants``.
+
 Every timed variant also prints its bound, the least time the card
 could take for its work: the larger of its operations over the card's
 peak rate for their type (bf16 products at 989 TFLOP/s; the pool's
@@ -209,7 +216,7 @@ _BN = "elektronn3_tpu/ops/pallas_bn.py"
 _FC = "elektronn3_tpu/ops/flat_conv.py"
 _PC = "elektronn3_tpu/ops/pallas_conv.py"
 SOURCES = {
-    "conv_bnact": ("elektronn3_tpu_torch/csrc/conv_bnact.cu",
+    "conv_bnact": ("elektronn3_tpu_torch/csrc/conv_tc.cu",
                    f"{_F}:689 conv_bnact_flat; {_F}:2020 conv1_bnstats_flat;"
                    f" {_F64}:1087 conv3_bnact_flat64; {_FC}:479 flat_conv3 "
                    f"(:319); {_PC}:109 conv_direct (:150)"),
@@ -218,7 +225,7 @@ SOURCES = {
                    f"pool222_bnact_flat64_skip; {_F64}:1805 "
                    f"pool122_bnact_flat64_skip ({_F64}:1682 "
                    "pool122_bnact_flat64)"),
-    "upconv_bnact": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
+    "upconv_bnact": ("elektronn3_tpu_torch/csrc/upconv_tc.cu",
                      f"{_F64}:1977 upconv222_bn_flat64; {_F64}:2657 "
                      f"upconv122_from_flat64; {_F64}:2281 "
                      f"upconv122_bn_flat64; {_F64}:3374 upconv222_f64in; "
@@ -266,6 +273,13 @@ SOURCES = {
                          f"{_F64}:2996 _upconv122_stats_bwd (row 23, its "
                          "pallas_call :3059)"),
 }
+# K1's and K3's bodies: bf16 with channels % 16 == 0 runs the tensor-core
+# body (``fused.conv_body``, ``fused.upconv_body``), float32 and the
+# network input's one channel the CUDA-core body.
+BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
+                         "cuda-core": "cuda-core (csrc/conv_bnact.cu)"},
+          "upconv_bnact": {"tc": "tc (csrc/upconv_tc.cu)",
+                           "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"}}
 # K8-K11 run only the 'batchp' norm's library levels; K1-K7 every model's
 # kernel levels.
 BN_KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
@@ -519,19 +533,26 @@ CONV_DIRECT_CASES = [
 STEP_MS = {}   # train_phase's step times by model: (kernels, plain, again)
 
 
-def cuda_ms(fn, reps=3):
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up,
-    from CUDA events."""
+def cuda_ms(fn, reps=3, min_ms=20.0):
+    """Mean device time of ``fn`` from CUDA events, after one warm-up,
+    over ``reps`` calls or as many more (at most 100) as fill ``min_ms``
+    at the time one call takes: a few calls of a 0.2 ms op read a
+    launch's start-up, not the op."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(reps):
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    n = max(reps, min(100, int(min_ms / max(t0.elapsed_time(t1), 1e-3))))
+    t0.record()
+    for _ in range(n):
         fn()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return t0.elapsed_time(t1) / n
 
 
 def nbytes(*ts):
@@ -667,13 +688,14 @@ class Stats:
         self.rows = {name: [] for name in SOURCES}
 
     def add(self, kernel, label, dtype, err, ms, plain_ms, bnd, lib,
-            lib_exact, total=False, lib_op=None):
+            lib_exact, total=False, lib_op=None, body=None):
         """One variant: ``bnd`` is :func:`bound`'s (ms, term); ``lib``
         the library time (bf16 only, else None), ``lib_exact`` whether
         that call computes the kernel's whole function (True) or not
         (False), ``lib_op`` what the call is (by default "same function"
         or "op without prologue/statistics"); ``total`` whether a bf16
-        variant counts in the kernel's totals (see :meth:`totals`)."""
+        variant counts in the kernel's totals (see :meth:`totals`);
+        ``body`` which of K1's or K3's bodies ran (:data:`BODIES`)."""
         b_ms, b_by = bnd
         bf16 = dtype == torch.bfloat16
         if lib_op is None:
@@ -683,13 +705,14 @@ class Stats:
             label=label, dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib, library_op=lib_op if bf16 else None,
-            in_total=total and bf16))
+            in_total=total and bf16,
+            **({"body": BODIES[kernel][body]} if body else {})))
         libs = f"  lib{'' if lib_exact else '*'} {lib:8.3f} ms" if bf16 \
             else ""
         print(f"kernel {kernel:16s} {label:42s} {str(dtype)[6:]:8s} "
               f"err {err:.3e} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
-              f"bound {b_ms:8.3f} ms ({b_by[:3]}, {b_ms / ms:6.1%})" + libs,
-              flush=True)
+              f"bound {b_ms:8.3f} ms ({b_by[:3]}, {b_ms / ms:6.1%})" + libs
+              + (f"  body {body}" if body else ""), flush=True)
 
     def totals(self, kernel):
         """The JSON line's numbers for ``kernel``: ``ms``, ``plain_ms``,
@@ -709,6 +732,14 @@ class Stats:
             bound_ms=sum(by.values()), bound_by=max(by, key=by.get),
             library_ms=sum(r["library_ms"] for r in rows),
             totals_over=TOTALS_OVER[kernel], variants=self.rows[kernel])
+
+
+def fwd_body(fused, kind, dtype, cins):
+    """The body K1 or K3 runs for these inputs (``fused.conv_body`` or
+    ``fused.upconv_body``), or None for the pool."""
+    if kind == "conv":
+        return fused.conv_body(dtype, cins)
+    return fused.upconv_body(dtype) if kind == "upconv" else None
 
 
 def conv_flops(m, cin, cout, kd):
@@ -773,7 +804,8 @@ def kernel_phase(fused, stats, variants, total):
                 del a
             del got, ref
             stats.add(name, label, dtype, err, cuda_ms(run), cuda_ms(plain),
-                      bnd, lib, not pro and len(xs) == 1, total=total)
+                      bnd, lib, not pro and len(xs) == 1, total=total,
+                      body=fwd_body(fused, kind, dtype, cins))
             del xs, args
             torch.cuda.empty_cache()
 
@@ -901,14 +933,16 @@ def train_kernel_phase(fused, stats, variants, total, serve):
             stats.add(FWD[kind], label + " +stats", dtype, err,
                       cuda_ms(lambda: fwd(*fargs, w, b, act, True)),
                       cuda_ms(lambda: fwd_plain(*fargs, w, b, act, True)),
-                      bnd, lib, False)
+                      bnd, lib, False, body=fwd_body(fused, kind, dtype,
+                                                     cins))
             if serve:
                 stats.add(FWD[kind], label + " serving", dtype, serve_err,
                           cuda_ms(lambda: fwd(*fargs, w, b, act, False)),
                           cuda_ms(lambda: fwd_plain(*fargs, w, b, act,
                                                     False)),
                           bound(flops, peak, fargs, w, b, y), lib,
-                          not pro and len(xs) == 1)
+                          not pro and len(xs) == 1,
+                          body=fwd_body(fused, kind, dtype, cins))
             ds, dq = rnd(cout, scale=1e-3), rnd(cout, scale=1e-4)
             bargs = (*fargs, w, y, dy, ds, dq, act)
             for name, kfn, pfn in bwds:
@@ -978,7 +1012,7 @@ def conv_direct_phase(pallas_conv, stats):
                 del a
             stats.add("conv_bnact", f"conv_direct {label} {bdhw} [row 28]",
                       dtype, err, cuda_ms(run), cuda_ms(plain), bnd, lib,
-                      True)
+                      True, body=pallas_conv.fused.conv_body(dtype, [cin]))
             del x, got
             torch.cuda.empty_cache()
 

@@ -11,13 +11,14 @@
 //   ops/flat_fused64.py::conv3_bnact_flat64 (_conv64_fwd_kernel)
 // The three differ on the TPU only in lane packing (32 or 64 channels
 // per 128-lane row, a one-channel input in lanes); on NDHWC they are one
-// kernel. The statistics are reduced from the values the epilogue
-// stores, not from the WMMA fragments (whose layout is opaque).
+// kernel.
 //
-// What bounds it on the card: arithmetic. The headline convs do 0.3 to
-// 2 KFLOP per byte moved, far above the H100's ridge, hence the
-// tensor-core body for bf16; the statistics add two FMAs per stored
-// value and one atomic per channel and block.
+// This entry runs the CUDA-core body (float32, and the network input's
+// C_in of 1 or 3); bfloat16 with every C_in a multiple of 16 runs
+// e3_conv_bnact_tc (conv_tc.cu, the tensor cores), as the wrapper's
+// conv_body picks. What bounds the CUDA-core body on the card: its
+// float32 FMAs (67 TFLOP/s on the H100); the statistics add two FMAs
+// per stored value and one atomic per channel and block.
 #include "conv_bnact.cuh"
 
 extern "C" int e3_conv_bnact(int dtype, int nin,

@@ -32,14 +32,20 @@
 // staged UCK (BCO, BCI) at a time and output channels are split over
 // blocks of 32, so C_in 128 and 256 run the same code as 64.
 //
-// What bounds them on the card: device-memory bandwidth for the output
-// (kd*4 output voxels per input voxel, cout <= cin) at 32 to 128 FLOP
-// per byte; the arithmetic is small. Forward: one warp owns one
+// The bf16 forward runs on the tensor cores, in upconv_tc.cu: one GEMM
+// per block of 64 input voxels over all kd * 4 * C_out columns, its
+// prologued input tile staged once, the weights packed once per call.
+// At the headline shapes it does 64 to 256 FLOP per byte it must move
+// (the output dominates the bytes), near the H100's ridge, so the
+// tensor-core rate and the store rate both bound it. This file keeps
+// the float32 forward on the CUDA cores (the float32 tests hold 1e-4 of
+// the scale, which TF32 products would not): one warp owns one
 // sub-position (a, b, c), so the shared-memory weight reads are
 // broadcasts, and each staged (prologued) input value serves every
-// sub-position and 32 output channels. The backward kernels stage
-// dy_tot and the weights in shared memory by 16- or 32-channel steps
-// and keep their sums in registers; they run on the CUDA cores.
+// sub-position and 32 output channels; float32 FMAs cap it at the
+// 67 TFLOP/s of those units. The backward kernels (K7) stage dy_tot and
+// the weights in shared memory by 16- or 32-channel steps and keep
+// their sums in registers; they run on the CUDA cores in both dtypes.
 //
 // Cross-block sums (statistics, dinv, dshift, dW, db) use float32
 // atomics after a warp-shuffle and shared-memory reduction inside the
@@ -580,6 +586,7 @@ int launch_upconv_bwd(const UpArgs& a, int dtype, void* stream) {
 
 }  // namespace
 
+// K3, float32 body (bf16 is e3_upconv_bnact_tc).
 extern "C" int e3_upconv_bnact(int dtype, const void* x, const float* inv,
                                const float* shift, const float* wt,
                                const float* bias, void* y, float* s,
@@ -603,14 +610,13 @@ extern "C" int e3_upconv_bnact(int dtype, const void* x, const float* inv,
   a.cout = cout;
   a.kd = kd;
   a.act = act;
+  if (dtype != e3::DT_F32)  // bf16 runs e3_upconv_bnact_tc (upconv_tc.cu)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int vpb = 32 * (8 / (kd * 4));
   const int64_t total = (int64_t)n * d * h * wd;
   const dim3 grid((unsigned)((total + vpb - 1) / vpb), cout / COG);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == e3::DT_BF16)
-    upconv_bnact_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a);
-  else
-    upconv_bnact_kernel<float><<<grid, NT, 0, st>>>(a);
+  upconv_bnact_kernel<float><<<grid, NT, 0,
+                               static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,9 +9,15 @@
 // Output voxel (n, d, 2 hc + b, 2 wc + c), channels c0 .. c0 + 7:
 //     round(bu + sum_ci round(act_c(carry[n, d, hc, wc, ci] * invc + shiftc))
 //                    * Wu[(b, c), ci, :])
-// summed in float32 over ci in ascending order (the order K3 sums in,
-// so the values are also K3's stored output), each round to the
-// activation dtype T.
+// summed in float32 over ci in ascending order, each round to the
+// activation dtype T. That is the order of K3's float32 body, so in
+// float32 the values are K3's stored output bit for bit. K3's bf16 body
+// (upconv_tc.cu) sums on the tensor cores in another order, so in bf16
+// the recomputed values may differ from what K3 would store in the last
+// bit: the vup path agrees with the materializing path within the
+// tolerance of one rounding after a reordered sum, and nothing on the
+// card asserts the two bitwise equal (the CPU tests that do run the
+// plain versions of both).
 #pragma once
 
 #include "common.cuh"

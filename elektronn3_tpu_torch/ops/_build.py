@@ -31,8 +31,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv_bnact.cu", "conv_bnact_bwd.cu", "pool_bnact.cu",
-           "upconv_bnact.cu", "batch_norm.cu", "conv_vup.cu")
-HEADERS = ("common.cuh", "conv_bnact.cuh", "upconv_vup.cuh")
+           "upconv_bnact.cu", "batch_norm.cu", "conv_vup.cu", "conv_tc.cu",
+           "upconv_tc.cu")
+HEADERS = ("common.cuh", "conv_bnact.cuh", "upconv_vup.cuh", "tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -43,6 +44,10 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "e3_conv_bnact": (_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_bnact_tc": (_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _I, _I, _P),
+    "e3_upconv_bnact_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P),
     "e3_conv_bnact_dgrad": (_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),

@@ -46,6 +46,11 @@ over 2 or 4 lane chunks, its pool, and the upconv of a carried C=128 or
 rows 11/12 (the C=32 executor's upconv from a dense 64-channel input)
 are K3/K7 from a dense input into 32 channels.
 
+K1's and K3's bf16 forwards run tensor-core bodies (``csrc/conv_tc.cu``,
+``csrc/upconv_tc.cu``) on weights the wrappers pack once per call in
+bf16; :func:`conv_body` and :func:`upconv_body` name the body a launch
+takes.
+
 Each kernel has a wrapper ``*_kernel`` and a plain PyTorch version
 ``*_plain`` beside it (same signature, same rounding points). Each op's
 autograd Function picks one pair for forward and backward from its
@@ -364,8 +369,43 @@ def conv_bnact_wgrad_plain(xs: Sequence[torch.Tensor],
     return dw, _sum_vox(t)
 
 
+def conv_body(dtype: torch.dtype, cins: Sequence[int]) -> str:
+    """The body K1's forward runs: ``'tc'`` (the tensor-core implicit
+    GEMM of ``csrc/conv_tc.cu``) for bfloat16 when every input's
+    channel count is a multiple of 16, else ``'cuda-core'`` (the float32
+    FMA body of ``csrc/conv_bnact.cuh``: float32, whose tests hold 1e-4
+    of the scale, and the network input's C_in of 1 or 3)."""
+    if dtype == torch.bfloat16 and all(c % 16 == 0 for c in cins):
+        return "tc"
+    return "cuda-core"
+
+
+def pack_conv_weight(weight: torch.Tensor, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """K1's tensor-core weight operand: the (C_out, C_in, kd, 3, 3)
+    weight rounded to ``dtype`` (exact: the weights are values of the
+    activation dtype) as (kd, C_in / 16, 3, 3, C_out, 16), so that one
+    16-channel step's 9 taps are one contiguous run of rows of 16
+    input channels."""
+    cout, cin, kd = weight.shape[:3]
+    out = torch.empty((kd, cin // 16, 3, 3, cout, 16), dtype=dtype,
+                      device=device)
+    return out.copy_(weight.detach().reshape(cout, cin // 16, 16, kd, 3, 3)
+                     .permute(3, 1, 4, 5, 0, 2))
+
+
+def _prologue_ptrs(inv, shift, act, c, dev):
+    """The tensor-core bodies' prologue vectors: (None, None) for the
+    identity prologue (no ``inv`` and a linear activation: the body
+    skips the pass), else the two (c,) float32 vectors."""
+    if inv is None and act == "linear":
+        return None, None
+    return _vec(inv, c, 1.0, dev), _vec(shift, c, 0.0, dev)
+
+
 def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
-    """K1 on CUDA tensors: (y, s, q) as :func:`conv_bnact_fwd_plain`."""
+    """K1 on CUDA tensors: (y, s, q) as :func:`conv_bnact_fwd_plain`,
+    on the body :func:`conv_body` picks."""
     x0 = xs[0]
     for x in xs:
         _check_cuda(x, "conv_bnact")
@@ -374,12 +414,6 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
     cout, cin, kd = weight.shape[:3]
     dev = x0.device
     dtype = x0.dtype
-    inv = _vec(inv, cin, 1.0, dev)
-    shift = _vec(shift, cin, 0.0, dev)
-    invs = torch.split(inv, cins)
-    shifts = torch.split(shift, cins)
-    wt = weight.detach().to(device=dev, dtype=dtype).float() \
-        .permute(2, 3, 4, 1, 0).contiguous()
     b = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((n, d, h, w, cout), dtype=dtype, device=dev)
     s = q = None
@@ -388,6 +422,25 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
         q = torch.zeros(cout, dtype=torch.float32, device=dev)
     x1 = xs[1] if len(xs) > 1 else None
     lib = _build.library()
+    if conv_body(dtype, cins) == "tc":
+        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
+        wp = pack_conv_weight(weight, dtype, dev)
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_bnact_tc(
+                len(xs), x0.data_ptr(), cins[0], _ptr(x1),
+                cins[1] if x1 is not None else 0, _ptr(inv_v),
+                _ptr(shift_v), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
+                _ptr(s), _ptr(q), n, d, h, w, cout, kd, _ACT_ID[act],
+                _stream(dev))
+        _build.check(rc, "conv_bnact (tensor-core body)")
+        LAUNCHES["conv_bnact"] += 1
+        return y, s, q
+    inv = _vec(inv, cin, 1.0, dev)
+    shift = _vec(shift, cin, 0.0, dev)
+    invs = torch.split(inv, cins)
+    shifts = torch.split(shift, cins)
+    wt = weight.detach().to(device=dev, dtype=dtype).float() \
+        .permute(2, 3, 4, 1, 0).contiguous()
     with torch.cuda.device(dev):
         rc = lib.e3_conv_bnact(
             _DTYPE_ID[dtype], len(xs),
@@ -736,17 +789,37 @@ def upconv_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
             dw, db)
 
 
+def upconv_body(dtype: torch.dtype) -> str:
+    """The body K3's forward runs: ``'tc'`` (the tensor-core GEMM of
+    ``csrc/upconv_tc.cu``) for bfloat16, ``'cuda-core'`` (the float32
+    FMA body of ``csrc/upconv_bnact.cu``) for float32, whose tests hold
+    1e-4 of the scale. The contract's C_in % 16 and C_out % 32 fit both."""
+    return "tc" if dtype == torch.bfloat16 else "cuda-core"
+
+
+def pack_upconv_weight(weight: torch.Tensor, dtype: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """K3's tensor-core weight operand: the (C_in, C_out, kd, 2, 2)
+    weight rounded to ``dtype`` (exact) as (C_in / 16, kd * 4 * C_out,
+    16), the GEMM columns in (a, b, c, C_out) order and each column's 16
+    input channels of one k16 step contiguous."""
+    cin, cout, kd = weight.shape[:3]
+    out = torch.empty((cin // 16, kd * 4 * cout, 16), dtype=dtype,
+                      device=device)
+    out.view(cin // 16, kd, 2, 2, cout, 16).copy_(
+        weight.detach().reshape(cin // 16, 16, cout, kd, 2, 2)
+        .permute(0, 3, 4, 5, 2, 1))
+    return out
+
+
 def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
-    """K3 on CUDA tensors: (y, s, q) as :func:`upconv_bnact_fwd_plain`."""
+    """K3 on CUDA tensors: (y, s, q) as :func:`upconv_bnact_fwd_plain`,
+    on the body :func:`upconv_body` picks."""
     _check_cuda(x, "upconv_bnact")
     n, d, h, w, cin = x.shape
     cout, kd = weight.shape[1], weight.shape[2]
     dev = x.device
     dtype = x.dtype
-    inv = _vec(inv, cin, 1.0, dev)
-    shift = _vec(shift, cin, 0.0, dev)
-    wt = weight.detach().to(device=dev, dtype=dtype).float() \
-        .permute(2, 3, 4, 0, 1).contiguous()
     b = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((n, kd * d, 2 * h, 2 * w, cout), dtype=dtype, device=dev)
     s = q = None
@@ -754,6 +827,21 @@ def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
         s = torch.zeros(cout, dtype=torch.float32, device=dev)
         q = torch.zeros(cout, dtype=torch.float32, device=dev)
     lib = _build.library()
+    if upconv_body(dtype) == "tc":
+        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
+        wp = pack_upconv_weight(weight, dtype, dev)
+        with torch.cuda.device(dev):
+            rc = lib.e3_upconv_bnact_tc(
+                x.data_ptr(), _ptr(inv_v), _ptr(shift_v), wp.data_ptr(),
+                b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q), n, d, h, w,
+                cin, cout, kd, _ACT_ID[act], _stream(dev))
+        _build.check(rc, "upconv_bnact (tensor-core body)")
+        LAUNCHES["upconv_bnact"] += 1
+        return y, s, q
+    inv = _vec(inv, cin, 1.0, dev)
+    shift = _vec(shift, cin, 0.0, dev)
+    wt = weight.detach().to(device=dev, dtype=dtype).float() \
+        .permute(2, 3, 4, 0, 1).contiguous()
     with torch.cuda.device(dev):
         rc = lib.e3_upconv_bnact(
             _DTYPE_ID[dtype], x.data_ptr(), inv.data_ptr(), shift.data_ptr(),

@@ -1,6 +1,7 @@
 """Each hand-written CUDA kernel of the port against its plain PyTorch
 version, on the card (marked ``cuda``; skips without a CUDA device):
-K1-K7 (``ops/fused.py``), the 'batchp' batch norm's K8-K11
+K1-K7 (``ops/fused.py``; K1's and K3's bf16 tensor-core bodies also at
+their own ragged cases), the 'batchp' batch norm's K8-K11
 (``ops/pallas_bn.py``), the flat executor's ``flat_conv3`` and
 ``conv_direct`` (``ops/flat_conv.py``, ``ops/pallas_conv.py``: K1, K4
 and K5 without a prologue), and the vup path's five entries
@@ -845,3 +846,104 @@ def test_cuda_unet_vup_matches_reference(dtype):
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((y.float() - ref.float()).abs().max()) <= \
         tol * float(ref.float().abs().max())
+
+
+# K1's tensor-core body (bf16, every C_in % 16 == 0) at ragged planes:
+# (input channels, kd, C_out, (N, D, H, W), prologue). "bn": a relu
+# prologue with random vectors; "none": the identity prologue (no
+# vectors, linear: the body skips its pass); "relu": no vectors but a
+# relu. W = 37 and 44 take 16-column tiles, 22 and 13 32-column ones;
+# C_out 96 and 256 split over blocks of 32 and 128 channels; the last
+# case has N * D > 65535 at kd = 3.
+TC_CONV_CASES = [
+    ((16,), 3, 32, (2, 5, 13, 37), "bn"),
+    ((32,), 3, 64, (2, 5, 13, 37), "none"),
+    ((32,), 3, 64, (1, 4, 9, 44), "relu"),
+    ((48, 16), 3, 96, (2, 3, 11, 22), "bn"),
+    ((64, 64), 3, 64, (2, 5, 13, 37), "bn"),
+    ((128,), 3, 128, (2, 4, 11, 22), "none"),
+    ((128, 128), 3, 128, (1, 3, 13, 13), "bn"),
+    ((256,), 1, 256, (2, 3, 9, 37), "bn"),
+    ((32, 32), 1, 32, (8, 1, 21, 44), "bn"),
+    ((16,), 3, 32, (2, 32769, 3, 5), "bn"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_stats", [False, True])
+@pytest.mark.parametrize("cins,kd,cout,shape,pro", TC_CONV_CASES)
+def test_cuda_conv_tc_body_matches_plain(cins, kd, cout, shape, pro,
+                                         want_stats):
+    """K1's bf16 tensor-core body against the plain version: output and
+    the statistics of the stored output; one launch counted."""
+    dev = _cuda()
+    assert fused.conv_body(torch.bfloat16, cins) == "tc"
+    g = torch.Generator().manual_seed(11)
+    xs = [torch.randn(*shape, c, generator=g).to(dev, torch.bfloat16)
+          for c in cins]
+    cin = sum(cins)
+    w = (0.1 * torch.randn(cout, cin, kd, 3, 3, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    if pro == "bn":
+        inv = torch.randn(cin, generator=g).to(dev)
+        shift = torch.randn(cin, generator=g).to(dev)
+    act = "linear" if pro == "none" else "relu"
+    fused.reset_launches()
+    got, s, q = fused.conv_bnact_fwd_kernel(xs, inv, shift, w, b, act,
+                                            want_stats)
+    assert fused.LAUNCHES["conv_bnact"] == 1
+    ref = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, act)[0]
+    torch.cuda.synchronize()
+    _assert_kernel(got, ref)
+    if want_stats:
+        ks, kq = fused.channel_stats(got)
+        _assert_sum(s, ks)
+        _assert_sum(q, kq)
+
+
+# K3's tensor-core body (bf16): (C_in, C_out, kd, (N, D, H, W), prologue)
+# as above. W odd (W / 2 of the output odd); the voxel counts are not
+# multiples of the block's 64; C_in 16 and 48 leave a partial weight
+# stage, C_out 96 a GEMM width of three 128-column slices.
+TC_UPCONV_CASES = [
+    (16, 32, 1, (2, 3, 5, 7), "bn"),
+    (32, 64, 2, (2, 3, 5, 7), "none"),
+    (48, 96, 2, (1, 3, 9, 11), "bn"),
+    (64, 32, 1, (2, 3, 5, 7), "relu"),
+    (128, 64, 2, (2, 3, 5, 7), "bn"),
+    (128, 64, 1, (8, 1, 9, 11), "none"),
+    (256, 128, 2, (2, 3, 5, 7), "none"),
+    (256, 128, 1, (8, 1, 7, 9), "bn"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_stats", [False, True])
+@pytest.mark.parametrize("cin,cout,kd,shape,pro", TC_UPCONV_CASES)
+def test_cuda_upconv_tc_body_matches_plain(cin, cout, kd, shape, pro,
+                                           want_stats):
+    """K3's bf16 tensor-core body against the plain version: output and
+    the statistics of the stored output; one launch counted."""
+    dev = _cuda()
+    assert fused.upconv_body(torch.bfloat16) == "tc"
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(*shape, cin, generator=g).to(dev, torch.bfloat16)
+    w = (0.1 * torch.randn(cin, cout, kd, 2, 2, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    if pro == "bn":
+        inv = torch.randn(cin, generator=g).to(dev)
+        shift = torch.randn(cin, generator=g).to(dev)
+    act = "linear" if pro == "none" else "relu"
+    fused.reset_launches()
+    got, s, q = fused.upconv_bnact_fwd_kernel(x, inv, shift, w, b, act,
+                                              want_stats)
+    assert fused.LAUNCHES["upconv_bnact"] == 1
+    ref = fused.upconv_bnact_fwd_plain(x, inv, shift, w, b, act)[0]
+    torch.cuda.synchronize()
+    _assert_kernel(got, ref)
+    if want_stats:
+        ks, kq = fused.channel_stats(got)
+        _assert_sum(s, ks)
+        _assert_sum(q, kq)
