@@ -135,11 +135,12 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
     150 MB less: it never stores the 174.4 MB upconv output).
 
 Each time is a mean from CUDA events after a warm-up, over at least 3
-calls and as many as fill 20 ms (at most 100). Each K1 and K3 line also
-names the body that ran (``body``: the tensor-core bodies
-``csrc/conv_tc.cu`` and ``csrc/upconv_tc.cu`` for bfloat16, the
-CUDA-core bodies for float32 and K1's one-channel input), as do the
-JSON line's ``variants``.
+calls and as many as fill 20 ms (at most 100). Each K1, K3, K5 and K7
+line also names the body that ran (``body``: the tensor-core bodies
+``csrc/conv_tc.cu``, ``csrc/upconv_tc.cu``, ``csrc/wgrad_tc.cu`` and
+``csrc/upconv_bwd_tc.cu`` for bfloat16, the CUDA-core bodies for
+float32 and for K1's and K5's one-channel input), as do the JSON line's
+``variants``.
 
 Every timed variant also prints its bound, the least time the card
 could take for its work: the larger of its operations over the card's
@@ -235,14 +236,14 @@ SOURCES = {
                          f"{_F}:742 _conv_bnact_bwd (dgrad); {_F64}:1139 "
                          f"_conv64_bwd (dgrad); {_FC}:502 _flat_conv3_bwd "
                          "(dgrad, :319)"),
-    "conv_bnact_wgrad": ("elektronn3_tpu_torch/csrc/conv_bnact_bwd.cu",
+    "conv_bnact_wgrad": ("elektronn3_tpu_torch/csrc/wgrad_tc.cu",
                          f"{_F}:742 _conv_bnact_bwd (wgrad); {_F64}:1139 "
                          f"_conv64_bwd (wgrad); {_F}:2091 _conv1_bwd; "
                          f"{_FC}:386 _wgrad (:412)"),
     "pool_bnact_bwd": ("elektronn3_tpu_torch/csrc/pool_bnact.cu",
                        f"{_F}:1367 _pool_bwd_impl; {_F64}:1519 "
                        f"_pool64_bwd_impl; {_F64}:1731 _pool122_bwd_impl"),
-    "upconv_bnact_bwd": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
+    "upconv_bnact_bwd": ("elektronn3_tpu_torch/csrc/upconv_bwd_tc.cu",
                          f"{_F64}:2044 _upconv64_bwd; {_F64}:2732 "
                          f"_upconv122_f64_bwd; {_F64}:2347 "
                          f"_upconv122_64_bwd; {_F64}:3393 "
@@ -273,13 +274,20 @@ SOURCES = {
                          f"{_F64}:2996 _upconv122_stats_bwd (row 23, its "
                          "pallas_call :3059)"),
 }
-# K1's and K3's bodies: bf16 with channels % 16 == 0 runs the tensor-core
-# body (``fused.conv_body``, ``fused.upconv_body``), float32 and the
+# K1's, K3's, K5's and K7's bodies: bf16 with channels % 16 == 0 runs the
+# tensor-core body (``fused.conv_body``, ``fused.upconv_body``,
+# ``fused.wgrad_body``, ``fused.upconv_bwd_body``), float32 and the
 # network input's one channel the CUDA-core body.
 BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
                          "cuda-core": "cuda-core (csrc/conv_bnact.cu)"},
           "upconv_bnact": {"tc": "tc (csrc/upconv_tc.cu)",
-                           "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"}}
+                           "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"},
+          "conv_bnact_wgrad": {
+              "tc": "tc (csrc/wgrad_tc.cu)",
+              "cuda-core": "cuda-core (csrc/conv_bnact_bwd.cu)"},
+          "upconv_bnact_bwd": {
+              "tc": "tc (csrc/upconv_bwd_tc.cu)",
+              "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"}}
 # K8-K11 run only the 'batchp' norm's library levels; K1-K7 every model's
 # kernel levels.
 BN_KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
@@ -695,7 +703,8 @@ class Stats:
         (False), ``lib_op`` what the call is (by default "same function"
         or "op without prologue/statistics"); ``total`` whether a bf16
         variant counts in the kernel's totals (see :meth:`totals`);
-        ``body`` which of K1's or K3's bodies ran (:data:`BODIES`)."""
+        ``body`` which of K1's, K3's, K5's or K7's bodies ran
+        (:data:`BODIES`)."""
         b_ms, b_by = bnd
         bf16 = dtype == torch.bfloat16
         if lib_op is None:
@@ -740,6 +749,15 @@ def fwd_body(fused, kind, dtype, cins):
     if kind == "conv":
         return fused.conv_body(dtype, cins)
     return fused.upconv_body(dtype) if kind == "upconv" else None
+
+
+def bwd_body(fused, name, dtype, cins):
+    """The body K5 or K7 runs for these inputs (``fused.wgrad_body`` or
+    ``fused.upconv_bwd_body``), or None for K4 and K6."""
+    if name == "conv_bnact_wgrad":
+        return fused.wgrad_body(dtype, cins)
+    return fused.upconv_bwd_body(dtype) if name == "upconv_bnact_bwd" \
+        else None
 
 
 def conv_flops(m, cin, cout, kd):
@@ -968,7 +986,7 @@ def train_kernel_phase(fused, stats, variants, total, serve):
                 stats.add(name, label, dtype, err, cuda_ms(run),
                           cuda_ms(plain), bnd,
                           cuda_ms(libs[name]) if bf16 else None, False,
-                          total)
+                          total, body=bwd_body(fused, name, dtype, cins))
             del y, dy, xs, a, bargs, fargs, libs
             torch.cuda.empty_cache()
 

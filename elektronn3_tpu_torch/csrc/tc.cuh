@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the bf16 bodies of K1 (conv_tc.cu) and
-// K3 (upconv_tc.cu), written as inline PTX: cp.async copies from device
-// to shared memory, ldmatrix fragment loads and mma.sync m16n8k16 with
-// bf16 operands and float32 accumulators.
+// Tensor-core building blocks of the bf16 bodies of K1 (conv_tc.cu), K3
+// (upconv_tc.cu), K5 (wgrad_tc.cu) and K7 (upconv_bwd_tc.cu), written as
+// inline PTX: cp.async copies from device to shared memory, ldmatrix
+// fragment loads (plain and transposed) and mma.sync m16n8k16 with bf16
+// operands and float32 accumulators.
 //
 // Shared-memory operand tiles hold rows of 16 bf16 (32 bytes: one k16
 // step of the MMA). A row's two 16-byte halves are XOR-swizzled with
@@ -48,6 +49,19 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+// The same four matrices, each transposed on the way: lane l receives
+// elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of its matrix
+// (row, column as stored). An operand stored K-major (voxel rows of
+// contiguous channels) so becomes an mma fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
+                                                  uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr) : "memory");
 }
@@ -100,5 +114,56 @@ __device__ __forceinline__ void prologue_half(uint4* p, const float* inv,
   }
   *p = u;
 }
+
+// Form dy_tot = dy + ds + 2 y dq in float32 for the 8 bf16 values of
+// one 16-byte shared-memory half-row of dy (in place) and of y (``yp``,
+// or null: no statistics cotangent, dy_tot = dy), add the float32 values
+// to ``db`` (or skip when null), and round back to bf16; write zeros
+// (and add nothing) when ``!valid``. ``ds`` and ``dq`` point at the
+// half's 8 channels.
+__device__ __forceinline__ void dytot_half(uint4* p, const uint4* yp,
+                                           const float* ds, const float* dq,
+                                           bool valid, float* db) {
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (valid) {
+    u = *p;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+    if (yp != nullptr) {
+      const uint4 yv = *yp;
+      const __nv_bfloat162* hy = reinterpret_cast<const __nv_bfloat162*>(&yv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 g = __bfloat1622float2(h[j]);
+        const float2 t = __bfloat1622float2(hy[j]);
+        const float a = dy_tot(g.x, t.x, ds[2 * j], dq[2 * j]);
+        const float b = dy_tot(g.y, t.y, ds[2 * j + 1], dq[2 * j + 1]);
+        if (db != nullptr) {
+          db[2 * j] += a;
+          db[2 * j + 1] += b;
+        }
+        h[j] = __floats2bfloat162_rn(a, b);
+      }
+    } else if (db != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 g = __bfloat1622float2(h[j]);
+        db[2 * j] += g.x;
+        db[2 * j + 1] += g.y;
+      }
+    }
+  }
+  *p = u;
+}
+
+// The pre-pass of K5's and K7's bf16 bodies (defined in
+// upconv_bwd_tc.cu): dy_tot = dy + ds + 2 y dq of ``voxels`` rows of
+// ``c`` bf16 channels, rounded into ``e``, its float32 sums added into
+// ``db`` (zeroed by the caller). One read of dy and y, one write of e.
+// Needs c % 8 == 0 and c <= kDytotMaxC.
+constexpr int kDytotMaxC = 1024;
+cudaError_t launch_dytot(const __nv_bfloat16* dy, const __nv_bfloat16* y,
+                         const float* ds, const float* dq, __nv_bfloat16* e,
+                         float* db, int64_t voxels, int c,
+                         cudaStream_t stream);
 
 }  // namespace e3

@@ -48,8 +48,10 @@ are K3/K7 from a dense input into 32 channels.
 
 K1's and K3's bf16 forwards run tensor-core bodies (``csrc/conv_tc.cu``,
 ``csrc/upconv_tc.cu``) on weights the wrappers pack once per call in
-bf16; :func:`conv_body` and :func:`upconv_body` name the body a launch
-takes.
+bf16, and so do K5's and K7's bf16 backwards (``csrc/wgrad_tc.cu``,
+``csrc/upconv_bwd_tc.cu``; K7's dgrad reads K3's packed weight);
+:func:`conv_body`, :func:`upconv_body`, :func:`wgrad_body` and
+:func:`upconv_bwd_body` name the body a launch takes.
 
 Each kernel has a wrapper ``*_kernel`` and a plain PyTorch version
 ``*_plain`` beside it (same signature, same rounding points). Each op's
@@ -500,9 +502,19 @@ def conv_bnact_dgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     return dxs, dinv, dshift
 
 
+def wgrad_body(dtype: torch.dtype, cins: Sequence[int]) -> str:
+    """The body K5 runs: ``'tc'`` (the tensor-core split-K implicit GEMM
+    of ``csrc/wgrad_tc.cu``) for bfloat16 when every input's channel
+    count is a multiple of 16, else ``'cuda-core'`` (the float32 FMA body
+    of ``csrc/conv_bnact_bwd.cu``: float32, whose tests hold 1e-4 of the
+    scale, and the network input's C_in of 1 or 3)."""
+    return conv_body(dtype, cins)
+
+
 def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     """K5: float32 (dW, db), dW in ``weight``'s shape, as
-    :func:`conv_bnact_wgrad_plain`."""
+    :func:`conv_bnact_wgrad_plain`, on the body :func:`wgrad_body`
+    picks."""
     g, ds, dq, inv_v, shift_v, _ = _conv_bwd_args(
         xs, inv, shift, weight, y, dy, ds, dq, "conv_bnact_wgrad")
     x0 = xs[0]
@@ -514,14 +526,29 @@ def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
                       device=x0.device)
     db = torch.zeros(cout, dtype=torch.float32, device=x0.device)
     lib = _build.library()
-    with torch.cuda.device(x0.device):
-        rc = lib.e3_conv_bnact_wgrad(
-            _DTYPE_ID[x0.dtype], len(xs), x0.data_ptr(), cins[0], _ptr(x1),
-            cins[1] if x1 is not None else 0, inv_v.data_ptr(),
-            shift_v.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(ds),
-            _ptr(dq), cout, dwt.data_ptr(), db.data_ptr(), n, d, h, w, kd,
-            _ACT_ID[act], _stream(x0.device))
-    _build.check(rc, "conv_bnact_wgrad")
+    if wgrad_body(x0.dtype, cins) == "tc":
+        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, x0.device)
+        # The pre-pass's scratch, where the blocks would otherwise read
+        # dy and y more than twice (32-channel slices x kd > 2).
+        e = torch.empty_like(g) if ds is not None and kd * sum(
+            -(-c // 32) for c in cins) > 2 else None
+        with torch.cuda.device(x0.device):
+            rc = lib.e3_conv_bnact_wgrad_tc(
+                len(xs), x0.data_ptr(), cins[0], _ptr(x1),
+                cins[1] if x1 is not None else 0, _ptr(inv_v),
+                _ptr(shift_v), g.data_ptr(), y.data_ptr(), _ptr(ds),
+                _ptr(dq), _ptr(e), cout, dwt.data_ptr(), db.data_ptr(), n,
+                d, h, w, kd, _ACT_ID[act], _stream(x0.device))
+        _build.check(rc, "conv_bnact_wgrad (tensor-core body)")
+    else:
+        with torch.cuda.device(x0.device):
+            rc = lib.e3_conv_bnact_wgrad(
+                _DTYPE_ID[x0.dtype], len(xs), x0.data_ptr(), cins[0],
+                _ptr(x1), cins[1] if x1 is not None else 0, inv_v.data_ptr(),
+                shift_v.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(ds),
+                _ptr(dq), cout, dwt.data_ptr(), db.data_ptr(), n, d, h, w,
+                kd, _ACT_ID[act], _stream(x0.device))
+        _build.check(rc, "conv_bnact_wgrad")
     LAUNCHES["conv_bnact_wgrad"] += 1
     return dwt.permute(4, 3, 0, 1, 2), db
 
@@ -852,21 +879,33 @@ def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
     return y, s, q
 
 
+def upconv_bwd_body(dtype: torch.dtype) -> str:
+    """The bodies K7 runs: ``'tc'`` (the tensor-core dgrad and wgrad
+    GEMMs of ``csrc/upconv_bwd_tc.cu``) for bfloat16, ``'cuda-core'``
+    (the float32 FMA bodies of ``csrc/upconv_bnact.cu``) for float32,
+    whose tests hold 1e-4 of the scale. The vup path's chain keeps the
+    CUDA-core bodies in both dtypes (``ops/vup.py``)."""
+    return "tc" if dtype == torch.bfloat16 else "cuda-core"
+
+
 def upconv_bnact_bwd_kernel(x, inv, shift, weight, y, dy, ds, dq, act,
-                            input_grad=True):
+                            input_grad=True, body=None):
     """K7: (dx, dinv, dshift, dW, db), as
-    :func:`upconv_bnact_bwd_plain`."""
+    :func:`upconv_bnact_bwd_plain`, on ``body`` (by default the one
+    :func:`upconv_bwd_body` picks; ``'cuda-core'`` runs the CUDA-core
+    bodies in either dtype, which need C_in % 32 == 0)."""
     _check_cuda(x, "upconv_bnact backward")
     n, d, h, w, cin = x.shape
     cout, kd = weight.shape[1], weight.shape[2]
     dev = x.device
     dtype = x.dtype
+    body = body or upconv_bwd_body(dtype)
+    if body not in ("tc", "cuda-core") or (body == "tc"
+                                           and dtype != torch.bfloat16):
+        raise ValueError(f"upconv_bnact backward: no {body!r} body for "
+                         f"{dtype}")
     g = _cuda_grad(dy, y, "upconv_bnact backward")
     ds, dq = _stat_cts(ds, dq, cout, dev)
-    inv_v = _vec(inv, cin, 1.0, dev)
-    shift_v = _vec(shift, cin, 0.0, dev)
-    wt = weight.detach().to(device=dev, dtype=dtype).float() \
-        .permute(2, 3, 4, 0, 1).contiguous()
     dx = torch.empty_like(x) if input_grad else None
     dinv = torch.zeros(cin, dtype=torch.float32, device=dev)
     dshift = torch.zeros(cin, dtype=torch.float32, device=dev)
@@ -874,14 +913,31 @@ def upconv_bnact_bwd_kernel(x, inv, shift, weight, y, dy, ds, dq, act,
                       device=dev)
     db = torch.zeros(cout, dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.e3_upconv_bnact_bwd(
-            _DTYPE_ID[dtype], x.data_ptr(), inv_v.data_ptr(),
-            shift_v.data_ptr(), wt.data_ptr(), g.data_ptr(), y.data_ptr(),
-            _ptr(ds), _ptr(dq), _ptr(dx), dinv.data_ptr(),
-            dshift.data_ptr(), dwt.data_ptr(), db.data_ptr(),
-            n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
-    _build.check(rc, "upconv_bnact_bwd")
+    if body == "tc":
+        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
+        wp = pack_upconv_weight(weight, dtype, dev)
+        e = torch.empty_like(g) if ds is not None else None   # pre-pass
+        with torch.cuda.device(dev):
+            rc = lib.e3_upconv_bnact_bwd_tc(
+                x.data_ptr(), _ptr(inv_v), _ptr(shift_v), wp.data_ptr(),
+                g.data_ptr(), y.data_ptr(), _ptr(ds), _ptr(dq), _ptr(e),
+                _ptr(dx), dinv.data_ptr(), dshift.data_ptr(), dwt.data_ptr(),
+                db.data_ptr(), n, d, h, w, cin, cout, kd, _ACT_ID[act],
+                _stream(dev))
+        _build.check(rc, "upconv_bnact_bwd (tensor-core bodies)")
+    else:
+        inv_v = _vec(inv, cin, 1.0, dev)
+        shift_v = _vec(shift, cin, 0.0, dev)
+        wt = weight.detach().to(device=dev, dtype=dtype).float() \
+            .permute(2, 3, 4, 0, 1).contiguous()
+        with torch.cuda.device(dev):
+            rc = lib.e3_upconv_bnact_bwd(
+                _DTYPE_ID[dtype], x.data_ptr(), inv_v.data_ptr(),
+                shift_v.data_ptr(), wt.data_ptr(), g.data_ptr(),
+                y.data_ptr(), _ptr(ds), _ptr(dq), _ptr(dx), dinv.data_ptr(),
+                dshift.data_ptr(), dwt.data_ptr(), db.data_ptr(),
+                n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
+        _build.check(rc, "upconv_bnact_bwd")
     LAUNCHES["upconv_bnact_bwd"] += 1
     if inv is None or not input_grad:
         dinv = dshift = None

@@ -285,6 +285,51 @@ def conv_vup_fwd_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
     return y, s, q
 
 
+# The body of K7 that the chain runs, in both dtypes: e3_conv_vup_chain
+# and e3_upconv_stats_bwd call K7's CUDA-core bodies (launch_upconv_bwd in
+# csrc/upconv_bnact.cu) by name, whatever fused.upconv_bwd_body picks for
+# upconv_bnact, so the five vup entries keep the code they compiled to.
+CHAIN_BODY = "cuda-core"
+
+
+def _chain(carry, invc_v, shiftc_v, wt_u, e, dcarry, dinvc, dshiftc, dwt,
+           act_c):
+    """K7's CUDA-core bodies on E (the upconv output's rounded cotangent,
+    (n, d, 2 h, 2 w, C_u)) into dcarry, dinvc, dshiftc and dwt (zeroed by
+    the caller); K7's sum of E goes to a scratch, as JAX sums dbu from the
+    float32 cotangent instead."""
+    n, d, h, w, cc = carry.shape
+    cu = e.shape[-1]
+    dev = carry.device
+    db_e = torch.zeros(cu, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.e3_conv_vup_chain(
+            _DTYPE_ID[carry.dtype], carry.data_ptr(), invc_v.data_ptr(),
+            shiftc_v.data_ptr(), wt_u.data_ptr(), e.data_ptr(),
+            dcarry.data_ptr(), dinvc.data_ptr(), dshiftc.data_ptr(),
+            dwt.data_ptr(), db_e.data_ptr(), n, d, h, w, cc, cu,
+            _ACT_ID[act_c], _stream(dev))
+    _build.check(rc, "conv_vup_dgrad (chain)")
+
+
+def vup_chain_kernel(carry, invc, shiftc, wu, e, act_c):
+    """The chain alone on a given E: (dcarry, dinvc, dshiftc, dwu) as
+    :func:`fused.upconv_bnact_bwd_kernel` with ``body=CHAIN_BODY`` gives
+    them for the carry, E as dy and no statistics cotangent."""
+    invc_v, shiftc_v, wt_u, _, cc, cu = _carry_args(
+        carry, invc, shiftc, wu, torch.zeros(wu.shape[1]), "vup chain")
+    _check_cuda(e, "vup chain")
+    dev = carry.device
+    dcarry = torch.empty_like(carry)
+    dinvc = torch.zeros(cc, dtype=torch.float32, device=dev)
+    dshiftc = torch.zeros(cc, dtype=torch.float32, device=dev)
+    dwt = torch.zeros((1, 2, 2, cc, cu), dtype=torch.float32, device=dev)
+    _chain(carry, invc_v, shiftc_v, wt_u, e, dcarry, dinvc, dshiftc, dwt,
+           act_c)
+    return dcarry, dinvc, dshiftc, dwt.permute(3, 4, 0, 1, 2)
+
+
 def conv_vup_dgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
                           weight, y, dy, ds, dq, act, act_c):
     """Row 9's input gradients on CUDA tensors, as
@@ -311,26 +356,19 @@ def conv_vup_dgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
     dinvc = torch.zeros(cc, dtype=torch.float32, device=dev)
     dshiftc = torch.zeros(cc, dtype=torch.float32, device=dev)
     dwt = torch.zeros((1, 2, 2, cc, cu), dtype=torch.float32, device=dev)
-    db_e = torch.zeros(cu, dtype=torch.float32, device=dev)
     lib = _build.library()
-    dtype_id, act_c_id = _DTYPE_ID[carry.dtype], _ACT_ID[act_c]
     with torch.cuda.device(dev):
         rc = lib.e3_conv_vup_dgrad(
-            dtype_id, g.data_ptr(), y.data_ptr(), _ptr(ds), _ptr(dq), cout,
-            wt.data_ptr(), carry.data_ptr(), cc, invc_v.data_ptr(),
+            _DTYPE_ID[carry.dtype], g.data_ptr(), y.data_ptr(), _ptr(ds),
+            _ptr(dq), cout, wt.data_ptr(), carry.data_ptr(), cc, invc_v.data_ptr(),
             shiftc_v.data_ptr(), wt_u.data_ptr(), b_u.data_ptr(), cu,
-            act_c_id, skip.data_ptr(), cs, inv_v.data_ptr(),
+            _ACT_ID[act_c], skip.data_ptr(), cs, inv_v.data_ptr(),
             shift_v.data_ptr(), e.data_ptr(), dskip.data_ptr(),
             dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, _ACT_ID[act],
             _stream(dev))
-        _build.check(rc, "conv_vup_dgrad")
-        rc = lib.e3_conv_vup_chain(
-            dtype_id, carry.data_ptr(), invc_v.data_ptr(),
-            shiftc_v.data_ptr(), wt_u.data_ptr(), e.data_ptr(),
-            dcarry.data_ptr(), dinvc.data_ptr(), dshiftc.data_ptr(),
-            dwt.data_ptr(), db_e.data_ptr(), n, d, h // 2, w // 2, cc, cu,
-            act_c_id, _stream(dev))
-    _build.check(rc, "conv_vup_dgrad (chain)")
+    _build.check(rc, "conv_vup_dgrad")
+    _chain(carry, invc_v, shiftc_v, wt_u, e, dcarry, dinvc, dshiftc, dwt,
+           act_c)
     LAUNCHES["conv_vup_dgrad"] += 1
     dbu = inv_v[:cu] * dshift[:cu]
     if invc is None:

@@ -19,9 +19,13 @@ different machines or cards are not comparable. Shapes:
   (1, 32, 32, 32) and the 2D model's up_0 (1, 2, 2) 256->128 from
   (8, 1, 80, 80); with statistics and the prologue, the (1, 2, 2) up_2
   64->32 at bench.py's batch 8 of (44, 88, 88);
-- K4 and K5 of that up_2 merge, K7 of that upconv; these three first,
-  on inputs from the plain forwards, so that nothing the forward kernels
-  allocate moves their inputs between two checkouts.
+- K4 and K5 of that up_2 merge, K7 of that upconv, K5 at bench.py's
+  up_1 merge 64+64->64 kd=3 and L0 conv2 32->32 kd=1 (with statistics
+  cotangents), K7 at its up_1 (2, 2, 2) 128->64 from (8, 22, 22, 22) and
+  at the 2D model's up_1 (1, 2, 2) 128->64 from (8, 1, 160, 160) (dense
+  inputs); these first, on inputs from the plain forwards, so that
+  nothing the forward kernels allocate moves their inputs between two
+  checkouts.
 """
 import os
 import sys
@@ -75,6 +79,34 @@ def main():
     out.append(("K7 bench up_2", ms(lambda: fused.upconv_bnact_bwd_kernel(
         xu, invc, shc, wu, yu, dyu, ds, dq, "relu"))))
     del yu, dyu
+    # K5 at bench.py's up_1 merge 64+64->64 kd3 (with ds/dq) and L0 conv2
+    # 32->32 kd1; K7 at its up_1 (2,2,2) 128->64 from (8,22,22,22) and at
+    # the 2D model's up_1 (1,2,2) 128->64 from (8,1,160,160), both from a
+    # dense input.
+    for label, shape, cins, cout, kd in (
+            ("bench up_1 merge 64+64 kd3", (8, 44, 44, 44), (64, 64), 64, 3),
+            ("bench L0 conv2 32->32", (8, 44, 88, 88), (32,), 32, 1)):
+        xs = [r(*shape, c).to(bf) for c in cins]
+        cin = sum(cins)
+        w, b, inv, sh = (r(cout, cin, kd, 3, 3, scale=0.05), r(cout), r(cin),
+                         r(cin))
+        y = fused.conv_bnact_fwd_plain(xs, inv, sh, w, b, "relu")[0]
+        dy = r(*y.shape, scale=0.1).to(bf)
+        dsc, dqc = r(cout, scale=1e-3), r(cout, scale=1e-4)
+        out.append((f"K5 {label}", ms(lambda: fused.conv_bnact_wgrad_kernel(
+            xs, inv, sh, w, y, dy, dsc, dqc, "relu"))))
+        del xs, y, dy
+    for label, shape, cin, cout, kd in (
+            ("bench up_1 (2,2,2) 128->64", (8, 22, 22, 22), 128, 64, 2),
+            ("2D up_1 (1,2,2) 128->64", (8, 1, 160, 160), 128, 64, 1)):
+        x = r(*shape, cin).to(bf)
+        w, b = r(cin, cout, kd, 2, 2, scale=0.05), r(cout)
+        yd = fused.upconv_bnact_fwd_plain(x, None, None, w, b, "linear")[0]
+        dyd = r(*yd.shape, scale=0.1).to(bf)
+        dsu, dqu = r(cout, scale=1e-3), r(cout, scale=1e-4)
+        out.append((f"K7 {label}", ms(lambda: fused.upconv_bnact_bwd_kernel(
+            x, None, None, w, yd, dyd, dsu, dqu, "linear"))))
+        del x, yd, dyd
     for label, cins in (("tile L0 conv2", (32,)), ("tile up_2 merge",
                                                    (32, 32))):
         xs = [r(1, 128, 256, 256, c).to(bf) for c in cins]

@@ -1,11 +1,12 @@
 """Each hand-written CUDA kernel of the port against its plain PyTorch
 version, on the card (marked ``cuda``; skips without a CUDA device):
-K1-K7 (``ops/fused.py``; K1's and K3's bf16 tensor-core bodies also at
-their own ragged cases), the 'batchp' batch norm's K8-K11
+K1-K7 (``ops/fused.py``; K1's, K3's, K5's and K7's bf16 tensor-core
+bodies also at their own ragged cases), the 'batchp' batch norm's K8-K11
 (``ops/pallas_bn.py``), the flat executor's ``flat_conv3`` and
 ``conv_direct`` (``ops/flat_conv.py``, ``ops/pallas_conv.py``: K1, K4
 and K5 without a prologue), and the vup path's five entries
-(``ops/vup.py``: rows 1's vup mode, 9, 22 and 23).
+(``ops/vup.py``: rows 1's vup mode, 9, 22 and 23; their chain keeps K7's
+CUDA-core bodies).
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch:
 
@@ -947,3 +948,145 @@ def test_cuda_upconv_tc_body_matches_plain(cin, cout, kd, shape, pro,
         ks, kq = fused.channel_stats(got)
         _assert_sum(s, ks)
         _assert_sum(q, kq)
+
+
+# K5's tensor-core body (bf16, every C_in % 16 == 0): (input channels,
+# kd, C_out, (N, D, H, W), prologue, statistics cotangents). W = 37, 22,
+# 13 and 5 leave a partial 16-column tile; 48 + 16 leaves a half slice
+# of 16 channels in each input; C_out 96 takes 32-channel output blocks,
+# 256 four of 64; the last case has N * D > 65535 at kd = 3.
+TC_WGRAD_CASES = [
+    ((16,), 3, 32, (2, 5, 13, 37), "bn", True),
+    ((32,), 1, 32, (2, 3, 9, 37), "none", False),
+    ((48, 16), 3, 96, (2, 3, 11, 22), "bn", True),
+    ((64, 64), 3, 64, (2, 5, 13, 37), "bn", True),
+    ((128,), 3, 128, (1, 4, 11, 22), "relu", False),
+    ((128, 128), 3, 256, (1, 3, 9, 13), "bn", True),
+    ((256,), 1, 64, (2, 3, 9, 37), "none", True),
+    ((32, 32), 1, 32, (8, 1, 21, 44), "bn", True),
+    ((16,), 3, 32, (2, 32769, 3, 5), "bn", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cins,kd,cout,shape,pro,stats", TC_WGRAD_CASES)
+def test_cuda_wgrad_tc_body_matches_plain(cins, kd, cout, shape, pro,
+                                          stats):
+    """K5's bf16 tensor-core body against the plain version: dW and db;
+    one launch counted."""
+    dev = _cuda()
+    assert fused.wgrad_body(torch.bfloat16, cins) == "tc"
+    g = torch.Generator().manual_seed(13)
+    xs = [torch.randn(*shape, c, generator=g).to(dev, torch.bfloat16)
+          for c in cins]
+    cin = sum(cins)
+    w = (0.1 * torch.randn(cout, cin, kd, 3, 3, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    if pro == "bn":
+        inv = torch.randn(cin, generator=g).to(dev)
+        shift = torch.randn(cin, generator=g).to(dev)
+    act = "linear" if pro == "none" else "relu"
+    y = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, act)[0]
+    dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, torch.bfloat16)
+    ds = dq = None
+    if stats:
+        ds = torch.randn(cout, generator=g).to(dev)
+        dq = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    args = (xs, inv, shift, w, y, dy, ds, dq, act)
+    fused.reset_launches()
+    dw, db = fused.conv_bnact_wgrad_kernel(*args)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv_bnact_wgrad": 1}
+    rdw, rdb = fused.conv_bnact_wgrad_plain(*args)
+    torch.cuda.synchronize()
+    _assert_sum(dw, rdw)
+    _assert_sum(db, rdb)
+
+
+# K7's tensor-core bodies (bf16): (C_in, C_out, kd, (N, D, H, W),
+# prologue, input gradient, statistics cotangents). W odd; the voxel
+# counts are not multiples of the dgrad's 128 or the wgrad's 32; C_in 16
+# and 48 leave a partial 32-channel block, C_out 96 a partial
+# 64-channel one; C_in 256 splits the dgrad over two blocks of 128.
+TC_UPCONV_BWD_CASES = [
+    (16, 32, 1, (2, 3, 5, 7), "bn", True, True),
+    (32, 64, 2, (2, 3, 5, 7), "none", True, False),
+    (48, 96, 2, (1, 3, 9, 11), "bn", False, True),
+    (64, 32, 1, (2, 3, 5, 7), "relu", True, True),
+    (128, 64, 2, (2, 3, 5, 7), "bn", True, True),
+    (128, 64, 1, (8, 1, 9, 11), "none", False, False),
+    (256, 128, 2, (2, 3, 5, 7), "none", True, True),
+    (256, 128, 1, (8, 1, 7, 9), "bn", True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,kd,shape,pro,input_grad,stats",
+                         TC_UPCONV_BWD_CASES)
+def test_cuda_upconv_bwd_tc_body_matches_plain(cin, cout, kd, shape, pro,
+                                               input_grad, stats):
+    """K7's bf16 tensor-core bodies against the plain version: dx (when
+    asked for), dinv, dshift, dW and db; one launch counted."""
+    dev = _cuda()
+    assert fused.upconv_bwd_body(torch.bfloat16) == "tc"
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(*shape, cin, generator=g).to(dev, torch.bfloat16)
+    w = (0.1 * torch.randn(cin, cout, kd, 2, 2, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    if pro == "bn":
+        inv = torch.randn(cin, generator=g).to(dev)
+        shift = torch.randn(cin, generator=g).to(dev)
+    act = "linear" if pro == "none" else "relu"
+    y = fused.upconv_bnact_fwd_plain(x, inv, shift, w, b, act)[0]
+    dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, torch.bfloat16)
+    ds = dq = None
+    if stats:
+        ds = torch.randn(cout, generator=g).to(dev)
+        dq = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    args = (x, inv, shift, w, y, dy, ds, dq, act, input_grad)
+    fused.reset_launches()
+    dx, dinv, dshift, dw, db = fused.upconv_bnact_bwd_kernel(*args)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "upconv_bnact_bwd": 1}
+    ref = fused.upconv_bnact_bwd_plain(*args)
+    torch.cuda.synchronize()
+    if input_grad:
+        _assert_kernel(dx, ref[0])
+    else:
+        assert dx is None and dinv is None and dshift is None
+    if pro == "bn" and input_grad:
+        _assert_sum(dinv, ref[1])
+        _assert_sum(dshift, ref[2])
+    _assert_sum(dw, ref[3])
+    _assert_sum(db, ref[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VUP_SHAPES, ids=str)
+def test_cuda_vup_chain_keeps_the_cuda_core_bodies(shape):
+    """The vup chain (K7's bodies on E, inside ``conv_vup_dgrad`` and
+    ``upconv_stats_bwd``) runs K7's CUDA-core bodies in bf16, where
+    ``upconv_bnact`` takes the tensor-core ones: its dcarry, one thread's
+    sum with no atomics, equals the CUDA-core body's bit for bit on the
+    same E, and both agree with the tensor-core bodies."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    bf = torch.bfloat16
+    assert vup.CHAIN_BODY == "cuda-core"
+    assert fused.upconv_bwd_body(bf) == "tc"
+    args, g = _vup_case(dev, bf, shape, seed=3)
+    carry, invc, shiftc, wu = args[:4]
+    n, d, h, w, _ = carry.shape
+    e = (0.1 * torch.randn(n, d, 2 * h, 2 * w, 32, generator=g)).to(dev, bf)
+    got = vup.vup_chain_kernel(carry, invc, shiftc, wu, e, "relu")
+    bwd = (carry, invc, shiftc, wu, e, e, None, None, "relu", True)
+    core = fused.upconv_bnact_bwd_kernel(*bwd, body="cuda-core")
+    tc = fused.upconv_bnact_bwd_kernel(*bwd, body="tc")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], core[0])
+    _assert_kernel(got[0], tc[0])
+    for a, c, t in zip(got[1:], core[1:4], tc[1:4]):
+        _assert_sum(a, c)
+        _assert_sum(a, t)

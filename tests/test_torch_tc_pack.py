@@ -1,8 +1,10 @@
-"""The tensor-core bodies of K1 and K3 (``csrc/conv_tc.cu``,
-``csrc/upconv_tc.cu``) on the CPU: the wrappers' weight packing, which
-the kernels read as their B operand, and the body selectors, which decide
-from the dtype and the channel counts which body a CUDA launch takes.
-The kernels themselves run only on the card (``test_torch_cuda.py``).
+"""The tensor-core bodies of K1, K3, K5 and K7 (``csrc/conv_tc.cu``,
+``csrc/upconv_tc.cu``, ``csrc/wgrad_tc.cu``, ``csrc/upconv_bwd_tc.cu``)
+on the CPU: the wrappers' weight packing, which K1 and K3 read as their
+B operand and K7's dgrad reads K-major as its own, and the body
+selectors, which decide from the dtype and the channel counts which body
+a CUDA launch takes. The kernels themselves run only on the card
+(``test_torch_cuda.py``).
 
 The packing must be a pure relayout of the weight rounded to the
 activation dtype: unpacked again it gives back the (kd, 3, 3, C_in,
@@ -94,4 +96,80 @@ def test_plain_path_launches_nothing():
     wu = _weight((32, 32, 2, 2, 2), 3)
     u = fused.upconv_bnact(x, None, None, wu, torch.zeros(32), "linear")
     assert y.shape == (1, 2, 5, 7, 32) and u.shape == (1, 4, 10, 14, 32)
+    assert all(v == 0 for v in fused.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype,cins,body", [
+    (torch.bfloat16, (32,), "tc"), (torch.bfloat16, (64, 64), "tc"),
+    (torch.bfloat16, (16,), "tc"), (torch.bfloat16, (48, 16), "tc"),
+    (torch.bfloat16, (128, 128), "tc"), (torch.bfloat16, (256,), "tc"),
+    (torch.bfloat16, (1,), "cuda-core"), (torch.bfloat16, (3,), "cuda-core"),
+    (torch.bfloat16, (32, 8), "cuda-core"),
+    (torch.bfloat16, (24,), "cuda-core"),
+    (torch.float32, (32,), "cuda-core"), (torch.float32, (64, 64),
+                                          "cuda-core"),
+    (torch.float32, (1,), "cuda-core")])
+def test_wgrad_body_selector(dtype, cins, body):
+    """K5 takes the tensor-core body for bf16 with every C_in % 16 == 0,
+    the CUDA-core body for float32 and for the network input's C_in of 1
+    or 3 (row 13)."""
+    assert fused.wgrad_body(dtype, cins) == body
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "tc"),
+                                        (torch.float32, "cuda-core")])
+def test_upconv_bwd_body_selector(dtype, body):
+    assert fused.upconv_bwd_body(dtype) == body
+
+
+def test_upconv_bwd_body_refused_on_the_cpu_path():
+    """A CPU tensor never reaches a body: the kernel wrapper refuses it,
+    whichever body is asked for."""
+    x = _weight((1, 2, 3, 5, 32), 4, torch.bfloat16)
+    w = _weight((32, 32, 1, 2, 2), 5)
+    y = fused.upconv_bnact_fwd_plain(x, None, None, w, torch.zeros(32),
+                                     "linear")[0]
+    for body in ("tc", "cuda-core"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fused.upconv_bnact_bwd_kernel(x, None, None, w, y, y, None,
+                                          None, "linear", True, body=body)
+
+
+@pytest.mark.parametrize("cin,cout,kd", [(64, 32, 1), (128, 64, 2),
+                                         (48, 96, 2)])
+def test_upconv_packing_is_the_dgrad_operand(cin, cout, kd):
+    """K7's dgrad reads K3's packed weight K-major: row (a, b, c, co) of
+    the (kd * 4 * C_out, C_in) matrix it sees is W[:, co, a, b, c]. As a
+    GEMM with the output cotangent's rows of (sub-position, C_out) per
+    input voxel it gives the plain backward's input gradient (identity
+    prologue, linear)."""
+    n, d, h, w = 2, 2, 3, 5
+    wt = _weight((cin, cout, kd, 2, 2), cin + 7 * cout, torch.bfloat16)
+    p = fused.pack_upconv_weight(wt, torch.bfloat16, CPU)
+    b = p.permute(1, 0, 2).reshape(kd * 4 * cout, cin).float()
+    assert torch.equal(b.view(kd, 2, 2, cout, cin),
+                       wt.float().permute(2, 3, 4, 1, 0))
+    x = _weight((n, d, h, w, cin), 8, torch.bfloat16)
+    dy = _weight((n, kd * d, 2 * h, 2 * w, cout), 9, torch.bfloat16)
+    rows = dy.float().view(n, d, kd, h, 2, w, 2, cout) \
+        .permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, kd * 4 * cout)
+    got = (rows @ b).view(n, d, h, w, cin)
+    ref = fused.upconv_bnact_bwd_plain(x, None, None, wt, dy, dy, None,
+                                       None, "linear")[0]
+    assert torch.allclose(got.to(torch.bfloat16).float(), ref.float(),
+                          rtol=1e-2, atol=1e-2)
+
+
+def test_plain_backward_launches_nothing():
+    """The backward ops on CPU tensors (K4, K5, K7's plain versions, bf16,
+    where the card would take the tensor-core bodies) count no launch."""
+    fused.reset_launches()
+    x = _weight((1, 2, 5, 7, 32), 6, torch.bfloat16).requires_grad_()
+    w = _weight((32, 32, 3, 3, 3), 7).requires_grad_()
+    wu = _weight((32, 32, 2, 2, 2), 8).requires_grad_()
+    y = fused.conv_bnact([x], None, None, w, torch.zeros(32), "relu")
+    u = fused.upconv_bnact(y, None, None, wu, torch.zeros(32), "linear")
+    u.float().square().sum().backward()
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+    assert wu.grad.shape == wu.shape
     assert all(v == 0 for v in fused.LAUNCHES.values())
