@@ -135,10 +135,12 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
     150 MB less: it never stores the 174.4 MB upconv output).
 
 Each time is a mean from CUDA events after a warm-up, over at least 3
-calls and as many as fill 20 ms (at most 100). Each K1, K3, K5 and K7
-line also names the body that ran (``body``: the tensor-core bodies
-``csrc/conv_tc.cu``, ``csrc/upconv_tc.cu``, ``csrc/wgrad_tc.cu`` and
-``csrc/upconv_bwd_tc.cu`` for bfloat16, the CUDA-core bodies for
+calls and as many as fill 20 ms (at most 100). Each K1, K3, K5, K7,
+``upconv_stats_bwd`` and ``conv_vup_wgrad`` line also names the body
+that ran (``body``: the tensor-core bodies ``csrc/conv_tc.cu``,
+``csrc/upconv_tc.cu``, ``csrc/wgrad_tc.cu`` (K5, and ``conv_vup_wgrad``
+with the upconv recomputed per tile), ``csrc/upconv_bwd_tc.cu`` and
+``csrc/upconv_stats_bwd_tc.cu`` for bfloat16, the CUDA-core bodies for
 float32 and for K1's and K5's one-channel input), as do the JSON line's
 ``variants``.
 
@@ -264,20 +266,21 @@ SOURCES = {
                        f"{_F}:950 _conv_vup_bwd (row 9, its pallas_call "
                        ":1054): dgrad and the chain into the carry (the "
                        "chain: csrc/upconv_bnact.cu e3_conv_vup_chain)"),
-    "conv_vup_wgrad": ("elektronn3_tpu_torch/csrc/conv_bnact_bwd.cu",
+    "conv_vup_wgrad": ("elektronn3_tpu_torch/csrc/wgrad_tc.cu",
                        f"{_F}:950 _conv_vup_bwd (row 9, :1054): the merge "
-                       "conv's dW and db"),
+                       "conv's dW and db (float32: csrc/conv_bnact_bwd.cu)"),
     "upconv_stats": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
                      f"{_F64}:2930 upconv122_stats_from_flat64 (row 22, its "
                      "pallas_call :2976)"),
-    "upconv_stats_bwd": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
+    "upconv_stats_bwd": ("elektronn3_tpu_torch/csrc/upconv_stats_bwd_tc.cu",
                          f"{_F64}:2996 _upconv122_stats_bwd (row 23, its "
-                         "pallas_call :3059)"),
+                         "pallas_call :3059; float32: csrc/upconv_bnact.cu)"),
 }
 # K1's, K3's, K5's and K7's bodies: bf16 with channels % 16 == 0 runs the
 # tensor-core body (``fused.conv_body``, ``fused.upconv_body``,
 # ``fused.wgrad_body``, ``fused.upconv_bwd_body``), float32 and the
-# network input's one channel the CUDA-core body.
+# network input's one channel the CUDA-core body; rows 23 and 9's weight
+# gradient run theirs in bf16 at the vup shapes (``vup.vup_bwd_body``).
 BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
                          "cuda-core": "cuda-core (csrc/conv_bnact.cu)"},
           "upconv_bnact": {"tc": "tc (csrc/upconv_tc.cu)",
@@ -287,7 +290,13 @@ BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
               "cuda-core": "cuda-core (csrc/conv_bnact_bwd.cu)"},
           "upconv_bnact_bwd": {
               "tc": "tc (csrc/upconv_bwd_tc.cu)",
-              "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"}}
+              "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"},
+          "upconv_stats_bwd": {
+              "tc": "tc (csrc/upconv_stats_bwd_tc.cu)",
+              "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"},
+          "conv_vup_wgrad": {
+              "tc": "tc (csrc/wgrad_tc.cu)",
+              "cuda-core": "cuda-core (csrc/conv_bnact_bwd.cu)"}}
 # K8-K11 run only the 'batchp' norm's library levels; K1-K7 every model's
 # kernel levels.
 BN_KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
@@ -703,8 +712,8 @@ class Stats:
         (False), ``lib_op`` what the call is (by default "same function"
         or "op without prologue/statistics"); ``total`` whether a bf16
         variant counts in the kernel's totals (see :meth:`totals`);
-        ``body`` which of K1's, K3's, K5's or K7's bodies ran
-        (:data:`BODIES`)."""
+        ``body`` which of K1's, K3's, K5's, K7's, row 23's or
+        ``conv_vup_wgrad``'s bodies ran (:data:`BODIES`)."""
         b_ms, b_by = bnd
         bf16 = dtype == torch.bfloat16
         if lib_op is None:
@@ -1365,7 +1374,9 @@ def vup_kernel_phase(vup, stats):
                 del got, ref
                 stats.add(name, label, dtype, err, cuda_ms(run),
                           cuda_ms(plain), bnd, libs.get(name), False,
-                          total=True, lib_op="the two convs' backward calls")
+                          total=True, lib_op="the two convs' backward calls",
+                          body=vup.vup_bwd_body(dtype, 64, 32)
+                          if name in BODIES else None)
             del carry, skip, up, args, bargs, y, libs
             torch.cuda.empty_cache()
 

@@ -59,10 +59,12 @@
 //     squares of the rounded upconv output, recomputed per voxel;
 //     nothing else is stored. Bound by that recompute (2 * cc FLOP per
 //     output value on the CUDA cores) and by the carry read.
-//   e3_upconv_stats_bwd (row 23, _upconv122_stats_bwd): one pass forms
-//     dy_tot = ds + 2 y dq on the recomputed y, sums it in float32 (the
-//     bias gradient) and stores it rounded, E, into a scratch of the
-//     upconv output's shape; then the chain below on that E.
+//   e3_upconv_stats_bwd (row 23, _upconv122_stats_bwd; float32, and
+//     bf16 where vup.vup_bwd_body does not take upconv_stats_bwd_tc.cu's
+//     one-kernel body): one pass forms dy_tot = ds + 2 y dq on the
+//     recomputed y, sums it in float32 (the bias gradient) and stores
+//     it rounded, E, into a scratch of the upconv output's shape; then
+//     the chain below on that E.
 //   e3_conv_vup_chain (row 9's chain, ops/flat_fused.py::_conv_vup_bwd):
 //     K7's dgrad and wgrad bodies on E, the upconv output's cotangent
 //     that e3_conv_vup_dgrad (conv_vup.cu) stored rounded: dcarry,

@@ -18,8 +18,8 @@
 // values; the two GEMMs then read that scratch as their dy. The function, its rounding points and its
 // plain version are those of upconv_bnact.cu, which keeps the CUDA-core
 // bodies for float32 (whose tests hold 1e-4 of the scale) and for the
-// vup path's chain (e3_conv_vup_chain, e3_upconv_stats_bwd call them by
-// name, whatever the dtype).
+// vup path's chain (e3_conv_vup_chain, and e3_upconv_stats_bwd where it
+// runs, call them by name, whatever the dtype).
 //
 // Replaces, for bf16, the TPU kernels listed in upconv_bnact.cu:
 //   ops/flat_fused64.py::_upconv64_bwd, _upconv122_64_bwd,

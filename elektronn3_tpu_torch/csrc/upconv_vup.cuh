@@ -1,26 +1,37 @@
-// The (1, 2, 2) upconv of a deeper level's carried activation, computed
-// voxel by voxel from the carry: the one device function that every
-// kernel of the vup path calls (K1's vup staging, K4's vup epilogue, K5's
-// vup staging, the statistics pass and its backward), so that all of
-// them see the same bits of the upconv output, which is never stored.
+// The (1, 2, 2) upconv of a deeper level's carried activation, recomputed
+// where it is read and never stored: the vup path's two recomputes.
 // Counterpart of the JAX package's ops/flat_fused64.py::_upconv122_f64_y,
-// which JAX shares between those kernels the same way.
+// which JAX shares between its vup kernels.
 //
-// Output voxel (n, d, 2 hc + b, 2 wc + c), channels c0 .. c0 + 7:
-//     round(bu + sum_ci round(act_c(carry[n, d, hc, wc, ci] * invc + shiftc))
-//                    * Wu[(b, c), ci, :])
-// summed in float32 over ci in ascending order, each round to the
-// activation dtype T. That is the order of K3's float32 body, so in
-// float32 the values are K3's stored output bit for bit. K3's bf16 body
-// (upconv_tc.cu) sums on the tensor cores in another order, so in bf16
-// the recomputed values may differ from what K3 would store in the last
-// bit: the vup path agrees with the materializing path within the
-// tolerance of one rounding after a reordered sum, and nothing on the
-// card asserts the two bitwise equal (the CPU tests that do run the
-// plain versions of both).
+// Output voxel (n, d, 2 hc + b, 2 wc + c), channel co:
+//     round(bu[co] + sum_ci round(act_c(carry[n, d, hc, wc, ci] * invc
+//                                       + shiftc)) * Wu[(b, c), ci, co])
+// with float32 sums and each round to the activation dtype T.
+//
+// - upconv_value8, voxel by voxel on the CUDA cores, sums over ci in
+//   ascending order, the order of K3's float32 body: in float32 the
+//   values are K3's stored output bit for bit. K1's vup staging
+//   (conv_vup), K4's vup epilogue (conv_vup_dgrad), the statistics pass
+//   (upconv_stats, row 22), and the float32 bodies (and the 'cuda-core'
+//   bodies asked for in bf16) of conv_vup_wgrad and upconv_stats_bwd
+//   call it, so they all see the same bits of u.
+// - vup_mma, a tile GEMM on the tensor cores (bf16 only): rows are carry
+//   voxels, columns (sub-position, co) of K3's packed weight, each sum
+//   taken over the k16 steps of ci in ascending order by mma.sync from
+//   zero, then vup_round. The bf16 bodies of row 23
+//   (upconv_stats_bwd_tc.cu) and of row 9's weight gradient
+//   (conv_vup_wgrad in wgrad_tc.cu) call it, so those two see the same
+//   bits of u as each other, whatever rows and columns a warp takes.
+// The two recomputes sum in different orders, so in bf16 a value of one
+// may differ from the other's (and from K3's tensor-core body's) by one
+// rounding: the entries agree with each other, and with the
+// materializing path, within the tolerance of one rounding after a
+// reordered sum, and nothing on the card asserts them bitwise equal
+// (the CPU tests that do run the plain versions).
 #pragma once
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace e3 {
 
@@ -93,6 +104,55 @@ __device__ __forceinline__ void upconv_value8(const VupArgs& u, int64_t cv,
   }
 #pragma unroll
   for (int k = 0; k < 8; ++k) out[k] = round_to<T>(acc[k] + u.bu[c0 + k]);
+}
+
+// -- The tensor-core recompute (bf16).
+//
+// One warp's share of the tile GEMM: acc[mi][2 p + h] (m16 tile mi of the
+// rows, n8 tile h of column pair p) = sum over the k16 steps ks = 0 ..
+// ksteps - 1, in that order, from zero, of the rows' prologued carry
+// values times the weight columns col[p] .. col[p] + 15.
+//   a_lane: shared address of this lane's ldmatrix row of m16 tile 0 and
+//     k16 step 0 in a tile of bf16 rows of ``a_pitch`` bytes (an odd
+//     number of 16-byte units: conflict-free): row (lane % 16), byte
+//     16 (lane / 16). m16 tile mi adds 16 rows.
+//   w_lane: shared address of this lane's row of the weight tile, K3's
+//     packed layout as [ksteps][w_rows][16] bf16 swizzled as tc.cuh's
+//     swz: swz((lane % 8) + 8 (lane / 16), (lane / 8) % 2). col[p] and
+//     w_rows are multiples of 16.
+template <int MI, int NP>
+__device__ __forceinline__ void vup_mma(uint32_t a_lane, int a_pitch,
+                                        uint32_t w_lane, const int (&col)[NP],
+                                        int w_rows, int ksteps,
+                                        float (&acc)[MI][2 * NP][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 2 * NP; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.0f;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t af[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+      ldmatrix_x4(a_lane + mi * 16 * a_pitch + ks * 32, af[mi]);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      uint32_t r[4];
+      ldmatrix_x4(w_lane + (ks * w_rows + col[p]) * 32, r);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        mma_bf16_16816(acc[mi][2 * p], af[mi], r[0], r[1]);
+        mma_bf16_16816(acc[mi][2 * p + 1], af[mi], r[2], r[3]);
+      }
+    }
+  }
+}
+
+// The recomputed output from a vup_mma sum: the float32 bias added, then
+// rounded to bf16 once.
+__device__ __forceinline__ float vup_round(float acc, float bu) {
+  return __bfloat162float(__float2bfloat16_rn(acc + bu));
 }
 
 }  // namespace e3

@@ -6,8 +6,8 @@
 // and db[co] = sum of the float32 dy_tot, as a split-K implicit GEMM on
 // the tensor cores. The function, its rounding points and its plain
 // version are those of conv_bnact_bwd.cu (which keeps the CUDA-core body
-// for float32, for the network input's C_in of 1 or 3 and for the vup
-// merge conv): a is the RECOMPUTED prologued input rounded to bf16 (0
+// for float32 and for the network input's C_in of 1 or 3): a is the
+// RECOMPUTED prologued input rounded to bf16 (0
 // at the halo, after the prologue), dy_tot = dy + ds + 2 y dq is formed
 // in float32, summed into db before it is rounded to bf16, and the
 // products are summed in float32. It runs whenever every input's channel
@@ -63,7 +63,30 @@
 // shifted window of the staged slab that ldmatrix reads row by row at
 // any offset; wgmma's shared-memory descriptors would need a re-staged
 // copy per tap. That is left for a later step.
+//
+// The vup instantiation (Args = WgTcVupArgs; e3_conv_vup_wgrad_tc, the
+// bf16 body of conv_vup_wgrad) replaces, for bf16, the wgrad half of
+// ops/flat_fused.py::_conv_vup_bwd (row 9). Input 0 of the merge conv is
+// the (1, 2, 2) upconv u of the deeper level's carry, which is never
+// stored. A block of a slice of u stages, instead of the slab, the
+// carry voxels under it (6 x 10 of them for the 10 x 18 slab, cc
+// channels, in the same 2-stage ring), prologues and rounds them in
+// place, and recomputes u on the tensor cores: one 64 x (4 x 32) x cc
+// tile GEMM (vup_mma, upconv_vup.cuh, shared with row 23's body so both
+// see the same bits of u) against the slice's columns of K3's packed
+// weight, staged once a block. Its epilogue adds the bias, rounds,
+// applies the merge conv's prologue, rounds, writes 0 outside the
+// volume and stores the values into the slab at its voxel pitch: what
+// the CUDA-core body (conv_bnact_bwd.cu, which float32 keeps) does one
+// voxel at a time with upconv_value8, 64 FMAs per value. The slab takes
+// 180 of the 240 values the GEMM computes (about a third more
+// recompute, 3.7 GFLOP on top of the merge's 11 at bench.py's up_2).
+// Slices of the skip input are staged as above. What bounds it: the
+// bytes of carry, skip, dy and y (0.182 ms at that shape).
+#include <type_traits>
+
 #include "tc.cuh"
+#include "upconv_vup.cuh"
 
 namespace {
 
@@ -102,6 +125,60 @@ struct WgTcArgs {
   int splits;                // blocks per combo
 };
 
+// The vup merge conv's arguments (conv_vup_wgrad): input 0 is the
+// (1, 2, 2) upconv of the carry, recomputed per tile on the tensor cores
+// (vup_mma, upconv_vup.cuh); kd == 1 and the prologue is always applied.
+// A type of its own, so that K5's other instantiations keep the argument
+// layout, and the code, they compile to without it.
+struct WgTcVupArgs : WgTcArgs {
+  const __nv_bfloat16* carry;   // (n, d, h / 2, w / 2, cc) raw carry
+  const float* invc;            // (cc,) its prologue
+  const float* shiftc;
+  const __nv_bfloat16* wup;     // (cc / 16, 4 cu, 16) packed upconv weight
+  const float* bu;              // (cu,) float32 bias
+  int cc, cu, actc;
+  int combos_u;                 // the combos of u's slices (the first)
+  int splits_u;                 // blocks per such combo
+};
+
+// The recompute's tile: the carry voxels under a TH x TW tile's halo
+// slab, VR x VW of them (6 x 10), as the rows of one 64-row GEMM.
+constexpr int VR = TH / 2 + 2;
+constexpr int VW = TW / 2 + 2;
+constexpr int VROWS = 64;
+static_assert(VR * VW <= VROWS, "the carry tile is one 64-row GEMM");
+
+// Extra shared memory of the vup instantiation: the carry ring (2 x 64
+// rows of cc values at an odd number of 16-byte units), the slice's
+// packed upconv columns (cc / 16 x 4 sub-positions x CS rows of 32
+// bytes), and invc, shiftc (cc) and bu (CS).
+inline size_t vup_smem(const WgTcArgs&) { return 0; }
+inline size_t vup_smem(const WgTcVupArgs& a) {
+  return (size_t)2 * VROWS * (a.cc * 2 + 16) + (size_t)a.cc * 4 * CS * 2
+      + (size_t)(2 * a.cc + CS) * 4;
+}
+
+// The vup instantiation's wave: a tile of u's slices costs about
+// (4 + 3 cc / 64) / 4 times a skip tile (the recompute GEMM and its
+// epilogue; 1.8 times at cc = 64 on the H100), so u's combos take that
+// many more splits of the wave, and every block ends at about the same
+// time. A skip block's tile t runs beside a u block's, so L2 still
+// serves dy and y to the second.
+inline void set_vup_splits(WgTcArgs&, int64_t, int64_t, int64_t&) {}
+inline void set_vup_splits(WgTcVupArgs& a, int64_t wave, int64_t ntiles,
+                           int64_t& blocks) {
+  const int64_t wu = 4 + 3 * a.cc / 64, ws = 4;
+  const int64_t cs = a.combos - a.combos_u;
+  int64_t ss = wave * ws / (wu * a.combos_u + ws * cs);
+  if (ss > ntiles) ss = ntiles;
+  if (ss < 1) ss = 1;
+  int64_t su = ss * wu / ws;
+  if (su > ntiles) su = ntiles;
+  a.splits = (int)ss;
+  a.splits_u = (int)su;
+  blocks = su * a.combos_u + ss * cs;
+}
+
 // Bytes of a ring slot: the slab, the dy tile and, with a statistics
 // cotangent, the y tile.
 template <int COB, bool DYT>
@@ -138,9 +215,10 @@ __device__ __forceinline__ Tile tile_at(const WgTcArgs& a, int64_t t,
   return tl;
 }
 
-template <int COB, bool PRO, bool DYT>
+template <int COB, bool PRO, bool DYT, typename Args = WgTcArgs>
 __global__ void __launch_bounds__(NT, 2)
-wgrad_tc_kernel(const WgTcArgs a) {
+wgrad_tc_kernel(const Args a) {
+  constexpr bool VUP = std::is_same<Args, WgTcVupArgs>::value;
   using C = WCfg<COB>;
   constexpr int STAGE = Stage<COB, DYT>::BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -152,8 +230,20 @@ wgrad_tc_kernel(const WgTcArgs a) {
 
   const int tid = threadIdx.x;
   const int ncob = a.cout / COB;
-  const int combo = (int)(blockIdx.x % a.combos);
-  const int split = (int)(blockIdx.x / a.combos);
+  int combo = (int)(blockIdx.x % a.combos);
+  int split = (int)(blockIdx.x / a.combos);
+  int splits = a.splits;
+  if constexpr (VUP) {
+    // The first combos_u * splits_u blocks take u's slices (whose tiles
+    // also run the recompute), the rest the skip's: a.splits each.
+    const int nu = a.combos_u * a.splits_u;
+    const int b = (int)blockIdx.x - nu;
+    combo = b < 0 ? (int)blockIdx.x % a.combos_u
+                  : a.combos_u + b % (a.combos - a.combos_u);
+    split = b < 0 ? (int)blockIdx.x / a.combos_u
+                  : b / (a.combos - a.combos_u);
+    splits = b < 0 ? a.splits_u : a.splits;
+  }
   const int dzi = combo % a.kd;
   const int cobi = (combo / a.kd) % ncob;
   const int slice = combo / (a.kd * ncob);
@@ -170,6 +260,40 @@ wgrad_tc_kernel(const WgTcArgs a) {
       * ((a.h + TH - 1) / TH) * ((a.wd + TW - 1) / TW);
   if (split >= ntiles) return;
   const __nv_bfloat16* xp = a.x[i];
+  // The vup slice: input 0's channels come from the recompute.
+  const bool vup0 = VUP && i == 0;
+  unsigned char* s_c = reinterpret_cast<unsigned char*>(s_db + COB);
+  int cxp = 0, cxb = 0;
+  unsigned char* s_wu = s_c;
+  float* s_invc = s_db;
+  float* s_shiftc = s_db;
+  float* s_bu = s_db;
+  if constexpr (VUP) {
+    cxp = a.cc * 2 + 16;                  // carry row pitch, bytes
+    cxb = VROWS * cxp;
+    s_wu = s_c + 2 * cxb;                 // [cc / 16][4 x CS][32], swz
+    s_invc = reinterpret_cast<float*>(s_wu + a.cc * 4 * CS * 2);
+    s_shiftc = s_invc + a.cc;
+    s_bu = s_shiftc + a.cc;               // [CS]
+    if (vup0) {
+      for (int c = tid; c < a.cc; c += NT) {
+        s_invc[c] = a.invc[c];
+        s_shiftc[c] = a.shiftc[c];
+      }
+      for (int c = tid; c < CS; c += NT) s_bu[c] = a.bu[cb + c];
+      // The slice's columns of the packed weight: row (sub, j) of k16
+      // step kc is packed column sub * cu + cb + j. With the first tile.
+      for (int p = tid; p < a.cc / 16 * 4 * CS * 2; p += NT) {
+        const int hf = p & 1;
+        const int row = p >> 1;            // kc * 4 CS + sub * CS + j
+        const int kc = row / (4 * CS);
+        const int col = (row / CS % 4) * a.cu + cb + row % CS;
+        cp_async16(smem_u32(s_wu + swz(row, hf)),
+                   a.wup + ((int64_t)kc * 4 * a.cu + col) * 16 + hf * 8,
+                   true);
+      }
+    }
+  }
 
   if (PRO)
     for (int c = tid; c < cw; c += NT) {
@@ -187,9 +311,29 @@ wgrad_tc_kernel(const WgTcArgs a) {
   auto load = [&](int64_t t, int slot) {
     const Tile tl = tile_at(a, t, dzp);
     unsigned char* sx = smem + slot * STAGE;
+    if constexpr (VUP) {
+      if (vup0) {
+        // The carry voxels under the slab, rows 60-63 zero-filled.
+        const int h2 = a.h / 2, w2 = a.wd / 2;
+        unsigned char* sc = s_c + slot * cxb;
+        for (int p = tid; p < VROWS * (a.cc / 8); p += NT) {
+          const int r = p / (a.cc / 8);
+          const int ch = p % (a.cc / 8);
+          const int cr = tl.h0 / 2 - 1 + r / VW;
+          const int cc = tl.w0 / 2 - 1 + r % VW;
+          const bool ok = r < VR * VW && cr >= 0 && cr < h2 && cc >= 0
+              && cc < w2;
+          cp_async16(smem_u32(sc + r * cxp + ch * 16),
+                     ok ? a.carry + ((tl.iplane * h2 + cr) * w2 + cc) * a.cc
+                              + ch * 8
+                        : a.carry,
+                     ok);
+        }
+      }
+    }
     for (int p = tid; p < NSLAB * 4; p += NT) {
       const int ch = p & 3;
-      if (ch * 8 >= cw) continue;
+      if (vup0 || ch * 8 >= cw) continue;
       const int vox = p >> 2;
       const int gh = tl.h0 + vox / SW - 1;
       const int gw = tl.w0 + vox % SW - 1;
@@ -244,16 +388,28 @@ wgrad_tc_kernel(const WgTcArgs a) {
   load(split, 0);
   cp_async_commit();
   int slot = 0;
-  for (int64_t t = split; t < ntiles; t += a.splits, slot ^= 1) {
+  for (int64_t t = split; t < ntiles; t += splits, slot ^= 1) {
     cp_async_wait<0>();  // tile t has landed
     __syncthreads();     // for every thread; the other slot is free
-    if (t + a.splits < ntiles) load(t + a.splits, slot ^ 1);
+    if (t + splits < ntiles) load(t + splits, slot ^ 1);
     cp_async_commit();
     unsigned char* sx = smem + slot * STAGE;
     unsigned char* sg = sx + SLAB;
+    if constexpr (VUP) {
+      if (vup0) {
+        // The carry tile's prologue, in place: rounded a.
+        unsigned char* sc = s_c + slot * cxb;
+        for (int p = tid; p < VROWS * (a.cc / 8); p += NT) {
+          const int ch = p % (a.cc / 8);
+          prologue_half(reinterpret_cast<uint4*>(sc + (p / (a.cc / 8)) * cxp
+                                                 + ch * 16),
+                        s_invc + ch * 8, s_shiftc + ch * 8, a.actc, true);
+        }
+      }
+    }
     if (PRO || DYT || do_db) {
       const Tile tl = tile_at(a, t, dzp);
-      if (PRO)
+      if (PRO && !vup0)
         for (int p = tid; p < NSLAB * 4; p += NT) {
           const int ch = p & 3;
           if (ch * 8 >= cw) continue;
@@ -280,6 +436,56 @@ wgrad_tc_kernel(const WgTcArgs a) {
             dytot_half(gp, yp, s_ds + ch * 8, s_dq + ch * 8, ok, nullptr);
         }
       __syncthreads();
+    }
+    if constexpr (VUP) {
+      if (vup0) {
+        // The recompute: u of every carry voxel of the tile at its four
+        // sub-positions for the slice's CS channels (64 x 4 CS, one unit
+        // a (m16 tile, sub-position) of 16 rows x CS columns), then
+        // bias, round, the merge conv's prologue, round, 0 outside the
+        // volume, into the slab at its voxel pitch. 180 of the 240
+        // values a tile computes fall inside the slab.
+        const Tile tl = tile_at(a, t, dzp);
+        const uint32_t c_lane = smem_u32(s_c + slot * cxb)
+            + (lane & 15) * cxp + (lane >> 4) * 16;
+        const uint32_t w_lane = smem_u32(s_wu)
+            + swz((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+        const int g = lane / 4;
+        const int t4 = lane % 4;
+        for (int u = warp; u < VROWS / 16 * 4; u += NT / 32) {
+          const int mi = u % (VROWS / 16);
+          const int sub = u / (VROWS / 16);
+          const int col[2] = {sub * CS, sub * CS + 16};
+          float uacc[1][4][4];
+          vup_mma<1, 2>(c_lane + mi * 16 * cxp, cxp, w_lane, col, 4 * CS,
+                        a.cc / 16, uacc);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = mi * 16 + g + 8 * hr;
+            const int hh = 2 * (tl.h0 / 2 - 1 + r / VW) + (sub >> 1);
+            const int ww = 2 * (tl.w0 / 2 - 1 + r % VW) + (sub & 1);
+            const int sy = hh - tl.h0 + 1;
+            const int sxx = ww - tl.w0 + 1;
+            if (r >= VR * VW || sy < 0 || sy >= TH + 2 || sxx < 0
+                || sxx >= SW)
+              continue;
+            const bool ok = hh >= 0 && hh < a.h && ww >= 0 && ww < a.wd;
+#pragma unroll
+            for (int nj = 0; nj < 4; ++nj) {
+              const int j = nj * 8 + 2 * t4;
+              const float u0 = vup_round(uacc[0][nj][2 * hr], s_bu[j]);
+              const float u1 = vup_round(uacc[0][nj][2 * hr + 1], s_bu[j + 1]);
+              *reinterpret_cast<__nv_bfloat162*>(
+                  sx + (sy * SW + sxx) * SPITCH + j * 2) = ok
+                  ? __floats2bfloat162_rn(
+                        prologue(u0, s_inv[j], s_shift[j], a.act),
+                        prologue(u1, s_inv[j + 1], s_shift[j + 1], a.act))
+                  : __floats2bfloat162_rn(0.0f, 0.0f);
+            }
+          }
+        }
+        __syncthreads();
+      }
     }
     if (mact) {
       const uint32_t ua = smem_u32(sx) + a_lane;
@@ -349,10 +555,10 @@ int sm_count() {
 
 // One wave of blocks: as many splits of every combo as fill the SMs at
 // the kernel's occupancy, at most one a tile.
-template <int COB, bool PRO, bool DYT>
-cudaError_t launch(WgTcArgs a, cudaStream_t stream) {
-  const size_t smem = wgrad_tc_smem<COB, DYT>();
-  auto kern = wgrad_tc_kernel<COB, PRO, DYT>;
+template <int COB, bool PRO, bool DYT, typename Args = WgTcArgs>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  const size_t smem = wgrad_tc_smem<COB, DYT>() + vup_smem(a);
+  auto kern = wgrad_tc_kernel<COB, PRO, DYT, Args>;
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return rc;
@@ -367,7 +573,8 @@ cudaError_t launch(WgTcArgs a, cudaStream_t stream) {
   if (splits > ntiles) splits = ntiles;
   if (splits < 1) splits = 1;
   a.splits = (int)splits;
-  const int64_t blocks = splits * a.combos;
+  int64_t blocks = splits * a.combos;
+  set_vup_splits(a, (int64_t)per_sm * sm_count(), ntiles, blocks);
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, NT, smem, stream>>>(a);
   return cudaGetLastError();
@@ -380,6 +587,12 @@ cudaError_t launch_cob(const WgTcArgs& a, cudaStream_t st) {
                            : launch<COB, true, false>(a, st);
   return a.ds != nullptr ? launch<COB, false, true>(a, st)
                          : launch<COB, false, false>(a, st);
+}
+
+template <int COB>
+cudaError_t launch_vup(const WgTcVupArgs& a, cudaStream_t st) {
+  return a.ds != nullptr ? launch<COB, true, true, WgTcVupArgs>(a, st)
+                         : launch<COB, true, false, WgTcVupArgs>(a, st);
 }
 
 }  // namespace
@@ -440,5 +653,74 @@ extern "C" int e3_conv_bnact_wgrad_tc(int nin, const void* x0, int c0,
   }
   const cudaError_t rc = cob == 64 ? launch_cob<64>(a, st)
                                    : launch_cob<32>(a, st);
+  return static_cast<int>(rc);
+}
+
+// K5 of the vup merge conv, bf16 body (conv_vup_wgrad): input 0 is the
+// (1, 2, 2) upconv of the carry (cu channels, recomputed per tile on the
+// tensor cores from the raw carry, its prologue invc/shiftc/actc, K3's
+// packed (cc / 16, 4 cu, 16) bf16 weight ``wup`` and the float32 bias
+// ``bu``), input 1 the skip (cs channels); kd = 1. dW (1, 3, 3, cu + cs,
+// cout) and db (cout,) are float32, zeroed by the caller. ``inv`` and
+// ``shift`` ((cu + cs,), over the concat) must be given; ``ds``/``dq``
+// and the pre-pass's scratch ``e`` as in e3_conv_bnact_wgrad_tc. Needs
+// cc % 32 == 0 and cc <= 128, cu in {32, 64}, cs % 16 == 0 and
+// cout % 32 == 0; (n, d, h, wd) are the skip's dims.
+extern "C" int e3_conv_vup_wgrad_tc(const void* carry, int cc,
+                                    const float* invc, const float* shiftc,
+                                    const void* wup, const float* bu, int cu,
+                                    int actc, const void* skip, int cs,
+                                    const float* inv, const float* shift,
+                                    const void* dy, const void* y,
+                                    const float* ds, const float* dq,
+                                    void* e, int cout, float* dw, float* db,
+                                    int n, int d, int h, int wd, int act,
+                                    void* stream) {
+  if (cc % 32 || cc > 128 || (cu != 32 && cu != 64) || cs % 16
+      || cout % 32 || h % 2 || wd % 2 || inv == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WgTcVupArgs a = {};
+  a.x[1] = static_cast<const __nv_bfloat16*>(skip);
+  a.inv = inv;
+  a.shift = shift;
+  a.cin[0] = cu;
+  a.cin[1] = cs;
+  a.groups0 = cu / CS;
+  a.dy = static_cast<const __nv_bfloat16*>(dy);
+  a.y = static_cast<const __nv_bfloat16*>(y);
+  a.ds = ds;
+  a.dq = dq;
+  a.dw = dw;
+  a.db = db;
+  a.n = n;
+  a.d = d;
+  a.h = h;
+  a.wd = wd;
+  a.cout = cout;
+  a.kd = 1;
+  a.act = act;
+  a.carry = static_cast<const __nv_bfloat16*>(carry);
+  a.invc = invc;
+  a.shiftc = shiftc;
+  a.wup = static_cast<const __nv_bfloat16*>(wup);
+  a.bu = bu;
+  a.cc = cc;
+  a.cu = cu;
+  a.actc = actc;
+  const int cob = cout % 64 == 0 ? 64 : 32;
+  a.combos = (a.groups0 + (cs + CS - 1) / CS) * (cout / cob);
+  a.combos_u = a.groups0 * (cout / cob);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ds != nullptr && e != nullptr) {
+    const cudaError_t rc = e3::launch_dytot(
+        a.dy, a.y, ds, dq, static_cast<__nv_bfloat16*>(e), db,
+        (int64_t)n * d * h * wd, cout, st);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    a.dy = static_cast<const __nv_bfloat16*>(e);
+    a.ds = a.dq = nullptr;
+    a.db = nullptr;
+  }
+  const cudaError_t rc = cob == 64 ? launch_vup<64>(a, st)
+                                   : launch_vup<32>(a, st);
   return static_cast<int>(rc);
 }

@@ -32,7 +32,8 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv_bnact.cu", "conv_bnact_bwd.cu", "pool_bnact.cu",
            "upconv_bnact.cu", "batch_norm.cu", "conv_vup.cu", "conv_tc.cu",
-           "upconv_tc.cu", "wgrad_tc.cu", "upconv_bwd_tc.cu")
+           "upconv_tc.cu", "wgrad_tc.cu", "upconv_bwd_tc.cu",
+           "upconv_stats_bwd_tc.cu")
 HEADERS = ("common.cuh", "conv_bnact.cuh", "upconv_vup.cuh", "tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -83,6 +84,11 @@ _SIGNATURES = {
                         _I, _I, _P),
     "e3_upconv_stats_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_upconv_stats_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_vup_wgrad_tc": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                             _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                             _I, _P),
 }
 
 _lock = threading.Lock()

@@ -28,20 +28,24 @@ nor the backward:
 
 The plain versions compose ``fused.upconv_bnact_fwd_plain`` and the
 conv's plain versions, so the plain forward is bitwise the materializing
-path's. The kernels (``csrc/conv_vup.cu``, and vup instantiations in
-``conv_bnact_bwd.cu`` and ``upconv_bnact.cu``) all recompute u through
-one device function (``csrc/upconv_vup.cuh``), so they see the same
-bits of it:
+path's. The kernels (``csrc/conv_vup.cu``, vup instantiations in
+``conv_bnact_bwd.cu``, ``upconv_bnact.cu`` and ``wgrad_tc.cu``, and
+``upconv_stats_bwd_tc.cu``) recompute u through the two recomputes of
+``csrc/upconv_vup.cuh``: ``upconv_value8`` on the CUDA cores, and a
+tensor-core tile GEMM in the bf16 bodies of ``vup_bwd_body``:
 
 - ``conv_vup`` (K1's body): the forward;
 - ``conv_vup_dgrad`` (K4's body, then K7's dgrad and wgrad bodies as
   the chain): the merge conv's input gradients, with E going through a
   scratch of u's shape in the activation dtype (JAX rounds E to it too;
   the scratch lives for the call, and no two coexist);
-- ``conv_vup_wgrad`` (K5's body): the merge conv's dW and db;
+- ``conv_vup_wgrad`` (bf16: K5's tensor-core body, u recomputed per
+  tile on the tensor cores; float32: K5's CUDA-core body): the merge
+  conv's dW and db;
 - ``upconv_stats`` (row 22): one pass of the recompute;
-- ``upconv_stats_bwd`` (row 23): one pass forms ``round(ds + 2 u dq)``
-  into the same kind of scratch, then the chain.
+- ``upconv_stats_bwd`` (row 23; bf16: one tensor-core kernel whose E
+  stays in shared memory; float32: one pass forms ``round(ds + 2 u dq)``
+  into the same kind of scratch, then the chain).
 
 As in ``ops/fused.py``, a CPU tensor runs the plain versions, a CUDA
 tensor the kernels (which raise if they cannot launch), and
@@ -60,7 +64,7 @@ from elektronn3_tpu_torch.ops.fused import (
     LAUNCHES, _ACT_ID, _DTYPE_ID, _check_cuda, _check_dtype, _cuda_grad,
     _plain, _ptr, _stat_cts, _stream, _vec, channel_stats,
     conv_bnact_dgrad_gm, conv_bnact_fwd_plain, conv_bnact_wgrad_plain,
-    upconv_bnact_bwd_plain, upconv_bnact_fwd_plain)
+    pack_upconv_weight, upconv_bnact_bwd_plain, upconv_bnact_fwd_plain)
 
 
 def _vup_contract(carry: torch.Tensor, wu: torch.Tensor,
@@ -207,36 +211,85 @@ def upconv_stats_kernel(carry, invc, shiftc, wu, bu, act_c):
     return s, q
 
 
-def upconv_stats_bwd_kernel(carry, invc, shiftc, wu, bu, ds, dq, act_c):
+# The (C_carry, C_up) of the tensor-core bodies of rows 23 and 9's
+# weight gradient: template cases of csrc/upconv_stats_bwd_tc.cu and
+# csrc/wgrad_tc.cu.
+VUP_TC_CC = (32, 64, 96, 128)
+VUP_TC_CU = (32, 64)
+
+
+def vup_bwd_body(dtype: torch.dtype, cc: int, cu: int) -> str:
+    """The body ``upconv_stats_bwd`` (row 23) and ``conv_vup_wgrad``
+    (row 9's weight gradient) run: ``'tc'`` (``csrc/
+    upconv_stats_bwd_tc.cu``: one tensor-core kernel, E in shared
+    memory; ``csrc/wgrad_tc.cu``: K5's tensor-core body with u
+    recomputed per tile on the tensor cores) for bfloat16 with C_carry
+    in :data:`VUP_TC_CC` and C_up in :data:`VUP_TC_CU`, else
+    ``'cuda-core'`` (``csrc/upconv_bnact.cu``'s pass and K7's CUDA-core
+    bodies, ``csrc/conv_bnact_bwd.cu``'s K5 with ``VUP``): float32, whose
+    tests hold 1e-4 of the scale, and any other shape."""
+    if dtype == torch.bfloat16 and cc in VUP_TC_CC and cu in VUP_TC_CU:
+        return "tc"
+    return "cuda-core"
+
+
+def _body(body, dtype, cc, cu, what):
+    body = body or vup_bwd_body(dtype, cc, cu)
+    if body not in ("tc", "cuda-core") or (
+            body == "tc" and vup_bwd_body(dtype, cc, cu) != "tc"):
+        raise ValueError(f"{what}: no {body!r} body for {dtype} at "
+                         f"C_carry {cc}, C_up {cu}")
+    return body
+
+
+def upconv_stats_bwd_kernel(carry, invc, shiftc, wu, bu, ds, dq, act_c,
+                            body=None):
     """Row 23: (dcarry, dinvc, dshiftc, dwu, dbu) as
-    :func:`upconv_stats_bwd_plain`: one pass recomputes the upconv
-    output y, writes E = round(ds + 2 y dq) into a scratch of y's shape
-    in the activation dtype and sums dbu from the float32 value; the
-    chain (K7's bodies on E) gives the rest."""
+    :func:`upconv_stats_bwd_plain`, on ``body`` (by default the one
+    :func:`vup_bwd_body` picks; ``'cuda-core'`` runs it in either
+    dtype). ``'tc'``: one kernel recomputes the upconv output y on the
+    tensor cores, forms E = round(ds + 2 y dq) in shared memory, sums
+    dbu from the float32 value and runs the dgrad and wgrad GEMMs on E.
+    ``'cuda-core'``: one pass writes E into a scratch of y's shape in
+    the activation dtype and sums dbu; the chain (K7's CUDA-core bodies
+    on E) gives the rest."""
     invc_v, shiftc_v, wt, b, cc, cu = _carry_args(
         carry, invc, shiftc, wu, bu, "upconv_stats backward")
+    body = _body(body, carry.dtype, cc, cu, "upconv_stats backward")
     dev = carry.device
     ds, dq = _stat_cts(ds, dq, cu, dev)
     if ds is None:
         ds = dq = torch.zeros(cu, dtype=torch.float32, device=dev)
     n, d, h, w = carry.shape[:4]
-    e = torch.empty((n, d, 2 * h, 2 * w, cu), dtype=carry.dtype, device=dev)
     dcarry = torch.empty_like(carry)
     dinvc = torch.zeros(cc, dtype=torch.float32, device=dev)
     dshiftc = torch.zeros(cc, dtype=torch.float32, device=dev)
     dwt = torch.zeros((1, 2, 2, cc, cu), dtype=torch.float32, device=dev)
     dbu = torch.zeros(cu, dtype=torch.float32, device=dev)
-    db_e = torch.zeros(cu, dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.e3_upconv_stats_bwd(
-            _DTYPE_ID[carry.dtype], *_carry_ptrs(carry, invc_v, shiftc_v, wt,
-                                                 b),
-            ds.data_ptr(), dq.data_ptr(), e.data_ptr(), dcarry.data_ptr(),
-            dinvc.data_ptr(), dshiftc.data_ptr(), dwt.data_ptr(),
-            dbu.data_ptr(), db_e.data_ptr(), n, d, h, w, cc, cu,
-            _ACT_ID[act_c], _stream(dev))
-    _build.check(rc, "upconv_stats_bwd")
+    if body == "tc":
+        wp = pack_upconv_weight(wu, carry.dtype, dev)
+        with torch.cuda.device(dev):
+            rc = lib.e3_upconv_stats_bwd_tc(
+                carry.data_ptr(), invc_v.data_ptr(), shiftc_v.data_ptr(),
+                wp.data_ptr(), b.data_ptr(), ds.data_ptr(), dq.data_ptr(),
+                dcarry.data_ptr(), dinvc.data_ptr(), dshiftc.data_ptr(),
+                dwt.data_ptr(), dbu.data_ptr(), n, d, h, w, cc, cu,
+                _ACT_ID[act_c], _stream(dev))
+        _build.check(rc, "upconv_stats_bwd (tensor-core body)")
+    else:
+        e = torch.empty((n, d, 2 * h, 2 * w, cu), dtype=carry.dtype,
+                        device=dev)
+        db_e = torch.zeros(cu, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.e3_upconv_stats_bwd(
+                _DTYPE_ID[carry.dtype], *_carry_ptrs(carry, invc_v, shiftc_v,
+                                                     wt, b),
+                ds.data_ptr(), dq.data_ptr(), e.data_ptr(),
+                dcarry.data_ptr(), dinvc.data_ptr(), dshiftc.data_ptr(),
+                dwt.data_ptr(), dbu.data_ptr(), db_e.data_ptr(), n, d, h, w,
+                cc, cu, _ACT_ID[act_c], _stream(dev))
+        _build.check(rc, "upconv_stats_bwd")
     LAUNCHES["upconv_stats_bwd"] += 1
     if invc is None:
         dinvc = dshiftc = None
@@ -286,9 +339,9 @@ def conv_vup_fwd_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
 
 
 # The body of K7 that the chain runs, in both dtypes: e3_conv_vup_chain
-# and e3_upconv_stats_bwd call K7's CUDA-core bodies (launch_upconv_bwd in
-# csrc/upconv_bnact.cu) by name, whatever fused.upconv_bwd_body picks for
-# upconv_bnact, so the five vup entries keep the code they compiled to.
+# (inside conv_vup_dgrad) and the 'cuda-core' body of e3_upconv_stats_bwd
+# call K7's CUDA-core bodies (launch_upconv_bwd in csrc/upconv_bnact.cu)
+# by name, whatever fused.upconv_bwd_body picks for upconv_bnact.
 CHAIN_BODY = "cuda-core"
 
 
@@ -380,12 +433,15 @@ def conv_vup_dgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
 
 
 def conv_vup_wgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
-                          weight, y, dy, ds, dq, act, act_c):
-    """K5's vup body: float32 (dW, db) as :func:`conv_vup_wgrad_plain`."""
+                          weight, y, dy, ds, dq, act, act_c, body=None):
+    """K5's vup body: float32 (dW, db) as :func:`conv_vup_wgrad_plain`,
+    on ``body`` (by default the one :func:`vup_bwd_body` picks;
+    ``'cuda-core'`` runs K5's CUDA-core body in either dtype)."""
     invc_v, shiftc_v, wt_u, b_u, cc, cu = _carry_args(
         carry, invc, shiftc, wu, bu, "conv_vup_wgrad")
     inv_v, shift_v, _ = _merge_args(carry, skip, inv, shift, weight,
                                     "conv_vup_wgrad")
+    body = _body(body, carry.dtype, cc, cu, "conv_vup_wgrad")
     dev = carry.device
     n, d, h, w, cs = skip.shape
     cout = weight.shape[0]
@@ -395,15 +451,31 @@ def conv_vup_wgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
                       device=dev)
     db = torch.zeros(cout, dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.e3_conv_vup_wgrad(
-            _DTYPE_ID[carry.dtype], carry.data_ptr(), cc, invc_v.data_ptr(),
-            shiftc_v.data_ptr(), wt_u.data_ptr(), b_u.data_ptr(), cu,
-            _ACT_ID[act_c], skip.data_ptr(), cs, inv_v.data_ptr(),
-            shift_v.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(ds),
-            _ptr(dq), cout, dwt.data_ptr(), db.data_ptr(), n, d, h, w,
-            _ACT_ID[act], _stream(dev))
-    _build.check(rc, "conv_vup_wgrad")
+    if body == "tc":
+        wp = pack_upconv_weight(wu, carry.dtype, dev)
+        # K5's pre-pass scratch, where the blocks would otherwise read dy
+        # and y more than twice (32-channel slices > 2 at kd = 1).
+        e = torch.empty_like(g) if ds is not None and \
+            -(-cu // 32) + -(-cs // 32) > 2 else None
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_vup_wgrad_tc(
+                carry.data_ptr(), cc, invc_v.data_ptr(), shiftc_v.data_ptr(),
+                wp.data_ptr(), b_u.data_ptr(), cu, _ACT_ID[act_c],
+                skip.data_ptr(), cs, inv_v.data_ptr(), shift_v.data_ptr(),
+                g.data_ptr(), y.data_ptr(), _ptr(ds), _ptr(dq), _ptr(e),
+                cout, dwt.data_ptr(), db.data_ptr(), n, d, h, w,
+                _ACT_ID[act], _stream(dev))
+        _build.check(rc, "conv_vup_wgrad (tensor-core body)")
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_vup_wgrad(
+                _DTYPE_ID[carry.dtype], carry.data_ptr(), cc,
+                invc_v.data_ptr(), shiftc_v.data_ptr(), wt_u.data_ptr(),
+                b_u.data_ptr(), cu, _ACT_ID[act_c], skip.data_ptr(), cs,
+                inv_v.data_ptr(), shift_v.data_ptr(), g.data_ptr(),
+                y.data_ptr(), _ptr(ds), _ptr(dq), cout, dwt.data_ptr(),
+                db.data_ptr(), n, d, h, w, _ACT_ID[act], _stream(dev))
+        _build.check(rc, "conv_vup_wgrad")
     LAUNCHES["conv_vup_wgrad"] += 1
     return dwt.permute(4, 3, 0, 1, 2), db
 

@@ -1,6 +1,6 @@
-"""Times the port's fused kernels K1, K3, K4, K5 and K7 (bf16, CUDA
-events, 20 launches after one warm-up) in the checkout that is the
-working directory, and prints one line.
+"""Times the port's fused kernels K1, K3, K4, K5 and K7 and two vup
+entries (bf16, CUDA events, 20 launches after one warm-up) in the
+checkout that is the working directory, and prints one line.
 
     cd <checkout> && python3 <path>/kernel_times.py
 
@@ -19,13 +19,17 @@ different machines or cards are not comparable. Shapes:
   (1, 32, 32, 32) and the 2D model's up_0 (1, 2, 2) 256->128 from
   (8, 1, 80, 80); with statistics and the prologue, the (1, 2, 2) up_2
   64->32 at bench.py's batch 8 of (44, 88, 88);
-- K4 and K5 of that up_2 merge, K7 of that upconv, K5 at bench.py's
+- K4 and K5 of that up_2 merge, K7 of that upconv, the vup entries of
+  that up_2 (row 23, ``upconv_stats_bwd``, and row 9's weight gradient,
+  ``conv_vup_wgrad``, with statistics cotangents), K5 at bench.py's
   up_1 merge 64+64->64 kd=3 and L0 conv2 32->32 kd=1 (with statistics
   cotangents), K7 at its up_1 (2, 2, 2) 128->64 from (8, 22, 22, 22) and
   at the 2D model's up_1 (1, 2, 2) 128->64 from (8, 1, 160, 160) (dense
   inputs); these first, on inputs from the plain forwards, so that
   nothing the forward kernels allocate moves their inputs between two
   checkouts.
+Last, the headline UNet's training step at bench.py's shapes with
+``vup`` on and off (step ms and peak allocated MB).
 """
 import os
 import sys
@@ -37,7 +41,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_times: no CUDA device")
     sys.path.insert(0, os.getcwd())
-    from elektronn3_tpu_torch.ops import _build, fused, pallas_conv
+    from elektronn3_tpu_torch.ops import _build, fused, pallas_conv, vup
     _build.library()
     torch.backends.cudnn.allow_tf32 = False
 
@@ -79,6 +83,21 @@ def main():
     out.append(("K7 bench up_2", ms(lambda: fused.upconv_bnact_bwd_kernel(
         xu, invc, shc, wu, yu, dyu, ds, dq, "relu"))))
     del yu, dyu
+    # The vup entries of that up_2 (carry xu, skip (8, 44, 88, 88, 32),
+    # the merge 32+32->32 with statistics cotangents): row 23
+    # (upconv_stats_bwd) and row 9's weight gradient (conv_vup_wgrad),
+    # through the parent's positional signatures.
+    skip = r(8, 44, 88, 88, 32).to(bf)
+    wm, bm, invm, shm = r(32, 64, 1, 3, 3, scale=0.1), r(32), r(64), r(64)
+    margs = (xu, invc, shc, wu, bu, skip, invm, shm, wm)
+    yv = vup.conv_vup_fwd_plain(*margs, bm, "relu", "relu")[0]
+    dyv = r(*yv.shape, scale=0.1).to(bf)
+    out.append(("row 23 bench up_2", ms(lambda: vup.upconv_stats_bwd_kernel(
+        xu, invc, shc, wu, bu, ds, dq, "relu"))))
+    out.append(("conv_vup_wgrad bench up_2", ms(
+        lambda: vup.conv_vup_wgrad_kernel(*margs, yv, dyv, ds, dq, "relu",
+                                          "relu"))))
+    del skip, yv, dyv, margs
     # K5 at bench.py's up_1 merge 64+64->64 kd3 (with ds/dq) and L0 conv2
     # 32->32 kd1; K7 at its up_1 (2,2,2) 128->64 from (8,22,22,22) and at
     # the 2D model's up_1 (1,2,2) 128->64 from (8,1,160,160), both from a
@@ -150,8 +169,47 @@ def main():
     out.append(("K3 bench up_2 +stats", ms(
         lambda: fused.upconv_bnact_fwd_kernel(xu, invc, shc, wu, bu, "relu",
                                               True))))
+    del xu
+    out += vup_steps()
     print(os.path.basename(os.getcwd()) + ": " + "; ".join(
         f"{k} {v:.3f}" for k, v in out), flush=True)
+
+
+def vup_steps():
+    """The headline UNet's training step at bench.py's shapes (bf16,
+    CEDiceLoss, Adam, 5 device-resident batches; 3 warm-up and 20 timed
+    steps ended by a host read of the loss) with ``vup`` on, then off:
+    step ms and the timed steps' peak allocated MB."""
+    import time
+    from elektronn3_tpu_torch.models import UNet
+    from elektronn3_tpu_torch.modules.loss import CEDiceLoss
+    from elektronn3_tpu_torch.training import train_step
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = (8, 44, 88, 88, 1)
+    batches = [(torch.randn(shape, generator=g, device="cuda"),
+                torch.randint(0, 2, shape[:-1], generator=g, device="cuda"))
+               for _ in range(5)]
+    crit = CEDiceLoss(1.0, 1.0)
+    out = []
+    for on in (True, False):
+        model = UNet(in_channels=1, out_channels=2, n_blocks=4,
+                     start_filts=32, planar_blocks=(0,), dtype=torch.bfloat16,
+                     device="cuda", vup=on,
+                     generator=torch.Generator().manual_seed(4))
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        for _ in range(3):
+            loss = train_step(model, crit, opt, *batches[0])
+        float(loss)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(20):
+            loss = train_step(model, crit, opt, *batches[i % 5])
+        float(loss)
+        out += [(f"step vup={on}", (time.perf_counter() - t0) / 20 * 1e3),
+                (f"peak MB vup={on}", torch.cuda.max_memory_allocated() / 1e6)]
+        del model, opt
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ bodies also at their own ragged cases), the 'batchp' batch norm's K8-K11
 (``ops/pallas_bn.py``), the flat executor's ``flat_conv3`` and
 ``conv_direct`` (``ops/flat_conv.py``, ``ops/pallas_conv.py``: K1, K4
 and K5 without a prologue), and the vup path's five entries
-(``ops/vup.py``: rows 1's vup mode, 9, 22 and 23; their chain keeps K7's
-CUDA-core bodies).
+(``ops/vup.py``: rows 1's vup mode, 9, 22 and 23; row 23's and row 9's
+weight gradient's bf16 tensor-core bodies also at their own cases; the
+chain inside ``conv_vup_dgrad`` keeps K7's CUDA-core bodies).
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch:
 
@@ -1066,11 +1067,12 @@ def test_cuda_upconv_bwd_tc_body_matches_plain(cin, cout, kd, shape, pro,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", VUP_SHAPES, ids=str)
 def test_cuda_vup_chain_keeps_the_cuda_core_bodies(shape):
-    """The vup chain (K7's bodies on E, inside ``conv_vup_dgrad`` and
-    ``upconv_stats_bwd``) runs K7's CUDA-core bodies in bf16, where
-    ``upconv_bnact`` takes the tensor-core ones: its dcarry, one thread's
-    sum with no atomics, equals the CUDA-core body's bit for bit on the
-    same E, and both agree with the tensor-core bodies."""
+    """The vup chain (K7's bodies on E, inside ``conv_vup_dgrad`` only:
+    row 23's bf16 body keeps E on the chip and runs no chain) runs K7's
+    CUDA-core bodies in bf16, where ``upconv_bnact`` takes the
+    tensor-core ones: its dcarry, one thread's sum with no atomics,
+    equals the CUDA-core body's bit for bit on the same E, and both
+    agree with the tensor-core bodies."""
     from elektronn3_tpu_torch.ops import vup
     dev = _cuda()
     bf = torch.bfloat16
@@ -1090,3 +1092,111 @@ def test_cuda_vup_chain_keeps_the_cuda_core_bodies(shape):
     for a, c, t in zip(got[1:], core[1:4], tc[1:4]):
         _assert_sum(a, c)
         _assert_sum(a, t)
+
+# The bf16 tensor-core bodies of row 23 (``upconv_stats_bwd``) and row 9's
+# weight gradient (``conv_vup_wgrad``): ((N, D, H, W) of the merge level,
+# C_carry, C_up). VUP_SHAPES (H / 2 and W / 2 odd, partial tiles of the
+# 64-voxel walk and of K5's 8 x 16 tiles), one with N * D > 65535 (the
+# flat walk and K5's tile walk have no grid-dimension limit) and one at
+# the largest template case, C_carry 128 and C_up 64 (two slices of u,
+# so K5's dy_tot pre-pass with statistics cotangents).
+VUP_TC_CASES = [(s, 64, 32) for s in VUP_SHAPES] + [
+    ((1, 65540, 2, 2), 64, 32), ((1, 2, 10, 14), 128, 64)]
+
+
+def _vup_tc_case(dev, shape, cc, cu, invc_given, stats, seed=5):
+    """((carry, invc, shiftc, wu, bu), (skip, inv, shift, w, y, dy, ds,
+    dq), (ds_u, dq_u)) in bf16: a C_cc carry under a C_cu + 32 -> 32
+    merge; without ``invc_given`` the carry's prologue is relu alone,
+    without ``stats`` there are no statistics cotangents (row 23's
+    outputs are then zero)."""
+    from elektronn3_tpu_torch.ops import vup
+    bf = torch.bfloat16
+    n, d, h, w = shape
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=g)).to(dev)
+
+    carry = rnd(n, d, h // 2, w // 2, cc).to(bf)
+    invc = shiftc = None
+    if invc_given:
+        invc, shiftc = rnd(cc), rnd(cc)
+    up = (carry, invc, shiftc, rnd(cc, cu, 1, 2, 2, scale=0.2),
+          rnd(cu, scale=0.1))
+    skip = rnd(n, d, h, w, 32).to(bf)
+    inv, shift = rnd(cu + 32), rnd(cu + 32)
+    wt, b = rnd(32, cu + 32, 1, 3, 3, scale=0.1), rnd(32)
+    y = vup.conv_vup_fwd_plain(*up, skip, inv, shift, wt, b, "relu",
+                               "relu")[0]
+    dy = rnd(*y.shape, scale=0.1).to(bf)
+    ds = dq = ds_u = dq_u = None
+    if stats:
+        ds, dq = rnd(32), rnd(32, scale=0.1)
+        ds_u, dq_u = rnd(cu), rnd(cu, scale=0.1)
+    return up, (skip, inv, shift, wt, y, dy, ds, dq), (ds_u, dq_u)
+
+
+def _assert_vup_bwd(got_s, ref_s, got_w, ref_w):
+    """Row 23's (dcarry, dinvc, dshiftc, dwu, dbu) and row 9's (dW, db):
+    dcarry elementwise, the rest as sums (None where the reference has
+    none)."""
+    _assert_kernel(got_s[0], ref_s[0])
+    for a, r in zip(got_s[1:], ref_s[1:]):
+        if r is None:
+            assert a is None
+        else:
+            _assert_sum(a, r)
+    for a, r in zip(got_w, ref_w):
+        _assert_sum(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("invc_given", [False, True])
+@pytest.mark.parametrize("shape,cc,cu", VUP_TC_CASES, ids=str)
+def test_cuda_vup_tc_bodies_match_plain(shape, cc, cu, invc_given, stats):
+    """Row 23's bf16 body (one tensor-core kernel, E in shared memory)
+    and row 9's weight gradient's (K5's tensor-core body recomputing u
+    per tile) against their plain versions; the selector picks them and
+    each launch is counted once."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    assert vup.vup_bwd_body(torch.bfloat16, cc, cu) == "tc"
+    up, merge, cts = _vup_tc_case(dev, shape, cc, cu, invc_given, stats)
+    fused.reset_launches()
+    got_s = vup.upconv_stats_bwd_kernel(*up, *cts, "relu")
+    got_w = vup.conv_vup_wgrad_kernel(*up, *merge, "relu", "relu")
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "upconv_stats_bwd": 1, "conv_vup_wgrad": 1}
+    ref_s = vup.upconv_stats_bwd_plain(*up, *cts, "relu")
+    ref_w = vup.conv_vup_wgrad_plain(*up, *merge, "relu", "relu")
+    torch.cuda.synchronize()
+    _assert_vup_bwd(got_s, ref_s, got_w, ref_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("invc_given", [False, True])
+@pytest.mark.parametrize("shape,cc,cu", VUP_TC_CASES, ids=str)
+def test_cuda_vup_tc_bodies_match_cuda_core(shape, cc, cu, invc_given,
+                                            stats):
+    """The same inputs through ``body='cuda-core'`` (the pass and K7's
+    CUDA-core bodies; K5's CUDA-core body with ``VUP``) and
+    ``body='tc'``: they agree within the kernel tolerances (their
+    recomputes sum in different orders)."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    up, merge, cts = _vup_tc_case(dev, shape, cc, cu, invc_given, stats,
+                                  seed=6)
+    fused.reset_launches()
+    core_s = vup.upconv_stats_bwd_kernel(*up, *cts, "relu",
+                                         body="cuda-core")
+    core_w = vup.conv_vup_wgrad_kernel(*up, *merge, "relu", "relu",
+                                       body="cuda-core")
+    tc_s = vup.upconv_stats_bwd_kernel(*up, *cts, "relu", body="tc")
+    tc_w = vup.conv_vup_wgrad_kernel(*up, *merge, "relu", "relu", body="tc")
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "upconv_stats_bwd": 2, "conv_vup_wgrad": 2}
+    torch.cuda.synchronize()
+    _assert_vup_bwd(tc_s, core_s, tc_w, core_w)

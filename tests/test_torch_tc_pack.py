@@ -173,3 +173,99 @@ def test_plain_backward_launches_nothing():
     assert x.grad.shape == x.shape and w.grad.shape == w.shape
     assert wu.grad.shape == wu.shape
     assert all(v == 0 for v in fused.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# The vup path's tensor-core bodies (rows 23 and 9's weight gradient)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,cc,cu,body", [
+    (torch.bfloat16, 64, 32, "tc"), (torch.bfloat16, 32, 32, "tc"),
+    (torch.bfloat16, 96, 64, "tc"), (torch.bfloat16, 128, 64, "tc"),
+    (torch.bfloat16, 160, 32, "cuda-core"),
+    (torch.bfloat16, 256, 64, "cuda-core"),
+    (torch.bfloat16, 64, 96, "cuda-core"),
+    (torch.bfloat16, 128, 128, "cuda-core"),
+    (torch.float32, 64, 32, "cuda-core"),
+    (torch.float32, 128, 64, "cuda-core")])
+def test_vup_bwd_body_selector(dtype, cc, cu, body):
+    """Rows 23 and 9's weight gradient take the tensor-core bodies for
+    bf16 at the template cases (C_carry 32 to 128, C_up 32 or 64), the
+    CUDA-core bodies for float32 and any other shape."""
+    from elektronn3_tpu_torch.ops import vup
+    assert vup.vup_bwd_body(dtype, cc, cu) == body
+
+
+def _vup_inputs(seed=11):
+    """A bf16 C=64 carry under a 32 + 32 -> 32 merge on the CPU, with the
+    merge output and its cotangent from the plain forward."""
+    from elektronn3_tpu_torch.ops import vup
+    bf = torch.bfloat16
+    up = (_weight((1, 2, 3, 5, 64), seed, bf), _weight((64,), seed + 1),
+          _weight((64,), seed + 2), 0.1 * _weight((64, 32, 1, 2, 2), seed + 3),
+          _weight((32,), seed + 4))
+    merge = (_weight((1, 2, 6, 10, 32), seed + 5, bf),
+             _weight((64,), seed + 6), _weight((64,), seed + 7),
+             0.1 * _weight((32, 64, 1, 3, 3), seed + 8))
+    y = vup.conv_vup_fwd_plain(*up, *merge, _weight((32,), seed + 9),
+                               "relu", "relu")[0]
+    return up, merge, y
+
+
+@pytest.mark.parametrize("body", ["tc", "cuda-core"])
+def test_vup_bwd_wrappers_refuse_cpu_tensors(body):
+    """A CPU tensor never reaches a body: both wrappers refuse it,
+    whichever body is asked for."""
+    from elektronn3_tpu_torch.ops import vup
+    up, merge, y = _vup_inputs()
+    ds, dq = torch.zeros(32), torch.zeros(32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        vup.upconv_stats_bwd_kernel(*up, ds, dq, "relu", body=body)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        vup.conv_vup_wgrad_kernel(*up, *merge, y, y, ds, dq, "relu", "relu",
+                                  body=body)
+
+
+def test_vup_plain_backward_launches_nothing():
+    """The vup ops' backward on CPU tensors (bf16, where the card would
+    take the tensor-core bodies of rows 23 and 9's weight gradient)
+    counts no launch."""
+    from elektronn3_tpu_torch.ops import vup
+    up, merge, _ = _vup_inputs(21)
+    up = [t.requires_grad_() if t.dtype == torch.float32 else t for t in up]
+    w = merge[3].requires_grad_()
+    fused.reset_launches()
+    y = vup.conv_vup(*up, merge[0], *merge[1:3], w, torch.zeros(32), "relu",
+                     "relu")
+    s, q = vup.upconv_stats(*up, "relu")
+    (y.float().square().sum() + s.sum() + q.sum()).backward()
+    assert w.grad.shape == w.shape and up[3].grad.shape == up[3].shape
+    assert all(v == 0 for v in fused.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("cc,cu", [(64, 32), (32, 32), (128, 64)])
+def test_upconv_packing_is_the_recompute_operand(cc, cu):
+    """The tensor-core recompute (``vup_mma``, csrc/upconv_vup.cuh) reads
+    K3's packed weight K-major as its B operand: column (b, c, co) of the
+    (C_carry, 4 C_up) matrix it sees is W[:, co, 0, b, c]. As a GEMM with
+    the prologued, rounded carry rows, plus the bias, rounded once, it
+    gives ``vup._upconv_plain``'s upconv output within one bf16 rounding
+    (the two sum in different orders)."""
+    from elektronn3_tpu_torch.ops import vup
+    bf = torch.bfloat16
+    n, d, h, w = 2, 2, 3, 5
+    wu = _weight((cc, cu, 1, 2, 2), cc + cu, bf)
+    p = fused.pack_upconv_weight(wu, bf, CPU)
+    b = p.permute(1, 0, 2).reshape(4 * cu, cc).float()
+    assert torch.equal(b.view(2, 2, cu, cc),
+                       wu.float()[:, :, 0].permute(2, 3, 1, 0))
+    carry = _weight((n, d, h, w, cc), 12, bf)
+    invc, shiftc, bu = (_weight((cc,), 13), _weight((cc,), 14),
+                        _weight((cu,), 15))
+    a = fused.prologue(carry, invc, shiftc, "relu").to(bf).float()
+    rows = a.reshape(-1, cc) @ b.t() + bu.repeat(4)
+    got = rows.to(bf).view(n, d, h, w, 2, 2, cu).permute(0, 1, 2, 4, 3, 5, 6) \
+        .reshape(n, d, 2 * h, 2 * w, cu)
+    ref = vup._upconv_plain(carry, invc, shiftc, wu, bu, "relu")
+    assert torch.allclose(got.float(), ref.float(), rtol=2.0 ** -7,
+                          atol=1e-6)
