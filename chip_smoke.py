@@ -24,10 +24,11 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
    at the shapes of one 3D Predictor tile (128, 256, 256), in bfloat16
    and float32, and times both;
 4. holds the outputs of K1 and K3 with and without statistics, K2 and
-   the backward kernels K4-K7 against their plain versions at the
-   shapes of ``bench.py``'s training step (batch 8 of (44, 88, 88): levels
-   (44, 88, 88) x 32, (44, 44, 44) x 64, (22, 22, 22) x 128), in
-   bfloat16 and float32, and times both;
+   the backward kernels K4-K7 and row 13's (the one-channel conv1's
+   backward, as the paths run it and with the input's gradient, "+dx")
+   against their plain versions at the shapes of ``bench.py``'s training
+   step (batch 8 of (44, 88, 88): levels (44, 88, 88) x 32, (44, 44, 44)
+   x 64, (22, 22, 22) x 128), in bfloat16 and float32, and times both;
 5. the same at the 2D model's training shapes, on the kernels' D=1
    view (batch 8 of (640, 640): L0 (1, 640, 640) x 32, L1 (1, 320, 320)
    x 64 with its (1, 2, 2) pool, which is row 16/17 of the kernel table
@@ -75,6 +76,10 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
    float32 and bfloat16;
 9. runs ``Trainer.run(max_steps=4)`` on a small in-memory dataset into a
    temporary directory and resumes a second Trainer from what it wrote;
+   then the headline UNet with ``input_grad=True`` on inputs that
+   require a gradient: timed steps (row 13's kernel with dx once a
+   step), the input's gradient of one step against ``reference=True``,
+   and zeros from the default ``input_grad=False`` (JAX's fused conv1);
 10. the 2D UNet (n_blocks=4, start_filts=32, dim=2, batch norm,
     bfloat16): ``forward`` against ``forward(reference=True)`` on a
     batch of 8 (640, 640) images; a whole-image Predictor request on
@@ -135,14 +140,17 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
     150 MB less: it never stores the 174.4 MB upconv output).
 
 Each time is a mean from CUDA events after a warm-up, over at least 3
-calls and as many as fill 20 ms (at most 100). Each K1, K3, K5, K7,
-``upconv_stats_bwd`` and ``conv_vup_wgrad`` line also names the body
-that ran (``body``: the tensor-core bodies ``csrc/conv_tc.cu``,
-``csrc/upconv_tc.cu``, ``csrc/wgrad_tc.cu`` (K5, and ``conv_vup_wgrad``
-with the upconv recomputed per tile), ``csrc/upconv_bwd_tc.cu`` and
-``csrc/upconv_stats_bwd_tc.cu`` for bfloat16, the CUDA-core bodies for
-float32 and for K1's and K5's one-channel input), as do the JSON line's
-``variants``.
+calls and as many as fill 20 ms (at most 100). Each K1, K3, K4, K5, K7,
+row 13, ``upconv_stats_bwd`` and ``conv_vup_wgrad`` line also names the
+body that ran (``body``: the tensor-core bodies ``csrc/conv_tc.cu``,
+``csrc/upconv_tc.cu``, ``csrc/dgrad_tc.cu``, ``csrc/wgrad_tc.cu`` (K5,
+and ``conv_vup_wgrad`` with the upconv recomputed per tile),
+``csrc/upconv_bwd_tc.cu`` and ``csrc/upconv_stats_bwd_tc.cu`` for
+bfloat16, the CUDA-core bodies for float32 and for K1's one-channel
+input, ``csrc/conv1_bwd.cu`` for the one-channel input's backward), as
+do the JSON line's ``variants``; each serving and training path prints
+its launches by body (every bf16 K4 launch on ``tc``, row 13's kernel
+once a step on every training path whose L0 runs the kernels).
 
 Every timed variant also prints its bound, the least time the card
 could take for its work: the larger of its operations over the card's
@@ -164,9 +172,10 @@ Any failed check raises, and the script exits non-zero. The last lines
 are a JSON object with each kernel's numbers (``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` sum the bfloat16 variants that
 ``totals_over`` names; ``variants`` lists every
-variant's own numbers; ``launches`` sums the fourteen paths whose
-counts ``launches_by_path`` gives; the vup entries launch on the two vup
-paths alone), the card's name and power limit, then
+variant's own numbers; ``launches`` sums the fifteen paths whose
+counts ``launches_by_path`` gives, ``launches_by_body`` the serving and
+training paths' by body; the vup entries launch on the two vup paths
+alone), the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -234,14 +243,17 @@ SOURCES = {
                      f"upconv122_bn_flat64; {_F64}:3374 upconv222_f64in; "
                      f"{_F64}:3385 upconv122_f64in; {_F}:1604 "
                      "upconv_bn_flat"),
-    "conv_bnact_dgrad": ("elektronn3_tpu_torch/csrc/conv_bnact_bwd.cu",
+    "conv_bnact_dgrad": ("elektronn3_tpu_torch/csrc/dgrad_tc.cu",
                          f"{_F}:742 _conv_bnact_bwd (dgrad); {_F64}:1139 "
                          f"_conv64_bwd (dgrad); {_FC}:502 _flat_conv3_bwd "
                          "(dgrad, :319)"),
     "conv_bnact_wgrad": ("elektronn3_tpu_torch/csrc/wgrad_tc.cu",
                          f"{_F}:742 _conv_bnact_bwd (wgrad); {_F64}:1139 "
-                         f"_conv64_bwd (wgrad); {_F}:2091 _conv1_bwd; "
-                         f"{_FC}:386 _wgrad (:412)"),
+                         f"_conv64_bwd (wgrad); {_FC}:386 _wgrad (:412)"),
+    "conv1_bwd": ("elektronn3_tpu_torch/csrc/conv1_bwd.cu",
+                  f"{_F}:2091 _conv1_bwd (row 13, its pallas_call :2126, "
+                  "with input_grad its dx; and the one-channel conv1 of "
+                  f"{_F64}:1139 _conv64_bwd)"),
     "pool_bnact_bwd": ("elektronn3_tpu_torch/csrc/pool_bnact.cu",
                        f"{_F}:1367 _pool_bwd_impl; {_F64}:1519 "
                        f"_pool64_bwd_impl; {_F64}:1731 _pool122_bwd_impl"),
@@ -276,13 +288,21 @@ SOURCES = {
                          f"{_F64}:2996 _upconv122_stats_bwd (row 23, its "
                          "pallas_call :3059; float32: csrc/upconv_bnact.cu)"),
 }
-# K1's, K3's, K5's and K7's bodies: bf16 with channels % 16 == 0 runs the
-# tensor-core body (``fused.conv_body``, ``fused.upconv_body``,
-# ``fused.wgrad_body``, ``fused.upconv_bwd_body``), float32 and the
-# network input's one channel the CUDA-core body; rows 23 and 9's weight
-# gradient run theirs in bf16 at the vup shapes (``vup.vup_bwd_body``).
+# K1's, K3's, K4's, K5's and K7's bodies: bf16 runs the tensor-core body
+# (``fused.conv_body``, ``fused.upconv_body``, ``fused.dgrad_body``,
+# ``fused.wgrad_body``, ``fused.upconv_bwd_body``), float32 the
+# CUDA-core body, K1 the CUDA-core body for the network input's one
+# channel; the network input's backward is row 13's kernel (``conv1``)
+# in both dtypes, with (``conv1+dx``) or without its dx; rows 23 and 9's
+# weight gradient run theirs in bf16 at the vup shapes
+# (``vup.vup_bwd_body``).
 BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
                          "cuda-core": "cuda-core (csrc/conv_bnact.cu)"},
+          "conv_bnact_dgrad": {
+              "tc": "tc (csrc/dgrad_tc.cu)",
+              "cuda-core": "cuda-core (csrc/conv_bnact_bwd.cu)"},
+          "conv1_bwd": {"conv1": "conv1 (csrc/conv1_bwd.cu)",
+                        "conv1+dx": "conv1+dx (csrc/conv1_bwd.cu)"},
           "upconv_bnact": {"tc": "tc (csrc/upconv_tc.cu)",
                            "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"},
           "conv_bnact_wgrad": {
@@ -396,7 +416,8 @@ _BN_BENCH = ("bf16 variants at the 'batchp' headline step's library "
              "(85184, 128) and (10648, 256)")
 TOTALS_OVER = {"conv_bnact": _TILE_SERVING, "pool_bnact": _TILE_SERVING,
                "upconv_bnact": _TILE_SERVING, "conv_bnact_dgrad": _BENCH,
-               "conv_bnact_wgrad": _BENCH, "pool_bnact_bwd": _BENCH,
+               "conv_bnact_wgrad": _BENCH, "conv1_bwd": _BENCH,
+               "pool_bnact_bwd": _BENCH,
                "upconv_bnact_bwd": _BENCH, **dict.fromkeys(BN_KERNELS,
                                                            _BN_BENCH),
                "conv_vup": _TILE_SERVING,
@@ -548,6 +569,8 @@ CONV_DIRECT_CASES = [
     ("L2 conv 128->128", (8, 11, 22, 22), 128, 128, False),
 ]
 STEP_MS = {}   # train_phase's step times by model: (kernels, plain, again)
+# The serving and training paths' launches by (kernel, body), by path.
+BODY_LAUNCHES = {}
 
 
 def cuda_ms(fn, reps=3, min_ms=20.0):
@@ -760,11 +783,16 @@ def fwd_body(fused, kind, dtype, cins):
     return fused.upconv_body(dtype) if kind == "upconv" else None
 
 
-def bwd_body(fused, name, dtype, cins):
-    """The body K5 or K7 runs for these inputs (``fused.wgrad_body`` or
-    ``fused.upconv_bwd_body``), or None for K4 and K6."""
+def bwd_body(fused, name, dtype, cins, label=""):
+    """The body K4, K5, K7 or row 13's kernel runs for these inputs
+    (``fused.dgrad_body``, ``fused.wgrad_body``, ``fused.upconv_bwd_body``;
+    ``label`` says whether row 13's computes dx), or None for K6."""
+    if name == "conv_bnact_dgrad":
+        return fused.dgrad_body(dtype)
     if name == "conv_bnact_wgrad":
         return fused.wgrad_body(dtype, cins)
+    if name == "conv1_bwd":
+        return fused.conv1_body(cins, label.endswith("+dx"))
     return fused.upconv_bwd_body(dtype) if name == "upconv_bnact_bwd" \
         else None
 
@@ -909,12 +937,20 @@ def train_kernel_phase(fused, stats, variants, total, serve):
                 w = rnd(cout, cin, kdw, 3, 3, scale=std)
                 fwd, fwd_plain = (fused.conv_bnact_fwd_kernel,
                                   fused.conv_bnact_fwd_plain)
-                bwds = [("conv_bnact_wgrad", fused.conv_bnact_wgrad_kernel,
-                         fused.conv_bnact_wgrad_plain)]
-                if cins[0] % 32 == 0:
-                    bwds.insert(0, ("conv_bnact_dgrad",
-                                    fused.conv_bnact_dgrad_kernel,
-                                    fused.conv_bnact_dgrad_plain))
+                if cins[0] <= fused.CONV1_MAX_CIN:
+                    # Row 13: the network input's backward, as the paths
+                    # run it (no dx) and with input_grad (+dx).
+                    bwds = [("conv1_bwd", lambda *a, ig=ig:
+                             fused.conv1_bwd_kernel(*a, ig), lambda *a,
+                             ig=ig: fused.conv1_bwd_plain(*a, ig),
+                             " +dx" if ig else "") for ig in (False, True)]
+                else:
+                    bwds = [("conv_bnact_dgrad",
+                             fused.conv_bnact_dgrad_kernel,
+                             fused.conv_bnact_dgrad_plain, ""),
+                            ("conv_bnact_wgrad",
+                             fused.conv_bnact_wgrad_kernel,
+                             fused.conv_bnact_wgrad_plain, "")]
                 fargs = (xs, inv, shift)
                 flops = conv_flops(m, cin, cout, kdw)
                 bwd_flops = flops
@@ -924,7 +960,7 @@ def train_kernel_phase(fused, stats, variants, total, serve):
                 fwd, fwd_plain = (fused.upconv_bnact_fwd_kernel,
                                   fused.upconv_bnact_fwd_plain)
                 bwds = [("upconv_bnact_bwd", fused.upconv_bnact_bwd_kernel,
-                         fused.upconv_bnact_bwd_plain)]
+                         fused.upconv_bnact_bwd_plain, "")]
                 fargs = (xs[0], inv, shift)
                 flops = upconv_flops(m, cin, cout, kdw)
                 bwd_flops = 2 * flops                   # dgrad and wgrad
@@ -972,7 +1008,7 @@ def train_kernel_phase(fused, stats, variants, total, serve):
                           body=fwd_body(fused, kind, dtype, cins))
             ds, dq = rnd(cout, scale=1e-3), rnd(cout, scale=1e-4)
             bargs = (*fargs, w, y, dy, ds, dq, act)
-            for name, kfn, pfn in bwds:
+            for name, kfn, pfn, suffix in bwds:
                 run = lambda: kfn(*bargs)                          # noqa
                 plain = lambda: pfn(*bargs)                        # noqa
                 got, ref = run(), plain()
@@ -990,12 +1026,25 @@ def train_kernel_phase(fused, stats, variants, total, serve):
                     else:
                         err = max(err, check_sum(g, r, f"{name} {label} "
                                                  f"{what}"))
-                bnd = bound(bwd_flops, peak, bargs, got)
+                if name == "conv1_bwd":
+                    # dW, and dx with it, at the dtype's peak (as the
+                    # library's conv3d_weight and conv3d_input run it).
+                    bnd = bound(bwd_flops * (2 if suffix else 1), peak,
+                                bargs, got)
+                    lib_fn = (lambda: (libs["conv_bnact_wgrad"](),
+                                       libs["conv_bnact_dgrad"]())) \
+                        if suffix else libs.get("conv_bnact_wgrad")
+                else:
+                    bnd = bound(bwd_flops, peak, bargs, got)
+                    lib_fn = libs.get(name)
                 del got, ref
-                stats.add(name, label, dtype, err, cuda_ms(run),
+                # Row 13's "+dx" variant (no model path runs it) is
+                # listed, not summed.
+                stats.add(name, label + suffix, dtype, err, cuda_ms(run),
                           cuda_ms(plain), bnd,
-                          cuda_ms(libs[name]) if bf16 else None, False,
-                          total, body=bwd_body(fused, name, dtype, cins))
+                          cuda_ms(lib_fn) if bf16 else None, False,
+                          total and not suffix,
+                          body=bwd_body(fused, name, dtype, cins, suffix))
             del y, dy, xs, a, bargs, fargs, libs
             torch.cuda.empty_cache()
 
@@ -1006,6 +1055,8 @@ def _bwd_named(name, out):
         return out[0], out[1], out[2], None, None
     if name == "conv_bnact_wgrad":
         return None, None, None, out[0], out[1]
+    if name == "conv1_bwd":
+        return out
     return [out[0]], out[1], out[2], out[3], out[4]
 
 
@@ -1185,7 +1236,7 @@ def record_shapes(fused, bn=None):
     names = ("pool_bnact_fwd_kernel", "pool_bnact_bwd_kernel",
              "upconv_bnact_fwd_kernel", "upconv_bnact_bwd_kernel",
              "conv_bnact_fwd_kernel", "conv_bnact_dgrad_kernel",
-             "conv_bnact_wgrad_kernel")
+             "conv_bnact_wgrad_kernel", "conv1_bwd_kernel")
     real = {n: getattr(fused, n) for n in names}
     bn_names = tuple(f"{k}_kernel" for k in BN_KERNELS) if bn else ()
     bn_real = {n: getattr(bn, n) for n in bn_names}
@@ -1198,7 +1249,7 @@ def record_shapes(fused, bn=None):
 
     def wrap(n):
         def f(x, inv, shift, *rest):
-            if n.startswith("conv"):
+            if n.startswith("conv"):   # K1, K4, K5 and row 13's
                 w = rest[0]
                 key = (n.replace("_fwd_kernel", "").replace("_kernel", ""),
                        tuple(xi.shape[-1] for xi in x), w.shape[0],
@@ -1394,11 +1445,12 @@ def randomize_norms(model, seed):
 
 
 def headline_unet(UNet, seed, dtype=torch.bfloat16, normalization="batch",
-                  pallas_flat="auto", activation="relu", vup=False):
+                  pallas_flat="auto", activation="relu", vup=False,
+                  input_grad=False):
     return UNet(in_channels=1, out_channels=2, n_blocks=4, start_filts=32,
                 planar_blocks=(0,), activation=activation,
                 normalization=normalization, dtype=dtype, device="cuda",
-                pallas_flat=pallas_flat, vup=vup,
+                pallas_flat=pallas_flat, vup=vup, input_grad=input_grad,
                 generator=torch.Generator().manual_seed(seed))
 
 
@@ -1506,6 +1558,7 @@ def predictor_phase(build, what, Predictor, fused, rows, kernels=SERVING,
     probs = pred.predict(vol)
     dt = time.perf_counter() - t0
     launches = dict(fused.LAUNCHES)
+    BODY_LAUNCHES[f"predictor_{what}"] = dict(fused.BODY_LAUNCHES)
     hook.remove()
     print(f"predictor {what}: bf16 probabilities {probs.shape} in "
           f"{dt:.3f} s = {vol.size / dt / 1e6:.2f} MVox/s; {len(calls)} "
@@ -1559,6 +1612,7 @@ def predictor_2d_phase(UNet, Predictor, fused):
     probs_big = tiled.predict(big)
     dt_t = time.perf_counter() - t0
     launches = dict(fused.LAUNCHES)
+    BODY_LAUNCHES["predictor_2D"] = dict(fused.BODY_LAUNCHES)
     print(f"predictor 2D: whole-image bf16 probabilities {probs.shape} in "
           f"{dt_w:.3f} s = {images.size / dt_w / 1e6:.2f} MPix/s; tiled "
           f"{probs_big.shape} (tile 512, overlap 64, batch 4) in "
@@ -1730,6 +1784,8 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
     dt_k = timed_steps(train_step, model, crit, opt, batches, False,
                        fused.reset_launches)
     launches = dict(fused.LAUNCHES)
+    bodies = dict(fused.BODY_LAUNCHES)
+    BODY_LAUNCHES[f"train_{what}"] = bodies
     peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     dt_p = timed_steps(train_step, plain_model, crit, plain_opt, batches,
@@ -1745,8 +1801,21 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
               f"{shape[1:-1]}, bf16, CEDiceLoss, Adam)", flush=True)
     print(f"train {what}: peak device memory {peak:.2f} GB (kernels), "
           f"{peak_p:.2f} GB (plain); launches over {STEPS} steps "
-          f"{launches}", flush=True)
+          f"{launches}; by body " + ", ".join(
+              f"{k}/{b} {n}" for (k, b), n in sorted(bodies.items())),
+          flush=True)
     check_launched(launches, kernels, f"{what} training")
+    # Every bf16 K4 launch on its tensor-core body; row 13's kernel once a
+    # step (without dx) wherever L0 runs the kernels.
+    if bodies.get(("conv_bnact_dgrad", "tc"), 0) != \
+            launches["conv_bnact_dgrad"]:
+        raise AssertionError(f"{what} training: K4 bodies {bodies}")
+    if "conv1_bwd" in kernels and (
+            launches["conv1_bwd"] != STEPS
+            or bodies.get(("conv1_bwd", "conv1"), 0) != STEPS):
+        raise AssertionError(f"{what} training: row 13's kernel "
+                             f"{launches['conv1_bwd']} times, bodies "
+                             f"{bodies}")
 
     # A fixed batch whose target is learnable from the input (the sign
     # of x; the timed batches' targets are noise).
@@ -1974,6 +2043,81 @@ def vup_pair_phase(build, CEDiceLoss, train_step, fused):
                              "under vup=False's")
 
 
+def input_grad_phase(build, CEDiceLoss, train_step, fused):
+    """The headline model with ``input_grad=True`` at bench.py's step, its
+    inputs requiring a gradient: timed steps (row 13's kernel with dx
+    once a step, K4 on its tensor-core body), the input's gradient of one
+    step against reference=True (in the L2 norm within 1e-2 of its norm
+    plus NOISE_FACTOR times the reference step's own difference under a
+    one-ulp input change), then the same input through the default model
+    (``input_grad=False``), whose gradient is zeros: JAX runs its fused
+    conv1 at W = 88 there."""
+    shape = (BATCH, *PATCH, 1)
+    batches = [(x.requires_grad_(True), y) for x, y in bench_batches(shape)]
+    crit = CEDiceLoss(1.0, 1.0)
+    model = build(4, torch.bfloat16, True)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    dt = timed_steps(train_step, model, crit, opt, batches, False,
+                     fused.reset_launches)
+    launches = dict(fused.LAUNCHES)
+    bodies = dict(fused.BODY_LAUNCHES)
+    BODY_LAUNCHES["train_input_grad"] = bodies
+    if launches["conv1_bwd"] != STEPS \
+            or bodies.get(("conv1_bwd", "conv1+dx"), 0) != STEPS \
+            or bodies.get(("conv_bnact_dgrad", "tc"), 0) \
+            != launches["conv_bnact_dgrad"]:
+        raise AssertionError(f"input_grad training launches {launches}, "
+                             f"bodies {bodies}")
+    grads = [x.grad for x, _ in batches]
+    if not all(g is not None and bool(torch.isfinite(g).all())
+               and float(g.abs().max()) > 0 for g in grads):
+        raise AssertionError("input_grad training: an input gradient is "
+                             "missing, zero or not finite")
+    print(f"train input_grad: step {dt * 1e3:9.2f} ms (beside the default "
+          f"model's {STEP_MS['3D'][0]:.2f} in this run); launches over "
+          f"{STEPS} steps {launches}", flush=True)
+    del opt, batches, grads
+
+    def grad_x(m, x, y, reference):
+        x = x.detach().clone().requires_grad_(True)
+        m.zero_grad(set_to_none=True)
+        crit(m.train()(x, reference=reference), y).backward()
+        return x.grad.float()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(shape, generator=g, device="cuda")
+    y = torch.randint(0, 2, shape[:-1], generator=g, device="cuda")
+    gx = grad_x(model, x, y, False)
+    rx = grad_x(model, x, y, True)
+    noise = torch.randn(shape, generator=g, device="cuda")
+    mx = grad_x(model, x * (1 + 2.0 ** -8 * noise), y, True)
+    err, rn, nz = (float((gx - rx).norm()), float(rx.norm()),
+                   float((mx - rx).norm()))
+    limit = 1e-2 * rn + NOISE_FACTOR * nz
+    if not (rn > 0 and err <= limit):
+        raise AssertionError(f"input_grad: |dx - ref| {err}, |ref| {rn}, "
+                             f"noise {nz}")
+    # The control: a zero dx (input_grad=False's), whose error is |ref|,
+    # must fail the same limit, or the limit shows nothing.
+    if rn <= limit:
+        raise AssertionError(f"input_grad: the limit {limit} would pass a "
+                             f"zero dx (|ref| {rn}, noise {nz})")
+    del model
+    fused.reset_launches()
+    gx0 = grad_x(build(4, torch.bfloat16, False), x, y, False)
+    if bool(gx0.any()) or fused.BODY_LAUNCHES.get(("conv1_bwd", "conv1")) \
+            != 1:
+        raise AssertionError(f"input_grad=False: max |dx| "
+                             f"{float(gx0.abs().max())}, bodies "
+                             f"{fused.BODY_LAUNCHES}")
+    print(f"train input_grad: one step's input gradient vs reference=True "
+          f"|dx - ref| {err:.4e} (|ref| {rn:.4e}, noise {nz:.4e}, limit "
+          f"{limit:.4e}; a zero dx's error |ref| is {rn / limit:.3f} times "
+          f"the limit); input_grad=False gives zeros, row 13 without dx",
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_phase(train_step, model, crit, opt, batches):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2089,6 +2233,9 @@ def main():
     def build_vup(seed, dtype, vup=True):
         return headline_unet(UNet, seed, dtype, vup=vup)
 
+    def build_input_grad(seed, dtype, on=True):
+        return headline_unet(UNet, seed, dtype, input_grad=on)
+
     stats = Stats()
     kernel_phase(fused, stats, VARIANTS, total=True)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS, total=True,
@@ -2116,6 +2263,8 @@ def main():
     del model, opt, batches
     torch.cuda.empty_cache()
     trainer_phase(build3d, (1, *PATCH), "3D", CEDiceLoss, Trainer)
+    launches["train_input_grad"] = input_grad_phase(
+        build_input_grad, CEDiceLoss, train_step, fused)
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()
@@ -2202,7 +2351,7 @@ def main():
     # up_2's K3, K7 and its merge's K1, K4, K5 give way to the five vup
     # entries; every other launch as on the 'batch' headline step.
     per_step = {"conv_bnact": 7, "pool_bnact": 2, "upconv_bnact": 1,
-                "conv_bnact_dgrad": 6, "conv_bnact_wgrad": 7,
+                "conv_bnact_dgrad": 6, "conv_bnact_wgrad": 6, "conv1_bwd": 1,
                 "pool_bnact_bwd": 2, "upconv_bnact_bwd": 1,
                 **dict.fromkeys(VUP_KERNELS, 1)}
     want = {k: per_step.get(k, 0) * STEPS for k in SOURCES}
@@ -2226,6 +2375,9 @@ def main():
          "replaces": SOURCES[k][1],
          "launches": sum(path[k] for path in launches.values()),
          "launches_by_path": {p: n[k] for p, n in launches.items()},
+         "launches_by_body": {
+             b: sum(n.get((k, b), 0) for n in BODY_LAUNCHES.values())
+             for b in BODIES.get(k, ())},
          **stats.totals(k)} for k in SOURCES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,11 +31,12 @@
 // tolerances of the tests and chip_smoke.py allow for it).
 //
 // Two bodies:
-//   - K4 and the vup merge conv in bfloat16 with every staged channel
-//     count a multiple of 16 run on the tensor cores: an implicit GEMM
-//     over taps x 16-channel steps with WMMA 16x16x16 bf16 fragments and
-//     float32 accumulators (K1's plain bf16 forward runs its own body,
-//     conv_tc.cu, and never launches this one);
+//   - the vup merge conv (forward and dgrad) in bfloat16 with every
+//     staged channel count a multiple of 16 runs on the tensor cores: an
+//     implicit GEMM over taps x 16-channel steps with WMMA 16x16x16 bf16
+//     fragments and float32 accumulators (K1's plain bf16 forward runs
+//     conv_tc.cu, K4's plain bf16 dgrad dgrad_tc.cu; neither launches
+//     this one);
 //   - float32, and any channel count, run on the CUDA cores: each
 //     shared-memory weight read (a warp-wide broadcast of 4 output
 //     channels) serves 2 output rows, and each staged input value 9
@@ -523,17 +524,18 @@ __global__ void __launch_bounds__(256) conv_body_mma_kernel(
     flush_block_sums(s_red, a.s, a.q, co0);
 }
 
-// Launch the body that fits: tensor cores for bf16 when every staged
-// channel count is a multiple of 16 (K4 and the vup forward; K1's plain
-// forward takes conv_tc.cu there, so its WMMA instantiation is not
-// compiled), else the CUDA cores. ST: the block
+// Launch the body that fits: tensor cores for the vup instantiations in
+// bf16 when every staged channel count is a multiple of 16 (K1's and
+// K4's plain bf16 bodies are conv_tc.cu and dgrad_tc.cu, so their WMMA
+// instantiations are not compiled, nor K4's bf16 CUDA-core one, which
+// this launch refuses), else the CUDA cores. ST: the block
 // sums (statistics, or dinv and dshift). grid.x walks the (h, w) tiles
 // of every (n, depth) slab, the slab index outermost, so N * D is not
 // bounded by grid.y's 65535; a grid.x past 2^31 - 1 is refused.
 template <bool DG, bool ST, bool VUP = false>
 cudaError_t launch_conv_body_st(const ConvArgs& a, int dtype,
                                 cudaStream_t s) {
-  const bool mma = (DG || VUP) && dtype == DT_BF16 && a.cin[0] % MCK == 0
+  const bool mma = VUP && dtype == DT_BF16 && a.cin[0] % MCK == 0
       && (a.nin < 2 || a.cin[1] % MCK == 0);
   const int64_t tiles = mma
       ? (int64_t)((a.h + MH - 1) / MH) * ((a.wd + MW - 1) / MW)
@@ -541,16 +543,19 @@ cudaError_t launch_conv_body_st(const ConvArgs& a, int dtype,
   const int64_t blocks = tiles * a.n * a.d;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, 1, a.cout / COG);
-  if constexpr (DG || VUP) {
+  if constexpr (VUP) {
     if (mma) {
       conv_body_mma_kernel<DG, ST, VUP><<<grid, 256, 0, s>>>(a);
       return cudaSuccess;
     }
   }
-  if (dtype == DT_BF16)
-    conv_body_kernel<DG, ST, __nv_bfloat16, VUP><<<grid, NT, 0, s>>>(a);
-  else
+  if (dtype != DT_BF16) {
     conv_body_kernel<DG, ST, float, VUP><<<grid, NT, 0, s>>>(a);
+  } else if constexpr (DG && !VUP) {
+    return cudaErrorInvalidValue;   // K4's bf16 body is dgrad_tc.cu
+  } else {
+    conv_body_kernel<DG, ST, __nv_bfloat16, VUP><<<grid, NT, 0, s>>>(a);
+  }
   return cudaSuccess;
 }
 

@@ -1,25 +1,29 @@
-// The merged backward of K1 conv_bnact, as two kernels:
+// The merged backward of K1 conv_bnact, as two kernels, on the CUDA
+// cores (the float32 bodies; bf16 runs the tensor-core bodies named
+// below, and the network input the row-13 kernel):
 //
 // K4 conv_bnact_dgrad: dy_tot = dy + ds + 2 y dq on load (the batch
 //   statistics' cotangent folded in), rounded to the activation dtype,
 //   then K1's 'same' conv with the flipped, transposed weights over
 //   kd in {1, 3}; its epilogue gives dx for each input of a merge conv
-//   and the prologue gradients dinv and dshift. It is K1's implicit
-//   GEMM (conv_bnact.cuh, DG = true) with another load step and
-//   epilogue, so bf16 runs on the tensor cores.
+//   and the prologue gradients dinv and dshift. It is K1's CUDA-core
+//   implicit GEMM (conv_bnact.cuh, DG = true) with another load step and
+//   epilogue. bf16 runs e3_conv_bnact_dgrad_tc (dgrad_tc.cu, the tensor
+//   cores) where the wrapper's dgrad_body says 'tc'.
 // K5 conv_bnact_wgrad: dW[tap, ci, co] = sum over voxels of
 //   a[pos + tap, ci] * dy_tot[pos, co], with a the RECOMPUTED prologued
 //   input rounded to the dtype (the forward does not store it) and
-//   dy_tot rounded to the dtype; db = sum of the float32 dy_tot.
+//   dy_tot rounded to the dtype; db = sum of the float32 dy_tot. bf16
+//   with every C_in % 16 == 0 runs e3_conv_bnact_wgrad_tc (wgrad_tc.cu).
 //
-// Replace these TPU kernels of the JAX package:
+// Replace these TPU kernels of the JAX package (in float32):
 //   ops/flat_fused.py::_conv_bnact_bwd   (_fused_conv_bwd_kernel)
 //   ops/flat_fused64.py::_conv64_bwd     (_conv64_bwd_kernel)
-//   ops/flat_fused.py::_conv1_bwd        (_conv1_bwd_kernel; K5 only:
-//     the network input takes no gradient, and the wrapper skips K4)
-// JAX's packed and combined-corner weight forms (_unpack_wgrad) are TPU
-// lane artefacts; here dW comes out as (kd, 3, 3, C_in, C_out) and the
-// wrapper views it in torch's layout.
+// ops/flat_fused.py::_conv1_bwd (the network input, C_in of 1 to 4) is
+// e3_conv1_bwd (conv1_bwd.cu) in both dtypes: dW, db and, on request,
+// dx in one pass. JAX's packed and combined-corner weight forms
+// (_unpack_wgrad) are TPU lane artefacts; here dW comes out as
+// (kd, 3, 3, C_in, C_out) and the wrapper views it in torch's layout.
 //
 // K5's contraction runs over every voxel (2.7 M at the headline L0 of a
 // training batch), so it is split over voxel tiles: each block walks a
@@ -30,8 +34,7 @@
 // hence the last bits of the sum, changes from run to run). db is
 // summed the same way by the blocks of the centre depth tap and the
 // first channel group. What bounds K5: arithmetic on the CUDA cores
-// (each staged value serves 9 taps x 8 output channels per thread); a
-// tensor-core body is later work.
+// (each staged value serves 9 taps x 8 output channels per thread).
 //
 // e3_conv_vup_wgrad is K5 for the vup merge conv (VUP = true): its
 // input 0 is the recomputed (1, 2, 2) upconv of the carry

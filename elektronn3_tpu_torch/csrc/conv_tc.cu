@@ -10,7 +10,8 @@
 // whenever every input's channel count is a multiple of 16 (the
 // wrapper's conv_body); conv_bnact.cuh keeps the CUDA-core body for
 // float32 and the network input (C_in = 1 or 3), and the WMMA body for
-// K4 and the vup merge conv.
+// the vup merge conv alone. K4's bf16 dgrad (dgrad_tc.cu) is this GEMM
+// with dy_tot as A and its own epilogue; the two share conv_tc.cuh.
 //
 // Replaces, for bf16, the TPU kernels listed in conv_bnact.cu.
 //
@@ -49,30 +50,11 @@
 // by row at any offset, while wgmma's shared-memory descriptors would
 // need a re-staged copy per tap (or A from registers through the same
 // ldmatrix loads); that is left for a later step.
-#include "tc.cuh"
+#include "conv_tc.cuh"
 
 namespace {
 
 using namespace e3;
-
-constexpr int NT = 256;   // 8 warps
-constexpr int KST = 2;    // K steps in flight (the cp.async ring)
-
-template <int COB>
-struct Cfg {
-  static constexpr int WARPS_N = COB / 32;              // 1, 2, 4
-  static constexpr int WARPS_M = 8 / WARPS_N;           // 8, 4, 2
-  static constexpr int WM = COB == 32 ? 32 : 64;        // warp rows
-  static constexpr int MI = WM / 16;                    // m16 tiles a warp
-  static constexpr int M = WARPS_M * WM;                // 256, 256, 128
-  static constexpr int BSTAGE = 9 * COB * 32;           // weight bytes
-};
-
-// A staged voxel's 16 channels occupy 32 of APITCH bytes: the 8 rows
-// of an ldmatrix phase, 8 consecutive voxels from any start, then fall
-// into 8 distinct 16-byte bank groups (48 = 3 x 16, and 3 is odd), and
-// a tap's rows are a constant offset from tap (0, 0)'s.
-constexpr int APITCH = 48;
 
 struct ConvTcArgs {
   const __nv_bfloat16* x[2];
@@ -254,28 +236,7 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const ConvTcArgs a) {
     }
     const uint32_t aslot = slot * g.abytes;
     const uint32_t bslot = brow + slot * C::BSTAGE;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const uint32_t toff = aslot + ((tap / 3) * hw + tap % 3) * APITCH;
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        ldmatrix_x4(bslot + (tap * COB + p * 16) * 32, r);
-        bf[2 * p][0] = r[0];
-        bf[2 * p][1] = r[1];
-        bf[2 * p + 1][0] = r[2];
-        bf[2 * p + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < C::MI; ++mi) {
-        uint32_t af[4];
-        ldmatrix_x4(arow[mi] + toff, af);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          mma_bf16_16816(acc[mi][nj], af, bf[nj][0], bf[nj][1]);
-      }
-    }
+    tap_mma9<COB>(acc, arow, aslot, bslot, hw);
   }
 
   // Epilogue from the accumulators: lane (g, t4) holds rows g and g + 8

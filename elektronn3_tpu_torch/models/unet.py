@@ -120,6 +120,12 @@ _FLAT_ACTS = ("silu", "swish", "gelu", "tanh")
 # (elektronn3_tpu/models/unet.py:79), the same value. The planner reads
 # it when it plans a shape.
 FUSED128_MIN_VOX = 60_000
+# JAX's bound on the rows of a fused C=32 level's flat chunk in training
+# (_FUSED_ROWS_TRAIN, elektronn3_tpu/models/unet.py:92, the same value),
+# which with the C=32 executor's other gates decides where JAX runs its
+# fused conv1 and so where the network input's gradient is zero under
+# input_grad=False (UNet._conv1_input_grad).
+_JAX_FUSED_ROWS_TRAIN = 3000
 # Every 2D-or-3D choice is made from the model's ``dim`` through these
 # tables and the helpers below, never from a tensor's rank.
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
@@ -138,6 +144,30 @@ def _lift(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _drop(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Inverse of :func:`_lift`."""
     return x.squeeze(1) if dim == 2 else x
+
+
+def _jax_row_groups(W: int, jg: int, w_off: int) -> int:
+    """Row groups per image row of JAX's flat layouts at width ``W``:
+    ``pad_width(W) // JG`` (elektronn3_tpu/ops/flat_conv.py:97-113; jg 4,
+    w_off 4 for C=32) or ``pad_width64(W) // JG64`` (flat_fused64.py:98-109;
+    jg 2, w_off 2 for C=64 and 128)."""
+    wp_min = -(-(W + w_off + 1) // jg) * jg
+    wp_aligned = -(-wp_min // (8 * jg)) * (8 * jg)
+    return (wp_aligned if wp_aligned <= wp_min * 1.125 else wp_min) // jg
+
+
+class _ZeroGrad(torch.autograd.Function):
+    """The identity, whose gradient is a zero tensor: the network input
+    of a model whose first level runs the library ops where JAX runs its
+    fused conv1 without ``input_grad``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
 
 
 def _w5(w: torch.Tensor, dim: int) -> torch.Tensor:
@@ -261,23 +291,27 @@ class DownConv(nn.Module):
                                        dim)
 
     def forward(self, x: torch.Tensor, kind: str = "library",
-                reference: bool = False):
+                reference: bool = False, input_grad: bool = True):
         """Returns (output, skip); ``kind`` is the level's
         (:meth:`UNet.level_kinds`). On 'kernels' the output is the
         pooled tensor and the skip is :class:`FusedActs` of conv2's raw
         output (5-D, the D=1 view for a 2D model); otherwise both are
-        plain tensors."""
+        plain tensors. ``input_grad`` False gives ``x`` a zero gradient
+        (the network input where JAX runs its fused conv1 without
+        ``input_grad``)."""
         if kind == "kernels":
             act = _KERNEL_ACTS[self.activation]
             # conv1 takes the float32 weight and bias in both JAX
             # executors (the C=32 one through conv1_bnstats_flat); its
-            # input is the network input (or the pool), which gets no
-            # input gradient kernel unless it requires one.
+            # input is the network input (or the pool), whose gradient
+            # (row 13's kernel at C_in <= 4, K4 else) runs only when it
+            # requires one.
             out1 = fused.conv_bnact([_lift(x, self.dim)], None, None,
                                     _w5(self.conv1.weight, self.dim),
                                     self.conv1.bias,
                                     "linear", want_stats=_stats(self.norm0),
-                                    reference=reference)
+                                    reference=reference,
+                                    input_grad=input_grad)
             inv1, shift1 = _norm_pro(self.norm0, out1)
             w2, b2 = _kernel_params(self.conv2, self.dtype, self.dim)
             out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
@@ -292,6 +326,8 @@ class DownConv(nn.Module):
                 reference=reference)
             return _drop(pooled, self.dim), skip
         act = get_activation(self.activation)
+        if not input_grad and x.requires_grad:
+            x = _ZeroGrad.apply(x)
         y = _plain_conv(x, self.conv1, self.dtype, self.dim)
         if kind == "flat":
             # JAX's flat DownConv (elektronn3_tpu/models/unet.py:960-993):
@@ -487,6 +523,17 @@ class UNet(nn.Module):
     C=32 kernel decoder level over a C=64 carry computes (see the
     module docstring).
 
+    ``input_grad`` (default False, only a bool: anything else raises
+    ``ValueError``) is JAX's ``UNet.input_grad``
+    (elektronn3_tpu/models/unet.py:1389-1396): where JAX runs its fused
+    first conv (``_Conv1FusedFlat``, a one-channel input of width <= 128
+    on its C=32 executor; :meth:`_conv1_input_grad` writes the predicate
+    down) and ``input_grad`` is False, the network input's gradient is a
+    zero tensor, as ``jax.grad`` gives, and no input gradient is
+    computed; everywhere else it is the real one (row 13's kernel on a
+    kernel level). A level plan, parameter or forward never depends on
+    it.
+
     JAX gates of ``pallas_flat`` that the port does not carry over,
     because they model the TPU, not the function: 'auto''s test of the
     backend and of bf16; the scoped-VMEM estimates
@@ -508,12 +555,15 @@ class UNet(nn.Module):
                  device: Union[None, str, torch.device] = None,
                  generator: Optional[torch.Generator] = None,
                  pallas_flat: Union[bool, str] = "auto",
-                 vup: bool = False):
+                 vup: bool = False, input_grad: bool = False):
         super().__init__()
         if n_blocks < 1:
             raise ValueError("n_blocks must be > 0")
         if vup is not True and vup is not False:
             raise ValueError(f"vup must be True or False, got {vup!r}")
+        if input_grad is not True and input_grad is not False:
+            raise ValueError(f"input_grad must be True or False, got "
+                             f"{input_grad!r}")
         if not (pallas_flat is True or pallas_flat is False
                 or pallas_flat == "auto"):
             raise ValueError(f"pallas_flat must be True, False or 'auto', "
@@ -542,6 +592,7 @@ class UNet(nn.Module):
         self.dtype = dtype
         self.pallas_flat = pallas_flat
         self.vup = vup
+        self.input_grad = input_grad
         self._plans: Dict[tuple, List[str]] = {}
 
         common = dict(activation=activation, normalization=normalization,
@@ -624,6 +675,61 @@ class UNet(nn.Module):
                 and self.activation in _FLAT_ACTS
                 and H % 2 == 0 and W % 2 == 0)
 
+    def _jax_tiles_2d(self, H: int, W: int) -> bool:
+        """Whether JAX's 2D H-tiling cuts a training input of (H, W) into
+        slabs: its ``_plan_tile2d`` (elektronn3_tpu/models/unet.py:1541-1575)
+        with the training row bound, a slab height below H."""
+        def fits(t: int) -> bool:
+            w, tt = W, t
+            for i in range(self.n_blocks):
+                ch = self.start_filts * 2 ** i
+                if tt < 2 or w < 4 or w % 2:
+                    return True
+                if ch == 32:
+                    g = _jax_row_groups(w, 4, 4)
+                elif ch in (64, 128):
+                    g = _jax_row_groups(w, 2, 2)
+                else:
+                    return True
+                if tt * g > _JAX_FUSED_ROWS_TRAIN:
+                    return False
+                w, tt = w // 2, tt // 2
+            return True
+
+        if fits(H):
+            return False
+        t = (H - 1) & ~3
+        while t >= 4:
+            if H % t == 0 and fits(t):
+                return True
+            t -= 4
+        return False
+
+    def _conv1_input_grad(self, shape: Sequence[int]) -> bool:
+        """Whether the network input of ``shape`` gets its gradient:
+        True unless ``input_grad`` is False and JAX runs its fused conv1
+        there (``_Conv1FusedFlat``, elektronn3_tpu/models/unet.py:896-899),
+        where that gradient is zero. JAX does so on its C=32 executor's
+        first level (``_flat_fused_ok`` :1421-1456: ``pallas_flat`` True,
+        or 'auto' for bf16 as on a TPU; a planar level of C=32 with a
+        kernel activation; even H, W % 8 == 0 and at most
+        ``_JAX_FUSED_ROWS_TRAIN`` flat rows) for a one-channel input of
+        W <= 128 that its 2D H-tiling leaves whole."""
+        if self.input_grad or self.in_channels != 1 \
+                or self.start_filts != 32:
+            return True
+        auto_bf16 = self.pallas_flat == "auto" \
+            and self.dtype == torch.bfloat16
+        if not (self.pallas_flat is True or auto_bf16):
+            return True
+        if self.activation not in _KERNEL_ACTS or not self._planar(0):
+            return True
+        H, W = shape[-3], shape[-2]
+        if H % 2 or W % 8 or W > 128 \
+                or H * ((W + 4) // 4) > _JAX_FUSED_ROWS_TRAIN:
+            return True
+        return self.dim == 2 and self._jax_tiles_2d(H, W)
+
     def level_kinds(self, shape: Sequence[int]) -> List[str]:
         """Per-level executor for an input of ``shape`` ((N, D, H, W, C),
         or (N, H, W, C) for a 2D model, whose levels have D = 1):
@@ -686,10 +792,11 @@ class UNet(nn.Module):
                 f"Input shape {tuple(x.shape)}: expected channels-last "
                 f"({layout}, {self.in_channels}).")
         kinds = self.level_kinds(x.shape)
+        input_grad = self._conv1_input_grad(x.shape)
         x = x.to(self.dtype).contiguous()
         skips = []
         for i, down in enumerate(self.down_convs):
-            x, skip = down(x, kinds[i], reference)
+            x, skip = down(x, kinds[i], reference, input_grad or i > 0)
             skips.append(skip)
         x = skips.pop()   # the bottom level does not pool
         for i, up in enumerate(self.up_convs):

@@ -27,7 +27,9 @@ kernel table in PERF.md each one stands for:
 - :func:`conv_bnact`: K1 ``conv_bnact`` (prologue + (kd, 3, 3) 'same'
   conv over one or two inputs + bias [+ statistics]; rows 1, 3, 4);
   backward K4 ``conv_bnact_dgrad`` (dx, dinv, dshift) and K5
-  ``conv_bnact_wgrad`` (dW, db; rows 8, 13, 14);
+  ``conv_bnact_wgrad`` (dW, db; rows 8, 14), or, for the network
+  input (one input of at most :data:`CONV1_MAX_CIN` channels), row 13's
+  ``conv1_bwd`` (dW, db and, when asked, dx in one pass);
 - :func:`pool_bnact`: K2 ``pool_bnact`` (prologue + (1, 2, 2) / (2, 2, 2)
   max pool; rows 2, 5, 16); backward K6 ``pool_bnact_bwd`` (rows 10,
   15, 17);
@@ -48,10 +50,16 @@ are K3/K7 from a dense input into 32 channels.
 
 K1's and K3's bf16 forwards run tensor-core bodies (``csrc/conv_tc.cu``,
 ``csrc/upconv_tc.cu``) on weights the wrappers pack once per call in
-bf16, and so do K5's and K7's bf16 backwards (``csrc/wgrad_tc.cu``,
-``csrc/upconv_bwd_tc.cu``; K7's dgrad reads K3's packed weight);
-:func:`conv_body`, :func:`upconv_body`, :func:`wgrad_body` and
-:func:`upconv_bwd_body` name the body a launch takes.
+bf16, and so do K4's, K5's and K7's bf16 backwards (``csrc/dgrad_tc.cu``
+on the flipped weight :func:`pack_dgrad_weight` packs,
+``csrc/wgrad_tc.cu``, ``csrc/upconv_bwd_tc.cu``; K7's dgrad reads K3's
+packed weight); float32 runs CUDA-core bodies, and the network input's
+backward (C_in of 1 to 4) row 13's kernel (``csrc/conv1_bwd.cu``) in
+both dtypes, from :func:`conv_bnact`'s backward only (K4's and K5's
+wrappers refuse it). :func:`conv_body`, :func:`upconv_body`,
+:func:`dgrad_body`, :func:`wgrad_body`, :func:`conv1_body` and
+:func:`upconv_bwd_body` name the body a launch takes;
+:data:`BODY_LAUNCHES` counts the launches by body.
 
 Each kernel has a wrapper ``*_kernel`` and a plain PyTorch version
 ``*_plain`` beside it (same signature, same rounding points). Each op's
@@ -79,7 +87,7 @@ element (flat_fused.py:42-45), not to one as torch's pool does.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,20 +98,34 @@ LEAKY_SLOPE = 0.1  # matches modules/layers.py leaky activation
 _ACT_ID = {"linear": 0, "relu": 1, "leaky": 2}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches per wrapper, K1-K7 here, K8-K11 of ops/pallas_bn.py
-# and the vup path's five of ops/vup.py. Each wrapper adds one where it
-# launches its kernel and nowhere else; plain-version calls do not count.
+# Kernel launches per wrapper, K1-K7 and row 13's here, K8-K11 of
+# ops/pallas_bn.py and the vup path's five of ops/vup.py. Each wrapper
+# adds one where it launches its kernel and nowhere else; plain-version
+# calls do not count.
 LAUNCHES = {"conv_bnact": 0, "pool_bnact": 0, "upconv_bnact": 0,
-            "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0,
+            "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0, "conv1_bwd": 0,
             "pool_bnact_bwd": 0, "upconv_bnact_bwd": 0, "bn_stats": 0,
             "bn_normalize": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
             "conv_vup": 0, "conv_vup_dgrad": 0, "conv_vup_wgrad": 0,
             "upconv_stats": 0, "upconv_stats_bwd": 0}
+# The same launches of K1, K3, K4, K5, K7, row 13's and the two vup
+# entries with two bodies (ops/vup.py) by the body each took (row 13's:
+# 'conv1', or 'conv1+dx' with the input gradient): {(kernel, body): n}.
+BODY_LAUNCHES: Dict[Tuple[str, str], int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    BODY_LAUNCHES.clear()
+
+
+def _count(kernel: str, body: Optional[str] = None) -> None:
+    """One launch of ``kernel`` (on ``body``)."""
+    LAUNCHES[kernel] += 1
+    if body is not None:
+        key = (kernel, body)
+        BODY_LAUNCHES[key] = BODY_LAUNCHES.get(key, 0) + 1
 
 
 class FusedActs(NamedTuple):
@@ -260,14 +282,38 @@ def _cuda_grad(dy: Optional[torch.Tensor], y: torch.Tensor,
 # (backward)
 # ---------------------------------------------------------------------------
 
+# The network input's channel counts that row 13's kernel takes
+# (``csrc/conv1_bwd.cu``): a one-input conv of 1 to 4 channels.
+CONV1_MAX_CIN = 4
+
+
+def _conv1(cins: Sequence[int]) -> bool:
+    """Whether a conv over inputs of ``cins`` channels has row 13's
+    backward: one input of at most :data:`CONV1_MAX_CIN` channels."""
+    return len(cins) == 1 and cins[0] <= CONV1_MAX_CIN
+
+
+def conv1_body(cins: Sequence[int], input_grad: bool) -> Optional[str]:
+    """The body :func:`conv_bnact`'s backward runs for the network input
+    (row 13's kernel, ``csrc/conv1_bwd.cu``, both dtypes): ``'conv1+dx'``
+    when the input or prologue gradient is wanted, ``'conv1'`` (dW and db
+    alone) when not; None for any other inputs (K4 and K5)."""
+    if not _conv1(cins):
+        return None
+    return "conv1+dx" if input_grad else "conv1"
+
+
 def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
-                   dgrad: bool) -> None:
-    """The shape contract of K1 (and of K4 when an input or prologue
-    gradient is wanted, and K5): one or two NDHWC inputs of one shape
-    and dtype; a (C_out, sum C_i, kd, 3, 3) weight with kd in {1, 3} and
-    C_out % 32 == 0; any C_i (the CUDA-core body stages a per-channel
-    tail). K4 writes 32-channel blocks of the inputs' grads, so it needs
-    each C_i % 32 == 0."""
+                   dgrad: bool, grad: bool = False) -> None:
+    """The shape contract of K1 and of the backward (``grad``: some
+    gradient is wanted; ``dgrad``: an input or prologue gradient): one
+    or two NDHWC inputs of one shape and dtype; a (C_out, sum C_i, kd, 3,
+    3) weight with kd in {1, 3} and C_out % 32 == 0; any C_i (the
+    CUDA-core bodies stage a per-channel tail). One input of at most
+    :data:`CONV1_MAX_CIN` channels takes row 13's backward, which needs
+    C_out <= 256. Any other input gradient is K4's, which writes
+    32-channel blocks of the inputs' grads: each C_i % 32 == 0 (both of
+    its bodies)."""
     if len(xs) not in (1, 2):
         raise ValueError(f"conv_bnact takes 1 or 2 inputs, got {len(xs)}")
     x0 = xs[0]
@@ -284,9 +330,14 @@ def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
                          f"fit inputs with channels {cins}")
     if cout % 32:
         raise ValueError(f"conv_bnact: C_out % 32 required, got {cout}")
-    if dgrad and any(c % 32 for c in cins):
-        raise ValueError(f"conv_bnact: the input gradient (K4) needs each "
-                         f"C_in % 32 == 0, got {cins}")
+    if (grad or dgrad) and _conv1(cins) and cout > 256:
+        raise ValueError(f"conv_bnact: row 13's backward (C_in <= "
+                         f"{CONV1_MAX_CIN}) needs C_out <= 256, got {cout}")
+    if dgrad and not _conv1(cins) and any(c % 32 for c in cins):
+        raise ValueError(
+            f"conv_bnact: an input gradient needs one input of at most "
+            f"{CONV1_MAX_CIN} channels (row 13's kernel) or each C_in % 32 "
+            f"== 0 (K4), got {cins}")
 
 
 def conv_bnact_fwd_plain(xs: Sequence[torch.Tensor],
@@ -396,6 +447,17 @@ def pack_conv_weight(weight: torch.Tensor, dtype: torch.dtype,
                      .permute(3, 1, 4, 5, 0, 2))
 
 
+def pack_dgrad_weight(weight: torch.Tensor, dtype: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    """K4's tensor-core weight operand: the (C_out, C_in, kd, 3, 3)
+    weight flipped in its three taps and transposed, (C_in, C_out, kd, 3,
+    3), so that the dgrad is K1's 'same' conv of dy_tot with it, packed as
+    :func:`pack_conv_weight` packs K1's: (kd, C_out / 16, 3, 3, C_in,
+    16)."""
+    return pack_conv_weight(weight.detach().flip(2, 3, 4).transpose(0, 1),
+                            dtype, device)
+
+
 def _prologue_ptrs(inv, shift, act, c, dev):
     """The tensor-core bodies' prologue vectors: (None, None) for the
     identity prologue (no ``inv`` and a linear activation: the body
@@ -435,7 +497,7 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
                 _ptr(s), _ptr(q), n, d, h, w, cout, kd, _ACT_ID[act],
                 _stream(dev))
         _build.check(rc, "conv_bnact (tensor-core body)")
-        LAUNCHES["conv_bnact"] += 1
+        _count("conv_bnact", "tc")
         return y, s, q
     inv = _vec(inv, cin, 1.0, dev)
     shift = _vec(shift, cin, 0.0, dev)
@@ -453,7 +515,7 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
             wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
             n, d, h, w, cout, kd, _ACT_ID[act], _stream(dev))
     _build.check(rc, "conv_bnact")
-    LAUNCHES["conv_bnact"] += 1
+    _count("conv_bnact", "cuda-core")
     return y, s, q
 
 
@@ -468,53 +530,95 @@ def _conv_bwd_args(xs, inv, shift, weight, y, dy, ds, dq, what):
             weight.detach().to(device=dev, dtype=xs[0].dtype).float())
 
 
+def dgrad_body(dtype: torch.dtype) -> str:
+    """The body K4 runs: ``'tc'`` (the tensor-core implicit GEMM of
+    ``csrc/dgrad_tc.cu``) for bfloat16 and ``'cuda-core'`` (the float32
+    FMA body of ``csrc/conv_bnact_bwd.cu``) for float32, both with each
+    C_in % 32 == 0 (the network input's dx is row 13's,
+    :func:`conv1_body`)."""
+    return "tc" if dtype == torch.bfloat16 else "cuda-core"
+
+
 def conv_bnact_dgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     """K4: (dxs, dinv, dshift) of :func:`conv_bnact` from the output
     cotangent ``dy`` and the statistics cotangents ``ds``, ``dq`` (each
-    may be None), as :func:`conv_bnact_dgrad_plain`."""
+    may be None), as :func:`conv_bnact_dgrad_plain`, on the body
+    :func:`dgrad_body` picks. Each C_in % 32 == 0."""
+    cins = [x.shape[4] for x in xs]
+    if any(c % 32 for c in cins):
+        raise ValueError(f"conv_bnact_dgrad: each C_in % 32 == 0, got "
+                         f"{cins} (the network input's dx is "
+                         f"conv1_bwd_kernel's)")
+    body = dgrad_body(xs[0].dtype)
     g, ds, dq, inv_v, shift_v, wq = _conv_bwd_args(
         xs, inv, shift, weight, y, dy, ds, dq, "conv_bnact_dgrad")
     x0 = xs[0]
     n, d, h, w = x0.shape[:4]
-    cins = [x.shape[4] for x in xs]
     cout, cin, kd = weight.shape[:3]
     x1 = xs[1] if len(xs) > 1 else None
-    # K1's 'same' conv of dy_tot with the flipped, transposed weights:
-    # (kd, 3, 3, C_out, C_in).
-    wt = wq.flip(2, 3, 4).permute(2, 3, 4, 0, 1).contiguous()
+    dev = x0.device
     dxs = [torch.empty_like(x) for x in xs]
-    dinv = torch.zeros(cin, dtype=torch.float32, device=x0.device)
-    dshift = torch.zeros(cin, dtype=torch.float32, device=x0.device)
+    dinv = torch.zeros(cin, dtype=torch.float32, device=dev)
+    dshift = torch.zeros(cin, dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(x0.device):
-        rc = lib.e3_conv_bnact_dgrad(
-            _DTYPE_ID[x0.dtype], len(xs), g.data_ptr(), y.data_ptr(),
-            _ptr(ds), _ptr(dq), cout, wt.data_ptr(), x0.data_ptr(), cins[0],
-            _ptr(x1), cins[1] if x1 is not None else 0, inv_v.data_ptr(),
-            shift_v.data_ptr(), dxs[0].data_ptr(),
-            dxs[1].data_ptr() if x1 is not None else None, dinv.data_ptr(),
-            dshift.data_ptr(), n, d, h, w, kd, _ACT_ID[act],
-            _stream(x0.device))
-    _build.check(rc, "conv_bnact_dgrad")
-    LAUNCHES["conv_bnact_dgrad"] += 1
+    if body == "tc":
+        inv_t, shift_t = _prologue_ptrs(inv, shift, act, cin, dev)
+        wp = pack_dgrad_weight(weight, x0.dtype, dev)
+        # The pre-pass's scratch (and the db it sums, unused here) at kd =
+        # 3, where each dy and y slab would be read by three planes'
+        # blocks (at kd = 1 by at most two: the blocks over C_in <= 256).
+        e = edb = None
+        if ds is not None and kd == 3:
+            e = torch.empty_like(g)
+            edb = torch.zeros(cout, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_bnact_dgrad_tc(
+                len(xs), g.data_ptr(), y.data_ptr(), _ptr(ds), _ptr(dq),
+                _ptr(e), _ptr(edb), cout, wp.data_ptr(), x0.data_ptr(),
+                cins[0], _ptr(x1), cins[1] if x1 is not None else 0,
+                _ptr(inv_t), _ptr(shift_t), dxs[0].data_ptr(),
+                dxs[1].data_ptr() if x1 is not None else None,
+                dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, kd,
+                _ACT_ID[act], _stream(dev))
+        _build.check(rc, "conv_bnact_dgrad (tensor-core body)")
+    else:
+        # K1's 'same' conv of dy_tot with the flipped, transposed
+        # weights: (kd, 3, 3, C_out, C_in).
+        wt = wq.flip(2, 3, 4).permute(2, 3, 4, 0, 1).contiguous()
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_bnact_dgrad(
+                _DTYPE_ID[x0.dtype], len(xs), g.data_ptr(), y.data_ptr(),
+                _ptr(ds), _ptr(dq), cout, wt.data_ptr(), x0.data_ptr(),
+                cins[0], _ptr(x1), cins[1] if x1 is not None else 0,
+                inv_v.data_ptr(), shift_v.data_ptr(), dxs[0].data_ptr(),
+                dxs[1].data_ptr() if x1 is not None else None,
+                dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, kd,
+                _ACT_ID[act], _stream(dev))
+        _build.check(rc, "conv_bnact_dgrad")
+    _count("conv_bnact_dgrad", body)
     if inv is None:
         return dxs, None, None
     return dxs, dinv, dshift
 
 
 def wgrad_body(dtype: torch.dtype, cins: Sequence[int]) -> str:
-    """The body K5 runs: ``'tc'`` (the tensor-core split-K implicit GEMM
-    of ``csrc/wgrad_tc.cu``) for bfloat16 when every input's channel
-    count is a multiple of 16, else ``'cuda-core'`` (the float32 FMA body
-    of ``csrc/conv_bnact_bwd.cu``: float32, whose tests hold 1e-4 of the
-    scale, and the network input's C_in of 1 or 3)."""
+    """The body K5 runs for inputs of ``cins`` channels: ``'tc'`` (the
+    tensor-core split-K implicit GEMM of ``csrc/wgrad_tc.cu``) for
+    bfloat16 when every input's channel count is a multiple of 16, else
+    ``'cuda-core'`` (the float32 FMA body of ``csrc/conv_bnact_bwd.cu``:
+    float32, whose tests hold 1e-4 of the scale, and other counts). The
+    network input's dW is row 13's (:func:`conv1_body`)."""
     return conv_body(dtype, cins)
 
 
 def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     """K5: float32 (dW, db), dW in ``weight``'s shape, as
     :func:`conv_bnact_wgrad_plain`, on the body :func:`wgrad_body`
-    picks."""
+    picks. Not the network input's (:func:`conv1_bwd_kernel`)."""
+    if _conv1([x.shape[4] for x in xs]):
+        raise ValueError(f"conv_bnact_wgrad: one input of at most "
+                         f"{CONV1_MAX_CIN} channels is conv1_bwd_kernel's")
+    body = wgrad_body(xs[0].dtype, [x.shape[4] for x in xs])
     g, ds, dq, inv_v, shift_v, _ = _conv_bwd_args(
         xs, inv, shift, weight, y, dy, ds, dq, "conv_bnact_wgrad")
     x0 = xs[0]
@@ -526,7 +630,7 @@ def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
                       device=x0.device)
     db = torch.zeros(cout, dtype=torch.float32, device=x0.device)
     lib = _build.library()
-    if wgrad_body(x0.dtype, cins) == "tc":
+    if body == "tc":
         inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, x0.device)
         # The pre-pass's scratch, where the blocks would otherwise read
         # dy and y more than twice (32-channel slices x kd > 2).
@@ -549,48 +653,116 @@ def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
                 _ptr(dq), cout, dwt.data_ptr(), db.data_ptr(), n, d, h, w,
                 kd, _ACT_ID[act], _stream(x0.device))
         _build.check(rc, "conv_bnact_wgrad")
-    LAUNCHES["conv_bnact_wgrad"] += 1
+    _count("conv_bnact_wgrad", body)
     return dwt.permute(4, 3, 0, 1, 2), db
+
+
+def conv1_bwd_plain(xs, inv, shift, weight, y, dy, ds, dq, act,
+                    input_grad=True):
+    """Plain version of row 13's kernel: (dxs, dinv, dshift, dW, db), the
+    plain K5 and, with ``input_grad``, the plain K4 composed (the first
+    three None without it)."""
+    dw, db = conv_bnact_wgrad_plain(xs, inv, shift, weight, y, dy, ds, dq,
+                                    act)
+    if not input_grad:
+        return None, None, None, dw, db
+    return (*conv_bnact_dgrad_plain(xs, inv, shift, weight, y, dy, ds, dq,
+                                    act), dw, db)
+
+
+def conv1_bwd_kernel(xs, inv, shift, weight, y, dy, ds, dq, act,
+                     input_grad=True):
+    """Row 13's kernel (``csrc/conv1_bwd.cu``): the backward of a conv
+    over the network input (one input of at most :data:`CONV1_MAX_CIN`
+    channels), dW and db and, with ``input_grad``, dx, dinv and dshift
+    from one pass over dy and y, as :func:`conv1_bwd_plain`."""
+    if not _conv1([x.shape[4] for x in xs]):
+        raise ValueError(f"conv1_bwd: one input of at most {CONV1_MAX_CIN}"
+                         f" channels, got {[x.shape[4] for x in xs]}")
+    g, ds, dq, inv_v, shift_v, wq = _conv_bwd_args(
+        xs, inv, shift, weight, y, dy, ds, dq, "conv1_bwd")
+    x0 = xs[0]
+    n, d, h, w, cin = x0.shape
+    cout, _, kd = weight.shape[:3]
+    dev = x0.device
+    dwt = torch.zeros((kd, 3, 3, cin, cout), dtype=torch.float32,
+                      device=dev)
+    db = torch.zeros(cout, dtype=torch.float32, device=dev)
+    dx = wt = None
+    dinv = torch.zeros(cin, dtype=torch.float32, device=dev)
+    dshift = torch.zeros(cin, dtype=torch.float32, device=dev)
+    if input_grad:
+        dx = torch.empty_like(x0)
+        wt = wq.permute(2, 3, 4, 1, 0).contiguous()
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.e3_conv1_bwd(
+            _DTYPE_ID[x0.dtype], x0.data_ptr(), cin, inv_v.data_ptr(),
+            shift_v.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(ds),
+            _ptr(dq), cout, _ptr(wt), dwt.data_ptr(), db.data_ptr(),
+            _ptr(dx), dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, kd,
+            _ACT_ID[act], _stream(dev))
+    _build.check(rc, "conv1_bwd")
+    _count("conv1_bwd", conv1_body([cin], input_grad))
+    dw = dwt.permute(4, 3, 0, 1, 2)
+    if not input_grad:
+        return None, None, None, dw, db
+    if inv is None:
+        return [dx], None, None, dw, db
+    return [dx], dinv, dshift, dw, db
 
 
 class _ConvBnAct(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, act, want_stats, reference, x0, x1, inv, shift,
-                weight, bias):
+    def forward(ctx, act, want_stats, reference, input_grad, x0, x1, inv,
+                shift, weight, bias):
         xs = [x0] if x1 is None else [x0, x1]
         ctx.plain = _plain(x0, reference)
         fwd = conv_bnact_fwd_plain if ctx.plain else conv_bnact_fwd_kernel
         y, s, q = fwd(xs, inv, shift, weight, bias, act, want_stats)
         ctx.save_for_backward(x0, x1, inv, shift, weight, y)
         ctx.act = act
+        ctx.input_grad = input_grad
         ctx.bias_dtype = bias.dtype
         ctx.set_materialize_grads(False)
         return (y, s, q) if want_stats else y
 
     @staticmethod
     def backward(ctx, dy, ds=None, dq=None):
-        """K4 only when an input or prologue gradient is wanted (not for
-        the network input, ``_conv1_bwd``), K5 always."""
+        """Row 13's kernel for the network input (dW, db and, when its
+        gradient is wanted, dx in one pass); else K4 when an input or
+        prologue gradient is wanted, and K5. Without ``input_grad`` the
+        inputs' gradients are zeros and no dgrad runs for them."""
         x0, x1, inv, shift, weight, y = ctx.saved_tensors
-        if ctx.plain:
-            dgrad, wgrad = conv_bnact_dgrad_plain, conv_bnact_wgrad_plain
+        xs = [x0] if x1 is None else [x0, x1]
+        args = (xs, inv, shift, weight, y, dy, ds, dq, ctx.act)
+        want = ctx.input_grad and any(ctx.needs_input_grad[4:6]) \
+            or any(ctx.needs_input_grad[6:8])
+        dxs = dinv = dshift = None
+        if conv1_body([x.shape[4] for x in xs], want) is not None:
+            bwd = conv1_bwd_plain if ctx.plain else conv1_bwd_kernel
+            dxs, dinv, dshift, dw, db = bwd(*args, want)
         else:
-            dgrad, wgrad = conv_bnact_dgrad_kernel, conv_bnact_wgrad_kernel
-        args = ([x0] if x1 is None else [x0, x1], inv, shift, weight, y,
-                dy, ds, dq, ctx.act)
-        dx0 = dx1 = dinv = dshift = None
-        if any(ctx.needs_input_grad[3:7]):
-            dxs, dinv, dshift = dgrad(*args)
-            dx0, dx1 = (dxs + [None])[:2]
-        dw, db = wgrad(*args)
-        return (None, None, None, dx0, dx1, dinv, dshift,
+            if ctx.plain:
+                dgrad, wgrad = conv_bnact_dgrad_plain, conv_bnact_wgrad_plain
+            else:
+                dgrad, wgrad = conv_bnact_dgrad_kernel, conv_bnact_wgrad_kernel
+            if want:
+                dxs, dinv, dshift = dgrad(*args)
+            dw, db = wgrad(*args)
+        if not ctx.input_grad:
+            dxs = [torch.zeros_like(x) if need else None for x, need in
+                   zip(xs, ctx.needs_input_grad[4:6])]
+        dx0, dx1 = (list(dxs) + [None])[:2] if dxs is not None \
+            else (None, None)
+        return (None, None, None, None, dx0, dx1, dinv, dshift,
                 dw.to(weight.dtype), db.to(ctx.bias_dtype))
 
 
 def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
                shift: Optional[torch.Tensor], weight: torch.Tensor,
                bias: torch.Tensor, act: str, *, want_stats: bool = False,
-               reference: bool = False):
+               reference: bool = False, input_grad: bool = True):
     """Prologue + (kd, 3, 3) 'same' conv + bias over NDHWC inputs.
 
     Args:
@@ -606,14 +778,19 @@ def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
         want_stats: also return the per-channel float32 (sum, sumsq) of
             the stored output.
         reference: run the plain versions whatever the device.
+        input_grad: False gives ``xs`` a zero gradient without computing
+            one (JAX's fused first conv under ``UNet(input_grad=False)``,
+            ``_conv1_bwd``).
     Returns:
         (N, D, H, W, C_out) raw conv output in the inputs' dtype, or
         (y, s, q) with ``want_stats``. Differentiable in every tensor
         argument.
     """
     xs = list(xs)
-    _conv_contract(xs, weight, _needs_grad(*xs, inv, shift))
-    return _ConvBnAct.apply(act, want_stats, reference, xs[0],
+    _conv_contract(xs, weight,
+                   _needs_grad(*(xs if input_grad else ()), inv, shift),
+                   _needs_grad(*xs, inv, shift, weight, bias))
+    return _ConvBnAct.apply(act, want_stats, reference, input_grad, xs[0],
                             xs[1] if len(xs) > 1 else None, inv, shift,
                             weight, bias)
 
@@ -863,7 +1040,7 @@ def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
                 b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q), n, d, h, w,
                 cin, cout, kd, _ACT_ID[act], _stream(dev))
         _build.check(rc, "upconv_bnact (tensor-core body)")
-        LAUNCHES["upconv_bnact"] += 1
+        _count("upconv_bnact", "tc")
         return y, s, q
     inv = _vec(inv, cin, 1.0, dev)
     shift = _vec(shift, cin, 0.0, dev)
@@ -875,7 +1052,7 @@ def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
             wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
             n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
     _build.check(rc, "upconv_bnact")
-    LAUNCHES["upconv_bnact"] += 1
+    _count("upconv_bnact", "cuda-core")
     return y, s, q
 
 
@@ -938,7 +1115,7 @@ def upconv_bnact_bwd_kernel(x, inv, shift, weight, y, dy, ds, dq, act,
                 dshift.data_ptr(), dwt.data_ptr(), db.data_ptr(),
                 n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
         _build.check(rc, "upconv_bnact_bwd")
-    LAUNCHES["upconv_bnact_bwd"] += 1
+    _count("upconv_bnact_bwd", body)
     if inv is None or not input_grad:
         dinv = dshift = None
     return dx, dinv, dshift, dwt.permute(3, 4, 0, 1, 2), db

@@ -61,8 +61,8 @@ import torch
 
 from elektronn3_tpu_torch.ops import _build
 from elektronn3_tpu_torch.ops.fused import (
-    LAUNCHES, _ACT_ID, _DTYPE_ID, _check_cuda, _check_dtype, _cuda_grad,
-    _plain, _ptr, _stat_cts, _stream, _vec, channel_stats,
+    LAUNCHES, _ACT_ID, _DTYPE_ID, _check_cuda, _check_dtype, _count,
+    _cuda_grad, _plain, _ptr, _stat_cts, _stream, _vec, channel_stats,
     conv_bnact_dgrad_gm, conv_bnact_fwd_plain, conv_bnact_wgrad_plain,
     pack_upconv_weight, upconv_bnact_bwd_plain, upconv_bnact_fwd_plain)
 
@@ -290,7 +290,7 @@ def upconv_stats_bwd_kernel(carry, invc, shiftc, wu, bu, ds, dq, act_c,
                 dwt.data_ptr(), dbu.data_ptr(), db_e.data_ptr(), n, d, h, w,
                 cc, cu, _ACT_ID[act_c], _stream(dev))
         _build.check(rc, "upconv_stats_bwd")
-    LAUNCHES["upconv_stats_bwd"] += 1
+    _count("upconv_stats_bwd", body)
     if invc is None:
         dinvc = dshiftc = None
     return dcarry, dinvc, dshiftc, dwt.permute(3, 4, 0, 1, 2), dbu
@@ -476,7 +476,7 @@ def conv_vup_wgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
                 y.data_ptr(), _ptr(ds), _ptr(dq), cout, dwt.data_ptr(),
                 db.data_ptr(), n, d, h, w, _ACT_ID[act], _stream(dev))
         _build.check(rc, "conv_vup_wgrad")
-    LAUNCHES["conv_vup_wgrad"] += 1
+    _count("conv_vup_wgrad", body)
     return dwt.permute(4, 3, 0, 1, 2), db
 
 

@@ -1,5 +1,5 @@
-"""Times the port's fused kernels K1, K3, K4, K5 and K7 and two vup
-entries (bf16, CUDA events, 20 launches after one warm-up) in the
+"""Times the port's fused kernels K1, K3, K4, K5 and K7, row 13's and two
+vup entries (bf16, CUDA events, 20 launches after one warm-up) in the
 checkout that is the working directory, and prints one line.
 
     cd <checkout> && python3 <path>/kernel_times.py
@@ -21,10 +21,15 @@ different machines or cards are not comparable. Shapes:
   64->32 at bench.py's batch 8 of (44, 88, 88);
 - K4 and K5 of that up_2 merge, K7 of that upconv, the vup entries of
   that up_2 (row 23, ``upconv_stats_bwd``, and row 9's weight gradient,
-  ``conv_vup_wgrad``, with statistics cotangents), K5 at bench.py's
-  up_1 merge 64+64->64 kd=3 and L0 conv2 32->32 kd=1 (with statistics
-  cotangents), K7 at its up_1 (2, 2, 2) 128->64 from (8, 22, 22, 22) and
-  at the 2D model's up_1 (1, 2, 2) 128->64 from (8, 1, 160, 160) (dense
+  ``conv_vup_wgrad``, with statistics cotangents), K4 and K5 at
+  bench.py's up_1 merge 64+64->64 kd=3 and L0 conv2 32->32 kd=1 and K4 at
+  the start_filts=64 model's L1 merge 128+128->128 kd=3 (8, 44, 44, 44)
+  (with statistics cotangents), row 13 (the weight gradient of the
+  one-channel conv1: the network input takes no gradient; through
+  ``conv1_bwd_kernel`` where the checkout has it, else K5's wrapper) at
+  bench.py's L0 1->32 and the 2D model's (8, 1, 640, 640) 1->32, K7 at
+  its up_1 (2, 2, 2) 128->64 from (8, 22, 22, 22) and at the 2D model's
+  up_1 (1, 2, 2) 128->64 from (8, 1, 160, 160) (dense
   inputs); these first, on inputs from the plain forwards, so that
   nothing the forward kernels allocate moves their inputs between two
   checkouts.
@@ -99,12 +104,17 @@ def main():
                                           "relu"))))
     del skip, yv, dyv, margs
     # K5 at bench.py's up_1 merge 64+64->64 kd3 (with ds/dq) and L0 conv2
-    # 32->32 kd1; K7 at its up_1 (2,2,2) 128->64 from (8,22,22,22) and at
-    # the 2D model's up_1 (1,2,2) 128->64 from (8,1,160,160), both from a
-    # dense input.
-    for label, shape, cins, cout, kd in (
-            ("bench up_1 merge 64+64 kd3", (8, 44, 44, 44), (64, 64), 64, 3),
-            ("bench L0 conv2 32->32", (8, 44, 88, 88), (32,), 32, 1)):
+    # 32->32 kd1; K4 at the same two and at the sf=64 model's L1 merge
+    # 128+128->128 kd3; K7 at its up_1 (2,2,2) 128->64 from (8,22,22,22)
+    # and at the 2D model's up_1 (1,2,2) 128->64 from (8,1,160,160), both
+    # from a dense input.
+    for label, shape, cins, cout, kd, kernels in (
+            ("bench up_1 merge 64+64 kd3", (8, 44, 44, 44), (64, 64), 64, 3,
+             "K5 K4"),
+            ("bench L0 conv2 32->32", (8, 44, 88, 88), (32,), 32, 1,
+             "K5 K4"),
+            ("sf64 L1 merge 128+128 kd3", (8, 44, 44, 44), (128, 128), 128,
+             3, "K4")):
         xs = [r(*shape, c).to(bf) for c in cins]
         cin = sum(cins)
         w, b, inv, sh = (r(cout, cin, kd, 3, 3, scale=0.05), r(cout), r(cin),
@@ -112,9 +122,31 @@ def main():
         y = fused.conv_bnact_fwd_plain(xs, inv, sh, w, b, "relu")[0]
         dy = r(*y.shape, scale=0.1).to(bf)
         dsc, dqc = r(cout, scale=1e-3), r(cout, scale=1e-4)
-        out.append((f"K5 {label}", ms(lambda: fused.conv_bnact_wgrad_kernel(
-            xs, inv, sh, w, y, dy, dsc, dqc, "relu"))))
-        del xs, y, dy
+        bargs = (xs, inv, sh, w, y, dy, dsc, dqc, "relu")
+        if "K5" in kernels:
+            out.append((f"K5 {label}", ms(
+                lambda: fused.conv_bnact_wgrad_kernel(*bargs))))
+        out.append((f"K4 {label}", ms(
+            lambda: fused.conv_bnact_dgrad_kernel(*bargs))))
+        del xs, y, dy, bargs
+        torch.cuda.empty_cache()
+    # Row 13: conv1 1->32 of bench.py's step and of the 2D model's, with
+    # statistics cotangents: its weight gradient (a checkout without
+    # conv1_bwd_kernel runs it on K5's wrapper).
+    conv1 = getattr(fused, "conv1_bwd_kernel", None)
+    for label, shape in (("bench L0 conv1 1->32", (8, 44, 88, 88)),
+                         ("2D L0 conv1 1->32", (8, 1, 640, 640))):
+        x = [r(*shape, 1).to(bf)]
+        w, b = r(32, 1, 1, 3, 3, scale=0.3), r(32)
+        y = fused.conv_bnact_fwd_plain(x, None, None, w, b, "linear")[0]
+        dy = r(*y.shape, scale=0.1).to(bf)
+        dsc, dqc = r(32, scale=1e-3), r(32, scale=1e-4)
+        args = (x, None, None, w, y, dy, dsc, dqc, "linear")
+        out.append((f"row 13 {label}", ms(
+            (lambda: conv1(*args, False)) if conv1 is not None
+            else lambda: fused.conv_bnact_wgrad_kernel(*args))))
+        del x, y, dy
+        torch.cuda.empty_cache()
     for label, shape, cin, cout, kd in (
             ("bench up_1 (2,2,2) 128->64", (8, 22, 22, 22), 128, 64, 2),
             ("2D up_1 (1,2,2) 128->64", (8, 1, 160, 160), 128, 64, 1)):

@@ -135,9 +135,9 @@ def test_cuda_conv_bnact_matches_plain(dtype, cins, kd, act, cout, nd,
 @pytest.mark.parametrize("cins,kd,act,cout,nd", CONV_CASES)
 def test_cuda_conv_bnact_backward_matches_plain(dtype, cins, kd, act, cout,
                                                 nd):
-    """K4 (dx, dinv, dshift; not for the network input's C_in of 1 or
-    3) and K5 (dW, db) against the plain backward, with nonzero
-    statistics cotangents."""
+    """K4 (dx, dinv, dshift) and K5 (dW, db) against the plain backward,
+    with nonzero statistics cotangents; the network input's C_in of 1 or
+    3 takes row 13's kernel (with dx) in their place."""
     dev = _cuda()
     xs, inv, shift, w, b, g = _conv_case(dev, dtype, cins, kd, cout, nd,
                                          seed=1)
@@ -148,17 +148,22 @@ def test_cuda_conv_bnact_backward_matches_plain(dtype, cins, kd, act, cout,
     dq = (0.1 * torch.randn(cout, generator=g)).to(dev)
     args = (xs, inv, shift, w, y, dy, ds, dq, act)
     fused.reset_launches()
-    if cins[0] % 32 == 0:
+    conv1 = cins[0] <= fused.CONV1_MAX_CIN
+    if conv1:
+        dxs, dinv, dshift, dw, db = fused.conv1_bwd_kernel(*args, True)
+    else:
         dxs, dinv, dshift = fused.conv_bnact_dgrad_kernel(*args)
-        rdxs, rdinv, rdshift = fused.conv_bnact_dgrad_plain(*args)
-        torch.cuda.synchronize()
-        for a, r in zip(dxs, rdxs):
-            _assert_kernel(a, r)
-        _assert_sum(dinv, rdinv)
-        _assert_sum(dshift, rdshift)
-    dw, db = fused.conv_bnact_wgrad_kernel(*args)
-    assert fused.LAUNCHES["conv_bnact_dgrad"] == int(cins[0] % 32 == 0)
-    assert fused.LAUNCHES["conv_bnact_wgrad"] == 1
+    rdxs, rdinv, rdshift = fused.conv_bnact_dgrad_plain(*args)
+    torch.cuda.synchronize()
+    for a, r in zip(dxs, rdxs):
+        _assert_kernel(a, r)
+    _assert_sum(dinv, rdinv)
+    _assert_sum(dshift, rdshift)
+    if not conv1:
+        dw, db = fused.conv_bnact_wgrad_kernel(*args)
+    assert fused.LAUNCHES["conv_bnact_dgrad"] == int(not conv1)
+    assert fused.LAUNCHES["conv_bnact_wgrad"] == int(not conv1)
+    assert fused.LAUNCHES["conv1_bwd"] == int(conv1)
     rdw, rdb = fused.conv_bnact_wgrad_plain(*args)
     torch.cuda.synchronize()
     _assert_sum(dw, rdw)
@@ -313,9 +318,9 @@ def test_cuda_unet_matches_reference_forward(dtype):
     torch.cuda.synchronize()
     assert fused.LAUNCHES == {"conv_bnact": 8, "pool_bnact": 2,
                               "upconv_bnact": 2, "conv_bnact_dgrad": 0,
-                              "conv_bnact_wgrad": 0, "pool_bnact_bwd": 0,
-                              "upconv_bnact_bwd": 0, **_NO_BN,
-                              **_NO_VUP}
+                              "conv_bnact_wgrad": 0, "conv1_bwd": 0,
+                              "pool_bnact_bwd": 0, "upconv_bnact_bwd": 0,
+                              **_NO_BN, **_NO_VUP}
     ref = m(x, reference=True)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((y.float() - ref.float()).abs().max()) <= \
@@ -340,8 +345,8 @@ def test_cuda_unet_2d_matches_reference_forward(dtype):
     torch.cuda.synchronize()
     assert fused.LAUNCHES == {
         "conv_bnact": 8, "pool_bnact": 2, "upconv_bnact": 2,
-        "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0, "pool_bnact_bwd": 0,
-        "upconv_bnact_bwd": 0, **_NO_BN, **_NO_VUP}
+        "conv_bnact_dgrad": 0, "conv_bnact_wgrad": 0, "conv1_bwd": 0,
+        "pool_bnact_bwd": 0, "upconv_bnact_bwd": 0, **_NO_BN, **_NO_VUP}
     ref = m(x, reference=True)
     assert y.shape == (3, 44, 76, 2)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
@@ -833,9 +838,10 @@ def test_cuda_unet_vup_matches_reference(dtype):
     launches = _check_step_against_reference(m, x, t, dtype)
     assert launches == {**dict.fromkeys(launches, 0), "conv_bnact": 7,
                         "pool_bnact": 2, "upconv_bnact": 1,
-                        "conv_bnact_dgrad": 6, "conv_bnact_wgrad": 7,
-                        "pool_bnact_bwd": 2, "upconv_bnact_bwd": 1,
-                        "conv_vup": 1, "conv_vup_dgrad": 1,
+                        "conv_bnact_dgrad": 6, "conv_bnact_wgrad": 6,
+                        "conv1_bwd": 1, "pool_bnact_bwd": 2,
+                        "upconv_bnact_bwd": 1, "conv_vup": 1,
+                        "conv_vup_dgrad": 1,
                         "conv_vup_wgrad": 1, "upconv_stats": 1,
                         "upconv_stats_bwd": 1}
     m.eval()
@@ -1200,3 +1206,223 @@ def test_cuda_vup_tc_bodies_match_cuda_core(shape, cc, cu, invc_given,
                               "upconv_stats_bwd": 2, "conv_vup_wgrad": 2}
     torch.cuda.synchronize()
     _assert_vup_bwd(tc_s, core_s, tc_w, core_w)
+
+
+# ---------------------------------------------------------------------------
+# K4's tensor-core body (csrc/dgrad_tc.cu) and row 13's kernel
+# (csrc/conv1_bwd.cu)
+# ---------------------------------------------------------------------------
+
+# K4's bf16 tensor-core body: (input channels, C_out: dy's channels, kd,
+# (N, D, H, W), prologue, activation). W = 37 takes 16-column tiles and
+# leaves a partial one, 22 and 44 32-column ones, H = 13 and 11 a partial
+# row of tiles; dx of 32 to 128 + 128 channels takes blocks of 32, 64 and
+# 128 (the 128 + 128 merge two of them); the last case has N * D >
+# 65535. "bn": a prologue with random vectors; "none": the identity
+# prologue with a linear activation (row 26's dgrad).
+TC_DGRAD_CASES = [
+    ((32,), 32, 1, (2, 3, 13, 37), "bn", "relu"),
+    ((32, 32), 32, 1, (8, 1, 11, 44), "bn", "relu"),
+    ((32,), 64, 3, (2, 5, 13, 37), "bn", "leaky"),
+    ((64,), 64, 3, (2, 5, 13, 37), "bn", "linear"),
+    ((64, 64), 64, 3, (2, 5, 11, 22), "bn", "relu"),
+    ((64, 64), 64, 1, (8, 1, 13, 37), "bn", "leaky"),
+    ((64,), 128, 3, (2, 4, 11, 22), "bn", "relu"),
+    ((128,), 128, 3, (2, 4, 13, 37), "bn", "leaky"),
+    ((128, 128), 128, 3, (1, 3, 13, 13), "bn", "relu"),
+    ((128, 128), 128, 1, (2, 3, 11, 22), "bn", "relu"),
+    ((32,), 32, 1, (2, 3, 13, 37), "none", "linear"),
+    ((32, 32), 32, 1, (2, 3, 11, 22), "none", "linear"),
+    ((32,), 32, 1, (2, 32769, 3, 5), "bn", "relu"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("cins,cout,kd,shape,pro,act", TC_DGRAD_CASES)
+def test_cuda_dgrad_tc_body_matches_plain(cins, cout, kd, shape, pro, act,
+                                          stats):
+    """K4's bf16 tensor-core body against the plain version: dx of each
+    input, dinv and dshift (with a prologue); with statistics cotangents
+    at kd = 1 it folds dy_tot on load, at kd = 3 it runs the pre-pass.
+    One launch counted, on the tc body."""
+    dev = _cuda()
+    assert fused.dgrad_body(torch.bfloat16) == "tc"
+    g = torch.Generator().manual_seed(15)
+    xs = [torch.randn(*shape, c, generator=g).to(dev, torch.bfloat16)
+          for c in cins]
+    cin = sum(cins)
+    w = (0.1 * torch.randn(cout, cin, kd, 3, 3, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    if pro == "bn":
+        inv = torch.randn(cin, generator=g).to(dev)
+        shift = torch.randn(cin, generator=g).to(dev)
+    y = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, act)[0]
+    dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, torch.bfloat16)
+    ds = dq = None
+    if stats:
+        ds = torch.randn(cout, generator=g).to(dev)
+        dq = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    args = (xs, inv, shift, w, y, dy, ds, dq, act)
+    fused.reset_launches()
+    dxs, dinv, dshift = fused.conv_bnact_dgrad_kernel(*args)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv_bnact_dgrad": 1}
+    assert fused.BODY_LAUNCHES == {("conv_bnact_dgrad", "tc"): 1}
+    rdxs, rdinv, rdshift = fused.conv_bnact_dgrad_plain(*args)
+    torch.cuda.synchronize()
+    for a, r in zip(dxs, rdxs):
+        _assert_kernel(a, r)
+    if pro == "bn":
+        _assert_sum(dinv, rdinv)
+        _assert_sum(dshift, rdshift)
+    else:
+        assert dinv is None and dshift is None
+
+
+# Row 13's kernel: (C_in, C_out, kd, prologue, statistics cotangents) at
+# a ragged (2, 5, 13, 37) input; "none" is the network input's identity
+# prologue, "bn" a relu prologue with random vectors.
+CONV1_CASES = [
+    (1, 32, 1, "none", True), (1, 64, 1, "none", True),
+    (1, 32, 3, "none", True), (1, 64, 3, "bn", True),
+    (3, 32, 1, "bn", True), (3, 64, 1, "none", True),
+    (3, 32, 3, "none", True), (3, 64, 3, "bn", True),
+    (2, 32, 1, "bn", False), (4, 64, 1, "none", True),
+    (4, 32, 3, "bn", False), (1, 32, 1, "none", False),
+    # C_out / CPT no power of two: the last lanes of a voxel are idle
+    # (CPT 8, 4 and 1), and the widest C_out.
+    (1, 96, 1, "none", True), (2, 160, 1, "bn", True),
+    (3, 96, 3, "bn", True), (1, 128, 3, "none", True),
+    (4, 256, 1, "bn", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,kd,pro,stats", CONV1_CASES)
+def test_cuda_conv1_bwd_matches_plain(cin, cout, kd, pro, stats, dtype,
+                                      input_grad):
+    """Row 13's kernel against its plain version (the plain K5 and K4
+    composed): dW and db, and with ``input_grad`` dx (and dinv, dshift
+    with a prologue). One launch counted."""
+    dev = _cuda()
+    body = fused.conv1_body((cin,), input_grad)
+    assert body == ("conv1+dx" if input_grad else "conv1")
+    g = torch.Generator().manual_seed(16)
+    xs = [torch.randn(2, 5, 13, 37, cin, generator=g).to(dev, dtype)]
+    w = (0.3 * torch.randn(cout, cin, kd, 3, 3, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    act = "linear"
+    if pro == "bn":
+        inv = torch.randn(cin, generator=g).to(dev)
+        shift = torch.randn(cin, generator=g).to(dev)
+        act = "relu"
+    y = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, act)[0]
+    dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, dtype)
+    ds = dq = None
+    if stats:
+        ds = torch.randn(cout, generator=g).to(dev)
+        dq = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    args = (xs, inv, shift, w, y, dy, ds, dq, act, input_grad)
+    fused.reset_launches()
+    got = fused.conv1_bwd_kernel(*args)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv1_bwd": 1}
+    assert fused.BODY_LAUNCHES == {("conv1_bwd", body): 1}
+    ref = fused.conv1_bwd_plain(*args)
+    torch.cuda.synchronize()
+    _assert_sum(got[3], ref[3])
+    _assert_sum(got[4], ref[4])
+    if not input_grad:
+        assert got[:3] == (None, None, None)
+        return
+    _assert_kernel(got[0][0], ref[0][0])
+    if pro == "bn":
+        _assert_sum(got[1], ref[1])
+        _assert_sum(got[2], ref[2])
+    else:
+        assert got[1] is None and got[2] is None
+
+
+def _input_grad_step(m, x, t, reference):
+    """The loss, every parameter gradient and the input's gradient of
+    one training step, and the kernels' launch counts."""
+    from elektronn3_tpu_torch.modules.loss import CEDiceLoss
+    x = x.detach().clone().requires_grad_(True)
+    m.zero_grad(set_to_none=True)
+    fused.reset_launches()
+    loss = CEDiceLoss(1.0, 1.0)(m.train()(x, reference=reference), t)
+    loss.backward()
+    return (float(loss.detach()), {n: p.grad.float().clone()
+                                   for n, p in m.named_parameters()},
+            x.grad, dict(fused.LAUNCHES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unet_input_grad_matches_reference(dtype):
+    """The headline structure with ``input_grad=True`` and an input that
+    requires a gradient: one training step launches row 13's kernel
+    once (with dx, in place of L0 conv1's K5) and tracks reference=True
+    in the loss, the parameter gradients
+    (``_check_step_against_reference``) and the input's gradient, in the
+    L2 norm within 1e-2 (bf16; 1e-3 float32) of its norm plus 3 times the
+    reference step's own difference under a one-ulp input change. With
+    the default ``input_grad=False`` the same input's gradient is zeros
+    in bf16, where JAX's 'auto' runs its fused conv1 (W = 40 <= 128), and
+    the real one in float32, where it does not. After 10 Adam steps the
+    input's gradient is compared again, and a zero dx must fail that
+    limit."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    t = (x[..., 0] > 0).long()
+    bf16 = dtype == torch.bfloat16
+    rel, ulp = (1e-2, 2.0 ** -8) if bf16 else (1e-3, 2.0 ** -23)
+    m = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,), dtype=dtype,
+             input_grad=True, device=dev,
+             generator=torch.Generator().manual_seed(0))
+    launches = _check_step_against_reference(m, x, t, dtype)
+    assert launches["conv1_bwd"] == 1
+    assert launches["conv_bnact_wgrad"] == 7
+    _, _, gx, launches = _input_grad_step(m, x, t, False)
+    assert launches["conv1_bwd"] == 1
+    _, _, rx, _ = _input_grad_step(m, x, t, True)
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(11))
+    _, _, mx, _ = _input_grad_step(m, x * (1 + ulp * noise.to(dev)), t, True)
+    torch.cuda.synchronize()
+    err = float((gx - rx).norm())
+    limit = rel * float(rx.norm()) + 3 * float((mx - rx).norm())
+    assert bool(torch.isfinite(gx).all()) and float(rx.norm()) > 0
+    assert err <= limit, err
+    m0 = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,), dtype=dtype,
+              device=dev, generator=torch.Generator().manual_seed(0))
+    _, _, gx0, launches = _input_grad_step(m0, x, t, False)
+    assert launches["conv1_bwd"] == 1
+    if bf16:
+        assert bool((gx0 == 0).all())
+    else:
+        assert float((gx0 - rx).norm()) <= limit
+    # At initialisation the one-ulp change moves the bf16 reference's dx
+    # by about half its norm, so the limit above would pass a zero dx;
+    # after 10 Adam steps by about a sixth. There the same comparison
+    # holds and must fail a zero dx (error |ref|): the control.
+    from elektronn3_tpu_torch.modules.loss import CEDiceLoss
+    opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+    for _ in range(10):
+        opt.zero_grad(set_to_none=True)
+        CEDiceLoss(1.0, 1.0)(m.train()(x), t).backward()
+        opt.step()
+    _, _, gx, _ = _input_grad_step(m, x, t, False)
+    _, _, rx, _ = _input_grad_step(m, x, t, True)
+    _, _, mx, _ = _input_grad_step(m, x * (1 + ulp * noise.to(dev)), t, True)
+    torch.cuda.synchronize()
+    rn = float(rx.norm())
+    limit = rel * rn + 3 * float((mx - rx).norm())
+    assert float((gx - rx).norm()) <= limit, (float((gx - rx).norm()), limit)
+    assert rn > limit, (rn, limit)

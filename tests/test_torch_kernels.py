@@ -228,9 +228,11 @@ def test_contract_is_checked_on_the_cpu():
     with pytest.raises(ValueError, match="C_out % 32"):
         fused.conv_bnact([x], None, None, torch.zeros(16, 3, 1, 3, 3),
                          torch.zeros(16), "linear")
-    xg = torch.zeros(1, 2, 4, 4, 3, requires_grad=True)
+    # An input gradient at a channel count neither row 13's kernel (at
+    # most 4) nor K4 (% 32) takes.
+    xg = torch.zeros(1, 2, 4, 4, 5, requires_grad=True)
     with pytest.raises(ValueError, match="K4"):
-        fused.conv_bnact([xg], None, None, torch.zeros(32, 3, 1, 3, 3),
+        fused.conv_bnact([xg], None, None, torch.zeros(32, 5, 1, 3, 3),
                          torch.zeros(32), "linear")
     with pytest.raises(ValueError, match="pool_bnact"):
         fused.pool_bnact(torch.zeros(1, 2, 3, 4, 8), None, None, "relu",
@@ -299,7 +301,7 @@ def _conv_flat_case(rng, nin, act):
         range(5)
 
 
-def _conv1_case(rng, act):
+def _conv1_case(rng, act, input_grad=False):
     B, D, H, W = 2, 2, 6, 8
     x = rng.normal(size=(B, D, H, W, 1)).astype(np.float32)
     w = (0.3 * rng.normal(size=(1, 3, 3, 1, 32))).astype(np.float32)
@@ -307,15 +309,18 @@ def _conv1_case(rng, act):
 
     def jfn(x, w, b):
         (y,), (s, q) = ffu.conv1_bnstats_flat(x, w, b, H, W, jnp.float32,
-                                              False, False)
+                                              input_grad, False)
         return fc.from_flat((y,), H, W, padded=True), _fold32(s), \
             _fold32(q)
 
     def pfn(x, w, b):
         return fused.conv_bnact([x], None, None, w.permute(4, 3, 0, 1, 2), b,
                                 "linear", want_stats=True)
-    # The network input takes no gradient (JAX input_grad=False).
-    return jfn, pfn, (x, w, b), _stat_cts((B, D, H, W, 32)), (1, 2)
+    # Without input_grad the network input takes no gradient (JAX's
+    # default); with it, the port's row-13 backward gives dx (the plain
+    # K4 composed with K5) against the kernel's in-kernel dgrad.
+    wrt = (0, 1, 2) if input_grad else (1, 2)
+    return jfn, pfn, (x, w, b), _stat_cts((B, D, H, W, 32)), wrt
 
 
 def _conv64_case(rng, cins, kd, act):
@@ -432,6 +437,8 @@ BWD_CASES = {
     "row10-pool122-tie": (lambda r: _pool_case(r, (1, 2, 2), "relu", True),
                           "_pool_bwd_impl"),
     "row13-conv1": (lambda r: _conv1_case(r, "linear"), "_conv1_bwd"),
+    "row13-conv1-input-grad": (lambda r: _conv1_case(r, "linear", True),
+                               "_conv1_bwd"),
     "row14-cin32-kd3-relu": (lambda r: _conv64_case(r, (32,), 3, "relu"),
                              "_conv64_bwd"),
     "row14-merge64+64-kd3-leaky": (

@@ -1,7 +1,8 @@
-"""The tensor-core bodies of K1, K3, K5 and K7 (``csrc/conv_tc.cu``,
-``csrc/upconv_tc.cu``, ``csrc/wgrad_tc.cu``, ``csrc/upconv_bwd_tc.cu``)
-on the CPU: the wrappers' weight packing, which K1 and K3 read as their
-B operand and K7's dgrad reads K-major as its own, and the body
+"""The tensor-core bodies of K1, K3, K4, K5 and K7 (``csrc/conv_tc.cu``,
+``csrc/upconv_tc.cu``, ``csrc/dgrad_tc.cu``, ``csrc/wgrad_tc.cu``,
+``csrc/upconv_bwd_tc.cu``) and row 13's kernel (``csrc/conv1_bwd.cu``)
+on the CPU: the wrappers' weight packing, which K1, K3 and K4 read as
+their B operand and K7's dgrad reads K-major as its own, and the body
 selectors, which decide from the dtype and the channel counts which body
 a CUDA launch takes. The kernels themselves run only on the card
 (``test_torch_cuda.py``).
@@ -111,8 +112,8 @@ def test_plain_path_launches_nothing():
     (torch.float32, (1,), "cuda-core")])
 def test_wgrad_body_selector(dtype, cins, body):
     """K5 takes the tensor-core body for bf16 with every C_in % 16 == 0,
-    the CUDA-core body for float32 and for the network input's C_in of 1
-    or 3 (row 13)."""
+    the CUDA-core body for float32 and other counts (the network input's
+    C_in of 1 or 3 does not reach K5: row 13's kernel takes it)."""
     assert fused.wgrad_body(dtype, cins) == body
 
 
@@ -269,3 +270,153 @@ def test_upconv_packing_is_the_recompute_operand(cc, cu):
     ref = vup._upconv_plain(carry, invc, shiftc, wu, bu, "relu")
     assert torch.allclose(got.float(), ref.float(), rtol=2.0 ** -7,
                           atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K4's tensor-core body and row 13's kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout,cin,kd", [(32, 32, 1), (32, 64, 1),
+                                         (64, 32, 3), (64, 128, 3),
+                                         (128, 256, 3), (128, 64, 1)])
+def test_dgrad_weight_packing_is_the_flipped_weight(cout, cin, kd,
+                                                    src_dtype):
+    """K4's operand (``pack_dgrad_weight``) against the unpacked flipped
+    weight: (kd, C_out / 16, 3, 3, C_in, 16) holds at (dz, kc, ky, kx,
+    ci, j) the weight W[kc * 16 + j, ci, kd - 1 - dz, 2 - ky, 2 - kx]
+    rounded to bf16, exactly, and it is K1's packing of the (C_in, C_out)
+    transposed, tap-flipped weight."""
+    w = _weight((cout, cin, kd, 3, 3), 3 * cin + cout + kd, src_dtype)
+    p = fused.pack_dgrad_weight(w, torch.bfloat16, CPU)
+    assert p.dtype == torch.bfloat16 and p.is_contiguous()
+    assert p.shape == (kd, cout // 16, 3, 3, cin, 16)
+    back = p.permute(1, 5, 4, 0, 2, 3).reshape(cout, cin, kd, 3, 3)
+    assert torch.equal(back, w.to(torch.bfloat16).flip(2, 3, 4))
+    dz, kc, ky, kx, ci, j = kd - 1, cout // 16 - 1, 2, 0, cin - 1, 5
+    assert p[dz, kc, ky, kx, ci, j] == w[kc * 16 + j, ci, kd - 1 - dz,
+                                         2 - ky, 2 - kx].to(torch.bfloat16)
+    assert torch.equal(p, fused.pack_conv_weight(
+        w.flip(2, 3, 4).transpose(0, 1), torch.bfloat16, CPU))
+
+
+@pytest.mark.parametrize("cin,cout,kd", [(32, 32, 1), (32, 64, 3),
+                                         (64, 32, 3)])
+def test_dgrad_packing_is_the_dgrad_operand(cin, cout, kd):
+    """K4's tensor-core body computes K1's 'same' conv of dy_tot with the
+    packed weight as K1's packing of a (C_in, C_out, kd, 3, 3) weight:
+    that conv, in float32 on the unpacked operand, is the plain K4's
+    input gradient (identity prologue, linear) within one bf16
+    rounding."""
+    g = torch.Generator().manual_seed(cin + cout + kd)
+    x = torch.randn(2, 4, 5, 7, cin, generator=g).to(torch.bfloat16)
+    w = (0.1 * torch.randn(cout, cin, kd, 3, 3, generator=g)) \
+        .to(torch.bfloat16)
+    dy = torch.randn(2, 4, 5, 7, cout, generator=g).to(torch.bfloat16)
+    p = fused.pack_dgrad_weight(w, torch.bfloat16, CPU).float()
+    wk1 = p.permute(4, 1, 5, 0, 2, 3).reshape(cin, cout, kd, 3, 3)
+    got = torch.nn.functional.conv3d(
+        dy.float().permute(0, 4, 1, 2, 3), wk1, padding=(kd // 2, 1, 1))
+    got = got.permute(0, 2, 3, 4, 1).to(torch.bfloat16)
+    ref = fused.conv_bnact_dgrad_plain([x], None, None, w.float(), dy, dy,
+                                       None, None, "linear")[0][0]
+    assert torch.allclose(got.float(), ref.float(), rtol=2.0 ** -7,
+                          atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,cins,body", [
+    (torch.bfloat16, (32,), "tc"), (torch.bfloat16, (64, 64), "tc"),
+    (torch.bfloat16, (128, 128), "tc"), (torch.bfloat16, (32, 32), "tc"),
+    (torch.float32, (32,), "cuda-core"),
+    (torch.float32, (64, 64), "cuda-core")])
+def test_dgrad_body_selector(dtype, cins, body):
+    """K4 (each C_in % 32 == 0) runs its tensor-core body for bf16 and
+    its CUDA-core body for float32."""
+    assert fused.dgrad_body(dtype) == body
+
+
+@pytest.mark.parametrize("cins,input_grad,body", [
+    ((1,), True, "conv1+dx"), ((1,), False, "conv1"),
+    ((3,), True, "conv1+dx"), ((3,), False, "conv1"),
+    ((4,), True, "conv1+dx"), ((2,), False, "conv1"),
+    ((5,), True, None), ((32,), True, None), ((32,), False, None),
+    ((1, 1), True, None)])
+def test_conv1_body_selector(cins, input_grad, body):
+    """The network input's backward (one input of at most 4 channels)
+    is row 13's kernel, with its dx when the input or prologue gradient
+    is wanted; any other inputs take K4 and K5 (None)."""
+    assert fused.conv1_body(cins, input_grad) == body
+
+
+@pytest.mark.parametrize("body", ["dgrad", "wgrad"])
+def test_backward_wrappers_refuse_network_input(body):
+    """K4's and K5's wrappers refuse one input of 1 channel, on any
+    device: :func:`conv_bnact`'s backward sends it to row 13's kernel,
+    the one route to it."""
+    x = _weight((1, 2, 3, 5, 1), 26, torch.bfloat16)
+    w = _weight((32, 1, 1, 3, 3), 27)
+    y = fused.conv_bnact_fwd_plain([x], None, None, w, torch.zeros(32),
+                                   "linear")[0]
+    fn = {"dgrad": fused.conv_bnact_dgrad_kernel,
+          "wgrad": fused.conv_bnact_wgrad_kernel}[body]
+    with pytest.raises(ValueError, match="conv1_bwd_kernel"):
+        fn([x], None, None, w, y, y, None, None, "linear")
+
+
+@pytest.mark.parametrize("cins,grad,ok", [
+    ((1,), True, True), ((3,), True, True), ((4,), True, True),
+    ((32,), True, True), ((32, 32), True, True), ((5,), False, True),
+    ((5,), True, False), ((16,), True, False), ((8,), True, False),
+    ((32, 16), True, False), ((1, 1), True, False)])
+def test_input_gradient_contract(cins, grad, ok):
+    """``conv_bnact`` takes an input that needs a gradient when row 13's
+    kernel (one input of at most 4 channels) or K4 (each C_in % 32 ==
+    0) gives it, on any device, and names both limits otherwise."""
+    xs = [_weight((1, 2, 3, 5, c), 20 + c).requires_grad_(grad)
+          for c in cins]
+    w = _weight((32, sum(cins), 1, 3, 3), 21)
+    if ok:
+        y = fused.conv_bnact(xs, None, None, w, torch.zeros(32), "linear")
+        assert y.shape == (1, 2, 3, 5, 32)
+    else:
+        with pytest.raises(ValueError, match="at most 4 channels.*% 32"):
+            fused.conv_bnact(xs, None, None, w, torch.zeros(32), "linear")
+
+
+def test_conv1_backward_launches_nothing_and_zero_without_input_grad():
+    """On CPU tensors row 13's backward takes its plain version (no
+    launch); ``input_grad=False`` gives the input a zero gradient and the
+    weight the same gradient as with it."""
+    fused.reset_launches()
+    w0 = _weight((32, 1, 1, 3, 3), 22)
+    grads = []
+    for ig in (True, False):
+        x = _weight((1, 2, 5, 7, 1), 23, torch.bfloat16).requires_grad_()
+        w = w0.clone().requires_grad_()
+        y = fused.conv_bnact([x], None, None, w, torch.zeros(32), "linear",
+                             input_grad=ig)
+        y.float().square().sum().backward()
+        grads.append((x.grad, w.grad))
+    assert bool(grads[0][0].abs().sum() > 0)
+    assert grads[1][0].shape == grads[0][0].shape
+    assert bool((grads[1][0] == 0).all())
+    assert torch.equal(grads[0][1], grads[1][1])
+    assert all(v == 0 for v in fused.LAUNCHES.values())
+    assert fused.BODY_LAUNCHES == {}
+
+
+@pytest.mark.parametrize("body", ["dgrad", "wgrad", "conv1"])
+def test_backward_wrappers_refuse_cpu_tensors(body):
+    """K4's, K5's and row 13's wrappers refuse a CPU tensor: a CUDA
+    tensor launches its kernel or raises, and only the op picks the
+    plain version."""
+    x = _weight((1, 2, 3, 5, 1 if body == "conv1" else 32), 24,
+                torch.bfloat16)
+    w = _weight((32, x.shape[-1], 1, 3, 3), 25)
+    y = fused.conv_bnact_fwd_plain([x], None, None, w, torch.zeros(32),
+                                   "linear")[0]
+    fn = {"dgrad": fused.conv_bnact_dgrad_kernel,
+          "wgrad": fused.conv_bnact_wgrad_kernel,
+          "conv1": fused.conv1_bwd_kernel}[body]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn([x], None, None, w, y, y, None, None, "linear")
