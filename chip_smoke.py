@@ -271,19 +271,21 @@ SOURCES = {
                       f"{_BN}:188 _bn_bwd (its pallas_call :199)"),
     "bn_bwd_dx": ("elektronn3_tpu_torch/csrc/batch_norm.cu",
                   f"{_BN}:188 _bn_bwd (its pallas_call :228)"),
-    "conv_vup": ("elektronn3_tpu_torch/csrc/conv_vup.cu",
+    "conv_vup": ("elektronn3_tpu_torch/csrc/conv_tc.cu",
                  f"{_F}:899 conv_bnact_flat_vup (row 1's pallas_call {_F}:415"
-                 f" in its vup mode, {_F}:238 _vup_scratch)"),
-    "conv_vup_dgrad": ("elektronn3_tpu_torch/csrc/conv_vup.cu",
+                 f" in its vup mode, {_F}:238 _vup_scratch; float32: "
+                 "csrc/conv_vup.cu)"),
+    "conv_vup_dgrad": ("elektronn3_tpu_torch/csrc/conv_vup_tc.cu",
                        f"{_F}:950 _conv_vup_bwd (row 9, its pallas_call "
-                       ":1054): dgrad and the chain into the carry (the "
-                       "chain: csrc/upconv_bnact.cu e3_conv_vup_chain)"),
+                       ":1054): dgrad and the chain into the carry (float32:"
+                       " csrc/conv_vup.cu, then csrc/upconv_bnact.cu "
+                       "e3_conv_vup_chain)"),
     "conv_vup_wgrad": ("elektronn3_tpu_torch/csrc/wgrad_tc.cu",
                        f"{_F}:950 _conv_vup_bwd (row 9, :1054): the merge "
                        "conv's dW and db (float32: csrc/conv_bnact_bwd.cu)"),
-    "upconv_stats": ("elektronn3_tpu_torch/csrc/upconv_bnact.cu",
+    "upconv_stats": ("elektronn3_tpu_torch/csrc/upconv_stats_bwd_tc.cu",
                      f"{_F64}:2930 upconv122_stats_from_flat64 (row 22, its "
-                     "pallas_call :2976)"),
+                     "pallas_call :2976; float32: csrc/upconv_bnact.cu)"),
     "upconv_stats_bwd": ("elektronn3_tpu_torch/csrc/upconv_stats_bwd_tc.cu",
                          f"{_F64}:2996 _upconv122_stats_bwd (row 23, its "
                          "pallas_call :3059; float32: csrc/upconv_bnact.cu)"),
@@ -293,9 +295,9 @@ SOURCES = {
 # ``fused.wgrad_body``, ``fused.upconv_bwd_body``), float32 the
 # CUDA-core body, K1 the CUDA-core body for the network input's one
 # channel; the network input's backward is row 13's kernel (``conv1``)
-# in both dtypes, with (``conv1+dx``) or without its dx; rows 23 and 9's
-# weight gradient run theirs in bf16 at the vup shapes
-# (``vup.vup_bwd_body``).
+# in both dtypes, with (``conv1+dx``) or without its dx; the five vup
+# entries run theirs in bf16 at the vup shapes, all five on one
+# recompute of u (``vup.vup_body``).
 BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
                          "cuda-core": "cuda-core (csrc/conv_bnact.cu)"},
           "conv_bnact_dgrad": {
@@ -316,7 +318,16 @@ BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
               "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"},
           "conv_vup_wgrad": {
               "tc": "tc (csrc/wgrad_tc.cu)",
-              "cuda-core": "cuda-core (csrc/conv_bnact_bwd.cu)"}}
+              "cuda-core": "cuda-core (csrc/conv_bnact_bwd.cu)"},
+          "conv_vup": {"tc": "tc (csrc/conv_tc.cu)",
+                       "cuda-core": "cuda-core (csrc/conv_vup.cu)"},
+          "conv_vup_dgrad": {
+              "tc": "tc (csrc/conv_vup_tc.cu)",
+              "cuda-core": "cuda-core (csrc/conv_vup.cu, then the chain of "
+                           "csrc/upconv_bnact.cu)"},
+          "upconv_stats": {
+              "tc": "tc (csrc/upconv_stats_bwd_tc.cu)",
+              "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"}}
 # K8-K11 run only the 'batchp' norm's library levels; K1-K7 every model's
 # kernel levels.
 BN_KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
@@ -1385,7 +1396,8 @@ def vup_kernel_phase(vup, stats):
                           libs.get("conv_vup"), False,
                           total=not train and not want,
                           lib_op="conv_transpose3d + conv3d on the "
-                          "prologued inputs")
+                          "prologued inputs",
+                          body=vup.vup_body(dtype, 64, 32))
             if not train:
                 del carry, skip, up, args, libs
                 torch.cuda.empty_cache()
@@ -1399,7 +1411,8 @@ def vup_kernel_phase(vup, stats):
             stats.add("upconv_stats", label, dtype, err, cuda_ms(run),
                       cuda_ms(plain), bound(f_up, peak, up, got),
                       libs.get("upconv_stats"), False, total=True,
-                      lib_op="conv_transpose3d + torch.batch_norm_stats")
+                      lib_op="conv_transpose3d + torch.batch_norm_stats",
+                      body=vup.vup_body(dtype, 64, 32))
             y = vup.conv_vup_fwd_plain(*args, "relu", "relu")[0]
             ds, dq = rnd(32, scale=1e-3), rnd(32, scale=1e-4)
             bargs = (*args[:9], y, rnd(*y.shape, scale=0.1).to(dtype), ds,
@@ -1426,10 +1439,28 @@ def vup_kernel_phase(vup, stats):
                 stats.add(name, label, dtype, err, cuda_ms(run),
                           cuda_ms(plain), bnd, libs.get(name), False,
                           total=True, lib_op="the two convs' backward calls",
-                          body=vup.vup_bwd_body(dtype, 64, 32)
-                          if name in BODIES else None)
+                          body=vup.vup_body(dtype, 64, 32))
             del carry, skip, up, args, bargs, y, libs
             torch.cuda.empty_cache()
+
+
+def check_vup_bodies(launches, bodies, what):
+    """Every vup entry a bf16 path launched ran its tensor-core body
+    (``vup.vup_body``'s 'tc' at the headline's C_carry 64, C_up 32): the
+    five entries share one recompute of u, and none took a CUDA-core
+    body."""
+    from elektronn3_tpu_torch.ops import vup
+    if vup.vup_body(torch.bfloat16, 64, 32) != "tc":
+        raise AssertionError("the headline's vup shapes left the 'tc' bodies")
+    bad = {k: (launches[k], bodies.get((k, "tc"), 0)) for k in VUP_KERNELS
+           if bodies.get((k, "tc"), 0) != launches[k]
+           or bodies.get((k, "cuda-core"), 0)}
+    if bad:
+        raise AssertionError(f"{what}: vup entries off their 'tc' bodies "
+                             f"(launches, 'tc' launches): {bad}")
+    print(f"{what}: vup entries by body " + ", ".join(
+        f"{k}/tc {bodies.get((k, 'tc'), 0)}" for k in VUP_KERNELS
+        if launches[k]), flush=True)
 
 
 def randomize_norms(model, seed):
@@ -2344,6 +2375,8 @@ def main():
         build_vup, "vup", Predictor, fused, VUP_SERVE_ROWS,
         SERVING + ("conv_vup",), per_call={"conv_bnact": 11, "pool_bnact": 3,
                                            "upconv_bnact": 2, "conv_vup": 1})
+    check_vup_bodies(launches["predictor_vup"],
+                     BODY_LAUNCHES["predictor_vup"], "vup serving")
     torch.cuda.empty_cache()
     launches["train_vup"], model, crit, opt, batches = train_phase(
         build_vup, (BATCH, *PATCH, 1), "vup", "MVox", CEDiceLoss, train_step,
@@ -2358,6 +2391,8 @@ def main():
     if launches["train_vup"] != want:
         raise AssertionError(f"vup training launches {launches['train_vup']}"
                              f", expected {want}")
+    check_vup_bodies(launches["train_vup"], BODY_LAUNCHES["train_vup"],
+                     "vup training")
     if profiling:
         profile_phase(train_step, model, crit, opt, batches)
     del model, opt, batches

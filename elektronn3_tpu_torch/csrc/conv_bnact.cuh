@@ -30,17 +30,12 @@
 // agree with the plain version to float32 rounding of the sum (the
 // tolerances of the tests and chip_smoke.py allow for it).
 //
-// Two bodies:
-//   - the vup merge conv (forward and dgrad) in bfloat16 with every
-//     staged channel count a multiple of 16 runs on the tensor cores: an
-//     implicit GEMM over taps x 16-channel steps with WMMA 16x16x16 bf16
-//     fragments and float32 accumulators (K1's plain bf16 forward runs
-//     conv_tc.cu, K4's plain bf16 dgrad dgrad_tc.cu; neither launches
-//     this one);
-//   - float32, and any channel count, run on the CUDA cores: each
-//     shared-memory weight read (a warp-wide broadcast of 4 output
-//     channels) serves 2 output rows, and each staged input value 9
-//     taps and 32 output channels.
+// One body, on the CUDA cores, for float32 and any channel count (the
+// bf16 bodies are conv_tc.cu, dgrad_tc.cu and, for the vup merge conv,
+// conv_tc.cu's vup instantiation and conv_vup_tc.cu): each shared-memory
+// weight read (a warp-wide broadcast of 4 output channels) serves 2
+// output rows, and each staged input value 9 taps and 32 output
+// channels.
 // Zero padding is applied AFTER the load step (a halo voxel is 0, not
 // act(0 * inv + shift)), so halo voxels carry no gradient either.
 //
@@ -51,10 +46,9 @@
 // forward stages act(u * inv0 + shift0) of that value u; the dgrad
 // epilogue recomputes u for act' and dinv0, and stores
 // E = round(gm * inv0), the cotangent of the upconv output, where dx0
-// would go. Every other instantiation compiles exactly as before.
+// would go. Every other instantiation compiles exactly as before. They run
+// float32, and bf16 where vup.vup_body names the CUDA-core bodies.
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 #include "upconv_vup.cuh"
@@ -100,40 +94,30 @@ struct ConvArgs {
   VupArgs vup;        // vup instantiations: input 0's carry (kd == 1)
 };
 
-// Load 8 (NC = 8) or 16 staged values of voxel ``vox`` from channel
-// ``cb`` of operand i: the prologue of the input (forward) or dy_tot
-// (dgrad), in float32, not yet rounded. The tensor-core body (NC = 16)
-// stages whole 16-channel steps; the CUDA-core body (NC = 8) may meet a
-// tail of fewer channels (C_in = 1 or 3), read as zeros.
-template <bool DG, typename T, int NC>
+// Load the CK = 8 staged values of voxel ``vox`` from channel ``cb`` of
+// operand i: the prologue of the input (forward) or dy_tot (dgrad), in
+// float32, not yet rounded; a tail of fewer channels (C_in = 1 or 3) is
+// read as zeros.
+template <bool DG, typename T>
 __device__ __forceinline__ void load_operand(const ConvArgs& a, int i,
                                              int64_t vox, int cb,
                                              float* v) {
   const int ci = a.cin[i];
   const T* src = static_cast<const T*>(a.x[i]) + vox * ci + cb;
-  auto load = [&](const T* p, float* out) {
-#pragma unroll
-    for (int g = 0; g < NC / 8; ++g) {
-      if (NC == 16)
-        load8(p + 8 * g, out + 8 * g);
-      else
-        load8_tail(p + 8 * g, ci, cb + 8 * g, out + 8 * g);
-    }
-  };
-  load(src, v);
+  load8_tail(src, ci, cb, v);
   if (DG) {
     if (a.ds != nullptr) {
-      float yv[NC];
-      load(static_cast<const T*>(a.yv) + vox * ci + cb, yv);
+      float yv[CK];
+      load8_tail(static_cast<const T*>(a.yv) + vox * ci + cb, ci, cb, yv);
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-        if (NC == 16 || cb + c < ci)
+      for (int c = 0; c < CK; ++c)
+        if (cb + c < ci)
           v[c] = dy_tot(v[c], yv[c], a.ds[cb + c], a.dq[cb + c]);
     }
   } else {
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (NC == 16 || cb + c < ci)
+    for (int c = 0; c < CK; ++c)
+      if (cb + c < ci)
         v[c] = prologue(v[c], a.inv[i][cb + c], a.shift[i][cb + c], a.act);
   }
 }
@@ -141,35 +125,32 @@ __device__ __forceinline__ void load_operand(const ConvArgs& a, int i,
 // The staged value of virtual input 0 (vup forward): the prologue
 // act(u * inv0 + shift0) of the recomputed upconv output u at voxel
 // (nz, gh, gw), nz the n * d + depth index; not yet rounded.
-template <typename T, int NC>
+template <typename T>
 __device__ __forceinline__ void vup_operand(const ConvArgs& a, int64_t nz,
                                             int gh, int gw, int cb,
                                             float* v) {
   const int64_t cv = vup_parent(nz, gh, gw, a.h, a.wd);
-  const int sub = vup_sub(gh, gw);
+  upconv_value8<T>(a.vup, cv, vup_sub(gh, gw), cb, v);
 #pragma unroll
-  for (int g = 0; g < NC / 8; ++g)
-    upconv_value8<T>(a.vup, cv, sub, cb + 8 * g, v + 8 * g);
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
+  for (int c = 0; c < CK; ++c)
     v[c] = prologue(v[c], a.inv[0][cb + c], a.shift[0][cb + c], a.act);
 }
 
 // One staged value group of operand i at voxel (gh, gw) of plane
 // ``plane`` (= nz * h): load_operand, or the vup forward's virtual
 // input 0.
-template <bool DG, bool VUP, typename T, int NC>
+template <bool DG, bool VUP, typename T>
 __device__ __forceinline__ void stage_operand(const ConvArgs& a, int i,
                                               int64_t plane, int64_t nz,
                                               int gh, int gw, int cb,
                                               float* v) {
   if constexpr (VUP && !DG) {
     if (i == 0) {
-      vup_operand<T, NC>(a, nz, gh, gw, cb, v);
+      vup_operand<T>(a, nz, gh, gw, cb, v);
       return;
     }
   }
-  load_operand<DG, T, NC>(a, i, (plane + gh) * a.wd + gw, cb, v);
+  load_operand<DG, T>(a, i, (plane + gh) * a.wd + gw, cb, v);
 }
 
 // Epilogue of 8 consecutive output channels o .. o + 7 of voxel ``vox``
@@ -280,8 +261,8 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
           const int gw = w0 + hx - 1;
           float v[CK];
           if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd) {
-            stage_operand<DG, VUP, T, CK>(a, i, plane, (int64_t)n * a.d + zd,
-                                          gh, gw, cb, v);
+            stage_operand<DG, VUP, T>(a, i, plane, (int64_t)n * a.d + zd,
+                                      gh, gw, cb, v);
 #pragma unroll
             for (int c = 0; c < CK; ++c)
               v[c] = (cb + c < ci) ? round_to<T>(v[c]) : 0.0f;
@@ -369,186 +350,21 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
     flush_block_sums(s_red, a.s, a.q, co0);
 }
 
-// Tensor-core body (bfloat16, staged channel counts % 16 == 0). Block:
-// 8 warps, one output row each, MW columns; a warp holds SEG x 2
-// accumulator fragments (16 voxels x 16 output channels each).
-constexpr int MW = 64;              // output columns per block
-constexpr int MH = 8;               // output rows per block (warps)
-constexpr int MCK = 16;             // input channels per step (MMA depth)
-constexpr int MHH = MH + 2;         // staged rows (with halo)
-constexpr int MHW = MW + 2;         // staged columns (with halo)
-constexpr int SEG = MW / 16;        // 16-voxel segments per warp
-
-template <bool DG, bool ST, bool VUP = false>
-__global__ void __launch_bounds__(256) conv_body_mma_kernel(
-    const ConvArgs a) {
-  using namespace nvcuda;
-  // Staged operand: position (row, col) holds MCK channels.
-  __shared__ __align__(128) __nv_bfloat16 s_in[MHH * MHW * MCK];
-  __shared__ __align__(128) __nv_bfloat16 s_w[9 * MCK * COG];
-  __shared__ __align__(128) float s_out[MH][16 * 16];
-  __shared__ float s_red[2][COG];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tiles_w = (a.wd + MW - 1) / MW;
-  const int tiles = ((a.h + MH - 1) / MH) * tiles_w;
-  const int tile = blockIdx.x % tiles;
-  const int nd = blockIdx.x / tiles;
-  const int h0 = (tile / tiles_w) * MH;
-  const int w0 = (tile % tiles_w) * MW;
-  const int n = nd / a.d;
-  const int d = nd % a.d;
-  const int co0 = blockIdx.z * COG;
-  const int ct = a.cin[0] + a.cin[1];
-  if (threadIdx.x < 2 * COG) s_red[threadIdx.x / COG][threadIdx.x % COG] = 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[SEG][2];
-#pragma unroll
-  for (int s = 0; s < SEG; ++s) {
-    wmma::fill_fragment(acc[s][0], 0.0f);
-    wmma::fill_fragment(acc[s][1], 0.0f);
-  }
-
-  int coff = 0;
-  for (int i = 0; i < a.nin; ++i) {
-    const int ci = a.cin[i];
-    for (int dz = 0; dz < a.kd; ++dz) {
-      const int zd = d + dz - a.kd / 2;
-      if (zd < 0 || zd >= a.d) continue;  // zero padding in depth
-      const int64_t plane = (int64_t)(n * a.d + zd) * a.h;
-      for (int cb = 0; cb < ci; cb += MCK) {
-        __syncthreads();  // the previous step's fragment loads are done
-        for (int p = threadIdx.x; p < MHH * MHW; p += 256) {
-          const int gh = h0 + p / MHW - 1;
-          const int gw = w0 + p % MHW - 1;
-          float v[MCK];
-          if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd) {
-            stage_operand<DG, VUP, __nv_bfloat16, MCK>(
-                a, i, plane, (int64_t)n * a.d + zd, gh, gw, cb, v);
-          } else {
-#pragma unroll
-            for (int c = 0; c < MCK; ++c) v[c] = 0.0f;
-          }
-          // Staging as bf16 is the rounding to the activation dtype.
-          store8(&s_in[p * MCK], v);
-          store8(&s_in[p * MCK + 8], v + 8);
-        }
-        // s_w[t][c][o], rounded exactly (the weights are bf16 values).
-        for (int q = threadIdx.x; q < 9 * MCK * COG; q += 256) {
-          const int o = q % COG;
-          const int c = (q / COG) % MCK;
-          const int t = q / (COG * MCK);
-          s_w[q] = __float2bfloat16_rn(
-              a.wt[((int64_t)(dz * 9 + t) * ct + coff + cb + c) * a.cout
-                   + co0 + o]);
-        }
-        __syncthreads();
-#pragma unroll 1
-        for (int t = 0; t < 9; ++t) {
-          const int ky = t / 3;
-          const int kx = t % 3;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> b0, b1;
-          wmma::load_matrix_sync(b0, &s_w[t * MCK * COG], COG);
-          wmma::load_matrix_sync(b1, &s_w[t * MCK * COG + 16], COG);
-#pragma unroll
-          for (int s = 0; s < SEG; ++s) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> af;
-            wmma::load_matrix_sync(
-                af, &s_in[((warp + ky) * MHW + s * 16 + kx) * MCK], MCK);
-            wmma::mma_sync(acc[s][0], af, b0, acc[s][0]);
-            wmma::mma_sync(acc[s][1], af, b1, acc[s][1]);
-          }
-        }
-      }
-    }
-    coff += ci;
-  }
-
-  // Epilogue: each fragment goes through the warp's shared scratch;
-  // lane l takes voxel l / 2, output channels (l % 2) * 8 .. + 8 of the
-  // fragment, and keeps its per-channel partial sums in st[f].
-  const int h = h0 + warp;
-  const int vox_l = lane / 2;
-  const int half = lane % 2;
-  float st[2][16];
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) st[f][j] = 0.0f;
-#pragma unroll
-  for (int s = 0; s < SEG; ++s) {
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      wmma::store_matrix_sync(s_out[warp], acc[s][f], 16,
-                              wmma::mem_row_major);
-      __syncwarp();
-      const int w = w0 + s * 16 + vox_l;
-      if (h < a.h && w < a.wd) {
-        float r[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          r[j] = s_out[warp][vox_l * 16 + half * 8 + j];
-        epilogue8<DG, ST, __nv_bfloat16, VUP>(
-            a, ((int64_t)nd * a.h + h) * a.wd + w, co0 + f * 16 + half * 8,
-            r, st[f]);
-      }
-      __syncwarp();
-    }
-  }
-  if (!ST) return;
-  // Lanes of one parity hold the same channels: sum over the other
-  // four lane bits, then lanes 0 and 1 add their 16 x 2 channels.
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int off = 2; off < 32; off <<= 1)
-        st[f][j] += __shfl_xor_sync(0xffffffffu, st[f][j], off);
-  __syncthreads();  // s_red's initialization is visible
-  if (lane < 2) {
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        atomicAdd(&s_red[0][f * 16 + lane * 8 + j], st[f][j]);
-        atomicAdd(&s_red[1][f * 16 + lane * 8 + j], st[f][8 + j]);
-      }
-  }
-  if (DG)
-    flush_block_sums(s_red, a.dinv, a.dshift, co0);
-  else
-    flush_block_sums(s_red, a.s, a.q, co0);
-}
-
-// Launch the body that fits: tensor cores for the vup instantiations in
-// bf16 when every staged channel count is a multiple of 16 (K1's and
-// K4's plain bf16 bodies are conv_tc.cu and dgrad_tc.cu, so their WMMA
-// instantiations are not compiled, nor K4's bf16 CUDA-core one, which
-// this launch refuses), else the CUDA cores. ST: the block
-// sums (statistics, or dinv and dshift). grid.x walks the (h, w) tiles
-// of every (n, depth) slab, the slab index outermost, so N * D is not
-// bounded by grid.y's 65535; a grid.x past 2^31 - 1 is refused.
+// Launch the CUDA-core body (K1's and K4's bf16 bodies are conv_tc.cu and
+// dgrad_tc.cu, the vup merge conv's conv_tc.cu and conv_vup_tc.cu, so
+// K4's bf16 instantiation here is refused; the vup instantiations run
+// bf16 only where vup.vup_body names the CUDA-core bodies). ST: the
+// block sums (statistics, or dinv and dshift). grid.x walks the (h, w)
+// tiles of every (n, depth) slab, the slab index outermost, so N * D is
+// not bounded by grid.y's 65535; a grid.x past 2^31 - 1 is refused.
 template <bool DG, bool ST, bool VUP = false>
 cudaError_t launch_conv_body_st(const ConvArgs& a, int dtype,
                                 cudaStream_t s) {
-  const bool mma = VUP && dtype == DT_BF16 && a.cin[0] % MCK == 0
-      && (a.nin < 2 || a.cin[1] % MCK == 0);
-  const int64_t tiles = mma
-      ? (int64_t)((a.h + MH - 1) / MH) * ((a.wd + MW - 1) / MW)
-      : (int64_t)((a.h + TH - 1) / TH) * ((a.wd + TW - 1) / TW);
+  const int64_t tiles =
+      (int64_t)((a.h + TH - 1) / TH) * ((a.wd + TW - 1) / TW);
   const int64_t blocks = tiles * a.n * a.d;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, 1, a.cout / COG);
-  if constexpr (VUP) {
-    if (mma) {
-      conv_body_mma_kernel<DG, ST, VUP><<<grid, 256, 0, s>>>(a);
-      return cudaSuccess;
-    }
-  }
   if (dtype != DT_BF16) {
     conv_body_kernel<DG, ST, float, VUP><<<grid, NT, 0, s>>>(a);
   } else if constexpr (DG && !VUP) {

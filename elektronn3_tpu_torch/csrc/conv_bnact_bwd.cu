@@ -41,7 +41,7 @@
 // (upconv_vup.cuh), prologued and rounded as K1's vup staging does. It
 // replaces the wgrad half of ops/flat_fused.py::_conv_vup_bwd in
 // float32; bf16 runs e3_conv_vup_wgrad_tc (wgrad_tc.cu) at the shapes
-// vup.vup_bwd_body takes.
+// vup.vup_body takes.
 #include <type_traits>
 
 #include "conv_bnact.cuh"

@@ -9,9 +9,9 @@
 // once and the statistics are the sums of the rounded output. It runs
 // whenever every input's channel count is a multiple of 16 (the
 // wrapper's conv_body); conv_bnact.cuh keeps the CUDA-core body for
-// float32 and the network input (C_in = 1 or 3), and the WMMA body for
-// the vup merge conv alone. K4's bf16 dgrad (dgrad_tc.cu) is this GEMM
-// with dy_tot as A and its own epilogue; the two share conv_tc.cuh.
+// float32 and the network input (C_in = 1 or 3). K4's bf16 dgrad
+// (dgrad_tc.cu) is this GEMM with dy_tot as A and its own epilogue; the
+// two share conv_tc.cuh.
 //
 // Replaces, for bf16, the TPU kernels listed in conv_bnact.cu.
 //
@@ -50,7 +50,34 @@
 // by row at any offset, while wgmma's shared-memory descriptors would
 // need a re-staged copy per tap (or A from registers through the same
 // ldmatrix loads); that is left for a later step.
+//
+// The vup instantiation (Args = ConvTcVupArgs; e3_conv_vup_tc, the bf16
+// body of conv_vup, row 1's vup mode) replaces, for bf16,
+// ops/flat_fused.py::conv_bnact_flat_vup (_fused_conv_kernel's vup mode,
+// _vup_scratch). Input 0 of the merge conv is VIRTUAL: the (1, 2, 2)
+// upconv u of the deeper level's carry, never stored. A block's tile has
+// an even origin and even TH and TW (TH x TW = 256 or 128, TW = 16 or
+// 32), so its halo slab lies over (TH / 2 + 2) x (TW / 2 + 2) whole carry
+// voxels. Before the K loop the block stages them (cp.async, 0 outside
+// the volume), prologues and rounds them in place, and recomputes u on
+// the tensor cores (vup_mma, upconv_vup.cuh: K3's stored bits) in chunks
+// of 32 of u's channels, each against its columns of K3's packed weight;
+// the epilogue rounds (vup_round), applies the merge conv's prologue,
+// rounds to bf16, writes 0 outside the volume and stores the slab of
+// every k16 step of u at APITCH: the slab K1 would have staged from a
+// stored u. The carry tile and the weight chunk use the ring's memory,
+// which the K loop has not started on (or memory of their own where the
+// ring is smaller). The K loop is K1's over [u, skip], (input, dz, k16
+// step, tap) in that order: u's steps take A from the staged slab and
+// only their weights through the ring, the skip's steps come through the
+// ring as before. So y is bitwise K1's output over K3's stored u.
+// What bounds it: the merge conv's bytes and FLOPs as K1's, plus the
+// recompute, 2 x cc x 4 cu FLOP a carry voxel of the halo (about 1.3 x
+// the upconv's own work at TH x TW = 8 x 32), on the tensor cores.
+#include <type_traits>
+
 #include "conv_tc.cuh"
+#include "upconv_vup.cuh"
 
 namespace {
 
@@ -70,14 +97,71 @@ struct ConvTcArgs {
   int n, d, h, wd, cout, kd, act, tw;
 };
 
+// The vup merge conv's arguments (conv_vup): input 0 is the (1, 2, 2)
+// upconv of the carry, recomputed per tile on the tensor cores; x[0] is
+// unused, kd == 1, nin == 2 and the prologue is always applied. A type of
+// its own, so that K1's other instantiations keep the argument layout,
+// and the code, they compile to without it.
+struct ConvTcVupArgs : ConvTcArgs {
+  const __nv_bfloat16* carry;   // (n, d, h / 2, w / 2, cc) raw carry
+  const float* invc;            // (cc,) its prologue
+  const float* shiftc;
+  const __nv_bfloat16* wup;     // (cc / 16, 4 cu, 16) packed upconv weight
+  const float* bu;              // (cu,) float32 bias
+  int cc, actc;
+};
+
+// The recompute of the vup instantiation: the carry voxels under a tile's
+// halo slab, (th / 2 + 2) x (tw / 2 + 2) of them in m16 tiles, at an odd
+// number of 16-byte units a row, and one chunk of K3's packed weight:
+// the 4 x 32 columns of 32 of u's channels for every k16 step of cc.
+struct VupGeo {
+  int vr, vw, rows, mt, cxp;
+  __host__ __device__ VupGeo(int th, int tw, int cc)
+      : vr(th / 2 + 2), vw(tw / 2 + 2), rows(vr * vw), mt((rows + 15) / 16),
+        cxp(cc * 2 + 16) {}
+  __host__ __device__ int carry_bytes() const { return mt * 16 * cxp; }
+  __host__ __device__ static int wchunk_bytes(int cc) {
+    return cc / 16 * 128 * 32;
+  }
+};
+
 // Shared memory of a block: the ring, the slab's voxel offsets, the
 // statistics' block sums and the prologue vectors of the ``ct`` concat
 // channels.
 template <int COB>
-size_t conv_tc_smem(int tw, int ct) {
+__host__ __device__ size_t conv_tc_smem(int tw, int ct) {
   const int npos = (Cfg<COB>::M / tw + 2) * (tw + 2);
   return (size_t)KST * (npos * APITCH + Cfg<COB>::BSTAGE) + (size_t)npos * 4
       + (size_t)2 * COB * 4 + (size_t)2 * ct * 4;
+}
+
+// The vup instantiation's shared memory beyond K1's (``base`` bytes, of
+// which ``ring`` the ring): the staged slab of u (cu / 16 k16 steps at
+// APITCH), the carry's prologue and u's bias, and the recompute's scratch
+// (the carry tile and the weight chunk) in the ring where it fits, else
+// after the rest. Byte offsets from the start of shared memory.
+struct VupLayout {
+  int u_off, vec_off, scratch_off, total;
+  __host__ __device__ VupLayout(int base, int ring, int npos, int th, int tw,
+                                int cu, int cc) {
+    const VupGeo v(th, tw, cc);
+    const int scratch = v.carry_bytes() + VupGeo::wchunk_bytes(cc);
+    u_off = (base + 15) / 16 * 16;
+    vec_off = u_off + cu / 16 * npos * APITCH;
+    const int end = vec_off + (2 * cc + cu) * 4;
+    scratch_off = scratch <= ring ? 0 : (end + 15) / 16 * 16;
+    total = scratch_off ? scratch_off + scratch : end;
+  }
+};
+
+template <int COB>
+VupLayout vup_layout(const ConvTcVupArgs& a) {
+  const int th = Cfg<COB>::M / a.tw;
+  const int npos = (th + 2) * (a.tw + 2);
+  const int ring = KST * (npos * APITCH + Cfg<COB>::BSTAGE);
+  return VupLayout((int)conv_tc_smem<COB>(a.tw, a.cin[0] + a.cin[1]), ring,
+                   npos, th, a.tw, a.cin[0], a.cc);
 }
 
 // A block's place: its tile, its plane and its K steps.
@@ -104,7 +188,7 @@ __device__ __forceinline__ void decode(const Geo& g, int st, int& i,
 // Issue step st's copies into ring slot st % KST: the raw halo slab
 // (zero-filled where s_off marks a voxel outside the volume) and the
 // step's 9 taps of weights.
-template <int COB>
+template <int COB, bool VUP = false>
 __device__ __forceinline__ void load_step(const ConvTcArgs& a, const Geo& g,
                                           unsigned char* s_a,
                                           unsigned char* s_b,
@@ -116,11 +200,14 @@ __device__ __forceinline__ void load_step(const ConvTcArgs& a, const Geo& g,
   const __nv_bfloat16* xp = x
       + ((g.nn * a.d + g.d + dz - a.kd / 2) * a.h * a.wd) * ci + kc * 16;
   unsigned char* da = s_a + (st % KST) * g.abytes;
-  for (int p = threadIdx.x; p < g.npos * 2; p += NT) {
-    const int off = s_off[p >> 1];
-    cp_async16(smem_u32(da + (p >> 1) * APITCH + (p & 1) * 16),
-               off >= 0 ? xp + (int64_t)off * ci + (p & 1) * 8 : x, off >= 0);
-  }
+  // (The vup instantiation's input 0 is staged by the recompute.)
+  if (!VUP || i != 0)
+    for (int p = threadIdx.x; p < g.npos * 2; p += NT) {
+      const int off = s_off[p >> 1];
+      cp_async16(smem_u32(da + (p >> 1) * APITCH + (p & 1) * 16),
+                 off >= 0 ? xp + (int64_t)off * ci + (p & 1) * 8 : x,
+                 off >= 0);
+    }
   unsigned char* db = s_b + (st % KST) * Cfg<COB>::BSTAGE;
   const __nv_bfloat16* wsrc =
       a.wp + ((int64_t)(dz * g.kct + kg) * 9 * a.cout + g.co0) * 16;
@@ -134,8 +221,117 @@ __device__ __forceinline__ void load_step(const ConvTcArgs& a, const Geo& g,
   cp_async_commit();
 }
 
-template <int COB, bool PRO, bool ST>
-__global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const ConvTcArgs a) {
+// The vup instantiation's input 0 (see the top): u at the carry voxels
+// under the tile's halo slab, prologued and rounded, into the staged
+// slab of each k16 step of u (``s_u``: [cu / 16][npos][APITCH]), before
+// the K loop. ``scratch`` holds the carry tile and the weight chunk;
+// ``s_vec`` the carry's prologue and u's bias.
+__device__ __forceinline__ void vup_stage_u(const ConvTcVupArgs& a,
+                                            const Geo& g, int th, int tw,
+                                            int h0, int w0,
+                                            unsigned char* scratch,
+                                            unsigned char* s_u,
+                                            const float* s_inv,
+                                            const float* s_shift,
+                                            float* s_vec) {
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int gq = lane / 4;
+  const int t4 = lane % 4;
+  const VupGeo v(th, tw, a.cc);
+  const int hw = tw + 2;
+  const int cu = a.cin[0];
+  const int h2 = a.h / 2, w2 = a.wd / 2;
+  const int cr0 = h0 / 2 - 1, cw0 = w0 / 2 - 1;   // the tile's carry origin
+  unsigned char* s_c = scratch;                     // [mt * 16][cxp]
+  unsigned char* s_wc = scratch + v.carry_bytes();  // [cc / 16][128][32]
+  float* s_invc = s_vec;
+  float* s_shiftc = s_invc + a.cc;
+  float* s_bu = s_shiftc + a.cc;
+  for (int c = tid; c < a.cc; c += NT) {
+    s_invc[c] = a.invc[c];
+    s_shiftc[c] = a.shiftc[c];
+  }
+  for (int c = tid; c < cu; c += NT) s_bu[c] = a.bu[c];
+  for (int p = tid; p < v.mt * 16 * (a.cc / 8); p += NT) {
+    const int r = p / (a.cc / 8);
+    const int ch = p % (a.cc / 8);
+    const int cr = cr0 + r / v.vw;
+    const int cw = cw0 + r % v.vw;
+    const bool ok = r < v.rows && cr >= 0 && cr < h2 && cw >= 0 && cw < w2;
+    cp_async16(smem_u32(s_c + r * v.cxp + ch * 16),
+               ok ? a.carry + ((g.nd * h2 + cr) * w2 + cw) * a.cc + ch * 8
+                  : a.carry,
+               ok);
+  }
+  const uint32_t c_lane = smem_u32(s_c) + (lane & 15) * v.cxp
+      + (lane >> 4) * 16;
+  const uint32_t w_lane = smem_u32(s_wc)
+      + swz((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+  for (int j = 0; j < cu / 32; ++j) {
+    // Chunk j's weight: row kc * 128 + sub * 32 + jj is packed column
+    // sub * cu + 32 j + jj of k16 step kc.
+    for (int p = tid; p < a.cc / 16 * 128 * 2; p += NT) {
+      const int row = p >> 1;
+      const int col = (row / 32 % 4) * cu + 32 * j + row % 32;
+      cp_async16(smem_u32(s_wc + swz(row, p & 1)),
+                 a.wup + ((int64_t)(row / 128) * 4 * cu + col) * 16
+                     + (p & 1) * 8,
+                 true);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j == 0) {   // the carry's prologue, in place: rounded a
+      for (int p = tid; p < v.mt * 16 * (a.cc / 8); p += NT) {
+        const int ch = p % (a.cc / 8);
+        prologue_half(reinterpret_cast<uint4*>(s_c + (p / (a.cc / 8)) * v.cxp
+                                               + ch * 16),
+                      s_invc + ch * 8, s_shiftc + ch * 8, a.actc, true);
+      }
+      __syncthreads();
+    }
+    // Units of 16 carry voxels x one sub-position's 32 channels.
+    for (int u = warp; u < v.mt * 4; u += NT / 32) {
+      const int mi = u % v.mt;
+      const int sub = u / v.mt;
+      const int col[2] = {sub * 32, sub * 32 + 16};
+      float uacc[1][4][4];
+      vup_mma<1, 2>(c_lane + mi * 16 * v.cxp, v.cxp, w_lane, col, 128,
+                    a.cc / 16, uacc);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = mi * 16 + gq + 8 * hr;
+        if (r >= v.rows) continue;
+        const int hh = 2 * (cr0 + r / v.vw) + (sub >> 1);
+        const int ww = 2 * (cw0 + r % v.vw) + (sub & 1);
+        const int sy = hh - h0 + 1;
+        const int sx = ww - w0 + 1;
+        if (sy < 0 || sy >= th + 2 || sx < 0 || sx >= hw) continue;
+        const bool ok = hh >= 0 && hh < a.h && ww >= 0 && ww < a.wd;
+        unsigned char* dst = s_u + (sy * hw + sx) * APITCH;
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          const int co = 32 * j + nj * 8 + 2 * t4;
+          const float u0 = vup_round(uacc[0][nj][2 * hr], s_bu[co]);
+          const float u1 = vup_round(uacc[0][nj][2 * hr + 1], s_bu[co + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dst + (co / 16) * g.abytes
+                                             + (co % 16) * 2) = ok
+              ? __floats2bfloat162_rn(
+                    prologue(u0, s_inv[co], s_shift[co], a.act),
+                    prologue(u1, s_inv[co + 1], s_shift[co + 1], a.act))
+              : __floats2bfloat162_rn(0.0f, 0.0f);
+        }
+      }
+    }
+    __syncthreads();   // the chunk's weight is read; s_u is written
+  }
+}
+
+template <int COB, bool PRO, bool ST, typename Args = ConvTcArgs>
+__global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const Args a) {
+  constexpr bool VUP = std::is_same<Args, ConvTcVupArgs>::value;
   using C = Cfg<COB>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tw = a.tw;
@@ -186,6 +382,15 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const ConvTcArgs a) {
       s_shift[c] = a.shift[c];
     }
   __syncthreads();
+  uint32_t uoff = 0;   // the vup instantiation: s_u's offset from s_a
+  if constexpr (VUP) {
+    const VupLayout l((int)conv_tc_smem<COB>(tw, a.cin[0] + a.cin[1]),
+                      KST * (g.abytes + C::BSTAGE), g.npos, th, tw,
+                      a.cin[0], a.cc);
+    uoff = l.u_off;
+    vup_stage_u(a, g, th, tw, h0, w0, smem + l.scratch_off, smem + l.u_off,
+                s_inv, s_shift, reinterpret_cast<float*>(smem + l.vec_off));
+  }
 
   // Each lane's ldmatrix row of m16 tile mi at tap (0, 0), and of its B
   // fragments at tap 0 (a tap adds a constant to either).
@@ -210,7 +415,7 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const ConvTcArgs a) {
 #pragma unroll
   for (int st = 0; st < KST - 1; ++st) {
     if (st < nsteps)
-      load_step<COB>(a, g, s_a, s_b, s_off, st);
+      load_step<COB, VUP>(a, g, s_a, s_b, s_off, st);
     else
       cp_async_commit();
   }
@@ -218,23 +423,27 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const ConvTcArgs a) {
     cp_async_wait<KST - 2>();  // step st has landed
     __syncthreads();           // for every thread; step st - 1's MMAs done
     if (st + KST - 1 < nsteps)
-      load_step<COB>(a, g, s_a, s_b, s_off, st + KST - 1);
+      load_step<COB, VUP>(a, g, s_a, s_b, s_off, st + KST - 1);
     else
       cp_async_commit();
     const int slot = st % KST;
+    uint32_t aslot = slot * g.abytes;
     if (PRO) {
       int i, dz, kc, kg;
       decode(g, st, i, dz, kc, kg);
-      unsigned char* sa = s_a + slot * g.abytes;
-      for (int p = tid; p < g.npos * 2; p += NT) {
-        const int c = kg * 16 + (p & 1) * 8;
-        prologue_half(reinterpret_cast<uint4*>(sa + (p >> 1) * APITCH
-                                               + (p & 1) * 16),
-                      s_inv + c, s_shift + c, a.act, s_off[p >> 1] >= 0);
+      if (VUP && i == 0) {
+        aslot = uoff + kc * g.abytes;   // u's staged slab of step kc
+      } else {
+        unsigned char* sa = s_a + slot * g.abytes;
+        for (int p = tid; p < g.npos * 2; p += NT) {
+          const int c = kg * 16 + (p & 1) * 8;
+          prologue_half(reinterpret_cast<uint4*>(sa + (p >> 1) * APITCH
+                                                 + (p & 1) * 16),
+                        s_inv + c, s_shift + c, a.act, s_off[p >> 1] >= 0);
+        }
+        __syncthreads();
       }
-      __syncthreads();
     }
-    const uint32_t aslot = slot * g.abytes;
     const uint32_t bslot = brow + slot * C::BSTAGE;
     tap_mma9<COB>(acc, arow, aslot, bslot, hw);
   }
@@ -300,11 +509,13 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const ConvTcArgs a) {
   }
 }
 
-template <int COB, bool PRO, bool ST>
-cudaError_t launch(const ConvTcArgs& a, cudaStream_t stream) {
-  const size_t smem = conv_tc_smem<COB>(a.tw, a.cin[0] + a.cin[1]);
+template <int COB, bool PRO, bool ST, typename Args = ConvTcArgs>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  size_t smem = conv_tc_smem<COB>(a.tw, a.cin[0] + a.cin[1]);
+  if constexpr (std::is_same<Args, ConvTcVupArgs>::value)
+    smem = vup_layout<COB>(a).total;
   const cudaError_t rc = cudaFuncSetAttribute(
-      conv_tc_kernel<COB, PRO, ST>,
+      conv_tc_kernel<COB, PRO, ST, Args>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return rc;
   const int th = Cfg<COB>::M / a.tw;
@@ -313,7 +524,7 @@ cudaError_t launch(const ConvTcArgs& a, cudaStream_t stream) {
   const int64_t blocks = tiles * a.n * a.d;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, 1, a.cout / COB);
-  conv_tc_kernel<COB, PRO, ST><<<grid, NT, smem, stream>>>(a);
+  conv_tc_kernel<COB, PRO, ST, Args><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -324,6 +535,14 @@ cudaError_t launch_cob(const ConvTcArgs& a, cudaStream_t st) {
                           : launch<COB, true, false>(a, st);
   return a.s != nullptr ? launch<COB, false, true>(a, st)
                         : launch<COB, false, false>(a, st);
+}
+
+template <int COB>
+cudaError_t launch_vup(const ConvTcVupArgs& a, cudaStream_t st) {
+  if (Cfg<COB>::M % (2 * a.tw) || (Cfg<COB>::M / a.tw) % 2)
+    return cudaErrorInvalidValue;   // the tile's origin must be even
+  return a.s != nullptr ? launch<COB, true, true, ConvTcVupArgs>(a, st)
+                        : launch<COB, true, false, ConvTcVupArgs>(a, st);
 }
 
 }  // namespace
@@ -370,5 +589,64 @@ extern "C" int e3_conv_bnact_tc(int nin, const void* x0, int c0,
     rc = launch_cob<64>(a, st);
   else
     rc = launch_cob<32>(a, st);
+  return static_cast<int>(rc);
+}
+
+// K1 of the vup merge conv, bf16 body (conv_vup): input 0 is the (1, 2, 2)
+// upconv of the carry (cu channels, recomputed per tile on the tensor
+// cores from the raw carry, its prologue invc/shiftc/actc, K3's packed
+// (cc / 16, 4 cu, 16) bf16 weight ``wup`` and the float32 bias ``bu``),
+// input 1 the skip (cs channels); kd = 1. ``wp`` is pack_conv_weight's
+// (1, (cu + cs) / 16, 9, cout, 16); ``inv`` and ``shift`` ((cu + cs,),
+// over the concat) must be given; ``s`` and ``q`` as e3_conv_bnact_tc's.
+// ``tw`` is the tile width (16 or 32: vup.vup_tile's). Needs cc % 32 ==
+// 0 and cc <= 128, cu in {32, 64}, cs % 16 == 0, cout % 32 == 0 and even
+// h and wd; (n, d, h, wd) are the skip's dims.
+extern "C" int e3_conv_vup_tc(const void* carry, int cc, const float* invc,
+                              const float* shiftc, const void* wup,
+                              const float* bu, int cu, int actc,
+                              const void* skip, int cs, const float* inv,
+                              const float* shift, const void* wp,
+                              const float* bias, void* y, float* s, float* q,
+                              int n, int d, int h, int wd, int cout, int act,
+                              int tw, void* stream) {
+  if (cc % 32 || cc > 128 || (cu != 32 && cu != 64) || cs % 16 || cout % 32
+      || h % 2 || wd % 2 || inv == nullptr || (tw != 16 && tw != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ConvTcVupArgs a = {};
+  a.x[1] = static_cast<const __nv_bfloat16*>(skip);
+  a.inv = inv;
+  a.shift = shift;
+  a.cin[0] = cu;
+  a.cin[1] = cs;
+  a.nin = 2;
+  a.wp = static_cast<const __nv_bfloat16*>(wp);
+  a.bias = bias;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.s = s;
+  a.q = q;
+  a.n = n;
+  a.d = d;
+  a.h = h;
+  a.wd = wd;
+  a.cout = cout;
+  a.kd = 1;
+  a.act = act;
+  a.tw = tw;
+  a.carry = static_cast<const __nv_bfloat16*>(carry);
+  a.invc = invc;
+  a.shiftc = shiftc;
+  a.wup = static_cast<const __nv_bfloat16*>(wup);
+  a.bu = bu;
+  a.cc = cc;
+  a.actc = actc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  if (cout % 128 == 0)
+    rc = launch_vup<128>(a, st);
+  else if (cout % 64 == 0)
+    rc = launch_vup<64>(a, st);
+  else
+    rc = launch_vup<32>(a, st);
   return static_cast<int>(rc);
 }

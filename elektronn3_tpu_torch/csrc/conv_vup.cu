@@ -1,7 +1,12 @@
 // The vup merge conv: the decoder merge conv of a C=32 planar level
 // whose input 0, the (1, 2, 2) upconv of the deeper level's C=64 carry,
-// is never stored. K1's and K4's bodies (conv_bnact.cuh) with VUP = true
-// recompute it per staged voxel from the carry (upconv_vup.cuh):
+// is never stored. K1's and K4's CUDA-core bodies (conv_bnact.cuh) with
+// VUP = true recompute it per staged voxel from the carry (upconv_value8,
+// upconv_vup.cuh). They run float32, and bf16 where vup.vup_body names
+// the CUDA-core bodies; bf16 at the shapes of the tensor-core bodies runs
+// conv_tc.cu's e3_conv_vup_tc (the forward) and conv_vup_tc.cu's
+// e3_conv_vup_dgrad_tc (the input gradients and the chain, E kept on the
+// chip) instead:
 //
 // e3_conv_vup (forward): input 0's staged value is
 //   act(u * inv0 + shift0) of the recomputed upconv output u, input 1
@@ -25,10 +30,10 @@
 // chain is a second kernel, so E passes through device memory once
 // (written here, read there).
 //
-// What bounds it on the card: arithmetic, as for K1 and K4, plus the
-// recompute: 2 * 64 * 32 FLOP per staged voxel on the CUDA cores (the
-// upconv's own work, about 1.3 times over for the halo), with the carry
-// and the upconv weights read through L1.
+// What bounds these bodies on the card: arithmetic on the CUDA cores, as
+// for K1 and K4, plus the recompute: 2 * 64 * 32 FLOP per staged voxel
+// (the upconv's own work, about 1.3 times over for the halo), with the
+// carry and the upconv weights read through L1.
 #include "conv_bnact.cuh"
 
 extern "C" int e3_conv_vup(int dtype, const void* carry, int cc,

@@ -53,15 +53,16 @@
 // so the last bits of each sum, changes from run to run.
 //
 // The vup path (JAX's upconv of the C=64 carry that is never stored)
-// adds three entries here, each on the recompute of upconv_vup.cuh:
+// adds three entries here, each on the recompute of upconv_vup.cuh
+// (upconv_value8), for float32 and for bf16 where vup.vup_body names the
+// CUDA-core bodies (its 'tc' bodies: upconv_stats_bwd_tc.cu for rows 22
+// and 23, conv_vup_tc.cu for row 9's chain):
 //   e3_upconv_stats (row 22, ops/flat_fused64.py::
 //     upconv122_stats_from_flat64): the per-channel sum and sum of
 //     squares of the rounded upconv output, recomputed per voxel;
 //     nothing else is stored. Bound by that recompute (2 * cc FLOP per
 //     output value on the CUDA cores) and by the carry read.
-//   e3_upconv_stats_bwd (row 23, _upconv122_stats_bwd; float32, and
-//     bf16 where vup.vup_bwd_body does not take upconv_stats_bwd_tc.cu's
-//     one-kernel body): one pass forms dy_tot = ds + 2 y dq on the
+//   e3_upconv_stats_bwd (row 23, _upconv122_stats_bwd): one pass forms dy_tot = ds + 2 y dq on the
 //     recomputed y, sums it in float32 (the bias gradient) and stores
 //     it rounded, E, into a scratch of the upconv output's shape; then
 //     the chain below on that E.

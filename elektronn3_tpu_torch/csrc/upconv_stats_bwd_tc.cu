@@ -1,6 +1,21 @@
-// Row 23, upconv_stats_bwd, bfloat16 body: the backward of the vup
-// path's statistics pass (row 22) as ONE kernel on the tensor cores. Row
-// 22 sums the (1, 2, 2) upconv u of the carry into u's batch statistics
+// Rows 22 and 23, upconv_stats and upconv_stats_bwd, bfloat16 bodies.
+//
+// Row 22 (upconv_stats_tc_kernel): the per-channel float32 sum and sum of
+// squares of the rounded (1, 2, 2) upconv u of the carry, u never
+// stored. It is row 23's GEMM 1 with a statistics epilogue: a block walks
+// tiles of BM = 64 carry voxels (the raw carry in a 2-stage cp.async
+// ring, prologued and rounded in place into a), recomputes u with
+// vup_mma on K3's packed weight (staged once a block) and vup_round, and
+// sums each lane's rounded values in registers for its walk; at the end
+// shuffles over the lanes of a channel, shared atomics, then one device
+// atomic per channel and block, as K3's tensor-core epilogue. Replaces,
+// for bf16, ops/flat_fused64.py::upconv122_stats_from_flat64 (its
+// pallas_call); float32 keeps upconv_bnact.cu's pass (upconv_value8).
+// What bounds it: the carry's bytes (0.026 ms at bench.py's up_2) against
+// 2 x 64 x 128 FLOP a carry voxel on the tensor cores.
+//
+// Row 23: the backward of the vup path's statistics pass (row 22) as ONE
+// kernel on the tensor cores. Row 22 sums the (1, 2, 2) upconv u of the carry into u's batch statistics
 // without storing u; its backward takes the statistics cotangents ds, dq
 // (C_u,) to the carry, its prologue and the upconv's weight and bias.
 // Per carry voxel v, with x the raw carry and prec = x * invc + shiftc:
@@ -51,7 +66,7 @@
 // dbu is summed from the float32 e, never from E, as JAX sums it; K7's
 // "db of E" scratch and the 174.4 MB scratch E of the CUDA-core path do
 // not exist here. Template cases: cc in {32, 64, 96, 128} and cu in
-// {32, 64} (vup.vup_bwd_body names the CUDA-core path for others).
+// {32, 64} (vup.vup_body names the CUDA-core path for others).
 //
 // mma.sync rather than wgmma and TMA, as in the other tensor-core
 // bodies (upconv_tc.cu, wgrad_tc.cu, upconv_bwd_tc.cu): the
@@ -66,7 +81,7 @@ namespace {
 
 using namespace e3;
 
-constexpr int BM = 64;    // carry voxels a tile
+constexpr int BM = VBM;   // carry voxels a tile
 constexpr int NT = 256;   // 8 warps
 
 struct StatsBwdArgs {
@@ -87,22 +102,19 @@ struct StatsBwdArgs {
 };
 
 template <int CC, int CU>
-struct SCfg {
-  static constexpr int NCOL = 4 * CU;            // (sub, co) columns
-  static constexpr int XP = CC * 2 + 16;         // carry / a row pitch
-  static constexpr int EP = NCOL * 2 + 16;       // E row pitch
-  static constexpr int WBYTES = CC * NCOL * 2;
-  static constexpr int XBYTES = BM * XP;
-  static constexpr int EBYTES = BM * EP;
+struct SCfg : ChainCfg<CC, CU> {
+  using B = ChainCfg<CC, CU>;
+  static constexpr int XBYTES = BM * B::XP;
+  static constexpr int EBYTES = BM * B::EP;
   static constexpr int VECS = 4 * CC + 4 * CU;   // floats
-  static constexpr int SMEM = WBYTES + 3 * XBYTES + EBYTES + VECS * 4;
-  static constexpr int CHUNKS = NCOL / 128;      // GEMM 1 column chunks
-  static constexpr int NJ2 = CC / 16;            // GEMM 2 n8 tiles a warp
-  static constexpr int MI3 = CC / 32;            // GEMM 3 m16 tiles a warp
-  static constexpr int NJ3 = CU / 8;             // GEMM 3 n8 tiles a warp
+  static constexpr int SMEM = B::WBYTES + 3 * XBYTES + EBYTES + VECS * 4;
+  static constexpr int CHUNKS = B::NCOL / 128;   // GEMM 1 column chunks
   // Two blocks an SM where the GEMM 3 sums (CC * CU / 64 a lane) leave
   // room for them.
   static constexpr int MIN_BLOCKS = CC * CU <= 2048 ? 2 : 1;
+  // Row 22: the weight, the ring and a, the vectors and the block sums.
+  static constexpr int STATS_SMEM = B::WBYTES + 3 * XBYTES
+      + (2 * CC + 3 * CU) * 4;
 };
 
 template <int CC, int CU>
@@ -159,25 +171,14 @@ upconv_stats_bwd_tc_kernel(const StatsBwdArgs a) {
   cp_async_commit();
 
   // Warp layouts. GEMM 1: 2 (32 rows) x 4 (32 columns of a 128-column
-  // chunk); GEMM 2: 4 (16 rows) x 2 (CC / 2 channels); GEMM 3: 2 (CC / 2
-  // channels) x 4 (one sub-position's CU columns).
+  // chunk); GEMMs 2 and 3 as the chain's (upconv_vup.cuh).
   const int wm1 = warp % 2, wn1 = warp / 2;
   const int wm2 = warp % 4, wn2 = warp / 4;
-  const int wm3 = warp / 4, sub3 = warp % 4;
   const uint32_t a1_lane = smem_u32(s_a) + (wm1 * 32 + (lane & 15)) * C::XP
       + (lane >> 4) * 16;
   const uint32_t w1_lane = smem_u32(s_w)
       + swz((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
-  const uint32_t e2_lane = smem_u32(s_e) + (wm2 * 16 + (lane & 15)) * C::EP
-      + (lane >> 4) * 16;
-  const uint32_t w2_lane = smem_u32(s_w)
-      + swz((lane & 7) + 8 * ((lane >> 3) & 1), lane >> 4);
-  const uint32_t a3_lane = smem_u32(s_a)
-      + ((lane & 7) + 8 * (lane >> 4)) * C::XP + wm3 * CC
-      + ((lane >> 3) & 1) * 16;
-  const uint32_t e3_lane = smem_u32(s_e)
-      + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::EP + sub3 * CU * 2
-      + (lane >> 4) * 16;
+  const ChainLanes<CC, CU> lanes(s_e, s_w, s_a, warp, lane);
 
   float acc3[C::MI3][C::NJ3][4];
 #pragma unroll
@@ -251,84 +252,19 @@ upconv_stats_bwd_tc_kernel(const StatsBwdArgs a) {
     // GEMM 2, the dgrad, G = E Wu^T; K7's epilogue into dcarry.
     {
       float acc[C::NJ2][4];
-#pragma unroll
-      for (int nj = 0; nj < C::NJ2; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nj][e] = 0.0f;
-#pragma unroll 4
-      for (int ks = 0; ks < C::NCOL / 16; ++ks) {
-        uint32_t af[4];
-        ldmatrix_x4(e2_lane + ks * 32, af);
-#pragma unroll
-        for (int p = 0; p < C::NJ2 / 2; ++p) {
-          uint32_t q[4];
-          const int kc = wn2 * (CC / 32) + p;   // 16-channel group
-          ldmatrix_x4_trans(w2_lane + (kc * C::NCOL + ks * 16) * 32, q);
-          mma_bf16_16816(acc[2 * p], af, q[0], q[1]);
-          mma_bf16_16816(acc[2 * p + 1], af, q[2], q[3]);
-        }
-      }
-      // Lane (g, t4): voxels g and g + 8 of the warp's 16, channels
-      // 2 t4 and 2 t4 + 1 of each n8 tile.
-#pragma unroll
-      for (int nj = 0; nj < C::NJ2; ++nj) {
-        const int c = wn2 * (CC / 2) + nj * 8 + 2 * t4;
-        const float i0 = s_inv[c], i1 = s_inv[c + 1];
-        const float h0 = s_shift[c], h1 = s_shift[c + 1];
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = wm2 * 16 + g + 8 * hr;
-          const int64_t v = v0 + r;
-          if (v >= a.total) continue;
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(sx + r * C::XP
-                                                       + c * 2));
-          const float gm0 = acc[nj][2 * hr]
-              * act_grad(pre_act(xv.x, i0, h0), a.act);
-          const float gm1 = acc[nj][2 * hr + 1]
-              * act_grad(pre_act(xv.y, i1, h1), a.act);
-          si[nj][0] += gm0 * xv.x;
-          si[nj][1] += gm1 * xv.y;
-          ss[nj][0] += gm0;
-          ss[nj][1] += gm1;
-          *reinterpret_cast<__nv_bfloat162*>(a.dx + v * CC + c) =
-              __floats2bfloat162_rn(gm0 * i0, gm1 * i1);
-        }
-      }
+      chain_gemm2<CC, CU>(lanes, wn2, acc);
+      chain_dcarry<CC>(acc, sx, s_inv, s_shift, a.act, wm2, wn2, lane,
+                       [&](int r) -> int64_t {
+                         return v0 + r < a.total ? v0 + r : -1;
+                       },
+                       a.dx, si, ss);
     }
 
     // GEMM 3, the wgrad, dWu[sub3] += a^T E[sub3].
-#pragma unroll
-    for (int ks = 0; ks < BM / 16; ++ks) {
-      uint32_t af[C::MI3][4];
-#pragma unroll
-      for (int mt = 0; mt < C::MI3; ++mt)
-        ldmatrix_x4_trans(a3_lane + ks * 16 * C::XP + mt * 32, af[mt]);
-#pragma unroll
-      for (int p = 0; p < C::NJ3 / 2; ++p) {
-        uint32_t q[4];
-        ldmatrix_x4_trans(e3_lane + ks * 16 * C::EP + p * 32, q);
-#pragma unroll
-        for (int mt = 0; mt < C::MI3; ++mt) {
-          mma_bf16_16816(acc3[mt][2 * p], af[mt], q[0], q[1]);
-          mma_bf16_16816(acc3[mt][2 * p + 1], af[mt], q[2], q[3]);
-        }
-      }
-    }
+    chain_gemm3<CC, CU>(lanes, acc3);
   }
 
-  // dWu: lane (g, t4) holds input channels g and g + 8 of each m16 tile,
-  // output channels 2 t4 and 2 t4 + 1 of each n8 tile.
-#pragma unroll
-  for (int mt = 0; mt < C::MI3; ++mt)
-#pragma unroll
-    for (int nj = 0; nj < C::NJ3; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ci = wm3 * (CC / 2) + mt * 16 + g + 8 * (e >> 1);
-        const int co = nj * 8 + 2 * t4 + (e & 1);
-        atomicAdd(a.dw + ((int64_t)sub3 * CC + ci) * CU + co, acc3[mt][nj][e]);
-      }
+  chain_dw_flush<CC, CU>(acc3, a.dw, warp, lane);
   // dinvc, dshiftc and dbu: the lanes of one t4 hold the same channels.
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1) {
@@ -369,6 +305,138 @@ upconv_stats_bwd_tc_kernel(const StatsBwdArgs a) {
   for (int c = tid; c < CU; c += NT) atomicAdd(a.db + c, s_red[2 * CC + c]);
 }
 
+// Row 22: (s, q) (CU,) float32 sums of the rounded recompute u over every
+// carry voxel and sub-position, into a.dinv and a.dshift. GEMM 1's layout
+// and loads are row 23's.
+template <int CC, int CU>
+__global__ void __launch_bounds__(NT, 2)
+upconv_stats_tc_kernel(const StatsBwdArgs a) {
+  using C = SCfg<CC, CU>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* s_w = smem;                    // [CC/16][NCOL][32], swz
+  unsigned char* s_x = s_w + C::WBYTES;         // 2 x [BM][XP] raw ring
+  unsigned char* s_a = s_x + 2 * C::XBYTES;     // [BM][XP] prologued
+  float* s_inv = reinterpret_cast<float*>(s_a + C::XBYTES);   // [CC]
+  float* s_shift = s_inv + CC;
+  float* s_bu = s_shift + CC;                   // [CU]
+  float* s_red = s_bu + CU;                     // [2 CU]
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int64_t ntiles = (a.total + BM - 1) / BM;
+
+  for (int c = tid; c < CC; c += NT) {
+    s_inv[c] = a.invc[c];
+    s_shift[c] = a.shiftc[c];
+  }
+  for (int c = tid; c < CU; c += NT) {
+    s_bu[c] = a.bu[c];
+    s_red[c] = s_red[CU + c] = 0.0f;
+  }
+  for (int i = tid; i < CC / 16 * C::NCOL * 2; i += NT)
+    cp_async16(smem_u32(s_w + swz(i >> 1, i & 1)),
+               a.wp + (int64_t)(i >> 1) * 16 + (i & 1) * 8, true);
+  auto load = [&](int64_t t, int slot) {
+    unsigned char* dst = s_x + slot * C::XBYTES;
+    for (int i = tid; i < BM * (CC / 8); i += NT) {
+      const int r = i / (CC / 8);
+      const int ch = i % (CC / 8);
+      const int64_t v = t * BM + r;
+      const bool ok = v < a.total;
+      cp_async16(smem_u32(dst + r * C::XP + ch * 16),
+                 ok ? a.x + v * CC + ch * 8 : a.x, ok);
+    }
+  };
+  load(blockIdx.x, 0);
+  cp_async_commit();
+
+  const int wm1 = warp % 2, wn1 = warp / 2;
+  const uint32_t a1_lane = smem_u32(s_a) + (wm1 * 32 + (lane & 15)) * C::XP
+      + (lane >> 4) * 16;
+  const uint32_t w1_lane = smem_u32(s_w)
+      + swz((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+  // This lane's sums of columns j * 128 + wn1 * 32 + nj * 8 + 2 t4 (+ 1).
+  float sm[C::CHUNKS][4][2], sq[C::CHUNKS][4][2];
+#pragma unroll
+  for (int j = 0; j < C::CHUNKS; ++j)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+      sm[j][nj][0] = sm[j][nj][1] = sq[j][nj][0] = sq[j][nj][1] = 0.0f;
+
+  int slot = 0;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, slot ^= 1) {
+    cp_async_wait<0>();  // tile t (and the weight) has landed
+    __syncthreads();     // for every thread; the other slot is free
+    if (t + gridDim.x < ntiles) load(t + gridDim.x, slot ^ 1);
+    cp_async_commit();
+    const unsigned char* sx = s_x + slot * C::XBYTES;
+    const int64_t v0 = t * BM;
+    for (int i = tid; i < BM * (CC / 8); i += NT) {
+      const int r = i / (CC / 8);
+      const int ch = i % (CC / 8);
+      uint4* d = reinterpret_cast<uint4*>(s_a + r * C::XP + ch * 16);
+      *d = *reinterpret_cast<const uint4*>(sx + r * C::XP + ch * 16);
+      prologue_half(d, s_inv + ch * 8, s_shift + ch * 8, a.act, true);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < C::CHUNKS; ++j) {
+      const int col[2] = {j * 128 + wn1 * 32, j * 128 + wn1 * 32 + 16};
+      float acc[2][4][4];
+      vup_mma<2, 2>(a1_lane, C::XP, w1_lane, col, C::NCOL, CC / 16, acc);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int co = (col[0] + nj * 8 + 2 * t4) % CU;
+        const float b0 = s_bu[co], b1 = s_bu[co + 1];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            if (v0 + wm1 * 32 + mi * 16 + g + 8 * hr >= a.total) continue;
+            const float u0 = vup_round(acc[mi][nj][2 * hr], b0);
+            const float u1 = vup_round(acc[mi][nj][2 * hr + 1], b1);
+            sm[j][nj][0] += u0;
+            sm[j][nj][1] += u1;
+            sq[j][nj][0] = fmaf(u0, u0, sq[j][nj][0]);
+            sq[j][nj][1] = fmaf(u1, u1, sq[j][nj][1]);
+          }
+      }
+    }
+  }
+  // The lanes of one t4 hold the same columns.
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int j = 0; j < C::CHUNKS; ++j)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sm[j][nj][e] += __shfl_xor_sync(0xffffffffu, sm[j][nj][e], off);
+          sq[j][nj][e] += __shfl_xor_sync(0xffffffffu, sq[j][nj][e], off);
+        }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < C::CHUNKS; ++j)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = (j * 128 + wn1 * 32 + nj * 8 + 2 * t4 + e) % CU;
+          atomicAdd(&s_red[co], sm[j][nj][e]);
+          atomicAdd(&s_red[CU + co], sq[j][nj][e]);
+        }
+  }
+  __syncthreads();
+  for (int c = tid; c < CU; c += NT) {
+    atomicAdd(a.dinv + c, s_red[c]);
+    atomicAdd(a.dshift + c, s_red[CU + c]);
+  }
+}
+
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -380,11 +448,9 @@ int sm_count() {
   return count;
 }
 
-// One wave of blocks at the kernel's occupancy, at most one a tile.
-template <int CC, int CU>
-cudaError_t launch(const StatsBwdArgs& a, cudaStream_t stream) {
-  constexpr int smem = SCfg<CC, CU>::SMEM;
-  auto kern = upconv_stats_bwd_tc_kernel<CC, CU>;
+// One wave of blocks of ``kern`` at its occupancy, at most one a tile.
+cudaError_t launch_wave(void (*kern)(StatsBwdArgs), int smem,
+                        const StatsBwdArgs& a, cudaStream_t stream) {
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return rc;
@@ -401,11 +467,35 @@ cudaError_t launch(const StatsBwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Row 23 (stats = false) or row 22 (stats = true).
+template <int CC, int CU>
+cudaError_t launch(const StatsBwdArgs& a, bool stats, cudaStream_t stream) {
+  using C = SCfg<CC, CU>;
+  return stats ? launch_wave(upconv_stats_tc_kernel<CC, CU>, C::STATS_SMEM,
+                             a, stream)
+               : launch_wave(upconv_stats_bwd_tc_kernel<CC, CU>, C::SMEM, a,
+                             stream);
+}
+
 template <int CC>
-cudaError_t launch_cu(const StatsBwdArgs& a, int cu, cudaStream_t st) {
-  if (cu == 32) return launch<CC, 32>(a, st);
-  if (cu == 64) return launch<CC, 64>(a, st);
+cudaError_t launch_cu(const StatsBwdArgs& a, int cu, bool stats,
+                      cudaStream_t st) {
+  if (cu == 32) return launch<CC, 32>(a, stats, st);
+  if (cu == 64) return launch<CC, 64>(a, stats, st);
   return cudaErrorInvalidValue;
+}
+
+int launch_cc(const StatsBwdArgs& a, int cc, int cu, bool stats,
+              cudaStream_t st) {
+  cudaError_t rc;
+  switch (cc) {
+    case 32: rc = launch_cu<32>(a, cu, stats, st); break;
+    case 64: rc = launch_cu<64>(a, cu, stats, st); break;
+    case 96: rc = launch_cu<96>(a, cu, stats, st); break;
+    case 128: rc = launch_cu<128>(a, cu, stats, st); break;
+    default: rc = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(rc);
 }
 
 }  // namespace
@@ -439,14 +529,26 @@ extern "C" int e3_upconv_stats_bwd_tc(const void* carry, const float* invc,
   a.db = dbu;
   a.total = (int64_t)n * d * h * wd;
   a.act = actc;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t rc;
-  switch (cc) {
-    case 32: rc = launch_cu<32>(a, cu, st); break;
-    case 64: rc = launch_cu<64>(a, cu, st); break;
-    case 96: rc = launch_cu<96>(a, cu, st); break;
-    case 128: rc = launch_cu<128>(a, cu, st); break;
-    default: rc = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(rc);
+  return launch_cc(a, cc, cu, false, static_cast<cudaStream_t>(stream));
+}
+
+// Row 22, bf16 body: s and q (cu,) float32, zeroed by the caller, += the
+// sums of the rounded upconv output and of its squares. Arguments as
+// e3_upconv_stats_bwd_tc's; same template cases.
+extern "C" int e3_upconv_stats_tc(const void* carry, const float* invc,
+                                  const float* shiftc, const void* wp,
+                                  const float* bu, float* s, float* q,
+                                  int n, int d, int h, int wd, int cc,
+                                  int cu, int actc, void* stream) {
+  StatsBwdArgs a = {};
+  a.x = static_cast<const __nv_bfloat16*>(carry);
+  a.invc = invc;
+  a.shiftc = shiftc;
+  a.wp = static_cast<const __nv_bfloat16*>(wp);
+  a.bu = bu;
+  a.dinv = s;     // row 22's sums take row 23's prologue-gradient slots
+  a.dshift = q;
+  a.total = (int64_t)n * d * h * wd;
+  a.act = actc;
+  return launch_cc(a, cc, cu, true, static_cast<cudaStream_t>(stream));
 }

@@ -311,9 +311,8 @@ def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
     3) weight with kd in {1, 3} and C_out % 32 == 0; any C_i (the
     CUDA-core bodies stage a per-channel tail). One input of at most
     :data:`CONV1_MAX_CIN` channels takes row 13's backward, which needs
-    C_out <= 256. Any other input gradient is K4's, which writes
-    32-channel blocks of the inputs' grads: each C_i % 32 == 0 (both of
-    its bodies)."""
+    C_out <= 256. Any other input gradient is K4's, at any C_i (its
+    wrapper pads an input of C_i % 32 != 0 to whole 32-channel blocks)."""
     if len(xs) not in (1, 2):
         raise ValueError(f"conv_bnact takes 1 or 2 inputs, got {len(xs)}")
     x0 = xs[0]
@@ -333,11 +332,6 @@ def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
     if (grad or dgrad) and _conv1(cins) and cout > 256:
         raise ValueError(f"conv_bnact: row 13's backward (C_in <= "
                          f"{CONV1_MAX_CIN}) needs C_out <= 256, got {cout}")
-    if dgrad and not _conv1(cins) and any(c % 32 for c in cins):
-        raise ValueError(
-            f"conv_bnact: an input gradient needs one input of at most "
-            f"{CONV1_MAX_CIN} channels (row 13's kernel) or each C_in % 32 "
-            f"== 0 (K4), got {cins}")
 
 
 def conv_bnact_fwd_plain(xs: Sequence[torch.Tensor],
@@ -539,16 +533,51 @@ def dgrad_body(dtype: torch.dtype) -> str:
     return "tc" if dtype == torch.bfloat16 else "cuda-core"
 
 
+def _dgrad_padded(xs, inv, shift, weight, y, dy, ds, dq, act):
+    """K4 on inputs of any C_i: each input's channels zero-padded up to a
+    multiple of 32 (the weight's input columns with zeros, ``inv`` with
+    ones, ``shift`` with zeros), K4 on that copy, then dxs, dinv and
+    dshift sliced back. The padded channels reach no kept output: their
+    weight columns are zero, and their own dx, dinv and dshift are
+    dropped."""
+    dev = xs[0].device
+    cins = [x.shape[4] for x in xs]
+    xs_p, keep, off = [], [], 0
+    for x, c in zip(xs, cins):
+        xs_p.append(F.pad(x, (0, -c % 32)))
+        keep.append(torch.arange(off, off + c, device=dev))
+        off += c + (-c % 32)
+    idx = torch.cat(keep)
+    w = weight.detach()
+    w_p = w.new_zeros((w.shape[0], off, *w.shape[2:])).index_copy_(1, idx, w)
+    inv_p = shift_p = None
+    if inv is not None:
+        inv_p = inv.new_ones(off).index_copy_(0, idx, inv.detach())
+    if shift is not None:
+        shift_p = shift.new_zeros(off).index_copy_(0, idx,
+                                                   shift.detach())
+    dxs, dinv, dshift = conv_bnact_dgrad_kernel(xs_p, inv_p, shift_p, w_p, y,
+                                                dy, ds, dq, act)
+    dxs = [dx[..., :c].contiguous() for dx, c in zip(dxs, cins)]
+    if dinv is None:
+        return dxs, None, None
+    return dxs, dinv[idx], dshift[idx]
+
+
 def conv_bnact_dgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     """K4: (dxs, dinv, dshift) of :func:`conv_bnact` from the output
     cotangent ``dy`` and the statistics cotangents ``ds``, ``dq`` (each
     may be None), as :func:`conv_bnact_dgrad_plain`, on the body
-    :func:`dgrad_body` picks. Each C_in % 32 == 0."""
+    :func:`dgrad_body` picks. K4 writes 32-channel blocks of dx: inputs
+    of C_in % 32 != 0 run on a zero-padded copy (:func:`_dgrad_padded`;
+    the network input's one to four channels are row 13's,
+    :func:`conv1_bwd_kernel`, which this wrapper refuses)."""
     cins = [x.shape[4] for x in xs]
+    if _conv1(cins):
+        raise ValueError(f"conv_bnact_dgrad: one input of at most "
+                         f"{CONV1_MAX_CIN} channels is conv1_bwd_kernel's")
     if any(c % 32 for c in cins):
-        raise ValueError(f"conv_bnact_dgrad: each C_in % 32 == 0, got "
-                         f"{cins} (the network input's dx is "
-                         f"conv1_bwd_kernel's)")
+        return _dgrad_padded(xs, inv, shift, weight, y, dy, ds, dq, act)
     body = dgrad_body(xs[0].dtype)
     g, ds, dq, inv_v, shift_v, wq = _conv_bwd_args(
         xs, inv, shift, weight, y, dy, ds, dq, "conv_bnact_dgrad")

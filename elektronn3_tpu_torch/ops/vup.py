@@ -28,24 +28,37 @@ nor the backward:
 
 The plain versions compose ``fused.upconv_bnact_fwd_plain`` and the
 conv's plain versions, so the plain forward is bitwise the materializing
-path's. The kernels (``csrc/conv_vup.cu``, vup instantiations in
-``conv_bnact_bwd.cu``, ``upconv_bnact.cu`` and ``wgrad_tc.cu``, and
-``upconv_stats_bwd_tc.cu``) recompute u through the two recomputes of
-``csrc/upconv_vup.cuh``: ``upconv_value8`` on the CUDA cores, and a
-tensor-core tile GEMM in the bf16 bodies of ``vup_bwd_body``:
+path's. Each kernel recomputes u; :func:`vup_body` picks, from (dtype,
+C_carry, C_up), one body for all five entries, so a model step never
+mixes two recomputes:
 
-- ``conv_vup`` (K1's body): the forward;
-- ``conv_vup_dgrad`` (K4's body, then K7's dgrad and wgrad bodies as
-  the chain): the merge conv's input gradients, with E going through a
-  scratch of u's shape in the activation dtype (JAX rounds E to it too;
-  the scratch lives for the call, and no two coexist);
-- ``conv_vup_wgrad`` (bf16: K5's tensor-core body, u recomputed per
-  tile on the tensor cores; float32: K5's CUDA-core body): the merge
-  conv's dW and db;
-- ``upconv_stats`` (row 22): one pass of the recompute;
-- ``upconv_stats_bwd`` (row 23; bf16: one tensor-core kernel whose E
-  stays in shared memory; float32: one pass forms ``round(ds + 2 u dq)``
-  into the same kind of scratch, then the chain).
+- ``'tc'`` (bf16 at the template cases :data:`VUP_TC_CC` x
+  :data:`VUP_TC_CU`): every entry recomputes u on the tensor cores with
+  ``vup_mma`` (``csrc/upconv_vup.cuh``), whose values are K3's stored
+  bf16 output bit for bit:
+
+  - ``conv_vup``: K1's tensor-core body (``csrc/conv_tc.cu``) with u's
+    halo slab staged once per tile from the recompute, so y is bitwise
+    K1's output over K3's u;
+  - ``conv_vup_dgrad``: one kernel (``csrc/conv_vup_tc.cu``): K4's GEMM,
+    the recompute, the epilogue forming E in shared memory and row 23's
+    chain GEMMs on it;
+  - ``conv_vup_wgrad``: K5's tensor-core body (``csrc/wgrad_tc.cu``),
+    u recomputed per tile;
+  - ``upconv_stats`` and ``upconv_stats_bwd`` (rows 22 and 23): one
+    kernel each (``csrc/upconv_stats_bwd_tc.cu``), E of row 23 in
+    shared memory;
+
+- ``'cuda-core'`` (float32, and any other shape): ``upconv_value8``
+  voxel by voxel, K3's float32 bits: K1's and K4's CUDA-core bodies
+  with ``VUP`` (``csrc/conv_vup.cu``; the dgrad writes E into a scratch
+  of u's shape in the activation dtype, JAX rounds E to it too, and
+  ``csrc/upconv_bnact.cu``'s chain, K7's CUDA-core bodies, takes it into
+  the carry), K5's with ``VUP``, and ``upconv_bnact.cu``'s passes for
+  rows 22 and 23.
+
+Each entry's wrapper takes ``body='cuda-core'`` to run that body in bf16
+too (the card tests hold the two against each other).
 
 As in ``ops/fused.py``, a CPU tensor runs the plain versions, a CUDA
 tensor the kernels (which raise if they cannot launch), and
@@ -55,16 +68,18 @@ kernels' shape contract first, on every device.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from elektronn3_tpu_torch.ops import _build
 from elektronn3_tpu_torch.ops.fused import (
-    LAUNCHES, _ACT_ID, _DTYPE_ID, _check_cuda, _check_dtype, _count,
+    _ACT_ID, _DTYPE_ID, _check_cuda, _check_dtype, _count,
     _cuda_grad, _plain, _ptr, _stat_cts, _stream, _vec, channel_stats,
     conv_bnact_dgrad_gm, conv_bnact_fwd_plain, conv_bnact_wgrad_plain,
-    pack_upconv_weight, upconv_bnact_bwd_plain, upconv_bnact_fwd_plain)
+    pack_conv_weight, pack_dgrad_weight, pack_upconv_weight,
+    upconv_bnact_bwd_plain, upconv_bnact_fwd_plain)
 
 
 def _vup_contract(carry: torch.Tensor, wu: torch.Tensor,
@@ -191,52 +206,98 @@ def _carry_ptrs(carry, invc_v, shiftc_v, wt, b):
         wt.data_ptr(), b.data_ptr()
 
 
-def upconv_stats_kernel(carry, invc, shiftc, wu, bu, act_c):
-    """Row 22 on a CUDA carry: (s, q) as :func:`upconv_stats_plain`."""
+def upconv_stats_kernel(carry, invc, shiftc, wu, bu, act_c, body=None):
+    """Row 22 on a CUDA carry: (s, q) as :func:`upconv_stats_plain`, on
+    ``body`` (by default :func:`vup_body`'s; ``'cuda-core'`` runs it in
+    either dtype)."""
     invc_v, shiftc_v, wt, b, cc, cu = _carry_args(carry, invc, shiftc, wu,
                                                   bu, "upconv_stats")
+    body = _body(body, carry.dtype, cc, cu, "upconv_stats")
     dev = carry.device
     s = torch.zeros(cu, dtype=torch.float32, device=dev)
     q = torch.zeros(cu, dtype=torch.float32, device=dev)
     n, d, h, w = carry.shape[:4]
     lib = _build.library()
     with torch.cuda.device(dev):
-        rc = lib.e3_upconv_stats(
-            _DTYPE_ID[carry.dtype], *_carry_ptrs(carry, invc_v, shiftc_v, wt,
-                                                 b),
-            s.data_ptr(), q.data_ptr(), n, d, h, w, cc, cu, _ACT_ID[act_c],
-            _stream(dev))
-    _build.check(rc, "upconv_stats")
-    LAUNCHES["upconv_stats"] += 1
+        if body == "tc":
+            wp = pack_upconv_weight(wu, carry.dtype, dev)
+            rc = lib.e3_upconv_stats_tc(
+                carry.data_ptr(), invc_v.data_ptr(), shiftc_v.data_ptr(),
+                wp.data_ptr(), b.data_ptr(), s.data_ptr(), q.data_ptr(), n,
+                d, h, w, cc, cu, _ACT_ID[act_c], _stream(dev))
+        else:
+            rc = lib.e3_upconv_stats(
+                _DTYPE_ID[carry.dtype],
+                *_carry_ptrs(carry, invc_v, shiftc_v, wt, b), s.data_ptr(),
+                q.data_ptr(), n, d, h, w, cc, cu, _ACT_ID[act_c],
+                _stream(dev))
+    _build.check(rc, f"upconv_stats ({body} body)")
+    _count("upconv_stats", body)
     return s, q
 
 
-# The (C_carry, C_up) of the tensor-core bodies of rows 23 and 9's
-# weight gradient: template cases of csrc/upconv_stats_bwd_tc.cu and
-# csrc/wgrad_tc.cu.
+# The (C_carry, C_up) of the vup path's tensor-core bodies: template
+# cases of csrc/conv_tc.cu's vup instantiation, csrc/conv_vup_tc.cu,
+# csrc/upconv_stats_bwd_tc.cu and csrc/wgrad_tc.cu.
 VUP_TC_CC = (32, 64, 96, 128)
 VUP_TC_CU = (32, 64)
 
 
-def vup_bwd_body(dtype: torch.dtype, cc: int, cu: int) -> str:
-    """The body ``upconv_stats_bwd`` (row 23) and ``conv_vup_wgrad``
-    (row 9's weight gradient) run: ``'tc'`` (``csrc/
-    upconv_stats_bwd_tc.cu``: one tensor-core kernel, E in shared
-    memory; ``csrc/wgrad_tc.cu``: K5's tensor-core body with u
-    recomputed per tile on the tensor cores) for bfloat16 with C_carry
-    in :data:`VUP_TC_CC` and C_up in :data:`VUP_TC_CU`, else
-    ``'cuda-core'`` (``csrc/upconv_bnact.cu``'s pass and K7's CUDA-core
-    bodies, ``csrc/conv_bnact_bwd.cu``'s K5 with ``VUP``): float32, whose
-    tests hold 1e-4 of the scale, and any other shape."""
+def vup_body(dtype: torch.dtype, cc: int, cu: int) -> str:
+    """The body every vup entry runs at (dtype, C_carry, C_up): ``'tc'``
+    (u recomputed on the tensor cores by ``vup_mma``, K3's stored bits;
+    see the module's docstring for each entry's kernel) for bfloat16 with
+    C_carry in :data:`VUP_TC_CC` and C_up in :data:`VUP_TC_CU`, else
+    ``'cuda-core'`` (``upconv_value8``: float32, whose tests hold 1e-4 of
+    the scale, and any other shape). One answer for all five entries, so
+    a model step never mixes the two recomputes."""
     if dtype == torch.bfloat16 and cc in VUP_TC_CC and cu in VUP_TC_CU:
         return "tc"
     return "cuda-core"
 
 
+def vup_tile(w: int, voxels: int) -> Tuple[int, int]:
+    """(TH, TW) of an output tile of ``voxels`` (256, or 128 where K1
+    takes 128 output channels a block) on a level of width ``w``, as the
+    vup merge conv's tensor-core bodies take it: K1's and K4's rule (the
+    tile width, 16 or 32, that wastes the fewest columns of a row; 32 on
+    a tie), TH = voxels / TW. TH and TW are even, and tiles start at
+    multiples of them, so a tile covers whole carry voxels: (TH / 2) x
+    (TW / 2) of them, 64 at 256 voxels (row 23's tile)."""
+    tw = 16 if -(-w // 16) * 16 < -(-w // 32) * 32 else 32
+    return voxels // tw, tw
+
+
+def conv_vup_voxels(cout: int) -> int:
+    """Output voxels of a tile of ``conv_vup``'s tensor-core body: K1's
+    (128 at C_out % 128 == 0, where a block takes 128 channels, else
+    256)."""
+    return 128 if cout % 128 == 0 else 256
+
+
+# conv_vup_dgrad's tensor-core body: dx columns of a work item, and the
+# output voxels of its tile.
+VUP_DGRAD_COLS = 64
+VUP_DGRAD_VOXELS = 256
+
+
+def pack_vup_dgrad_weight(weight: torch.Tensor, dtype: torch.dtype,
+                          device: torch.device) -> torch.Tensor:
+    """The merge weight as ``conv_vup_dgrad``'s tensor-core body takes
+    it: :func:`fused.pack_dgrad_weight`'s (kd, C_out / 16, 3, 3, C_in,
+    16) with C_in padded with zeros to a multiple of
+    :data:`VUP_DGRAD_COLS` (a work item's columns)."""
+    cin = weight.shape[1]
+    pad = -cin % VUP_DGRAD_COLS
+    if pad:
+        weight = F.pad(weight.detach(), (0, 0, 0, 0, 0, 0, 0, pad))
+    return pack_dgrad_weight(weight, dtype, device)
+
+
 def _body(body, dtype, cc, cu, what):
-    body = body or vup_bwd_body(dtype, cc, cu)
+    body = body or vup_body(dtype, cc, cu)
     if body not in ("tc", "cuda-core") or (
-            body == "tc" and vup_bwd_body(dtype, cc, cu) != "tc"):
+            body == "tc" and vup_body(dtype, cc, cu) != "tc"):
         raise ValueError(f"{what}: no {body!r} body for {dtype} at "
                          f"C_carry {cc}, C_up {cu}")
     return body
@@ -246,7 +307,7 @@ def upconv_stats_bwd_kernel(carry, invc, shiftc, wu, bu, ds, dq, act_c,
                             body=None):
     """Row 23: (dcarry, dinvc, dshiftc, dwu, dbu) as
     :func:`upconv_stats_bwd_plain`, on ``body`` (by default the one
-    :func:`vup_bwd_body` picks; ``'cuda-core'`` runs it in either
+    :func:`vup_body` picks; ``'cuda-core'`` runs it in either
     dtype). ``'tc'``: one kernel recomputes the upconv output y on the
     tensor cores, forms E = round(ds + 2 y dq) in shared memory, sums
     dbu from the float32 value and runs the dgrad and wgrad GEMMs on E.
@@ -306,42 +367,60 @@ def _merge_args(carry, skip, inv, shift, weight, what):
 
 
 def conv_vup_fwd_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
-                        weight, bias, act, act_c, want_stats=False):
+                        weight, bias, act, act_c, want_stats=False,
+                        body=None):
     """The vup forward on CUDA tensors: (y, s, q) as
-    :func:`conv_vup_fwd_plain`."""
+    :func:`conv_vup_fwd_plain`, on ``body`` (by default
+    :func:`vup_body`'s; ``'cuda-core'`` runs it in either dtype)."""
     invc_v, shiftc_v, wt_u, b_u, cc, cu = _carry_args(
         carry, invc, shiftc, wu, bu, "conv_vup")
     inv_v, shift_v, wq = _merge_args(carry, skip, inv, shift, weight,
                                      "conv_vup")
+    body = _body(body, carry.dtype, cc, cu, "conv_vup")
     dev = carry.device
     n, d, h, w, cs = skip.shape
     cout = weight.shape[0]
-    wt = wq.permute(2, 3, 4, 1, 0).contiguous()
     b = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((n, d, h, w, cout), dtype=carry.dtype, device=dev)
     s = q = None
     if want_stats:
         s = torch.zeros(cout, dtype=torch.float32, device=dev)
         q = torch.zeros(cout, dtype=torch.float32, device=dev)
-    invs, shifts = torch.split(inv_v, [cu, cs]), torch.split(shift_v, [cu, cs])
     lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.e3_conv_vup(
-            _DTYPE_ID[carry.dtype], carry.data_ptr(), cc, invc_v.data_ptr(),
-            shiftc_v.data_ptr(), wt_u.data_ptr(), b_u.data_ptr(), cu,
-            _ACT_ID[act_c], skip.data_ptr(), cs, invs[0].data_ptr(),
-            shifts[0].data_ptr(), invs[1].data_ptr(), shifts[1].data_ptr(),
-            wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
-            n, d, h, w, cout, _ACT_ID[act], _stream(dev))
-    _build.check(rc, "conv_vup")
-    LAUNCHES["conv_vup"] += 1
+    if body == "tc":
+        wup = pack_upconv_weight(wu, carry.dtype, dev)
+        wp = pack_conv_weight(weight, carry.dtype, dev)
+        tw = vup_tile(w, conv_vup_voxels(cout))[1]
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_vup_tc(
+                carry.data_ptr(), cc, invc_v.data_ptr(), shiftc_v.data_ptr(),
+                wup.data_ptr(), b_u.data_ptr(), cu, _ACT_ID[act_c],
+                skip.data_ptr(), cs, inv_v.data_ptr(), shift_v.data_ptr(),
+                wp.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
+                n, d, h, w, cout, _ACT_ID[act], tw, _stream(dev))
+    else:
+        wt = wq.permute(2, 3, 4, 1, 0).contiguous()
+        invs = torch.split(inv_v, [cu, cs])
+        shifts = torch.split(shift_v, [cu, cs])
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_vup(
+                _DTYPE_ID[carry.dtype], carry.data_ptr(), cc,
+                invc_v.data_ptr(), shiftc_v.data_ptr(), wt_u.data_ptr(),
+                b_u.data_ptr(), cu, _ACT_ID[act_c], skip.data_ptr(), cs,
+                invs[0].data_ptr(), shifts[0].data_ptr(), invs[1].data_ptr(),
+                shifts[1].data_ptr(), wt.data_ptr(), b.data_ptr(),
+                y.data_ptr(), _ptr(s), _ptr(q), n, d, h, w, cout,
+                _ACT_ID[act], _stream(dev))
+    _build.check(rc, f"conv_vup ({body} body)")
+    _count("conv_vup", body)
     return y, s, q
 
 
-# The body of K7 that the chain runs, in both dtypes: e3_conv_vup_chain
-# (inside conv_vup_dgrad) and the 'cuda-core' body of e3_upconv_stats_bwd
+# The body of K7 that the chain of the 'cuda-core' bodies runs, in both
+# dtypes: e3_conv_vup_chain (inside conv_vup_dgrad) and e3_upconv_stats_bwd
 # call K7's CUDA-core bodies (launch_upconv_bwd in csrc/upconv_bnact.cu)
-# by name, whatever fused.upconv_bwd_body picks for upconv_bnact.
+# by name, whatever fused.upconv_bwd_body picks for upconv_bnact. (The
+# 'tc' bodies run row 23's chain GEMMs, csrc/upconv_vup.cuh.)
 CHAIN_BODY = "cuda-core"
 
 
@@ -384,24 +463,27 @@ def vup_chain_kernel(carry, invc, shiftc, wu, e, act_c):
 
 
 def conv_vup_dgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
-                          weight, y, dy, ds, dq, act, act_c):
+                          weight, y, dy, ds, dq, act, act_c, body=None):
     """Row 9's input gradients on CUDA tensors, as
-    :func:`conv_vup_dgrad_plain`: K4's vup body writes E (the upconv
-    output's cotangent, rounded) into a scratch of the upconv output's
-    shape in the activation dtype, with dskip, dinv and dshift; the
-    chain (K7's bodies on E) gives dcarry, dinvc, dshiftc and dwu; dbu
-    is ``inv0 * dshift0``, the sum of ``gm * inv0`` (K4 sums gm)."""
+    :func:`conv_vup_dgrad_plain`, on ``body`` (by default
+    :func:`vup_body`'s; ``'cuda-core'`` runs it in either dtype).
+    ``'tc'``: one kernel (``csrc/conv_vup_tc.cu``) runs K4's GEMM,
+    recomputes u, forms E (the upconv output's cotangent, rounded) in
+    shared memory with dskip, dinv and dshift, and chains E into dcarry,
+    dinvc, dshiftc and dwu. ``'cuda-core'``: K4's vup body writes E into
+    a scratch of the upconv output's shape in the activation dtype, and
+    the chain (K7's CUDA-core bodies on E) gives the rest. Both: dbu is
+    ``inv0 * dshift0``, the sum of ``gm * inv0`` (the kernels sum gm)."""
     invc_v, shiftc_v, wt_u, b_u, cc, cu = _carry_args(
         carry, invc, shiftc, wu, bu, "conv_vup_dgrad")
     inv_v, shift_v, wq = _merge_args(carry, skip, inv, shift, weight,
                                      "conv_vup_dgrad")
+    body = _body(body, carry.dtype, cc, cu, "conv_vup_dgrad")
     dev = carry.device
     n, d, h, w, cs = skip.shape
     cout = weight.shape[0]
     g = _cuda_grad(dy, y, "conv_vup_dgrad")
     ds, dq = _stat_cts(ds, dq, cout, dev)
-    wt = wq.flip(2, 3, 4).permute(2, 3, 4, 0, 1).contiguous()
-    e = torch.empty((n, d, h, w, cu), dtype=carry.dtype, device=dev)
     dskip = torch.empty_like(skip)
     dinv = torch.zeros(cu + cs, dtype=torch.float32, device=dev)
     dshift = torch.zeros(cu + cs, dtype=torch.float32, device=dev)
@@ -410,19 +492,40 @@ def conv_vup_dgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
     dshiftc = torch.zeros(cc, dtype=torch.float32, device=dev)
     dwt = torch.zeros((1, 2, 2, cc, cu), dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.e3_conv_vup_dgrad(
-            _DTYPE_ID[carry.dtype], g.data_ptr(), y.data_ptr(), _ptr(ds),
-            _ptr(dq), cout, wt.data_ptr(), carry.data_ptr(), cc, invc_v.data_ptr(),
-            shiftc_v.data_ptr(), wt_u.data_ptr(), b_u.data_ptr(), cu,
-            _ACT_ID[act_c], skip.data_ptr(), cs, inv_v.data_ptr(),
-            shift_v.data_ptr(), e.data_ptr(), dskip.data_ptr(),
-            dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, _ACT_ID[act],
-            _stream(dev))
-    _build.check(rc, "conv_vup_dgrad")
-    _chain(carry, invc_v, shiftc_v, wt_u, e, dcarry, dinvc, dshiftc, dwt,
-           act_c)
-    LAUNCHES["conv_vup_dgrad"] += 1
+    if body == "tc":
+        if ds is None:   # the kernel always folds: zeros give dy_tot = dy
+            ds = dq = torch.zeros(cout, dtype=torch.float32, device=dev)
+        wp = pack_vup_dgrad_weight(weight, carry.dtype, dev)
+        wup = pack_upconv_weight(wu, carry.dtype, dev)
+        tw = vup_tile(w, VUP_DGRAD_VOXELS)[1]
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_vup_dgrad_tc(
+                g.data_ptr(), y.data_ptr(), ds.data_ptr(), dq.data_ptr(),
+                cout, wp.data_ptr(), carry.data_ptr(), cc,
+                invc_v.data_ptr(), shiftc_v.data_ptr(), wup.data_ptr(),
+                b_u.data_ptr(), cu, _ACT_ID[act_c], skip.data_ptr(), cs,
+                inv_v.data_ptr(), shift_v.data_ptr(), dcarry.data_ptr(),
+                dinvc.data_ptr(), dshiftc.data_ptr(), dwt.data_ptr(),
+                dskip.data_ptr(), dinv.data_ptr(), dshift.data_ptr(), n, d,
+                h, w, _ACT_ID[act], tw, _stream(dev))
+        _build.check(rc, "conv_vup_dgrad (tc body)")
+    else:
+        wt = wq.flip(2, 3, 4).permute(2, 3, 4, 0, 1).contiguous()
+        e = torch.empty((n, d, h, w, cu), dtype=carry.dtype, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.e3_conv_vup_dgrad(
+                _DTYPE_ID[carry.dtype], g.data_ptr(), y.data_ptr(),
+                _ptr(ds), _ptr(dq), cout, wt.data_ptr(), carry.data_ptr(),
+                cc, invc_v.data_ptr(), shiftc_v.data_ptr(), wt_u.data_ptr(),
+                b_u.data_ptr(), cu, _ACT_ID[act_c], skip.data_ptr(), cs,
+                inv_v.data_ptr(), shift_v.data_ptr(), e.data_ptr(),
+                dskip.data_ptr(), dinv.data_ptr(), dshift.data_ptr(), n, d,
+                h, w, _ACT_ID[act], _stream(dev))
+        _build.check(rc, "conv_vup_dgrad (cuda-core body)")
+        _chain(carry, invc_v, shiftc_v, wt_u, e, dcarry, dinvc, dshiftc,
+               dwt, act_c)
+        del e
+    _count("conv_vup_dgrad", body)
     dbu = inv_v[:cu] * dshift[:cu]
     if invc is None:
         dinvc = dshiftc = None
@@ -435,7 +538,7 @@ def conv_vup_dgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
 def conv_vup_wgrad_kernel(carry, invc, shiftc, wu, bu, skip, inv, shift,
                           weight, y, dy, ds, dq, act, act_c, body=None):
     """K5's vup body: float32 (dW, db) as :func:`conv_vup_wgrad_plain`,
-    on ``body`` (by default the one :func:`vup_bwd_body` picks;
+    on ``body`` (by default the one :func:`vup_body` picks;
     ``'cuda-core'`` runs K5's CUDA-core body in either dtype)."""
     invc_v, shiftc_v, wt_u, b_u, cc, cu = _carry_args(
         carry, invc, shiftc, wu, bu, "conv_vup_wgrad")

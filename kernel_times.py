@@ -1,5 +1,5 @@
-"""Times the port's fused kernels K1, K3, K4, K5 and K7, row 13's and two
-vup entries (bf16, CUDA events, 20 launches after one warm-up) in the
+"""Times the port's fused kernels K1, K3, K4, K5 and K7, row 13's and the
+five vup entries (bf16, CUDA events, 20 launches after one warm-up) in the
 checkout that is the working directory, and prints one line.
 
     cd <checkout> && python3 <path>/kernel_times.py
@@ -20,8 +20,9 @@ different machines or cards are not comparable. Shapes:
   (8, 1, 80, 80); with statistics and the prologue, the (1, 2, 2) up_2
   64->32 at bench.py's batch 8 of (44, 88, 88);
 - K4 and K5 of that up_2 merge, K7 of that upconv, the vup entries of
-  that up_2 (row 23, ``upconv_stats_bwd``, and row 9's weight gradient,
-  ``conv_vup_wgrad``, with statistics cotangents), K4 and K5 at
+  that up_2 (row 23, ``upconv_stats_bwd``, row 9's weight and input
+  gradients, ``conv_vup_wgrad`` and ``conv_vup_dgrad``, with statistics
+  cotangents, and row 22, ``upconv_stats``), K4 and K5 at
   bench.py's up_1 merge 64+64->64 kd=3 and L0 conv2 32->32 kd=1 and K4 at
   the start_filts=64 model's L1 merge 128+128->128 kd=3 (8, 44, 44, 44)
   (with statistics cotangents), row 13 (the weight gradient of the
@@ -32,7 +33,10 @@ different machines or cards are not comparable. Shapes:
   up_1 (1, 2, 2) 128->64 from (8, 1, 160, 160) (dense
   inputs); these first, on inputs from the plain forwards, so that
   nothing the forward kernels allocate moves their inputs between two
-  checkouts.
+  checkouts;
+- ``conv_vup`` (row 1's vup mode) as served at bench.py's up_2 and at
+  the Predictor tile's (carry (1, 128, 128, 128, 64), skip (1, 128, 256,
+  256, 32)), without statistics.
 Last, the headline UNet's training step at bench.py's shapes with
 ``vup`` on and off (step ms and peak allocated MB).
 """
@@ -102,7 +106,12 @@ def main():
     out.append(("conv_vup_wgrad bench up_2", ms(
         lambda: vup.conv_vup_wgrad_kernel(*margs, yv, dyv, ds, dq, "relu",
                                           "relu"))))
-    del skip, yv, dyv, margs
+    out.append(("conv_vup_dgrad bench up_2", ms(
+        lambda: vup.conv_vup_dgrad_kernel(*margs, yv, dyv, ds, dq, "relu",
+                                          "relu"))))
+    out.append(("upconv_stats bench up_2", ms(
+        lambda: vup.upconv_stats_kernel(xu, invc, shc, wu, bu, "relu"))))
+    del yv, dyv
     # K5 at bench.py's up_1 merge 64+64->64 kd3 (with ds/dq) and L0 conv2
     # 32->32 kd1; K4 at the same two and at the sf=64 model's L1 merge
     # 128+128->128 kd3; K7 at its up_1 (2,2,2) 128->64 from (8,22,22,22)
@@ -201,7 +210,17 @@ def main():
     out.append(("K3 bench up_2 +stats", ms(
         lambda: fused.upconv_bnact_fwd_kernel(xu, invc, shc, wu, bu, "relu",
                                               True))))
-    del xu
+    # conv_vup as served (no statistics) at that up_2 and at the tile's.
+    out.append(("conv_vup bench up_2", ms(lambda: vup.conv_vup_fwd_kernel(
+        *margs, bm, "relu", "relu", False))))
+    del xu, skip, margs
+    torch.cuda.empty_cache()
+    xt, st = r(1, 128, 128, 128, 64).to(bf), r(1, 128, 256, 256, 32).to(bf)
+    out.append(("conv_vup tile up_2", ms(lambda: vup.conv_vup_fwd_kernel(
+        xt, invc, shc, wu, bu, st, invm, shm, wm, bm, "relu", "relu",
+        False))))
+    del xt, st
+    torch.cuda.empty_cache()
     out += vup_steps()
     print(os.path.basename(os.getcwd()) + ": " + "; ".join(
         f"{k} {v:.3f}" for k, v in out), flush=True)

@@ -5,9 +5,12 @@ bodies also at their own ragged cases), the 'batchp' batch norm's K8-K11
 (``ops/pallas_bn.py``), the flat executor's ``flat_conv3`` and
 ``conv_direct`` (``ops/flat_conv.py``, ``ops/pallas_conv.py``: K1, K4
 and K5 without a prologue), and the vup path's five entries
-(``ops/vup.py``: rows 1's vup mode, 9, 22 and 23; row 23's and row 9's
-weight gradient's bf16 tensor-core bodies also at their own cases; the
-chain inside ``conv_vup_dgrad`` keeps K7's CUDA-core bodies).
+(``ops/vup.py``: rows 1's vup mode, 9, 22 and 23; the five entries'
+bf16 tensor-core bodies also at their own cases, against their plain
+versions and their CUDA-core bodies, u bitwise K3's stored output and
+``conv_vup``'s y bitwise K1's over it; the chain of the CUDA-core
+``conv_vup_dgrad`` keeps K7's CUDA-core bodies), and K4 on inputs of
+C_in % 32 != 0 (padded to 32-channel blocks).
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch:
 
@@ -734,7 +737,8 @@ def test_cuda_unet_silu_flat_matches_reference(dtype):
 # ---------------------------------------------------------------------------
 
 # (N, D, H, W) of the merge level: H / 2 and W / 2 odd, a partial tile
-# of both conv bodies (16 x 32 on the CUDA cores, 8 x 64 on WMMA).
+# of every conv body (16 x 32 on the CUDA cores, 16 x 16 or 8 x 32 on
+# the tensor cores).
 VUP_SHAPES = [(2, 3, 10, 14), (1, 2, 18, 70)]
 
 
@@ -762,8 +766,8 @@ def _vup_case(dev, dtype, shape, seed=0):
 def test_cuda_vup_forward_matches_plain(shape, dtype, want_stats):
     """``conv_vup`` (K1's body recomputing input 0) with and without
     statistics, and ``upconv_stats`` (row 22), against their plain
-    versions; the statistics of the stored output against the plain sums
-    of the kernel's own output."""
+    versions, on the bodies ``vup.vup_body`` picks; the statistics of the
+    stored output against the plain sums of the kernel's own output."""
     from elektronn3_tpu_torch.ops import vup
     dev = _cuda()
     args, _ = _vup_case(dev, dtype, shape)
@@ -772,6 +776,9 @@ def test_cuda_vup_forward_matches_plain(shape, dtype, want_stats):
     su, qu = vup.upconv_stats_kernel(*args[:5], "relu")
     assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
                               "conv_vup": 1, "upconv_stats": 1}
+    body = vup.vup_body(dtype, 64, 32)
+    assert fused.BODY_LAUNCHES == {("conv_vup", body): 1,
+                                   ("upconv_stats", body): 1}
     ref, rs, rq = vup.conv_vup_fwd_plain(*args, "relu", "relu", want_stats)
     rsu, rqu = vup.upconv_stats_plain(*args[:5], "relu")
     torch.cuda.synchronize()
@@ -790,9 +797,11 @@ def test_cuda_vup_forward_matches_plain(shape, dtype, want_stats):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", VUP_SHAPES, ids=str)
 def test_cuda_vup_backward_matches_plain(shape, dtype):
-    """``conv_vup_dgrad`` (K4's body, then the chain into the carry),
-    ``conv_vup_wgrad`` (K5's body) and ``upconv_stats_bwd`` (row 23)
-    against their plain versions, with nonzero statistics cotangents."""
+    """``conv_vup_dgrad`` (bf16: one tensor-core kernel, E on the chip;
+    float32: K4's body, then the chain into the carry), ``conv_vup_wgrad``
+    (K5's body) and ``upconv_stats_bwd`` (row 23) against their plain
+    versions, with nonzero statistics cotangents, on the bodies
+    ``vup.vup_body`` picks."""
     from elektronn3_tpu_torch.ops import vup
     dev = _cuda()
     args, g = _vup_case(dev, dtype, shape, seed=1)
@@ -808,6 +817,10 @@ def test_cuda_vup_backward_matches_plain(shape, dtype):
     assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
                               "conv_vup_dgrad": 1, "conv_vup_wgrad": 1,
                               "upconv_stats_bwd": 1}
+    body = vup.vup_body(dtype, 64, 32)
+    assert fused.BODY_LAUNCHES == {("conv_vup_dgrad", body): 1,
+                                   ("conv_vup_wgrad", body): 1,
+                                   ("upconv_stats_bwd", body): 1}
     ref = vup.conv_vup_dgrad_plain(*bargs)
     rw = vup.conv_vup_wgrad_plain(*bargs)
     rs = vup.upconv_stats_bwd_plain(*args[:5], ds, dq, "relu")
@@ -1073,8 +1086,9 @@ def test_cuda_upconv_bwd_tc_body_matches_plain(cin, cout, kd, shape, pro,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", VUP_SHAPES, ids=str)
 def test_cuda_vup_chain_keeps_the_cuda_core_bodies(shape):
-    """The vup chain (K7's bodies on E, inside ``conv_vup_dgrad`` only:
-    row 23's bf16 body keeps E on the chip and runs no chain) runs K7's
+    """The vup chain (K7's bodies on E, inside the CUDA-core
+    ``conv_vup_dgrad`` only: the tensor-core bodies of rows 9 and 23 keep
+    E on the chip and run row 23's chain GEMMs instead) runs K7's
     CUDA-core bodies in bf16, where ``upconv_bnact`` takes the
     tensor-core ones: its dcarry, one thread's sum with no atomics,
     equals the CUDA-core body's bit for bit on the same E, and both
@@ -1168,7 +1182,7 @@ def test_cuda_vup_tc_bodies_match_plain(shape, cc, cu, invc_given, stats):
     each launch is counted once."""
     from elektronn3_tpu_torch.ops import vup
     dev = _cuda()
-    assert vup.vup_bwd_body(torch.bfloat16, cc, cu) == "tc"
+    assert vup.vup_body(torch.bfloat16, cc, cu) == "tc"
     up, merge, cts = _vup_tc_case(dev, shape, cc, cu, invc_given, stats)
     fused.reset_launches()
     got_s = vup.upconv_stats_bwd_kernel(*up, *cts, "relu")
@@ -1426,3 +1440,165 @@ def test_cuda_unet_input_grad_matches_reference(dtype):
     limit = rel * rn + 3 * float((mx - rx).norm())
     assert float((gx - rx).norm()) <= limit, (float((gx - rx).norm()), limit)
     assert rn > limit, (rn, limit)
+
+
+# The bf16 tensor-core bodies of the three entries this body set adds to
+# rows 23 and 9's weight gradient: ``conv_vup`` (K1's body with u's slab
+# staged from the recompute), ``conv_vup_dgrad`` (csrc/conv_vup_tc.cu)
+# and ``upconv_stats`` (row 22): ((N, D, H, W) of the merge level,
+# C_carry, C_up). VUP_SHAPES, W = 88 (32-column tiles that do not divide
+# W), W / 2 = 3 odd with C_carry 32 (the CPU tests' W = 6), C_carry 128
+# with C_up 64 (two chunks of the forward's recompute, and a second work
+# item of the dgrad: 32 skip columns and 32 of zero padding), and C_up 64
+# over C_carry 32.
+VUP_ENTRY_CASES = [(s, 64, 32) for s in VUP_SHAPES] + [
+    ((1, 2, 10, 88), 64, 32), ((2, 2, 6, 6), 32, 32),
+    ((1, 2, 10, 14), 128, 64), ((1, 3, 8, 22), 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cc,cu", VUP_ENTRY_CASES, ids=str)
+def test_cuda_vup_u_is_k3s_output(shape, cc, cu):
+    """One u: the recompute on the tensor cores (``vup_mma``) is K3's
+    stored bf16 output bit for bit. ``conv_vup`` with a merge weight that
+    copies u's channels (a one at the centre tap), a zero bias and the
+    identity prologue outputs its staged u exactly, which equals K3's
+    tensor-core output on the same carry; and ``conv_vup``'s y with any
+    weights equals K1's tensor-core output over [K3's u, skip]."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    bf = torch.bfloat16
+    assert fused.upconv_body(bf) == "tc" and vup.vup_body(bf, cc, cu) == "tc"
+    up, merge, _ = _vup_tc_case(dev, shape, cc, cu, True, False, seed=7)
+    skip, inv, shift, wt = merge[:4]
+    b = torch.randn(32, generator=torch.Generator().manual_seed(8)).to(dev)
+    u = fused.upconv_bnact_fwd_kernel(*up, "relu", False)[0]
+    ct = cu + skip.shape[-1]
+    eye = torch.zeros(cu, ct, 1, 3, 3, device=dev)
+    eye[torch.arange(cu), torch.arange(cu), 0, 1, 1] = 1.0
+    fused.reset_launches()
+    copy = vup.conv_vup_fwd_kernel(*up, skip, torch.ones(ct, device=dev),
+                                   torch.zeros(ct, device=dev), eye,
+                                   torch.zeros(cu, device=dev), "linear",
+                                   "relu")[0]
+    y = vup.conv_vup_fwd_kernel(*up, skip, inv, shift, wt, b, "relu",
+                                "relu")[0]
+    assert fused.BODY_LAUNCHES == {("conv_vup", "tc"): 2}
+    y1 = fused.conv_bnact_fwd_kernel([u, skip], inv, shift, wt, b, "relu",
+                                     False)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(copy, u)
+    assert torch.equal(y, y1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("shape,cc,cu", VUP_ENTRY_CASES, ids=str)
+def test_cuda_vup_tc_entries_match_plain(shape, cc, cu, stats):
+    """``conv_vup`` (with and without statistics), ``upconv_stats`` and
+    ``conv_vup_dgrad`` on their bf16 tensor-core bodies against their
+    plain versions and their CUDA-core bodies on the same inputs:
+    elementwise outputs (y, dcarry, dskip) at the kernel tolerance, sums
+    as sums."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    up, merge, _ = _vup_tc_case(dev, shape, cc, cu, True, stats, seed=9)
+    skip, inv, shift, wt, y, dy, ds, dq = merge
+    b = torch.randn(32, generator=torch.Generator().manual_seed(10)).to(dev)
+    fwd = (*up, skip, inv, shift, wt, b, "relu", "relu", stats)
+    bwd = (*up, *merge, "relu", "relu")
+    got, core = {}, {}
+    fused.reset_launches()
+    for body, out in (("tc", got), ("cuda-core", core)):
+        out["fwd"] = vup.conv_vup_fwd_kernel(*fwd, body=body)
+        out["stats"] = vup.upconv_stats_kernel(*up, "relu", body=body)
+        out["dgrad"] = vup.conv_vup_dgrad_kernel(*bwd, body=body)
+    assert fused.BODY_LAUNCHES == {
+        (k, b): 1 for k in ("conv_vup", "upconv_stats", "conv_vup_dgrad")
+        for b in ("tc", "cuda-core")}
+    ref = {"fwd": vup.conv_vup_fwd_plain(*fwd),
+           "stats": vup.upconv_stats_plain(*up, "relu"),
+           "dgrad": vup.conv_vup_dgrad_plain(*bwd)}
+    torch.cuda.synchronize()
+    for other in (ref, core):
+        _assert_kernel(got["fwd"][0], other["fwd"][0])
+        for a, r in zip(got["stats"], other["stats"]):
+            _assert_sum(a, r)
+        # (dcarry, dinvc, dshiftc, dwu, dbu, dskip, dinv, dshift)
+        for i, (a, r) in enumerate(zip(got["dgrad"], other["dgrad"])):
+            (_assert_kernel if i in (0, 5) else _assert_sum)(a, r)
+    if stats:
+        ks, kq = fused.channel_stats(got["fwd"][0])
+        _assert_sum(got["fwd"][1], ks)
+        _assert_sum(got["fwd"][2], kq)
+
+
+# ---------------------------------------------------------------------------
+# K4 on inputs of C_in % 32 != 0 (a copy padded to 32-channel blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cins,kd", [((8,), 3), ((40,), 3), ((40,), 1),
+                                     ((32, 16), 1)], ids=str)
+def test_cuda_conv_bnact_ragged_input_grad_matches_plain(cins, kd, dtype):
+    """K4's wrapper pads each input of C_in % 32 != 0 (and the weight's
+    columns, inv and shift) to 32-channel blocks, runs its body once and
+    slices dx, dinv and dshift back: against the plain K4, which needs no
+    padding, with statistics cotangents."""
+    dev = _cuda()
+    xs, inv, shift, w, b, g = _conv_case(dev, dtype, cins, kd, 32, (2, 3))
+    y = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, "relu")[0]
+    dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, dtype)
+    ds = torch.randn(32, generator=g).to(dev)
+    dq = (0.1 * torch.randn(32, generator=g)).to(dev)
+    args = (xs, inv, shift, w, y, dy, ds, dq, "relu")
+    fused.reset_launches()
+    dxs, dinv, dshift = fused.conv_bnact_dgrad_kernel(*args)
+    assert fused.BODY_LAUNCHES == {
+        ("conv_bnact_dgrad", fused.dgrad_body(dtype)): 1}
+    rxs, rinv, rshift = fused.conv_bnact_dgrad_plain(*args)
+    torch.cuda.synchronize()
+    for a, r in zip(dxs, rxs):
+        assert a.shape == r.shape
+        _assert_kernel(a, r)
+    _assert_sum(dinv, rinv)
+    _assert_sum(dshift, rshift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unet_eight_channel_input_grad_matches_reference(dtype):
+    """``UNet(in_channels=8)`` with an input that needs a gradient (two
+    levels, planar L0): the input's gradient of a training step through
+    the kernels (K4 on the padded copy at L0's conv1) against
+    reference=True, in the L2 norm with the step's own rounding noise as
+    ``_check_step_against_reference`` holds the parameters'."""
+    from elektronn3_tpu_torch.models import UNet
+    from elektronn3_tpu_torch.modules.loss import CEDiceLoss
+    dev = _cuda()
+    m = UNet(in_channels=8, n_blocks=2, start_filts=32, planar_blocks=(0,),
+             dtype=dtype, device=dev,
+             generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 4, 16, 24, 8,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    t = (x[..., 0] > 0).long()
+    bf16 = dtype == torch.bfloat16
+    rel, ulp = (1e-2, 2.0 ** -8) if bf16 else (1e-3, 2.0 ** -23)
+
+    def input_grad(x, reference):
+        x = x.clone().requires_grad_(True)
+        m.zero_grad(set_to_none=True)
+        CEDiceLoss(1.0, 1.0)(m.train()(x, reference=reference), t).backward()
+        return x.grad.float()
+
+    fused.reset_launches()
+    got = input_grad(x, False)
+    assert fused.BODY_LAUNCHES.get(("conv_bnact_dgrad",
+                                    fused.dgrad_body(dtype)), 0) >= 1
+    ref = input_grad(x, True)
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(11))
+    moved = input_grad(x * (1 + ulp * noise.to(dev)), True)
+    assert bool(torch.isfinite(got).all())
+    err = float((got - ref).norm())
+    assert err <= rel * float(ref.norm()) + 3 * float((moved - ref).norm())

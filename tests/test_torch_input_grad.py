@@ -223,3 +223,45 @@ def test_one_channel_input_with_a_gradient_runs():
     assert not grads[False][0].any() and grads[True][0].abs().sum() > 0
     assert torch.allclose(grads[False][1], grads[True][1], rtol=1e-5,
                           atol=1e-6)
+
+
+# An input of 5 to 31 channels (or any count past 4 that is not a
+# multiple of 32) whose gradient is wanted: K4 runs on a copy padded with
+# zeros to 32-channel blocks (fused._dgrad_padded); the plain path needs
+# no padding. JAX differentiates such an input through XLA.
+KW8 = dict(KW, in_channels=8, n_blocks=2)
+
+
+def test_eight_channel_input_grad_matches_jax():
+    """``UNet(in_channels=8)`` with an input that needs a gradient: the
+    port's dx against JAX's ``jax.grad`` on the same parameters (the
+    predicate says real under either ``input_grad``)."""
+    v, x, y = _case(KW8, (2, 4, 12, 16, 8), 74)
+    ref = _jax_input_grad(KW8, False, v, x, y)
+    got, real = _port_input_grad(KW8, False, v, x, y)
+    assert real
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("cin", [8, 40])
+def test_conv_bnact_ragged_input_grad_matches_autograd(cin):
+    """``conv_bnact`` over one input of 8 or 40 channels: dx, dinv and
+    dshift of its backward (the plain K4 on the CPU) against autograd
+    through its plain forward in float32, where no rounding intervenes."""
+    from elektronn3_tpu_torch.ops import fused
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randn(2, 3, 6, 10, cin, generator=g)
+    inv, shift = torch.randn(cin, generator=g), torch.randn(cin, generator=g)
+    w = 0.1 * torch.randn(32, cin, 3, 3, 3, generator=g)
+    b = torch.randn(32, generator=g)
+    dy = torch.randn(2, 3, 6, 10, 32, generator=g)
+    leaves = [t.clone().requires_grad_(True) for t in (x, inv, shift)]
+    y = fused.conv_bnact([leaves[0]], leaves[1], leaves[2], w, b, "relu")
+    got = torch.autograd.grad(y, leaves, dy)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, inv, shift)]
+    ref_y = fused.conv_bnact_fwd_plain([ref_leaves[0]], ref_leaves[1],
+                                       ref_leaves[2], w, b, "relu")[0]
+    ref = torch.autograd.grad(ref_y, ref_leaves, dy)
+    for a, r in zip(got, ref):
+        scale = float(r.abs().max())
+        assert float((a - r).abs().max()) <= 1e-5 * scale + 1e-6

@@ -228,12 +228,18 @@ def test_contract_is_checked_on_the_cpu():
     with pytest.raises(ValueError, match="C_out % 32"):
         fused.conv_bnact([x], None, None, torch.zeros(16, 3, 1, 3, 3),
                          torch.zeros(16), "linear")
-    # An input gradient at a channel count neither row 13's kernel (at
-    # most 4) nor K4 (% 32) takes.
-    xg = torch.zeros(1, 2, 4, 4, 5, requires_grad=True)
-    with pytest.raises(ValueError, match="K4"):
-        fused.conv_bnact([xg], None, None, torch.zeros(32, 5, 1, 3, 3),
-                         torch.zeros(32), "linear")
+    # Row 13's backward (one input of at most 4 channels) takes at most
+    # 256 output channels. (An input gradient at any other channel count
+    # is K4's, on a copy padded to 32-channel blocks where C_in % 32 != 0:
+    # a 5-channel input takes one.)
+    xg = torch.zeros(1, 2, 4, 4, 1, requires_grad=True)
+    with pytest.raises(ValueError, match="row 13"):
+        fused.conv_bnact([xg], None, None, torch.zeros(288, 1, 1, 3, 3),
+                         torch.zeros(288), "linear")
+    x5 = torch.zeros(1, 2, 4, 4, 5, requires_grad=True)
+    fused.conv_bnact([x5], None, None, torch.zeros(32, 5, 1, 3, 3),
+                     torch.zeros(32), "linear").sum().backward()
+    assert x5.grad.shape == x5.shape
     with pytest.raises(ValueError, match="pool_bnact"):
         fused.pool_bnact(torch.zeros(1, 2, 3, 4, 8), None, None, "relu",
                          (1, 2, 2))

@@ -190,11 +190,21 @@ def test_plain_backward_launches_nothing():
     (torch.float32, 64, 32, "cuda-core"),
     (torch.float32, 128, 64, "cuda-core")])
 def test_vup_bwd_body_selector(dtype, cc, cu, body):
-    """Rows 23 and 9's weight gradient take the tensor-core bodies for
-    bf16 at the template cases (C_carry 32 to 128, C_up 32 or 64), the
-    CUDA-core bodies for float32 and any other shape."""
+    """The one vup selector: all five entries (rows 1's vup mode, 9 and
+    its weight gradient, 22, 23) take the tensor-core bodies for bf16 at
+    the template cases (C_carry 32 to 128, C_up 32 or 64), the CUDA-core
+    bodies for float32 and any other shape, so a step never mixes the
+    two recomputes; asking an entry for a 'tc' body the selector does
+    not name raises."""
     from elektronn3_tpu_torch.ops import vup
-    assert vup.vup_bwd_body(dtype, cc, cu) == body
+    assert vup.vup_body(dtype, cc, cu) == body
+    for entry in ("conv_vup", "conv_vup_dgrad", "conv_vup_wgrad",
+                  "upconv_stats", "upconv_stats_bwd"):
+        assert vup._body(None, dtype, cc, cu, entry) == body
+        assert vup._body("cuda-core", dtype, cc, cu, entry) == "cuda-core"
+        if body != "tc":
+            with pytest.raises(ValueError, match="no 'tc' body"):
+                vup._body("tc", dtype, cc, cu, entry)
 
 
 def _vup_inputs(seed=11):
@@ -366,21 +376,22 @@ def test_backward_wrappers_refuse_network_input(body):
 @pytest.mark.parametrize("cins,grad,ok", [
     ((1,), True, True), ((3,), True, True), ((4,), True, True),
     ((32,), True, True), ((32, 32), True, True), ((5,), False, True),
-    ((5,), True, False), ((16,), True, False), ((8,), True, False),
-    ((32, 16), True, False), ((1, 1), True, False)])
+    ((5,), True, True), ((16,), True, True), ((8,), True, True),
+    ((32, 16), True, True), ((1, 1), True, True)])
 def test_input_gradient_contract(cins, grad, ok):
-    """``conv_bnact`` takes an input that needs a gradient when row 13's
-    kernel (one input of at most 4 channels) or K4 (each C_in % 32 ==
-    0) gives it, on any device, and names both limits otherwise."""
+    """``conv_bnact`` takes an input that needs a gradient at any channel
+    count, on any device: row 13's kernel gives one input of at most 4
+    channels its dx, K4 every other (on a copy padded to 32-channel
+    blocks where C_in % 32 != 0, ``fused._dgrad_padded``)."""
     xs = [_weight((1, 2, 3, 5, c), 20 + c).requires_grad_(grad)
           for c in cins]
     w = _weight((32, sum(cins), 1, 3, 3), 21)
-    if ok:
-        y = fused.conv_bnact(xs, None, None, w, torch.zeros(32), "linear")
-        assert y.shape == (1, 2, 3, 5, 32)
-    else:
-        with pytest.raises(ValueError, match="at most 4 channels.*% 32"):
-            fused.conv_bnact(xs, None, None, w, torch.zeros(32), "linear")
+    assert ok
+    y = fused.conv_bnact(xs, None, None, w, torch.zeros(32), "linear")
+    assert y.shape == (1, 2, 3, 5, 32)
+    if grad:
+        y.square().sum().backward()
+        assert all(x.grad.shape == x.shape for x in xs)
 
 
 def test_conv1_backward_launches_nothing_and_zero_without_input_grad():
@@ -420,3 +431,92 @@ def test_backward_wrappers_refuse_cpu_tensors(body):
           "conv1": fused.conv1_bwd_kernel}[body]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn([x], None, None, w, y, y, None, None, "linear")
+
+
+# ---------------------------------------------------------------------------
+# The tiles and the padded weight of the vup merge conv's tensor-core
+# bodies (conv_vup: csrc/conv_tc.cu's vup instantiation; conv_vup_dgrad:
+# csrc/conv_vup_tc.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("voxels", [256, 128])
+@pytest.mark.parametrize("w", [2, 6, 14, 16, 22, 32, 44, 70, 88, 176, 256])
+def test_vup_tile_has_an_even_origin(w, voxels):
+    """``vup.vup_tile``: K1's and K4's tile width (16 or 32, the fewest
+    wasted columns, 32 on a tie), TH x TW = the tile's voxels, both even,
+    so a tile at (multiples of TH, TW) covers whole carry voxels. The
+    forward's staging (each slab voxel written once, from the carry voxel
+    under it) and the dgrad's epilogue map (each of the tile's voxels one
+    (carry voxel, sub-position) of the TH / 2 x TW / 2 carry tile, 64 at
+    256 voxels) are written out as the kernels compute them."""
+    from elektronn3_tpu_torch.ops import vup
+    th, tw = vup.vup_tile(w, voxels)
+    assert tw == (16 if -(-w // 16) * 16 < -(-w // 32) * 32 else 32)
+    assert th * tw == voxels and th % 2 == 0 and tw % 2 == 0
+    # conv_tc.cu's vup_stage_u at an interior tile and at the origin.
+    vr, vw = th // 2 + 2, tw // 2 + 2
+    for h0, w0 in ((0, 0), (th, 3 * tw)):
+        seen = {}
+        for r in range(vr * vw):
+            for sub in range(4):
+                hh = 2 * (h0 // 2 - 1 + r // vw) + (sub >> 1)
+                ww = 2 * (w0 // 2 - 1 + r % vw) + (sub & 1)
+                sy, sx = hh - h0 + 1, ww - w0 + 1
+                if 0 <= sy < th + 2 and 0 <= sx < tw + 2:
+                    seen[(sy, sx)] = seen.get((sy, sx), 0) + 1
+        assert len(seen) == (th + 2) * (tw + 2)
+        assert set(seen.values()) == {1}
+    # conv_vup_tc.cu's epilogue: voxel (r, c) of the tile -> E's row and
+    # sub-position.
+    cells = {((r // 2) * (tw // 2) + c // 2, (r % 2) * 2 + c % 2)
+             for r in range(th) for c in range(tw)}
+    assert len(cells) == voxels
+    assert {cv for cv, _ in cells} == set(range(voxels // 4))
+    if voxels == vup.VUP_DGRAD_VOXELS:
+        assert voxels // 4 == 64   # row 23's tile (VBM)
+
+
+@pytest.mark.parametrize("cout,cout_k1", [(32, 256), (64, 256), (96, 256),
+                                          (128, 128), (256, 128)])
+def test_conv_vup_tile_voxels_are_k1s(cout, cout_k1):
+    """``conv_vup``'s tile holds K1's voxels: 128 where a block takes 128
+    output channels (C_out % 128 == 0), else 256."""
+    from elektronn3_tpu_torch.ops import vup
+    assert vup.conv_vup_voxels(cout) == cout_k1
+
+
+@pytest.mark.parametrize("cout,cin", [(32, 64), (32, 96), (64, 128),
+                                      (32, 160)])
+def test_vup_dgrad_weight_packing_pads_to_whole_items(cout, cin):
+    """``vup.pack_vup_dgrad_weight``: ``fused.pack_dgrad_weight``'s
+    operand with its C_in columns padded with zeros to a multiple of 64,
+    a work item's columns."""
+    from elektronn3_tpu_torch.ops import vup
+    w = _weight((cout, cin, 1, 3, 3), cout + cin)
+    p = vup.pack_vup_dgrad_weight(w, torch.bfloat16, CPU)
+    ctp = -(-cin // 64) * 64
+    assert p.shape == (1, cout // 16, 3, 3, ctp, 16) and p.is_contiguous()
+    assert torch.equal(p[:, :, :, :, :cin],
+                       fused.pack_dgrad_weight(w, torch.bfloat16, CPU))
+    assert not p[:, :, :, :, cin:].any()
+
+
+@pytest.mark.parametrize("entry", ["conv_vup_fwd", "conv_vup_dgrad",
+                                   "upconv_stats"])
+@pytest.mark.parametrize("body", ["tc", "cuda-core"])
+def test_vup_wrappers_refuse_cpu_tensors(entry, body):
+    """The three entries whose tensor-core bodies are new refuse a CPU
+    tensor whichever body is asked for, as rows 23 and 9's weight
+    gradient do."""
+    from elektronn3_tpu_torch.ops import vup
+    up, merge, y = _vup_inputs()
+    ds, dq = torch.zeros(32), torch.zeros(32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if entry == "upconv_stats":
+            vup.upconv_stats_kernel(*up, "relu", body=body)
+        elif entry == "conv_vup_fwd":
+            vup.conv_vup_fwd_kernel(*up, *merge, torch.zeros(32), "relu",
+                                    "relu", body=body)
+        else:
+            vup.conv_vup_dgrad_kernel(*up, *merge, y, y, ds, dq, "relu",
+                                      "relu", body=body)
