@@ -53,8 +53,12 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
    at (R, C) = the activation seen as rows, bf16 and f32: K8-K11 at the
    'batchp' headline step's library levels ((85184, 128): L2 and up_0,
    8 x 22^3 at C=128; (10648, 256): the bottom L3), at a ragged R, at
-   the ``pallas_flat=False`` step's L0 and L1 (batch 8), and K9 at the
-   Predictor tile's L3 (one tile, and the request's batch of 2);
+   the ``pallas_flat=False`` step's L0 and L1 (batch 8) and its four
+   levels at batch 2, and K9 at the Predictor tile's L3 (one tile, and
+   the request's batch of 2); K8 (with the running update) and K10, one
+   launch each with their glue, print their per-call and device times;
+   then one ``PallasBatchNorm3d`` training forward and backward against
+   ``nn.BatchNorm3d``'s at the batch-2 levels and the bench's L2/L3;
 6. builds the headline UNet (n_blocks=4, start_filts=32, planar L0,
    batch norm, bfloat16) with seeded weights and random running
    statistics and holds ``forward`` against ``forward(reference=True)``
@@ -165,7 +169,8 @@ epilogue that no single call has, the library op on the
 already-prologued input ("lib*" in the line).
 
 ``--profile`` also profiles three kernel-path training steps of each
-model (the 'batchp' one too) with ``torch.profiler`` and prints the
+model (the 'batchp' one too, and its ``pallas_flat=False`` step at batch
+2) with ``torch.profiler`` and prints the
 device time by kernel.
 
 Any failed check raises, and the script exits non-zero. The last lines
@@ -554,6 +559,15 @@ BN_VARIANTS = [
     ("tile L3 (1,32,32,32) C=256 serving", 32_768, 256, False, False),
     ("request L3 (2,32,32,32) C=256 serving", 65_536, 256, False, False),
 ]
+# bn_layer_phase: one PallasBatchNorm3d against nn.BatchNorm3d at the
+# pallas_flat=False step's four levels at batch 2 (b2) and the 'batchp'
+# headline step's library levels (bench.py's batch 8).
+BN_LAYER_SHAPES = [("b2 L0", (2, 44, 88, 88, 32)),
+                   ("b2 L1", (2, 44, 44, 44, 64)),
+                   ("b2 L2", (2, 22, 22, 22, 128)),
+                   ("b2 L3", (2, 11, 11, 11, 256)),
+                   ("bench L2", (8, 22, 22, 22, 128)),
+                   ("bench L3", (8, 11, 11, 11, 256))]
 # Rows 26/27 (the silu model's flat executor: K1 with the identity
 # prologue) at the 3D Predictor tile, serving builds, batch 1, and at
 # bench.py's training shapes: K1 with statistics and as served, K4 (row
@@ -739,7 +753,7 @@ class Stats:
         self.rows = {name: [] for name in SOURCES}
 
     def add(self, kernel, label, dtype, err, ms, plain_ms, bnd, lib,
-            lib_exact, total=False, lib_op=None, body=None):
+            lib_exact, total=False, lib_op=None, body=None, device=None):
         """One variant: ``bnd`` is :func:`bound`'s (ms, term); ``lib``
         the library time (bf16 only, else None), ``lib_exact`` whether
         that call computes the kernel's whole function (True) or not
@@ -747,7 +761,10 @@ class Stats:
         or "op without prologue/statistics"); ``total`` whether a bf16
         variant counts in the kernel's totals (see :meth:`totals`);
         ``body`` which of K1's, K3's, K5's, K7's, row 23's or
-        ``conv_vup_wgrad``'s bodies ran (:data:`BODIES`)."""
+        ``conv_vup_wgrad``'s bodies ran (:data:`BODIES`); ``device`` the
+        device time from torch.profiler (K8 and K10; ``ms`` is then the
+        per-call time of back-to-back calls), printed and kept beside
+        ``ms``."""
         b_ms, b_by = bnd
         bf16 = dtype == torch.bfloat16
         if lib_op is None:
@@ -758,13 +775,16 @@ class Stats:
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib, library_op=lib_op if bf16 else None,
             in_total=total and bf16,
-            **({"body": BODIES[kernel][body]} if body else {})))
+            **({"body": BODIES[kernel][body]} if body else {}),
+            **({"device_ms": device} if device is not None else {})))
         libs = f"  lib{'' if lib_exact else '*'} {lib:8.3f} ms" if bf16 \
             else ""
         print(f"kernel {kernel:16s} {label:42s} {str(dtype)[6:]:8s} "
               f"err {err:.3e} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
               f"bound {b_ms:8.3f} ms ({b_by[:3]}, {b_ms / ms:6.1%})" + libs
-              + (f"  body {body}" if body else ""), flush=True)
+              + (f"  body {body}" if body else "")
+              + (f"  device {device:8.4f} ms ({b_ms / device:6.1%})"
+                 if device is not None else ""), flush=True)
 
     def totals(self, kernel):
         """The JSON line's numbers for ``kernel``: ``ms``, ``plain_ms``,
@@ -1135,18 +1155,84 @@ def nd_check(fused):
         torch.cuda.empty_cache()
 
 
+def profile_calls(fn, n=20):
+    """The device records (kernels, memsets, copies) of ``n`` calls of
+    ``fn`` after a warm-up, from torch.profiler: [(name, us)]."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type.name == "CUDA"]
+
+
+def device_ms(fn, key, n=20):
+    """Device time of ``fn`` from torch.profiler: the kernels whose name
+    holds ``key``, summed over ``n`` calls after a warm-up, per call, and
+    their number per call."""
+    ev = [us for name, us in profile_calls(fn, n) if key in name]
+    return sum(ev) / 1e3 / n, len(ev) / n
+
+
+def one_kernel_ms(fn, key, what, n=20, tries=3):
+    """Device time of one call of ``fn``, which must run exactly one
+    device kernel, named with ``key``, and nothing else: no second
+    kernel, memset or copy. Fails at once on any other record or on
+    more than ``n`` kernels in ``n`` calls. CUPTI now and then loses a
+    kernel's record from a window (one K8 window at L0 showed 19 of its
+    20 launches, and nothing else): a window that shows fewer than ``n``
+    and nothing else is profiled again, and the check fails if ``tries``
+    windows in a row all come up short."""
+    counts = []
+    for _ in range(tries):
+        ev = profile_calls(fn, n)
+        other = sorted({name.split("(")[0] for name, _ in ev
+                        if key not in name})
+        mine = [us for name, us in ev if key in name]
+        if other or len(mine) > n:
+            raise AssertionError(f"{what}: {len(mine) / n:g} {key} a call, "
+                                 f"and other device records {other}")
+        if len(mine) == n:
+            if counts:
+                print(f"{what}: {key} records {counts} of {n}, then {n}: "
+                      "profiled again", flush=True)
+            return sum(mine) / 1e3 / n
+        counts.append(len(mine))
+    raise AssertionError(f"{what}: {counts} {key} records in {tries} "
+                         f"windows of {n} calls")
+
+
+def check_bn_glue(got, mean, var, what, bn, gamma, beta, eps):
+    """K8's folded vectors (inv, scale, shift) against the plain glue on
+    the kernel's own mean and var: within BN_SUM_TOL of each vector's
+    scale. Returns the max abs error."""
+    inv = torch.rsqrt(var + eps)
+    return max(check_sum(g, r, f"{what} {n}", BN_SUM_TOL)
+               for n, g, r in zip(("inv", "scale", "shift"), got,
+                                  (inv, *bn._scale_shift(gamma, beta, mean,
+                                                         inv))))
+
+
 def bn_kernel_phase(bn, stats):
     """K8-K11 at BN_VARIANTS' (R, C), bf16 and f32, against their plain
-    versions on the same operands (x with mean 3, a random cotangent;
-    K9 and K11 get the op's own per-channel vectors, ``fold_forward``
-    and ``fold_backward`` of K8's and K10's sums). K8's and K10's
-    float32 sums are held to BN_SUM_TOL. Library calls (bf16, on the
-    (R, C) view, which is the channels-last activation): K8
-    ``torch.batch_norm_stats`` (per-channel mean and invstd: the same
-    statistics); K9 ``F.batch_norm(training=False)`` from the batch's
-    statistics (the same function); K10 ``native_batch_norm_backward``
-    for dgamma and dbeta (the same function); K11 the same call for dx,
-    which also reduces (all of row 31)."""
+    versions on the same operands (x with mean 3, a random cotangent,
+    running buffers; K9 and K11 read rows of K8's and K10's outputs).
+    K8's mean and running mean, K10's a, b, c, dgamma and dbeta within
+    BN_SUM_TOL of their scale; K8's variance and running variance within
+    1e-4; K8's inv, scale and shift within BN_SUM_TOL of the plain glue
+    on its own mean and variance. K8 and K10 print their per-call time
+    (back-to-back calls: the host's issue rate where a call is
+    host-bound) and their device time (torch.profiler), and must be one
+    device kernel a call. Library calls (bf16, on the (R, C) view, which
+    is the channels-last activation): K8 ``torch.batch_norm_stats``
+    (per-channel mean and invstd: the same statistics); K9
+    ``F.batch_norm(training=False)`` from the batch's statistics (the
+    same function); K10 ``native_batch_norm_backward`` for dgamma and
+    dbeta (the same function); K11 the same call for dx, which also
+    reduces (all of row 31)."""
     eps = 1e-5
     bwd = torch.ops.aten.native_batch_norm_backward
     for seed, (label, r, c, train, total) in enumerate(BN_VARIANTS):
@@ -1155,30 +1241,41 @@ def bn_kernel_phase(bn, stats):
             rnd = rand_on_card(200 + seed)
             x = (3.0 + 2.0 * rnd(r, c)).to(dtype)
             gamma, beta = rnd(c), rnd(c, scale=0.5)
-            sums = bn.bn_stats_kernel(x)
+            ra = (rnd(c), rnd(c).abs() + 0.5, 0.1)
+            ra_ref = (ra[0].clone(), ra[1].clone(), 0.1)
+            st = bn.bn_stats_kernel(x, gamma, beta, eps, ra)
             torch.cuda.synchronize()
-            ref = bn.bn_stats_plain(x)
-            mean, var, inv, scale, shift = bn.fold_forward(sums, r, gamma,
-                                                           beta, eps)
+            ref = bn.bn_stats_plain(x, gamma, beta, eps, ra_ref)
             if train:
-                err = max(check_sum(sums[0], ref[0], f"K8 {label} sum",
+                err = max(check_sum(st[0], ref[0], f"K8 {label} mean",
                                     BN_SUM_TOL),
-                          check_sum(sums[1], ref[1], f"K8 {label} sumsq",
-                                    BN_SUM_TOL))
+                          check_sum(st[1], ref[1], f"K8 {label} var", 1e-4),
+                          check_bn_glue(st[2:], st[0], st[1],
+                                        f"K8 {label}", bn, gamma, beta, eps),
+                          check_sum(ra[0], ra_ref[0],
+                                    f"K8 {label} running mean", BN_SUM_TOL),
+                          check_sum(ra[1], ra_ref[1],
+                                    f"K8 {label} running var", 1e-4))
+
+                def k8():
+                    return bn.bn_stats_kernel(x, gamma, beta, eps)
+                dev = one_kernel_ms(k8, "bn_reduce_kernel", f"K8 {label}")
                 lib = cuda_ms(lambda: torch.batch_norm_stats(x, eps)) \
                     if bf16 else None
-                stats.add("bn_stats", label, dtype, err,
-                          cuda_ms(lambda: bn.bn_stats_kernel(x)),
-                          cuda_ms(lambda: bn.bn_stats_plain(x)),
-                          bound(3.0 * r * c, PEAK_F32, x, sums), lib, True,
-                          total, "torch.batch_norm_stats: mean and invstd")
-            args = (x, scale, shift)
+                stats.add("bn_stats", label, dtype, err, cuda_ms(k8),
+                          cuda_ms(lambda: bn.bn_stats_plain(x, gamma, beta,
+                                                            eps)),
+                          bound(3.0 * r * c, PEAK_F32, x, gamma, beta, st),
+                          lib, True, total,
+                          "torch.batch_norm_stats: mean and invstd",
+                          device=dev)
+            args = (x, st[3], st[4])
             y = bn.bn_normalize_kernel(*args)
             torch.cuda.synchronize()
             err = check_close(y, bn.bn_normalize_plain(*args), dtype,
                               f"K9 {label}")
             lib = cuda_ms(lambda: F.batch_norm(
-                x, mean, var, gamma, beta, False, 0.0, eps)) \
+                x, st[0], st[1], gamma, beta, False, 0.0, eps)) \
                 if bf16 else None
             stats.add("bn_normalize", label, dtype, err,
                       cuda_ms(lambda: bn.bn_normalize_kernel(*args)),
@@ -1191,26 +1288,30 @@ def bn_kernel_phase(bn, stats):
                 torch.cuda.empty_cache()
                 continue
             gy = rnd(r, c).to(dtype)
-            rargs = (gy, x, mean, inv)
+            rargs = (gy, x, st[0], st[1], gamma, eps)
             red = bn.bn_bwd_reduce_kernel(*rargs)
             torch.cuda.synchronize()
             rref = bn.bn_bwd_reduce_plain(*rargs)
-            err = max(check_sum(red[0], rref[0], f"K10 {label} sum g",
-                                BN_SUM_TOL),
-                      check_sum(red[1], rref[1], f"K10 {label} sum g xhat",
-                                BN_SUM_TOL))
+            err = max(check_sum(got, want, f"K10 {label} {n}", BN_SUM_TOL)
+                      for n, got, want in zip(
+                          ("a", "b", "c", "dgamma", "dbeta"),
+                          red, rref))
+
+            def k10():
+                return bn.bn_bwd_reduce_kernel(*rargs)
+            dev = one_kernel_ms(k10, "bn_reduce_kernel", f"K10 {label}")
             libs = {}
             if bf16:
                 for k, mask in (("bn_bwd_reduce", [False, True, True]),
                                 ("bn_bwd_dx", [True, False, False])):
                     libs[k] = cuda_ms(lambda m=mask: bwd(
-                        gy, x, gamma, None, None, mean, inv, True, eps, m))
-            stats.add("bn_bwd_reduce", label, dtype, err,
-                      cuda_ms(lambda: bn.bn_bwd_reduce_kernel(*rargs)),
+                        gy, x, gamma, None, None, st[0], st[2], True, eps,
+                        m))
+            stats.add("bn_bwd_reduce", label, dtype, err, cuda_ms(k10),
                       cuda_ms(lambda: bn.bn_bwd_reduce_plain(*rargs)),
                       bound(4.0 * r * c, PEAK_F32, rargs, red),
-                      libs.get("bn_bwd_reduce"), True, total)
-            dargs = (gy, x, *bn.fold_backward(red, r, gamma, mean, inv))
+                      libs.get("bn_bwd_reduce"), True, total, device=dev)
+            dargs = (gy, x, red[0], red[1], red[2])
             dx = bn.bn_bwd_dx_kernel(*dargs)
             torch.cuda.synchronize()
             err = check_close(dx, bn.bn_bwd_dx_plain(*dargs), dtype,
@@ -1222,8 +1323,41 @@ def bn_kernel_phase(bn, stats):
                       libs.get("bn_bwd_dx"), False, total,
                       "native_batch_norm_backward for dx: reduces too "
                       "(all of row 31)")
-            del x, gy, dx, rargs, dargs
+            del x, gy, dx, rargs, dargs, red, st
             torch.cuda.empty_cache()
+
+
+def bn_layer_phase():
+    """One PallasBatchNorm3d training forward and backward against
+    nn.BatchNorm3d's (cuDNN or ATen, on the channels-last view) at
+    BN_LAYER_SHAPES, bf16: per call (back-to-back) and device time, and
+    the device kernels a call (PallasBatchNorm3d: K8, K9, K10, K11)."""
+    from torch import nn
+    from elektronn3_tpu_torch.modules.pallas_norm import PallasBatchNorm3d
+    for label, shape in BN_LAYER_SHAPES:
+        c = shape[-1]
+        x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+        gy = torch.randn_like(x)
+        line = []
+        for name, layer, view in (
+                ("PallasBatchNorm3d", PallasBatchNorm3d(c, device="cuda"),
+                 lambda t: t),
+                ("nn.BatchNorm3d", nn.BatchNorm3d(c, device="cuda"),
+                 lambda t: t.permute(0, 4, 1, 2, 3))):
+            layer.train()
+            xi = x.clone().requires_grad_(True)
+
+            def step(layer=layer, xi=xi, view=view):
+                xi.grad = None
+                layer.zero_grad(set_to_none=True)
+                layer(view(xi)).backward(view(gy))
+            dev, kernels = device_ms(step, "")
+            line.append(f"{name} {cuda_ms(step):.4f} ms (device {dev:.4f}, "
+                        f"{kernels:g} kernels)")
+        print(f"layer batchp {label} {shape} bf16 fwd+bwd: "
+              + "; ".join(line), flush=True)
+        del x, gy
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1889,7 +2023,8 @@ def odd_l1_phase(build, CEDiceLoss, fused):
     check_train_step(build, crit, x, y)
 
 
-def batchp_library_phase(build, CEDiceLoss, train_step, fused, bn):
+def batchp_library_phase(build, CEDiceLoss, train_step, fused, bn,
+                         profiling=False):
     """The 'batchp' headline model with ``pallas_flat=False``: every
     level on the library ops, its 17 norms on K8-K11. The forward check
     on one Predictor input tile, then timed steps at batch 2 of
@@ -1937,6 +2072,8 @@ def batchp_library_phase(build, CEDiceLoss, train_step, fused, bn):
     torch.cuda.synchronize()
     check_rows(seen, BATCHP_LIBRARY_ROWS,
                "train batchp pallas_flat=False (one step)")
+    if profiling:
+        profile_phase(train_step, model, crit, opt, batches)
     del model, plain_model, batches, opt
     torch.cuda.empty_cache()
     x = torch.randn(shape, generator=g, device="cuda")
@@ -2278,6 +2415,7 @@ def main():
     train_kernel_phase(fused, stats, TRAIN_VARIANTS_SF64, total=False,
                        serve=False)
     bn_kernel_phase(pallas_bn, stats)
+    bn_layer_phase()
     kernel_phase(fused, stats, VARIANTS_FLAT_TILE, total=False)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS_FLAT, total=False,
                        serve=True)
@@ -2340,7 +2478,8 @@ def main():
               for k in ("3D", "batchp")), flush=True)
     trainer_phase(build_batchp, (1, *PATCH), "batchp", CEDiceLoss, Trainer)
     launches["train_batchp_library"] = batchp_library_phase(
-        build_batchp_library, CEDiceLoss, train_step, fused, pallas_bn)
+        build_batchp_library, CEDiceLoss, train_step, fused, pallas_bn,
+        profiling)
     torch.cuda.empty_cache()
 
     launches["predictor_silu"] = predictor_phase(

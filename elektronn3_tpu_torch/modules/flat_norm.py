@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from elektronn3_tpu_torch.ops.fused import channel_stats
+from elektronn3_tpu_torch.ops.pallas_bn import update_running
 
 
 def bn_eval_prologue(norm: nn.Module) -> Tuple[torch.Tensor,
@@ -46,10 +47,8 @@ def update_running_stats(norm: nn.Module, mean: torch.Tensor,
     """``ra = (1 - m) * ra + m * batch`` for the running mean and
     variance, m = ``norm.momentum`` (0.1: flax's momentum 0.9), in
     float32 and without autograd."""
-    m = norm.momentum
-    with torch.no_grad():
-        for buf, val in ((norm.running_mean, mean), (norm.running_var, var)):
-            buf.copy_((1.0 - m) * buf.float() + m * val.detach().float())
+    update_running((norm.running_mean, norm.running_var, norm.momentum),
+                   mean, var)
 
 
 def bn_train_prologue(norm: nn.Module, s: torch.Tensor,

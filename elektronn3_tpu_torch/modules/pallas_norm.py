@@ -17,7 +17,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from elektronn3_tpu_torch.modules.flat_norm import update_running_stats
 from elektronn3_tpu_torch.ops.pallas_bn import (
     batch_norm_inference, batch_norm_train)
 
@@ -33,10 +32,9 @@ class PallasBatchNorm:
             return batch_norm_inference(
                 x, self.weight, self.bias, self.running_mean,
                 self.running_var, self.eps, reference=reference)
-        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps,
-                                        reference=reference)
-        update_running_stats(self, mean, var)
-        return y
+        return batch_norm_train(
+            x, self.weight, self.bias, self.eps, reference=reference,
+            running=(self.running_mean, self.running_var, self.momentum))[0]
 
 
 class PallasBatchNorm3d(PallasBatchNorm, nn.BatchNorm3d):

@@ -43,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # argtypes of each C entry point (csrc/*.cu, extern "C").
 _SIGNATURES = {
     "e3_conv_bnact": (_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -73,9 +74,11 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P),
     "e3_upconv_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "e3_bn_stats": (_I, _P, _P, _P, _L, _I, _I, _I, _P),
+    "e3_bn_stats": (_I, _P, _P, _P, _F, _P, _P, _F, _F, _P, _P, _L, _I, _I,
+                    _I, _I, _P),
     "e3_bn_normalize": (_I, _P, _P, _P, _P, _L, _I, _P),
-    "e3_bn_bwd_reduce": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "e3_bn_bwd_reduce": (_I, _P, _P, _P, _P, _P, _F, _P, _P, _L, _I, _I,
+                         _I, _I, _P),
     "e3_bn_bwd_dx": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _P),
     "e3_conv_vup": (_I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
                     _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -5,50 +5,65 @@ PyTorch counterpart of the JAX package's ``ops/pallas_bn.py``, the op
 behind the opt-in ``normalization='batchp'``. The operand is the
 activation seen as rows, ``(R, C)`` with channels minor (R = N * D * H *
 W), and four kernels (``csrc/batch_norm.cu``) make two passes over it
-each way, with the per-channel glue between them as small torch ops on
-C-vectors (:func:`fold_forward`, :func:`fold_backward`), as JAX keeps it
-in XLA between its ``pallas_call``s:
+each way. JAX keeps the per-channel glue between its ``pallas_call``s in
+XLA, which fuses it; here the two reductions apply it in their own last
+step, so each pass is one launch:
 
-- :func:`batch_norm_train` forward: K8 ``bn_stats`` (float32 sum and
-  sum of squares per channel; row 29 of the kernel table in PERF.md,
-  ``_bn_stats``), then ``mean = s / R``, ``var = max(q / R - mean^2,
-  0)``, ``inv = rsqrt(var + eps)``, ``scale = gamma * inv``, ``shift =
-  beta - mean * scale``, then K9 ``bn_normalize`` (``y = x * scale +
-  shift``; row 30, ``_bn_normalize``);
-- its backward (row 31, ``_bn_bwd``): K10 ``bn_bwd_reduce`` (``sum g``
-  and ``sum g * xhat``, ``xhat = (x - mean) * inv``), then ``a = gamma *
-  inv``, ``b = -gamma * inv^2 * sum(g xhat) / R``, ``c = -gamma * inv *
-  sum(g) / R - b * mean``, then K11 ``bn_bwd_dx`` (``dx = a g + b x +
-  c``). The cotangents of the returned statistics are ignored, as in
-  JAX: they feed only the running statistics;
+- :func:`batch_norm_train` forward: K8 ``bn_stats`` (row 29 of the
+  kernel table in PERF.md, ``_bn_stats``) gives ``(5, C)`` float32:
+  ``mean = s / R``, ``var = max(q / R - mean^2, 0)``, ``inv = rsqrt(var
+  + eps)``, ``scale = gamma * inv``, ``shift = beta - mean * scale``
+  from the sums ``s``, ``q`` of x and x^2, and applies the running
+  update when given the buffers; then K9 ``bn_normalize`` (``y = x *
+  scale + shift``; row 30, ``_bn_normalize``) reads ``scale`` and
+  ``shift`` from that output;
+- its backward (row 31, ``_bn_bwd``): K10 ``bn_bwd_reduce`` gives
+  ``(5, C)`` float32 ``a = gamma * inv``, ``b = -a * inv * sum(g xhat) /
+  R``, ``c = -a * sum(g) / R - b * mean``, ``dgamma = sum(g xhat)``,
+  ``dbeta = sum(g)`` with ``xhat = (x - mean) * inv``, ``inv = rsqrt(var
+  + eps)``; then K11 ``bn_bwd_dx`` (``dx = a g + b x + c``) reads ``a``,
+  ``b``, ``c`` from that output. The
+  cotangents of the returned statistics are ignored, as in JAX: they
+  feed only the running statistics;
 - :func:`batch_norm_inference`: K9 with the running statistics, ``inv =
   rsqrt(var + eps)`` with NO clamp of ``var``.
 
 Each kernel has a wrapper ``*_kernel`` and a plain PyTorch version
 ``*_plain`` beside it (same signature, same rounding points: float32
-arithmetic, one rounding of ``y`` to ``x``'s dtype and of ``dx`` to
-``g``'s). The ops take the plain versions for a CPU tensor or with
-``reference=True``, the kernels for a CUDA tensor; nothing falls back
-from one to the other. Every wrapper checks the kernels' contract on
-every device first: a contiguous (R, C) operand, R >= 1, C % 8 == 0 and
-C <= 2048, float32 or bfloat16. Kernel launches count in
+arithmetic in the same order, one rounding of ``y`` to ``x``'s dtype and
+of ``dx`` to ``g``'s). The ops take the plain versions for a CPU tensor
+or with ``reference=True``, the kernels for a CUDA tensor; nothing falls
+back from one to the other. Every wrapper checks the kernels' contract
+on every device first: a contiguous (R, C) operand, R >= 1, C % 8 == 0
+and C <= 2048, float32 or bfloat16. Kernel launches count in
 :data:`elektronn3_tpu_torch.ops.fused.LAUNCHES`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from elektronn3_tpu_torch.ops import _build
 from elektronn3_tpu_torch.ops.fused import (
-    LAUNCHES, _DTYPE_ID, _check_cuda, _check_dtype, _needs_grad, _plain,
-    _stream, _vec)
+    LAUNCHES, _DTYPE_ID, _check_cuda, _check_dtype, _needs_grad, _plain)
 
-MAX_C = 2048         # a reduction block holds 8 channels per thread
-_MAX_BLOCKS = 1024   # reduction blocks at most (partials to sum)
-_MIN_ITERS = 4       # rows each thread of a reduction block reads, at least
+MAX_C = 2048           # a block holds 8 channels per thread
+CLUSTER = 8            # blocks of a cluster in a grid plan
+BLOCKS_PER_SM = 1      # a grid plan's blocks per SM, at most
+MIN_ROWS_PER_THREAD = 16   # rows each thread of a grid plan reads, about
+# R x C (elements) up to which one cluster streams the rows: it needs no
+# ticket and no partials. On an H100 (bn_reduce_sweep.py) one cluster
+# of 8 blocks matched the grid at 2^18 elements, beat it at 2^19 (6.9
+# against 7.7 us, bf16 K8) and lost at 2^20 (9.9 against 7.6).
+SINGLE_CLUSTER_MAX = 1 << 19
+
+# (running mean, running var, momentum): buffers K8 updates in place.
+Running = Tuple[torch.Tensor, torch.Tensor, float]
+
+_SMS: Dict[int, int] = {}
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _check_rows(t: torch.Tensor, what: str) -> None:
@@ -63,44 +78,162 @@ def _check_rows(t: torch.Tensor, what: str) -> None:
                          f"multiple of 8 in [8, {MAX_C}]")
 
 
-def reduce_plan(rows: int, c: int) -> Tuple[int, int]:
-    """(blocks, rows per block) of K8 and K10: a function of the shape
-    alone, so the sums have the same bits on every run. A block of c / 8
-    channel groups reads 256 // (c / 8) rows at once, each thread at
-    least ``_MIN_ITERS`` of its rows, with at most ``_MAX_BLOCKS``
-    blocks."""
+def _cuda_rows(t: torch.Tensor, what: str) -> Tuple[int, int, int]:
+    """:func:`_check_rows` and :func:`_check_cuda` of a wrapper's (R, C)
+    operand, the common case in a few attribute reads (a call is
+    host-bound below about a million elements): (R, C, device index)."""
+    if t.dtype in _DTYPE_ID and t.is_cuda and t.dim() == 2 \
+            and t.is_contiguous() and not t.data_ptr() % 16:
+        r, c = t.shape
+        if r >= 1 and not c % 8 and 8 <= c <= MAX_C:
+            return r, c, t.get_device()
+    _check_rows(t, what)
+    _check_cuda(t, what)
+    raise AssertionError("unreachable")
+
+
+def _f32_vec(v: torch.Tensor, c: int, idx: int, what: str) -> torch.Tensor:
+    """A per-channel float32 operand the kernel reads as it is: (C,),
+    contiguous, on the operand's device (a parameter, a buffer, a row of
+    K8's or K10's output)."""
+    if v.dtype is not torch.float32 or not v.is_cuda or v.dim() != 1 \
+            or v.shape[0] != c or not v.is_contiguous() \
+            or v.get_device() != idx:
+        raise ValueError(f"{what}: expected a contiguous float32 ({c},) "
+                         f"vector on cuda:{idx}, got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}")
+    return v
+
+
+def _param(v: torch.Tensor, c: int, idx: int, what: str) -> torch.Tensor:
+    """gamma or beta as the kernel reads it: float32 (the models'
+    parameters are, and pass as they are)."""
+    if v.dtype is not torch.float32:
+        v = v.detach().float()
+    return _f32_vec(v, c, idx, what)
+
+
+def max_clusters(sms: int) -> int:
+    """Clusters of a grid plan at most, on a card of ``sms`` SMs."""
+    return max(1, sms * BLOCKS_PER_SM // CLUSTER)
+
+
+def reduce_plan(rows: int, c: int, sms: int) -> Tuple[int, int, int]:
+    """(cluster size, clusters, rows per block) of K8 and K10, a function
+    of (R, C) and the card's SM count alone, so the sums have the same
+    bits on every run and in both dtypes: every sum's order follows from
+    it. A block of c / 8 channel groups reads 256 // (c / 8) rows at
+    once; block b streams rows [b * rpb, (b + 1) * rpb). Up to
+    ``SINGLE_CLUSTER_MAX`` elements one cluster of up to ``CLUSTER``
+    blocks streams them all (a power of 2, each thread ``MIN_ROWS_PER_
+    THREAD`` rows or more where there are enough); above, clusters of
+    ``CLUSTER``, up to ``BLOCKS_PER_SM`` blocks an SM (one: every
+    cluster resident at once), whose last to finish sums the cluster
+    partials."""
     rpp = 256 // (c // 8)
-    per = -(-rows // _MAX_BLOCKS)
-    rows_per_block = rpp * max(_MIN_ITERS, -(-per // rpp))
-    return -(-rows // rows_per_block), rows_per_block
+    want = -(-rows // (rpp * MIN_ROWS_PER_THREAD))
+    if rows * c <= SINGLE_CLUSTER_MAX:
+        cs, ncl = 1, 1
+        while cs < min(want, CLUSTER):
+            cs *= 2
+    else:
+        cs = CLUSTER
+        ncl = max(1, min(-(-want // CLUSTER), max_clusters(sms)))
+    per = -(-rows // (cs * ncl))
+    return cs, ncl, rpp * -(-per // rpp)
+
+
+def _reduction(idx: int, rows: int, c: int) -> Tuple[int, int, int, int,
+                                                      int]:
+    """(cluster size, clusters, rows per block, workspace pointer or 0,
+    current stream) of a K8 or K10 call on device ``idx``. The workspace
+    (a 16-byte ticket, 0 between calls because the last cluster resets
+    it, then the cluster partials) is allocated once per device and
+    stream, at the first call whose plan needs one."""
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    cs, ncl, rpb = reduce_plan(rows, c, sms)
+    ws = 0
+    if ncl > 1:
+        buf = _WORKSPACE.get((idx, stream))
+        if buf is None or buf.numel() < 4 + 2 * c * ncl:
+            buf = _WORKSPACE[(idx, stream)] = torch.zeros(
+                4 + 2 * MAX_C * max(ncl, max_clusters(sms)),
+                dtype=torch.float32, device=torch.device("cuda", idx))
+        ws = buf.data_ptr()
+    return cs, ncl, rpb, ws, stream
+
+
+def _launch(name: str, idx: int, *args) -> None:
+    """Call the C entry point ``e3_<name>`` (its last argument the
+    stream) with device ``idx`` current, raise on its error code and
+    count the launch."""
+    fn = getattr(_build.library(), "e3_" + name)
+    if idx == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args)
+    if rc:
+        _build.check(rc, name)
+    LAUNCHES[name] += 1
+
+
+def update_running(running: Running, mean: torch.Tensor,
+                   var: torch.Tensor) -> None:
+    """``ra = (1 - m) * ra + m * batch`` in float32 for the running mean
+    and variance, in place and without autograd (flax's momentum update;
+    K8 applies the same on the card)."""
+    ra_mean, ra_var, m = running
+    with torch.no_grad():
+        for buf, val in ((ra_mean, mean), (ra_var, var)):
+            buf.copy_((1.0 - m) * buf.float() + m * val.detach().float())
 
 
 # ---------------------------------------------------------------------------
 # K8 bn_stats, K9 bn_normalize (forward; row 29, row 30)
 # ---------------------------------------------------------------------------
 
-def bn_stats_plain(x2d: torch.Tensor) -> torch.Tensor:
-    """Plain version of K8: (2, C) float32, [sum x, sum x^2] per channel."""
+def bn_stats_plain(x2d: torch.Tensor, gamma: torch.Tensor,
+                   beta: torch.Tensor, eps: float,
+                   running: Optional[Running] = None) -> torch.Tensor:
+    """Plain version of K8: (5, C) float32 [mean, var, inv, scale, shift]
+    of the rows (JAX's ``_bn_fwd_impl`` from its ``_bn_stats`` sums), and
+    the running update when ``running`` is given."""
     xf = x2d.float()
-    return torch.stack([xf.sum(0), (xf * xf).sum(0)])
+    r = x2d.shape[0]
+    mean = xf.sum(0) / r
+    var = torch.clamp_min((xf * xf).sum(0) / r - mean * mean, 0.0)
+    inv = torch.rsqrt(var + eps)
+    scale, shift = _scale_shift(gamma, beta, mean, inv)
+    if running is not None:
+        update_running(running, mean, var)
+    return torch.stack([mean, var, inv, scale, shift])
 
 
-def bn_stats_kernel(x2d: torch.Tensor) -> torch.Tensor:
-    """K8 on a CUDA tensor, as :func:`bn_stats_plain`."""
-    _check_rows(x2d, "bn_stats")
-    _check_cuda(x2d, "bn_stats")
-    r, c = x2d.shape
-    nblocks, rpb = reduce_plan(r, c)
-    dev = x2d.device
-    partial = torch.empty((nblocks, 2, c), dtype=torch.float32, device=dev)
-    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _build.library().e3_bn_stats(
-            _DTYPE_ID[x2d.dtype], x2d.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), r, c, nblocks, rpb, _stream(dev))
-    _build.check(rc, "bn_stats")
-    LAUNCHES["bn_stats"] += 1
-    return sums
+def bn_stats_kernel(x2d: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, eps: float,
+                    running: Optional[Running] = None) -> torch.Tensor:
+    """K8 on a CUDA tensor, as :func:`bn_stats_plain`: one launch; the
+    running buffers (float32 (C,) on the device) are updated in place."""
+    r, c, idx = _cuda_rows(x2d, "bn_stats")
+    gamma = _param(gamma, c, idx, "bn_stats gamma")
+    beta = _param(beta, c, idx, "bn_stats beta")
+    ra_mean = ra_var = None
+    m = 0.0
+    if running is not None:
+        ra_mean, ra_var, m = running
+        ra_mean = _f32_vec(ra_mean, c, idx, "bn_stats running mean").data_ptr()
+        ra_var = _f32_vec(ra_var, c, idx, "bn_stats running var").data_ptr()
+    cs, ncl, rpb, ws, stream = _reduction(idx, r, c)
+    out = torch.empty((5, c), dtype=torch.float32, device=x2d.device)
+    _launch("bn_stats", idx, _DTYPE_ID[x2d.dtype], x2d.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), eps, ra_mean, ra_var, m,
+            1.0 - m, ws, out.data_ptr(), r, c, cs, ncl, rpb, stream)
+    return out
 
 
 def bn_normalize_plain(x2d: torch.Tensor, scale: torch.Tensor,
@@ -112,19 +245,15 @@ def bn_normalize_plain(x2d: torch.Tensor, scale: torch.Tensor,
 
 def bn_normalize_kernel(x2d: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor) -> torch.Tensor:
-    """K9 on a CUDA tensor, as :func:`bn_normalize_plain`."""
-    _check_rows(x2d, "bn_normalize")
-    _check_cuda(x2d, "bn_normalize")
-    r, c = x2d.shape
-    dev = x2d.device
-    scale, shift = _vec(scale, c, 0.0, dev), _vec(shift, c, 0.0, dev)
+    """K9 on a CUDA tensor, as :func:`bn_normalize_plain`; ``scale`` and
+    ``shift`` float32 (C,) on the device (rows of K8's output)."""
+    r, c, idx = _cuda_rows(x2d, "bn_normalize")
+    scale = _f32_vec(scale, c, idx, "bn_normalize scale")
+    shift = _f32_vec(shift, c, idx, "bn_normalize shift")
     y = torch.empty_like(x2d)
-    with torch.cuda.device(dev):
-        rc = _build.library().e3_bn_normalize(
-            _DTYPE_ID[x2d.dtype], x2d.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), y.data_ptr(), r, c, _stream(dev))
-    _build.check(rc, "bn_normalize")
-    LAUNCHES["bn_normalize"] += 1
+    _launch("bn_normalize", idx, _DTYPE_ID[x2d.dtype], x2d.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), y.data_ptr(), r, c,
+            torch._C._cuda_getCurrentRawStream(idx))
     return y
 
 
@@ -133,34 +262,40 @@ def bn_normalize_kernel(x2d: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def bn_bwd_reduce_plain(g2d: torch.Tensor, x2d: torch.Tensor,
-                        mean: torch.Tensor, inv: torch.Tensor
-                        ) -> torch.Tensor:
-    """Plain version of K10: (2, C) float32, [sum g, sum g * xhat] with
-    ``xhat = (x - mean) * inv``."""
+                        mean: torch.Tensor, var: torch.Tensor,
+                        gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """Plain version of K10: (5, C) float32 [a, b, c, dgamma, dbeta],
+    ``dx = a g + b x + c`` being ``gamma inv (g - dbeta / R - xhat dgamma
+    / R)`` folded per channel (JAX's ``_bn_bwd``), ``dgamma = sum g *
+    xhat``, ``dbeta = sum g``, ``xhat = (x - mean) * inv``, ``inv =
+    rsqrt(var + eps)``."""
     gf = g2d.float()
+    r = x2d.shape[0]
+    inv = torch.rsqrt(var + eps)
     xhat = (x2d.float() - mean) * inv
-    return torch.stack([gf.sum(0), (gf * xhat).sum(0)])
+    dbeta, dgamma = gf.sum(0), (gf * xhat).sum(0)
+    a = gamma.float() * inv
+    b = -a * inv * dgamma / r
+    return torch.stack([a, b, -a * dbeta / r - b * mean, dgamma, dbeta])
 
 
 def bn_bwd_reduce_kernel(g2d: torch.Tensor, x2d: torch.Tensor,
-                         mean: torch.Tensor, inv: torch.Tensor
-                         ) -> torch.Tensor:
-    """K10 on CUDA tensors, as :func:`bn_bwd_reduce_plain`."""
-    _check_pair(g2d, x2d, "bn_bwd_reduce")
-    r, c = x2d.shape
-    dev = x2d.device
-    mean, inv = _vec(mean, c, 0.0, dev), _vec(inv, c, 0.0, dev)
-    nblocks, rpb = reduce_plan(r, c)
-    partial = torch.empty((nblocks, 2, c), dtype=torch.float32, device=dev)
-    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _build.library().e3_bn_bwd_reduce(
-            _DTYPE_ID[x2d.dtype], g2d.data_ptr(), x2d.data_ptr(),
-            mean.data_ptr(), inv.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), r, c, nblocks, rpb, _stream(dev))
-    _build.check(rc, "bn_bwd_reduce")
-    LAUNCHES["bn_bwd_reduce"] += 1
-    return sums
+                         mean: torch.Tensor, var: torch.Tensor,
+                         gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """K10 on CUDA tensors, as :func:`bn_bwd_reduce_plain`: one launch;
+    ``mean`` and ``var`` float32 (C,) on the device (rows of K8's
+    output)."""
+    r, c, idx = _check_pair(g2d, x2d, "bn_bwd_reduce")
+    mean = _f32_vec(mean, c, idx, "bn_bwd_reduce mean")
+    var = _f32_vec(var, c, idx, "bn_bwd_reduce var")
+    gamma = _param(gamma, c, idx, "bn_bwd_reduce gamma")
+    cs, ncl, rpb, ws, stream = _reduction(idx, r, c)
+    out = torch.empty((5, c), dtype=torch.float32, device=x2d.device)
+    _launch("bn_bwd_reduce", idx, _DTYPE_ID[x2d.dtype], g2d.data_ptr(),
+            x2d.data_ptr(), mean.data_ptr(), var.data_ptr(),
+            gamma.data_ptr(), eps, ws, out.data_ptr(), r, c, cs, ncl, rpb,
+            stream)
+    return out
 
 
 def bn_bwd_dx_plain(g2d: torch.Tensor, x2d: torch.Tensor, a: torch.Tensor,
@@ -172,32 +307,28 @@ def bn_bwd_dx_plain(g2d: torch.Tensor, x2d: torch.Tensor, a: torch.Tensor,
 
 def bn_bwd_dx_kernel(g2d: torch.Tensor, x2d: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """K11 on CUDA tensors, as :func:`bn_bwd_dx_plain`."""
-    _check_pair(g2d, x2d, "bn_bwd_dx")
-    r, ch = x2d.shape
-    dev = x2d.device
-    a, b, c = (_vec(v, ch, 0.0, dev) for v in (a, b, c))
+    """K11 on CUDA tensors, as :func:`bn_bwd_dx_plain`; ``a``, ``b``,
+    ``c`` float32 (C,) on the device (rows of K10's output)."""
+    r, ch, idx = _check_pair(g2d, x2d, "bn_bwd_dx")
+    a, b, c = (_f32_vec(v, ch, idx, "bn_bwd_dx") for v in (a, b, c))
     dx = torch.empty_like(g2d)
-    with torch.cuda.device(dev):
-        rc = _build.library().e3_bn_bwd_dx(
-            _DTYPE_ID[x2d.dtype], g2d.data_ptr(), x2d.data_ptr(),
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), dx.data_ptr(), r, ch,
-            _stream(dev))
-    _build.check(rc, "bn_bwd_dx")
-    LAUNCHES["bn_bwd_dx"] += 1
+    _launch("bn_bwd_dx", idx, _DTYPE_ID[x2d.dtype], g2d.data_ptr(),
+            x2d.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            dx.data_ptr(), r, ch, torch._C._cuda_getCurrentRawStream(idx))
     return dx
 
 
-def _check_pair(g2d: torch.Tensor, x2d: torch.Tensor, what: str) -> None:
+def _check_pair(g2d: torch.Tensor, x2d: torch.Tensor, what: str
+                ) -> Tuple[int, int, int]:
     """K10 and K11 read ``g`` and ``x`` side by side: one shape, dtype
-    and device."""
-    for t in (g2d, x2d):
-        _check_rows(t, what)
-        _check_cuda(t, what)
+    and device. Returns (R, C, device index)."""
+    rc = _cuda_rows(x2d, what)
     if g2d.shape != x2d.shape or g2d.dtype != x2d.dtype \
             or g2d.device != x2d.device:
         raise ValueError(f"{what}: g {tuple(g2d.shape)} {g2d.dtype} and x "
                          f"{tuple(x2d.shape)} {x2d.dtype} must match")
+    _cuda_rows(g2d, what)
+    return rc
 
 
 # ---------------------------------------------------------------------------
@@ -224,40 +355,17 @@ def _scale_shift(gamma: torch.Tensor, beta: torch.Tensor,
     return scale, beta.float() - mean * scale
 
 
-def fold_forward(sums: torch.Tensor, rows: int, gamma: torch.Tensor,
-                 beta: torch.Tensor, eps: float
-                 ) -> Tuple[torch.Tensor, ...]:
-    """The glue from K8 to K9 (JAX's ``_bn_fwd_impl``): from K8's (2, C)
-    sums over ``rows`` rows, ``(mean, var, inv, scale, shift)`` with
-    ``var = max(E[x^2] - mean^2, 0)`` and ``inv = rsqrt(var + eps)``."""
-    mean = sums[0] / rows
-    var = torch.clamp_min(sums[1] / rows - mean * mean, 0.0)
-    inv = torch.rsqrt(var + eps)
-    return (mean, var, inv) + _scale_shift(gamma, beta, mean, inv)
-
-
-def fold_backward(sums: torch.Tensor, rows: int, gamma: torch.Tensor,
-                  mean: torch.Tensor, inv: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The glue from K10 to K11 (JAX's ``_bn_bwd``): from K10's (2, C)
-    sums ``(dbeta, dgamma)``, the ``(a, b, c)`` of ``dx = a g + b x + c``,
-    which is ``gamma inv (g - dbeta / R - xhat dgamma / R)`` folded per
-    channel."""
-    a = gamma.float() * inv
-    b = -a * inv * sums[1] / rows
-    return a, b, -a * sums[0] / rows - b * mean
-
-
 class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, eps, reference, x, gamma, beta):
+    def forward(ctx, eps, reference, running, x, gamma, beta):
         x2d = _rows(x, "batch_norm_train")
         ctx.plain = _plain(x, reference)
-        stats = bn_stats_plain if ctx.plain else bn_stats_kernel
-        normalize = bn_normalize_plain if ctx.plain else bn_normalize_kernel
-        mean, var, _, scale, shift = fold_forward(stats(x2d), x2d.shape[0],
-                                                  gamma, beta, eps)
-        y = normalize(x2d, scale, shift).view(x.shape)
+        ctx.set_materialize_grads(False)   # mean and var take none
+        stats, normalize = ((bn_stats_plain, bn_normalize_plain) if ctx.plain
+                            else (bn_stats_kernel, bn_normalize_kernel))
+        f = stats(x2d, gamma, beta, eps, running)
+        y = normalize(x2d, f[3], f[4]).view(x.shape)
+        mean, var = f[0], f[1]
         ctx.save_for_backward(x, gamma, mean, var)
         ctx.eps = eps
         ctx.mark_non_differentiable(mean, var)
@@ -265,31 +373,34 @@ class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
+        if gy is None:
+            return None, None, None, None, None, None
         x, gamma, mean, var = ctx.saved_tensors
         reduce_, dx_ = ((bn_bwd_reduce_plain, bn_bwd_dx_plain) if ctx.plain
                         else (bn_bwd_reduce_kernel, bn_bwd_dx_kernel))
         x2d = x.view(-1, x.shape[-1])
         g2d = gy.to(x.dtype).contiguous().view(x2d.shape)
-        inv = torch.rsqrt(var + ctx.eps)
-        sums = reduce_(g2d, x2d, mean, inv)
-        a, b, c = fold_backward(sums, x2d.shape[0], gamma, mean, inv)
-        dx = dx_(g2d, x2d, a, b, c).view(x.shape)
-        return (None, None, dx, sums[1].to(gamma.dtype),
-                sums[0].to(gamma.dtype))
+        f = reduce_(g2d, x2d, mean, var, gamma, ctx.eps)
+        dx = dx_(g2d, x2d, f[0], f[1], f[2]).view(x.shape)
+        return (None, None, None, dx, f[3].to(gamma.dtype),
+                f[4].to(gamma.dtype))
 
 
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, eps: float = 1e-5, *,
-                     reference: bool = False
+                     reference: bool = False,
+                     running: Optional[Running] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-mode batch norm of a contiguous channels-last tensor over
     every axis but the last: returns ``(y, mean, var)``, ``y`` in ``x``'s
     dtype, the float32 batch mean and the biased variance clamped at 0
     (``E[x^2] - mean^2``). Differentiable in ``x``, ``gamma`` and
     ``beta`` through ``y``; ``mean`` and ``var`` are not differentiable
-    (running-statistics semantics). ``reference`` runs the plain
-    versions on any device."""
-    return _BatchNormTrain.apply(eps, reference, x, gamma, beta)
+    (running-statistics semantics). ``running`` (running mean, running
+    var, momentum m) gets ``ra = (1 - m) * ra + m * batch`` for the mean
+    and the clamped variance, in place (in K8 on the card). ``reference``
+    runs the plain versions on any device."""
+    return _BatchNormTrain.apply(eps, reference, running, x, gamma, beta)
 
 
 def batch_norm_inference(x: torch.Tensor, gamma: torch.Tensor,

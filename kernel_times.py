@@ -36,9 +36,22 @@ different machines or cards are not comparable. Shapes:
   checkouts;
 - ``conv_vup`` (row 1's vup mode) as served at bench.py's up_2 and at
   the Predictor tile's (carry (1, 128, 128, 128, 64), skip (1, 128, 256,
-  256, 32)), without statistics.
+  256, 32)), without statistics;
+- the 'batchp' norm's two reductions, K8 and K10, at the (R, C) of
+  chip_smoke.py's BN_VARIANTS in training (the headline step's library
+  levels, a ragged R, the pallas_flat=False step's levels at batch 8
+  and batch 2), each as the op runs it with its glue: in a checkout
+  with the one-launch K8 and K10 that is one call each (K8 with the
+  running update), in an older one the kernel, then ``fold_forward`` and
+  the running update (K8), or ``rsqrt``, the kernel and
+  ``fold_backward`` (K10). Two numbers each: the time a call of
+  back-to-back calls (the host's issue rate where a call is
+  host-bound), and the device time of a call from torch.profiler (every
+  device kernel it runs).
 Last, the headline UNet's training step at bench.py's shapes with
-``vup`` on and off (step ms and peak allocated MB).
+``vup`` on and off (step ms and peak allocated MB), and with
+``normalization='batchp'`` at batch 8 and with ``pallas_flat=False`` at
+batch 2 (step ms).
 """
 import os
 import sys
@@ -53,17 +66,6 @@ def main():
     from elektronn3_tpu_torch.ops import _build, fused, pallas_conv, vup
     _build.library()
     torch.backends.cudnn.allow_tf32 = False
-
-    def ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -221,32 +223,124 @@ def main():
         False))))
     del xt, st
     torch.cuda.empty_cache()
-    out += vup_steps()
+    out += bn_reductions()
+    out += steps()
     print(os.path.basename(os.getcwd()) + ": " + "; ".join(
         f"{k} {v:.3f}" for k, v in out), flush=True)
 
 
-def vup_steps():
-    """The headline UNet's training step at bench.py's shapes (bf16,
-    CEDiceLoss, Adam, 5 device-resident batches; 3 warm-up and 20 timed
-    steps ended by a host read of the loss) with ``vup`` on, then off:
-    step ms and the timed steps' peak allocated MB."""
+# (label, R, C) of K8 and K10: chip_smoke.py's BN_VARIANTS in training.
+BN_SHAPES = [("bench L2", 85_184, 128), ("bench L3", 10_648, 256),
+             ("ragged", 85_221, 128), ("b8 L0", 2_725_888, 32),
+             ("b8 L1", 681_472, 64), ("b2 L0", 681_472, 32),
+             ("b2 L1", 170_368, 64), ("b2 L2", 21_296, 128),
+             ("b2 L3", 2_662, 256)]
+
+
+def device_ms(fn, n=20):
+    """Device time of one call of ``fn``: every device kernel of ``n``
+    calls after a warm-up (torch.profiler), per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type.name == "CUDA") / 1e3 / n
+
+
+def bn_reductions():
+    """K8 and K10 with their glue at BN_SHAPES (bf16): per call and
+    device ms, in whichever form the checkout has them."""
+    import inspect
+    from elektronn3_tpu_torch.ops import pallas_bn as bn
+    one_launch = len(inspect.signature(bn.bn_stats_kernel).parameters) > 1
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for label, r, c in BN_SHAPES:
+        x = (3.0 + 2.0 * torch.randn(r, c, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        gy = torch.randn(r, c, generator=g, device="cuda").to(torch.bfloat16)
+        gamma = torch.randn(c, generator=g, device="cuda")
+        beta = torch.randn(c, generator=g, device="cuda")
+        ra_mean = torch.zeros(c, device="cuda")
+        ra_var = torch.ones(c, device="cuda")
+        mean = x.float().mean(0)
+        var = x.float().var(0, unbiased=False)
+        if one_launch:
+            def k8():
+                return bn.bn_stats_kernel(x, gamma, beta, 1e-5,
+                                          (ra_mean, ra_var, 0.1))
+
+            def k10():
+                return bn.bn_bwd_reduce_kernel(gy, x, mean, var, gamma, 1e-5)
+        else:
+            def k8():
+                f = bn.fold_forward(bn.bn_stats_kernel(x), r, gamma, beta,
+                                    1e-5)
+                with torch.no_grad():
+                    for buf, val in ((ra_mean, f[0]), (ra_var, f[1])):
+                        buf.copy_(0.9 * buf.float() + 0.1 * val.float())
+                return f
+
+            def k10():
+                inv = torch.rsqrt(var + 1e-5)
+                sums = bn.bn_bwd_reduce_kernel(gy, x, mean, inv)
+                return (bn.fold_backward(sums, r, gamma, mean, inv),
+                        sums[1].to(gamma.dtype), sums[0].to(gamma.dtype))
+        out += [(f"K8 {label}", ms(k8, 50)), (f"K8 device {label}",
+                                               device_ms(k8)),
+                (f"K10 {label}", ms(k10, 50)), (f"K10 device {label}",
+                                                 device_ms(k10))]
+        del x, gy
+        torch.cuda.empty_cache()
+    return out
+
+
+def ms(fn, reps=20):
+    """Mean time of ``fn`` over ``reps`` back-to-back calls after one
+    warm-up (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def steps():
+    """The headline UNet's training step (bf16, CEDiceLoss, Adam, 5
+    device-resident batches; 3 warm-up and 20 timed steps ended by a
+    host read of the loss) at bench.py's shapes with ``vup`` on, then
+    off (step ms and the timed steps' peak allocated MB), then with
+    ``normalization='batchp'`` (batch 8) and with it and
+    ``pallas_flat=False`` at batch 2 (step ms)."""
     import time
     from elektronn3_tpu_torch.models import UNet
     from elektronn3_tpu_torch.modules.loss import CEDiceLoss
     from elektronn3_tpu_torch.training import train_step
-    g = torch.Generator(device="cuda").manual_seed(7)
-    shape = (8, 44, 88, 88, 1)
-    batches = [(torch.randn(shape, generator=g, device="cuda"),
-                torch.randint(0, 2, shape[:-1], generator=g, device="cuda"))
-               for _ in range(5)]
     crit = CEDiceLoss(1.0, 1.0)
     out = []
-    for on in (True, False):
+    for label, kw, batch in (
+            ("vup=True", dict(vup=True), 8), ("vup=False", {}, 8),
+            ("batchp", dict(normalization="batchp"), 8),
+            ("batchp b2", dict(normalization="batchp", pallas_flat=False),
+             2)):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        shape = (batch, 44, 88, 88, 1)
+        batches = [(torch.randn(shape, generator=g, device="cuda"),
+                    torch.randint(0, 2, shape[:-1], generator=g,
+                                  device="cuda"))
+                   for _ in range(5)]
         model = UNet(in_channels=1, out_channels=2, n_blocks=4,
                      start_filts=32, planar_blocks=(0,), dtype=torch.bfloat16,
-                     device="cuda", vup=on,
-                     generator=torch.Generator().manual_seed(4))
+                     device="cuda", generator=torch.Generator().manual_seed(4),
+                     **kw)
         opt = torch.optim.Adam(model.parameters(), lr=1e-3)
         for _ in range(3):
             loss = train_step(model, crit, opt, *batches[0])
@@ -256,9 +350,11 @@ def vup_steps():
         for i in range(20):
             loss = train_step(model, crit, opt, *batches[i % 5])
         float(loss)
-        out += [(f"step vup={on}", (time.perf_counter() - t0) / 20 * 1e3),
-                (f"peak MB vup={on}", torch.cuda.max_memory_allocated() / 1e6)]
-        del model, opt
+        out.append((f"step {label}", (time.perf_counter() - t0) / 20 * 1e3))
+        if "vup" in label:
+            out.append((f"peak MB {label}",
+                        torch.cuda.max_memory_allocated() / 1e6))
+        del model, opt, batches
         torch.cuda.empty_cache()
     return out
 

@@ -225,12 +225,25 @@ def test_batchp_contract_refuses_what_the_kernels_refuse(shape, msg):
                                    torch.zeros(8))
 
 
-def test_reduce_plan_covers_every_row():
+@pytest.mark.parametrize("sms", [132, 16])
+def test_reduce_plan_covers_every_row(sms):
+    """K8's and K10's plan on a card of ``sms`` SMs (the H100 has 132):
+    clusters of 1-8 blocks that cover every row, in whole row groups
+    of a block (less than one group a block to spare), one cluster up to SINGLE_CLUSTER_MAX elements, at most
+    BLOCKS_PER_SM blocks an SM above, and a function of its arguments
+    alone."""
     for r, c in [(1, 8), (37, 32), (10_648, 256), (85_221, 128),
                  (2_725_888, 32), (5_000_000, 2048)]:
-        nblocks, rpb = pallas_bn.reduce_plan(r, c)
-        assert nblocks <= 1024 and (nblocks - 1) * rpb < r <= nblocks * rpb
-        assert rpb % (256 // (c // 8)) == 0
+        cs, ncl, rpb = pallas_bn.reduce_plan(r, c, sms)
+        nblocks = cs * ncl
+        rpp = 256 // (c // 8)
+        assert cs in (1, 2, 4, 8) and r <= nblocks * rpb < r + nblocks * rpp
+        assert rpb % rpp == 0
+        assert (ncl == 1) == (r * c <= pallas_bn.SINGLE_CLUSTER_MAX) or \
+            pallas_bn.max_clusters(sms) == 1
+        assert ncl <= pallas_bn.max_clusters(sms)
+        assert nblocks <= max(8, sms * pallas_bn.BLOCKS_PER_SM)
+        assert pallas_bn.reduce_plan(r, c, sms) == (cs, ncl, rpb)
 
 
 # ---------------------------------------------------------------------------
