@@ -24,8 +24,10 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
    at the shapes of one 3D Predictor tile (128, 256, 256), in bfloat16
    and float32, and times both;
 4. holds the outputs of K1 and K3 with and without statistics, K2 and
-   the backward kernels K4-K7 and row 13's (the one-channel conv1's
-   backward, as the paths run it and with the input's gradient, "+dx")
+   the backward kernels K4-K7 (K6 without and with the level's skip
+   cotangent, "+dskip", the paths' form) and row 13's (the one-channel
+   conv1's backward, as the paths run it and with the input's gradient,
+   "+dx")
    against their plain versions at the shapes of ``bench.py``'s training
    step (batch 8 of (44, 88, 88): levels (44, 88, 88) x 32, (44, 44, 44)
    x 64, (22, 22, 22) x 128), in bfloat16 and float32, and times both;
@@ -42,7 +44,9 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
    (2, 2, 2) form), the same at the start_filts=64 model's levels of that
    tile (L0 (128, 256, 256) x 64 planar, L1 (128, 128, 128) x 128, up_1
    256->128 from the dense (64, 64, 64), up_2 128->64 from the carried
-   C=128 activation, row 24), and step 4 at the training shapes of rows
+   C=128 activation, row 24), row 3's kernel (K1 over the network
+   input) at the tile with three input channels and at kd=3, and step 4
+   at the training shapes of rows
    11/12 (the (1, 2, 2) upconv 64->32 from a dense (44, 44, 44) x 64) and
    of the
    start_filts=64 model (L0 (44, 88, 88) x 64 planar, L1 (44, 44, 44) x
@@ -73,8 +77,9 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
 8. trains the headline UNet (bf16, ``CEDiceLoss(1, 1)``, Adam 1e-3) at
    ``bench.py``'s shapes: 3 warm-up and 20 timed steps over 5
    device-resident batches on the kernel path (launch counts reset just
-   before the timed steps: every kernel must launch), the plain path,
-   and the kernel path again; a falling loss on a fixed, learnable
+   before the timed steps: every kernel must launch), the plain path
+   (1 warm-up and 5 timed steps), and the kernel path again; a falling
+   loss on a fixed, learnable
    batch; then one step's loss, parameter gradients and new running
    statistics against the same step through ``reference=True``, in
    float32 and bfloat16;
@@ -144,14 +149,20 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
     150 MB less: it never stores the 174.4 MB upconv output).
 
 Each time is a mean from CUDA events after a warm-up, over at least 3
-calls and as many as fill 20 ms (at most 100). Each K1, K3, K4, K5, K7,
-row 13, ``upconv_stats_bwd`` and ``conv_vup_wgrad`` line also names the
-body that ran (``body``: the tensor-core bodies ``csrc/conv_tc.cu``,
-``csrc/upconv_tc.cu``, ``csrc/dgrad_tc.cu``, ``csrc/wgrad_tc.cu`` (K5,
-and ``conv_vup_wgrad`` with the upconv recomputed per tile),
-``csrc/upconv_bwd_tc.cu`` and ``csrc/upconv_stats_bwd_tc.cu`` for
-bfloat16, the CUDA-core bodies for float32 and for K1's one-channel
-input, ``csrc/conv1_bwd.cu`` for the one-channel input's backward), as
+calls and as many as fill 20 ms (at most 100). K1 over the network
+input (one input of 1 to 4 channels) runs row 3's kernel
+(``csrc/conv1_fwd.cu``), whose variants the JSON line lists as
+``conv1_fwd`` and whose launches each path counts beside K1's (every
+bf16 K1 launch of a path on the tensor-core body or row 3's kernel, row
+3's once a step or model call where L0 runs the kernels). Each K1, K3,
+K4, K5, K7, row 13, ``upconv_stats_bwd`` and ``conv_vup_wgrad`` line
+also names the body that ran (``body``: the tensor-core bodies
+``csrc/conv_tc.cu``, ``csrc/upconv_tc.cu``, ``csrc/dgrad_tc.cu``,
+``csrc/wgrad_tc.cu`` (K5, and ``conv_vup_wgrad`` with the upconv
+recomputed per tile), ``csrc/upconv_bwd_tc.cu`` and
+``csrc/upconv_stats_bwd_tc.cu`` for bfloat16, the CUDA-core bodies for
+float32, ``csrc/conv1_fwd.cu`` for the network input's forward and
+``csrc/conv1_bwd.cu`` for its backward), as
 do the JSON line's ``variants``; each serving and training path prints
 its launches by body (every bf16 K4 launch on ``tc``, row 13's kernel
 once a step on every training path whose L0 runs the kernels).
@@ -166,7 +177,8 @@ bfloat16, the time of the library call (cuDNN through torch, on
 channels-last tensors; a 2D op on a D=1 view) that computes the same
 function, or, where the kernel fuses a prologue or a statistics
 epilogue that no single call has, the library op on the
-already-prologued input ("lib*" in the line).
+already-prologued input ("lib*" in the line; K6 with the skip's
+cotangent: the pool's backward plus the add of the two gradients).
 
 ``--profile`` also profiles three kernel-path training steps of each
 model (the 'batchp' one too, and its ``pallas_flat=False`` step at batch
@@ -211,6 +223,9 @@ IMAGE = (640, 640)                 # the 2D model's training image
 P0, P1, P2, P3 = ((1, 640, 640), (1, 320, 320), (1, 160, 160),
                   (1, 80, 80))     # its levels on the D=1 view
 WARMUP, STEPS, N_BATCHES = 3, 20, 5
+# The plain versions' steps (10 to 20 times the kernels') are a yardstick,
+# not a metric: timed over fewer steps.
+PLAIN_WARMUP, PLAIN_STEPS = 1, 5
 CROSSOVER_PAIRS = 5                # timed request pairs, kernels / library
 # check_train_step: a gradient leaf may differ from the reference step's
 # by this many times the reference step's own difference under a one-ulp
@@ -234,9 +249,14 @@ _FC = "elektronn3_tpu/ops/flat_conv.py"
 _PC = "elektronn3_tpu/ops/pallas_conv.py"
 SOURCES = {
     "conv_bnact": ("elektronn3_tpu_torch/csrc/conv_tc.cu",
-                   f"{_F}:689 conv_bnact_flat; {_F}:2020 conv1_bnstats_flat;"
-                   f" {_F64}:1087 conv3_bnact_flat64; {_FC}:479 flat_conv3 "
-                   f"(:319); {_PC}:109 conv_direct (:150)"),
+                   f"{_F}:689 conv_bnact_flat; {_F64}:1087 "
+                   f"conv3_bnact_flat64; {_FC}:479 flat_conv3 (:319); {_PC}"
+                   ":109 conv_direct (:150)"),
+    # K1's 'conv1' body, counted as K1's launches on that body.
+    "conv1_fwd": ("elektronn3_tpu_torch/csrc/conv1_fwd.cu",
+                  f"{_F}:2020 conv1_bnstats_flat (row 3, its pallas_call "
+                  f":2051; and the one-channel conv1 of {_F64}:1087 "
+                  "conv3_bnact_flat64, cin_real=1)"),
     "pool_bnact": ("elektronn3_tpu_torch/csrc/pool_bnact.cu",
                    f"{_F}:1454 pool_bnact_flat_skip; {_F64}:1597 "
                    f"pool222_bnact_flat64_skip; {_F64}:1805 "
@@ -298,13 +318,15 @@ SOURCES = {
 # K1's, K3's, K4's, K5's and K7's bodies: bf16 runs the tensor-core body
 # (``fused.conv_body``, ``fused.upconv_body``, ``fused.dgrad_body``,
 # ``fused.wgrad_body``, ``fused.upconv_bwd_body``), float32 the
-# CUDA-core body, K1 the CUDA-core body for the network input's one
-# channel; the network input's backward is row 13's kernel (``conv1``)
-# in both dtypes, with (``conv1+dx``) or without its dx; the five vup
-# entries run theirs in bf16 at the vup shapes, all five on one
+# CUDA-core body, K1 row 3's kernel (``conv1``, in both dtypes) for the
+# network input's one to four channels; its backward is row 13's kernel
+# (``conv1``) in both dtypes, with (``conv1+dx``) or without its dx; the
+# five vup entries run theirs in bf16 at the vup shapes, all five on one
 # recompute of u (``vup.vup_body``).
 BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
-                         "cuda-core": "cuda-core (csrc/conv_bnact.cu)"},
+                         "cuda-core": "cuda-core (csrc/conv_bnact.cu)",
+                         "conv1": "conv1 (csrc/conv1_fwd.cu)"},
+          "conv1_fwd": {"conv1": "conv1 (csrc/conv1_fwd.cu)"},
           "conv_bnact_dgrad": {
               "tc": "tc (csrc/dgrad_tc.cu)",
               "cuda-core": "cuda-core (csrc/conv_bnact_bwd.cu)"},
@@ -333,6 +355,10 @@ BODIES = {"conv_bnact": {"tc": "tc (csrc/conv_tc.cu)",
           "upconv_stats": {
               "tc": "tc (csrc/upconv_stats_bwd_tc.cu)",
               "cuda-core": "cuda-core (csrc/upconv_bnact.cu)"}}
+# Row 3's kernel is K1's 'conv1' body: its launches are K1's on that
+# body, which every path's counts list under "conv1_fwd" beside K1's
+# (:func:`launch_counts`).
+ROW3 = ("conv_bnact", "conv1")
 # K8-K11 run only the 'batchp' norm's library levels; K1-K7 every model's
 # kernel levels.
 BN_KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_dx")
@@ -430,7 +456,8 @@ _BENCH = ("bf16 variants at bench.py's 3D training shapes (batch 8 of "
 _BN_BENCH = ("bf16 variants at the 'batchp' headline step's library "
              "levels, bench.py's batch 8 of (44,88,88): (R, C) = "
              "(85184, 128) and (10648, 256)")
-TOTALS_OVER = {"conv_bnact": _TILE_SERVING, "pool_bnact": _TILE_SERVING,
+TOTALS_OVER = {"conv_bnact": _TILE_SERVING, "conv1_fwd": _TILE_SERVING,
+               "pool_bnact": _TILE_SERVING,
                "upconv_bnact": _TILE_SERVING, "conv_bnact_dgrad": _BENCH,
                "conv_bnact_wgrad": _BENCH, "conv1_bwd": _BENCH,
                "pool_bnact_bwd": _BENCH,
@@ -519,6 +546,15 @@ VARIANTS_SF64_TILE = [
      False),
     ("upconv", "sf64 tile up_2 (1,2,2) 128->64 carry [row 24]", L1, (128,),
      64, 1, True),
+]
+# Row 3's kernel (K1's 'conv1' body) at the 3D Predictor tile beyond the
+# model variants' 1->32 and 1->64 at kd=1: a three-channel input
+# (``UNet(in_channels=3)``) and kd=3 (a UNet whose L0 is not planar).
+VARIANTS_CONV1 = [
+    ("conv", "tile L0 conv1 3->32 kd1 [in_channels=3]", TILE, (3,), 32, 1,
+     False),
+    ("conv", "tile L0 conv1 1->32 kd3 [non-planar L0]", TILE, (1,), 32, 3,
+     False),
 ]
 # Training shapes (batch 8) of rows 11/12 on the headline model (L0's
 # decoder upconv from L1's dense output, where L1 declines) and of the
@@ -806,6 +842,34 @@ class Stats:
             totals_over=TOTALS_OVER[kernel], variants=self.rows[kernel])
 
 
+def stat_name(kernel, body):
+    """The JSON line's kernel of a launch of ``kernel`` on ``body``: K1's
+    'conv1' body is row 3's kernel, ``conv1_fwd``."""
+    return "conv1_fwd" if (kernel, body) == ROW3 else kernel
+
+
+def launch_counts(fused):
+    """The launches counted since the last reset, by kernel, with row 3's
+    (K1's on its 'conv1' body) under ``conv1_fwd``."""
+    return {**fused.LAUNCHES,
+            "conv1_fwd": fused.BODY_LAUNCHES.get(ROW3, 0)}
+
+
+def check_k1_bodies(launches, bodies, what, per=None):
+    """Every (bf16) K1 launch of a path on its tensor-core body or row 3's
+    kernel, none on the CUDA-core body; with ``per``, row 3's kernel
+    exactly ``per`` times (once a model call or a step where L0 runs the
+    kernels)."""
+    conv1 = bodies.get(ROW3, 0)
+    if bodies.get(("conv_bnact", "cuda-core"), 0) or \
+            bodies.get(("conv_bnact", "tc"), 0) + conv1 != \
+            launches["conv_bnact"]:
+        raise AssertionError(f"{what}: K1 bodies {bodies}")
+    if per is not None and conv1 != per:
+        raise AssertionError(f"{what}: row 3's kernel {conv1} times, "
+                             f"expected {per}")
+
+
 def fwd_body(fused, kind, dtype, cins):
     """The body K1 or K3 runs for these inputs (``fused.conv_body`` or
     ``fused.upconv_body``), or None for the pool."""
@@ -889,9 +953,10 @@ def kernel_phase(fused, stats, variants, total):
                 lib = cuda_ms(library_calls(kind, a, w, b, kdw)[name])
                 del a
             del got, ref
-            stats.add(name, label, dtype, err, cuda_ms(run), cuda_ms(plain),
-                      bnd, lib, not pro and len(xs) == 1, total=total,
-                      body=fwd_body(fused, kind, dtype, cins))
+            body = fwd_body(fused, kind, dtype, cins)
+            stats.add(stat_name(name, body), label, dtype, err, cuda_ms(run),
+                      cuda_ms(plain), bnd, lib, not pro and len(xs) == 1,
+                      total=total, body=body)
             del xs, args
             torch.cuda.empty_cache()
 
@@ -945,22 +1010,38 @@ def train_kernel_phase(fused, stats, variants, total, serve):
                           cuda_ms(libs["pool_bnact"]) if bf16 else None,
                           False)
                 del got, ref
-                args = (xs[0], inv, shift, act, kdw, dp)
-                run = lambda: fused.pool_bnact_bwd_kernel(*args)   # noqa
-                plain = lambda: fused.pool_bnact_bwd_plain(*args)  # noqa
-                got, ref = run(), plain()
-                torch.cuda.synchronize()
-                if not torch.equal(got[0], ref[0]):
-                    raise AssertionError(f"K6 {label}: dx not exact")
-                err = max(check_sum(got[1], ref[1], f"K6 {label} dinv"),
-                          check_sum(got[2], ref[2], f"K6 {label} dshift"))
-                bnd = bound(10.0 * xs[0].numel(), PEAK_F32, args, got)
-                del got, ref
-                stats.add("pool_bnact_bwd", label, dtype, err, cuda_ms(run),
-                          cuda_ms(plain), bnd,
-                          cuda_ms(libs["pool_bnact_bwd"]) if bf16 else None,
-                          False, total)
-                del xs, a, dp, args, libs
+                # K6 without and with the skip's cotangent (every model
+                # path's form: the level's skip is the pool's input); the
+                # library call beside the latter is the pool's backward
+                # plus the add of the two gradients.
+                dsk = rnd(*xs[0].shape).to(dtype)
+                for sfx, skip in (("", None), (" +dskip", dsk)):
+                    args = (xs[0], inv, shift, act, kdw, dp, skip)
+                    run = lambda: fused.pool_bnact_bwd_kernel(*args)  # noqa
+                    plain = lambda: fused.pool_bnact_bwd_plain(*args)  # noqa
+                    got, ref = run(), plain()
+                    torch.cuda.synchronize()
+                    if not torch.equal(got[0], ref[0]):
+                        raise AssertionError(f"K6 {label}{sfx}: dx not "
+                                             "exact")
+                    err = max(check_sum(got[1], ref[1],
+                                        f"K6 {label}{sfx} dinv"),
+                              check_sum(got[2], ref[2],
+                                        f"K6 {label}{sfx} dshift"))
+                    bnd = bound(10.0 * xs[0].numel(), PEAK_F32, args, got)
+                    del got, ref
+                    lib = None
+                    if bf16:
+                        back = libs["pool_bnact_bwd"]
+                        dskv = lib_view(dsk)
+                        lib = cuda_ms(back if skip is None
+                                      else lambda: back() + dskv)
+                    stats.add("pool_bnact_bwd", label + sfx, dtype, err,
+                              cuda_ms(run), cuda_ms(plain), bnd, lib, False,
+                              total and skip is not None,
+                              lib_op=None if skip is None else
+                              "max_pool backward + the add")
+                del xs, a, dp, dsk, args, libs
                 torch.cuda.empty_cache()
                 continue
             if kind == "conv":
@@ -1024,19 +1105,19 @@ def train_kernel_phase(fused, stats, variants, total, serve):
             libs = library_calls(kind, a, w, b, kdw, lib_view(dy)) \
                 if bf16 else {}
             lib = cuda_ms(libs[FWD[kind]]) if bf16 else None
-            stats.add(FWD[kind], label + " +stats", dtype, err,
-                      cuda_ms(lambda: fwd(*fargs, w, b, act, True)),
+            body = fwd_body(fused, kind, dtype, cins)
+            stats.add(stat_name(FWD[kind], body), label + " +stats", dtype,
+                      err, cuda_ms(lambda: fwd(*fargs, w, b, act, True)),
                       cuda_ms(lambda: fwd_plain(*fargs, w, b, act, True)),
-                      bnd, lib, False, body=fwd_body(fused, kind, dtype,
-                                                     cins))
+                      bnd, lib, False, body=body)
             if serve:
-                stats.add(FWD[kind], label + " serving", dtype, serve_err,
+                stats.add(stat_name(FWD[kind], body), label + " serving",
+                          dtype, serve_err,
                           cuda_ms(lambda: fwd(*fargs, w, b, act, False)),
                           cuda_ms(lambda: fwd_plain(*fargs, w, b, act,
                                                     False)),
                           bound(flops, peak, fargs, w, b, y), lib,
-                          not pro and len(xs) == 1,
-                          body=fwd_body(fused, kind, dtype, cins))
+                          not pro and len(xs) == 1, body=body)
             ds, dq = rnd(cout, scale=1e-3), rnd(cout, scale=1e-4)
             bargs = (*fargs, w, y, dy, ds, dq, act)
             for name, kfn, pfn, suffix in bwds:
@@ -1681,7 +1762,7 @@ def check_launched(launches, names, what):
                              f"{missing}")
 
 
-SERVING = ("conv_bnact", "pool_bnact", "upconv_bnact")
+SERVING = ("conv_bnact", "conv1_fwd", "pool_bnact", "upconv_bnact")
 PREDICT_KW = dict(tile_shape=(64, 128, 128), overlap_shape=(32, 64, 64),
                   float16=True, batch_size=2)
 
@@ -1722,12 +1803,15 @@ def predictor_phase(build, what, Predictor, fused, rows, kernels=SERVING,
     t0 = time.perf_counter()
     probs = pred.predict(vol)
     dt = time.perf_counter() - t0
-    launches = dict(fused.LAUNCHES)
+    launches = launch_counts(fused)
     BODY_LAUNCHES[f"predictor_{what}"] = dict(fused.BODY_LAUNCHES)
     hook.remove()
     print(f"predictor {what}: bf16 probabilities {probs.shape} in "
           f"{dt:.3f} s = {vol.size / dt / 1e6:.2f} MVox/s; {len(calls)} "
           f"model calls; launches {launches}", flush=True)
+    check_k1_bodies(launches, BODY_LAUNCHES[f"predictor_{what}"],
+                    f"{what} serving",
+                    len(calls) if "conv1_fwd" in kernels else None)
     if per_call is not None:
         want = {k: per_call.get(k, 0) * len(calls) for k in FUSED_KERNELS}
         if {k: launches[k] for k in FUSED_KERNELS} != want:
@@ -1776,7 +1860,7 @@ def predictor_2d_phase(UNet, Predictor, fused):
     t0 = time.perf_counter()
     probs_big = tiled.predict(big)
     dt_t = time.perf_counter() - t0
-    launches = dict(fused.LAUNCHES)
+    launches = launch_counts(fused)
     BODY_LAUNCHES["predictor_2D"] = dict(fused.BODY_LAUNCHES)
     print(f"predictor 2D: whole-image bf16 probabilities {probs.shape} in "
           f"{dt_w:.3f} s = {images.size / dt_w / 1e6:.2f} MPix/s; tiled "
@@ -1794,6 +1878,7 @@ def predictor_2d_phase(UNet, Predictor, fused):
     check_probs(probs, ids_whole, (BATCH, 2, *IMAGE), "2D whole-image")
     check_probs(probs_big, ids, (1, 2, 2560, 2560), "2D tiled")
     check_launched(launches, SERVING, "2D serving")
+    check_k1_bodies(launches, BODY_LAUNCHES["predictor_2D"], "2D serving")
     return launches
 
 
@@ -1901,21 +1986,21 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2):
 
 
 def timed_steps(train_step, model, crit, opt, batches, reference,
-                before=None):
-    """bench.py's loop: WARMUP steps, then STEPS timed steps cycling the
-    device-resident batches, ended by a host read of the loss; ``before``
-    runs just before the timed steps."""
-    for _ in range(WARMUP):
+                before=None, warmup=WARMUP, steps=STEPS):
+    """bench.py's loop: ``warmup`` steps, then ``steps`` timed steps
+    cycling the device-resident batches, ended by a host read of the
+    loss; ``before`` runs just before the timed steps."""
+    for _ in range(warmup):
         loss = train_step(model, crit, opt, *batches[0], reference=reference)
     float(loss)
     if before is not None:
         before()
     t0 = time.perf_counter()
-    for i in range(STEPS):
+    for i in range(steps):
         loss = train_step(model, crit, opt, *batches[i % len(batches)],
                           reference=reference)
     final = float(loss)
-    dt = (time.perf_counter() - t0) / STEPS
+    dt = (time.perf_counter() - t0) / steps
     if not np.isfinite(final):
         raise AssertionError(f"non-finite loss {final}")
     return dt
@@ -1948,13 +2033,13 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
     torch.cuda.reset_peak_memory_stats()
     dt_k = timed_steps(train_step, model, crit, opt, batches, False,
                        fused.reset_launches)
-    launches = dict(fused.LAUNCHES)
+    launches = launch_counts(fused)
     bodies = dict(fused.BODY_LAUNCHES)
     BODY_LAUNCHES[f"train_{what}"] = bodies
     peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     dt_p = timed_steps(train_step, plain_model, crit, plain_opt, batches,
-                       True)
+                       True, warmup=PLAIN_WARMUP, steps=PLAIN_STEPS)
     peak_p = torch.cuda.max_memory_allocated() / 1e9
     del plain_model, plain_opt
     dt_k2 = timed_steps(train_step, model, crit, opt, batches, False)
@@ -1970,6 +2055,8 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
               f"{k}/{b} {n}" for (k, b), n in sorted(bodies.items())),
           flush=True)
     check_launched(launches, kernels, f"{what} training")
+    check_k1_bodies(launches, bodies, f"{what} training",
+                    STEPS if "conv1_fwd" in kernels else None)
     # Every bf16 K4 launch on its tensor-core body; row 13's kernel once a
     # step (without dx) wherever L0 runs the kernels.
     if bodies.get(("conv_bnact_dgrad", "tc"), 0) != \
@@ -2053,7 +2140,7 @@ def batchp_library_phase(build, CEDiceLoss, train_step, fused, bn,
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     dt_k = timed_steps(train_step, model, crit, opt, batches, False,
                        fused.reset_launches)
-    launches = dict(fused.LAUNCHES)
+    launches = launch_counts(fused)
     dt_p = timed_steps(train_step, plain_model, crit,
                        torch.optim.Adam(plain_model.parameters(), lr=1e-3),
                        batches, True)
@@ -2166,7 +2253,7 @@ def silu_library_phase(build, CEDiceLoss, train_step, fused):
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     dt = timed_steps(train_step, model, CEDiceLoss(1.0, 1.0), opt, batches,
                      False, fused.reset_launches)
-    launches = dict(fused.LAUNCHES)
+    launches = launch_counts(fused)
     if any(launches.values()):
         raise AssertionError(f"silu pallas_flat=False launched {launches}")
     k, p, k2 = STEP_MS["silu"]
@@ -2227,7 +2314,7 @@ def input_grad_phase(build, CEDiceLoss, train_step, fused):
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     dt = timed_steps(train_step, model, crit, opt, batches, False,
                      fused.reset_launches)
-    launches = dict(fused.LAUNCHES)
+    launches = launch_counts(fused)
     bodies = dict(fused.BODY_LAUNCHES)
     BODY_LAUNCHES["train_input_grad"] = bodies
     if launches["conv1_bwd"] != STEPS \
@@ -2236,6 +2323,7 @@ def input_grad_phase(build, CEDiceLoss, train_step, fused):
             != launches["conv_bnact_dgrad"]:
         raise AssertionError(f"input_grad training launches {launches}, "
                              f"bodies {bodies}")
+    check_k1_bodies(launches, bodies, "input_grad training", STEPS)
     grads = [x.grad for x, _ in batches]
     if not all(g is not None and bool(torch.isfinite(g).all())
                and float(g.abs().max()) > 0 for g in grads):
@@ -2412,6 +2500,7 @@ def main():
                        serve=True)
     kernel_phase(fused, stats, VARIANTS_TILE_C128, total=False)
     kernel_phase(fused, stats, VARIANTS_SF64_TILE, total=False)
+    kernel_phase(fused, stats, VARIANTS_CONV1, total=False)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS_SF64, total=False,
                        serve=False)
     bn_kernel_phase(pallas_bn, stats)
@@ -2512,7 +2601,8 @@ def main():
     vup_kernel_phase(vup, stats)
     launches["predictor_vup"] = predictor_phase(
         build_vup, "vup", Predictor, fused, VUP_SERVE_ROWS,
-        SERVING + ("conv_vup",), per_call={"conv_bnact": 11, "pool_bnact": 3,
+        SERVING + ("conv_vup",), per_call={"conv_bnact": 11, "conv1_fwd": 1,
+                                           "pool_bnact": 3,
                                            "upconv_bnact": 2, "conv_vup": 1})
     check_vup_bodies(launches["predictor_vup"],
                      BODY_LAUNCHES["predictor_vup"], "vup serving")
@@ -2522,7 +2612,8 @@ def main():
         fused, VUP_TRAIN_ROWS, K1_K7 + VUP_KERNELS)
     # up_2's K3, K7 and its merge's K1, K4, K5 give way to the five vup
     # entries; every other launch as on the 'batch' headline step.
-    per_step = {"conv_bnact": 7, "pool_bnact": 2, "upconv_bnact": 1,
+    per_step = {"conv_bnact": 7, "conv1_fwd": 1, "pool_bnact": 2,
+                "upconv_bnact": 1,
                 "conv_bnact_dgrad": 6, "conv_bnact_wgrad": 6, "conv1_bwd": 1,
                 "pool_bnact_bwd": 2, "upconv_bnact_bwd": 1,
                 **dict.fromkeys(VUP_KERNELS, 1)}
@@ -2550,7 +2641,8 @@ def main():
          "launches": sum(path[k] for path in launches.values()),
          "launches_by_path": {p: n[k] for p, n in launches.items()},
          "launches_by_body": {
-             b: sum(n.get((k, b), 0) for n in BODY_LAUNCHES.values())
+             b: sum(n.get(ROW3 if k == "conv1_fwd" else (k, b), 0)
+                    for n in BODY_LAUNCHES.values())
              for b in BODIES.get(k, ())},
          **stats.totals(k)} for k in SOURCES]}))
     print(smi)

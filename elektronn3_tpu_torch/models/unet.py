@@ -318,13 +318,14 @@ class DownConv(nn.Module):
                                     want_stats=_stats(self.norm1),
                                     reference=reference)
             inv2, shift2 = _norm_pro(self.norm1, out2)
-            y2 = _raw(out2)
-            skip = FusedActs(y2, inv2, shift2)
-            pooled = fused.pool_bnact(
-                y2, inv2, shift2, act,
+            # The skip is the pool's second output (conv2's raw output,
+            # not copied), so the decoder's gradient of it reaches K6,
+            # which adds it into dx (JAX's pool_bnact_flat_skip).
+            pooled, y2 = fused.pool_bnact(
+                _raw(out2), inv2, shift2, act,
                 pool_window(3, self.planar or self.dim == 2),
                 reference=reference)
-            return _drop(pooled, self.dim), skip
+            return _drop(pooled, self.dim), FusedActs(y2, inv2, shift2)
         act = get_activation(self.activation)
         if not input_grad and x.requires_grad:
             x = _ZeroGrad.apply(x)

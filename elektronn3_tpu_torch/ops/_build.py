@@ -34,7 +34,7 @@ SOURCES = ("conv_bnact.cu", "conv_bnact_bwd.cu", "pool_bnact.cu",
            "upconv_bnact.cu", "batch_norm.cu", "conv_vup.cu", "conv_tc.cu",
            "upconv_tc.cu", "wgrad_tc.cu", "upconv_bwd_tc.cu",
            "upconv_stats_bwd_tc.cu", "dgrad_tc.cu", "conv1_bwd.cu",
-           "conv_vup_tc.cu")
+           "conv_vup_tc.cu", "conv1_fwd.cu")
 HEADERS = ("common.cuh", "conv_bnact.cuh", "upconv_vup.cuh", "tc.cuh",
            "conv_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -68,8 +68,10 @@ _SIGNATURES = {
     "e3_conv_bnact_wgrad": (_I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                             _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "e3_pool_bnact": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "e3_pool_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _P),
+    "e3_pool_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _P),
+    "e3_conv1_fwd": (_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _P),
     "e3_upconv_bnact": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P),
     "e3_upconv_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

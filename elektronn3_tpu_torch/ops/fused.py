@@ -31,8 +31,9 @@ kernel table in PERF.md each one stands for:
   input (one input of at most :data:`CONV1_MAX_CIN` channels), row 13's
   ``conv1_bwd`` (dW, db and, when asked, dx in one pass);
 - :func:`pool_bnact`: K2 ``pool_bnact`` (prologue + (1, 2, 2) / (2, 2, 2)
-  max pool; rows 2, 5, 16); backward K6 ``pool_bnact_bwd`` (rows 10,
-  15, 17);
+  max pool; rows 2, 5, 16), which also returns the raw input as the
+  level's skip; backward K6 ``pool_bnact_bwd`` (rows 10, 15, 17), with
+  the skip's cotangent summed into dx;
 - :func:`upconv_bnact`: K3 ``upconv_bnact`` (optional prologue + stride
   equals kernel transposed conv + bias [+ statistics]; rows 6, 7, 11,
   19, 24); backward K7 ``upconv_bnact_bwd`` (rows 12, 18, 20, 21, 25).
@@ -50,7 +51,9 @@ are K3/K7 from a dense input into 32 channels.
 
 K1's and K3's bf16 forwards run tensor-core bodies (``csrc/conv_tc.cu``,
 ``csrc/upconv_tc.cu``) on weights the wrappers pack once per call in
-bf16, and so do K4's, K5's and K7's bf16 backwards (``csrc/dgrad_tc.cu``
+bf16; K1 over the network input (one input of 1 to 4 channels) runs row
+3's streaming kernel (``csrc/conv1_fwd.cu``) in both dtypes; and so do
+K4's, K5's and K7's bf16 backwards (``csrc/dgrad_tc.cu``
 on the flipped weight :func:`pack_dgrad_weight` packs,
 ``csrc/wgrad_tc.cu``, ``csrc/upconv_bwd_tc.cu``; K7's dgrad reads K3's
 packed weight); float32 runs CUDA-core bodies, and the network input's
@@ -270,6 +273,22 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _run(name: str, dev: torch.device, *args) -> None:
+    """Call the C entry point ``e3_<name>`` with ``args`` and the current
+    stream of ``dev`` (made the current device only when it is not), and
+    raise on its error code: the lean launch of row 3 and K6, whose
+    calls are short enough for the host's share to show."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    fn = getattr(_build.library(), "e3_" + name)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, stream)
+    _build.check(rc, name)
+
+
 def _cuda_grad(dy: Optional[torch.Tensor], y: torch.Tensor,
                what: str) -> torch.Tensor:
     g = torch.zeros_like(y) if dy is None else dy.to(y.dtype).contiguous()
@@ -310,9 +329,10 @@ def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
     or two NDHWC inputs of one shape and dtype; a (C_out, sum C_i, kd, 3,
     3) weight with kd in {1, 3} and C_out % 32 == 0; any C_i (the
     CUDA-core bodies stage a per-channel tail). One input of at most
-    :data:`CONV1_MAX_CIN` channels takes row 13's backward, which needs
-    C_out <= 256. Any other input gradient is K4's, at any C_i (its
-    wrapper pads an input of C_i % 32 != 0 to whole 32-channel blocks)."""
+    :data:`CONV1_MAX_CIN` channels takes row 3's forward and row 13's
+    backward, which need C_out <= 256. Any other input gradient is K4's,
+    at any C_i (its wrapper pads an input of C_i % 32 != 0 to whole
+    32-channel blocks)."""
     if len(xs) not in (1, 2):
         raise ValueError(f"conv_bnact takes 1 or 2 inputs, got {len(xs)}")
     x0 = xs[0]
@@ -329,9 +349,10 @@ def _conv_contract(xs: Sequence[torch.Tensor], weight: torch.Tensor,
                          f"fit inputs with channels {cins}")
     if cout % 32:
         raise ValueError(f"conv_bnact: C_out % 32 required, got {cout}")
-    if (grad or dgrad) and _conv1(cins) and cout > 256:
-        raise ValueError(f"conv_bnact: row 13's backward (C_in <= "
-                         f"{CONV1_MAX_CIN}) needs C_out <= 256, got {cout}")
+    if _conv1(cins) and cout > 256:
+        raise ValueError(f"conv_bnact: row 3's forward and row 13's "
+                         f"backward (C_in <= {CONV1_MAX_CIN}) need C_out <= "
+                         f"256, got {cout}")
 
 
 def conv_bnact_fwd_plain(xs: Sequence[torch.Tensor],
@@ -417,11 +438,21 @@ def conv_bnact_wgrad_plain(xs: Sequence[torch.Tensor],
 
 
 def conv_body(dtype: torch.dtype, cins: Sequence[int]) -> str:
-    """The body K1's forward runs: ``'tc'`` (the tensor-core implicit
-    GEMM of ``csrc/conv_tc.cu``) for bfloat16 when every input's
-    channel count is a multiple of 16, else ``'cuda-core'`` (the float32
-    FMA body of ``csrc/conv_bnact.cuh``: float32, whose tests hold 1e-4
-    of the scale, and the network input's C_in of 1 or 3)."""
+    """The body K1's forward runs: ``'conv1'`` (row 3's streaming kernel
+    of ``csrc/conv1_fwd.cu``) for the network input, one input of at
+    most :data:`CONV1_MAX_CIN` channels, in either dtype; else ``'tc'``
+    (the tensor-core implicit GEMM of ``csrc/conv_tc.cu``) for bfloat16
+    when every input's channel count is a multiple of 16, else
+    ``'cuda-core'`` (the float32 FMA body of ``csrc/conv_bnact.cuh``:
+    float32, whose tests hold 1e-4 of the scale, and other counts)."""
+    if _conv1(cins):
+        return "conv1"
+    return _tc_or_cuda_core(dtype, cins)
+
+
+def _tc_or_cuda_core(dtype: torch.dtype, cins: Sequence[int]) -> str:
+    """``'tc'`` for bfloat16 when every input's channel count is a
+    multiple of 16, else ``'cuda-core'``."""
     if dtype == torch.bfloat16 and all(c % 16 == 0 for c in cins):
         return "tc"
     return "cuda-core"
@@ -474,13 +505,16 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
     dtype = x0.dtype
     b = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((n, d, h, w, cout), dtype=dtype, device=dev)
+    body = conv_body(dtype, cins)
+    if body == "conv1":
+        return _conv1_fwd(x0, inv, shift, weight, b, act, want_stats, y)
     s = q = None
     if want_stats:
         s = torch.zeros(cout, dtype=torch.float32, device=dev)
         q = torch.zeros(cout, dtype=torch.float32, device=dev)
     x1 = xs[1] if len(xs) > 1 else None
     lib = _build.library()
-    if conv_body(dtype, cins) == "tc":
+    if body == "tc":
         inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
         wp = pack_conv_weight(weight, dtype, dev)
         with torch.cuda.device(dev):
@@ -510,6 +544,27 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
             n, d, h, w, cout, kd, _ACT_ID[act], _stream(dev))
     _build.check(rc, "conv_bnact")
     _count("conv_bnact", "cuda-core")
+    return y, s, q
+
+
+def _conv1_fwd(x, inv, shift, weight, b, act, want_stats, y):
+    """Row 3's kernel (K1's 'conv1' body, ``csrc/conv1_fwd.cu``) into
+    ``y``: it takes the float32 (C_out, C_in, kd, 3, 3) weight as it is
+    and rounds it to the dtype itself, and the statistics come from one
+    zeroed (2, C_out) buffer, so a call launches one fill and the
+    kernel."""
+    n, d, h, w, cin = x.shape
+    cout, _, kd = weight.shape[:3]
+    dev = x.device
+    inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
+    wt = weight.detach().to(device=dev, dtype=torch.float32).contiguous()
+    s = q = None
+    if want_stats:
+        s, q = torch.zeros((2, cout), dtype=torch.float32, device=dev)
+    _run("conv1_fwd", dev, _DTYPE_ID[x.dtype], x.data_ptr(), cin,
+         _ptr(inv_v), _ptr(shift_v), wt.data_ptr(), b.data_ptr(),
+         y.data_ptr(), _ptr(s), _ptr(q), n, d, h, w, cout, kd, _ACT_ID[act])
+    _count("conv_bnact", "conv1")
     return y, s, q
 
 
@@ -637,7 +692,7 @@ def wgrad_body(dtype: torch.dtype, cins: Sequence[int]) -> str:
     ``'cuda-core'`` (the float32 FMA body of ``csrc/conv_bnact_bwd.cu``:
     float32, whose tests hold 1e-4 of the scale, and other counts). The
     network input's dW is row 13's (:func:`conv1_body`)."""
-    return conv_body(dtype, cins)
+    return _tc_or_cuda_core(dtype, cins)
 
 
 def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
@@ -859,10 +914,14 @@ def pool_bnact_fwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
 def pool_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
                          shift: Optional[torch.Tensor], act: str,
                          window: Tuple[int, int, int],
-                         dpool: torch.Tensor):
+                         dpool: torch.Tensor,
+                         dskip: Optional[torch.Tensor] = None):
     """Plain version of K6: (dx, dinv, dshift). The window maxima are
     recomputed from the prologued float32 values and the cotangent goes
-    to EVERY element equal to its window's max."""
+    to EVERY element equal to its window's max. ``dskip`` is the
+    cotangent of the level's skip (the raw ``x`` itself), added in
+    float32 before the one rounding of dx (JAX's ``with_skip``,
+    flat_fused.py ``_pool_bwd_kernel``); None adds nothing."""
     n, d, h, w, c = x.shape
     kd = window[0]
     pre = _pre(x, inv, shift)
@@ -870,10 +929,12 @@ def pool_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
     sel = a == a.amax(dim=(2, 4, 6), keepdim=True)
     dp = dpool.float().view(n, d // kd, 1, h // 2, 1, w // 2, 1, c)
     dpre = (dp * sel).view(n, d, h, w, c) * act_grad(pre, act)
+    dx = dpre if inv is None else dpre * inv
+    if dskip is not None:
+        dx = dx + dskip.float()
     if inv is None:
-        return dpre.to(x.dtype), None, None
-    return ((dpre * inv).to(x.dtype), _sum_vox(dpre * x.float()),
-            _sum_vox(dpre))
+        return dx.to(x.dtype), None, None
+    return dx.to(x.dtype), _sum_vox(dpre * x.float()), _sum_vox(dpre)
 
 
 def pool_bnact_fwd_kernel(x, inv, shift, act, window):
@@ -896,8 +957,9 @@ def pool_bnact_fwd_kernel(x, inv, shift, act, window):
     return y
 
 
-def pool_bnact_bwd_kernel(x, inv, shift, act, window, dpool):
-    """K6: (dx, dinv, dshift), as :func:`pool_bnact_bwd_plain`."""
+def pool_bnact_bwd_kernel(x, inv, shift, act, window, dpool, dskip=None):
+    """K6: (dx, dinv, dshift), as :func:`pool_bnact_bwd_plain`, with the
+    skip's cotangent ``dskip`` (or None) summed in the kernel."""
     _check_cuda(x, "pool_bnact backward")
     n, d, h, w, c = x.shape
     dev = x.device
@@ -905,17 +967,18 @@ def pool_bnact_bwd_kernel(x, inv, shift, act, window, dpool):
     shift_v = _vec(shift, c, 0.0, dev)
     dp = dpool.to(x.dtype).contiguous()
     _check_cuda(dp, "pool_bnact backward")
+    if dskip is not None:
+        dskip = dskip.to(x.dtype).contiguous()
+        _check_cuda(dskip, "pool_bnact backward (skip cotangent)")
+        if dskip.shape != x.shape:
+            raise ValueError(f"pool_bnact backward: skip cotangent "
+                             f"{tuple(dskip.shape)} != {tuple(x.shape)}")
     dx = torch.empty_like(x)
-    dinv = torch.zeros(c, dtype=torch.float32, device=dev)
-    dshift = torch.zeros(c, dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.e3_pool_bnact_bwd(
-            _DTYPE_ID[x.dtype], x.data_ptr(), inv_v.data_ptr(),
-            shift_v.data_ptr(), dp.data_ptr(), dx.data_ptr(),
-            dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, c, window[0],
-            _ACT_ID[act], _stream(dev))
-    _build.check(rc, "pool_bnact_bwd")
+    dinv, dshift = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    _run("pool_bnact_bwd", dev, _DTYPE_ID[x.dtype], x.data_ptr(),
+         inv_v.data_ptr(), shift_v.data_ptr(), dp.data_ptr(), _ptr(dskip),
+         dx.data_ptr(), dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, c,
+         window[0], _ACT_ID[act])
     LAUNCHES["pool_bnact_bwd"] += 1
     if inv is None:
         return dx, None, None
@@ -923,32 +986,44 @@ def pool_bnact_bwd_kernel(x, inv, shift, act, window, dpool):
 
 
 class _PoolBnAct(torch.autograd.Function):
+    """(pooled, skip): the skip is ``x`` itself, a view without a copy,
+    so that the level's two consumers of ``x`` meet in one backward (JAX's
+    ``pool_bnact_flat_skip``)."""
+
     @staticmethod
     def forward(ctx, act, window, reference, x, inv, shift):
         ctx.save_for_backward(x, inv, shift)
         ctx.act, ctx.window = act, window
         ctx.plain = _plain(x, reference)
+        ctx.set_materialize_grads(False)
         fwd = pool_bnact_fwd_plain if ctx.plain else pool_bnact_fwd_kernel
-        return fwd(x, inv, shift, act, window)
+        return fwd(x, inv, shift, act, window), x.view_as(x)
 
     @staticmethod
-    def backward(ctx, dpool):
+    def backward(ctx, dpool, dskip):
         x, inv, shift = ctx.saved_tensors
+        if dpool is None:
+            pooled = (x.shape[0], x.shape[1] // ctx.window[0],
+                      x.shape[2] // 2, x.shape[3] // 2, x.shape[4])
+            dpool = x.new_zeros(pooled)
         bwd = pool_bnact_bwd_plain if ctx.plain else pool_bnact_bwd_kernel
-        dx, dinv, dshift = bwd(x, inv, shift, ctx.act, ctx.window, dpool)
+        dx, dinv, dshift = bwd(x, inv, shift, ctx.act, ctx.window, dpool,
+                               dskip)
         return None, None, None, dx, dinv, dshift
 
 
 def pool_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
                shift: Optional[torch.Tensor], act: str,
                window: Tuple[int, int, int], *,
-               reference: bool = False) -> torch.Tensor:
+               reference: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prologue, then a max pool over ``window`` ((1, 2, 2) or
     (2, 2, 2), stride = window) of an NDHWC tensor whose pooled dims
-    divide evenly. Returns the pooled tensor in ``x``'s dtype; the raw
-    ``x`` itself is the level's skip (in JAX the skip's cotangent is
-    added inside the pool backward, ``pool_bnact_flat_skip``; here
-    autograd adds the two grads of ``x``)."""
+    divide evenly. Returns (pooled, skip): the pooled tensor in ``x``'s
+    dtype, and the raw ``x`` itself (a view, no copy) as the level's
+    skip, whose cotangent K6 adds into dx before its one rounding (JAX's
+    ``pool_bnact_flat_skip``), so the level's input takes one gradient
+    and no separate add."""
     window = tuple(window)
     _pool_contract(x, window, _needs_grad(x, inv, shift))
     return _PoolBnAct.apply(act, window, reference, x, inv, shift)

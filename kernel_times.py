@@ -1,6 +1,7 @@
-"""Times the port's fused kernels K1, K3, K4, K5 and K7, row 13's and the
-five vup entries (bf16, CUDA events, 20 launches after one warm-up) in the
-checkout that is the working directory, and prints one line.
+"""Times the port's fused kernels K1, K3, K4, K5, K6 and K7, rows 3's and
+13's and the five vup entries (bf16, CUDA events, 20 launches after one
+warm-up) in the checkout that is the working directory, and prints one
+line.
 
     cd <checkout> && python3 <path>/kernel_times.py
 
@@ -37,6 +38,16 @@ different machines or cards are not comparable. Shapes:
 - ``conv_vup`` (row 1's vup mode) as served at bench.py's up_2 and at
   the Predictor tile's (carry (1, 128, 128, 128, 64), skip (1, 128, 256,
   256, 32)), without statistics;
+- K1 over the network input (row 3's kernel where the checkout has it)
+  at bench.py's L0 1->32 and the 2D model's (8, 1, 640, 640) 1->32 with
+  statistics, the 3D Predictor tile's 1->32 as served, and the
+  start_filts=64 model's 1->64 at the bench with statistics and at the
+  tile as served;
+- K6 at bench.py's L0 (1, 2, 2) C=32 and L1 (2, 2, 2) C=64, the 2D
+  model's L0-L2 and the start_filts=64 model's L1 (2, 2, 2) C=128,
+  without the skip's cotangent and with it as a kernel level's backward
+  runs it ("K6+skip": K6 with ``dskip`` where the checkout has it, else
+  K6 and the add of the level's two gradients);
 - the 'batchp' norm's two reductions, K8 and K10, at the (R, C) of
   chip_smoke.py's BN_VARIANTS in training (the headline step's library
   levels, a ragged R, the pallas_flat=False step's levels at batch 8
@@ -51,7 +62,8 @@ different machines or cards are not comparable. Shapes:
 Last, the headline UNet's training step at bench.py's shapes with
 ``vup`` on and off (step ms and peak allocated MB), and with
 ``normalization='batchp'`` at batch 8 and with ``pallas_flat=False`` at
-batch 2 (step ms).
+batch 2, the start_filts=64 UNet's there and the 2D UNet's at batch 8 of
+(640, 640) (step ms).
 """
 import os
 import sys
@@ -223,10 +235,78 @@ def main():
         False))))
     del xt, st
     torch.cuda.empty_cache()
+    out += conv1_forward(r)
+    out += pool_backward(r)
     out += bn_reductions()
     out += steps()
     print(os.path.basename(os.getcwd()) + ": " + "; ".join(
         f"{k} {v:.3f}" for k, v in out), flush=True)
+
+
+def conv1_forward(r):
+    """K1 over the network input (bf16, kd=1; row 3's kernel where the
+    checkout has it, else K1's CUDA-core body, whichever K1's wrapper
+    takes): bench.py's L0 1->32 with statistics, the 2D model's, the 3D
+    Predictor tile's as served, and the start_filts=64 model's 1->64 at
+    the bench with statistics and at the tile as served."""
+    from elektronn3_tpu_torch.ops import fused
+    out = []
+    for label, shape, cout, st in (
+            ("bench L0 1->32 +stats", (8, 44, 88, 88), 32, True),
+            ("2D L0 1->32 +stats", (8, 1, 640, 640), 32, True),
+            ("tile L0 1->32", (1, 128, 256, 256), 32, False),
+            ("sf64 L0 1->64 +stats", (8, 44, 88, 88), 64, True),
+            ("sf64 tile L0 1->64", (1, 128, 256, 256), 64, False)):
+        x = [r(*shape, 1).to(torch.bfloat16)]
+        w, b = r(cout, 1, 1, 3, 3, scale=0.3), r(cout)
+        out.append((f"conv1 fwd {label}", ms(
+            lambda: fused.conv_bnact_fwd_kernel(x, None, None, w, b,
+                                                "linear", st))))
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def pool_backward(r):
+    """K6 (bf16, relu prologue) at bench.py's L0 (1,2,2) C=32 and L1
+    (2,2,2) C=64, the 2D model's L0-L2 (1,2,2) C=32/64/128 and the
+    start_filts=64 model's L1 (2,2,2) C=128: without the skip's
+    cotangent, then with it as the level's backward runs it (one K6 with
+    ``dskip`` where the checkout has it, else K6 and the add of the two
+    gradients that autograd then runs)."""
+    import inspect
+    from elektronn3_tpu_torch.ops import fused
+    skip_in = "dskip" in inspect.signature(
+        fused.pool_bnact_bwd_kernel).parameters
+    out = []
+    for label, shape, win in (
+            ("bench L0 (1,2,2) C=32", (8, 44, 88, 88, 32), (1, 2, 2)),
+            ("bench L1 (2,2,2) C=64", (8, 44, 44, 44, 64), (2, 2, 2)),
+            ("2D L0 C=32", (8, 1, 640, 640, 32), (1, 2, 2)),
+            ("2D L1 C=64", (8, 1, 320, 320, 64), (1, 2, 2)),
+            ("2D L2 C=128", (8, 1, 160, 160, 128), (1, 2, 2)),
+            ("sf64 L1 (2,2,2) C=128", (8, 44, 44, 44, 128), (2, 2, 2))):
+        c = shape[-1]
+        x = r(*shape).to(torch.bfloat16)
+        inv, sh = r(c), r(c)
+        pooled = (shape[0], shape[1] // win[0], shape[2] // 2,
+                  shape[3] // 2, c)
+        dp = r(*pooled).to(torch.bfloat16)
+        dsk = r(*shape).to(torch.bfloat16)
+        args = (x, inv, sh, "relu", win, dp)
+        out.append((f"K6 {label}", ms(
+            lambda: fused.pool_bnact_bwd_kernel(*args))))
+        if skip_in:
+            def k6_skip():
+                return fused.pool_bnact_bwd_kernel(*args, dsk)
+        else:
+            def k6_skip():
+                dx, dinv, dshift = fused.pool_bnact_bwd_kernel(*args)
+                return dx + dsk, dinv, dshift
+        out.append((f"K6+skip {label}", ms(k6_skip)))
+        del x, dp, dsk, args
+        torch.cuda.empty_cache()
+    return out
 
 
 # (label, R, C) of K8 and K10: chip_smoke.py's BN_VARIANTS in training.
@@ -319,7 +399,9 @@ def steps():
     host read of the loss) at bench.py's shapes with ``vup`` on, then
     off (step ms and the timed steps' peak allocated MB), then with
     ``normalization='batchp'`` (batch 8) and with it and
-    ``pallas_flat=False`` at batch 2 (step ms)."""
+    ``pallas_flat=False`` at batch 2 (step ms), then the start_filts=64
+    model at bench.py's shapes and the 2D model at batch 8 of (640, 640)
+    (step ms)."""
     import time
     from elektronn3_tpu_torch.models import UNet
     from elektronn3_tpu_torch.modules.loss import CEDiceLoss
@@ -330,17 +412,20 @@ def steps():
             ("vup=True", dict(vup=True), 8), ("vup=False", {}, 8),
             ("batchp", dict(normalization="batchp"), 8),
             ("batchp b2", dict(normalization="batchp", pallas_flat=False),
-             2)):
+             2), ("sf64", dict(start_filts=64), 8),
+            ("2D", dict(dim=2, planar_blocks=()), 8)):
         g = torch.Generator(device="cuda").manual_seed(7)
-        shape = (batch, 44, 88, 88, 1)
+        shape = (batch, 640, 640, 1) if kw.get("dim") == 2 \
+            else (batch, 44, 88, 88, 1)
         batches = [(torch.randn(shape, generator=g, device="cuda"),
                     torch.randint(0, 2, shape[:-1], generator=g,
                                   device="cuda"))
                    for _ in range(5)]
-        model = UNet(in_channels=1, out_channels=2, n_blocks=4,
-                     start_filts=32, planar_blocks=(0,), dtype=torch.bfloat16,
-                     device="cuda", generator=torch.Generator().manual_seed(4),
-                     **kw)
+        model = UNet(**{**dict(in_channels=1, out_channels=2, n_blocks=4,
+                               start_filts=32, planar_blocks=(0,),
+                               dtype=torch.bfloat16, device="cuda",
+                               generator=torch.Generator().manual_seed(4)),
+                        **kw})
         opt = torch.optim.Adam(model.parameters(), lr=1e-3)
         for _ in range(3):
             loss = train_step(model, crit, opt, *batches[0])

@@ -83,9 +83,9 @@ def _pool122_case(rng, c, act, tie=False):
         return pooled, f64.from_flat64(tuple(skip), H, W, c)
 
     def pfn(x, inv, shift):
-        # The raw input is the level's skip: its cotangent adds to the
-        # pool's input gradient through autograd.
-        return fused.pool_bnact(x, inv, shift, act, (1, 2, 2)), x * 1.0
+        # The raw input is the level's skip, the pool's second output:
+        # its cotangent is summed into the pool's dx (K6's dskip).
+        return fused.pool_bnact(x, inv, shift, act, (1, 2, 2))
     return jfn, pfn, (x, inv, shift), \
         [(B, D, H // 2, W // 2, c), (B, D, H, W, c)]
 

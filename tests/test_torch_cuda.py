@@ -187,8 +187,8 @@ def test_cuda_pool_bnact_matches_plain(dtype, window, c, nd):
     x = torch.randn(*nd, 6, 10, c, generator=g).to(dev, dtype)
     inv = torch.randn(c, generator=g).to(dev)
     shift = torch.randn(c, generator=g).to(dev)
-    got = fused.pool_bnact(x, inv, shift, "relu", window)
-    ref = fused.pool_bnact(x, inv, shift, "relu", window, reference=True)
+    got = fused.pool_bnact(x, inv, shift, "relu", window)[0]
+    ref = fused.pool_bnact(x, inv, shift, "relu", window, reference=True)[0]
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
@@ -394,9 +394,9 @@ def test_cuda_kernels_index_past_2_31_elements():
                            reference=True)
     _assert_kernel(y[:, -1:], ref)
     del y
-    y = fused.pool_bnact(x, inv, shift, "relu", (2, 2, 2))
+    y = fused.pool_bnact(x, inv, shift, "relu", (2, 2, 2))[0]
     ref = fused.pool_bnact(x[:, -2:], inv, shift, "relu", (2, 2, 2),
-                           reference=True)
+                           reference=True)[0]
     assert torch.equal(y[:, -1:], ref)
     del y
     wu = 0.1 * torch.randn(64, 32, 2, 2, 2, generator=g, device=dev)
@@ -1722,3 +1722,175 @@ def test_cuda_unet_eight_channel_input_grad_matches_reference(dtype):
     assert bool(torch.isfinite(got).all())
     err = float((got - ref).norm())
     assert err <= rel * float(ref.norm()) + 3 * float((moved - ref).norm())
+
+
+# Row 3's kernel, K1's 'conv1' body (csrc/conv1_fwd.cu): (C_in, C_out,
+# kd) at a ragged (2, 3, 45, 37) input: every C_in of 1, 3 and 4 at
+# C_out 32, 64 and 256, kd 1 and 3, and C_out / CPT no power of two (96).
+CONV1_FWD_CASES = [(1, 32, 1), (1, 64, 1), (1, 256, 1), (1, 32, 3),
+                   (3, 32, 1), (3, 64, 3), (3, 256, 3), (4, 32, 3),
+                   (4, 64, 1), (4, 256, 1), (1, 96, 1), (3, 96, 1)]
+
+
+def _conv1_fwd_check(dev, dtype, shape, cin, cout, kd, pro, stats, seed):
+    g = torch.Generator().manual_seed(seed)
+    xs = [torch.randn(*shape, cin, generator=g).to(dev, dtype)]
+    w = (0.3 * torch.randn(cout, cin, kd, 3, 3, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    act = "linear"
+    if pro:
+        inv = torch.randn(cin, generator=g).to(dev)
+        shift = torch.randn(cin, generator=g).to(dev)
+        act = "relu"
+    assert fused.conv_body(dtype, [cin]) == "conv1"
+    fused.reset_launches()
+    got, s, q = fused.conv_bnact_fwd_kernel(xs, inv, shift, w, b, act,
+                                            stats)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv_bnact": 1}
+    assert fused.BODY_LAUNCHES == {("conv_bnact", "conv1"): 1}
+    ref, rs, rq = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, act,
+                                             stats)
+    torch.cuda.synchronize()
+    _assert_kernel(got, ref)
+    if not stats:
+        assert s is None and q is None
+        return
+    ks, kq = fused.channel_stats(got)
+    _assert_sum(s, ks)
+    _assert_sum(q, kq)
+    if dtype == torch.float32:
+        _assert_sum(s, rs)
+        _assert_sum(q, rq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("pro", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,kd", CONV1_FWD_CASES)
+def test_cuda_conv1_fwd_matches_plain(cin, cout, kd, dtype, pro, stats):
+    """Row 3's kernel against K1's plain version: the output, and the
+    statistics against the plain sums of its own stored output (and, in
+    float32, the plain statistics). ``pro``: a relu prologue with random
+    vectors, else the network input's identity prologue. One launch, on
+    the 'conv1' body."""
+    _conv1_fwd_check(_cuda(), dtype, (2, 3, 45, 37), cin, cout, kd, pro,
+                     stats, seed=cin + cout + kd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,kd", [
+    ((1, 3, 1, 1), 1, 3), ((2, 2, 1, 1), 4, 1), ((3, 1, 5, 1), 3, 1),
+    ((2, 33000, 2, 8), 1, 1), ((1, 66000, 3, 5), 3, 3)])
+def test_cuda_conv1_fwd_odd_planes(shape, cin, kd, dtype):
+    """Row 3's kernel at planes of one voxel, a one-voxel-wide plane and
+    N * D > 65535 (its persistent grid walks the tiles of every (n,
+    depth) plane), with statistics and a prologue."""
+    _conv1_fwd_check(_cuda(), dtype, shape, cin, 32, kd, True, True,
+                     seed=sum(shape))
+
+
+# K6 with the skip's cotangent: (window, C, activation, ties, prologue).
+POOL_SKIP_CASES = [
+    ((1, 2, 2), 32, "relu", False, True), ((1, 2, 2), 32, "relu", True,
+                                           True),
+    ((2, 2, 2), 64, "leaky", False, True), ((2, 2, 2), 64, "relu", True,
+                                            True),
+    ((1, 2, 2), 64, "relu", True, True), ((1, 2, 2), 128, "leaky", False,
+                                          True),
+    ((2, 2, 2), 128, "relu", True, True), ((1, 2, 2), 256, "relu", False,
+                                           True),
+    ((2, 2, 2), 512, "relu", True, True), ((1, 2, 2), 512, "leaky", False,
+                                           True),
+    ((2, 2, 2), 32, "relu", False, False), ((1, 2, 2), 64, "linear", True,
+                                            True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,c,act,tie,pro", POOL_SKIP_CASES)
+def test_cuda_pool_bnact_backward_skip_matches_plain(window, c, act, tie,
+                                                     pro, dtype, skip):
+    """K6 with and without the skip's cotangent (``dskip``) against its
+    plain version: dx bitwise (the same two float32 roundings, then the
+    one to the dtype), dinv and dshift within 1e-3. ``tie`` quantizes x
+    under a positive scale and a negative shift, so windows hold repeated
+    maxima and relu zeros; ``pro`` False is the identity prologue."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(c + len(act) + 2 * tie)
+    x = torch.randn(2, 4, 6, 10, c, generator=g)
+    if tie:
+        x = torch.round(2 * x) / 2
+    x = x.to(dev, dtype)
+    inv = shift = None
+    if pro:
+        inv = torch.randn(c, generator=g).to(dev)
+        shift = torch.randn(c, generator=g).to(dev)
+        if tie:
+            inv, shift = inv.abs() + 0.5, torch.full_like(shift, -1.0)
+    pooled = (2, 4 // window[0], 3, 5, c)
+    dp = torch.randn(pooled, generator=g).to(dev, dtype)
+    dsk = torch.randn(x.shape, generator=g).to(dev, dtype) if skip else None
+    fused.reset_launches()
+    dx, dinv, dshift = fused.pool_bnact_bwd_kernel(x, inv, shift, act,
+                                                   window, dp, dsk)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "pool_bnact_bwd": 1}
+    rdx, rdinv, rdshift = fused.pool_bnact_bwd_plain(x, inv, shift, act,
+                                                     window, dp, dsk)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, rdx)
+    if not pro:
+        assert dinv is None and dshift is None
+        return
+    _assert_sum(dinv, rdinv)
+    _assert_sum(dshift, rdshift)
+
+
+def _level_adds(fn, shape):
+    """The ``aten::add``/``aten::add_`` calls of ``fn`` (host profile,
+    input shapes recorded) with two inputs of ``shape``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in p.events() if e.name in ("aten::add", "aten::add_")
+            and [list(s) for s in e.input_shapes[:2]] == [list(shape)] * 2]
+
+
+@pytest.mark.cuda
+def test_cuda_unet_level_input_gets_one_k6_dx():
+    """The input of a kernel level (conv2's raw output, also the level's
+    skip) takes its gradient from K6 alone: one K6 launch a kernel level
+    and step, and no add of two gradients of the level's shape. A control
+    graph with the skip as a separate use of x shows that add."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    m = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,),
+             dtype=torch.bfloat16, device=dev,
+             generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    assert list(m.level_kinds(x.shape)[:2]) == ["kernels", "kernels"]
+
+    def step():
+        m.zero_grad()
+        m(x).float().square().mean().backward()
+    step()
+    fused.reset_launches()
+    adds = _level_adds(step, (2, 8, 24, 40, 32)) \
+        + _level_adds(step, (2, 8, 12, 20, 64))
+    assert fused.LAUNCHES["pool_bnact_bwd"] == 4
+    assert adds == []
+
+    y = torch.randn(2, 8, 24, 40, 32, device=dev).to(torch.bfloat16)
+    y.requires_grad_(True)
+
+    def control():
+        p = fused.pool_bnact(y, None, None, "relu", (1, 2, 2))[0]
+        (p.float().sum() + (y * 1.0).float().sum()).backward()
+    assert len(_level_adds(control, y.shape)) == 1

@@ -85,7 +85,7 @@ def _row2_pool_bnact_flat_skip(rng, act):
         xs, _lanes(jnp.asarray(inv), 32), _lanes(jnp.asarray(shift), 32),
         H, W, (0,), act, "dense5")
     assert skip[0] is xs[0]
-    port = fused.pool_bnact(_t(x), _t(inv), _t(shift), act, (1, 2, 2))
+    port = fused.pool_bnact(_t(x), _t(inv), _t(shift), act, (1, 2, 2))[0]
     return port, pooled
 
 
@@ -131,7 +131,7 @@ def _row5_pool222_bnact_flat64_skip(rng, act):
     pooled, _ = f64.pool222_bnact_flat64_skip(
         f64.to_flat64(jnp.asarray(x)), f64.lane_vec64(jnp.asarray(inv)),
         f64.lane_vec64(jnp.asarray(shift)), H, W, C, act)
-    port = fused.pool_bnact(_t(x), _t(inv), _t(shift), act, (2, 2, 2))
+    port = fused.pool_bnact(_t(x), _t(inv), _t(shift), act, (2, 2, 2))[0]
     return port, pooled
 
 
@@ -215,8 +215,8 @@ def test_pool_takes_max_after_prologue():
     """A negative scale reverses the order: the pooled value is the
     max of the prologued values, i.e. minus the raw minimum."""
     x = torch.randn(1, 2, 4, 4, 8, generator=torch.Generator().manual_seed(0))
-    y = fused.pool_bnact(x, torch.full((8,), -1.0), torch.zeros(8),
-                         "linear", (1, 2, 2))
+    y, _ = fused.pool_bnact(x, torch.full((8,), -1.0), torch.zeros(8),
+                            "linear", (1, 2, 2))
     windows = x.reshape(1, 2, 2, 2, 2, 2, 8)      # (N, D, Ho, 2, Wo, 2, C)
     assert torch.equal(y, -windows.amin(dim=(3, 5)))
 
@@ -382,9 +382,9 @@ def _pool_case(rng, window, act, tie):
         return pooled, f64.from_flat64(tuple(skip), H, W, C)
 
     def pfn(x, inv, shift):
-        # The raw input is the level's skip: its cotangent adds to the
-        # pool's input gradient through autograd.
-        return fused.pool_bnact(x, inv, shift, act, window), x * 1.0
+        # The raw input is the level's skip, the pool's second output:
+        # its cotangent is summed into the pool's dx (K6's dskip).
+        return fused.pool_bnact(x, inv, shift, act, window)
     pooled = (B, D // window[0], H // 2, W // 2, C)
     return jfn, pfn, (x, inv, shift), [pooled, (B, D, H, W, C)], range(3)
 

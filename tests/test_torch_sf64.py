@@ -177,7 +177,7 @@ def test_pool222_c128_plain_matches_jax(tie, monkeypatch):
         return pooled, f64.from_flat64(tuple(skip), H, W, C)
 
     def pfn(x, inv, shift):
-        return fused.pool_bnact(x, inv, shift, "relu", (2, 2, 2)), x * 1.0
+        return fused.pool_bnact(x, inv, shift, "relu", (2, 2, 2))
     cts = [(0.1 * rng.normal(size=s)).astype(np.float32)
            for s in [(B, D // 2, H // 2, W // 2, C), (B, D, H, W, C)]]
     seen = _spy_pallas(monkeypatch, {"pool222_bnact_flat64",

@@ -69,15 +69,21 @@ def test_upconv_weight_packing_inverts(cin, cout, kd, src_dtype):
 @pytest.mark.parametrize("dtype,cins,body", [
     (torch.bfloat16, (32,), "tc"), (torch.bfloat16, (64, 64), "tc"),
     (torch.bfloat16, (16,), "tc"), (torch.bfloat16, (128, 128), "tc"),
-    (torch.bfloat16, (1,), "cuda-core"), (torch.bfloat16, (3,), "cuda-core"),
+    (torch.bfloat16, (1,), "conv1"), (torch.bfloat16, (3,), "conv1"),
+    (torch.bfloat16, (4,), "conv1"), (torch.float32, (3,), "conv1"),
+    (torch.bfloat16, (5,), "cuda-core"), (torch.bfloat16, (1, 1),
+                                          "cuda-core"),
+    (torch.float32, (4, 4), "cuda-core"),
     (torch.bfloat16, (32, 8), "cuda-core"),
     (torch.bfloat16, (24,), "cuda-core"),
     (torch.float32, (32,), "cuda-core"), (torch.float32, (64, 64),
                                           "cuda-core"),
-    (torch.float32, (1,), "cuda-core")])
+    (torch.float32, (1,), "conv1")])
 def test_conv_body_selector(dtype, cins, body):
-    """K1 takes the tensor-core body for bf16 with every C_in % 16 == 0,
-    the CUDA-core body for float32 and for C_in = 1 or 3."""
+    """K1 takes row 3's kernel (``csrc/conv1_fwd.cu``) for one input of
+    at most 4 channels in either dtype (two inputs never), the
+    tensor-core body for bf16 with every C_in % 16 == 0, the CUDA-core
+    body for float32 and other counts."""
     assert fused.conv_body(dtype, cins) == body
 
 
