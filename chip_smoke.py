@@ -14,7 +14,9 @@ those of the headline 3D UNet with ``activation='silu'`` and
 flat executor (rows 26/27: ``flat_conv3`` on K1, K4 and K5 without a
 prologue), and those of the headline 3D UNet with ``vup=True``, whose L0
 decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
-22 and 23: ``ops/vup.py``).
+22 and 23: ``ops/vup.py``), and the headline 3D UNet's serving path with
+``normalization='group'`` (and one 'instance' forward), whose kernel
+levels run the per-sample mode of K1, row 3's kernel, K2 and K3.
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the hand-written kernels of ``elektronn3_tpu_torch/csrc`` with
@@ -53,6 +55,15 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
    128, up_1 256->128 from the dense (22, 22, 22), up_2 128->64 from the
    carried C=128 activation, rows 24/25); these variants are listed but
    not summed in the totals;
+5c. the per-sample mode (group and instance norm: (N, C) prologue vectors
+   and (N, C) statistics) of K1, row 3's kernel, K2 and K3 at the shapes
+   of the group model's serving path, at the Predictor request's batch
+   of two tiles and at ``bench.py``'s batch 8 (K3 from L2's (22, 22, 22),
+   whose 10,648 voxels a sample are no multiple of its 64-voxel blocks,
+   and the row-11 upconv from a dense L1), held against their plain
+   versions in bf16 and float32 and timed, each in turns with the same
+   kernel's batch form with statistics ("+stats batch") at the same
+   shape; listed, not summed in the totals;
 5b. holds the 'batchp' batch norm's kernels against their plain versions
    at (R, C) = the activation seen as rows, bf16 and f32: K8-K11 at the
    'batchp' headline step's library levels ((85184, 128): L2 and up_0,
@@ -117,6 +128,15 @@ decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
     30/request), then steps 8 and 9, with K8-K11 launched at the shapes
     of rows 29, 30 and 31 and the step times printed beside the 'batch'
     model's of step 8;
+14a. the headline UNet with ``normalization='group'`` (8 groups, random
+    affine parameters, bf16): steps 6 and 7 with K1 (the tensor-core body
+    and row 3's kernel, no CUDA-core body), K2 and K3 launched in their
+    per-sample mode at the shapes of the tile's kernel levels (L2 under
+    the C=128 gate), the same request at ``batch_size=1`` (its
+    probabilities within 5e-2 of the batch-2 request's: each tile has its
+    own statistics), the forward check on a batch of two tiles of
+    different scales, one ``'instance'`` forward check, and the group
+    request's MVox/s beside the headline's;
 15. the same model with ``pallas_flat=False`` (its 17 norms on K8-K11,
     K1-K7 not launched): the forward check, timed steps (kernels and
     plain) at batch 2 of (44, 88, 88) and one step against
@@ -189,7 +209,7 @@ Any failed check raises, and the script exits non-zero. The last lines
 are a JSON object with each kernel's numbers (``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` sum the bfloat16 variants that
 ``totals_over`` names; ``variants`` lists every
-variant's own numbers; ``launches`` sums the fifteen paths whose
+variant's own numbers; ``launches`` sums the sixteen paths whose
 counts ``launches_by_path`` gives, ``launches_by_body`` the serving and
 training paths' by body; the vup entries launch on the two vup paths
 alone), the card's name and power limit, then
@@ -199,6 +219,7 @@ alone), the card's name and power limit, then
 import collections
 import contextlib
 import copy
+import functools
 import json
 import re
 import subprocess
@@ -413,6 +434,25 @@ ROW_SHAPES = {16: ("pool_bnact", 64, (1, 2, 2)),
               23: ("upconv_stats_bwd", (BATCH, *TL1, 64)),
               "1/vup tile": ("conv_vup", (1, *L1, 64)),
               "1/vup request": ("conv_vup", (2, *L1, 64))}
+# The group model's Predictor (the headline request; under the C=128 gate
+# the tile's L2 runs the kernels): the per-sample launches by row.
+GROUP_SERVE_SHAPES = {
+    "3/ps": ("conv_bnact", (1,), 32, 1, False),
+    "1/ps": ("conv_bnact", (32,), 32, 1, True),
+    "1/ps merge": ("conv_bnact", (32, 32), 32, 1, True),
+    "2/ps": ("pool_bnact", 32, (1, 2, 2)),
+    "4/ps L1 conv1": ("conv_bnact", (32,), 64, 3, False),
+    "4/ps": ("conv_bnact", (64,), 64, 3, True),
+    "4/ps merge": ("conv_bnact", (64, 64), 64, 3, True),
+    "4/ps C=128": ("conv_bnact", (128,), 128, 3, True),
+    "5/ps": ("pool_bnact", 64, (2, 2, 2)),
+    "5/ps C=128": ("pool_bnact", 128, (2, 2, 2)),
+    "6/ps": ("upconv_bnact", 256, 128, 2, False),
+    "24/222 ps": ("upconv_bnact", 128, 64, 2, True),
+    "7/ps": ("upconv_bnact", 64, 32, 1, True)}
+ROW_SHAPES.update({r: ("per_sample",) + k
+                   for r, k in GROUP_SERVE_SHAPES.items()})
+GROUP_SERVE_ROWS = tuple(GROUP_SERVE_SHAPES)
 VUP_TRAIN_ROWS = ("1/vup", 9, "9/wgrad", 22, 23)
 VUP_SERVE_ROWS = ("1/vup tile", "1/vup request")
 FLAT_SERVE_ROWS = (26, "26/merge")
@@ -556,6 +596,60 @@ VARIANTS_CONV1 = [
     ("conv", "tile L0 conv1 1->32 kd3 [non-planar L0]", TILE, (1,), 32, 3,
      False),
 ]
+# The per-sample mode (group and instance norm) of the forward kernels on
+# the headline group model's serving path, at the 3D Predictor request's
+# batch of two tiles and at bench.py's batch 8 (whose up_1 takes L2's
+# dense (22, 22, 22): 10,648 voxels a sample, no multiple of K3's 64-voxel
+# blocks; and its up_2 from a dense L1, row 11, where L1 declines):
+# (kind, label, level shape, input channels, C_out, kd / window,
+# prologue, batch). Each variant takes (N, C) prologue vectors (where it
+# has a prologue) and returns (N, C_out) statistics (K1, K3); beside it,
+# the same kernel's batch form at the same shape with (C,) vectors and
+# (C_out,) statistics ("+stats", K2 without statistics) is timed in
+# turns with it.
+PS_VARIANTS = [
+    ("conv", "tile L0 conv1 1->32 kd1 [row 3]", TILE, (1,), 32, 1, False,
+     2),
+    ("conv", "tile L0 conv2 32->32 kd1 [row 1]", TILE, (32,), 32, 1, True,
+     2),
+    ("conv", "tile up_2 merge 32+32->32 kd1 [row 1]", TILE, (32, 32), 32, 1,
+     True, 2),
+    ("conv", "tile L1 conv1 32->64 kd3 [row 4]", L1, (32,), 64, 3, False, 2),
+    ("conv", "tile L1 conv2 64->64 kd3 [row 4]", L1, (64,), 64, 3, True, 2),
+    ("conv", "tile up_1 merge 64+64->64 kd3 [row 4]", L1, (64, 64), 64, 3,
+     True, 2),
+    ("conv", "tile L2 conv2 128->128 kd3 [row 4]", L2, (128,), 128, 3, True,
+     2),
+    ("pool", "tile L0 pool (1,2,2) C=32 [row 2]", TILE, (32,), 32, (1, 2, 2),
+     True, 2),
+    ("pool", "tile L1 pool (2,2,2) C=64 [row 5]", L1, (64,), 64, (2, 2, 2),
+     True, 2),
+    ("upconv", "tile up_0 (2,2,2) 256->128 dense [row 6]", L3, (256,), 128,
+     2, False, 2),
+    ("upconv", "tile up_1 (2,2,2) 128->64 carry [row 24]", L2, (128,), 64, 2,
+     True, 2),
+    ("upconv", "tile up_2 (1,2,2) 64->32 [row 7]", L1, (64,), 32, 1, True, 2),
+    ("conv", "bench L0 conv1 1->32 kd1 [row 3]", PATCH, (1,), 32, 1, False,
+     BATCH),
+    ("conv", "bench L0 conv2 32->32 kd1 [row 1]", PATCH, (32,), 32, 1, True,
+     BATCH),
+    ("conv", "bench up_2 merge 32+32->32 kd1 [row 1]", PATCH, (32, 32), 32,
+     1, True, BATCH),
+    ("conv", "bench L1 conv2 64->64 kd3 [row 4]", TL1, (64,), 64, 3, True,
+     BATCH),
+    ("conv", "bench up_1 merge 64+64->64 kd3 [row 4]", TL1, (64, 64), 64, 3,
+     True, BATCH),
+    ("pool", "bench L0 pool (1,2,2) C=32 [row 2]", PATCH, (32,), 32,
+     (1, 2, 2), True, BATCH),
+    ("pool", "bench L1 pool (2,2,2) C=64 [row 5]", TL1, (64,), 64, (2, 2, 2),
+     True, BATCH),
+    ("upconv", "bench up_1 (2,2,2) 128->64 from L2 [row 6]", TL2, (128,), 64,
+     2, False, BATCH),
+    ("upconv", "bench up_2 (1,2,2) 64->32 dense [row 11]", TL1, (64,), 32, 1,
+     False, BATCH),
+    ("upconv", "bench up_2 (1,2,2) 64->32 [row 7]", TL1, (64,), 32, 1, True,
+     BATCH),
+]
 # Training shapes (batch 8) of rows 11/12 on the headline model (L0's
 # decoder upconv from L1's dense output, where L1 declines) and of the
 # start_filts=64 model at bench.py's (44, 88, 88): L0 planar C=64, L1
@@ -630,6 +724,7 @@ CONV_DIRECT_CASES = [
     ("L2 conv 128->128", (8, 11, 22, 22), 128, 128, False),
 ]
 STEP_MS = {}   # train_phase's step times by model: (kernels, plain, again)
+PREDICTED = {}  # predictor_phase's bf16 probabilities and MVox/s by model
 # The serving and training paths' launches by (kernel, body), by path.
 BODY_LAUNCHES = {}
 
@@ -958,6 +1053,114 @@ def kernel_phase(fused, stats, variants, total):
                       cuda_ms(plain), bnd, lib, not pro and len(xs) == 1,
                       total=total, body=body)
             del xs, args
+            torch.cuda.empty_cache()
+
+
+def per_sample_phase(fused, stats):
+    """The per-sample mode of K1 (its bodies and row 3's), K2 and K3
+    (:data:`PS_VARIANTS`): each held against its plain version (the
+    output; each sample's statistics row against the plain sums of the
+    kernel's own stored output, and in float32 the plain statistics),
+    bf16 and float32, with its bound (its inputs and outputs once) and,
+    in bf16, the library op on the prologued input (lib*, no
+    statistics); in bf16 the same kernel's batch form (+stats) at the
+    same shape is checked too, and the two are timed in turns
+    (per-sample, batch, batch, per-sample: each line the mean of its
+    two), as is the plain version."""
+    for seed, (kind, label, shape, cins, cout, kdw, pro, n) in \
+            enumerate(PS_VARIANTS):
+        name = FWD[kind]
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            rnd = rand_on_card(300 + seed)
+            # samples of different scales, so that their statistics differ
+            scale = torch.arange(1, n + 1, device="cuda").view(
+                n, *(1,) * (len(shape) + 1))
+            xs = [(scale * rnd(n, *shape, c)).to(dtype) for c in cins]
+            cin = sum(cins)
+            inv = rnd(n, cin) if pro else None
+            shift = rnd(n, cin, scale=0.5) if pro else None
+            act = "relu" if pro else "linear"
+            m = xs[0].numel() // cins[0]
+            forms = [("per-sample", inv, shift, "per_sample")]
+            if bf16:
+                forms.append(("batch" if kind == "pool" else "+stats batch",
+                              None if inv is None else inv[0].contiguous(),
+                              None if shift is None else shift[0]
+                              .contiguous(), True))
+            if kind == "conv":
+                std = (2.0 / ((cin + cout) * kdw * 9)) ** 0.5
+                w, b = rnd(cout, cin, kdw, 3, 3, scale=std), rnd(cout,
+                                                                scale=0.1)
+                flops, peak = conv_flops(m, cin, cout, kdw), PEAK_BF16
+            elif kind == "upconv":
+                std = (2.0 / ((cin + cout) * kdw * 4)) ** 0.5
+                w, b = rnd(cin, cout, kdw, 2, 2, scale=std), rnd(cout,
+                                                                scale=0.1)
+                flops, peak = upconv_flops(m, cin, cout, kdw), PEAK_BF16
+            else:
+                w = b = None
+                flops, peak = 4.0 * xs[0].numel(), PEAK_F32
+            body = fwd_body(fused, kind, dtype, cins)
+            rows = []
+            for form, fi, fs, want in forms:
+                if kind == "pool":
+                    args = (xs[0], fi, fs, act, kdw)
+                    run = functools.partial(
+                        lambda a: (fused.pool_bnact_fwd_kernel(*a),), args)
+                    plain = functools.partial(
+                        lambda a: (fused.pool_bnact_fwd_plain(*a),), args)
+                elif kind == "conv":
+                    args = (xs, fi, fs, w, b, act, want)
+                    run = functools.partial(fused.conv_bnact_fwd_kernel,
+                                            *args)
+                    plain = functools.partial(fused.conv_bnact_fwd_plain,
+                                              *args)
+                else:
+                    args = (xs[0], fi, fs, w, b, act, want)
+                    run = functools.partial(fused.upconv_bnact_fwd_kernel,
+                                            *args)
+                    plain = functools.partial(fused.upconv_bnact_fwd_plain,
+                                              *args)
+                what = f"{label} {form} {dtype}"
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                if kind == "pool":
+                    if not torch.equal(got[0], ref[0]):
+                        raise AssertionError(f"K2 {what}: not exact")
+                    err = 0.0
+                else:
+                    err = check_close(got[0], ref[0], dtype, what)
+                    ps = want == "per_sample"
+                    ks, kq = fused.channel_stats(got[0], ps)
+                    if got[1].shape != ks.shape:
+                        raise AssertionError(f"{what}: statistics "
+                                             f"{tuple(got[1].shape)}")
+                    for i in range(n if ps else 1):
+                        pair = [(got[1], ks), (got[2], kq)]
+                        if not bf16:
+                            pair += [(got[1], ref[1]), (got[2], ref[2])]
+                        for g_, r_ in pair:
+                            check_sum(g_[i] if ps else g_,
+                                      r_[i] if ps else r_,
+                                      f"{what} statistics row {i}")
+                bnd = bound(flops, peak if bf16 else PEAK_F32, args, got)
+                del got, ref
+                lib = None
+                if bf16:
+                    a = lib_input(xs, fi, fs, act)
+                    lib = cuda_ms(library_calls(kind, a, w, b, kdw)[name])
+                    del a
+                rows.append([form, err, run, plain, bnd, lib, [], []])
+            for r in rows + rows[::-1]:     # in turns: A, B, B, A
+                r[6].append(cuda_ms(r[2]))
+                r[7].append(cuda_ms(r[3]))
+            for form, err, _, _, bnd, lib, ms, plain_ms in rows:
+                stats.add(stat_name(name, body), f"{label} {form}", dtype,
+                          err, sum(ms) / len(ms),
+                          sum(plain_ms) / len(plain_ms), bnd, lib, False,
+                          body=body)
+            del xs, rows
             torch.cuda.empty_cache()
 
 
@@ -1445,9 +1648,10 @@ def bn_layer_phase():
 def record_shapes(fused, bn=None):
     """Count the K1-K7 launches made inside the block by (kernel,
     channels, window or (C_out, kd, prologue)), a conv's channels by
-    input ((C_0,) or (C_0, C_1)), the vup entries' by (entry, the
-    carry's shape), and, given the ``bn`` module (``ops/pallas_bn``),
-    K8-K11's by (kernel, R, C)."""
+    input ((C_0,) or (C_0, C_1)), those of the per-sample mode (group
+    and instance norm) once more under ``("per_sample",) + key``, the
+    vup entries' by (entry, the carry's shape), and, given the ``bn``
+    module (``ops/pallas_bn``), K8-K11's by (kernel, R, C)."""
     from elektronn3_tpu_torch.ops import vup
     seen = collections.Counter()
     vup_names = {f"{k}_kernel": k for k in VUP_KERNELS[1:]}
@@ -1488,6 +1692,10 @@ def record_shapes(fused, bn=None):
                 key = (n.replace("_fwd_kernel", "").replace("_kernel", ""),
                        x.shape[-1], w.shape[1], w.shape[2], inv is not None)
             seen[key] += 1
+            # the per-sample mode: (N, C) vectors or per-sample statistics
+            if (inv is not None and inv.dim() == 2) or "per_sample" in [
+                    r for r in rest if isinstance(r, str)]:
+                seen[("per_sample",) + key] += 1
             return real[n](x, inv, shift, *rest)
         return f
     for n in names:
@@ -1679,9 +1887,15 @@ def check_vup_bodies(launches, bodies, what):
 
 
 def randomize_norms(model, seed):
+    """Random affine parameters (scales of both signs) for every norm,
+    and random running statistics for the batch norms."""
+    from elektronn3_tpu_torch.modules.layers import GroupNorm
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
+            if isinstance(m, GroupNorm):
+                m.weight.copy_(torch.randn(m.num_channels, generator=g))
+                m.bias.copy_(0.2 * torch.randn(m.num_channels, generator=g))
             if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)):
                 c = m.num_features
                 m.weight.copy_(torch.randn(c, generator=g))
@@ -1809,6 +2023,7 @@ def predictor_phase(build, what, Predictor, fused, rows, kernels=SERVING,
     print(f"predictor {what}: bf16 probabilities {probs.shape} in "
           f"{dt:.3f} s = {vol.size / dt / 1e6:.2f} MVox/s; {len(calls)} "
           f"model calls; launches {launches}", flush=True)
+    PREDICTED[what] = (probs, vol.size / dt / 1e6)
     check_k1_bodies(launches, BODY_LAUNCHES[f"predictor_{what}"],
                     f"{what} serving",
                     len(calls) if "conv1_fwd" in kernels else None)
@@ -1825,6 +2040,47 @@ def predictor_phase(build, what, Predictor, fused, rows, kernels=SERVING,
           f"{vol.size / dt_ids / 1e6:.2f} MVox/s", flush=True)
     check_probs(probs, ids, (1, 2, 64, 256, 256), what)
     check_launched(launches, kernels, f"{what} serving")
+    return launches
+
+
+def predictor_group_phase(build, build_instance, Predictor, fused):
+    """The headline model with group norm (8 groups; random affine
+    parameters) served through the kernels' per-sample mode:
+    :func:`predictor_phase` (its forward check on one tile, the request,
+    row 3's kernel once a model call, no CUDA-core K1, and the per-sample
+    launches of K1, K2 and K3 at the shapes of :data:`GROUP_SERVE_ROWS`),
+    then the same request at ``batch_size=1``, whose probabilities must
+    agree with the batch-2 request's within the bf16 forward tolerance
+    (per-sample statistics: a tile's output does not depend on its batch),
+    the forward check on a batch of two tiles of different scales, and one
+    eval forward of the instance-norm model against its reference."""
+    launches = predictor_phase(build, "group", Predictor, fused,
+                               GROUP_SERVE_ROWS)
+    probs2, mvox = PREDICTED["group"]
+    model = build(0, torch.bfloat16).eval()
+    randomize_norms(model, 1)
+    probs1 = Predictor(model, **dict(PREDICT_KW, batch_size=1)).predict(
+        seeded_volume())
+    err = float(np.abs(probs1 - probs2).max())
+    if err > 5e-2 * float(np.abs(probs2).max()):
+        raise AssertionError(f"predictor group: batch_size 1 against 2: max "
+                             f"abs err {err}")
+    print(f"predictor group: batch_size 1 against 2: max abs err {err:.4e} "
+          "(bound 5e-2 x max|p|)", flush=True)
+    x = torch.randn((2, *TILE, 1),
+                    generator=torch.Generator().manual_seed(5)).cuda()
+    x[1] *= 3.0
+    check_forward(model, x, "group UNet bf16 forward, 2 tiles")
+    del model
+    torch.cuda.empty_cache()
+    inst = build_instance(0, torch.bfloat16).eval()
+    randomize_norms(inst, 1)
+    check_forward(inst, x[:1], "instance UNet bf16 forward")
+    del inst, x
+    torch.cuda.empty_cache()
+    print(f"predictor MVox/s in this run: group {mvox:.2f} against the "
+          f"headline's {PREDICTED['3D'][1]:.2f} ('batchp' "
+          f"{PREDICTED['batchp'][1]:.2f})", flush=True)
     return launches
 
 
@@ -2474,6 +2730,12 @@ def main():
     def build_batchp(seed, dtype):
         return headline_unet(UNet, seed, dtype, normalization="batchp")
 
+    def build_group(seed, dtype):
+        return headline_unet(UNet, seed, dtype, normalization="group")
+
+    def build_instance(seed, dtype):
+        return headline_unet(UNet, seed, dtype, normalization="instance")
+
     def build_batchp_library(seed, dtype):
         return headline_unet(UNet, seed, dtype, normalization="batchp",
                              pallas_flat=False)
@@ -2501,6 +2763,7 @@ def main():
     kernel_phase(fused, stats, VARIANTS_TILE_C128, total=False)
     kernel_phase(fused, stats, VARIANTS_SF64_TILE, total=False)
     kernel_phase(fused, stats, VARIANTS_CONV1, total=False)
+    per_sample_phase(fused, stats)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS_SF64, total=False,
                        serve=False)
     bn_kernel_phase(pallas_bn, stats)
@@ -2554,6 +2817,8 @@ def main():
         build_batchp, "batchp", Predictor, fused, BATCHP_SERVE_ROWS,
         SERVING + ("bn_normalize",), pallas_bn)
     torch.cuda.empty_cache()
+    launches["predictor_group"] = predictor_group_phase(
+        build_group, build_instance, Predictor, fused)
     launches["train_batchp"], model, crit, opt, batches = train_phase(
         build_batchp, (BATCH, *PATCH, 1), "batchp", "MVox", CEDiceLoss,
         train_step, fused, BATCHP_TRAIN_ROWS, K1_K7 + BN_KERNELS, pallas_bn)

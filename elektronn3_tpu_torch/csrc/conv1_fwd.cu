@@ -50,8 +50,19 @@
 // The order of the atomics changes from run to run, hence the last bits
 // of the statistics (as in K1's other bodies); the two forms sum the
 // products in different orders (both float32).
+//
+// The per-sample mode (group and instance norm): a prologue of (n, cin)
+// rows (pro_ns = cin; 0 for the batch form) is read per staged value
+// from the row of the tile's sample. Per-sample statistics take a grid
+// of (blocks of a sample, sample): a sample's tiles are walked by
+// cf_ps_parts(its tiles) blocks of their own (one for each 16 tiles, at
+// most 2 for each SM), so a block's sums belong to one sample, and at
+// the end its warps add into the block's sums in turn and it writes them
+// as its partial row, which ps_reduce (ps_reduce.cuh) sums in a fixed
+// order: the same statistics on every run and for every batch size.
 #include <type_traits>
 
+#include "ps_reduce.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -65,10 +76,13 @@ struct CfArgs {
   const float* wt;       // (cout, cin, kd, 3, 3) float32 weight
   const float* bias;     // (cout,)
   void* y;               // (n, d, h, w, cout)
-  float* s;              // (cout,) statistics, zeroed, or null
-  float* q;
+  float* s;              // (cout,) statistics, zeroed, or null; per
+  float* q;              // sample (n, cout)
   int n, d, h, wd, cout, act, tw, th;
-  int64_t ntiles;
+  int64_t ntiles;        // of the whole input, or of a sample (``part``)
+  int pro_ns;            // sample stride of inv/shift, or 0
+  float* part;           // per-sample statistics: (n, gridDim.x, 2 cout)
+                         // partial rows in place of s and q, or null
 };
 
 constexpr int CF_NT = 256;     // threads per block
@@ -298,8 +312,10 @@ __global__ void __launch_bounds__(
         | (unsigned)(p / CIN / npos) << 16 | (unsigned)(pos / sw) << 10
         | (unsigned)(pos % sw) << 4 | (unsigned)(p % CIN);
   }
+  int xn = 0;   // the sample of the fetched window
   auto fetch_x = [&](const Tile& g) {
     xok = 0;
+    xn = g.nd / a.d;
 #pragma unroll
     for (int i = 0; i < XPF; ++i) {
       const int dz = (win[i] >> 16) & 15;
@@ -323,30 +339,37 @@ __global__ void __launch_bounds__(
         float v = 0.0f;
         if ((xok >> i) & 1u) {
           v = to_f(xpf[i]);
-          if (pro) v = round_to<T>(prologue(v, s_pro[0][ci], s_pro[1][ci],
-                                             a.act));
+          if (pro && a.pro_ns)   // the per-sample prologue: the tile's row
+            v = round_to<T>(prologue(v, a.inv[xn * a.pro_ns + ci],
+                                     a.shift[xn * a.pro_ns + ci], a.act));
+          else if (pro)
+            v = round_to<T>(prologue(v, s_pro[0][ci], s_pro[1][ci], a.act));
         }
         s_a[buf][tid + i * CF_NT] = v;
       }
     }
   };
   // Tile ti is computed from buffer ti % 2 while tile ti + 1 is staged
-  // into the other and tile ti + 2 fetched: one barrier a tile.
+  // into the other and tile ti + 2 fetched: one barrier a tile. Tile ti
+  // of the block is t0 + ti * gridDim.x: of the whole input, or, in the
+  // per-sample grid, of sample blockIdx.y (its tiles come after those of
+  // the samples before it).
+  const int t0 = (int)blockIdx.y * (int)a.ntiles + (int)blockIdx.x;
   const int ntl = blockIdx.x < a.ntiles
       ? ((int)a.ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   __syncthreads();   // s_pro is visible
   if (ntl > 0) {
-    fetch_x(tile_at(blockIdx.x));
+    fetch_x(tile_at(t0));
     stage(0);
-    if (ntl > 1) fetch_x(tile_at(blockIdx.x + gridDim.x));
+    if (ntl > 1) fetch_x(tile_at(t0 + gridDim.x));
   }
   __syncthreads();
 
   for (int ti = 0; ti < ntl; ++ti) {
-    const Tile tl = tile_at(blockIdx.x + ti * gridDim.x);
+    const Tile tl = tile_at(t0 + ti * gridDim.x);
     if (ti + 1 < ntl) {
       stage((ti + 1) & 1);
-      if (ti + 2 < ntl) fetch_x(tile_at(blockIdx.x + (ti + 2) * gridDim.x));
+      if (ti + 2 < ntl) fetch_x(tile_at(t0 + (ti + 2) * gridDim.x));
     }
     const float* s_cur = s_a[ti & 1];
     const int64_t row0 = (int64_t)tl.nd * a.h + tl.h0;
@@ -433,7 +456,8 @@ __global__ void __launch_bounds__(
   if (!ST) return;
 
   // The block's sums: lanes of a warp that hold the same channels first
-  // (shuffles), then shared memory, then one device atomic per channel.
+  // (shuffles), then shared memory, then one device atomic per channel;
+  // in the per-sample mode the warps in turn, then the partial row.
   for (int off = same; off < 32; off <<= 1) {
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
@@ -442,6 +466,25 @@ __global__ void __launch_bounds__(
     }
   }
   __syncthreads();   // s_red's initialization is visible
+  if (a.part != nullptr) {
+    for (int w = 0; w < CF_NT / 32; ++w) {
+      if (warp == w && lane < same && live) {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          s_red[0][co + j] += sj[j];
+          s_red[1][co + j] += qj[j];
+        }
+      }
+      __syncthreads();
+    }
+    float* const row = a.part
+        + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * a.cout;
+    for (int i = tid; i < a.cout; i += CF_NT) {
+      row[i] = s_red[0][i];
+      row[a.cout + i] = s_red[1][i];
+    }
+    return;
+  }
   if (lane < same && live) {   // one lane of each channel group of a warp
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
@@ -467,9 +510,25 @@ int cf_sm_count() {
   return count;
 }
 
+// The per-sample mode's blocks a sample (and its partial rows), whatever
+// the batch: one for each CF_PS_TILES tiles of the sample (a block's
+// first tiles are staged before its pipeline overlaps), at most 2 for
+// each SM (the tensor-core form's residency).
+constexpr int64_t CF_PS_TILES = 16;
+int64_t cf_ps_parts(int64_t sample_tiles) {
+  const int64_t most = 2 * (int64_t)cf_sm_count();
+  const int64_t want = (sample_tiles + CF_PS_TILES - 1) / CF_PS_TILES;
+  return want < most ? want : most;
+}
+
 template <typename T, int CIN, int KD, bool ST, bool TC>
 cudaError_t cf_launch(const CfArgs& a, cudaStream_t stream) {
   auto kern = conv1_fwd_kernel<T, CIN, KD, ST, TC>;
+  if (a.part != nullptr) {   // the per-sample grid
+    const dim3 grid((unsigned)cf_ps_parts(a.ntiles), a.n);
+    kern<<<grid, CF_NT, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
   static int per_sm = 0;   // resident blocks an SM, per instantiation
   if (per_sm == 0) {
     cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -512,22 +571,58 @@ cudaError_t cf_dispatch(const CfArgs& a, int cin, int kd, cudaStream_t s) {
   }
 }
 
+// The tile (TW x TH = 256) that pads the plane least (the wider on a
+// tie).
+void cf_tile(int h, int wd, int* tw_out, int* th_out) {
+  int64_t best = -1;
+  for (int tw = 32; tw >= 8; tw /= 2) {
+    const int th = CF_TV / tw;
+    const int64_t area = (int64_t)((h + th - 1) / th) * th
+        * ((wd + tw - 1) / tw) * tw;
+    if (best < 0 || area < best) {
+      best = area;
+      *tw_out = tw;
+      *th_out = th;
+    }
+  }
+}
+
+// The tiles of one sample.
+int64_t cf_sample_tiles(int d, int h, int wd) {
+  int tw, th;
+  cf_tile(h, wd, &tw, &th);
+  return (int64_t)d * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
+}
+
 }  // namespace
+
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): the
+// blocks of its grid.
+extern "C" int64_t e3_conv1_fwd_ps_parts(int d, int h, int wd) {
+  return cf_ps_parts(cf_sample_tiles(d, h, wd));
+}
 
 // Row 3's kernel. ``inv``/``shift`` are (cin,), or null for the identity
 // prologue (the staged value is x itself); ``s``/``q`` null skips the
-// statistics, else both are (cout,) float32, zeroed by the caller.
+// statistics, else both are (cout,) float32, zeroed by the caller. The
+// per-sample mode (group and instance norm): ``pro_ns`` is cin for
+// inv/shift of (n, cin) (0 for the batch form); a workspace ``ws``
+// (ps_workspace_floats of n samples, e3_conv1_fwd_ps_parts rows of 2
+// cout) gives each sample's statistics in ``s`` as (n, 2, cout), summed
+// in a fixed order (``q`` unused).
 // ``wt`` is the (cout, cin, kd, 3, 3) float32 weight, which the kernel
 // rounds to the dtype; ``bias`` (cout,) float32. Needs 1 <= cin <= 4,
 // cout % 32 == 0, cout <= 256 and kd in {1, 3} (a cout / CPT that is no
 // power of two leaves the last lanes of a voxel idle).
 extern "C" int e3_conv1_fwd(int dtype, const void* x, int cin,
-                            const float* inv, const float* shift,
+                            const float* inv, const float* shift, int pro_ns,
                             const float* wt, const float* bias, void* y,
-                            float* s, float* q, int n, int d, int h, int wd,
-                            int cout, int kd, int act, void* stream) {
+                            float* s, float* q, float* ws, int n, int d,
+                            int h, int wd, int cout, int kd, int act,
+                            void* stream) {
   if (cin < 1 || cin > 4 || cout % 32 || cout > CF_MAXC
-      || (kd != 1 && kd != 3) || (s == nullptr) != (q == nullptr))
+      || (kd != 1 && kd != 3) || (s == nullptr) != (q == nullptr)
+      || (ws != nullptr && (s == nullptr || n > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   CfArgs a = {};
   a.x = x;
@@ -538,29 +633,20 @@ extern "C" int e3_conv1_fwd(int dtype, const void* x, int cin,
   a.y = y;
   a.s = s;
   a.q = q;
+  a.pro_ns = pro_ns;
+  a.part = ws;
   a.n = n;
   a.d = d;
   a.h = h;
   a.wd = wd;
   a.cout = cout;
   a.act = act;
-  // The tile (TW x TH = 256) that pads the plane least (the wider on a
-  // tie).
-  int64_t best = -1;
-  for (int tw = 32; tw >= 8; tw /= 2) {
-    const int th = CF_TV / tw;
-    const int64_t area = (int64_t)((h + th - 1) / th) * th
-        * ((wd + tw - 1) / tw) * tw;
-    if (best < 0 || area < best) {
-      best = area;
-      a.tw = tw;
-      a.th = th;
-    }
-  }
-  a.ntiles = (int64_t)n * d * ((h + a.th - 1) / a.th)
-      * ((wd + a.tw - 1) / a.tw);
-  if (a.ntiles == 0) return static_cast<int>(cudaSuccess);
-  if (a.ntiles >= ((int64_t)1 << 31))   // the kernel indexes tiles in 32 bits
+  cf_tile(h, wd, &a.tw, &a.th);
+  const int64_t sample_tiles = cf_sample_tiles(d, h, wd);
+  // The per-sample grid walks the tiles of a sample, the other all.
+  a.ntiles = ws != nullptr ? sample_tiles : n * sample_tiles;
+  if (sample_tiles == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  if (n * sample_tiles >= ((int64_t)1 << 31))   // 32-bit tile indices
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
@@ -570,5 +656,7 @@ extern "C" int e3_conv1_fwd(int dtype, const void* x, int cin,
   else
     rc = s != nullptr ? cf_dispatch<float, true>(a, cin, kd, st)
                       : cf_dispatch<float, false>(a, cin, kd, st);
+  if (rc == cudaSuccess && ws != nullptr)
+    rc = ps_reduce(ws, n, cf_ps_parts(sample_tiles), 2 * cout, s, st);
   return static_cast<int>(rc);
 }

@@ -20,14 +20,27 @@
 // float32 FMAs (67 TFLOP/s on the H100); the statistics add two FMAs
 // per stored value and one atomic per channel and block.
 #include "conv_bnact.cuh"
+#include "ps_reduce.cuh"
 
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): its d
+// planes' tiles of TH x TW.
+extern "C" int64_t e3_conv_bnact_ps_parts(int d, int h, int wd) {
+  return (int64_t)d * ((h + TH - 1) / TH) * ((wd + TW - 1) / TW);
+}
+
+// The per-sample mode (group and instance norm): ``pro_ns`` is c0 + c1
+// for prologue rows of (n, c0 + c1) (``inv1``/``shift1`` pointing c0
+// floats into them; 0 for the batch form); a workspace ``ws``
+// (ps_workspace_floats of n samples, e3_conv_bnact_ps_parts rows of 2
+// cout) gives each sample's statistics in ``s`` as (n, 2, cout), summed
+// in a fixed order (``q`` unused).
 extern "C" int e3_conv_bnact(int dtype, int nin,
                              const void* x0, int c0, const float* inv0,
                              const float* shift0,
                              const void* x1, int c1, const float* inv1,
-                             const float* shift1,
+                             const float* shift1, int pro_ns,
                              const float* wt, const float* bias, void* y,
-                             float* s, float* q,
+                             float* s, float* q, float* ws,
                              int n, int d, int h, int wd, int cout, int kd,
                              int act, void* stream) {
   ConvArgs a = {};
@@ -43,8 +56,10 @@ extern "C" int e3_conv_bnact(int dtype, int nin,
   a.wt = wt;
   a.bias = bias;
   a.y = y;
-  a.s = s;
+  a.s = ws != nullptr ? ws : s;   // the statistics' instantiation
   a.q = q;
+  a.pro_ns = pro_ns;
+  a.part = ws;
   a.n = n;
   a.d = d;
   a.h = h;
@@ -52,5 +67,10 @@ extern "C" int e3_conv_bnact(int dtype, int nin,
   a.cout = cout;
   a.kd = kd;
   a.act = act;
-  return launch_conv_body<false>(a, dtype, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = launch_conv_body<false>(a, dtype, st);
+  if (rc == 0 && ws != nullptr)
+    rc = static_cast<int>(ps_reduce(ws, n, e3_conv_bnact_ps_parts(d, h, wd),
+                                    2 * cout, s, st));
+  return rc;
 }

@@ -92,16 +92,23 @@ struct ConvArgs {
   float* dshift;
   int n, d, h, wd, cout, kd, act;
   VupArgs vup;        // vup instantiations: input 0's carry (kd == 1)
+  // Forward, the per-sample mode (group and instance norm): the sample
+  // stride of inv/shift ((n, cin[0] + cin[1]) rows, inv[1] pointing
+  // cin[0] floats in; 0 for the batch form), and the statistics' partial
+  // rows (n * d * tiles, 2 cout) in place of s and q, or null
+  // (ps_reduce.cuh: a block is one (n, depth) plane's tile).
+  int pro_ns;
+  float* part;
 };
 
 // Load the CK = 8 staged values of voxel ``vox`` from channel ``cb`` of
-// operand i: the prologue of the input (forward) or dy_tot (dgrad), in
-// float32, not yet rounded; a tail of fewer channels (C_in = 1 or 3) is
-// read as zeros.
+// operand i: the prologue of the input (forward; ``po`` the offset of the
+// voxel's sample row in inv/shift) or dy_tot (dgrad), in float32, not yet
+// rounded; a tail of fewer channels (C_in = 1 or 3) is read as zeros.
 template <bool DG, typename T>
 __device__ __forceinline__ void load_operand(const ConvArgs& a, int i,
                                              int64_t vox, int cb,
-                                             float* v) {
+                                             float* v, int64_t po = 0) {
   const int ci = a.cin[i];
   const T* src = static_cast<const T*>(a.x[i]) + vox * ci + cb;
   load8_tail(src, ci, cb, v);
@@ -118,7 +125,8 @@ __device__ __forceinline__ void load_operand(const ConvArgs& a, int i,
 #pragma unroll
     for (int c = 0; c < CK; ++c)
       if (cb + c < ci)
-        v[c] = prologue(v[c], a.inv[i][cb + c], a.shift[i][cb + c], a.act);
+        v[c] = prologue(v[c], a.inv[i][po + cb + c], a.shift[i][po + cb + c],
+                        a.act);
   }
 }
 
@@ -143,14 +151,14 @@ template <bool DG, bool VUP, typename T>
 __device__ __forceinline__ void stage_operand(const ConvArgs& a, int i,
                                               int64_t plane, int64_t nz,
                                               int gh, int gw, int cb,
-                                              float* v) {
+                                              float* v, int64_t po) {
   if constexpr (VUP && !DG) {
     if (i == 0) {
       vup_operand<T>(a, nz, gh, gw, cb, v);
       return;
     }
   }
-  load_operand<DG, T>(a, i, (plane + gh) * a.wd + gw, cb, v);
+  load_operand<DG, T>(a, i, (plane + gh) * a.wd + gw, cb, v, po);
 }
 
 // Epilogue of 8 consecutive output channels o .. o + 7 of voxel ``vox``
@@ -228,7 +236,7 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   const int tx = threadIdx.x % TW;
   const int ty = threadIdx.x / TW;
   const int tiles_w = (a.wd + TW - 1) / TW;
-  const int tiles = ((a.h + TH - 1) / TH) * tiles_w;
+  const int tiles = ((a.h + TH - 1) / TH) * tiles_w;   // a plane's
   const int tile = blockIdx.x % tiles;
   const int nd = blockIdx.x / tiles;  // n * d + depth index
   const int h0 = (tile / tiles_w) * TH;
@@ -237,6 +245,7 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   const int d = nd % a.d;
   const int co0 = blockIdx.z * COG;
   const int ct = a.cin[0] + a.cin[1];
+  const int64_t po = (int64_t)n * a.pro_ns;   // the sample's prologue row
   if (threadIdx.x < 2 * COG) s_red[threadIdx.x / COG][threadIdx.x % COG] = 0;
 
   float acc[RPT][COG];
@@ -262,7 +271,7 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
           float v[CK];
           if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd) {
             stage_operand<DG, VUP, T>(a, i, plane, (int64_t)n * a.d + zd,
-                                      gh, gw, cb, v);
+                                      gh, gw, cb, v, po);
 #pragma unroll
             for (int c = 0; c < CK; ++c)
               v[c] = (cb + c < ci) ? round_to<T>(v[c]) : 0.0f;
@@ -342,6 +351,23 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   const float t0 = warp_reduce_scatter32(st0);
   const float t1 = warp_reduce_scatter32(st1);
   __syncthreads();  // s_red's initialization is visible
+  if (!DG && a.part != nullptr) {
+    // The per-sample mode: the warps in turn, then the block's partial
+    // row into slot blockIdx.x.
+    for (int w = 0; w < NT / 32; ++w) {
+      if (threadIdx.x / 32 == w) {
+        s_red[0][threadIdx.x % 32] += t0;
+        s_red[1][threadIdx.x % 32] += t1;
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x < COG) {
+      float* const row = a.part + (int64_t)blockIdx.x * 2 * a.cout + co0;
+      row[threadIdx.x] = s_red[0][threadIdx.x];
+      row[a.cout + threadIdx.x] = s_red[1][threadIdx.x];
+    }
+    return;
+  }
   atomicAdd(&s_red[0][threadIdx.x % 32], t0);
   atomicAdd(&s_red[1][threadIdx.x % 32], t1);
   if (DG)

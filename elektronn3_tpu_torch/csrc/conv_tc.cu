@@ -44,6 +44,12 @@
 //     block).
 // grid.x walks the tiles of every (n, depth) plane, the plane index
 // outermost, so N * D is not bounded by grid.y's 65535.
+// The per-sample mode (group and instance norm): a block, one (n, depth)
+// plane, stages row n of the (N, c0 + c1) prologue (a sample stride),
+// and its statistics are a partial row of sample n (ps_reduce.cuh): its
+// warp rows add into the block's sums in turn, the block writes them
+// into slot blockIdx.x of ``part`` (the d * tiles slots of a sample are
+// its planes' tiles), and ps_reduce sums each sample's slots in order.
 //
 // mma.sync rather than wgmma, as in upconv_tc.cu: the A operand of a
 // tap is a shifted window of the staged slab, which ldmatrix reads row
@@ -77,6 +83,7 @@
 #include <type_traits>
 
 #include "conv_tc.cuh"
+#include "ps_reduce.cuh"
 #include "upconv_vup.cuh"
 
 namespace {
@@ -85,8 +92,8 @@ using namespace e3;
 
 struct ConvTcArgs {
   const __nv_bfloat16* x[2];
-  const float* inv;          // (c0 + c1,) prologue, or null (identity)
-  const float* shift;
+  const float* inv;          // (c0 + c1,) prologue, or null (identity);
+  const float* shift;        // per sample (n, c0 + c1)
   int cin[2];
   int nin;
   const __nv_bfloat16* wp;   // (kd, (c0 + c1) / 16, 9, cout, 16)
@@ -95,6 +102,11 @@ struct ConvTcArgs {
   float* s;                  // (cout,) statistics, or null
   float* q;
   int n, d, h, wd, cout, kd, act, tw;
+  // The per-sample mode: the sample stride of the prologue (c0 + c1 for
+  // (n, c0 + c1) rows, 0 for (c0 + c1,)), and the statistics' partial
+  // rows (n * d * tiles, 2 cout) in place of s and q, or null.
+  int pro_ns;
+  float* part;
 };
 
 // The vup merge conv's arguments (conv_vup): input 0 is the (1, 2, 2)
@@ -378,8 +390,8 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const Args a) {
     for (int c = tid; c < 2 * COB; c += NT) s_red[c] = 0.0f;
   if (PRO)
     for (int c = tid; c < g.kct * 16; c += NT) {
-      s_inv[c] = a.inv[c];
-      s_shift[c] = a.shift[c];
+      s_inv[c] = a.inv[g.nn * a.pro_ns + c];
+      s_shift[c] = a.shift[g.nn * a.pro_ns + c];
     }
   __syncthreads();
   uint32_t uoff = 0;   // the vup instantiation: s_u's offset from s_a
@@ -492,6 +504,29 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const Args a) {
         sq[nj][e] += __shfl_xor_sync(0xffffffffu, sq[nj][e], off);
       }
   __syncthreads();  // s_red's initialization is visible
+  if (a.part != nullptr) {
+    // The per-sample mode: the warp rows in turn (the warps of a row
+    // hold distinct channels), then the block's partial row.
+    for (int w = 0; w < C::WARPS_M; ++w) {
+      if (wm == w && gr == 0) {
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = wn * 32 + nj * 8 + 2 * t4 + e;
+            s_red[c] += sm[nj][e];
+            s_red[COB + c] += sq[nj][e];
+          }
+      }
+      __syncthreads();
+    }
+    float* const row = a.part + (int64_t)blockIdx.x * 2 * a.cout + g.co0;
+    for (int c = tid; c < COB; c += NT) {
+      row[c] = s_red[c];
+      row[a.cout + c] = s_red[COB + c];
+    }
+    return;
+  }
   if (gr == 0) {
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj)
@@ -545,18 +580,47 @@ cudaError_t launch_vup(const ConvTcVupArgs& a, cudaStream_t st) {
                         : launch<COB, true, false, ConvTcVupArgs>(a, st);
 }
 
+// The tile width that wastes the fewest columns of a row (32 on a tie).
+int conv_tc_tw(int wd) {
+  return ((wd + 15) / 16) * 16 < ((wd + 31) / 32) * 32 ? 16 : 32;
+}
+
+// The rows of a block's tile: its output voxels (Cfg<COB>::M, COB by
+// cout as the entry picks it) over the tile width.
+int conv_tc_th(int wd, int cout) {
+  const int m = cout % 128 == 0 ? Cfg<128>::M
+      : cout % 64 == 0 ? Cfg<64>::M : Cfg<32>::M;
+  return m / conv_tc_tw(wd);
+}
+
 }  // namespace
+
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): the
+// blocks of its d planes, (h / th) x (wd / tw) tiles each, rounded up.
+extern "C" int64_t e3_conv_bnact_tc_ps_parts(int d, int h, int wd,
+                                              int cout) {
+  const int th = conv_tc_th(wd, cout);
+  const int tw = conv_tc_tw(wd);
+  return (int64_t)d * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
+}
 
 // K1, bf16 body. ``wp`` is the packed (kd, (c0 + c1) / 16, 9, cout, 16)
 // bf16 weight; ``inv``/``shift`` ((c0 + c1,) over the concat) null means
 // the identity prologue; ``s`` and ``q`` (zeroed by the caller) null
-// means no statistics. Needs c0, c1 % 16 == 0 and cout % 32 == 0.
+// means no statistics. The per-sample mode (group and instance norm):
+// ``pro_ns`` is c0 + c1 for ``inv``/``shift`` of (n, c0 + c1) (0 for the
+// batch form); a workspace ``ws`` (ps_workspace_floats of n samples,
+// e3_conv_bnact_tc_ps_parts rows of 2 cout) gives the statistics of each
+// sample in ``s`` as (n, 2, cout), the sums then the sums of squares,
+// summed in a fixed order (``q`` unused); null, the batch form. Needs
+// c0, c1 % 16 == 0 and cout % 32 == 0.
 extern "C" int e3_conv_bnact_tc(int nin, const void* x0, int c0,
                                 const void* x1, int c1, const float* inv,
-                                const float* shift, const void* wp,
-                                const float* bias, void* y, float* s,
-                                float* q, int n, int d, int h, int wd,
-                                int cout, int kd, int act, void* stream) {
+                                const float* shift, int pro_ns,
+                                const void* wp, const float* bias, void* y,
+                                float* s, float* q, float* ws, int n, int d,
+                                int h, int wd, int cout, int kd, int act,
+                                void* stream) {
   if (c0 % 16 || (nin > 1 && c1 % 16) || cout % 32 || (kd != 1 && kd != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   ConvTcArgs a = {};
@@ -570,8 +634,10 @@ extern "C" int e3_conv_bnact_tc(int nin, const void* x0, int c0,
   a.wp = static_cast<const __nv_bfloat16*>(wp);
   a.bias = bias;
   a.y = static_cast<__nv_bfloat16*>(y);
-  a.s = s;
+  a.s = ws != nullptr ? ws : s;   // the statistics' instantiation
   a.q = q;
+  a.pro_ns = pro_ns;
+  a.part = ws;
   a.n = n;
   a.d = d;
   a.h = h;
@@ -579,8 +645,7 @@ extern "C" int e3_conv_bnact_tc(int nin, const void* x0, int c0,
   a.cout = cout;
   a.kd = kd;
   a.act = act;
-  // The tile width that wastes the fewest columns of a row (32 on a tie).
-  a.tw = ((wd + 15) / 16) * 16 < ((wd + 31) / 32) * 32 ? 16 : 32;
+  a.tw = conv_tc_tw(wd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (cout % 128 == 0)
@@ -589,6 +654,9 @@ extern "C" int e3_conv_bnact_tc(int nin, const void* x0, int c0,
     rc = launch_cob<64>(a, st);
   else
     rc = launch_cob<32>(a, st);
+  if (rc == cudaSuccess && ws != nullptr)
+    rc = ps_reduce(ws, n, e3_conv_bnact_tc_ps_parts(d, h, wd, cout),
+                   2 * cout, s, st);
   return static_cast<int>(rc);
 }
 

@@ -12,6 +12,10 @@
 // 16-byte vectors of 8 channels, and a warp's lanes walk neighbouring
 // output voxels.
 //
+// In the per-sample mode (group and instance norm) inv/shift are rows of
+// (n, c), one a sample, and a thread reads the row of its output voxel's
+// sample (pro_ns = c; 0 for the batch form).
+//
 // The max is taken over the PROLOGUED float32 values, not the raw ones
 // (a negative batch-norm scale reverses the order). Rounding the max to
 // the activation dtype equals taking the max of rounded values, since
@@ -27,8 +31,8 @@ using namespace e3;
 template <typename T>
 __global__ void __launch_bounds__(256) pool_bnact_kernel(
     const T* __restrict__ x, const float* __restrict__ inv,
-    const float* __restrict__ shift, T* __restrict__ y, int n, int d,
-    int h, int w, int c, int pd, int act) {
+    const float* __restrict__ shift, int pro_ns, T* __restrict__ y, int n,
+    int d, int h, int w, int c, int pd, int act) {
   const int dout = d / pd;
   const int ho = h / 2;
   const int wo = w / 2;
@@ -45,10 +49,11 @@ __global__ void __launch_bounds__(256) pool_bnact_kernel(
     const int od = (int)(t % dout);
     const int64_t on = t / dout;
     float sc[8], sh[8], m[8], v[8];
+    const int64_t pc = on * pro_ns + g * 8;   // the sample's row, group g
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      sc[j] = inv[g * 8 + j];
-      sh[j] = shift[g * 8 + j];
+      sc[j] = inv[pc + j];
+      sh[j] = shift[pc + j];
       m[j] = -CUDART_INF_F;
     }
     for (int dz = 0; dz < pd; ++dz) {
@@ -304,21 +309,23 @@ cudaError_t pool_bwd_launch(const void* x, const float* inv,
 
 }  // namespace
 
+// K2. ``pro_ns``: c for inv/shift of (n, c) (the per-sample mode), 0
+// for (c,).
 extern "C" int e3_pool_bnact(int dtype, const void* x, const float* inv,
-                             const float* shift, void* y, int n, int d,
-                             int h, int w, int c, int pd, int act,
+                             const float* shift, int pro_ns, void* y, int n,
+                             int d, int h, int w, int c, int pd, int act,
                              void* stream) {
   const int64_t total = (int64_t)n * (d / pd) * (h / 2) * (w / 2) * (c / 8);
   const int blocks = pool_blocks(total);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == e3::DT_BF16)
     pool_bnact_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), inv, shift,
+        static_cast<const __nv_bfloat16*>(x), inv, shift, pro_ns,
         static_cast<__nv_bfloat16*>(y), n, d, h, w, c, pd, act);
   else
     pool_bnact_kernel<float><<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(x), inv, shift, static_cast<float*>(y),
-        n, d, h, w, c, pd, act);
+        static_cast<const float*>(x), inv, shift, pro_ns,
+        static_cast<float*>(y), n, d, h, w, c, pd, act);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -75,6 +75,7 @@
 //   Each upconv recompute runs once per output value; the chain reads E
 //   (in the activation dtype, as JAX rounds it) once per use.
 #include "common.cuh"
+#include "ps_reduce.cuh"
 #include "upconv_vup.cuh"
 
 namespace {
@@ -106,6 +107,15 @@ struct UpArgs {
   float* db;          // (cout,)
   int n, d, h, wd, cin, cout, kd, act;
   VupArgs vup;        // the vup entries: x is this carry (kd == 1)
+  // K3, the per-sample mode (group and instance norm): the sample stride
+  // of inv/shift (cin), the statistics' partial rows (n, blocks of a
+  // sample, 2 cout) in place of s and q (ps_reduce.cuh; or null), and
+  // the voxels of a sample (d * h * w), which selects the (block of a
+  // sample, channel block, sample) grid, so no block straddles two
+  // samples; 0 and null for the batch form.
+  int pro_ns;
+  float* part;
+  int64_t spv;
 };
 
 // Output voxel of input voxel v at sub-position sub = (a, b, c).
@@ -151,8 +161,14 @@ __global__ void __launch_bounds__(NT) upconv_bnact_kernel(const UpArgs a) {
   const int lane = threadIdx.x % 32;
   const int sub = warp % nsub;
   const int vl = (warp / nsub) * 32 + lane;
-  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
-  const int64_t v0 = (int64_t)blockIdx.x * vpb;
+  // The end of the block's voxels (of its sample, blockIdx.z, in the
+  // per-sample grid), its first voxel and its sample's prologue row.
+  const int64_t vbase = blockIdx.z * a.spv;
+  const int64_t total = a.spv ? vbase + a.spv
+                              : (int64_t)a.n * a.d * a.h * a.wd;
+  const int64_t v0 = vbase + (int64_t)blockIdx.x * vpb;
+  const float* const inv = a.inv + blockIdx.z * a.pro_ns;
+  const float* const shift = a.shift + blockIdx.z * a.pro_ns;
   const int co0 = blockIdx.y * COG;
   const T* x = static_cast<const T*>(a.x);
   if (threadIdx.x < 2 * COG) s_red[threadIdx.x / COG][threadIdx.x % COG] = 0;
@@ -173,8 +189,7 @@ __global__ void __launch_bounds__(NT) upconv_bnact_kernel(const UpArgs a) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = cb + g * 8 + j;
-          vals[j] = round_to<T>(prologue(vals[j], a.inv[c], a.shift[c],
-                                         a.act));
+          vals[j] = round_to<T>(prologue(vals[j], inv[c], shift[c], a.act));
         }
       } else {
 #pragma unroll
@@ -233,6 +248,26 @@ __global__ void __launch_bounds__(NT) upconv_bnact_kernel(const UpArgs a) {
   if (a.s == nullptr) return;
   const float t0 = warp_reduce_scatter32(st0);
   const float t1 = warp_reduce_scatter32(st1);
+  if (a.part != nullptr) {
+    // The per-sample mode: the warps in turn, then the block's partial
+    // row into slot blockIdx.x of sample blockIdx.z.
+    __syncthreads();  // s_red's initialization is visible
+    for (int w = 0; w < NT / 32; ++w) {
+      if (warp == w) {
+        s_red[0][lane] += t0;
+        s_red[1][lane] += t1;
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x < COG) {
+      float* const row = a.part
+          + ((int64_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * a.cout
+          + co0;
+      row[threadIdx.x] = s_red[0][threadIdx.x];
+      row[a.cout + threadIdx.x] = s_red[1][threadIdx.x];
+    }
+    return;
+  }
   block_sums32(s_red, t0, t1, a.s, a.q, co0);
 }
 
@@ -589,13 +624,22 @@ int launch_upconv_bwd(const UpArgs& a, int dtype, void* stream) {
 
 }  // namespace
 
-// K3, float32 body (bf16 is e3_upconv_bnact_tc).
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): its
+// blocks of 32 * (8 / (kd * 4)) input voxels.
+extern "C" int64_t e3_upconv_bnact_ps_parts(int d, int h, int wd, int kd) {
+  const int vpb = 32 * (8 / (kd * 4));
+  return ((int64_t)d * h * wd + vpb - 1) / vpb;
+}
+
+// K3, float32 body (bf16 is e3_upconv_bnact_tc). ``pro_ns`` and ``ws``:
+// the per-sample mode's, as e3_upconv_bnact_tc's (with
+// e3_upconv_bnact_ps_parts rows a sample).
 extern "C" int e3_upconv_bnact(int dtype, const void* x, const float* inv,
-                               const float* shift, const float* wt,
-                               const float* bias, void* y, float* s,
-                               float* q, int n, int d, int h, int wd,
-                               int cin, int cout, int kd, int act,
-                               void* stream) {
+                               const float* shift, int pro_ns,
+                               const float* wt, const float* bias, void* y,
+                               float* s, float* q, float* ws, int n, int d,
+                               int h, int wd, int cin, int cout, int kd,
+                               int act, void* stream) {
   UpArgs a = {};
   a.x = x;
   a.inv = inv;
@@ -613,14 +657,24 @@ extern "C" int e3_upconv_bnact(int dtype, const void* x, const float* inv,
   a.cout = cout;
   a.kd = kd;
   a.act = act;
+  a.pro_ns = pro_ns;
+  a.part = ws;
+  if (ws != nullptr) a.s = ws;   // the statistics' pass
+  a.spv = pro_ns || ws != nullptr ? (int64_t)d * h * wd : 0;
   if (dtype != e3::DT_F32)  // bf16 runs e3_upconv_bnact_tc (upconv_tc.cu)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a.spv && n > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int vpb = 32 * (8 / (kd * 4));
-  const int64_t total = (int64_t)n * d * h * wd;
-  const dim3 grid((unsigned)((total + vpb - 1) / vpb), cout / COG);
-  upconv_bnact_kernel<float><<<grid, NT, 0,
-                               static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t total = a.spv ? a.spv : (int64_t)n * d * h * wd;
+  const dim3 grid((unsigned)((total + vpb - 1) / vpb), cout / COG,
+                  a.spv ? n : 1);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  upconv_bnact_kernel<float><<<grid, NT, 0, st>>>(a);
+  cudaError_t rc = cudaGetLastError();
+  if (rc == cudaSuccess && ws != nullptr)
+    rc = ps_reduce(ws, n, e3_upconv_bnact_ps_parts(d, h, wd, kd), 2 * cout,
+                   s, st);
+  return static_cast<int>(rc);
 }
 
 // K7: dgrad (when dx is given) and wgrad. dinv, dshift, dw and db must

@@ -41,12 +41,24 @@
 // Voxels past the end of the input (a ragged last block) are masked in
 // the stores and the statistics.
 //
+// The per-sample mode (group and instance norm): inv/shift are rows of
+// (n, cin), one a sample. A block of 64 flattened voxels would straddle
+// two samples wherever d * h * w is not a multiple of 64, so the grid is
+// (blocks of a sample, sample) there: block (x, y) takes voxels x * 64 ..
+// of sample y and stages that sample's prologue row once; a sample's last
+// block is ragged. Its statistics are a partial row of sample y
+// (ps_reduce.cuh): each warp adds its lanes' sums of every slice into a
+// shared row of its own (the lanes of a warp hold distinct channels), and
+// the block sums the 8 rows in order into slot x of sample y. The batch
+// form keeps the one-dimensional grid and its atomics.
+//
 // mma.sync, not wgmma: it is a step that moves the kernel off the
 // float32 CUDA cores with fragments whose layout this file controls
 // (no shared-memory descriptors, no warpgroup-wide asynchrony to
 // order), at the cost of the share of the tensor-core rate that only
 // wgmma reaches. At these shapes the output bytes, not that rate, set
 // the bound.
+#include "ps_reduce.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -73,15 +85,23 @@ struct UpTcArgs {
   float* s;                  // (cout,) statistics, or null
   float* q;
   int n, d, h, wd, cin, cout, kd, act;
+  // The per-sample mode: the sample stride of inv/shift (cin), the
+  // statistics' partial rows (n, blocks of a sample, 2 cout) in place of
+  // s and q (or null), and the voxels of a sample (d * h * w), which
+  // selects the (block of a sample, sample) grid; 0 and null for the
+  // batch form.
+  int pro_ns;
+  float* part;
+  int64_t spv;
 };
 
 // Shared-memory bytes of a block: the input tile, the weight ring, the
-// output tile, the output voxel of each row, the statistics' block sums
-// and the prologue vectors.
-size_t up_tc_smem(int cin, int cout) {
+// output tile, the output voxel of each row, the statistics' block sums,
+// the prologue vectors and, per sample, the warps' rows of sums.
+size_t up_tc_smem(int cin, int cout, bool ps) {
   return (size_t)BM * cin * 2 + (size_t)NSTAGE * BSTAGE
       + (size_t)BM * OPITCH * 2 + (size_t)BM * 8 + (size_t)2 * cout * 4
-      + (size_t)2 * cin * 4;
+      + (size_t)2 * cin * 4 + (ps ? (size_t)(NT / 32) * 2 * cout * 4 : 0);
 }
 
 template <bool PRO, bool ST>
@@ -97,14 +117,19 @@ __global__ void __launch_bounds__(NT) upconv_tc_kernel(const UpTcArgs a) {
   float* s_red = reinterpret_cast<float*>(s_obase + BM);   // [2][cout]
   float* s_inv = s_red + 2 * a.cout;                       // [cin]
   float* s_shift = s_inv + a.cin;
+  float* s_wred = s_shift + a.cin;             // per sample: [8][2][cout]
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int wm = warp % WARPS_M;               // warp's 32-row band
   const int wn = warp / WARPS_M;               // warp's column band
-  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
-  const int64_t v0 = (int64_t)blockIdx.x * BM;
+  // The end of the block's voxels (of its sample in the per-sample
+  // grid) and its first voxel.
+  const int64_t vbase = blockIdx.y * a.spv;
+  const int64_t total = a.spv ? vbase + a.spv
+                              : (int64_t)a.n * a.d * a.h * a.wd;
+  const int64_t v0 = vbase + (int64_t)blockIdx.x * BM;
   const int groups = (kc_n + BKC - 1) / BKC;   // weight stages a slice
   const int nstages = (ncol / BN) * groups;
   const int64_t ostride_b = 2 * (int64_t)a.wd;           // one output row
@@ -126,10 +151,12 @@ __global__ void __launch_bounds__(NT) upconv_tc_kernel(const UpTcArgs a) {
   }
   if (ST)
     for (int c = tid; c < 2 * a.cout; c += NT) s_red[c] = 0.0f;
+  if (ST && a.part != nullptr)
+    for (int c = tid; c < (NT / 32) * 2 * a.cout; c += NT) s_wred[c] = 0.0f;
   if (PRO)
     for (int c = tid; c < a.cin; c += NT) {
-      s_inv[c] = a.inv[c];
-      s_shift[c] = a.shift[c];
+      s_inv[c] = a.inv[blockIdx.y * a.pro_ns + c];
+      s_shift[c] = a.shift[blockIdx.y * a.pro_ns + c];
     }
 
   // The input tile, every k16 step: row r, half hf of step kc.
@@ -265,14 +292,21 @@ __global__ void __launch_bounds__(NT) upconv_tc_kernel(const UpTcArgs a) {
             sq[nj][e] += __shfl_xor_sync(0xffffffffu, sq[nj][e], off);
           }
       if (g == 0) {
+        // the per-sample mode: this warp's own row, in slice order
+        float* const wred = s_wred + warp * 2 * a.cout;
 #pragma unroll
         for (int nj = 0; nj < WNT; ++nj)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int co = (j * BN + (wn * WNT + nj) * 8 + 2 * t4 + e)
                 % a.cout;
-            atomicAdd(&s_red[co], sm[nj][e]);
-            atomicAdd(&s_red[a.cout + co], sq[nj][e]);
+            if (a.part != nullptr) {
+              wred[co] += sm[nj][e];
+              wred[a.cout + co] += sq[nj][e];
+            } else {
+              atomicAdd(&s_red[co], sm[nj][e]);
+              atomicAdd(&s_red[a.cout + co], sq[nj][e]);
+            }
           }
       }
     }
@@ -295,6 +329,16 @@ __global__ void __launch_bounds__(NT) upconv_tc_kernel(const UpTcArgs a) {
   }
   if (!ST) return;
   __syncthreads();
+  if (a.part != nullptr) {   // the warps' rows in order: the partial row
+    float* const row = a.part
+        + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * a.cout;
+    for (int c = tid; c < 2 * a.cout; c += NT) {
+      float acc = 0.0f;
+      for (int w = 0; w < NT / 32; ++w) acc += s_wred[w * 2 * a.cout + c];
+      row[c] = acc;
+    }
+    return;
+  }
   for (int c = tid; c < a.cout; c += NT) {
     atomicAdd(a.s + c, s_red[c]);
     atomicAdd(a.q + c, s_red[a.cout + c]);
@@ -303,30 +347,42 @@ __global__ void __launch_bounds__(NT) upconv_tc_kernel(const UpTcArgs a) {
 
 template <bool PRO, bool ST>
 cudaError_t launch(const UpTcArgs& a, cudaStream_t stream) {
-  const size_t smem = up_tc_smem(a.cin, a.cout);
+  const size_t smem = up_tc_smem(a.cin, a.cout, a.part != nullptr);
   const cudaError_t rc = cudaFuncSetAttribute(
       upconv_tc_kernel<PRO, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (rc != cudaSuccess) return rc;
-  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
+  const int64_t total = a.spv ? a.spv : (int64_t)a.n * a.d * a.h * a.wd;
   const int64_t blocks = (total + BM - 1) / BM;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  upconv_tc_kernel<PRO, ST><<<(unsigned)blocks, NT, smem, stream>>>(a);
+  if (blocks > 0x7fffffff || (a.spv && a.n > 65535))
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, a.spv ? a.n : 1);
+  upconv_tc_kernel<PRO, ST><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): its
+// blocks of BM voxels.
+extern "C" int64_t e3_upconv_bnact_tc_ps_parts(int d, int h, int wd) {
+  return ((int64_t)d * h * wd + BM - 1) / BM;
+}
+
 // K3, bf16 body. ``wp`` is the packed (cin / 16, kd * 4 * cout, 16) bf16
 // weight; ``inv`` null means a dense input (no prologue); ``s`` and
-// ``q`` (zeroed by the caller) null means no statistics. Needs
-// cin % 16 == 0 and cout % 32 == 0.
+// ``q`` (zeroed by the caller) null means no statistics. The per-sample
+// mode (group and instance norm): ``pro_ns`` is cin for inv/shift of (n,
+// cin) (0 for the batch form); a workspace ``ws`` (ps_workspace_floats
+// of n samples, e3_upconv_bnact_tc_ps_parts rows of 2 cout) gives each
+// sample's statistics in ``s`` as (n, 2, cout), summed in a fixed order
+// (``q`` unused). Needs cin % 16 == 0 and cout % 32 == 0.
 extern "C" int e3_upconv_bnact_tc(const void* x, const float* inv,
-                                  const float* shift, const void* wp,
-                                  const float* bias, void* y, float* s,
-                                  float* q, int n, int d, int h, int wd,
-                                  int cin, int cout, int kd, int act,
-                                  void* stream) {
+                                  const float* shift, int pro_ns,
+                                  const void* wp, const float* bias, void* y,
+                                  float* s, float* q, float* ws, int n,
+                                  int d, int h, int wd, int cin, int cout,
+                                  int kd, int act, void* stream) {
   if (cin % 16 || cout % 32 || (kd != 1 && kd != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   UpTcArgs a = {};
@@ -346,6 +402,9 @@ extern "C" int e3_upconv_bnact_tc(const void* x, const float* inv,
   a.cout = cout;
   a.kd = kd;
   a.act = act;
+  a.pro_ns = pro_ns;
+  a.part = ws;
+  a.spv = pro_ns || ws != nullptr ? (int64_t)d * h * wd : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (inv != nullptr)
@@ -353,5 +412,8 @@ extern "C" int e3_upconv_bnact_tc(const void* x, const float* inv,
   else
     rc = s != nullptr ? launch<false, true>(a, st)
                       : launch<false, false>(a, st);
+  if (rc == cudaSuccess && ws != nullptr)
+    rc = ps_reduce(ws, n, e3_upconv_bnact_tc_ps_parts(d, h, wd), 2 * cout, s,
+                   st);
   return static_cast<int>(rc);
 }

@@ -8,7 +8,10 @@ everything is channels-last.
 
 - :func:`tiled_apply` cuts the (zero-padded) input into tiles of one
   shape, packs them along the batch axis and streams them through the
-  model in batches of ``batch_size``.
+  model in batches of ``batch_size``. Each tile of a batch is a sample:
+  a group or instance norm model takes each tile's own statistics (as in
+  JAX), so a tile's output depends on the batch it rides in only through
+  the summation order of library calls that follow the batch size.
 - :class:`Predictor` runs the model under ``torch.inference_mode`` on its
   device. Logits are upcast to float32 before the softmax; the tile
   crop and the cast to ``out_dtype`` happen on the device, before the

@@ -14,7 +14,10 @@ state_dict, in both directions.
   library levels of the fused one) map, in order of n, onto the port's
   ``norm{k}`` modules: ``scale``/``bias`` params become
   ``weight``/``bias``, ``batch_stats`` ``mean``/``var`` become
-  ``running_mean``/``running_var``.
+  ``running_mean``/``running_var``; a group or instance norm's
+  ``GroupNorm_<n>`` slots (params only: no batch statistics) map the
+  same way, in the order both JAX executors create them (the fused one's
+  ``_stats_prologue`` names them as the XLA one's flax auto-names).
 
 ``flax_from_state_dict`` goes back: it fills the tree of given flax
 variables from torch tensors, so the port's running statistics after a

@@ -85,6 +85,16 @@ consumer's prologue from them (``bn_train_prologue``, as
 ``apply_norm``'s batch statistics. Gradients come from the ops'
 backward kernels and, elsewhere, from autograd. In eval the batch norms
 use running statistics and the forward builds no autograd graph.
+
+Group and instance norm (``'group'``, ``'group<G>'``, ``'instance'``)
+have no running state: a kernel level takes per-sample statistics from
+every conv, in training and in eval (``want_stats='per_sample'``), and
+its consumers apply (N, C) prologue vectors (``gn_prologue``, JAX's
+``FlatGNStats``); a library level runs :class:`GroupNorm` (flax
+``nn.GroupNorm``, as XLA does in JAX). The kernels have this mode in
+their forwards only so far: serving runs them, and training through a
+kernel level raises ``NotImplementedError`` (train such a model with
+``pallas_flat=False``, on the library ops and autograd).
 """
 
 from __future__ import annotations
@@ -98,11 +108,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from elektronn3_tpu_torch.modules.flat_norm import (
-    bn_eval_prologue, bn_train_prologue, flat_batch_norm, identity_prologue,
-    norm_kind)
+    bn_eval_prologue, bn_train_prologue, flat_batch_norm, gn_prologue,
+    identity_prologue, norm_kind)
 from elektronn3_tpu_torch.modules.layers import (
-    apply_norm, ceil_maxpool, conv_kernel, get_activation, get_normalization,
-    pool_window)
+    GroupNorm, apply_norm, ceil_maxpool, conv_kernel, get_activation,
+    get_normalization, pool_window)
 from elektronn3_tpu_torch.ops import fused, vup
 from elektronn3_tpu_torch.ops.flat_conv import flat_conv3, pool_flat
 from elektronn3_tpu_torch.ops.fused import FusedActs
@@ -240,10 +250,15 @@ def _norm_pro(norm: Optional[nn.Module], out) -> Tuple[
         torch.Tensor, torch.Tensor]:
     """The (inv, shift) prologue of a kernel op's output ``out``: (y, s,
     q) in training, where the norm takes the batch statistics (s, q),
-    else the output alone, whose norm takes the running statistics."""
+    else the output alone, whose norm takes the running statistics; a
+    group norm's output is (y, s, q) with per-sample (N, C) statistics
+    always, and its prologue is per sample (``gn_prologue``)."""
     y = out[0] if isinstance(out, tuple) else out
     if norm is None:
         return identity_prologue(y.shape[-1], y.device)
+    if isinstance(norm, GroupNorm):
+        return gn_prologue(norm, out[1], out[2], y[0, ..., 0].numel(),
+                           norm.num_groups)
     if isinstance(out, tuple):
         return bn_train_prologue(norm, out[1], out[2], y.numel() // y.shape[-1])
     return bn_eval_prologue(norm)
@@ -253,9 +268,12 @@ def _raw(out) -> torch.Tensor:
     return out[0] if isinstance(out, tuple) else out
 
 
-def _stats(norm: Optional[nn.Module]) -> bool:
-    """Whether a conv feeding ``norm`` returns its batch statistics:
-    batch norm in training (``_want_stats`` of the JAX UNet)."""
+def _stats(norm: Optional[nn.Module]):
+    """The statistics a conv feeding ``norm`` returns (``_want_stats`` of
+    the JAX UNet): a batch norm's in training (True), a group norm's per
+    sample in training and eval (``'per_sample'``), else none."""
+    if isinstance(norm, GroupNorm):
+        return fused.PER_SAMPLE
     return norm is not None and norm.training
 
 
@@ -394,7 +412,8 @@ class UpConv(nn.Module):
         """(inv, shift) of the never-stored upconv output's batch norm:
         from the statistics pass in training (JAX's
         ``_VupUpconv.stats``), the running statistics in eval (JAX runs
-        no pass there)."""
+        no pass there). Batch norm only: ``UNet`` refuses ``vup`` with a
+        group norm."""
         norm = self.norm0
         if norm is None:
             return identity_prologue(self.upconv.out_channels,
@@ -438,8 +457,8 @@ class UpConv(nn.Module):
                                                          reference)
                 out1 = vup.conv_vup(
                     dec.raw, dec.inv, dec.shift, wu, self.upconv.bias,
-                    enc.raw, torch.cat([invu, enc.inv]),
-                    torch.cat([shiftu, enc.shift]), w1, b1, act, act,
+                    enc.raw, torch.cat([invu, enc.inv], dim=-1),
+                    torch.cat([shiftu, enc.shift], dim=-1), w1, b1, act, act,
                     want_stats=_stats(self.norm1), reference=reference)
                 return self._kernel_tail(out1, act, reference)
             if isinstance(dec, FusedActs):
@@ -452,9 +471,11 @@ class UpConv(nn.Module):
                     "linear", want_stats=_stats(self.norm0),
                     reference=reference)
             invu, shiftu = _norm_pro(self.norm0, outu)
+            # The merge conv's prologue is the concat of the upconv
+            # output's and the skip's, (C,) or per sample (N, C).
             out1 = fused.conv_bnact(
-                [_raw(outu), enc.raw], torch.cat([invu, enc.inv]),
-                torch.cat([shiftu, enc.shift]), w1, b1, act,
+                [_raw(outu), enc.raw], torch.cat([invu, enc.inv], dim=-1),
+                torch.cat([shiftu, enc.shift], dim=-1), w1, b1, act,
                 want_stats=_stats(self.norm1), reference=reference)
             return self._kernel_tail(out1, act, reference)
         act = get_activation(self.activation)
@@ -511,7 +532,11 @@ class UNet(nn.Module):
     ``up_mode='transpose'``, ``merge_mode='concat'``, ``conv_mode='same'``,
     ``full_norm=True``, ``logit_dtype=None``, with ``dim`` 3 or 2,
     normalization 'batch', 'batchp' or 'none' ('batchp' plans its kernel
-    levels as 'batch' does; as in JAX, no 'batchp' level is flat),
+    levels as 'batch' does; as in JAX, no 'batchp' level is flat), and
+    for ``dim=3`` 'group' (8 groups), 'group<G>' and 'instance'
+    (:class:`GroupNorm`, eps 1e-6: a kernel level serves on the
+    kernels' per-sample mode; training needs ``pallas_flat=False``, and
+    ``vup`` and ``dim=2`` on the kernels are not ported yet),
     activations 'relu', 'leaky' (kernel levels), 'silu', 'swish',
     'gelu', 'tanh' (flat levels under ``pallas_flat=True``) and the
     rest of ``get_activation`` (library levels), ``pallas_flat``
@@ -574,8 +599,18 @@ class UNet(nn.Module):
         if planar_blocks and (max(planar_blocks) >= n_blocks
                               or min(planar_blocks) < 0):
             raise ValueError("planar_blocks has invalid value range")
-        norm_kind(normalization, start_filts)   # validates the name
+        group = norm_kind(normalization, start_filts)[0] == "group"
         get_activation(activation)
+        if group and vup:
+            raise NotImplementedError(
+                "UNet(vup=True) with group or instance norm: the vup path's "
+                "per-sample mode is not ported yet (ROADMAP.md, Queue 2 "
+                "item 8(c))")
+        if group and dim == 2 and pallas_flat is not False:
+            raise NotImplementedError(
+                "UNet(dim=2) with group or instance norm on the kernels is "
+                "not ported yet (ROADMAP.md, Queue 2 item 8(c)); "
+                "pallas_flat=False runs it on the library ops")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -642,6 +677,12 @@ class UNet(nn.Module):
         planar = self._planar(i)
         if self.pallas_flat is False:
             return "pallas_flat=False runs the library ops"
+        kind, groups = norm_kind(self.normalization, ch)
+        if kind == "group" and ch % groups:
+            # JAX's _norm_fused_ok: the library level's GroupNorm raises
+            # flax's error.
+            return (f"normalization {self.normalization!r}: C={ch} not "
+                    f"divisible by its {groups} groups")
         if self.activation not in _KERNEL_ACTS:
             return f"activation {self.activation!r} has no kernel prologue"
         if i == self.n_blocks - 1:

@@ -1,5 +1,5 @@
-"""Batch-norm prologue vectors for the fused ops, and the flat
-executor's batch norm.
+"""Batch- and group-norm prologue vectors for the fused ops, and the
+flat executor's batch norm.
 
 Counterpart of the JAX package's ``modules/flat_norm.py``. There a
 ``FlatBNStats`` module turns kernel statistics side outputs (training)
@@ -16,6 +16,11 @@ batch variance, and the running update ``ra = 0.9 * ra + 0.1 * batch``
 (flax momentum 0.9, i.e. the module's torch-style ``momentum`` of 0.1
 as the weight of the batch value), written into the module's buffers
 outside autograd.
+
+Group and instance norm (``FlatGNStats``) take per-sample statistics,
+(B, C) sums from the kernels' ``want_stats='per_sample'``, in training
+and in eval alike (there is no running state), and give (B, C)
+prologue vectors (:func:`gn_prologue`).
 """
 
 from __future__ import annotations
@@ -71,11 +76,39 @@ def bn_train_prologue(norm: nn.Module, s: torch.Tensor,
     return inv, shift
 
 
+def gn_prologue(norm: nn.Module, s: torch.Tensor, q: torch.Tensor,
+                spatial: int, groups: int,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(inv, shift), each (B, C) float32, of a group norm from a kernel's
+    per-sample statistics, the (B, C) float32 sum ``s`` and sum of
+    squares ``q`` of the stored output over ``spatial`` voxels a sample
+    (JAX's ``FlatGNStats``): per (sample, group) of C / ``groups``
+    channels, ``mean = sum / (spatial * C / groups)``, ``var = sumsq /
+    (spatial * C / groups) - mean ** 2`` clamped at 0 before the rsqrt
+    (eps ``norm.eps``), ``inv = rsqrt(var + eps) * scale`` and ``shift =
+    bias - mean * inv`` per channel. Differentiable in ``s``, ``q`` and
+    the affine parameters, like :func:`bn_train_prologue`."""
+    b, c = s.shape
+    gs = c // groups
+    denom = spatial * gs
+    mean_g = s.reshape(b, groups, gs).sum(-1) / denom
+    var_g = q.reshape(b, groups, gs).sum(-1) / denom - mean_g * mean_g
+    rstd = torch.rsqrt(torch.clamp_min(var_g, 0.0) + norm.eps)
+    inv = rstd.repeat_interleave(gs, dim=1) * norm.weight.float()
+    shift = norm.bias.float() - mean_g.repeat_interleave(gs, dim=1) * inv
+    return inv, shift
+
+
 def identity_prologue(channels: int, device: Optional[torch.device] = None,
+                      batch: Optional[int] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(inv, shift) of a no-norm prologue: ones and zeros."""
-    return (torch.ones(channels, dtype=torch.float32, device=device),
-            torch.zeros(channels, dtype=torch.float32, device=device))
+    """(inv, shift) of a no-norm prologue: ones and zeros, (channels,),
+    or with ``batch`` the per-sample (batch, channels) form (JAX's
+    ``identity_prologue(n, batch)``, for a level whose sibling
+    prologues are per sample)."""
+    shape = (channels,) if batch is None else (batch, channels)
+    return (torch.ones(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
 
 
 def norm_kind(norm: Optional[str], channels: int) -> Tuple[str, int]:

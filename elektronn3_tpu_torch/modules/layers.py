@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elektronn3_tpu_torch.modules.flat_norm import (
-    bn_eval_prologue, update_running_stats)
+    bn_eval_prologue, norm_kind, update_running_stats)
 from elektronn3_tpu_torch.modules.pallas_norm import (
     PallasBatchNorm, PallasBatchNorm2d, PallasBatchNorm3d)
 
@@ -56,6 +56,49 @@ def get_activation(activation: Union[str, Callable]) -> Callable:
         raise ValueError(f"Unknown activation: {activation!r}") from None
 
 
+class GroupNorm(nn.Module):
+    """Group norm over a channels-last tensor, flax ``nn.GroupNorm``'s
+    (the JAX package's 'group', 'group<G>' and 'instance'): per sample
+    and group of C / ``num_groups`` channels, float32 statistics over
+    the spatial positions and the group's channels, ``mean = E[x]`` and
+    ``var = max(E[x^2] - mean^2, 0)`` (flax's ``use_fast_variance``),
+    then ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32,
+    rounded to ``x``'s dtype once. ``weight`` and ``bias`` are (C,), as
+    flax's ``scale`` and ``bias``; there is no running state, so train
+    and eval are the same. eps is flax's default, 1e-6. A channel count
+    that ``num_groups`` does not divide raises at the call, as flax
+    does."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 eps: float = 1e-6, device: Optional[torch.device] = None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.num_channels = num_channels
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c, g = x.shape[-1], self.num_groups
+        if g <= 0 or c % g:
+            raise ValueError(f"Number of groups ({g}) does not divide the "
+                             f"number of channels ({c}).")
+        xf = x.float()
+        b = x.shape[0]
+        xg = xf.reshape(b, -1, g, c // g)
+        mean = xg.mean(dim=(1, 3))                               # (B, g)
+        var = torch.clamp_min((xg * xg).mean(dim=(1, 3)) - mean * mean, 0.0)
+        gs = c // g
+        view = (b,) + (1,) * (x.dim() - 2) + (c,)
+        mean = mean.repeat_interleave(gs, dim=1).view(view)
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(gs, dim=1) \
+            .view(view) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
+
+    def extra_repr(self) -> str:
+        return f"{self.num_groups}, {self.num_channels}, eps={self.eps}"
+
+
 def get_normalization(norm: Optional[str], channels: int,
                       device: Optional[torch.device] = None, dim: int = 3,
                       ) -> Optional[nn.Module]:
@@ -63,10 +106,10 @@ def get_normalization(norm: Optional[str], channels: int,
     ``nn.BatchNorm3d`` (``nn.BatchNorm2d`` for ``dim=2``; eps 1e-5;
     torch momentum 0.1 is flax's 0.9), 'batchp' the same with the
     hand-written kernels of ``ops/pallas_bn.py`` as its forward
-    (``PallasBatchNorm3d``/``2d``), 'none'/None gives None. The
-    prologue vectors of ``flat_norm`` use only a module's buffers and
-    affine parameters, the same for every rank and kind. Group and
-    instance norm are not ported yet."""
+    (``PallasBatchNorm3d``/``2d``), 'group' (8 groups), 'group<G>' and
+    'instance' (one group per channel) a :class:`GroupNorm` (eps 1e-6,
+    flax's), 'none'/None gives None. The prologue vectors of
+    ``flat_norm`` use only a module's buffers and affine parameters."""
     if norm is None or norm == "none":
         return None
     if norm == "batch":
@@ -74,16 +117,15 @@ def get_normalization(norm: Optional[str], channels: int,
     elif norm == "batchp":
         cls = PallasBatchNorm2d if dim == 2 else PallasBatchNorm3d
     else:
-        raise NotImplementedError(
-            f"normalization {norm!r} is not ported yet (batch, batchp and "
-            "none are)")
+        return GroupNorm(norm_kind(norm, channels)[1], channels,
+                         device=device)
     return cls(channels, eps=1e-5, momentum=0.1, device=device)
 
 
 def apply_norm(norm_layer: Optional[nn.Module], x: torch.Tensor,
                reference: bool = False) -> torch.Tensor:
-    """Apply a batch norm layer to an NDHWC tensor, computing in float32
-    and rounding to ``x``'s dtype once.
+    """Apply a norm layer to an NDHWC tensor, computing in float32 and
+    rounding to ``x``'s dtype once. A :class:`GroupNorm` runs as it is.
 
     A ``PallasBatchNorm`` ('batchp') runs its op (``ops/pallas_bn.py``;
     ``reference`` selects the plain versions of its kernels). An
@@ -97,6 +139,8 @@ def apply_norm(norm_layer: Optional[nn.Module], x: torch.Tensor,
     the unbiased variance instead."""
     if norm_layer is None:
         return x
+    if isinstance(norm_layer, GroupNorm):
+        return norm_layer(x)
     if isinstance(norm_layer, PallasBatchNorm):
         return norm_layer(x.contiguous(), reference)
     if not norm_layer.training:

@@ -34,9 +34,9 @@ SOURCES = ("conv_bnact.cu", "conv_bnact_bwd.cu", "pool_bnact.cu",
            "upconv_bnact.cu", "batch_norm.cu", "conv_vup.cu", "conv_tc.cu",
            "upconv_tc.cu", "wgrad_tc.cu", "upconv_bwd_tc.cu",
            "upconv_stats_bwd_tc.cu", "dgrad_tc.cu", "conv1_bwd.cu",
-           "conv_vup_tc.cu", "conv1_fwd.cu")
+           "conv_vup_tc.cu", "conv1_fwd.cu", "ps_reduce.cu")
 HEADERS = ("common.cuh", "conv_bnact.cuh", "upconv_vup.cuh", "tc.cuh",
-           "conv_tc.cuh")
+           "conv_tc.cuh", "ps_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -46,12 +46,12 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # argtypes of each C entry point (csrc/*.cu, extern "C").
 _SIGNATURES = {
-    "e3_conv_bnact": (_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "e3_conv_bnact_tc": (_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _I, _I, _P),
-    "e3_upconv_bnact_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _P),
+    "e3_conv_bnact": (_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P,
+                      _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_bnact_tc": (_I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_upconv_bnact_tc": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _P),
     "e3_conv_bnact_dgrad": (_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),
@@ -67,13 +67,14 @@ _SIGNATURES = {
                                _P),
     "e3_conv_bnact_wgrad": (_I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                             _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "e3_pool_bnact": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_pool_bnact": (_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P),
     "e3_pool_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _I, _I, _P),
-    "e3_conv1_fwd": (_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _I, _I, _P),
-    "e3_upconv_bnact": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _P),
+    "e3_conv1_fwd": (_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _I, _I, _I, _I, _I, _P),
+    "e3_upconv_bnact": (_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P),
     "e3_upconv_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "e3_bn_stats": (_I, _P, _P, _P, _F, _P, _P, _F, _F, _P, _P, _L, _I, _I,
@@ -108,6 +109,18 @@ _SIGNATURES = {
                              _P, _I, _I, _I, _I, _I, _I, _P),
     "e3_upconv_stats_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _P),
+}
+
+# The per-sample mode's partial rows a sample of each forward kernel, as
+# its entry lays them out, and the floats of their workspace
+# (csrc/ps_reduce.cuh): int64 results.
+_PS_PARTS = {
+    "e3_conv_bnact_tc_ps_parts": (_I, _I, _I, _I),
+    "e3_conv_bnact_ps_parts": (_I, _I, _I),
+    "e3_conv1_fwd_ps_parts": (_I, _I, _I),
+    "e3_upconv_bnact_tc_ps_parts": (_I, _I, _I),
+    "e3_upconv_bnact_ps_parts": (_I, _I, _I, _I),
+    "e3_ps_workspace_floats": (_I, _L, _I),
 }
 
 _lock = threading.Lock()
@@ -195,6 +208,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in _PS_PARTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int64
             _lib = lib
         return _lib
 

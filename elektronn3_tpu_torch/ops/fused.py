@@ -15,6 +15,12 @@ one op covers both. What carries over is the fusion contract
 - in training a conv also returns the per-channel float32 (sum, sumsq)
   of its stored, dtype-rounded output (``want_stats``), from which the
   batch norm of the next consumer is computed;
+- group and instance norm take their statistics per batch sample (JAX's
+  ``want_stats='per_sample'``, in training and in eval): the prologue
+  vectors are then (N, C), one row a sample, and the statistics (N, C)
+  (:data:`PER_SAMPLE`), summed in a fixed order (the same bits on every
+  run and for every batch size); only the forwards have this mode so
+  far;
 - each op is a ``torch.autograd.Function`` whose backward is the merged
   backward of the JAX kernels: the statistics cotangent is folded into
   the incoming one on load, ``dy_tot = dy + ds + 2 * y * dq``, and one
@@ -98,6 +104,20 @@ import torch.nn.functional as F
 from elektronn3_tpu_torch.ops import _build
 
 LEAKY_SLOPE = 0.1  # matches modules/layers.py leaky activation
+# ``want_stats`` of the per-sample mode (group and instance norm): the
+# statistics as (N, C), one row a sample. A prologue vector of shape
+# (N, C) is per sample too. The kernels take a prologue row a sample by a
+# stride (0 for the batch form); their per-sample statistics are partial
+# rows of each block, summed in a fixed order (``csrc/ps_reduce.cuh``), so
+# that a group norm's forward gives the same bits on every run and for
+# every batch size. The batch variants keep their code.
+PER_SAMPLE = "per_sample"
+# What a gradient through the per-sample mode raises: its backward
+# kernels are the next slice of the port.
+_PS_BACKWARD = ("the per-sample mode (group and instance norm) has no "
+                "backward kernels yet (ROADMAP.md, Queue 2 item 8(b): the "
+                "backward kernels' per-sample dinv/dshift); train a group "
+                "or instance norm model with pallas_flat=False")
 _ACT_ID = {"linear": 0, "relu": 1, "leaky": 2}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -163,16 +183,25 @@ def act_grad(pre: torch.Tensor, act: str) -> torch.Tensor:
     raise NotImplementedError(act)
 
 
+def _bc(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A prologue vector shaped to broadcast over channels-last ``x``: a
+    (C,) vector as it is, a per-sample (N, C) one as (N, 1, ..., 1, C)."""
+    if v.dim() == 1:
+        return v
+    return v.view(v.shape[0], *(1,) * (x.dim() - 2), v.shape[1])
+
+
 def _pre(x: torch.Tensor, inv: Optional[torch.Tensor],
          shift: Optional[torch.Tensor]) -> torch.Tensor:
     xf = x.float()
-    return xf if inv is None else xf * inv + shift
+    return xf if inv is None else xf * _bc(inv, x) + _bc(shift, x)
 
 
 def prologue(x: torch.Tensor, inv: Optional[torch.Tensor],
              shift: Optional[torch.Tensor], act: str) -> torch.Tensor:
-    """``act(x * inv + shift)`` in float32 over the channel (last) axis;
-    ``inv is None`` means the identity norm."""
+    """``act(x * inv + shift)`` in float32 over the channel (last) axis,
+    ``inv`` and ``shift`` (C,) or per sample (N, C); ``inv is None``
+    means the identity norm."""
     return act_fwd(_pre(x, inv, shift), act)
 
 
@@ -196,12 +225,51 @@ def head_bnact(acts: FusedActs, act: str, weight: torch.Tensor,
     return (a @ w2.t() + bias.float()).to(out_dtype)
 
 
-def channel_stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def channel_stats(y: torch.Tensor, per_sample: bool = False,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel float32 (sum, sumsq) of a stored channels-last
-    tensor (flat_fused.py ``channel_stats_dense``)."""
+    tensor (flat_fused.py ``channel_stats_dense``): (C,) each, or with
+    ``per_sample`` (N, C), the sums of each sample."""
     yf = y.float()
-    dims = tuple(range(y.dim() - 1))
+    dims = tuple(range(1 if per_sample else 0, y.dim() - 1))
     return yf.sum(dims), (yf * yf).sum(dims)
+
+
+def _want(want_stats) -> Tuple[bool, bool]:
+    """(statistics wanted, per sample) of a ``want_stats`` argument:
+    False, True or :data:`PER_SAMPLE`."""
+    if want_stats is not False and want_stats is not True \
+            and want_stats != PER_SAMPLE:
+        raise ValueError(f"want_stats must be False, True or "
+                         f"{PER_SAMPLE!r}, got {want_stats!r}")
+    return bool(want_stats), want_stats == PER_SAMPLE
+
+
+def _check_per_sample(x: torch.Tensor, c: int,
+                      inv: Optional[torch.Tensor],
+                      shift: Optional[torch.Tensor], want_stats, what: str,
+                      grad: bool) -> None:
+    """Check an op's prologue vectors, (c,) or per sample (N, c) for the
+    N of ``x`` (``shift`` with ``inv``), and its ``want_stats``. A
+    gradient through the per-sample mode (a per-sample prologue or
+    per-sample statistics) raises NotImplementedError, before anything
+    runs."""
+    ps = _want(want_stats)[1]
+    if (inv is None) != (shift is None):
+        raise ValueError(f"{what}: inv and shift go together")
+    if inv is not None:
+        n = x.shape[0]
+        for v in (inv, shift):
+            if v.shape not in ((c,), (n, c)):
+                raise ValueError(f"{what}: prologue vector shape "
+                                 f"{tuple(v.shape)} is neither ({c},) nor "
+                                 f"({n}, {c})")
+        if inv.shape != shift.shape:
+            raise ValueError(f"{what}: inv {tuple(inv.shape)} and shift "
+                             f"{tuple(shift.shape)} differ")
+        ps = ps or inv.dim() == 2
+    if ps and grad:
+        raise NotImplementedError(f"{what}: {_PS_BACKWARD}")
 
 
 def _dy_tot(dy: Optional[torch.Tensor], y: torch.Tensor,
@@ -248,12 +316,42 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
 
 
 def _vec(v: Optional[torch.Tensor], c: int, fill: float,
-         device: torch.device) -> torch.Tensor:
+         device: torch.device, n: Optional[int] = None) -> torch.Tensor:
+    """A float32 prologue vector for a kernel: (c,), or, where ``n`` is
+    given, also the per-sample (n, c) form; None gives (c,) of
+    ``fill``."""
     if v is None:
         return torch.full((c,), fill, dtype=torch.float32, device=device)
-    if v.shape != (c,):
-        raise ValueError(f"prologue vector shape {tuple(v.shape)} != ({c},)")
+    if v.shape != (c,) and (n is None or v.shape != (n, c)):
+        raise ValueError(f"prologue vector shape {tuple(v.shape)} != ({c},)"
+                         + ("" if n is None else f" or ({n}, {c})"))
     return v.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+def _ns(v: Optional[torch.Tensor]) -> int:
+    """The sample stride (in floats) of a kernel's prologue vector: its
+    row length for the per-sample (N, C) form, 0 for (C,) or None."""
+    return v.shape[1] if v is not None and v.dim() == 2 else 0
+
+
+def _stat_bufs(want_stats, n: int, c: int, dev: torch.device, parts):
+    """A kernel's statistics outputs: (s, q, workspace). (c,) each, zeroed
+    (one fill), and no workspace for the batch form; in the per-sample
+    mode s and q are the rows of one (n, 2, c) output that the kernel's
+    deterministic reduction writes, and the workspace holds its ``parts()``
+    partial rows a sample and the first pass's chunks
+    (``ps_workspace_floats``); (None, None, None) without statistics."""
+    want, ps = _want(want_stats)
+    if not want:
+        return None, None, None
+    if not ps:
+        s, q = torch.zeros((2, c), dtype=torch.float32, device=dev)
+        return s, q, None
+    out = torch.empty((n, 2, c), dtype=torch.float32, device=dev)
+    ws = torch.empty(_build.library().e3_ps_workspace_floats(n, parts(),
+                                                             2 * c),
+                     dtype=torch.float32, device=dev)
+    return out[:, 0], out[:, 1], ws
 
 
 def _stat_cts(ds: Optional[torch.Tensor], dq: Optional[torch.Tensor],
@@ -361,8 +459,9 @@ def conv_bnact_fwd_plain(xs: Sequence[torch.Tensor],
                          weight: torch.Tensor, bias: torch.Tensor, act: str,
                          want_stats: bool = False):
     """Plain version of K1: returns (y, s, q), the statistics None
-    unless ``want_stats``. The concat is materialized here; the kernel
-    reads the inputs side by side."""
+    unless ``want_stats`` ((N, C_out) each for :data:`PER_SAMPLE`).
+    The concat is materialized here; the kernel reads the inputs side
+    by side."""
     dtype = xs[0].dtype
     x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
     a = prologue(x, inv, shift, act).to(dtype).float()
@@ -370,7 +469,8 @@ def conv_bnact_fwd_plain(xs: Sequence[torch.Tensor],
     y = F.conv3d(a.permute(0, 4, 1, 2, 3), weight.to(dtype).float(),
                  bias.float(), padding=(kd // 2, 1, 1))
     y = y.permute(0, 2, 3, 4, 1).to(dtype).contiguous()
-    s, q = channel_stats(y) if want_stats else (None, None)
+    want, ps = _want(want_stats)
+    s, q = channel_stats(y, ps) if want else (None, None)
     return y, s, q
 
 
@@ -483,18 +583,21 @@ def pack_dgrad_weight(weight: torch.Tensor, dtype: torch.dtype,
                             dtype, device)
 
 
-def _prologue_ptrs(inv, shift, act, c, dev):
+def _prologue_ptrs(inv, shift, act, c, dev, n=None):
     """The tensor-core bodies' prologue vectors: (None, None) for the
     identity prologue (no ``inv`` and a linear activation: the body
-    skips the pass), else the two (c,) float32 vectors."""
+    skips the pass), else the two (c,) float32 vectors, or (n, c) where
+    ``n`` is given and they are per sample."""
     if inv is None and act == "linear":
         return None, None
-    return _vec(inv, c, 1.0, dev), _vec(shift, c, 0.0, dev)
+    return _vec(inv, c, 1.0, dev, n), _vec(shift, c, 0.0, dev, n)
 
 
 def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
     """K1 on CUDA tensors: (y, s, q) as :func:`conv_bnact_fwd_plain`,
-    on the body :func:`conv_body` picks."""
+    on the body :func:`conv_body` picks; in every body a per-sample
+    prologue is a sample stride, and per-sample statistics are the
+    blocks' partial rows summed in a fixed order."""
     x0 = xs[0]
     for x in xs:
         _check_cuda(x, "conv_bnact")
@@ -508,29 +611,30 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
     body = conv_body(dtype, cins)
     if body == "conv1":
         return _conv1_fwd(x0, inv, shift, weight, b, act, want_stats, y)
-    s = q = None
-    if want_stats:
-        s = torch.zeros(cout, dtype=torch.float32, device=dev)
-        q = torch.zeros(cout, dtype=torch.float32, device=dev)
-    x1 = xs[1] if len(xs) > 1 else None
     lib = _build.library()
+    s, q, ws = _stat_bufs(
+        want_stats, n, cout, dev,
+        lambda: lib.e3_conv_bnact_tc_ps_parts(d, h, w, cout) if body == "tc"
+        else lib.e3_conv_bnact_ps_parts(d, h, w))
+    x1 = xs[1] if len(xs) > 1 else None
     if body == "tc":
-        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
+        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev, n)
         wp = pack_conv_weight(weight, dtype, dev)
         with torch.cuda.device(dev):
             rc = lib.e3_conv_bnact_tc(
                 len(xs), x0.data_ptr(), cins[0], _ptr(x1),
                 cins[1] if x1 is not None else 0, _ptr(inv_v),
-                _ptr(shift_v), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
-                _ptr(s), _ptr(q), n, d, h, w, cout, kd, _ACT_ID[act],
-                _stream(dev))
+                _ptr(shift_v), _ns(inv_v), wp.data_ptr(), b.data_ptr(),
+                y.data_ptr(), _ptr(s), _ptr(q), _ptr(ws), n, d, h, w, cout,
+                kd, _ACT_ID[act], _stream(dev))
         _build.check(rc, "conv_bnact (tensor-core body)")
         _count("conv_bnact", "tc")
         return y, s, q
-    inv = _vec(inv, cin, 1.0, dev)
-    shift = _vec(shift, cin, 0.0, dev)
-    invs = torch.split(inv, cins)
-    shifts = torch.split(shift, cins)
+    inv = _vec(inv, cin, 1.0, dev, n)
+    shift = _vec(shift, cin, 0.0, dev, n)
+    # Input 1's vectors start c0 floats in; a per-sample row is cin long.
+    invs = torch.split(inv, cins, dim=-1)
+    shifts = torch.split(shift, cins, dim=-1)
     wt = weight.detach().to(device=dev, dtype=dtype).float() \
         .permute(2, 3, 4, 1, 0).contiguous()
     with torch.cuda.device(dev):
@@ -540,8 +644,9 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
             _ptr(x1), cins[1] if x1 is not None else 0,
             invs[1].data_ptr() if x1 is not None else None,
             shifts[1].data_ptr() if x1 is not None else None,
-            wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
-            n, d, h, w, cout, kd, _ACT_ID[act], _stream(dev))
+            _ns(inv), wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s),
+            _ptr(q), _ptr(ws), n, d, h, w, cout, kd, _ACT_ID[act],
+            _stream(dev))
     _build.check(rc, "conv_bnact")
     _count("conv_bnact", "cuda-core")
     return y, s, q
@@ -551,19 +656,20 @@ def _conv1_fwd(x, inv, shift, weight, b, act, want_stats, y):
     """Row 3's kernel (K1's 'conv1' body, ``csrc/conv1_fwd.cu``) into
     ``y``: it takes the float32 (C_out, C_in, kd, 3, 3) weight as it is
     and rounds it to the dtype itself, and the statistics come from one
-    zeroed (2, C_out) buffer, so a call launches one fill and the
-    kernel."""
+    zeroed (2, C_out) buffer, so a call launches one fill and the kernel
+    (per sample: the kernel and its reduction, no fill)."""
     n, d, h, w, cin = x.shape
     cout, _, kd = weight.shape[:3]
     dev = x.device
-    inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
+    inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev, n)
     wt = weight.detach().to(device=dev, dtype=torch.float32).contiguous()
-    s = q = None
-    if want_stats:
-        s, q = torch.zeros((2, cout), dtype=torch.float32, device=dev)
+    s, q, ws = _stat_bufs(
+        want_stats, n, cout, dev,
+        lambda: _build.library().e3_conv1_fwd_ps_parts(d, h, w))
     _run("conv1_fwd", dev, _DTYPE_ID[x.dtype], x.data_ptr(), cin,
-         _ptr(inv_v), _ptr(shift_v), wt.data_ptr(), b.data_ptr(),
-         y.data_ptr(), _ptr(s), _ptr(q), n, d, h, w, cout, kd, _ACT_ID[act])
+         _ptr(inv_v), _ptr(shift_v), _ns(inv_v), wt.data_ptr(),
+         b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q), _ptr(ws), n, d, h, w,
+         cout, kd, _ACT_ID[act])
     _count("conv_bnact", "conv1")
     return y, s, q
 
@@ -845,22 +951,23 @@ class _ConvBnAct(torch.autograd.Function):
 
 def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
                shift: Optional[torch.Tensor], weight: torch.Tensor,
-               bias: torch.Tensor, act: str, *, want_stats: bool = False,
+               bias: torch.Tensor, act: str, *, want_stats=False,
                reference: bool = False, input_grad: bool = True):
     """Prologue + (kd, 3, 3) 'same' conv + bias over NDHWC inputs.
 
     Args:
         xs: one or two (N, D, H, W, C_i) tensors of one dtype (a merge
             conv's inputs in concat order).
-        inv, shift: (sum C_i,) float32 prologue vectors, or None for the
-            identity norm.
+        inv, shift: (sum C_i,) float32 prologue vectors, or per sample
+            (N, sum C_i), or None for the identity norm.
         weight: (C_out, sum C_i, kd, 3, 3) conv weight, kd in {1, 3}; it
             is rounded to the inputs' dtype at use, and its gradient
             comes back in its own dtype.
         bias: (C_out,) bias, added in float32.
         act: 'relu', 'leaky' or 'linear'.
         want_stats: also return the per-channel float32 (sum, sumsq) of
-            the stored output.
+            the stored output: True for (C_out,) each, :data:`PER_SAMPLE`
+            for (N, C_out).
         reference: run the plain versions whatever the device.
         input_grad: False gives ``xs`` a zero gradient without computing
             one (JAX's fused first conv under ``UNet(input_grad=False)``,
@@ -868,12 +975,16 @@ def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
     Returns:
         (N, D, H, W, C_out) raw conv output in the inputs' dtype, or
         (y, s, q) with ``want_stats``. Differentiable in every tensor
-        argument.
+        argument, but not in the per-sample mode (a per-sample prologue
+        or statistics), where a gradient raises NotImplementedError.
     """
     xs = list(xs)
+    grad = _needs_grad(*xs, inv, shift, weight, bias)
     _conv_contract(xs, weight,
                    _needs_grad(*(xs if input_grad else ()), inv, shift),
-                   _needs_grad(*xs, inv, shift, weight, bias))
+                   grad)
+    _check_per_sample(xs[0], weight.shape[1], inv, shift, want_stats,
+                      "conv_bnact", grad)
     return _ConvBnAct.apply(act, want_stats, reference, input_grad, xs[0],
                             xs[1] if len(xs) > 1 else None, inv, shift,
                             weight, bias)
@@ -938,20 +1049,21 @@ def pool_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
 
 
 def pool_bnact_fwd_kernel(x, inv, shift, act, window):
-    """K2 on CUDA tensors, as :func:`pool_bnact_fwd_plain`."""
+    """K2 on CUDA tensors, as :func:`pool_bnact_fwd_plain` (a per-sample
+    prologue by its sample stride)."""
     _check_cuda(x, "pool_bnact")
     n, d, h, w, c = x.shape
     dev = x.device
-    inv = _vec(inv, c, 1.0, dev)
-    shift = _vec(shift, c, 0.0, dev)
+    inv = _vec(inv, c, 1.0, dev, n)
+    shift = _vec(shift, c, 0.0, dev, n)
     y = torch.empty((n, d // window[0], h // 2, w // 2, c), dtype=x.dtype,
                     device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.e3_pool_bnact(
             _DTYPE_ID[x.dtype], x.data_ptr(), inv.data_ptr(),
-            shift.data_ptr(), y.data_ptr(), n, d, h, w, c, window[0],
-            _ACT_ID[act], _stream(dev))
+            shift.data_ptr(), _ns(inv), y.data_ptr(), n, d, h, w, c,
+            window[0], _ACT_ID[act], _stream(dev))
     _build.check(rc, "pool_bnact")
     LAUNCHES["pool_bnact"] += 1
     return y
@@ -1023,9 +1135,13 @@ def pool_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
     dtype, and the raw ``x`` itself (a view, no copy) as the level's
     skip, whose cotangent K6 adds into dx before its one rounding (JAX's
     ``pool_bnact_flat_skip``), so the level's input takes one gradient
-    and no separate add."""
+    and no separate add. ``inv``/``shift`` are (C,), per sample (N, C)
+    (forward only: a gradient raises NotImplementedError), or None."""
     window = tuple(window)
-    _pool_contract(x, window, _needs_grad(x, inv, shift))
+    grad = _needs_grad(x, inv, shift)
+    _pool_contract(x, window, grad)
+    _check_per_sample(x, x.shape[-1], inv, shift, False, "pool_bnact",
+                      grad)
     return _PoolBnAct.apply(act, window, reference, x, inv, shift)
 
 
@@ -1064,7 +1180,8 @@ def upconv_bnact_fwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
                            weight.to(dtype).float(), bias.float(),
                            stride=tuple(weight.shape[2:]))
     y = y.permute(0, 2, 3, 4, 1).to(dtype).contiguous()
-    s, q = channel_stats(y) if want_stats else (None, None)
+    want, ps = _want(want_stats)
+    s, q = channel_stats(y, ps) if want else (None, None)
     return y, s, q
 
 
@@ -1122,7 +1239,9 @@ def pack_upconv_weight(weight: torch.Tensor, dtype: torch.dtype,
 
 def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
     """K3 on CUDA tensors: (y, s, q) as :func:`upconv_bnact_fwd_plain`,
-    on the body :func:`upconv_body` picks."""
+    on the body :func:`upconv_body` picks. In the per-sample mode both
+    bodies index their grid by (block of a sample, sample), so no block
+    spans two samples, and sum their statistics in a fixed order."""
     _check_cuda(x, "upconv_bnact")
     n, d, h, w, cin = x.shape
     cout, kd = weight.shape[1], weight.shape[2]
@@ -1130,31 +1249,34 @@ def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
     dtype = x.dtype
     b = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty((n, kd * d, 2 * h, 2 * w, cout), dtype=dtype, device=dev)
-    s = q = None
-    if want_stats:
-        s = torch.zeros(cout, dtype=torch.float32, device=dev)
-        q = torch.zeros(cout, dtype=torch.float32, device=dev)
     lib = _build.library()
-    if upconv_body(dtype) == "tc":
-        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
+    tc = upconv_body(dtype) == "tc"
+    s, q, ws = _stat_bufs(
+        want_stats, n, cout, dev,
+        lambda: lib.e3_upconv_bnact_tc_ps_parts(d, h, w) if tc
+        else lib.e3_upconv_bnact_ps_parts(d, h, w, kd))
+    if tc:
+        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev, n)
         wp = pack_upconv_weight(weight, dtype, dev)
         with torch.cuda.device(dev):
             rc = lib.e3_upconv_bnact_tc(
-                x.data_ptr(), _ptr(inv_v), _ptr(shift_v), wp.data_ptr(),
-                b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q), n, d, h, w,
-                cin, cout, kd, _ACT_ID[act], _stream(dev))
+                x.data_ptr(), _ptr(inv_v), _ptr(shift_v), _ns(inv_v),
+                wp.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
+                _ptr(ws), n, d, h, w, cin, cout, kd, _ACT_ID[act],
+                _stream(dev))
         _build.check(rc, "upconv_bnact (tensor-core body)")
         _count("upconv_bnact", "tc")
         return y, s, q
-    inv = _vec(inv, cin, 1.0, dev)
-    shift = _vec(shift, cin, 0.0, dev)
+    inv = _vec(inv, cin, 1.0, dev, n)
+    shift = _vec(shift, cin, 0.0, dev, n)
     wt = weight.detach().to(device=dev, dtype=dtype).float() \
         .permute(2, 3, 4, 0, 1).contiguous()
     with torch.cuda.device(dev):
         rc = lib.e3_upconv_bnact(
             _DTYPE_ID[dtype], x.data_ptr(), inv.data_ptr(), shift.data_ptr(),
-            wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q),
-            n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
+            _ns(inv), wt.data_ptr(), b.data_ptr(), y.data_ptr(), _ptr(s),
+            _ptr(q), _ptr(ws), n, d, h, w, cin, cout, kd, _ACT_ID[act],
+            _stream(dev))
     _build.check(rc, "upconv_bnact")
     _count("upconv_bnact", "cuda-core")
     return y, s, q
@@ -1253,7 +1375,7 @@ class _UpconvBnAct(torch.autograd.Function):
 
 def upconv_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
                  shift: Optional[torch.Tensor], weight: torch.Tensor,
-                 bias: torch.Tensor, act: str, *, want_stats: bool = False,
+                 bias: torch.Tensor, act: str, *, want_stats=False,
                  reference: bool = False):
     """Optional prologue, then a transposed conv whose kernel equals its
     stride, (1, 2, 2) or (2, 2, 2), plus bias.
@@ -1261,15 +1383,21 @@ def upconv_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
     Args:
         x: (N, D, H, W, C_in) NDHWC input (raw deeper-level output when
             a prologue is given).
-        inv, shift: (C_in,) float32 prologue vectors, or None.
+        inv, shift: (C_in,) float32 prologue vectors, per sample
+            (N, C_in), or None.
         weight: (C_in, C_out, kd, 2, 2) torch ConvTranspose3d weight.
         bias: (C_out,).
         want_stats: also return the output's per-channel float32
-            (sum, sumsq).
+            (sum, sumsq): True for (C_out,) each, :data:`PER_SAMPLE` for
+            (N, C_out).
     Returns:
         (N, kd * D, 2 H, 2 W, C_out) in ``x``'s dtype, or (y, s, q).
-        Differentiable in every tensor argument.
+        Differentiable in every tensor argument, but not in the
+        per-sample mode, where a gradient raises NotImplementedError.
     """
-    _upconv_contract(x, weight, _needs_grad(x, inv, shift, weight, bias))
+    grad = _needs_grad(x, inv, shift, weight, bias)
+    _upconv_contract(x, weight, grad)
+    _check_per_sample(x, x.shape[-1], inv, shift, want_stats,
+                      "upconv_bnact", grad)
     return _UpconvBnAct.apply(act, want_stats, reference, x, inv, shift,
                               weight, bias)

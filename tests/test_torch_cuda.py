@@ -1894,3 +1894,290 @@ def test_cuda_unet_level_input_gets_one_k6_dx():
         p = fused.pool_bnact(y, None, None, "relu", (1, 2, 2))[0]
         (p.float().sum() + (y * 1.0).float().sum()).backward()
     assert len(_level_adds(control, y.shape)) == 1
+
+
+# ---------------------------------------------------------------------------
+# The per-sample mode of K1 (both bodies and row 3's), K2 and K3 (group and
+# instance norm): (N, C) prologue vectors and (N, C) statistics, held
+# against the plain versions, whose statistics are channel_stats(y, True).
+# Each sample's input has its own scale, so that the rows differ.
+# ---------------------------------------------------------------------------
+
+def _per_sample_x(shape, c, dtype, dev, g):
+    n = shape[0]
+    scale = torch.arange(1, n + 1, dtype=torch.float32).view(
+        n, *(1,) * len(shape))
+    return (scale * torch.randn(*shape, c, generator=g)).to(dev, dtype)
+
+
+def _per_sample_pro(n, c, dev, g):
+    return (torch.randn(n, c, generator=g).to(dev),
+            torch.randn(n, c, generator=g).to(dev))
+
+
+def _assert_per_sample_stats(got, s, q, ref_s, ref_q, dtype):
+    """Statistics rows of (N, C): against the plain sums of the kernel's
+    own stored output, and in float32 against the plain statistics."""
+    ks, kq = fused.channel_stats(got, per_sample=True)
+    assert s.shape == q.shape == ks.shape
+    for i in range(s.shape[0]):
+        _assert_sum(s[i], ks[i])
+        _assert_sum(q[i], kq[i])
+        if dtype == torch.float32:
+            _assert_sum(s[i], ref_s[i])
+            _assert_sum(q[i], ref_q[i])
+
+
+def _assert_per_sample_repeats(run, out, i):
+    """The per-sample mode's outputs are the same bits on a rerun, and
+    sample ``i``'s are the same bits when it is run alone: ``run(None)``
+    reruns the call, ``run(i)`` runs it on sample i's slice of every
+    batched argument (its statistics summed in the same fixed order)."""
+    again = run(None)
+    alone = run(i)
+    torch.cuda.synchronize()
+    for a, b in zip(out, again):
+        assert a is None or torch.equal(a, b)
+    for a, b in zip(out, alone):
+        assert a is None or torch.equal(a[i], b[0])
+
+
+def _slice(v, i):
+    return None if v is None else v[i:i + 1].clone()
+
+
+# (input channels, kd, activation, C_out, (N, D), (H, W)): the headline
+# levels' convs (L0 32->32 and the 32+32 merge, L1 kd 3, the C=128 level)
+# and a D * H * W past one block of every body.
+PS_CONV_CASES = [
+    ((32,), 1, "relu", 32, (3, 5), (13, 37)),
+    ((32, 32), 1, "relu", 32, (2, 5), (13, 37)),
+    ((32,), 3, "relu", 64, (2, 5), (13, 37)),
+    ((64, 64), 3, "leaky", 64, (3, 4), (12, 20)),
+    ((128, 128), 3, "relu", 128, (2, 3), (9, 11))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_stats", [False, "per_sample"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cins,kd,act,cout,nd,hw", PS_CONV_CASES)
+def test_cuda_conv_bnact_per_sample_matches_plain(dtype, cins, kd, act, cout,
+                                                  nd, hw, want_stats):
+    """K1 with (N, C) prologue vectors (row n of them applied to sample n)
+    and, with statistics, (N, C_out) sums: one launch, on the
+    tensor-core body in bf16 and the CUDA-core body in float32."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(sum(cins) + cout + kd)
+    xs = [_per_sample_x(nd + hw, c, dtype, dev, g) for c in cins]
+    w = (0.1 * torch.randn(cout, sum(cins), kd, 3, 3, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv, shift = _per_sample_pro(nd[0], sum(cins), dev, g)
+
+    def run(i):
+        if i is None:
+            return fused.conv_bnact_fwd_kernel(xs, inv, shift, w, b, act,
+                                               want_stats)
+        return fused.conv_bnact_fwd_kernel(
+            [_slice(x, i) for x in xs], _slice(inv, i), _slice(shift, i), w,
+            b, act, want_stats)
+    fused.reset_launches()
+    got, s, q = run(None)
+    body = "tc" if dtype == torch.bfloat16 else "cuda-core"
+    assert fused.BODY_LAUNCHES == {("conv_bnact", body): 1}
+    ref, rs, rq = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, act,
+                                             want_stats)
+    torch.cuda.synchronize()
+    _assert_kernel(got, ref)
+    _assert_per_sample_repeats(run, (got, s, q), 1)
+    if not want_stats:
+        assert s is None and q is None
+        return
+    _assert_per_sample_stats(got, s, q, rs, rq, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pro", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,cout,kd", [
+    ((6, 8, 64, 64), 1, 32, 1), ((5, 4, 64, 96), 1, 64, 3),
+    ((6, 8, 64, 64), 3, 32, 1), ((3, 3, 45, 37), 1, 32, 1)])
+def test_cuda_conv1_fwd_per_sample_straddles_samples(shape, cin, cout, kd,
+                                                     dtype, pro):
+    """Row 3's kernel with per-sample statistics (and a per-sample
+    prologue). Its persistent blocks walk tiles a grid apart: at 6 x 8
+    planes of 16 tiles (768 tiles, more than the blocks that fit the
+    card's SMs) the batch form's blocks take tiles of two or more
+    samples; the per-sample mode walks each sample's tiles with blocks of
+    its own, whose partial rows are summed in a fixed order: the same
+    bits on a rerun and for a sample run alone."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(sum(shape) + cin)
+    xs = [_per_sample_x(shape, cin, dtype, dev, g)]
+    w = (0.3 * torch.randn(cout, cin, kd, 3, 3, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    act = "linear"
+    if pro:
+        inv, shift = _per_sample_pro(shape[0], cin, dev, g)
+        act = "relu"
+
+    def run(i):
+        if i is None:
+            return fused.conv_bnact_fwd_kernel(xs, inv, shift, w, b, act,
+                                               "per_sample")
+        return fused.conv_bnact_fwd_kernel(
+            [_slice(xs[0], i)], _slice(inv, i), _slice(shift, i), w, b, act,
+            "per_sample")
+    fused.reset_launches()
+    got, s, q = run(None)
+    assert fused.BODY_LAUNCHES == {("conv_bnact", "conv1"): 1}
+    ref, rs, rq = fused.conv_bnact_fwd_plain(xs, inv, shift, w, b, act,
+                                             "per_sample")
+    torch.cuda.synchronize()
+    _assert_kernel(got, ref)
+    _assert_per_sample_stats(got, s, q, rs, rq, dtype)
+    _assert_per_sample_repeats(run, (got, s, q), shape[0] - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,c,nd", [
+    ((1, 2, 2), 32, (3, 4)), ((2, 2, 2), 64, (2, 4)),
+    ((2, 2, 2), 128, (3, 2))])
+def test_cuda_pool_bnact_per_sample_matches_plain(dtype, window, c, nd):
+    """K2 with (N, C) prologue vectors: exact, as the batch form."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(c)
+    x = _per_sample_x(nd + (6, 10), c, dtype, dev, g)
+    inv, shift = _per_sample_pro(nd[0], c, dev, g)
+    got = fused.pool_bnact(x, inv, shift, "relu", window)[0]
+    ref = fused.pool_bnact(x, inv, shift, "relu", window, reference=True)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+# (C_in, C_out, kd, prologue, (N, D), (H, W)): D * H * W of 105, 60 and
+# 10,648 voxels (the bench L2 carry (22, 22, 22)), none a multiple of the
+# tensor-core body's 64-voxel blocks, so the batch grid's blocks would
+# straddle two samples; then the planar up_2 from the C=64 carry.
+PS_UPCONV_CASES = [(128, 64, 2, True, (3, 3), (5, 7)),
+                   (64, 32, 1, True, (3, 3), (4, 5)),
+                   (128, 64, 2, False, (2, 3), (5, 7)),
+                   (128, 64, 2, True, (2, 22), (22, 22)),
+                   (256, 128, 2, True, (2, 2), (3, 5))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_stats", [False, "per_sample"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,kd,pro,nd,hw", PS_UPCONV_CASES)
+def test_cuda_upconv_bnact_per_sample_matches_plain(dtype, cin, cout, kd,
+                                                    pro, nd, hw, want_stats):
+    """K3 with (N, C_in) prologue vectors and (N, C_out) statistics, at
+    sample sizes that are no multiple of a block: its grid is (blocks of
+    a sample, sample) in this mode; the same bits on a rerun and for a
+    sample run alone."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(cin + kd + hw[0])
+    x = _per_sample_x(nd + hw, cin, dtype, dev, g)
+    w = (0.1 * torch.randn(cin, cout, kd, 2, 2, generator=g)).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    inv = shift = None
+    act = "linear"
+    if pro:
+        inv, shift = _per_sample_pro(nd[0], cin, dev, g)
+        act = "relu"
+    if not pro and not want_stats:
+        want_stats = "per_sample"   # a dense input: the statistics alone
+
+    def run(i):
+        if i is None:
+            return fused.upconv_bnact_fwd_kernel(x, inv, shift, w, b, act,
+                                                 want_stats)
+        return fused.upconv_bnact_fwd_kernel(
+            _slice(x, i), _slice(inv, i), _slice(shift, i), w, b, act,
+            want_stats)
+    fused.reset_launches()
+    got, s, q = run(None)
+    assert fused.LAUNCHES["upconv_bnact"] == 1
+    ref, rs, rq = fused.upconv_bnact_fwd_plain(x, inv, shift, w, b, act,
+                                               want_stats)
+    torch.cuda.synchronize()
+    _assert_kernel(got, ref)
+    _assert_per_sample_repeats(run, (got, s, q), 1)
+    if not want_stats:
+        assert s is None and q is None
+        return
+    _assert_per_sample_stats(got, s, q, rs, rq, dtype)
+
+
+def _group_unet(norm, dtype, dev, seed=0):
+    """The headline structure with ``norm`` and random affine
+    parameters."""
+    from elektronn3_tpu_torch.models import UNet
+    m = UNet(n_blocks=4, start_filts=32, planar_blocks=(0,), dtype=dtype,
+             normalization=norm, device=dev,
+             generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if ".norm" in name:
+                p.copy_(torch.randn(p.shape, generator=g)
+                        if name.endswith("weight")
+                        else 0.1 * torch.randn(p.shape, generator=g))
+    return m.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", ["group", "instance"])
+def test_cuda_unet_group_norm_matches_reference_forward(dtype, norm):
+    """The headline structure with a group norm serves on the kernels'
+    per-sample mode: K1 (row 3 once), K2 and K3 as under 'batch', no
+    CUDA-core K1 in bf16, the same bits on a second call, and the forward
+    tracks forward(reference=True). Training through its kernel levels
+    raises."""
+    dev = _cuda()
+    m = _group_unet(norm, dtype, dev)
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    x[1] *= 3.0
+    fused.reset_launches()
+    y = m(x)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == {"conv_bnact": 8, "pool_bnact": 2,
+                              "upconv_bnact": 2, "conv_bnact_dgrad": 0,
+                              "conv_bnact_wgrad": 0, "conv1_bwd": 0,
+                              "pool_bnact_bwd": 0, "upconv_bnact_bwd": 0,
+                              **_NO_BN, **_NO_VUP}
+    if dtype == torch.bfloat16:
+        assert fused.BODY_LAUNCHES[("conv_bnact", "conv1")] == 1
+        assert ("conv_bnact", "cuda-core") not in fused.BODY_LAUNCHES
+    assert torch.equal(m(x), y)   # the statistics' fixed order
+    ref = m(x, reference=True)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
+    m.train()
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+        m(x)
+
+
+@pytest.mark.cuda
+def test_cuda_group_predictor_does_not_depend_on_batch_size():
+    """Each tile of a Predictor batch is a sample with its own group
+    statistics: batch 1 and batch 2 give the same probabilities (within
+    the bf16 forward tolerance; the kernel levels' bits are the same,
+    the library levels' convs may pick other algorithms by batch), and a
+    request repeats its probabilities bit for bit."""
+    from elektronn3_tpu_torch.inference import Predictor
+    dev = _cuda()
+    m = _group_unet("group", torch.bfloat16, dev)
+    x = torch.randn(1, 1, 16, 96, 96,
+                    generator=torch.Generator().manual_seed(3)).numpy()
+    outs = [Predictor(m, batch_size=bs, tile_shape=(8, 48, 48),
+                      overlap_shape=(4, 8, 8), float16=True).predict(x)
+            for bs in (1, 2, 2)]
+    assert outs[0].shape == (1, 2, 16, 96, 96)
+    assert float(abs(outs[0] - outs[1]).max()) <= 5e-2
+    assert (outs[1] == outs[2]).all()
