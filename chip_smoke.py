@@ -246,7 +246,7 @@ P0, P1, P2, P3 = ((1, 640, 640), (1, 320, 320), (1, 160, 160),
 WARMUP, STEPS, N_BATCHES = 3, 20, 5
 # The plain versions' steps (10 to 20 times the kernels') are a yardstick,
 # not a metric: timed over fewer steps.
-PLAIN_WARMUP, PLAIN_STEPS = 1, 5
+PLAIN_WARMUP, PLAIN_STEPS = 1, 3
 CROSSOVER_PAIRS = 5                # timed request pairs, kernels / library
 # check_train_step: a gradient leaf may differ from the reference step's
 # by this many times the reference step's own difference under a one-ulp
@@ -450,9 +450,28 @@ GROUP_SERVE_SHAPES = {
     "6/ps": ("upconv_bnact", 256, 128, 2, False),
     "24/222 ps": ("upconv_bnact", 128, 64, 2, True),
     "7/ps": ("upconv_bnact", 64, 32, 1, True)}
-ROW_SHAPES.update({r: ("per_sample",) + k
-                   for r, k in GROUP_SERVE_SHAPES.items()})
+# The group model's training step at bench.py's shapes (L2 under the
+# C=128 gate): the per-sample launches of the backward kernels by row.
+GROUP_TRAIN_SHAPES = {
+    "13/ps": ("conv1_bwd", (1,), 32, 1, False),
+    "8/ps dgrad": ("conv_bnact_dgrad", (32,), 32, 1, True),
+    "8/ps wgrad": ("conv_bnact_wgrad", (32,), 32, 1, True),
+    "8/ps merge dgrad": ("conv_bnact_dgrad", (32, 32), 32, 1, True),
+    "8/ps merge wgrad": ("conv_bnact_wgrad", (32, 32), 32, 1, True),
+    "14/ps L1 conv1 dgrad": ("conv_bnact_dgrad", (32,), 64, 3, False),
+    "14/ps L1 conv1 wgrad": ("conv_bnact_wgrad", (32,), 64, 3, False),
+    "14/ps dgrad": ("conv_bnact_dgrad", (64,), 64, 3, True),
+    "14/ps wgrad": ("conv_bnact_wgrad", (64,), 64, 3, True),
+    "14/ps merge dgrad": ("conv_bnact_dgrad", (64, 64), 64, 3, True),
+    "14/ps merge wgrad": ("conv_bnact_wgrad", (64, 64), 64, 3, True),
+    "10/ps": ("pool_bnact_bwd", 32, (1, 2, 2)),
+    "15/ps": ("pool_bnact_bwd", 64, (2, 2, 2)),
+    "18/ps": ("upconv_bnact_bwd", 128, 64, 2, False),
+    "21/ps": ("upconv_bnact_bwd", 64, 32, 1, True)}
+ROW_SHAPES.update({r: ("per_sample",) + k for r, k in
+                   {**GROUP_SERVE_SHAPES, **GROUP_TRAIN_SHAPES}.items()})
 GROUP_SERVE_ROWS = tuple(GROUP_SERVE_SHAPES)
+GROUP_TRAIN_ROWS = tuple(GROUP_TRAIN_SHAPES)
 VUP_TRAIN_ROWS = ("1/vup", 9, "9/wgrad", 22, 23)
 VUP_SERVE_ROWS = ("1/vup tile", "1/vup request")
 FLAT_SERVE_ROWS = (26, "26/merge")
@@ -650,6 +669,33 @@ PS_VARIANTS = [
     ("upconv", "bench up_2 (1,2,2) 64->32 [row 7]", TL1, (64,), 32, 1, True,
      BATCH),
 ]
+# The per-sample backward (training group and instance norm) of row 13,
+# K4, K5, K6 and K7 at bench.py's training shapes (batch 8), as the
+# headline group model's kernel levels run them: (kind, label, level
+# shape, input channels, C_out, kd / window, prologue). Each takes (N, C)
+# statistics cotangents (the conv and upconv outputs feed a group norm)
+# and, with a prologue, (N, C) vectors, and gives (N, C) dinv and dshift;
+# in bf16 its batch form at the same shape ((C,) vectors and
+# cotangents) is timed in turns with it.
+PS_BWD_VARIANTS = [
+    ("conv", "bench L0 conv1 1->32 kd1 [row 13]", PATCH, (1,), 32, 1,
+     False),
+    ("conv", "bench L0 conv2 32->32 kd1 [row 8]", PATCH, (32,), 32, 1, True),
+    ("conv", "bench up_2 merge 32+32->32 kd1 [row 8]", PATCH, (32, 32), 32,
+     1, True),
+    ("conv", "bench L1 conv1 32->64 kd3 [row 14]", TL1, (32,), 64, 3, False),
+    ("conv", "bench L1 conv2 64->64 kd3 [row 14]", TL1, (64,), 64, 3, True),
+    ("conv", "bench up_1 merge 64+64->64 kd3 [row 14]", TL1, (64, 64), 64,
+     3, True),
+    ("pool", "bench L0 pool (1,2,2) C=32 +dskip [row 10]", PATCH, (32,), 32,
+     (1, 2, 2), True),
+    ("pool", "bench L1 pool (2,2,2) C=64 +dskip [row 15]", TL1, (64,), 64,
+     (2, 2, 2), True),
+    ("upconv", "bench up_1 (2,2,2) 128->64 from L2 [row 18]", TL2, (128,),
+     64, 2, False),
+    ("upconv", "bench up_2 (1,2,2) 64->32 [row 21]", TL1, (64,), 32, 1,
+     True),
+]
 # Training shapes (batch 8) of rows 11/12 on the headline model (L0's
 # decoder upconv from L1's dense output, where L1 declines) and of the
 # start_filts=64 model at bench.py's (44, 88, 88): L0 planar C=64, L1
@@ -729,7 +775,19 @@ PREDICTED = {}  # predictor_phase's bf16 probabilities and MVox/s by model
 BODY_LAUNCHES = {}
 
 
-def cuda_ms(fn, reps=3, min_ms=20.0):
+PHASE_S = {}   # main's phases' wall seconds, for the run's time budget
+_MARK = [0.0]
+
+
+def mark(name):
+    """Record the wall seconds since the last mark as phase ``name``."""
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    PHASE_S[name] = round(now - _MARK[0], 1)
+    _MARK[0] = now
+
+
+def cuda_ms(fn, reps=3, min_ms=15.0):
     """Mean device time of ``fn`` from CUDA events, after one warm-up,
     over ``reps`` calls or as many more (at most 100) as fill ``min_ms``
     at the time one call takes: a few calls of a 0.2 ms op read a
@@ -1066,7 +1124,7 @@ def per_sample_phase(fused, stats):
     statistics); in bf16 the same kernel's batch form (+stats) at the
     same shape is checked too, and the two are timed in turns
     (per-sample, batch, batch, per-sample: each line the mean of its
-    two), as is the plain version."""
+    two); the plain version once."""
     for seed, (kind, label, shape, cins, cout, kdw, pro, n) in \
             enumerate(PS_VARIANTS):
         name = FWD[kind]
@@ -1151,16 +1209,163 @@ def per_sample_phase(fused, stats):
                     a = lib_input(xs, fi, fs, act)
                     lib = cuda_ms(library_calls(kind, a, w, b, kdw)[name])
                     del a
-                rows.append([form, err, run, plain, bnd, lib, [], []])
+                rows.append([form, err, run, plain, bnd, lib, []])
             for r in rows + rows[::-1]:     # in turns: A, B, B, A
                 r[6].append(cuda_ms(r[2]))
-                r[7].append(cuda_ms(r[3]))
-            for form, err, _, _, bnd, lib, ms, plain_ms in rows:
+            for form, err, _, plain, bnd, lib, ms in rows:
                 stats.add(stat_name(name, body), f"{label} {form}", dtype,
-                          err, sum(ms) / len(ms),
-                          sum(plain_ms) / len(plain_ms), bnd, lib, False,
-                          body=body)
+                          err, sum(ms) / len(ms), cuda_ms(plain), bnd, lib,
+                          False, body=body)
             del xs, rows
+            torch.cuda.empty_cache()
+
+
+def check_rows_sum(got, ref, what):
+    """A (C,) sum, or (N, C) sums row by row against each row's scale
+    (:func:`check_sum`)."""
+    if got.dim() == 1:
+        return check_sum(got, ref, what)
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(ref.shape)}")
+    return max(check_sum(g, r, f"{what} row {i}")
+               for i, (g, r) in enumerate(zip(got, ref)))
+
+
+def per_sample_bwd_phase(fused, stats):
+    """The per-sample backward of row 13, K4, K5, K6 and K7
+    (:data:`PS_BWD_VARIANTS`, bench.py's batch 8, samples of different
+    scales), bf16 and float32, each against its plain version (dx; dinv
+    and dshift row by row; dW, db), and the per-sample dinv and dshift
+    the same bits on a second call; in bf16 the batch form at the same
+    shape too, and the two timed in turns (per-sample, batch, batch,
+    per-sample: each line the mean of its two); the plain version once.
+    Its bound: its inputs and outputs once, or its FLOPs at the dtype's
+    peak; lib*: the library's backward of the op (no prologue, no
+    statistics)."""
+    n = BATCH
+    for seed, (kind, label, shape, cins, cout, kdw, pro) in \
+            enumerate(PS_BWD_VARIANTS):
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            peak = PEAK_BF16 if bf16 else PEAK_F32
+            rnd = rand_on_card(500 + seed)
+            scale = torch.arange(1, n + 1, device="cuda").view(
+                n, *(1,) * (len(shape) + 1))
+            xs = [(scale * rnd(n, *shape, c)).to(dtype) for c in cins]
+            cin = sum(cins)
+            inv = rnd(n, cin) if pro else None
+            shift = rnd(n, cin, scale=0.5) if pro else None
+            act = "relu" if pro else "linear"
+            m = xs[0].numel() // cins[0]
+            w = b = None
+            if kind == "pool":
+                out_shape = (n, shape[0] // kdw[0], shape[1] // 2,
+                             shape[2] // 2, cin)
+                dsk = rnd(*xs[0].shape, scale=0.1).to(dtype)
+                calls = [("pool_bnact_bwd", fused.pool_bnact_bwd_kernel,
+                          fused.pool_bnact_bwd_plain)]
+                flops, fpeak = 10.0 * xs[0].numel(), PEAK_F32
+            elif kind == "conv":
+                std = (2.0 / ((cin + cout) * kdw * 9)) ** 0.5
+                w, b = rnd(cout, cin, kdw, 3, 3, scale=std), rnd(cout,
+                                                                scale=0.1)
+                out_shape = (n, *shape, cout)
+                if cins[0] <= fused.CONV1_MAX_CIN:
+                    # Row 13 as the path runs it: dW and db, no dx.
+                    calls = [("conv1_bwd",
+                              lambda *a: fused.conv1_bwd_kernel(*a, False),
+                              lambda *a: fused.conv1_bwd_plain(*a, False))]
+                else:
+                    calls = [("conv_bnact_dgrad",
+                              fused.conv_bnact_dgrad_kernel,
+                              fused.conv_bnact_dgrad_plain),
+                             ("conv_bnact_wgrad",
+                              fused.conv_bnact_wgrad_kernel,
+                              fused.conv_bnact_wgrad_plain)]
+                flops, fpeak = conv_flops(m, cin, cout, kdw), peak
+            else:
+                std = (2.0 / ((cin + cout) * kdw * 4)) ** 0.5
+                w, b = rnd(cin, cout, kdw, 2, 2, scale=std), rnd(cout,
+                                                                scale=0.1)
+                out_shape = (n, kdw * shape[0], 2 * shape[1], 2 * shape[2],
+                             cout)
+                calls = [("upconv_bnact_bwd", fused.upconv_bnact_bwd_kernel,
+                          fused.upconv_bnact_bwd_plain)]
+                flops, fpeak = 2 * upconv_flops(m, cin, cout, kdw), peak
+            dy = rnd(*out_shape, scale=0.1).to(dtype)
+            y = None if kind == "pool" else \
+                (scale * rnd(*out_shape)).to(dtype)
+            ds, dq = rnd(n, cout, scale=1e-3), rnd(n, cout, scale=1e-4)
+            forms = [("per-sample", inv, shift, ds, dq)]
+            if bf16:
+                forms.append(("batch", None if inv is None else
+                              inv[0].contiguous(), None if shift is None
+                              else shift[0].contiguous(), ds[0].contiguous(),
+                              dq[0].contiguous()))
+            libs = {}
+            if bf16:
+                a = lib_input(xs, inv, shift, act)
+                libs = library_calls(kind, a, w, b, kdw, lib_view(dy))
+            for name, kfn, pfn in calls:
+                rows = []
+                for form, fi, fs, fds, fdq in forms:
+                    if kind == "pool":
+                        args = (xs[0], fi, fs, act, kdw, dy, dsk)
+                    else:
+                        x_ = xs if kind == "conv" else xs[0]
+                        args = (x_, fi, fs, w, y, dy, fds, fdq, act)
+                    run = functools.partial(kfn, *args)
+                    plain = functools.partial(pfn, *args)
+                    what = f"{name} {label} {form} {dtype}"
+                    fused.reset_launches()
+                    got = run()
+                    if form == "per-sample" and \
+                            fused.PS_LAUNCHES != {name: 1}:
+                        raise AssertionError(f"{what}: per-sample launches "
+                                             f"{fused.PS_LAUNCHES}")
+                    again = run()
+                    ref = plain()
+                    torch.cuda.synchronize()
+                    err = 0.0
+                    for item, g_, a_, r_ in zip(
+                            ("dx", "dinv", "dshift", "dW", "db"),
+                            _bwd_named(name, got), _bwd_named(name, again),
+                            _bwd_named(name, ref)):
+                        if r_ is None:
+                            continue
+                        if item == "dx":
+                            for gi, ri in zip(g_, r_):
+                                err = max(err, check_close(
+                                    gi, ri, dtype, f"{what} dx"))
+                            continue
+                        err = max(err, check_rows_sum(g_, r_,
+                                                      f"{what} {item}"))
+                        if form == "per-sample" and item in (
+                                "dinv", "dshift") and not torch.equal(g_,
+                                                                      a_):
+                            raise AssertionError(f"{what}: {item} not the "
+                                                 "same bits on a rerun")
+                    bnd = bound(flops, fpeak, args, got)
+                    del got, again, ref
+                    lib = None
+                    if bf16:
+                        back = libs[name if name != "conv1_bwd"
+                                    else "conv_bnact_wgrad"]
+                        if kind == "pool":
+                            dskv = lib_view(dsk)
+                            lib = cuda_ms(lambda: back() + dskv)
+                        else:
+                            lib = cuda_ms(back)
+                    rows.append([form, err, run, plain, bnd, lib, []])
+                for r in rows + rows[::-1]:     # in turns: A, B, B, A
+                    r[6].append(cuda_ms(r[2]))
+                for form, err, _, plain, bnd, lib, ms in rows:
+                    stats.add(name, f"{label} {form}", dtype, err,
+                              sum(ms) / len(ms), cuda_ms(plain), bnd, lib,
+                              False,
+                              body=bwd_body(fused, name, dtype, cins))
+            del xs, dy, y, libs
             torch.cuda.empty_cache()
 
 
@@ -1366,6 +1571,8 @@ def train_kernel_phase(fused, stats, variants, total, serve):
 
 def _bwd_named(name, out):
     """A backward result as (dx list, dinv, dshift, dW, db)."""
+    if name == "pool_bnact_bwd":
+        return [out[0]], out[1], out[2], None, None
     if name == "conv_bnact_dgrad":
         return out[0], out[1], out[2], None, None
     if name == "conv_bnact_wgrad":
@@ -1692,9 +1899,12 @@ def record_shapes(fused, bn=None):
                 key = (n.replace("_fwd_kernel", "").replace("_kernel", ""),
                        x.shape[-1], w.shape[1], w.shape[2], inv is not None)
             seen[key] += 1
-            # the per-sample mode: (N, C) vectors or per-sample statistics
+            # the per-sample mode: (N, C) vectors, per-sample statistics
+            # or (N, C) statistics cotangents (the backward's ds, dq)
             if (inv is not None and inv.dim() == 2) or "per_sample" in [
-                    r for r in rest if isinstance(r, str)]:
+                    r for r in rest if isinstance(r, str)] or any(
+                        isinstance(r, torch.Tensor) and r.dim() == 2
+                        for r in rest):
                 seen[("per_sample",) + key] += 1
             return real[n](x, inv, shift, *rest)
         return f
@@ -2147,7 +2357,7 @@ def _step_grads(model, crit, x, y, reference):
                                   for n, p in model.named_parameters()}
 
 
-def check_train_step(build, crit, x, y, zero_bf16=1e-2):
+def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True):
     """One step's loss, parameter gradients and new running statistics
     on the kernel path against the same step through reference=True,
     from equal parameters and running statistics, in float32 and in
@@ -2162,7 +2372,9 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2):
     another order than the plain versions. The bias of a conv that
     feeds a batch norm has an exact gradient of 0: both of its computed
     gradients must be at most 1e-4 (float32) or ``zero_bf16`` (bf16) of
-    the weight gradient's norm. The loss within 1e-4 (float32) or 1e-2
+    the weight gradient's norm (``zero_bias`` False: held like the other
+    leaves, as under a group norm of several channels a group, where
+    that gradient is no exact 0). The loss within 1e-4 (float32) or 1e-2
     (bf16) relative; each running statistic within 1e-3 (float32) or
     5e-2 (bf16) of its max."""
     failures = []
@@ -2186,8 +2398,8 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2):
         worst_zero = [0.0, 0.0]
         for name, g in grads.items():
             r = ref[name]
-            if name.endswith(".bias") and name != "conv_final.bias" \
-                    and "norm" not in name:
+            if zero_bias and name.endswith(".bias") \
+                    and name != "conv_final.bias" and "norm" not in name:
                 wnorm = float(ref[name[:-len("bias")] + "weight"].norm())
                 qg, qr = float(g.norm()) / wnorm, float(r.norm()) / wnorm
                 q = max(qg, qr)
@@ -2272,45 +2484,63 @@ def bench_batches(shape):
 
 
 def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
-                rows=(), kernels=K1_K7, bn=None, zero_bf16=1e-2):
+                rows=(), kernels=K1_K7, bn=None, zero_bf16=1e-2,
+                zero_bias=True, per_sample=False, plain=True):
     """Timed training steps of ``build``'s model on batches of ``shape``
-    (kernels, plain, kernels again), every kernel of ``kernels``
-    launched, the ``rows``' shapes launched (``bn``: the 'batchp'
-    kernels' too), a falling loss, and one step against the reference
-    (``check_train_step`` with ``zero_bf16``)."""
+    (kernels, plain (unless not ``plain``), kernels again), every kernel
+    of ``kernels``
+    launched (``per_sample``: every launch of K1-K7 and row 13's in the
+    per-sample mode), the ``rows``' shapes launched (``bn``: the
+    'batchp' kernels' too), a falling loss, and one step against the
+    reference (``check_train_step`` with ``zero_bf16`` and
+    ``zero_bias``)."""
     crit = CEDiceLoss(1.0, 1.0)
     batches = bench_batches(shape)
     model = build(4, torch.bfloat16)
 
     vox = int(np.prod(shape))
-    plain_model = copy.deepcopy(model)
+    plain_model = copy.deepcopy(model) if plain else None
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-    plain_opt = torch.optim.Adam(plain_model.parameters(), lr=1e-3)
     torch.cuda.reset_peak_memory_stats()
     dt_k = timed_steps(train_step, model, crit, opt, batches, False,
                        fused.reset_launches)
     launches = launch_counts(fused)
     bodies = dict(fused.BODY_LAUNCHES)
+    ps_launches = dict(fused.PS_LAUNCHES)
     BODY_LAUNCHES[f"train_{what}"] = bodies
     peak = torch.cuda.max_memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    dt_p = timed_steps(train_step, plain_model, crit, plain_opt, batches,
-                       True, warmup=PLAIN_WARMUP, steps=PLAIN_STEPS)
-    peak_p = torch.cuda.max_memory_allocated() / 1e9
-    del plain_model, plain_opt
+    dt_p = peak_p = float("nan")
+    if plain:
+        torch.cuda.reset_peak_memory_stats()
+        dt_p = timed_steps(train_step, plain_model, crit,
+                           torch.optim.Adam(plain_model.parameters(),
+                                            lr=1e-3),
+                           batches, True, warmup=PLAIN_WARMUP,
+                           steps=PLAIN_STEPS)
+        peak_p = torch.cuda.max_memory_allocated() / 1e9
+    del plain_model
     dt_k2 = timed_steps(train_step, model, crit, opt, batches, False)
     STEP_MS[what] = (dt_k * 1e3, dt_p * 1e3, dt_k2 * 1e3)
     for label, dt in (("kernels", dt_k), ("plain", dt_p),
                       ("kernels again", dt_k2)):
-        print(f"train {what}: {label:13s} step {dt * 1e3:9.2f} ms = "
-              f"{vox / dt / 1e6:7.2f} {unit}/s (batch {shape[0]} of "
-              f"{shape[1:-1]}, bf16, CEDiceLoss, Adam)", flush=True)
+        if dt == dt:   # the plain arm may not run (nan)
+            print(f"train {what}: {label:13s} step {dt * 1e3:9.2f} ms = "
+                  f"{vox / dt / 1e6:7.2f} {unit}/s (batch {shape[0]} of "
+                  f"{shape[1:-1]}, bf16, CEDiceLoss, Adam)", flush=True)
     print(f"train {what}: peak device memory {peak:.2f} GB (kernels), "
           f"{peak_p:.2f} GB (plain); launches over {STEPS} steps "
           f"{launches}; by body " + ", ".join(
               f"{k}/{b} {n}" for (k, b), n in sorted(bodies.items())),
           flush=True)
     check_launched(launches, kernels, f"{what} training")
+    if per_sample:
+        want = {k: launches[k] for k in K1_K7 if k in fused.LAUNCHES}
+        if {k: ps_launches.get(k, 0) for k in want} != want:
+            raise AssertionError(f"{what} training: per-sample launches "
+                                 f"{ps_launches}, all launches {want}")
+        print(f"train {what}: every launch of K1-K7 and row 13's in the "
+              f"per-sample mode over {STEPS} steps: {ps_launches}",
+              flush=True)
     check_k1_bodies(launches, bodies, f"{what} training",
                     STEPS if "conv1_fwd" in kernels else None)
     # Every bf16 K4 launch on its tensor-core body; row 13's kernel once a
@@ -2339,8 +2569,123 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
     print(f"train {what}: loss on a fixed batch (target: sign of the "
           f"input) over 10 steps {losses[0]:.4f} -> {losses[-1]:.4f}",
           flush=True)
-    check_train_step(build, crit, *batches[0], zero_bf16=zero_bf16)
+    check_train_step(build, crit, *batches[0], zero_bf16=zero_bf16,
+                     zero_bias=zero_bias)
     return launches, model, crit, opt, batches
+
+
+def ps_grad_repeat(model, crit, batch, fused, what):
+    """The per-sample dinv and dshift of every backward kernel launch of
+    one training step, the same bits on a second step from the same
+    parameters and batch (cuDNN's deterministic algorithms on the library
+    levels, some of whose backward algorithms add with atomics, so that
+    each kernel sees the same inputs twice)."""
+    names = ("conv_bnact_dgrad_kernel", "conv1_bwd_kernel",
+             "pool_bnact_bwd_kernel", "upconv_bnact_bwd_kernel")
+    real = {n: getattr(fused, n) for n in names}
+    got = []
+
+    def spy(n):
+        def f(*a, **k):
+            out = real[n](*a, **k)
+            got.extend(v.clone() for v in out[1:3] if v is not None
+                       and v.dim() == 2)
+            return out
+        return f
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for n in names:
+            setattr(fused, n, spy(n))
+        for _ in range(2):
+            got.clear()
+            model.zero_grad(set_to_none=True)
+            crit(model.train()(batch[0]), batch[1]).backward()
+            torch.cuda.synchronize()
+            runs.append(list(got))
+    finally:
+        torch.backends.cudnn.deterministic = det
+        for n in names:
+            setattr(fused, n, real[n])
+    same = len(runs[0]) == len(runs[1]) and all(
+        torch.equal(a, b) for a, b in zip(*runs))
+    print(f"train {what}: {len(runs[0])} per-sample dinv/dshift outputs of "
+          f"one step, the same bits on a rerun: {same}", flush=True)
+    if not same or not runs[0]:
+        raise AssertionError(f"{what}: per-sample dinv/dshift differ on a "
+                             "rerun (or none was launched)")
+
+
+def step_breakdown(what, train_step, model, crit, opt, batches):
+    """Device time of three training steps by kernel, from
+    torch.profiler: each of the port's kernels' and the library's top
+    entries per step, and their total; row 3's kernel
+    (``conv1_fwd_kernel``) and the per-sample sums' reduction
+    (``ps_sum_chunks``) by name."""
+    from torch.profiler import ProfilerActivity, profile
+    train_step(model, crit, opt, *batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            train_step(model, crit, opt, *batches[i])
+        torch.cuda.synchronize()
+    by = collections.Counter()
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            name = re.split(r"[<(]", re.sub(
+                r"^void ", "", e.name.replace("(anonymous namespace)::",
+                                              "")))[0]
+            by[name] += e.time_range.elapsed_us() / 3e3
+    total = sum(by.values())
+    print(f"train {what}: device time a step {total:.3f} ms; row 3's "
+          f"conv1_fwd_kernel {by.get('conv1_fwd_kernel', 0.0):.3f} ms, "
+          f"ps_sum_chunks {by.get('ps_sum_chunks', 0.0):.3f} ms; by "
+          "kernel: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                 by.most_common(16)), flush=True)
+    return total, by
+
+
+def group_train_phase(build, build_library, what, CEDiceLoss, train_step,
+                      fused):
+    """The headline model with ``what`` norm trained at bench.py's step on
+    the kernels' per-sample mode (:func:`train_phase` without its plain
+    arm: every launch of K1-K7 and row 13's per sample, the per-sample
+    backward rows' shapes, the step against ``reference=True`` in float32
+    and bf16, its conv biases held like any leaf under 'group'), the
+    per-sample dinv/dshift the same bits on a rerun; with
+    ``build_library`` the step's device time by kernel, and then the same
+    model with ``pallas_flat=False`` (the library plan: no kernel
+    launched) timed with the same loop."""
+    shape = (BATCH, *PATCH, 1)
+    launches, model, crit, opt, batches = train_phase(
+        build, shape, what, "MVox", CEDiceLoss, train_step, fused,
+        GROUP_TRAIN_ROWS, zero_bias=what != "group", per_sample=True,
+        plain=False)
+    ps_grad_repeat(model, crit, batches[0], fused, what)
+    if build_library is None:
+        return launches
+    step_breakdown(what, train_step, model, crit, opt, batches)
+    del model, opt
+    torch.cuda.empty_cache()
+    lib = build_library(4, torch.bfloat16)
+    if lib.level_kinds(shape) != ["library"] * 4:
+        raise AssertionError(f"{what} pallas_flat=False levels "
+                             f"{lib.level_kinds(shape)}")
+    lopt = torch.optim.Adam(lib.parameters(), lr=1e-3)
+    dt = timed_steps(train_step, lib, crit, lopt, batches, False,
+                     fused.reset_launches)
+    if any(launch_counts(fused).values()):
+        raise AssertionError(f"{what} pallas_flat=False launched "
+                             f"{launch_counts(fused)}")
+    k, _, k2 = STEP_MS[what]
+    print(f"train {what} pallas_flat=False: step {dt * 1e3:9.2f} ms = "
+          f"{int(np.prod(shape)) / dt / 1e6:7.2f} MVox/s; beside the kernel "
+          f"plan in this run: kernels {k:.2f}, kernels again {k2:.2f} ms; "
+          f"the 'batch' headline step {STEP_MS['3D'][0]:.2f} ms", flush=True)
+    del lib, lopt, batches
+    torch.cuda.empty_cache()
+    return launches
 
 
 def odd_l1_phase(build, CEDiceLoss, fused):
@@ -2703,7 +3048,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     profiling = "--profile" in sys.argv[1:]
 
-    t0 = time.perf_counter()
+    t0 = _MARK[0] = time.perf_counter()
     _build.build(verbose=True)
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
@@ -2717,6 +3062,7 @@ def main():
             kernel = m.group(1) + (m.group(2) or "")
         elif "registers" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}")
+    mark("build")
 
     def build3d(seed, dtype):
         return headline_unet(UNet, seed, dtype)
@@ -2735,6 +3081,11 @@ def main():
 
     def build_instance(seed, dtype):
         return headline_unet(UNet, seed, dtype, normalization="instance")
+
+    def build_group_library(seed, dtype):
+        return headline_unet(UNet, seed, dtype, normalization="group",
+                             pallas_flat=False)
+
 
     def build_batchp_library(seed, dtype):
         return headline_unet(UNet, seed, dtype, normalization="batchp",
@@ -2763,7 +3114,11 @@ def main():
     kernel_phase(fused, stats, VARIANTS_TILE_C128, total=False)
     kernel_phase(fused, stats, VARIANTS_SF64_TILE, total=False)
     kernel_phase(fused, stats, VARIANTS_CONV1, total=False)
+    mark("kernels: tile, bench, 2D")
     per_sample_phase(fused, stats)
+    mark("kernels: per-sample forward")
+    per_sample_bwd_phase(fused, stats)
+    mark("kernels: per-sample backward")
     train_kernel_phase(fused, stats, TRAIN_VARIANTS_SF64, total=False,
                        serve=False)
     bn_kernel_phase(pallas_bn, stats)
@@ -2773,6 +3128,7 @@ def main():
                        serve=True)
     conv_direct_phase(pallas_conv, stats)
     nd_check(fused)
+    mark("kernels: sf64, batchp, flat")
 
     launches = {"predictor": predictor_phase(build3d, "3D", Predictor,
                                              fused, ("24/222",))}
@@ -2786,6 +3142,7 @@ def main():
     trainer_phase(build3d, (1, *PATCH), "3D", CEDiceLoss, Trainer)
     launches["train_input_grad"] = input_grad_phase(
         build_input_grad, CEDiceLoss, train_step, fused)
+    mark("3D paths")
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()
@@ -2797,6 +3154,7 @@ def main():
     del model, opt, batches
     torch.cuda.empty_cache()
     trainer_phase(build2d, (1, 256, 256), "2D", CEDiceLoss, Trainer)
+    mark("2D paths")
 
     odd_l1_phase(build3d, CEDiceLoss, fused)
     torch.cuda.empty_cache()
@@ -2812,6 +3170,7 @@ def main():
     torch.cuda.empty_cache()
     trainer_phase(build_sf64, (1, *PATCH), "sf64", CEDiceLoss, Trainer)
     crossover_phase(UNet, Predictor, CEDiceLoss, train_step, unet_mod)
+    mark("sf64 paths")
 
     launches["predictor_batchp"] = predictor_phase(
         build_batchp, "batchp", Predictor, fused, BATCHP_SERVE_ROWS,
@@ -2819,6 +3178,14 @@ def main():
     torch.cuda.empty_cache()
     launches["predictor_group"] = predictor_group_phase(
         build_group, build_instance, Predictor, fused)
+    mark("predictor batchp, group")
+    launches["train_group"] = group_train_phase(
+        build_group, build_group_library, "group", CEDiceLoss, train_step,
+        fused)
+    mark("train group")
+    launches["train_instance"] = group_train_phase(
+        build_instance, None, "instance", CEDiceLoss, train_step, fused)
+    mark("train instance")
     launches["train_batchp"], model, crit, opt, batches = train_phase(
         build_batchp, (BATCH, *PATCH, 1), "batchp", "MVox", CEDiceLoss,
         train_step, fused, BATCHP_TRAIN_ROWS, K1_K7 + BN_KERNELS, pallas_bn)
@@ -2835,6 +3202,7 @@ def main():
         build_batchp_library, CEDiceLoss, train_step, fused, pallas_bn,
         profiling)
     torch.cuda.empty_cache()
+    mark("train batchp")
 
     launches["predictor_silu"] = predictor_phase(
         build_silu, "silu", Predictor, fused, FLAT_SERVE_ROWS,
@@ -2862,6 +3230,7 @@ def main():
     launches["train_silu_library"] = silu_library_phase(
         build_silu_library, CEDiceLoss, train_step, fused)
     torch.cuda.empty_cache()
+    mark("silu paths")
 
     vup_kernel_phase(vup, stats)
     launches["predictor_vup"] = predictor_phase(
@@ -2899,6 +3268,9 @@ def main():
     if any(stray.values()):
         raise AssertionError(f"vup entries launched off the vup paths: "
                              f"{stray}")
+    mark("vup paths")
+    print(f"phases (wall s, {sum(PHASE_S.values()):.1f} in all): "
+          + "; ".join(f"{k} {v}" for k, v in PHASE_S.items()), flush=True)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],

@@ -50,8 +50,19 @@
 //     not a second pass.
 // The order of the atomics changes from run to run, hence the last bits
 // of the sums (as in K4 and K5).
+//
+// The per-sample mode (group and instance norm): ``ds``/``dq`` and the
+// prologue vectors are (n, C) rows, read at a sample stride (st_ns, pro_ns;
+// 0 for the batch form). A tile lies in one (n, depth) plane, hence in one
+// sample: each tile restages its sample's ds and dq rows (when the sample
+// changes) and reads its prologue row. With dx, dinv and dshift come per
+// sample and deterministic: each tile sums its voxels' shares in a fixed
+// order (its warps' shuffles, then the warps in turn) into its partial row,
+// slot (depth, tile) of its sample, which ps_reduce (ps_reduce.cuh) sums in
+// a fixed order; no float atomic touches them. dW and db stay global.
 #include <type_traits>
 
+#include "ps_reduce.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -74,12 +85,15 @@ struct C1Cpt {
 
 struct C1Args {
   const void* x;         // (n, d, h, w, cin) network input
-  const float* inv;      // (cin,) forward prologue vectors
+  const float* inv;      // (cin,) forward prologue vectors, or (n, cin)
   const float* shift;
+  int pro_ns;            // their sample stride: cin, or 0
   const void* dy;        // (n, d, h, w, cout)
   const void* y;         // the forward output, read with ds
-  const float* ds;       // (cout,) statistics cotangents, or null
+  const float* ds;       // (cout,) statistics cotangents, (n, cout), or null
   const float* dq;
+  int st_ns;             // their sample stride: cout, or 0
+  float* part;           // DX per sample: (n, tiles a sample, 2 cin), or null
   const float* wt;       // (kd, 3, 3, cin, cout) rounded weight (DX)
   float* dw;             // (kd, 3, 3, cin, cout), zeroed
   float* db;             // (cout,), zeroed
@@ -121,12 +135,15 @@ constexpr int C1_ST = 4;       // passes in flight: the cp.async ring
 
 // Shared memory: the ring [C1_ST][dy, y][C1_NT][eb bytes] (eb: a
 // thread's CPT values), then ds and dq [2][cout], the input window
-// [KD][npos][CIN], the weight [KD * 9][CIN][cout] and the tile's dx sums
-// [C1_TV][CIN] (DX); the block's final sums [KD * 9 * CIN * cout + cout +
-// 2 CIN] reuse the space after the ring.
+// [KD][npos][CIN], the weight [KD * 9][CIN][cout], the tile's dx sums
+// [C1_TV][CIN] and the warps' dinv and dshift sums [C1_NT / 32][2 CIN]
+// (DX); the block's final sums [KD * 9 * CIN * cout + cout + 2 CIN] reuse
+// the space after the ring.
 size_t c1_smem(int cin, int kd, int cout, int npos, bool dx, int eb) {
   const size_t stage = (size_t)2 * cout + (size_t)kd * npos * cin
-      + (dx ? (size_t)kd * 9 * cin * cout + (size_t)C1_TV * cin : 0);
+      + (dx ? (size_t)kd * 9 * cin * cout + (size_t)C1_TV * cin
+                  + (size_t)C1_NT / 32 * 2 * cin
+            : 0);
   const size_t red = (size_t)kd * 9 * cin * cout + cout + 2 * cin;
   return (size_t)C1_ST * 2 * C1_NT * eb + 4 * (stage > red ? stage : red);
 }
@@ -168,6 +185,7 @@ __global__ void __launch_bounds__(C1_NT, 2) conv1_bwd_kernel(
   float* s_a = s_dq + a.cout;                // [KD][npos][CIN]
   float* s_w = s_a + KD * npos * CIN;        // DX: [TAPS][CIN][cout]
   float* s_dx = s_w + (DX ? TAPS * CIN * a.cout : 0);   // DX: [C1_TV][CIN]
+  float* s_pw = s_dx + (DX ? C1_TV * CIN : 0);   // DX: [C1_NT / 32][2 CIN]
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -198,6 +216,7 @@ __global__ void __launch_bounds__(C1_NT, 2) conv1_bwd_kernel(
     pinv[ci] = a.inv[ci];
     pshift[ci] = a.shift[ci];
   }
+  const bool ps_dx = DX && a.part != nullptr;
   if (DX) {
     for (int i = tid; i < TAPS * CIN * a.cout; i += C1_NT) s_w[i] = a.wt[i];
     for (int i = tid; i < C1_TV * CIN; i += C1_NT) s_dx[i] = 0.0f;
@@ -335,7 +354,28 @@ __global__ void __launch_bounds__(C1_NT, 2) conv1_bwd_kernel(
     const int64_t nd = tl.nd;
     const int h0 = tl.h0;
     const int w0 = tl.w0;
+    // The per-sample mode: the tile's sample's prologue row, and its ds
+    // and dq rows where the rows staged are another sample's. The block
+    // keeps no per-sample state across tiles (at 128 registers a lane
+    // any more would spill).
+    if (a.pro_ns) {
+      const int64_t sample = nd / a.d;
+#pragma unroll
+      for (int ci = 0; ci < CIN; ++ci) {
+        pinv[ci] = a.inv[sample * a.pro_ns + ci];
+        pshift[ci] = a.shift[sample * a.pro_ns + ci];
+      }
+    }
     __syncthreads();  // the previous tile's reads of s_a and s_dx are done
+    // (The rows staged first are sample 0's.)
+    if (fold && a.st_ns
+        && nd / a.d != (ti > 0 ? tile_at(blockIdx.x + (ti - 1) * gridDim.x)
+                                         .nd / a.d
+                               : 0))
+      for (int i = tid; i < a.cout; i += C1_NT) {
+        s_ds[i] = a.ds[nd / a.d * a.st_ns + i];
+        s_dq[i] = a.dq[nd / a.d * a.st_ns + i];
+      }
 #pragma unroll
     for (int i = 0; i < XPF; ++i) {
       const int p = tid + i * C1_NT;
@@ -436,6 +476,9 @@ __global__ void __launch_bounds__(C1_NT, 2) conv1_bwd_kernel(
       // Thread tid finishes the tile's voxel tid (C1_TV == C1_NT).
       const int hh = h0 + tid / tw;
       const int ww = w0 + tid % tw;
+      float ti_inv[CIN], ti_sh[CIN];   // the tile's shares (per sample)
+#pragma unroll
+      for (int ci = 0; ci < CIN; ++ci) ti_inv[ci] = ti_sh[ci] = 0.0f;
       if (hh < a.h && ww < a.wd) {
         const int64_t vox = (nd * a.h + hh) * a.wd + ww;
 #pragma unroll
@@ -445,12 +488,42 @@ __global__ void __launch_bounds__(C1_NT, 2) conv1_bwd_kernel(
               * act_grad(pre_act(xv, pinv[ci], pshift[ci]), a.act);
           static_cast<T*>(a.dx)[vox * CIN + ci] =
               from_f<T>(gm * pinv[ci]);
-          dinvl[ci] = fmaf(gm, xv, dinvl[ci]);
-          dshiftl[ci] += gm;
+          if (ps_dx) {
+            ti_inv[ci] = gm * xv;
+            ti_sh[ci] = gm;
+          } else {
+            dinvl[ci] = fmaf(gm, xv, dinvl[ci]);
+            dshiftl[ci] += gm;
+          }
         }
       }
 #pragma unroll
       for (int ci = 0; ci < CIN; ++ci) s_dx[tid * CIN + ci] = 0.0f;
+      if (ps_dx) {
+        // The tile's partial row: the lanes of each warp by shuffles,
+        // then the warps in order.
+#pragma unroll
+        for (int off = 16; off >= 1; off >>= 1)
+#pragma unroll
+          for (int ci = 0; ci < CIN; ++ci) {
+            ti_inv[ci] += __shfl_xor_sync(0xffffffffu, ti_inv[ci], off);
+            ti_sh[ci] += __shfl_xor_sync(0xffffffffu, ti_sh[ci], off);
+          }
+        if (lane == 0)
+#pragma unroll
+          for (int ci = 0; ci < CIN; ++ci) {
+            s_pw[(tid / 32) * 2 * CIN + ci] = ti_inv[ci];
+            s_pw[(tid / 32) * 2 * CIN + CIN + ci] = ti_sh[ci];
+          }
+        __syncthreads();
+        if (tid < 2 * CIN) {
+          float t = s_pw[tid];
+          for (int w = 1; w < C1_NT / 32; ++w) t += s_pw[w * 2 * CIN + tid];
+          // Tiles are numbered sample by sample, so tile t is slot t of
+          // the (n, tiles a sample) rows.
+          a.part[(blockIdx.x + ti * gridDim.x) * 2 * CIN + tid] = t;
+        }
+      }
     }
   }
 
@@ -508,7 +581,7 @@ __global__ void __launch_bounds__(C1_NT, 2) conv1_bwd_kernel(
   for (int i = tid; i < nw; i += C1_NT) atomicAdd(a.dw + i, s_red[i]);
   for (int i = tid; i < a.cout; i += C1_NT) atomicAdd(a.db + i,
                                                       s_red[nw + i]);
-  if (DX && tid < CIN) {
+  if (DX && !ps_dx && tid < CIN) {
     atomicAdd(a.dinv + tid, s_red[nw + a.cout + tid]);
     atomicAdd(a.dshift + tid, s_red[nw + a.cout + CIN + tid]);
   }
@@ -561,31 +634,69 @@ cudaError_t c1_dispatch(const C1Args& a, int cin, int kd, cudaStream_t s) {
 
 }  // namespace
 
+namespace {
+
+// The tile (TW x TH = 256) that pads an h x wd plane least (the wider on
+// a tie).
+void c1_tile(int h, int wd, int& tw, int& th) {
+  int64_t best = -1;
+  for (int t = 32; t >= 8; t /= 2) {
+    const int r = C1_TV / t;
+    const int64_t area = (int64_t)((h + r - 1) / r) * r
+        * ((wd + t - 1) / t) * t;
+    if (best < 0 || area < best) {
+      best = area;
+      tw = t;
+      th = r;
+    }
+  }
+}
+
+}  // namespace
+
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): its d
+// planes' tiles.
+extern "C" int64_t e3_conv1_bwd_ps_parts(int d, int h, int wd) {
+  int tw = 32, th = 8;
+  c1_tile(h, wd, tw, th);
+  return (int64_t)d * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
+}
+
 // Row 13's kernel. ``inv``/``shift`` are (cin,) (ones and zeros for the
-// identity prologue); ``ds``/``dq`` null means no statistics cotangent
-// (``y`` is then not read); ``dx`` null skips the input gradient (``wt``,
-// ``dinv`` and ``dshift`` are then not used). dw (kd, 3, 3, cin, cout),
-// db, dinv and dshift are float32, zeroed by the caller; ``wt`` is the
-// (kd, 3, 3, cin, cout) weight rounded to the dtype, as float32. Needs
-// 1 <= cin <= 4, cout % 32 == 0, cout <= 256 and kd in {1, 3} (a cout /
-// CPT that is no power of two leaves the last lanes of a voxel idle).
+// identity prologue), or per sample (n, cin) with ``pro_ns`` = cin;
+// ``ds``/``dq`` null means no statistics cotangent (``y`` is then not
+// read), else (cout,) or per sample (n, cout) with ``st_ns`` = cout;
+// ``dx`` null skips the input gradient (``wt``, ``dinv``, ``dshift`` and
+// ``ws`` are then not used). dw (kd, 3, 3, cin, cout), db, dinv and dshift
+// are float32, zeroed by the caller; with a workspace ``ws``
+// (ps_workspace_floats of n samples, e3_conv1_bwd_ps_parts rows of 2 cin)
+// dinv and dshift come per sample, in a fixed order, as (n, 2, cin) in
+// ``dinv`` (``dshift`` unused, nothing zeroed). ``wt`` is the (kd, 3, 3,
+// cin, cout) weight rounded to the dtype, as float32. Needs 1 <= cin <=
+// 4, cout % 32 == 0, cout <= 256 and kd in {1, 3} (a cout / CPT that is
+// no power of two leaves the last lanes of a voxel idle).
 extern "C" int e3_conv1_bwd(int dtype, const void* x, int cin,
-                            const float* inv, const float* shift,
+                            const float* inv, const float* shift, int pro_ns,
                             const void* dy, const void* y, const float* ds,
-                            const float* dq, int cout, const float* wt,
-                            float* dw, float* db, void* dx, float* dinv,
-                            float* dshift, int n, int d, int h, int wd,
-                            int kd, int act, void* stream) {
-  if (cin < 1 || cin > 4 || cout % 32 || cout > 256 || (kd != 1 && kd != 3))
+                            const float* dq, int st_ns, int cout,
+                            const float* wt, float* dw, float* db, void* dx,
+                            float* dinv, float* dshift, float* ws, int n,
+                            int d, int h, int wd, int kd, int act,
+                            void* stream) {
+  if (cin < 1 || cin > 4 || cout % 32 || cout > 256 || (kd != 1 && kd != 3)
+      || (ws != nullptr && n > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   C1Args a = {};
   a.x = x;
   a.inv = inv;
   a.shift = shift;
+  a.pro_ns = pro_ns;
   a.dy = dy;
   a.y = y;
   a.ds = ds;
   a.dq = dq;
+  a.st_ns = ds != nullptr ? st_ns : 0;
+  a.part = dx != nullptr ? ws : nullptr;
   a.wt = wt;
   a.dw = dw;
   a.db = db;
@@ -598,19 +709,7 @@ extern "C" int e3_conv1_bwd(int dtype, const void* x, int cin,
   a.wd = wd;
   a.cout = cout;
   a.act = act;
-  // The tile (TW x TH = 256) that pads the plane least (the wider on a
-  // tie).
-  int64_t best = -1;
-  for (int tw = 32; tw >= 8; tw /= 2) {
-    const int th = C1_TV / tw;
-    const int64_t area = (int64_t)((h + th - 1) / th) * th
-        * ((wd + tw - 1) / tw) * tw;
-    if (best < 0 || area < best) {
-      best = area;
-      a.tw = tw;
-      a.th = th;
-    }
-  }
+  c1_tile(h, wd, a.tw, a.th);
   a.ntiles = (int64_t)n * d * ((h + a.th - 1) / a.th)
       * ((wd + a.tw - 1) / a.tw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -621,5 +720,7 @@ extern "C" int e3_conv1_bwd(int dtype, const void* x, int cin,
   else
     rc = dx != nullptr ? c1_dispatch<float, true>(a, cin, kd, s)
                        : c1_dispatch<float, false>(a, cin, kd, s);
+  if (rc == cudaSuccess && a.part != nullptr)
+    rc = ps_reduce(ws, n, e3_conv1_bwd_ps_parts(d, h, wd), 2 * cin, dinv, s);
   return static_cast<int>(rc);
 }

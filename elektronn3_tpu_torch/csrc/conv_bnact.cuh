@@ -92,13 +92,16 @@ struct ConvArgs {
   float* dshift;
   int n, d, h, wd, cout, kd, act;
   VupArgs vup;        // vup instantiations: input 0's carry (kd == 1)
-  // Forward, the per-sample mode (group and instance norm): the sample
-  // stride of inv/shift ((n, cin[0] + cin[1]) rows, inv[1] pointing
-  // cin[0] floats in; 0 for the batch form), and the statistics' partial
-  // rows (n * d * tiles, 2 cout) in place of s and q, or null
-  // (ps_reduce.cuh: a block is one (n, depth) plane's tile).
+  // The per-sample mode (group and instance norm): the sample stride of
+  // the prologue rows (forward: inv/shift, (n, cin[0] + cin[1]), inv[1]
+  // pointing cin[0] floats in; dgrad: einv/eshift, (n, ce[0] + ce[1]); 0
+  // for the batch form), and the partial rows (n * d * tiles, 2 cout) of
+  // the statistics (forward) or of dinv and dshift (dgrad) in place of
+  // the atomics, or null (ps_reduce.cuh: a block is one (n, depth)
+  // plane's tile).
   int pro_ns;
   float* part;
+  int st_ns;          // dgrad, per sample: the (n, cin[0]) ds, dq stride
 };
 
 // Load the CK = 8 staged values of voxel ``vox`` from channel ``cb`` of
@@ -116,10 +119,11 @@ __device__ __forceinline__ void load_operand(const ConvArgs& a, int i,
     if (a.ds != nullptr) {
       float yv[CK];
       load8_tail(static_cast<const T*>(a.yv) + vox * ci + cb, ci, cb, yv);
+      // po is the sample's row of ds, dq here (st_ns strides)
 #pragma unroll
       for (int c = 0; c < CK; ++c)
         if (cb + c < ci)
-          v[c] = dy_tot(v[c], yv[c], a.ds[cb + c], a.dq[cb + c]);
+          v[c] = dy_tot(v[c], yv[c], a.ds[po + cb + c], a.dq[po + cb + c]);
     }
   } else {
 #pragma unroll
@@ -164,13 +168,14 @@ __device__ __forceinline__ void stage_operand(const ConvArgs& a, int i,
 // Epilogue of 8 consecutive output channels o .. o + 7 of voxel ``vox``
 // from their float32 sums ``acc``. Forward: bias, store, and (ST) the
 // rounded values' sums into st (8 sums, then 8 sums of squares). Dgrad:
-// the prologue gradient as described at the top; st gets dinv then
-// dshift. ST is a template argument so that the forward without
-// statistics (serving) keeps no sums in registers.
+// the prologue gradient as described at the top (``po``: the sample's
+// prologue row); st gets dinv then dshift. ST is a template argument so
+// that the forward without statistics (serving) keeps no sums in
+// registers.
 template <bool DG, bool ST, typename T, bool VUP = false>
 __device__ __forceinline__ void epilogue8(const ConvArgs& a, int64_t vox,
                                           int o, const float* acc,
-                                          float* st) {
+                                          float* st, int64_t po = 0) {
   if (!DG) {
     float r[8];
 #pragma unroll
@@ -204,8 +209,9 @@ __device__ __forceinline__ void epilogue8(const ConvArgs& a, int64_t vox,
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const float inv = a.einv[o + j];
-    const float gm = acc[j] * act_grad(pre_act(x[j], inv, a.eshift[o + j]),
+    const float inv = a.einv[po + o + j];
+    const float gm = acc[j] * act_grad(pre_act(x[j], inv,
+                                               a.eshift[po + o + j]),
                                        a.act);
     r[j] = gm * inv;
     st[j] = fmaf(gm, x[j], st[j]);
@@ -245,7 +251,8 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   const int d = nd % a.d;
   const int co0 = blockIdx.z * COG;
   const int ct = a.cin[0] + a.cin[1];
-  const int64_t po = (int64_t)n * a.pro_ns;   // the sample's prologue row
+  // The sample's prologue row (forward) or ds, dq row (dgrad).
+  const int64_t po = (int64_t)n * (DG ? a.st_ns : a.pro_ns);
   if (threadIdx.x < 2 * COG) s_red[threadIdx.x / COG][threadIdx.x % COG] = 0;
 
   float acc[RPT][COG];
@@ -337,7 +344,7 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
 #pragma unroll
     for (int q = 0; q < COG / 8; ++q)
       epilogue8<DG, ST, T, VUP>(a, vox, co0 + 8 * q, &acc[r][8 * q],
-                                st[q]);
+                                st[q], (int64_t)n * a.pro_ns);
   }
   if (!ST) return;
   float st0[COG], st1[COG];
@@ -351,9 +358,9 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   const float t0 = warp_reduce_scatter32(st0);
   const float t1 = warp_reduce_scatter32(st1);
   __syncthreads();  // s_red's initialization is visible
-  if (!DG && a.part != nullptr) {
+  if (a.part != nullptr) {
     // The per-sample mode: the warps in turn, then the block's partial
-    // row into slot blockIdx.x.
+    // row into slot blockIdx.x (dgrad: dinv, then dshift).
     for (int w = 0; w < NT / 32; ++w) {
       if (threadIdx.x / 32 == w) {
         s_red[0][threadIdx.x % 32] += t0;

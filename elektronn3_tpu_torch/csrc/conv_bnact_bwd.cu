@@ -36,6 +36,13 @@
 // first channel group. What bounds K5: arithmetic on the CUDA cores
 // (each staged value serves 9 taps x 8 output channels per thread).
 //
+// The per-sample mode (group and instance norm): ds, dq and the prologue
+// are (n, C) rows at sample strides (0 for the batch form). A K4 block
+// and a K5 tile lie in one (n, depth) plane, hence in one sample, and
+// read its rows; K4's dinv and dshift then go, in a fixed order, into its
+// block's partial row (conv_bnact.cuh), which ps_reduce sums in a fixed
+// order. K5's dW and db stay global.
+//
 // e3_conv_vup_wgrad is K5 for the vup merge conv (VUP = true): its
 // input 0 is the recomputed (1, 2, 2) upconv of the carry
 // (upconv_vup.cuh), prologued and rounded as K1's vup staging does. It
@@ -45,6 +52,7 @@
 #include <type_traits>
 
 #include "conv_bnact.cuh"
+#include "ps_reduce.cuh"
 
 namespace {
 
@@ -62,10 +70,12 @@ struct WgradArgs {
   int groups0;         // 32-channel groups of input 0
   const float* inv;    // (cin[0] + cin[1],) forward prologue vectors
   const float* shift;
+  int pro_ns;          // per sample: their (n, .) rows' stride, or 0
   const void* dy;      // (n, d, h, w, cout)
   const void* y;       // forward output, for dy_tot
   const float* ds;     // (cout,) statistics cotangents, or null
   const float* dq;
+  int st_ns;           // per sample: their (n, cout) rows' stride, or 0
   float* dw;           // (kd, 3, 3, cin[0] + cin[1], cout), zeroed
   float* db;           // (cout,), zeroed
   int n, d, h, wd, cout, kd, act;
@@ -130,6 +140,9 @@ __global__ void __launch_bounds__(WNT) conv_wgrad_kernel(const Args a) {
     const int zd = dd + dz;
     if (zd < 0 || zd >= a.d) continue;  // the tap reads zero padding
     const int64_t zplane = (nd + dz) * a.h;
+    // The tile's sample's prologue and ds, dq rows.
+    const int64_t po = nd / a.d * a.pro_ns + coff;
+    const int64_t so = nd / a.d * a.st_ns + co0;
     __syncthreads();  // the previous tile's reads are done
     for (int p = threadIdx.x; p < (WTH + 2) * (WTW + 2) * ng8; p += WNT) {
       const int g = p % ng8;
@@ -154,8 +167,8 @@ __global__ void __launch_bounds__(WNT) conv_wgrad_kernel(const Args a) {
 #pragma unroll
         for (int c = 0; c < 8; ++c)
           v[c] = (c0 + c < ci)
-              ? round_to<T>(prologue(v[c], a.inv[coff + c0 + c],
-                                     a.shift[coff + c0 + c], a.act))
+              ? round_to<T>(prologue(v[c], a.inv[po + c0 + c],
+                                     a.shift[po + c0 + c], a.act))
               : 0.0f;
       } else {
 #pragma unroll
@@ -181,8 +194,8 @@ __global__ void __launch_bounds__(WNT) conv_wgrad_kernel(const Args a) {
           load8(yp + off, yv);
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            g[j] = dy_tot(g[j], yv[j], a.ds[co0 + 8 * c8 + j],
-                          a.dq[co0 + 8 * c8 + j]);
+            g[j] = dy_tot(g[j], yv[j], a.ds[so + 8 * c8 + j],
+                          a.dq[so + 8 * c8 + j]);
         }
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -248,15 +261,23 @@ int sm_count() {
 
 }  // namespace
 
+// K4, float32 body (bf16 is e3_conv_bnact_dgrad_tc). The per-sample
+// mode: ``st_ns`` (cdy) for ds, dq rows of (n, cdy); ``pro_ns`` (c0 + c1)
+// for prologue rows of (n, c0 + c1), with a workspace ``ws``
+// (ps_workspace_floats of n samples, e3_conv_bnact_ps_parts rows of
+// 2 (c0 + c1)): dinv and dshift then come per sample, in a fixed order,
+// as (n, 2, c0 + c1) in ``dinv`` (``dshift`` unused, nothing zeroed).
 extern "C" int e3_conv_bnact_dgrad(int dtype, int nin, const void* dy,
                                    const void* y, const float* ds,
-                                   const float* dq, int cdy,
+                                   const float* dq, int st_ns, int cdy,
                                    const float* wt, const void* x0, int c0,
                                    const void* x1, int c1, const float* inv,
-                                   const float* shift, void* dx0, void* dx1,
-                                   float* dinv, float* dshift, int n, int d,
-                                   int h, int wd, int kd, int act,
-                                   void* stream) {
+                                   const float* shift, int pro_ns, void* dx0,
+                                   void* dx1, float* dinv, float* dshift,
+                                   float* ws, int n, int d, int h, int wd,
+                                   int kd, int act, void* stream) {
+  if (ws != nullptr && n > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   ConvArgs a = {};
   a.x[0] = dy;
   a.cin[0] = cdy;
@@ -265,6 +286,9 @@ extern "C" int e3_conv_bnact_dgrad(int dtype, int nin, const void* dy,
   a.yv = y;
   a.ds = ds;
   a.dq = dq;
+  a.st_ns = ds != nullptr ? st_ns : 0;
+  a.pro_ns = pro_ns;
+  a.part = ws;
   a.wt = wt;
   a.xe[0] = x0;
   a.xe[1] = x1;
@@ -283,7 +307,13 @@ extern "C" int e3_conv_bnact_dgrad(int dtype, int nin, const void* dy,
   a.cout = a.ce[0] + a.ce[1];
   a.kd = kd;
   a.act = act;
-  return launch_conv_body<true>(a, dtype, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = launch_conv_body<true>(a, dtype, st);
+  if (rc == 0 && ws != nullptr)
+    rc = static_cast<int>(ps_reduce(ws, n, (int64_t)d * ((h + TH - 1) / TH)
+                                               * ((wd + TW - 1) / TW),
+                                    2 * a.cout, dinv, st));
+  return rc;
 }
 
 namespace {
@@ -310,14 +340,17 @@ int launch_wgrad(const Args& a, int dtype, void* stream) {
 
 }  // namespace
 
+// K5, float32 body (bf16 is e3_conv_bnact_wgrad_tc): ``pro_ns`` and
+// ``st_ns`` the per-sample mode's row strides of the prologue and of ds,
+// dq (0 for the batch form).
 extern "C" int e3_conv_bnact_wgrad(int dtype, int nin, const void* x0,
                                    int c0, const void* x1, int c1,
                                    const float* inv, const float* shift,
-                                   const void* dy, const void* y,
+                                   int pro_ns, const void* dy, const void* y,
                                    const float* ds, const float* dq,
-                                   int cout, float* dw, float* db, int n,
-                                   int d, int h, int wd, int kd, int act,
-                                   void* stream) {
+                                   int st_ns, int cout, float* dw, float* db,
+                                   int n, int d, int h, int wd, int kd,
+                                   int act, void* stream) {
   WgradArgs a = {};
   a.x[0] = x0;
   a.x[1] = x1;
@@ -327,10 +360,12 @@ extern "C" int e3_conv_bnact_wgrad(int dtype, int nin, const void* x0,
   a.groups0 = (c0 + WCI - 1) / WCI;
   a.inv = inv;
   a.shift = shift;
+  a.pro_ns = pro_ns;
   a.dy = dy;
   a.y = y;
   a.ds = ds;
   a.dq = dq;
+  a.st_ns = ds != nullptr ? st_ns : 0;
   a.dw = dw;
   a.db = db;
   a.n = n;

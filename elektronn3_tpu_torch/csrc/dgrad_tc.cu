@@ -40,8 +40,17 @@
 //     channel, shared-memory atomics and one device atomic per channel
 //     and block (K1's statistics epilogue), skipped, with x, for the
 //     identity prologue (row 26).
+// The per-sample mode (group and instance norm): ds, dq and the prologue
+// are (n, C) rows at the sample strides st_ns and pro_ns (0 for the batch
+// form). A block is one tile of one (n, depth) plane, so it stages its
+// sample's ds and dq and reads its sample's prologue row; its dinv and
+// dshift sums go, in a fixed order (its warps' shuffles, then its rows of
+// warps in turn), into its partial row, slot (depth, tile) of its sample,
+// which ps_reduce (ps_reduce.cuh) sums in a fixed order: the same bits on
+// every run.
 // mma.sync rather than wgmma for K1's reason (conv_tc.cu).
 #include "conv_tc.cuh"
+#include "ps_reduce.cuh"
 
 namespace {
 
@@ -52,15 +61,18 @@ struct DgTcArgs {
   const __nv_bfloat16* y;    // the forward output when folding, else null
   const float* ds;           // (cdy,) statistics cotangents (with y)
   const float* dq;
+  int st_ns;                 // per sample: (n, cdy) rows' stride, or 0
   int cdy;
   const __nv_bfloat16* wp;   // (kd, cdy / 16, 9, c0 + c1, 16)
   const __nv_bfloat16* x[2]; // the forward inputs
   int cin[2];
   const float* inv;          // (c0 + c1,) prologue, or null (identity)
   const float* shift;
+  int pro_ns;                // per sample: (n, c0 + c1) rows' stride, or 0
   __nv_bfloat16* dx[2];
   float* dinv;               // (c0 + c1,), zeroed (with inv)
   float* dshift;
+  float* part;               // per sample: (n * d * tiles, 2 ct), or null
   int n, d, h, wd, ct, kd, act, tw;
 };
 
@@ -119,8 +131,8 @@ __global__ void __launch_bounds__(NT, 2) dgrad_tc_kernel(const DgTcArgs a) {
     for (int c = tid; c < 2 * COB; c += NT) s_red[c] = 0.0f;
   if (FOLD)
     for (int c = tid; c < a.cdy; c += NT) {
-      s_ds[c] = a.ds[c];
-      s_dq[c] = a.dq[c];
+      s_ds[c] = a.ds[nn * a.st_ns + c];
+      s_dq[c] = a.dq[nn * a.st_ns + c];
     }
   __syncthreads();
 
@@ -207,6 +219,9 @@ __global__ void __launch_bounds__(NT, 2) dgrad_tc_kernel(const DgTcArgs a) {
   const int gr = lane / 4;
   const int t4 = lane % 4;
   float sx[4][2], sg[4][2];   // dinv and dshift partials (PRO)
+  // The sample's prologue row (the only one for the batch form).
+  const float* const pinv = PRO ? a.inv + nn * a.pro_ns : nullptr;
+  const float* const pshift = PRO ? a.shift + nn * a.pro_ns : nullptr;
 #pragma unroll
   for (int nj = 0; nj < 4; ++nj) {
     const int co = co0 + wn * 32 + nj * 8 + 2 * t4;
@@ -215,10 +230,10 @@ __global__ void __launch_bounds__(NT, 2) dgrad_tc_kernel(const DgTcArgs a) {
     const int ci = a.cin[i];
     float inv0 = 1.0f, inv1 = 1.0f, sh0 = 0.0f, sh1 = 0.0f;
     if (PRO) {
-      inv0 = a.inv[co];
-      inv1 = a.inv[co + 1];
-      sh0 = a.shift[co];
-      sh1 = a.shift[co + 1];
+      inv0 = pinv[co];
+      inv1 = pinv[co + 1];
+      sh0 = pshift[co];
+      sh1 = pshift[co + 1];
     }
     sx[nj][0] = sx[nj][1] = sg[nj][0] = sg[nj][1] = 0.0f;
 #pragma unroll
@@ -258,6 +273,29 @@ __global__ void __launch_bounds__(NT, 2) dgrad_tc_kernel(const DgTcArgs a) {
         sx[nj][e] += __shfl_xor_sync(0xffffffffu, sx[nj][e], off);
         sg[nj][e] += __shfl_xor_sync(0xffffffffu, sg[nj][e], off);
       }
+  if (a.part != nullptr) {
+    // The per-sample mode: the rows of warps in turn (the warps of a row
+    // hold distinct channels), then the partial row of block blockIdx.x.
+    for (int r = 0; r < C::WARPS_M; ++r) {
+      if (wm == r && gr == 0) {
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = wn * 32 + nj * 8 + 2 * t4 + e;
+            s_red[c] += sx[nj][e];
+            s_red[COB + c] += sg[nj][e];
+          }
+      }
+      __syncthreads();
+    }
+    float* const row = a.part + (int64_t)blockIdx.x * 2 * a.ct + co0;
+    for (int c = tid; c < COB; c += NT) {
+      row[c] = s_red[c];
+      row[a.ct + c] = s_red[COB + c];
+    }
+    return;
+  }
   if (gr == 0) {
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj)
@@ -303,6 +341,24 @@ cudaError_t dg_launch_cob(const DgTcArgs& a, cudaStream_t st) {
 
 }  // namespace
 
+namespace {
+
+// The tile width that wastes the fewest columns of a row (32 on a tie).
+int dg_tile_w(int wd) {
+  return ((wd + 15) / 16) * 16 < ((wd + 31) / 32) * 32 ? 16 : 32;
+}
+
+}  // namespace
+
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): the
+// blocks (tiles) of its d planes, for dx channels ct = c0 + c1.
+extern "C" int64_t e3_conv_bnact_dgrad_tc_ps_parts(int d, int h, int wd,
+                                                   int ct) {
+  const int tw = dg_tile_w(wd);
+  const int th = (ct % 128 == 0 ? Cfg<128>::M : Cfg<64>::M) / tw;
+  return (int64_t)d * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
+}
+
 // K4, bf16 body. ``wp`` is the packed (kd, cdy / 16, 9, c0 + c1, 16)
 // bf16 flipped, transposed weight; ``inv``/``shift`` ((c0 + c1,)) null
 // means the identity prologue and a linear activation (dinv, dshift
@@ -312,18 +368,27 @@ cudaError_t dg_launch_cob(const DgTcArgs& a, cudaStream_t st) {
 // the pre-pass writes the rounded dy_tot into e, and its db sums into
 // ``edb`` ((cdy,) float32, zeroed; not K4's result); with ``e`` null the
 // blocks fold dy_tot on load. dinv and dshift are zeroed by the caller.
-// Needs cdy % 16 == 0, c0, c1 % 32 == 0 and kd in {1, 3}.
+// The per-sample mode: ``st_ns`` (cdy) for ds, dq rows of (n, cdy);
+// ``pro_ns`` (c0 + c1) for prologue rows of (n, c0 + c1), with a
+// workspace ``ws`` (ps_workspace_floats of n samples,
+// e3_conv_bnact_dgrad_tc_ps_parts rows of 2 (c0 + c1)): dinv and dshift
+// then come per sample, in a fixed order, as (n, 2, c0 + c1) in ``dinv``
+// (``dshift`` unused, nothing zeroed). Needs cdy % 16 == 0, c0, c1 % 32
+// == 0 and kd in {1, 3}.
 extern "C" int e3_conv_bnact_dgrad_tc(int nin, const void* dy, const void* y,
                                       const float* ds, const float* dq,
-                                      void* e, float* edb, int cdy,
-                                      const void* wp, const void* x0, int c0,
+                                      int st_ns, void* e, float* edb,
+                                      int cdy, const void* wp,
+                                      const void* x0, int c0,
                                       const void* x1, int c1,
                                       const float* inv, const float* shift,
-                                      void* dx0, void* dx1, float* dinv,
-                                      float* dshift, int n, int d, int h,
-                                      int wd, int kd, int act, void* stream) {
+                                      int pro_ns, void* dx0, void* dx1,
+                                      float* dinv, float* dshift, float* ws,
+                                      int n, int d, int h, int wd, int kd,
+                                      int act, void* stream) {
   if (cdy % 16 || c0 % 32 || (nin > 1 && c1 % 32) || (kd != 1 && kd != 3)
-      || (ds != nullptr && e != nullptr && edb == nullptr))
+      || (ds != nullptr && e != nullptr && edb == nullptr)
+      || (ws != nullptr && (inv == nullptr || n > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   DgTcArgs a = {};
   a.g = static_cast<const __nv_bfloat16*>(dy);
@@ -335,10 +400,12 @@ extern "C" int e3_conv_bnact_dgrad_tc(int nin, const void* dy, const void* y,
   a.cin[1] = nin > 1 ? c1 : 0;
   a.inv = inv;
   a.shift = shift;
+  a.pro_ns = inv != nullptr ? pro_ns : 0;
   a.dx[0] = static_cast<__nv_bfloat16*>(dx0);
   a.dx[1] = static_cast<__nv_bfloat16*>(dx1);
   a.dinv = dinv;
   a.dshift = dshift;
+  a.part = ws;
   a.n = n;
   a.d = d;
   a.h = h;
@@ -346,20 +413,21 @@ extern "C" int e3_conv_bnact_dgrad_tc(int nin, const void* dy, const void* y,
   a.ct = a.cin[0] + a.cin[1];
   a.kd = kd;
   a.act = act;
-  // The tile width that wastes the fewest columns of a row (32 on a tie).
-  a.tw = ((wd + 15) / 16) * 16 < ((wd + 31) / 32) * 32 ? 16 : 32;
+  a.tw = dg_tile_w(wd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int sn = ds != nullptr ? st_ns : 0;
   if (ds != nullptr && e != nullptr) {
     const cudaError_t rc = e3::launch_dytot(
-        a.g, static_cast<const __nv_bfloat16*>(y), ds, dq,
-        static_cast<__nv_bfloat16*>(e), edb, (int64_t)n * d * h * wd, cdy,
-        st);
+        a.g, static_cast<const __nv_bfloat16*>(y), ds, dq, sn,
+        (int64_t)d * h * wd, static_cast<__nv_bfloat16*>(e), edb,
+        (int64_t)n * d * h * wd, cdy, st);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     a.g = static_cast<const __nv_bfloat16*>(e);
   } else if (ds != nullptr) {
     a.y = static_cast<const __nv_bfloat16*>(y);
     a.ds = ds;
     a.dq = dq;
+    a.st_ns = sn;
   }
   cudaError_t rc;
   if (a.ct % 128 == 0)
@@ -368,5 +436,8 @@ extern "C" int e3_conv_bnact_dgrad_tc(int nin, const void* dy, const void* y,
     rc = dg_launch_cob<64>(a, st);
   else
     rc = dg_launch_cob<32>(a, st);
+  if (rc == cudaSuccess && ws != nullptr)
+    rc = ps_reduce(ws, n, e3_conv_bnact_dgrad_tc_ps_parts(d, h, wd, a.ct),
+                   2 * a.ct, dinv, st);
   return static_cast<int>(rc);
 }

@@ -23,6 +23,7 @@
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "ps_reduce.cuh"
 
 namespace {
 
@@ -105,6 +106,14 @@ __global__ void __launch_bounds__(256) pool_bnact_kernel(
 //     shuffles over the lanes of a warp that hold the same group, shared
 //     memory, and one device atomic per channel and block;
 //   - 32-bit index arithmetic (pooled voxels < 2^30), 64-bit offsets.
+// The per-sample mode (an (n, c) prologue, read by the sample stride
+// pro_ns): the grid is (blocks of a sample, sample), its blocks a number
+// set by the sample's shape alone (about 16 items a thread), each block
+// walks its sample's pooled voxels only and sums its shares in a fixed
+// order (the shuffles, then its warps in turn) into its partial row of
+// dinv and dshift, slot blockIdx.x of sample blockIdx.y; ps_reduce
+// (ps_reduce.cuh) sums a sample's rows in a fixed order. No float atomic
+// touches them, so they are the same bits on every run.
 constexpr int kPoolBwdMaxC = 512;  // channels the block sums can hold
 
 // 8 channels of T as loaded, widened to float32 where used: bf16 keeps
@@ -142,10 +151,10 @@ __device__ __forceinline__ void unpack8(const Raw8<float>& r, float* v) {
 template <typename T, int PD>
 __global__ void __launch_bounds__(256, 2) pool_bnact_bwd_kernel(
     const T* __restrict__ x, const float* __restrict__ inv,
-    const float* __restrict__ shift, const T* __restrict__ dpool,
+    const float* __restrict__ shift, int pro_ns, const T* __restrict__ dpool,
     const T* __restrict__ dskip, T* __restrict__ dx,
-    float* __restrict__ dinv, float* __restrict__ dshift, int npv, int h,
-    int w, int c, int act) {
+    float* __restrict__ dinv, float* __restrict__ dshift,
+    float* __restrict__ part, int npv, int h, int w, int c, int act) {
   __shared__ float s_red[2][kPoolBwdMaxC];
   for (int i = threadIdx.x; i < 2 * c; i += blockDim.x)
     s_red[i / c][i % c] = 0.0f;
@@ -157,11 +166,15 @@ __global__ void __launch_bounds__(256, 2) pool_bnact_bwd_kernel(
   const int col = t & 1;                       // the window column
   const int g = (t >> 1) % cg;                 // the channel group
   const int pstep = gridDim.x * blockDim.x / (2 * cg);
+  // The per-sample grid: blockIdx.y is the sample, npv its pooled voxels,
+  // which start at pvb; the batch form has one sample of them all.
+  const int pvb = (int)blockIdx.y * npv;
+  const int64_t pc = (int64_t)blockIdx.y * pro_ns + g * 8;
   float sc[8], sh[8], gi[8], gs[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    sc[j] = inv[g * 8 + j];
-    sh[j] = shift[g * 8 + j];
+    sc[j] = inv[pc + j];
+    sh[j] = shift[pc + j];
     gi[j] = 0.0f;
     gs[j] = 0.0f;
   }
@@ -174,8 +187,9 @@ __global__ void __launch_bounds__(256, 2) pool_bnact_bwd_kernel(
   const int64_t rowc = (int64_t)w * c;         // an input row's elements
   const int64_t planec = h * rowc;             // an input plane's
   for (int k = 0; wpv0 + k * pstep < npv; ++k) {
-    const int pv = pv0 + k * pstep;
-    const bool ok = pv < npv;
+    const int pl = pv0 + k * pstep;            // of the sample
+    const bool ok = pl < npv;
+    const int pv = pvb + pl;
     // Element e = (dz, dy) of this lane's window column at base + dz
     // planec + dy rowc.
     int64_t base = 0;
@@ -250,6 +264,25 @@ __global__ void __launch_bounds__(256, 2) pool_bnact_bwd_kernel(
     }
   }
   __syncthreads();   // s_red's initialization is visible
+  if (part != nullptr) {
+    // The per-sample mode: the warps in turn (a warp's lanes col == 0,
+    // lane < 2 cg hold distinct groups), then the partial row.
+    for (int wi = 0; wi < (int)blockDim.x / 32; ++wi) {
+      if ((int)threadIdx.x / 32 == wi && col == 0 && lane < 2 * cg) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s_red[0][g * 8 + j] += gi[j];
+          s_red[1][g * 8 + j] += gs[j];
+        }
+      }
+      __syncthreads();
+    }
+    float* const row =
+        part + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * c;
+    for (int i = threadIdx.x; i < 2 * c; i += blockDim.x)
+      row[i] = s_red[i / c][i % c];
+    return;
+  }
   if (col == 0 && lane < 2 * cg) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -280,14 +313,25 @@ int pool_sm_count() {
   return count;
 }
 
+// The per-sample grid's blocks a sample of ``spv`` pooled voxels: about
+// 16 items a thread, set by the sample's shape alone.
+int64_t pool_bwd_ps_blocks(int64_t spv, int c) {
+  const int64_t items = spv * 2 * (c / 8);
+  const int64_t blocks = (items + 16 * 256 - 1) / (16 * 256);
+  return blocks > 0 ? blocks : 1;
+}
+
 // K6's persistent grid: as many blocks as fit the SMs, and no more than
-// one item a thread.
+// one item a thread; in the per-sample mode (``part``) the grid of
+// pool_bwd_ps_blocks blocks a sample by ``n`` samples of ``npv`` pooled
+// voxels each.
 template <typename T, int PD>
 cudaError_t pool_bwd_launch(const void* x, const float* inv,
-                            const float* shift, const void* dpool,
-                            const void* dskip, void* dx, float* dinv,
-                            float* dshift, int npv, int h, int w, int c,
-                            int act, cudaStream_t s) {
+                            const float* shift, int pro_ns,
+                            const void* dpool, const void* dskip, void* dx,
+                            float* dinv, float* dshift, float* part, int n,
+                            int npv, int h, int w, int c, int act,
+                            cudaStream_t s) {
   auto kern = pool_bnact_bwd_kernel<T, PD>;
   static int per_sm = 0;   // resident blocks an SM, per instantiation
   if (per_sm == 0) {
@@ -296,14 +340,20 @@ cudaError_t pool_bwd_launch(const void* x, const float* inv,
     if (rc != cudaSuccess) return rc;
     if (per_sm < 1) per_sm = 1;
   }
-  const int64_t items = (int64_t)npv * 2 * (c / 8);
-  int64_t blocks = (int64_t)per_sm * pool_sm_count();
-  if (blocks > (items + 255) / 256) blocks = (items + 255) / 256;
-  if (blocks < 1) blocks = 1;
-  kern<<<(unsigned)blocks, 256, 0, s>>>(
-      static_cast<const T*>(x), inv, shift, static_cast<const T*>(dpool),
-      static_cast<const T*>(dskip), static_cast<T*>(dx), dinv, dshift, npv,
-      h, w, c, act);
+  int64_t blocks;
+  if (part != nullptr) {
+    blocks = pool_bwd_ps_blocks(npv, c);
+  } else {
+    const int64_t items = (int64_t)npv * 2 * (c / 8);
+    blocks = (int64_t)per_sm * pool_sm_count();
+    if (blocks > (items + 255) / 256) blocks = (items + 255) / 256;
+    if (blocks < 1) blocks = 1;
+  }
+  const dim3 grid((unsigned)blocks, part != nullptr ? n : 1);
+  kern<<<grid, 256, 0, s>>>(
+      static_cast<const T*>(x), inv, shift, pro_ns,
+      static_cast<const T*>(dpool), static_cast<const T*>(dskip),
+      static_cast<T*>(dx), dinv, dshift, part, npv, h, w, c, act);
   return cudaGetLastError();
 }
 
@@ -329,35 +379,53 @@ extern "C" int e3_pool_bnact(int dtype, const void* x, const float* inv,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): the
+// blocks of a sample of K6's per-sample grid.
+extern "C" int64_t e3_pool_bnact_bwd_ps_parts(int d, int h, int w, int c,
+                                              int pd) {
+  return pool_bwd_ps_blocks((int64_t)(d / pd) * (h / 2) * (w / 2), c);
+}
+
 // K6. ``dskip`` (x's shape) is the skip's cotangent, or null for none.
-// Needs c / 8 dividing 256 (a thread keeps one channel group), c <=
-// kPoolBwdMaxC (the block sums) and fewer than 2^30 pooled voxels (32-bit
-// indices).
+// ``inv``/``shift`` are (c,), or per sample (n, c) with ``pro_ns`` = c and
+// a workspace ``ws`` (ps_workspace_floats of n samples,
+// e3_pool_bnact_bwd_ps_parts rows of 2 c): dinv and dshift then come per
+// sample, in a fixed order, as (n, 2, c) in ``dinv`` (``dshift`` unused);
+// else they are zeroed by the caller. Needs c / 8 dividing 256 (a thread
+// keeps one channel group), c <= kPoolBwdMaxC (the block sums) and fewer
+// than 2^30 pooled voxels (32-bit indices).
 extern "C" int e3_pool_bnact_bwd(int dtype, const void* x, const float* inv,
-                                 const float* shift, const void* dpool,
-                                 const void* dskip, void* dx, float* dinv,
-                                 float* dshift, int n, int d, int h, int w,
+                                 const float* shift, int pro_ns,
+                                 const void* dpool, const void* dskip,
+                                 void* dx, float* dinv, float* dshift,
+                                 float* ws, int n, int d, int h, int w,
                                  int c, int pd, int act, void* stream) {
   const int64_t npv = (int64_t)n * (d / pd) * (h / 2) * (w / 2);
   if (c < 8 || c % 8 || c > kPoolBwdMaxC || 256 % (c / 8) != 0
-      || (pd != 1 && pd != 2) || npv >= ((int64_t)1 << 30))
+      || (pd != 1 && pd != 2) || npv >= ((int64_t)1 << 30)
+      || (ws != nullptr && (n > 65535 || pro_ns != c)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (npv == 0) return static_cast<int>(cudaSuccess);
+  // The per-sample grid walks one sample's pooled voxels a block.
+  const int nv = ws != nullptr ? (int)(npv / n) : (int)npv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (dtype == e3::DT_BF16)
     rc = pd == 1 ? pool_bwd_launch<__nv_bfloat16, 1>(
-                       x, inv, shift, dpool, dskip, dx, dinv, dshift,
-                       (int)npv, h, w, c, act, s)
+                       x, inv, shift, pro_ns, dpool, dskip, dx, dinv,
+                       dshift, ws, n, nv, h, w, c, act, s)
                  : pool_bwd_launch<__nv_bfloat16, 2>(
-                       x, inv, shift, dpool, dskip, dx, dinv, dshift,
-                       (int)npv, h, w, c, act, s);
+                       x, inv, shift, pro_ns, dpool, dskip, dx, dinv,
+                       dshift, ws, n, nv, h, w, c, act, s);
   else
-    rc = pd == 1 ? pool_bwd_launch<float, 1>(x, inv, shift, dpool, dskip,
-                                             dx, dinv, dshift, (int)npv, h,
-                                             w, c, act, s)
-                 : pool_bwd_launch<float, 2>(x, inv, shift, dpool, dskip,
-                                             dx, dinv, dshift, (int)npv, h,
-                                             w, c, act, s);
+    rc = pd == 1 ? pool_bwd_launch<float, 1>(
+                       x, inv, shift, pro_ns, dpool, dskip, dx, dinv,
+                       dshift, ws, n, nv, h, w, c, act, s)
+                 : pool_bwd_launch<float, 2>(
+                       x, inv, shift, pro_ns, dpool, dskip, dx, dinv,
+                       dshift, ws, n, nv, h, w, c, act, s);
+  if (rc == cudaSuccess && ws != nullptr)
+    rc = e3::ps_reduce(ws, n, e3_pool_bnact_bwd_ps_parts(d, h, w, c, pd),
+                       2 * c, dinv, s);
   return static_cast<int>(rc);
 }

@@ -155,15 +155,17 @@ __device__ __forceinline__ void dytot_half(uint4* p, const uint4* yp,
   *p = u;
 }
 
-// The pre-pass of K5's and K7's bf16 bodies (defined in
+// The pre-pass of K4's, K5's and K7's bf16 bodies (defined in
 // upconv_bwd_tc.cu): dy_tot = dy + ds + 2 y dq of ``voxels`` rows of
 // ``c`` bf16 channels, rounded into ``e``, its float32 sums added into
 // ``db`` (zeroed by the caller). One read of dy and y, one write of e.
-// Needs c % 8 == 0 and c <= kDytotMaxC.
+// ``ds``/``dq`` are (c,), or in the per-sample mode rows of (n, c) at the
+// sample stride ``st_ns`` (c; 0 for the batch form), the row of voxel v
+// that of its sample v / ``spv``. Needs c % 8 == 0 and c <= kDytotMaxC.
 constexpr int kDytotMaxC = 1024;
 cudaError_t launch_dytot(const __nv_bfloat16* dy, const __nv_bfloat16* y,
-                         const float* ds, const float* dq, __nv_bfloat16* e,
-                         float* db, int64_t voxels, int c,
-                         cudaStream_t stream);
+                         const float* ds, const float* dq, int st_ns,
+                         int64_t spv, __nv_bfloat16* e, float* db,
+                         int64_t voxels, int c, cudaStream_t stream);
 
 }  // namespace e3

@@ -116,6 +116,13 @@ struct UpArgs {
   int pro_ns;
   float* part;
   int64_t spv;
+  // K7, the per-sample mode: the sample stride of ds/dq (cout; 0 for the
+  // batch form) and the input voxels of a sample (d * h * w), by which a
+  // voxel finds its sample's rows. With an (n, cin) prologue (pro_ns) the
+  // dgrad's grid is (block of a sample, channel block, sample) and its
+  // dinv, dshift go into ``part`` (n, blocks of a sample, 2 cin).
+  int st_ns;
+  int64_t sv;
 };
 
 // Output voxel of input voxel v at sub-position sub = (a, b, c).
@@ -288,8 +295,12 @@ __global__ void __launch_bounds__(NT) upconv_dgrad_kernel(const UpArgs a) {
   __shared__ float s_red[2][BCI];
 
   const int nsub = a.kd * 4;
-  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
-  const int64_t v0 = (int64_t)blockIdx.x * BV;
+  // The per-sample grid's block covers voxels of sample blockIdx.z only.
+  const bool psg = a.part != nullptr;
+  const int64_t vbase = psg ? blockIdx.z * a.sv : 0;
+  const int64_t total = psg ? vbase + a.sv
+                            : (int64_t)a.n * a.d * a.h * a.wd;
+  const int64_t v0 = vbase + (int64_t)blockIdx.x * BV;
   const int ci0 = blockIdx.y * BCI;
   const int vl = threadIdx.x / (BCI / 4);
   const int cq = threadIdx.x % (BCI / 4);
@@ -313,10 +324,11 @@ __global__ void __launch_bounds__(NT) upconv_dgrad_kernel(const UpArgs a) {
         if (a.ds != nullptr) {
           float yv[8];
           load8(yp + off, yv);
+          const int64_t so = a.st_ns ? v / a.sv * a.st_ns : 0;
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            gv[j] = dy_tot(gv[j], yv[j], a.ds[cb + 8 * g + j],
-                           a.dq[cb + 8 * g + j]);
+            gv[j] = dy_tot(gv[j], yv[j], a.ds[so + cb + 8 * g + j],
+                           a.dq[so + cb + 8 * g + j]);
         }
 #pragma unroll
         for (int j = 0; j < 8; ++j) gv[j] = round_to<T>(gv[j]);
@@ -357,12 +369,14 @@ __global__ void __launch_bounds__(NT) upconv_dgrad_kernel(const UpArgs a) {
   float gs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (v < total) {
     const T* xp = static_cast<const T*>(a.x) + v * a.cin + c0;
+    const int64_t po = a.pro_ns ? v / a.sv * a.pro_ns : 0;
     float r[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float xv = to_f(xp[j]);
-      const float inv = a.inv[c0 + j];
-      const float gm = acc[j] * act_grad(pre_act(xv, inv, a.shift[c0 + j]),
+      const float inv = a.inv[po + c0 + j];
+      const float gm = acc[j] * act_grad(pre_act(xv, inv,
+                                                 a.shift[po + c0 + j]),
                                          a.act);
       r[j] = gm * inv;
       gi[j] = gm * xv;
@@ -384,6 +398,27 @@ __global__ void __launch_bounds__(NT) upconv_dgrad_kernel(const UpArgs a) {
       gs[j] += __shfl_xor_sync(0xffffffffu, gs[j], off);
     }
   __syncthreads();  // s_red's initialization is visible
+  if (psg) {
+    // The per-sample mode: the warps in turn, then the block's partial
+    // row, slot blockIdx.x of sample blockIdx.z.
+    for (int w = 0; w < NT / 32; ++w) {
+      if (threadIdx.x / 32 == w && threadIdx.x % 32 < BCI / 4) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s_red[0][4 * cq + j] += gi[j];
+          s_red[1][4 * cq + j] += gs[j];
+        }
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x < BCI) {
+      float* const row = a.part
+          + ((int64_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * a.cin + ci0;
+      row[threadIdx.x] = s_red[0][threadIdx.x];
+      row[a.cin + threadIdx.x] = s_red[1][threadIdx.x];
+    }
+    return;
+  }
   if (threadIdx.x % 32 < BCI / 4) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -442,11 +477,12 @@ __global__ void __launch_bounds__(NT) upconv_wgrad_kernel(const UpArgs a) {
       float vals[8];
       if (v < total) {
         load8(xp + v * a.cin + ci0 + 8 * g, vals);
+        const int64_t po = a.pro_ns ? v / a.sv * a.pro_ns : 0;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = ci0 + 8 * g + j;
-          vals[j] = round_to<T>(prologue(vals[j], a.inv[c], a.shift[c],
-                                         a.act));
+          vals[j] = round_to<T>(prologue(vals[j], a.inv[po + c],
+                                         a.shift[po + c], a.act));
         }
       } else {
 #pragma unroll
@@ -469,10 +505,11 @@ __global__ void __launch_bounds__(NT) upconv_wgrad_kernel(const UpArgs a) {
         if (a.ds != nullptr) {
           float yv[8];
           load8(yp + off, yv);
+          const int64_t so = a.st_ns ? v / a.sv * a.st_ns : 0;
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            gv[j] = dy_tot(gv[j], yv[j], a.ds[co0 + 8 * g + j],
-                           a.dq[co0 + 8 * g + j]);
+            gv[j] = dy_tot(gv[j], yv[j], a.ds[so + co0 + 8 * g + j],
+                           a.dq[so + co0 + 8 * g + j]);
         }
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -601,7 +638,10 @@ int launch_upconv_bwd(const UpArgs& a, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == e3::DT_BF16;
   if (a.dx != nullptr) {
-    const dim3 grid((unsigned)((total + BV - 1) / BV), a.cin / BCI);
+    // The per-sample grid (``part``): blocks of one sample's voxels.
+    const int64_t nv = a.part != nullptr ? a.sv : total;
+    const dim3 grid((unsigned)((nv + BV - 1) / BV), a.cin / BCI,
+                    a.part != nullptr ? a.n : 1);
     if (bf16)
       upconv_dgrad_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(a);
     else
@@ -677,28 +717,46 @@ extern "C" int e3_upconv_bnact(int dtype, const void* x, const float* inv,
   return static_cast<int>(rc);
 }
 
+// The per-sample mode's partial rows a sample of K7's CUDA-core dgrad
+// (ps_reduce.cuh): its blocks of BV input voxels.
+extern "C" int64_t e3_upconv_bnact_bwd_ps_parts(int d, int h, int wd) {
+  return ((int64_t)d * h * wd + BV - 1) / BV;
+}
+
 // K7: dgrad (when dx is given) and wgrad. dinv, dshift, dw and db must
-// be zeroed by the caller.
+// be zeroed by the caller. The per-sample mode: ``st_ns`` (cout) for ds,
+// dq rows of (n, cout); ``pro_ns`` (cin) for prologue rows of (n, cin),
+// with a workspace ``ws`` (ps_workspace_floats of n samples,
+// e3_upconv_bnact_bwd_ps_parts rows of 2 cin) when dx is given: dinv and
+// dshift then come per sample, in a fixed order, as (n, 2, cin) in
+// ``dinv`` (``dshift`` unused, nothing zeroed).
 extern "C" int e3_upconv_bnact_bwd(int dtype, const void* x,
                                    const float* inv, const float* shift,
-                                   const float* wt, const void* dy,
-                                   const void* y, const float* ds,
-                                   const float* dq, void* dx, float* dinv,
-                                   float* dshift, float* dw, float* db,
-                                   int n, int d, int h, int wd, int cin,
-                                   int cout, int kd, int act, void* stream) {
+                                   int pro_ns, const float* wt,
+                                   const void* dy, const void* y,
+                                   const float* ds, const float* dq,
+                                   int st_ns, void* dx, float* dinv,
+                                   float* dshift, float* ws, float* dw,
+                                   float* db, int n, int d, int h, int wd,
+                                   int cin, int cout, int kd, int act,
+                                   void* stream) {
+  if (ws != nullptr && (n > 65535 || pro_ns != cin || dx == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   UpArgs a = {};
   a.x = x;
   a.inv = inv;
   a.shift = shift;
+  a.pro_ns = pro_ns;
   a.wt = wt;
   a.dy = dy;
   a.y = const_cast<void*>(y);  // the forward output, only read here
   a.ds = ds;
   a.dq = dq;
+  a.st_ns = ds != nullptr ? st_ns : 0;
   a.dx = dx;
   a.dinv = dinv;
   a.dshift = dshift;
+  a.part = ws;
   a.dw = dw;
   a.db = db;
   a.n = n;
@@ -709,7 +767,14 @@ extern "C" int e3_upconv_bnact_bwd(int dtype, const void* x,
   a.cout = cout;
   a.kd = kd;
   a.act = act;
-  return launch_upconv_bwd(a, dtype, stream);
+  a.sv = (int64_t)d * h * wd;
+  int rc = launch_upconv_bwd(a, dtype, stream);
+  if (rc == 0 && ws != nullptr)
+    rc = static_cast<int>(ps_reduce(ws, n, e3_upconv_bnact_bwd_ps_parts(
+                                               d, h, wd),
+                                    2 * cin, dinv,
+                                    static_cast<cudaStream_t>(stream)));
+  return rc;
 }
 
 namespace {

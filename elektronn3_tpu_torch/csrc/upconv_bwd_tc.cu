@@ -68,6 +68,17 @@
 // mma.sync rather than wgmma, as in upconv_tc.cu: the bytes, not the
 // tensor-core rate, set the bound here, and mma.sync's fragments let
 // the epilogue work on registers whose layout this file controls.
+//
+// The per-sample mode (group and instance norm): ds, dq and the prologue
+// are (n, C) rows at sample strides (0 for the batch form). The pre-pass
+// reads the row of each voxel's sample. With an (n, cin) prologue the
+// dgrad's grid is (block of a sample, channel block, sample), so no block
+// spans two samples: it stages its sample's prologue row, and its dinv
+// and dshift go, in a fixed order (its warps' shuffles, then its rows of
+// warps in turn), into its partial row, which ps_reduce (ps_reduce.cuh)
+// sums in a fixed order; the wgrad's tiles may span two samples, so its
+// prologue pass reads each voxel's sample's row. dW and db stay global.
+#include "ps_reduce.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -80,6 +91,9 @@ struct UpBwdArgs {
   const __nv_bfloat16* x;    // (n, d, h, w, cin)
   const float* inv;          // (cin,), or null (identity prologue)
   const float* shift;
+  int pro_ns;                // per sample: (n, cin) rows' stride, or 0
+  int64_t sv;                // input voxels of a sample (d * h * w)
+  float* part;               // per sample: dinv, dshift partial rows
   const __nv_bfloat16* wp;   // (cin / 16, nsub * cout, 16) packed weight
   const __nv_bfloat16* dy;   // (n, kd * d, 2 h, 2 w, cout): dy_tot
   __nv_bfloat16* dx;         // (n, d, h, w, cin), or null (no dgrad)
@@ -146,9 +160,14 @@ upconv_dgrad_tc_kernel(const UpBwdArgs a) {
   const int warp = tid / 32;
   const int wm = warp / C::WARPS_N;
   const int wn = warp % C::WARPS_N;
-  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
-  const int64_t v0 = (int64_t)blockIdx.x * BM;
+  // The per-sample grid's block covers voxels of sample blockIdx.z only.
+  const bool psg = a.part != nullptr;
+  const int64_t vbase = psg ? blockIdx.z * a.sv : 0;
+  const int64_t total = psg ? vbase + a.sv
+                            : (int64_t)a.n * a.d * a.h * a.wd;
+  const int64_t v0 = vbase + (int64_t)blockIdx.x * BM;
   const int ci0 = blockIdx.y * NB;
+  const int64_t po = (int64_t)blockIdx.z * a.pro_ns;   // its prologue row
   const int ccn = a.cout / 16;               // k16 steps per sub-position
   const int nk = a.kd * 4 * ccn;             // k16 steps
   const int nstages = (nk + KS - 1) / KS;
@@ -157,8 +176,8 @@ upconv_dgrad_tc_kernel(const UpBwdArgs a) {
 
   for (int r = tid; r < BM; r += NT) s_ob[r] = out_base(a, v0 + r, total);
   for (int c = tid; c < NB; c += NT) {
-    s_inv[c] = PRO && ci0 + c < a.cin ? a.inv[ci0 + c] : 1.0f;
-    s_shift[c] = PRO && ci0 + c < a.cin ? a.shift[ci0 + c] : 0.0f;
+    s_inv[c] = PRO && ci0 + c < a.cin ? a.inv[po + ci0 + c] : 1.0f;
+    s_shift[c] = PRO && ci0 + c < a.cin ? a.shift[po + ci0 + c] : 0.0f;
     s_red[c] = s_red[NB + c] = 0.0f;
   }
   __syncthreads();  // s_ob is read by the loads
@@ -292,6 +311,31 @@ upconv_dgrad_tc_kernel(const UpBwdArgs a) {
         si[nj][e] += __shfl_xor_sync(0xffffffffu, si[nj][e], off);
         ss[nj][e] += __shfl_xor_sync(0xffffffffu, ss[nj][e], off);
       }
+  if (psg) {
+    // The per-sample mode: the rows of warps in turn (the warps of a row
+    // hold distinct channels), then the block's partial row, slot
+    // blockIdx.x of sample blockIdx.z.
+    for (int r = 0; r < C::WARPS_M; ++r) {
+      if (wm == r && g == 0) {
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cl = wn * 32 + nj * 8 + 2 * t4 + e;
+            s_red[cl] += si[nj][e];
+            s_red[NB + cl] += ss[nj][e];
+          }
+      }
+      __syncthreads();
+    }
+    float* const row = a.part
+        + ((int64_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * a.cin;
+    for (int c = tid; c < NB && ci0 + c < a.cin; c += NT) {
+      row[ci0 + c] = s_red[c];
+      row[a.cin + ci0 + c] = s_red[NB + c];
+    }
+    return;
+  }
   if (g == 0) {
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj)
@@ -443,13 +487,28 @@ upconv_wgrad_tc_kernel(const UpBwdArgs a) {
       }
     }
     if (PRO) {
-      for (int p = tid; p < TV * (C::CS / 8); p += NT) {
-        const int ch = p % (C::CS / 8);
-        if (ch * 8 >= cw) continue;
-        prologue_half(reinterpret_cast<uint4*>(
-                          sx + (p / (C::CS / 8)) * C::XP + ch * 16),
-                      s_inv + ch * 8, s_shift + ch * 8, a.act,
-                      t * TV + p / (C::CS / 8) < total);
+      if (a.pro_ns == 0) {
+        for (int p = tid; p < TV * (C::CS / 8); p += NT) {
+          const int ch = p % (C::CS / 8);
+          if (ch * 8 >= cw) continue;
+          prologue_half(reinterpret_cast<uint4*>(
+                            sx + (p / (C::CS / 8)) * C::XP + ch * 16),
+                        s_inv + ch * 8, s_shift + ch * 8, a.act,
+                        t * TV + p / (C::CS / 8) < total);
+        }
+      } else {
+        // The per-sample mode: the row of each voxel's sample (a tile
+        // may span two), from device memory.
+        for (int p = tid; p < TV * (C::CS / 8); p += NT) {
+          const int ch = p % (C::CS / 8);
+          if (ch * 8 >= cw) continue;
+          const int64_t v = t * TV + p / (C::CS / 8);
+          const int64_t po = v < total ? v / a.sv * a.pro_ns + cb + ch * 8
+                                       : 0;
+          prologue_half(reinterpret_cast<uint4*>(
+                            sx + (p / (C::CS / 8)) * C::XP + ch * 16),
+                        a.inv + po, a.shift + po, a.act, v < total);
+        }
       }
       __syncthreads();
     }
@@ -524,10 +583,13 @@ cudaError_t launch_dgrad(const UpBwdArgs& a, cudaStream_t stream) {
   const cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return rc;
-  const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
+  // The per-sample grid (``part``): blocks of one sample's voxels.
+  const int64_t total = a.part != nullptr
+      ? a.sv : (int64_t)a.n * a.d * a.h * a.wd;
   const int64_t blocks = (total + BM - 1) / BM;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks, (a.cin + NB - 1) / NB);
+  const dim3 grid((unsigned)blocks, (a.cin + NB - 1) / NB,
+                  a.part != nullptr ? a.n : 1);
   kern<<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -576,26 +638,30 @@ cudaError_t wgrad_nsub(const UpBwdArgs& a, cudaStream_t st) {
 // The pre-pass: thread t of a block of ``nt`` (a multiple of c / 8)
 // owns channels 8 (t % (c / 8)) to + 8 of every voxel it visits, so it
 // sums db in registers; then shared atomics, then one device atomic per
-// channel and block.
+// channel and block. In the per-sample mode a thread reloads its ds and
+// dq where its voxel's sample changes (rarely: a thread's voxels are a
+// grid's stride apart).
 __global__ void __launch_bounds__(256)
 dytot_kernel(const __nv_bfloat16* dy, const __nv_bfloat16* y,
-             const float* ds, const float* dq, __nv_bfloat16* e, float* db,
-             int64_t nchunks, int c) {
+             const float* ds, const float* dq, int st_ns, int64_t spv,
+             __nv_bfloat16* e, float* db, int64_t nchunks, int c) {
   __shared__ float s_db[kDytotMaxC];
   for (int i = threadIdx.x; i < c; i += blockDim.x) s_db[i] = 0.0f;
   __syncthreads();
   int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int c0 = (int)(p % (c / 8)) * 8;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   float sds[8], sdq[8], acc[8];
+  auto rows = [&](int64_t smp) {   // sample smp's ds and dq
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    sds[j] = ds[c0 + j];
-    sdq[j] = dq[c0 + j];
-    acc[j] = 0.0f;
-  }
-  for (; p < nchunks; p += (int64_t)gridDim.x * blockDim.x) {
-    uint4 u = reinterpret_cast<const uint4*>(dy)[p];
-    const uint4 yv = reinterpret_cast<const uint4*>(y)[p];
+    for (int j = 0; j < 8; ++j) {
+      sds[j] = ds[smp * st_ns + c0 + j];
+      sdq[j] = dq[smp * st_ns + c0 + j];
+    }
+  };
+  auto chunk = [&](int64_t q) {
+    uint4 u = reinterpret_cast<const uint4*>(dy)[q];
+    const uint4 yv = reinterpret_cast<const uint4*>(y)[q];
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
     const __nv_bfloat162* hy = reinterpret_cast<const __nv_bfloat162*>(&yv);
 #pragma unroll
@@ -608,7 +674,23 @@ dytot_kernel(const __nv_bfloat16* dy, const __nv_bfloat16* y,
       acc[2 * j + 1] += v1;
       h[j] = __floats2bfloat162_rn(v0, v1);
     }
-    reinterpret_cast<uint4*>(e)[p] = u;
+    reinterpret_cast<uint4*>(e)[q] = u;
+  };
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+  if (st_ns == 0) {
+    rows(0);
+    for (; p < nchunks; p += stride) chunk(p);
+  } else {
+    int64_t cur = -1;   // the sample whose rows sds and sdq hold
+    for (; p < nchunks; p += stride) {
+      const int64_t smp = p / (c / 8) / spv;
+      if (smp != cur) {
+        cur = smp;
+        rows(smp);
+      }
+      chunk(p);
+    }
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j) atomicAdd(&s_db[c0 + j], acc[j]);
@@ -621,22 +703,28 @@ dytot_kernel(const __nv_bfloat16* dy, const __nv_bfloat16* y,
 namespace e3 {
 
 cudaError_t launch_dytot(const __nv_bfloat16* dy, const __nv_bfloat16* y,
-                         const float* ds, const float* dq, __nv_bfloat16* e,
-                         float* db, int64_t voxels, int c,
-                         cudaStream_t stream) {
-  if (c % 8 || c > kDytotMaxC || c / 8 > 256)
+                         const float* ds, const float* dq, int st_ns,
+                         int64_t spv, __nv_bfloat16* e, float* db,
+                         int64_t voxels, int c, cudaStream_t stream) {
+  if (c % 8 || c > kDytotMaxC || c / 8 > 256 || (st_ns && spv < 1))
     return cudaErrorInvalidValue;
   const int nt = 256 - 256 % (c / 8);
   const int64_t nchunks = voxels * (c / 8);
   int64_t blocks = (nchunks + nt - 1) / nt;
   if (blocks > 8 * (int64_t)sm_count()) blocks = 8 * (int64_t)sm_count();
   if (blocks < 1) blocks = 1;
-  dytot_kernel<<<(unsigned)blocks, nt, 0, stream>>>(dy, y, ds, dq, e, db,
-                                                    nchunks, c);
+  dytot_kernel<<<(unsigned)blocks, nt, 0, stream>>>(dy, y, ds, dq, st_ns,
+                                                    spv, e, db, nchunks, c);
   return cudaGetLastError();
 }
 
 }  // namespace e3
+
+// The per-sample mode's partial rows a sample of K7's tensor-core dgrad
+// (ps_reduce.cuh): its blocks of BM input voxels.
+extern "C" int64_t e3_upconv_bnact_bwd_tc_ps_parts(int d, int h, int wd) {
+  return ((int64_t)d * h * wd + BM - 1) / BM;
+}
 
 // K7, bf16 bodies: with a statistics cotangent (``ds``, ``dq``) the
 // pre-pass into ``e`` (a scratch of dy's shape) and db, else db from the
@@ -645,25 +733,36 @@ cudaError_t launch_dytot(const __nv_bfloat16* dy, const __nv_bfloat16* y,
 // are float32, zeroed by the caller. ``wp`` is K3's packed (cin / 16,
 // kd * 4 * cout, 16) bf16 weight; ``inv``/``shift`` null means the
 // identity prologue (dinv, dshift untouched); ``ds``/``dq`` null means
-// no statistics cotangent (``y`` and ``e`` are then not used). Needs
-// cin % 16 == 0 and cout % 32 == 0.
+// no statistics cotangent (``y`` and ``e`` are then not used). The
+// per-sample mode: ``st_ns`` (cout) for ds, dq rows of (n, cout);
+// ``pro_ns`` (cin) for prologue rows of (n, cin), with a workspace ``ws``
+// (ps_workspace_floats of n samples, e3_upconv_bnact_bwd_tc_ps_parts
+// rows of 2 cin) when dx is given: dinv and dshift then come per sample,
+// in a fixed order, as (n, 2, cin) in ``dinv`` (``dshift`` unused,
+// nothing zeroed). Needs cin % 16 == 0 and cout % 32 == 0.
 extern "C" int e3_upconv_bnact_bwd_tc(const void* x, const float* inv,
-                                      const float* shift, const void* wp,
-                                      const void* dy, const void* y,
-                                      const float* ds, const float* dq,
-                                      void* e, void* dx, float* dinv,
-                                      float* dshift, float* dw, float* db,
-                                      int n, int d, int h, int wd, int cin,
+                                      const float* shift, int pro_ns,
+                                      const void* wp, const void* dy,
+                                      const void* y, const float* ds,
+                                      const float* dq, int st_ns, void* e,
+                                      void* dx, float* dinv, float* dshift,
+                                      float* ws, float* dw, float* db, int n,
+                                      int d, int h, int wd, int cin,
                                       int cout, int kd, int act,
                                       void* stream) {
   if (cin % 16 || cout % 32 || (kd != 1 && kd != 2)
-      || (ds != nullptr && e == nullptr))
+      || (ds != nullptr && e == nullptr)
+      || (ws != nullptr && (inv == nullptr || pro_ns != cin || n > 65535
+                            || dx == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   UpBwdArgs a = {};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.inv = inv;
   a.shift = shift;
+  a.pro_ns = inv != nullptr ? pro_ns : 0;
+  a.sv = (int64_t)d * h * wd;
+  a.part = ws;
   a.wp = static_cast<const __nv_bfloat16*>(wp);
   a.dy = static_cast<const __nv_bfloat16*>(dy);
   a.dx = static_cast<__nv_bfloat16*>(dx);
@@ -682,8 +781,9 @@ extern "C" int e3_upconv_bnact_bwd_tc(const void* x, const float* inv,
   cudaError_t rc = cudaSuccess;
   if (ds != nullptr) {
     rc = e3::launch_dytot(a.dy, static_cast<const __nv_bfloat16*>(y), ds, dq,
-                      static_cast<__nv_bfloat16*>(e), db,
-                      (int64_t)n * d * h * wd * kd * 4, cout, st);
+                          st_ns, (int64_t)d * h * wd * kd * 4,
+                          static_cast<__nv_bfloat16*>(e), db,
+                          (int64_t)n * d * h * wd * kd * 4, cout, st);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     a.dy = static_cast<const __nv_bfloat16*>(e);
     a.db = nullptr;
@@ -694,5 +794,8 @@ extern "C" int e3_upconv_bnact_bwd_tc(const void* x, const float* inv,
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   rc = kd == 2 ? wgrad_nsub<8>(a, st) : wgrad_nsub<4>(a, st);
+  if (rc == cudaSuccess && ws != nullptr)
+    rc = ps_reduce(ws, n, e3_upconv_bnact_bwd_tc_ps_parts(d, h, wd),
+                   2 * cin, dinv, st);
   return static_cast<int>(rc);
 }

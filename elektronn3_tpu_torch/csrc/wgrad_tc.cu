@@ -51,6 +51,13 @@
 //   - at the end one float32 atomic per weight and block (the order of
 //     the blocks' sums, hence the last bits, changes from run to run, as
 //     in the CUDA-core body).
+//   - the per-sample mode (group and instance norm; its own
+//     instantiations, PS, so that the batch form's, at the register cap,
+//     compile as they did): the prologue and ds, dq are (n, C) rows at
+//     the sample strides pro_ns and st_ns; a tile lies in one (n, depth)
+//     plane, so its passes read its sample's rows from device memory
+//     (cached in L1) where the batch form reads the block's staged ones.
+//     dW and db stay global.
 // Reads: x once per (output-channel block, dz), times the halo's
 // 180 / 128; dy and y once per (input-channel slice, dz). At the
 // 32 -> 32 kd = 1 conv that is each once; at the 64 + 64 -> 64 kd = 3
@@ -112,12 +119,14 @@ struct WgTcArgs {
   const __nv_bfloat16* x[2];
   const float* inv;          // (c0 + c1,) prologue, or null (identity)
   const float* shift;
+  int pro_ns;                // per sample: (n, c0 + c1) rows' stride, or 0
   int cin[2];
   int groups0;               // slices of input 0
   const __nv_bfloat16* dy;   // (n, d, h, w, cout)
   const __nv_bfloat16* y;    // the forward output (read with ds)
   const float* ds;           // (cout,) statistics cotangents, or null
   const float* dq;
+  int st_ns;                 // per sample: (n, cout) rows' stride, or 0
   float* dw;                 // (kd, 3, 3, c0 + c1, cout), zeroed
   float* db;                 // (cout,), zeroed; null: the pre-pass sums
   int n, d, h, wd, cout, kd, act;
@@ -215,7 +224,8 @@ __device__ __forceinline__ Tile tile_at(const WgTcArgs& a, int64_t t,
   return tl;
 }
 
-template <int COB, bool PRO, bool DYT, typename Args = WgTcArgs>
+template <int COB, bool PRO, bool DYT, typename Args = WgTcArgs,
+          bool PS = false>
 __global__ void __launch_bounds__(NT, 2)
 wgrad_tc_kernel(const Args a) {
   constexpr bool VUP = std::is_same<Args, WgTcVupArgs>::value;
@@ -409,6 +419,23 @@ wgrad_tc_kernel(const Args a) {
     }
     if (PRO || DYT || do_db) {
       const Tile tl = tile_at(a, t, dzp);
+      // The rows the passes read: the block's staged ones, or (PS) the
+      // tile's sample's.
+      const float* pinv = s_inv;
+      const float* pshift = s_shift;
+      const float* pds = s_ds;
+      const float* pdq = s_dq;
+      if constexpr (PS) {
+        const int64_t smp = tl.oplane / a.d;
+        if (a.pro_ns) {
+          pinv = a.inv + smp * a.pro_ns + coff + cb;
+          pshift = a.shift + smp * a.pro_ns + coff + cb;
+        }
+        if (a.st_ns) {
+          pds = a.ds + smp * a.st_ns + co0;
+          pdq = a.dq + smp * a.st_ns + co0;
+        }
+      }
       if (PRO && !vup0)
         for (int p = tid; p < NSLAB * 4; p += NT) {
           const int ch = p & 3;
@@ -418,7 +445,7 @@ wgrad_tc_kernel(const Args a) {
           const int gw = tl.w0 + vox % SW - 1;
           prologue_half(reinterpret_cast<uint4*>(sx + vox * SPITCH
                                                  + ch * 16),
-                        s_inv + ch * 8, s_shift + ch * 8, a.act,
+                        pinv + ch * 8, pshift + ch * 8, a.act,
                         gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd);
         }
       if (DYT || do_db)
@@ -431,9 +458,9 @@ wgrad_tc_kernel(const Args a) {
           const uint4* yp = DYT ? reinterpret_cast<const uint4*>(
               sg + C::DYB + vox * C::DPITCH + ch * 16) : nullptr;
           if (do_db)
-            dytot_half(gp, yp, s_ds + ch * 8, s_dq + ch * 8, ok, dbl);
+            dytot_half(gp, yp, pds + ch * 8, pdq + ch * 8, ok, dbl);
           else
-            dytot_half(gp, yp, s_ds + ch * 8, s_dq + ch * 8, ok, nullptr);
+            dytot_half(gp, yp, pds + ch * 8, pdq + ch * 8, ok, nullptr);
         }
       __syncthreads();
     }
@@ -555,10 +582,11 @@ int sm_count() {
 
 // One wave of blocks: as many splits of every combo as fill the SMs at
 // the kernel's occupancy, at most one a tile.
-template <int COB, bool PRO, bool DYT, typename Args = WgTcArgs>
+template <int COB, bool PRO, bool DYT, typename Args = WgTcArgs,
+          bool PS = false>
 cudaError_t launch(Args a, cudaStream_t stream) {
   const size_t smem = wgrad_tc_smem<COB, DYT>() + vup_smem(a);
-  auto kern = wgrad_tc_kernel<COB, PRO, DYT, Args>;
+  auto kern = wgrad_tc_kernel<COB, PRO, DYT, Args, PS>;
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return rc;
@@ -589,6 +617,17 @@ cudaError_t launch_cob(const WgTcArgs& a, cudaStream_t st) {
                          : launch<COB, false, false>(a, st);
 }
 
+// The per-sample mode's instantiations (an (n, .) prologue or statistics
+// cotangent; with neither staged, the batch form's body serves).
+template <int COB>
+cudaError_t launch_cob_ps(const WgTcArgs& a, cudaStream_t st) {
+  if (a.inv != nullptr)
+    return a.ds != nullptr ? launch<COB, true, true, WgTcArgs, true>(a, st)
+                           : launch<COB, true, false, WgTcArgs, true>(a, st);
+  return a.ds != nullptr ? launch<COB, false, true, WgTcArgs, true>(a, st)
+                         : launch<COB, false, false>(a, st);
+}
+
 template <int COB>
 cudaError_t launch_vup(const WgTcVupArgs& a, cudaStream_t st) {
   return a.ds != nullptr ? launch<COB, true, true, WgTcVupArgs>(a, st)
@@ -600,7 +639,9 @@ cudaError_t launch_vup(const WgTcVupArgs& a, cudaStream_t st) {
 // K5, bf16 body: dW (kd, 3, 3, c0 + c1, cout) and db (cout,), float32,
 // zeroed by the caller. ``inv``/``shift`` ((c0 + c1,) over the concat)
 // null means the identity prologue; ``ds``/``dq`` null means no
-// statistics cotangent (``y`` and ``e`` are then not used). With one and
+// statistics cotangent (``y`` and ``e`` are then not used). The
+// per-sample mode: ``pro_ns`` (c0 + c1) and ``st_ns`` (cout) for
+// prologue and statistics cotangent rows of (n, .), 0 for (.,). With one and
 // a scratch ``e`` of dy's shape (the wrapper passes it where the blocks
 // would read dy and y more than twice: input-channel slices x kd > 2),
 // the pre-pass (launch_dytot) first writes the rounded dy_tot into e and
@@ -610,11 +651,11 @@ cudaError_t launch_vup(const WgTcVupArgs& a, cudaStream_t st) {
 extern "C" int e3_conv_bnact_wgrad_tc(int nin, const void* x0, int c0,
                                       const void* x1, int c1,
                                       const float* inv, const float* shift,
-                                      const void* dy, const void* y,
-                                      const float* ds, const float* dq,
-                                      void* e, int cout, float* dw,
-                                      float* db, int n, int d, int h,
-                                      int wd, int kd, int act,
+                                      int pro_ns, const void* dy,
+                                      const void* y, const float* ds,
+                                      const float* dq, int st_ns, void* e,
+                                      int cout, float* dw, float* db, int n,
+                                      int d, int h, int wd, int kd, int act,
                                       void* stream) {
   if (c0 % 16 || (nin > 1 && c1 % 16) || cout % 32 || (kd != 1 && kd != 3))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -623,6 +664,7 @@ extern "C" int e3_conv_bnact_wgrad_tc(int nin, const void* x0, int c0,
   a.x[1] = static_cast<const __nv_bfloat16*>(x1);
   a.inv = inv;
   a.shift = shift;
+  a.pro_ns = inv != nullptr ? pro_ns : 0;
   a.cin[0] = c0;
   a.cin[1] = nin > 1 ? c1 : 0;
   a.groups0 = (c0 + CS - 1) / CS;
@@ -630,6 +672,7 @@ extern "C" int e3_conv_bnact_wgrad_tc(int nin, const void* x0, int c0,
   a.y = static_cast<const __nv_bfloat16*>(y);
   a.ds = ds;
   a.dq = dq;
+  a.st_ns = ds != nullptr ? st_ns : 0;
   a.dw = dw;
   a.db = db;
   a.n = n;
@@ -644,15 +687,20 @@ extern "C" int e3_conv_bnact_wgrad_tc(int nin, const void* x0, int c0,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ds != nullptr && e != nullptr) {
     const cudaError_t rc = e3::launch_dytot(
-        a.dy, a.y, ds, dq, static_cast<__nv_bfloat16*>(e), db,
-        (int64_t)n * d * h * wd, cout, st);
+        a.dy, a.y, ds, dq, a.st_ns, (int64_t)d * h * wd,
+        static_cast<__nv_bfloat16*>(e), db, (int64_t)n * d * h * wd, cout,
+        st);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     a.dy = static_cast<const __nv_bfloat16*>(e);
     a.ds = a.dq = nullptr;
+    a.st_ns = 0;
     a.db = nullptr;
   }
-  const cudaError_t rc = cob == 64 ? launch_cob<64>(a, st)
-                                   : launch_cob<32>(a, st);
+  const bool ps = a.pro_ns != 0 || a.st_ns != 0;
+  const cudaError_t rc = ps ? (cob == 64 ? launch_cob_ps<64>(a, st)
+                                         : launch_cob_ps<32>(a, st))
+                            : (cob == 64 ? launch_cob<64>(a, st)
+                                         : launch_cob<32>(a, st));
   return static_cast<int>(rc);
 }
 
@@ -713,7 +761,7 @@ extern "C" int e3_conv_vup_wgrad_tc(const void* carry, int cc,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ds != nullptr && e != nullptr) {
     const cudaError_t rc = e3::launch_dytot(
-        a.dy, a.y, ds, dq, static_cast<__nv_bfloat16*>(e), db,
+        a.dy, a.y, ds, dq, 0, 0, static_cast<__nv_bfloat16*>(e), db,
         (int64_t)n * d * h * wd, cout, st);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     a.dy = static_cast<const __nv_bfloat16*>(e);

@@ -91,10 +91,12 @@ have no running state: a kernel level takes per-sample statistics from
 every conv, in training and in eval (``want_stats='per_sample'``), and
 its consumers apply (N, C) prologue vectors (``gn_prologue``, JAX's
 ``FlatGNStats``); a library level runs :class:`GroupNorm` (flax
-``nn.GroupNorm``, as XLA does in JAX). The kernels have this mode in
-their forwards only so far: serving runs them, and training through a
-kernel level raises ``NotImplementedError`` (train such a model with
-``pallas_flat=False``, on the library ops and autograd).
+``nn.GroupNorm``, as XLA does in JAX). Serving and training both run
+the kernels in that mode: the backward kernels take the (N, C)
+statistics cotangents that autograd carries back through
+``gn_prologue`` and give (N, C) prologue gradients, as JAX's
+``per_sample`` backward kernels do. ``vup=True`` and a 2D model on the
+kernels refuse group norm.
 """
 
 from __future__ import annotations

@@ -52,31 +52,32 @@ _SIGNATURES = {
                          _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "e3_upconv_bnact_tc": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I, _P),
-    "e3_conv_bnact_dgrad": (_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I,
-                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P),
-    "e3_conv_bnact_dgrad_tc": (_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
-                               _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _P),
-    "e3_conv1_bwd": (_I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                     _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "e3_conv_bnact_wgrad_tc": (_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                               _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "e3_upconv_bnact_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _P),
-    "e3_conv_bnact_wgrad": (_I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                            _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_bnact_dgrad": (_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P,
+                            _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _P),
+    "e3_conv_bnact_dgrad_tc": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
+                               _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _P),
+    "e3_conv1_bwd": (_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_bnact_wgrad_tc": (_I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                               _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "e3_upconv_bnact_bwd_tc": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                               _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P),
+    "e3_conv_bnact_wgrad": (_I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+                            _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "e3_pool_bnact": (_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P),
-    "e3_pool_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _I, _P),
+    "e3_pool_bnact_bwd": (_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _P),
     "e3_conv1_fwd": (_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                      _I, _I, _I, _I, _I, _P),
     "e3_upconv_bnact": (_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P),
-    "e3_upconv_bnact_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_upconv_bnact_bwd": (_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P),
     "e3_bn_stats": (_I, _P, _P, _P, _F, _P, _P, _F, _F, _P, _P, _L, _I, _I,
                     _I, _I, _P),
     "e3_bn_normalize": (_I, _P, _P, _P, _P, _L, _I, _P),
@@ -111,15 +112,20 @@ _SIGNATURES = {
                            _I, _I, _P),
 }
 
-# The per-sample mode's partial rows a sample of each forward kernel, as
-# its entry lays them out, and the floats of their workspace
-# (csrc/ps_reduce.cuh): int64 results.
+# The per-sample mode's partial rows a sample of each kernel (forward:
+# statistics; backward: dinv and dshift), as its entry lays them out, and
+# the floats of their workspace (csrc/ps_reduce.cuh): int64 results.
 _PS_PARTS = {
     "e3_conv_bnact_tc_ps_parts": (_I, _I, _I, _I),
     "e3_conv_bnact_ps_parts": (_I, _I, _I),
     "e3_conv1_fwd_ps_parts": (_I, _I, _I),
     "e3_upconv_bnact_tc_ps_parts": (_I, _I, _I),
     "e3_upconv_bnact_ps_parts": (_I, _I, _I, _I),
+    "e3_conv1_bwd_ps_parts": (_I, _I, _I),
+    "e3_pool_bnact_bwd_ps_parts": (_I, _I, _I, _I, _I),
+    "e3_conv_bnact_dgrad_tc_ps_parts": (_I, _I, _I, _I),
+    "e3_upconv_bnact_bwd_tc_ps_parts": (_I, _I, _I),
+    "e3_upconv_bnact_bwd_ps_parts": (_I, _I, _I),
     "e3_ps_workspace_floats": (_I, _L, _I),
 }
 

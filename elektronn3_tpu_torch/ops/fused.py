@@ -19,8 +19,9 @@ one op covers both. What carries over is the fusion contract
   ``want_stats='per_sample'``, in training and in eval): the prologue
   vectors are then (N, C), one row a sample, and the statistics (N, C)
   (:data:`PER_SAMPLE`), summed in a fixed order (the same bits on every
-  run and for every batch size); only the forwards have this mode so
-  far;
+  run and for every batch size); the backward kernels take (N, C)
+  statistics cotangents and give (N, C) prologue gradients (dinv,
+  dshift), also summed in a fixed order, while dW and db stay global;
 - each op is a ``torch.autograd.Function`` whose backward is the merged
   backward of the JAX kernels: the statistics cotangent is folded into
   the incoming one on load, ``dy_tot = dy + ds + 2 * y * dq``, and one
@@ -110,14 +111,12 @@ LEAKY_SLOPE = 0.1  # matches modules/layers.py leaky activation
 # stride (0 for the batch form); their per-sample statistics are partial
 # rows of each block, summed in a fixed order (``csrc/ps_reduce.cuh``), so
 # that a group norm's forward gives the same bits on every run and for
-# every batch size. The batch variants keep their code.
+# every batch size. The backward kernels take (N, C) statistics
+# cotangents by a sample stride too and give (N, C) dinv and dshift for
+# an (N, C) prologue, summed the same way (a group norm carries them back
+# through its statistics into every voxel of the level below), while
+# their dW and db stay global. The batch variants keep their code.
 PER_SAMPLE = "per_sample"
-# What a gradient through the per-sample mode raises: its backward
-# kernels are the next slice of the port.
-_PS_BACKWARD = ("the per-sample mode (group and instance norm) has no "
-                "backward kernels yet (ROADMAP.md, Queue 2 item 8(b): the "
-                "backward kernels' per-sample dinv/dshift); train a group "
-                "or instance norm model with pallas_flat=False")
 _ACT_ID = {"linear": 0, "relu": 1, "leaky": 2}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -135,20 +134,29 @@ LAUNCHES = {"conv_bnact": 0, "pool_bnact": 0, "upconv_bnact": 0,
 # entries with two bodies (ops/vup.py) by the body each took (row 13's:
 # 'conv1', or 'conv1+dx' with the input gradient): {(kernel, body): n}.
 BODY_LAUNCHES: Dict[Tuple[str, str], int] = {}
+# The launches of K1-K7 and row 13's in the per-sample mode (an (N, C)
+# prologue, per-sample statistics or (N, C) statistics cotangents):
+# {kernel: n}, counted beside LAUNCHES.
+PS_LAUNCHES: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     BODY_LAUNCHES.clear()
+    PS_LAUNCHES.clear()
 
 
-def _count(kernel: str, body: Optional[str] = None) -> None:
-    """One launch of ``kernel`` (on ``body``)."""
+def _count(kernel: str, body: Optional[str] = None,
+           per_sample: bool = False) -> None:
+    """One launch of ``kernel`` (on ``body``; in the per-sample
+    mode)."""
     LAUNCHES[kernel] += 1
     if body is not None:
         key = (kernel, body)
         BODY_LAUNCHES[key] = BODY_LAUNCHES.get(key, 0) + 1
+    if per_sample:
+        PS_LAUNCHES[kernel] = PS_LAUNCHES.get(kernel, 0) + 1
 
 
 class FusedActs(NamedTuple):
@@ -247,14 +255,11 @@ def _want(want_stats) -> Tuple[bool, bool]:
 
 def _check_per_sample(x: torch.Tensor, c: int,
                       inv: Optional[torch.Tensor],
-                      shift: Optional[torch.Tensor], want_stats, what: str,
-                      grad: bool) -> None:
+                      shift: Optional[torch.Tensor], want_stats,
+                      what: str) -> None:
     """Check an op's prologue vectors, (c,) or per sample (N, c) for the
-    N of ``x`` (``shift`` with ``inv``), and its ``want_stats``. A
-    gradient through the per-sample mode (a per-sample prologue or
-    per-sample statistics) raises NotImplementedError, before anything
-    runs."""
-    ps = _want(want_stats)[1]
+    N of ``x`` (``shift`` with ``inv``), and its ``want_stats``."""
+    _want(want_stats)
     if (inv is None) != (shift is None):
         raise ValueError(f"{what}: inv and shift go together")
     if inv is not None:
@@ -267,27 +272,45 @@ def _check_per_sample(x: torch.Tensor, c: int,
         if inv.shape != shift.shape:
             raise ValueError(f"{what}: inv {tuple(inv.shape)} and shift "
                              f"{tuple(shift.shape)} differ")
-        ps = ps or inv.dim() == 2
-    if ps and grad:
-        raise NotImplementedError(f"{what}: {_PS_BACKWARD}")
 
 
 def _dy_tot(dy: Optional[torch.Tensor], y: torch.Tensor,
             ds: Optional[torch.Tensor], dq: Optional[torch.Tensor],
             ) -> torch.Tensor:
     """``dy + ds + 2 * y * dq`` in float32 (``dy_tot``; a missing
-    cotangent is zero)."""
+    cotangent is zero); ``ds`` and ``dq`` (C,) or per sample (N, C)."""
     t = torch.zeros(y.shape, dtype=torch.float32, device=y.device) \
         if dy is None else dy.float()
     if ds is not None:
-        t = t + ds
+        t = t + _bc(ds, y)
     if dq is not None:
-        t = t + 2.0 * y.float() * dq
+        t = t + 2.0 * y.float() * _bc(dq, y)
     return t
 
 
-def _sum_vox(t: torch.Tensor) -> torch.Tensor:
-    return t.sum(tuple(range(t.dim() - 1)))
+def _sum_vox(t: torch.Tensor, per_sample: bool = False) -> torch.Tensor:
+    """Sums over the voxels of a channels-last tensor: (C,), or with
+    ``per_sample`` (N, C), each sample's."""
+    return t.sum(tuple(range(1 if per_sample else 0, t.dim() - 1)))
+
+
+def _ps(inv: Optional[torch.Tensor]) -> bool:
+    """Whether a prologue vector is per sample, (N, C)."""
+    return inv is not None and inv.dim() == 2
+
+
+def _ps_fwd(inv: Optional[torch.Tensor], want_stats) -> bool:
+    """Whether a forward launch is in the per-sample mode: an (N, C)
+    prologue or per-sample statistics."""
+    return _ps(inv) or _want(want_stats)[1]
+
+
+def _pro_sums(gm: torch.Tensor, x: torch.Tensor,
+              inv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dinv, dshift) = (sum gm * x, sum gm) over the voxels, per
+    sample for an (N, C) ``inv``."""
+    ps = _ps(inv)
+    return _sum_vox(gm * x.float(), ps), _sum_vox(gm, ps)
 
 
 def _plain(t: torch.Tensor, reference: bool) -> bool:
@@ -325,7 +348,9 @@ def _vec(v: Optional[torch.Tensor], c: int, fill: float,
     if v.shape != (c,) and (n is None or v.shape != (n, c)):
         raise ValueError(f"prologue vector shape {tuple(v.shape)} != ({c},)"
                          + ("" if n is None else f" or ({n}, {c})"))
-    return v.detach().to(device=device, dtype=torch.float32).contiguous()
+    v = v.detach().to(device=device, dtype=torch.float32).contiguous()
+    # The tensor-core bodies read 8 floats at a time (16-byte vectors).
+    return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
 def _ns(v: Optional[torch.Tensor]) -> int:
@@ -335,12 +360,13 @@ def _ns(v: Optional[torch.Tensor]) -> int:
 
 
 def _stat_bufs(want_stats, n: int, c: int, dev: torch.device, parts):
-    """A kernel's statistics outputs: (s, q, workspace). (c,) each, zeroed
-    (one fill), and no workspace for the batch form; in the per-sample
-    mode s and q are the rows of one (n, 2, c) output that the kernel's
-    deterministic reduction writes, and the workspace holds its ``parts()``
-    partial rows a sample and the first pass's chunks
-    (``ps_workspace_floats``); (None, None, None) without statistics."""
+    """A kernel's statistics outputs, or a backward kernel's (dinv,
+    dshift): (s, q, workspace). (c,) each, zeroed (one fill), and no
+    workspace for the batch form; in the per-sample mode s and q are the
+    rows of one (n, 2, c) output that the kernel's deterministic
+    reduction writes, and the workspace holds its ``parts()`` partial
+    rows a sample and the first pass's chunks (``ps_workspace_floats``);
+    (None, None, None) without statistics."""
     want, ps = _want(want_stats)
     if not want:
         return None, None, None
@@ -355,12 +381,16 @@ def _stat_bufs(want_stats, n: int, c: int, dev: torch.device, parts):
 
 
 def _stat_cts(ds: Optional[torch.Tensor], dq: Optional[torch.Tensor],
-              c: int, device: torch.device):
+              c: int, device: torch.device, n: Optional[int] = None):
     """The statistics cotangents for a kernel: both None (no statistics
-    cotangent), or both (c,) float32 vectors with a missing one zero."""
+    cotangent), or both (c,) float32 vectors (per sample (n, c) where
+    ``n`` is given and the present one is) with a missing one zero."""
     if ds is None and dq is None:
         return None, None
-    return _vec(ds, c, 0.0, device), _vec(dq, c, 0.0, device)
+    shape = (ds if ds is not None else dq).shape
+    return tuple(
+        torch.zeros(shape, dtype=torch.float32, device=device) if v is None
+        else _vec(v, c, 0.0, device, n) for v in (ds, dq))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -504,15 +534,15 @@ def conv_bnact_dgrad_plain(xs: Sequence[torch.Tensor],
                            dq: Optional[torch.Tensor], act: str):
     """Plain version of K4, written out (not autograd through the
     forward): (dxs, dinv, dshift), dinv and dshift None when ``inv`` is
-    None."""
+    None, (N, C) for a per-sample ``inv``; ``ds``/``dq`` (C_out,) or
+    (N, C_out)."""
     dtype = xs[0].dtype
     x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
     gm = conv_bnact_dgrad_gm(xs, inv, shift, weight, y, dy, ds, dq, act)
     dinv = dshift = None
     if inv is not None:
-        dinv = _sum_vox(gm * x.float())
-        dshift = _sum_vox(gm)
-        gm = gm * inv
+        dinv, dshift = _pro_sums(gm, x, inv)
+        gm = gm * _bc(inv, x)
     dxs = torch.split(gm.to(dtype), [xx.shape[-1] for xx in xs], dim=-1)
     return [d.contiguous() for d in dxs], dinv, dshift
 
@@ -525,7 +555,8 @@ def conv_bnact_wgrad_plain(xs: Sequence[torch.Tensor],
                            ds: Optional[torch.Tensor],
                            dq: Optional[torch.Tensor], act: str):
     """Plain version of K5: float32 (dW, db), dW of ``weight``'s shape,
-    from the recomputed prologued input rounded to the dtype."""
+    from the recomputed prologued input rounded to the dtype; db sums
+    every sample's voxels, in the per-sample mode too."""
     dtype = xs[0].dtype
     x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
     kd = weight.shape[2]
@@ -628,7 +659,7 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
                 y.data_ptr(), _ptr(s), _ptr(q), _ptr(ws), n, d, h, w, cout,
                 kd, _ACT_ID[act], _stream(dev))
         _build.check(rc, "conv_bnact (tensor-core body)")
-        _count("conv_bnact", "tc")
+        _count("conv_bnact", "tc", _ps_fwd(inv, want_stats))
         return y, s, q
     inv = _vec(inv, cin, 1.0, dev, n)
     shift = _vec(shift, cin, 0.0, dev, n)
@@ -648,7 +679,7 @@ def conv_bnact_fwd_kernel(xs, inv, shift, weight, bias, act, want_stats):
             _ptr(q), _ptr(ws), n, d, h, w, cout, kd, _ACT_ID[act],
             _stream(dev))
     _build.check(rc, "conv_bnact")
-    _count("conv_bnact", "cuda-core")
+    _count("conv_bnact", "cuda-core", _ps_fwd(inv, want_stats))
     return y, s, q
 
 
@@ -670,19 +701,31 @@ def _conv1_fwd(x, inv, shift, weight, b, act, want_stats, y):
          _ptr(inv_v), _ptr(shift_v), _ns(inv_v), wt.data_ptr(),
          b.data_ptr(), y.data_ptr(), _ptr(s), _ptr(q), _ptr(ws), n, d, h, w,
          cout, kd, _ACT_ID[act])
-    _count("conv_bnact", "conv1")
+    _count("conv_bnact", "conv1", _ps_fwd(inv, want_stats))
     return y, s, q
 
 
 def _conv_bwd_args(xs, inv, shift, weight, y, dy, ds, dq, what):
+    """A conv backward kernel's arguments on the card: the gradient, the
+    statistics cotangents (C_out,) or (N, C_out), the prologue vectors
+    (C_in,) or (N, C_in) and the weight rounded to the dtype."""
     for x in xs:
         _check_cuda(x, what)
     dev = xs[0].device
+    n = xs[0].shape[0]
     cin = weight.shape[1]
-    ds, dq = _stat_cts(ds, dq, weight.shape[0], dev)
-    return (_cuda_grad(dy, y, what), ds, dq, _vec(inv, cin, 1.0, dev),
-            _vec(shift, cin, 0.0, dev),
+    ds, dq = _stat_cts(ds, dq, weight.shape[0], dev, n)
+    return (_cuda_grad(dy, y, what), ds, dq, _vec(inv, cin, 1.0, dev, n),
+            _vec(shift, cin, 0.0, dev, n),
             weight.detach().to(device=dev, dtype=xs[0].dtype).float())
+
+
+def _ps_launch(inv: Optional[torch.Tensor],
+               ds: Optional[torch.Tensor]) -> bool:
+    """Whether a backward launch is in the per-sample mode: an (N, C)
+    prologue or (N, C) statistics cotangents."""
+    return _ps(inv) or _ps(ds)
+
 
 
 def dgrad_body(dtype: torch.dtype) -> str:
@@ -697,10 +740,10 @@ def dgrad_body(dtype: torch.dtype) -> str:
 def _dgrad_padded(xs, inv, shift, weight, y, dy, ds, dq, act):
     """K4 on inputs of any C_i: each input's channels zero-padded up to a
     multiple of 32 (the weight's input columns with zeros, ``inv`` with
-    ones, ``shift`` with zeros), K4 on that copy, then dxs, dinv and
-    dshift sliced back. The padded channels reach no kept output: their
-    weight columns are zero, and their own dx, dinv and dshift are
-    dropped."""
+    ones, ``shift`` with zeros, each row of a per-sample one), K4 on that
+    copy, then dxs, dinv and dshift sliced back. The padded channels
+    reach no kept output: their weight columns are zero, and their own
+    dx, dinv and dshift are dropped."""
     dev = xs[0].device
     cins = [x.shape[4] for x in xs]
     xs_p, keep, off = [], [], 0
@@ -712,27 +755,32 @@ def _dgrad_padded(xs, inv, shift, weight, y, dy, ds, dq, act):
     w = weight.detach()
     w_p = w.new_zeros((w.shape[0], off, *w.shape[2:])).index_copy_(1, idx, w)
     inv_p = shift_p = None
+    # (C,) or per-sample (N, C) vectors: each row padded alike.
     if inv is not None:
-        inv_p = inv.new_ones(off).index_copy_(0, idx, inv.detach())
+        inv_p = inv.new_ones(inv.shape[:-1] + (off,)).index_copy_(
+            -1, idx, inv.detach())
     if shift is not None:
-        shift_p = shift.new_zeros(off).index_copy_(0, idx,
-                                                   shift.detach())
+        shift_p = shift.new_zeros(shift.shape[:-1] + (off,)).index_copy_(
+            -1, idx, shift.detach())
     dxs, dinv, dshift = conv_bnact_dgrad_kernel(xs_p, inv_p, shift_p, w_p, y,
                                                 dy, ds, dq, act)
     dxs = [dx[..., :c].contiguous() for dx, c in zip(dxs, cins)]
     if dinv is None:
         return dxs, None, None
-    return dxs, dinv[idx], dshift[idx]
+    return dxs, dinv[..., idx], dshift[..., idx]
 
 
 def conv_bnact_dgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     """K4: (dxs, dinv, dshift) of :func:`conv_bnact` from the output
     cotangent ``dy`` and the statistics cotangents ``ds``, ``dq`` (each
     may be None), as :func:`conv_bnact_dgrad_plain`, on the body
-    :func:`dgrad_body` picks. K4 writes 32-channel blocks of dx: inputs
-    of C_in % 32 != 0 run on a zero-padded copy (:func:`_dgrad_padded`;
-    the network input's one to four channels are row 13's,
-    :func:`conv1_bwd_kernel`, which this wrapper refuses)."""
+    :func:`dgrad_body` picks. In the per-sample mode ``ds``/``dq`` and
+    the prologue are (N, C) rows by a sample stride, and dinv, dshift
+    (N, C_in) come from each block's partial row (no block spans two
+    samples), summed in a fixed order. K4 writes 32-channel blocks of
+    dx: inputs of C_in % 32 != 0 run on a zero-padded copy
+    (:func:`_dgrad_padded`; the network input's one to four channels are
+    row 13's, :func:`conv1_bwd_kernel`, which this wrapper refuses)."""
     cins = [x.shape[4] for x in xs]
     if _conv1(cins):
         raise ValueError(f"conv_bnact_dgrad: one input of at most "
@@ -748,11 +796,13 @@ def conv_bnact_dgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     x1 = xs[1] if len(xs) > 1 else None
     dev = x0.device
     dxs = [torch.empty_like(x) for x in xs]
-    dinv = torch.zeros(cin, dtype=torch.float32, device=dev)
-    dshift = torch.zeros(cin, dtype=torch.float32, device=dev)
     lib = _build.library()
+    dinv, dshift, ws = _stat_bufs(
+        PER_SAMPLE if _ps(inv) else True, n, cin, dev,
+        lambda: lib.e3_conv_bnact_dgrad_tc_ps_parts(d, h, w, cin)
+        if body == "tc" else lib.e3_conv_bnact_ps_parts(d, h, w))
     if body == "tc":
-        inv_t, shift_t = _prologue_ptrs(inv, shift, act, cin, dev)
+        inv_t, shift_t = _prologue_ptrs(inv, shift, act, cin, dev, n)
         wp = pack_dgrad_weight(weight, x0.dtype, dev)
         # The pre-pass's scratch (and the db it sums, unused here) at kd =
         # 3, where each dy and y slab would be read by three planes'
@@ -764,12 +814,13 @@ def conv_bnact_dgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
         with torch.cuda.device(dev):
             rc = lib.e3_conv_bnact_dgrad_tc(
                 len(xs), g.data_ptr(), y.data_ptr(), _ptr(ds), _ptr(dq),
-                _ptr(e), _ptr(edb), cout, wp.data_ptr(), x0.data_ptr(),
-                cins[0], _ptr(x1), cins[1] if x1 is not None else 0,
-                _ptr(inv_t), _ptr(shift_t), dxs[0].data_ptr(),
+                _ns(ds), _ptr(e), _ptr(edb), cout, wp.data_ptr(),
+                x0.data_ptr(), cins[0], _ptr(x1),
+                cins[1] if x1 is not None else 0, _ptr(inv_t),
+                _ptr(shift_t), _ns(inv_t), dxs[0].data_ptr(),
                 dxs[1].data_ptr() if x1 is not None else None,
-                dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, kd,
-                _ACT_ID[act], _stream(dev))
+                dinv.data_ptr(), dshift.data_ptr(), _ptr(ws), n, d, h, w,
+                kd, _ACT_ID[act], _stream(dev))
         _build.check(rc, "conv_bnact_dgrad (tensor-core body)")
     else:
         # K1's 'same' conv of dy_tot with the flipped, transposed
@@ -778,14 +829,15 @@ def conv_bnact_dgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
         with torch.cuda.device(dev):
             rc = lib.e3_conv_bnact_dgrad(
                 _DTYPE_ID[x0.dtype], len(xs), g.data_ptr(), y.data_ptr(),
-                _ptr(ds), _ptr(dq), cout, wt.data_ptr(), x0.data_ptr(),
-                cins[0], _ptr(x1), cins[1] if x1 is not None else 0,
-                inv_v.data_ptr(), shift_v.data_ptr(), dxs[0].data_ptr(),
+                _ptr(ds), _ptr(dq), _ns(ds), cout, wt.data_ptr(),
+                x0.data_ptr(), cins[0], _ptr(x1),
+                cins[1] if x1 is not None else 0, inv_v.data_ptr(),
+                shift_v.data_ptr(), _ns(inv_v), dxs[0].data_ptr(),
                 dxs[1].data_ptr() if x1 is not None else None,
-                dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, kd,
-                _ACT_ID[act], _stream(dev))
+                dinv.data_ptr(), dshift.data_ptr(), _ptr(ws), n, d, h, w,
+                kd, _ACT_ID[act], _stream(dev))
         _build.check(rc, "conv_bnact_dgrad")
-    _count("conv_bnact_dgrad", body)
+    _count("conv_bnact_dgrad", body, _ps_launch(inv, ds))
     if inv is None:
         return dxs, None, None
     return dxs, dinv, dshift
@@ -804,7 +856,9 @@ def wgrad_body(dtype: torch.dtype, cins: Sequence[int]) -> str:
 def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     """K5: float32 (dW, db), dW in ``weight``'s shape, as
     :func:`conv_bnact_wgrad_plain`, on the body :func:`wgrad_body`
-    picks. Not the network input's (:func:`conv1_bwd_kernel`)."""
+    picks (per-sample prologue and ``ds``/``dq`` rows by a sample
+    stride; dW and db global). Not the network input's
+    (:func:`conv1_bwd_kernel`)."""
     if _conv1([x.shape[4] for x in xs]):
         raise ValueError(f"conv_bnact_wgrad: one input of at most "
                          f"{CONV1_MAX_CIN} channels is conv1_bwd_kernel's")
@@ -821,7 +875,7 @@ def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
     db = torch.zeros(cout, dtype=torch.float32, device=x0.device)
     lib = _build.library()
     if body == "tc":
-        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, x0.device)
+        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, x0.device, n)
         # The pre-pass's scratch, where the blocks would otherwise read
         # dy and y more than twice (32-channel slices x kd > 2).
         e = torch.empty_like(g) if ds is not None and kd * sum(
@@ -830,20 +884,22 @@ def conv_bnact_wgrad_kernel(xs, inv, shift, weight, y, dy, ds, dq, act):
             rc = lib.e3_conv_bnact_wgrad_tc(
                 len(xs), x0.data_ptr(), cins[0], _ptr(x1),
                 cins[1] if x1 is not None else 0, _ptr(inv_v),
-                _ptr(shift_v), g.data_ptr(), y.data_ptr(), _ptr(ds),
-                _ptr(dq), _ptr(e), cout, dwt.data_ptr(), db.data_ptr(), n,
-                d, h, w, kd, _ACT_ID[act], _stream(x0.device))
+                _ptr(shift_v), _ns(inv_v), g.data_ptr(), y.data_ptr(),
+                _ptr(ds), _ptr(dq), _ns(ds), _ptr(e), cout, dwt.data_ptr(),
+                db.data_ptr(), n, d, h, w, kd, _ACT_ID[act],
+                _stream(x0.device))
         _build.check(rc, "conv_bnact_wgrad (tensor-core body)")
     else:
         with torch.cuda.device(x0.device):
             rc = lib.e3_conv_bnact_wgrad(
                 _DTYPE_ID[x0.dtype], len(xs), x0.data_ptr(), cins[0],
                 _ptr(x1), cins[1] if x1 is not None else 0, inv_v.data_ptr(),
-                shift_v.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(ds),
-                _ptr(dq), cout, dwt.data_ptr(), db.data_ptr(), n, d, h, w,
-                kd, _ACT_ID[act], _stream(x0.device))
+                shift_v.data_ptr(), _ns(inv_v), g.data_ptr(), y.data_ptr(),
+                _ptr(ds), _ptr(dq), _ns(ds), cout, dwt.data_ptr(),
+                db.data_ptr(), n, d, h, w, kd, _ACT_ID[act],
+                _stream(x0.device))
         _build.check(rc, "conv_bnact_wgrad")
-    _count("conv_bnact_wgrad", body)
+    _count("conv_bnact_wgrad", body, _ps_launch(inv, ds))
     return dwt.permute(4, 3, 0, 1, 2), db
 
 
@@ -865,7 +921,10 @@ def conv1_bwd_kernel(xs, inv, shift, weight, y, dy, ds, dq, act,
     """Row 13's kernel (``csrc/conv1_bwd.cu``): the backward of a conv
     over the network input (one input of at most :data:`CONV1_MAX_CIN`
     channels), dW and db and, with ``input_grad``, dx, dinv and dshift
-    from one pass over dy and y, as :func:`conv1_bwd_plain`."""
+    from one pass over dy and y, as :func:`conv1_bwd_plain`. In the
+    per-sample mode ``ds``/``dq`` and the prologue are (N, C) rows, and
+    dinv, dshift (N, C_in) the sums of each tile (one sample's) in a
+    fixed order."""
     if not _conv1([x.shape[4] for x in xs]):
         raise ValueError(f"conv1_bwd: one input of at most {CONV1_MAX_CIN}"
                          f" channels, got {[x.shape[4] for x in xs]}")
@@ -879,21 +938,22 @@ def conv1_bwd_kernel(xs, inv, shift, weight, y, dy, ds, dq, act,
                       device=dev)
     db = torch.zeros(cout, dtype=torch.float32, device=dev)
     dx = wt = None
-    dinv = torch.zeros(cin, dtype=torch.float32, device=dev)
-    dshift = torch.zeros(cin, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    dinv, dshift, ws = _stat_bufs(
+        PER_SAMPLE if input_grad and _ps(inv) else True, n, cin, dev,
+        lambda: lib.e3_conv1_bwd_ps_parts(d, h, w))
     if input_grad:
         dx = torch.empty_like(x0)
         wt = wq.permute(2, 3, 4, 1, 0).contiguous()
-    lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.e3_conv1_bwd(
             _DTYPE_ID[x0.dtype], x0.data_ptr(), cin, inv_v.data_ptr(),
-            shift_v.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(ds),
-            _ptr(dq), cout, _ptr(wt), dwt.data_ptr(), db.data_ptr(),
-            _ptr(dx), dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, kd,
-            _ACT_ID[act], _stream(dev))
+            shift_v.data_ptr(), _ns(inv_v), g.data_ptr(), y.data_ptr(),
+            _ptr(ds), _ptr(dq), _ns(ds), cout, _ptr(wt), dwt.data_ptr(),
+            db.data_ptr(), _ptr(dx), dinv.data_ptr(), dshift.data_ptr(),
+            _ptr(ws), n, d, h, w, kd, _ACT_ID[act], _stream(dev))
     _build.check(rc, "conv1_bwd")
-    _count("conv1_bwd", conv1_body([cin], input_grad))
+    _count("conv1_bwd", conv1_body([cin], input_grad), _ps_launch(inv, ds))
     dw = dwt.permute(4, 3, 0, 1, 2)
     if not input_grad:
         return None, None, None, dw, db
@@ -975,8 +1035,8 @@ def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
     Returns:
         (N, D, H, W, C_out) raw conv output in the inputs' dtype, or
         (y, s, q) with ``want_stats``. Differentiable in every tensor
-        argument, but not in the per-sample mode (a per-sample prologue
-        or statistics), where a gradient raises NotImplementedError.
+        argument, in the per-sample mode too (the gradients of (N, C)
+        vectors are (N, C)).
     """
     xs = list(xs)
     grad = _needs_grad(*xs, inv, shift, weight, bias)
@@ -984,7 +1044,7 @@ def conv_bnact(xs: Sequence[torch.Tensor], inv: Optional[torch.Tensor],
                    _needs_grad(*(xs if input_grad else ()), inv, shift),
                    grad)
     _check_per_sample(xs[0], weight.shape[1], inv, shift, want_stats,
-                      "conv_bnact", grad)
+                      "conv_bnact")
     return _ConvBnAct.apply(act, want_stats, reference, input_grad, xs[0],
                             xs[1] if len(xs) > 1 else None, inv, shift,
                             weight, bias)
@@ -1032,7 +1092,8 @@ def pool_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
     to EVERY element equal to its window's max. ``dskip`` is the
     cotangent of the level's skip (the raw ``x`` itself), added in
     float32 before the one rounding of dx (JAX's ``with_skip``,
-    flat_fused.py ``_pool_bwd_kernel``); None adds nothing."""
+    flat_fused.py ``_pool_bwd_kernel``); None adds nothing. dinv and
+    dshift are (N, C) for a per-sample ``inv``."""
     n, d, h, w, c = x.shape
     kd = window[0]
     pre = _pre(x, inv, shift)
@@ -1040,12 +1101,12 @@ def pool_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
     sel = a == a.amax(dim=(2, 4, 6), keepdim=True)
     dp = dpool.float().view(n, d // kd, 1, h // 2, 1, w // 2, 1, c)
     dpre = (dp * sel).view(n, d, h, w, c) * act_grad(pre, act)
-    dx = dpre if inv is None else dpre * inv
+    dx = dpre if inv is None else dpre * _bc(inv, x)
     if dskip is not None:
         dx = dx + dskip.float()
     if inv is None:
         return dx.to(x.dtype), None, None
-    return dx.to(x.dtype), _sum_vox(dpre * x.float()), _sum_vox(dpre)
+    return (dx.to(x.dtype), *_pro_sums(dpre, x, inv))
 
 
 def pool_bnact_fwd_kernel(x, inv, shift, act, window):
@@ -1065,18 +1126,20 @@ def pool_bnact_fwd_kernel(x, inv, shift, act, window):
             shift.data_ptr(), _ns(inv), y.data_ptr(), n, d, h, w, c,
             window[0], _ACT_ID[act], _stream(dev))
     _build.check(rc, "pool_bnact")
-    LAUNCHES["pool_bnact"] += 1
+    _count("pool_bnact", per_sample=_ps(inv))
     return y
 
 
 def pool_bnact_bwd_kernel(x, inv, shift, act, window, dpool, dskip=None):
     """K6: (dx, dinv, dshift), as :func:`pool_bnact_bwd_plain`, with the
-    skip's cotangent ``dskip`` (or None) summed in the kernel."""
+    skip's cotangent ``dskip`` (or None) summed in the kernel; for an
+    (N, C) prologue the grid is (block of a sample, sample) and dinv,
+    dshift (N, C) the blocks' partial rows summed in a fixed order."""
     _check_cuda(x, "pool_bnact backward")
     n, d, h, w, c = x.shape
     dev = x.device
-    inv_v = _vec(inv, c, 1.0, dev)
-    shift_v = _vec(shift, c, 0.0, dev)
+    inv_v = _vec(inv, c, 1.0, dev, n)
+    shift_v = _vec(shift, c, 0.0, dev, n)
     dp = dpool.to(x.dtype).contiguous()
     _check_cuda(dp, "pool_bnact backward")
     if dskip is not None:
@@ -1086,12 +1149,15 @@ def pool_bnact_bwd_kernel(x, inv, shift, act, window, dpool, dskip=None):
             raise ValueError(f"pool_bnact backward: skip cotangent "
                              f"{tuple(dskip.shape)} != {tuple(x.shape)}")
     dx = torch.empty_like(x)
-    dinv, dshift = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    dinv, dshift, ws = _stat_bufs(
+        PER_SAMPLE if _ps(inv) else True, n, c, dev,
+        lambda: _build.library().e3_pool_bnact_bwd_ps_parts(d, h, w, c,
+                                                           window[0]))
     _run("pool_bnact_bwd", dev, _DTYPE_ID[x.dtype], x.data_ptr(),
-         inv_v.data_ptr(), shift_v.data_ptr(), dp.data_ptr(), _ptr(dskip),
-         dx.data_ptr(), dinv.data_ptr(), dshift.data_ptr(), n, d, h, w, c,
-         window[0], _ACT_ID[act])
-    LAUNCHES["pool_bnact_bwd"] += 1
+         inv_v.data_ptr(), shift_v.data_ptr(), _ns(inv_v), dp.data_ptr(),
+         _ptr(dskip), dx.data_ptr(), dinv.data_ptr(), dshift.data_ptr(),
+         _ptr(ws), n, d, h, w, c, window[0], _ACT_ID[act])
+    _count("pool_bnact_bwd", per_sample=_ps(inv))
     if inv is None:
         return dx, None, None
     return dx, dinv, dshift
@@ -1136,12 +1202,10 @@ def pool_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
     skip, whose cotangent K6 adds into dx before its one rounding (JAX's
     ``pool_bnact_flat_skip``), so the level's input takes one gradient
     and no separate add. ``inv``/``shift`` are (C,), per sample (N, C)
-    (forward only: a gradient raises NotImplementedError), or None."""
+    (their gradients then (N, C) too), or None."""
     window = tuple(window)
-    grad = _needs_grad(x, inv, shift)
-    _pool_contract(x, window, grad)
-    _check_per_sample(x, x.shape[-1], inv, shift, False, "pool_bnact",
-                      grad)
+    _pool_contract(x, window, _needs_grad(x, inv, shift))
+    _check_per_sample(x, x.shape[-1], inv, shift, False, "pool_bnact")
     return _PoolBnAct.apply(act, window, reference, x, inv, shift)
 
 
@@ -1194,7 +1258,8 @@ def upconv_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
                            input_grad: bool = True):
     """Plain version of K7: (dx, dinv, dshift, dW, db). Each input
     voxel feeds kd * 4 output voxels, one per weight tap, so both
-    products are per-voxel GEMMs over (tap, C_out)."""
+    products are per-voxel GEMMs over (tap, C_out). dinv and dshift are
+    (N, C_in) for a per-sample ``inv``."""
     dtype = x.dtype
     n, d, h, w, cin = x.shape
     cout, kd = weight.shape[1], weight.shape[2]
@@ -1210,8 +1275,7 @@ def upconv_bnact_bwd_plain(x: torch.Tensor, inv: Optional[torch.Tensor],
     gm = da * act_grad(_pre(x, inv, shift), act)
     if inv is None:
         return gm.to(dtype), None, None, dw, db
-    return ((gm * inv).to(dtype), _sum_vox(gm * x.float()), _sum_vox(gm),
-            dw, db)
+    return ((gm * _bc(inv, x)).to(dtype), *_pro_sums(gm, x, inv), dw, db)
 
 
 def upconv_body(dtype: torch.dtype) -> str:
@@ -1265,7 +1329,7 @@ def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
                 _ptr(ws), n, d, h, w, cin, cout, kd, _ACT_ID[act],
                 _stream(dev))
         _build.check(rc, "upconv_bnact (tensor-core body)")
-        _count("upconv_bnact", "tc")
+        _count("upconv_bnact", "tc", _ps_fwd(inv, want_stats))
         return y, s, q
     inv = _vec(inv, cin, 1.0, dev, n)
     shift = _vec(shift, cin, 0.0, dev, n)
@@ -1278,7 +1342,7 @@ def upconv_bnact_fwd_kernel(x, inv, shift, weight, bias, act, want_stats):
             _ptr(q), _ptr(ws), n, d, h, w, cin, cout, kd, _ACT_ID[act],
             _stream(dev))
     _build.check(rc, "upconv_bnact")
-    _count("upconv_bnact", "cuda-core")
+    _count("upconv_bnact", "cuda-core", _ps_fwd(inv, want_stats))
     return y, s, q
 
 
@@ -1296,7 +1360,11 @@ def upconv_bnact_bwd_kernel(x, inv, shift, weight, y, dy, ds, dq, act,
     """K7: (dx, dinv, dshift, dW, db), as
     :func:`upconv_bnact_bwd_plain`, on ``body`` (by default the one
     :func:`upconv_bwd_body` picks; ``'cuda-core'`` runs the CUDA-core
-    bodies in either dtype, which need C_in % 32 == 0)."""
+    bodies in either dtype, which need C_in % 32 == 0). In the per-sample
+    mode ``ds``/``dq`` and the prologue are (N, C) rows by a sample
+    stride; with an (N, C) prologue the dgrad's grid is (block of a
+    sample, sample), and dinv, dshift (N, C_in) its blocks' partial rows
+    summed in a fixed order."""
     _check_cuda(x, "upconv_bnact backward")
     n, d, h, w, cin = x.shape
     cout, kd = weight.shape[1], weight.shape[2]
@@ -1308,40 +1376,43 @@ def upconv_bnact_bwd_kernel(x, inv, shift, weight, y, dy, ds, dq, act,
         raise ValueError(f"upconv_bnact backward: no {body!r} body for "
                          f"{dtype}")
     g = _cuda_grad(dy, y, "upconv_bnact backward")
-    ds, dq = _stat_cts(ds, dq, cout, dev)
+    ds, dq = _stat_cts(ds, dq, cout, dev, n)
     dx = torch.empty_like(x) if input_grad else None
-    dinv = torch.zeros(cin, dtype=torch.float32, device=dev)
-    dshift = torch.zeros(cin, dtype=torch.float32, device=dev)
     dwt = torch.zeros((kd, 2, 2, cin, cout), dtype=torch.float32,
                       device=dev)
     db = torch.zeros(cout, dtype=torch.float32, device=dev)
     lib = _build.library()
+    dinv, dshift, ws = _stat_bufs(
+        PER_SAMPLE if input_grad and _ps(inv) else True, n, cin, dev,
+        lambda: lib.e3_upconv_bnact_bwd_tc_ps_parts(d, h, w)
+        if body == "tc" else lib.e3_upconv_bnact_bwd_ps_parts(d, h, w))
     if body == "tc":
-        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev)
+        inv_v, shift_v = _prologue_ptrs(inv, shift, act, cin, dev, n)
         wp = pack_upconv_weight(weight, dtype, dev)
         e = torch.empty_like(g) if ds is not None else None   # pre-pass
         with torch.cuda.device(dev):
             rc = lib.e3_upconv_bnact_bwd_tc(
-                x.data_ptr(), _ptr(inv_v), _ptr(shift_v), wp.data_ptr(),
-                g.data_ptr(), y.data_ptr(), _ptr(ds), _ptr(dq), _ptr(e),
-                _ptr(dx), dinv.data_ptr(), dshift.data_ptr(), dwt.data_ptr(),
-                db.data_ptr(), n, d, h, w, cin, cout, kd, _ACT_ID[act],
-                _stream(dev))
+                x.data_ptr(), _ptr(inv_v), _ptr(shift_v), _ns(inv_v),
+                wp.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(ds),
+                _ptr(dq), _ns(ds), _ptr(e), _ptr(dx), dinv.data_ptr(),
+                dshift.data_ptr(), _ptr(ws), dwt.data_ptr(), db.data_ptr(),
+                n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
         _build.check(rc, "upconv_bnact_bwd (tensor-core bodies)")
     else:
-        inv_v = _vec(inv, cin, 1.0, dev)
-        shift_v = _vec(shift, cin, 0.0, dev)
+        inv_v = _vec(inv, cin, 1.0, dev, n)
+        shift_v = _vec(shift, cin, 0.0, dev, n)
         wt = weight.detach().to(device=dev, dtype=dtype).float() \
             .permute(2, 3, 4, 0, 1).contiguous()
         with torch.cuda.device(dev):
             rc = lib.e3_upconv_bnact_bwd(
                 _DTYPE_ID[dtype], x.data_ptr(), inv_v.data_ptr(),
-                shift_v.data_ptr(), wt.data_ptr(), g.data_ptr(),
-                y.data_ptr(), _ptr(ds), _ptr(dq), _ptr(dx), dinv.data_ptr(),
-                dshift.data_ptr(), dwt.data_ptr(), db.data_ptr(),
-                n, d, h, w, cin, cout, kd, _ACT_ID[act], _stream(dev))
+                shift_v.data_ptr(), _ns(inv_v), wt.data_ptr(), g.data_ptr(),
+                y.data_ptr(), _ptr(ds), _ptr(dq), _ns(ds), _ptr(dx),
+                dinv.data_ptr(), dshift.data_ptr(), _ptr(ws),
+                dwt.data_ptr(), db.data_ptr(), n, d, h, w, cin, cout, kd,
+                _ACT_ID[act], _stream(dev))
         _build.check(rc, "upconv_bnact_bwd")
-    _count("upconv_bnact_bwd", body)
+    _count("upconv_bnact_bwd", body, _ps_launch(inv, ds))
     if inv is None or not input_grad:
         dinv = dshift = None
     return dx, dinv, dshift, dwt.permute(3, 4, 0, 1, 2), db
@@ -1392,12 +1463,11 @@ def upconv_bnact(x: torch.Tensor, inv: Optional[torch.Tensor],
             (N, C_out).
     Returns:
         (N, kd * D, 2 H, 2 W, C_out) in ``x``'s dtype, or (y, s, q).
-        Differentiable in every tensor argument, but not in the
-        per-sample mode, where a gradient raises NotImplementedError.
+        Differentiable in every tensor argument, in the per-sample mode
+        too.
     """
-    grad = _needs_grad(x, inv, shift, weight, bias)
-    _upconv_contract(x, weight, grad)
+    _upconv_contract(x, weight, _needs_grad(x, inv, shift, weight, bias))
     _check_per_sample(x, x.shape[-1], inv, shift, want_stats,
-                      "upconv_bnact", grad)
+                      "upconv_bnact")
     return _UpconvBnAct.apply(act, want_stats, reference, x, inv, shift,
                               weight, bias)

@@ -1,17 +1,19 @@
 """Why the float32 input-gradient comparison of
 tests/test_torch_cuda.py::test_cuda_unet_input_grad_matches_reference
-can fail: repeats its comparison after 10 Adam steps and counts, at the
-trained parameters, the relu and max-pool decisions on which the kernel
-forward and ``reference=True`` disagree.
+can fail: repeats its comparison after 10 Adam steps (``--init``: at
+initialisation, the test's first comparison) and counts, at those
+parameters, the relu and max-pool decisions on which the kernel forward
+and ``reference=True`` disagree.
 
-    python3 input_grad_flips.py [N_FLOAT32 [N_BFLOAT16]] [--cpu]
+    python3 input_grad_flips.py [N_FLOAT32 [N_BFLOAT16]] [--cpu] [--init]
 
 For each run (a fresh model trained through the kernels, whose float32
 atomics sum in another order each run) one JSON line: |dx - ref|, the
 test's limit (1e-3 of |ref| (1e-2 in bf16) plus 3 times the reference's
 dx change under a one-ulp input change), |ref|, the flips of the kernel
 forward and of the one-ulp change, and for input changes of 1, 4, 16 and
-64 ulps the noise term and its flips. Decisions are read from the
+64 ulps the noise term, its flips, its limit and whether a zero dx
+fails that limit. Decisions are read from the
 prologue inputs of every kernel op (x * inv + shift), the library
 levels' normalized outputs and the pool windows (ceil mode). ``--cpu``
 runs both sides on their plain versions (a rehearsal: no flips).
@@ -134,9 +136,37 @@ def input_grad(m, x, t, reference):
     return x.grad.detach().clone()
 
 
-def run(dtype, i, dev):
-    """One run: the test's model and input, 10 Adam steps through the
-    kernels, then the comparison and the decisions."""
+def param_grads(m, x, t, reference):
+    m.zero_grad(set_to_none=True)
+    CEDiceLoss(1.0, 1.0)(m.train()(x, reference=reference), t).backward()
+    return {n: p.grad.float().clone() for n, p in m.named_parameters()}
+
+
+def leaf_check(m, x, t, rel, ulp, noise):
+    """The card test's comparison of every parameter gradient leaf
+    (``_check_step_against_reference``): |g - r| <= rel |r| + 3 |r' - r|
+    in the L2 norm, r' the reference on the input moved by ``ulp``
+    (relative, seeded ``noise``); the exactly-0 biases left out. The
+    worst err / bound, its leaf and the leaves over their bound."""
+    g = param_grads(m, x, t, False)
+    r = param_grads(m, x, t, True)
+    mv = param_grads(m, x * (1 + ulp * noise), t, True)
+    worst, over = (0.0, ""), []
+    for n, gv in g.items():
+        if n.endswith(".bias") and "norm" not in n \
+                and n != "conv_final.bias":
+            continue
+        err = float((gv - r[n]).norm())
+        bnd = rel * float(r[n].norm()) + 3 * float((mv[n] - r[n]).norm())
+        worst = max(worst, (err / bnd, n))
+        if err > bnd:
+            over.append((n, err, bnd))
+    return worst, over
+
+
+def run(dtype, i, dev, steps=10):
+    """One run: the test's model and input, ``steps`` Adam steps through
+    the kernels, then the comparison and the decisions."""
     x = torch.randn(2, 8, 24, 40, 1,
                     generator=torch.Generator().manual_seed(1)).to(dev)
     t = (x[..., 0] > 0).long()
@@ -146,7 +176,7 @@ def run(dtype, i, dev):
              input_grad=True, device=dev,
              generator=torch.Generator().manual_seed(0))
     opt = torch.optim.Adam(m.parameters(), lr=1e-3)
-    for _ in range(10):
+    for _ in range(steps):
         opt.zero_grad(set_to_none=True)
         CEDiceLoss(1.0, 1.0)(m.train()(x), t).backward()
         opt.step()
@@ -165,13 +195,22 @@ def run(dtype, i, dev):
         noises[k] = (n, sum(f[2] for f in flips(capture(m, xa, True), rr)),
                      rel * rn + 3 * n)
     limit = noises[1][2]
-    return dict(dtype=str(dtype)[6:], run=i, err=err, limit=limit,
+    leaves = {}
+    if steps == 0:
+        # The test's first comparison, of the parameter gradients, with
+        # the noise of a one-ulp and of a 64-ulp input change.
+        for k in (1, 64):
+            (q, n), over = leaf_check(m, x, t, rel, k * ulp, noise)
+            leaves[k] = dict(worst_ratio=q, worst_leaf=n, over=over)
+    return dict(leaves_by_ulps=leaves, dtype=str(dtype)[6:], run=i,
+                adam_steps=steps, err=err, limit=limit,
                 ref_norm=rn, passed=err <= limit, zero_dx_fails=rn > limit,
                 flips_kernel=sum(f[2] for f in fk),
                 flips_kernel_by_point=[f for f in fk if f[2]],
                 max_pre_diff_kernel=max(f[4] for f in fk),
                 noise_by_ulps={k: dict(noise=v[0], flips=v[1], limit=v[2],
-                                       passed=err <= v[2])
+                                       passed=err <= v[2],
+                                       zero_dx_fails=rn > v[2])
                                for k, v in noises.items()})
 
 
@@ -189,8 +228,9 @@ def main():
     _install_spies()
     runs = [(torch.float32, i) for i in range(n32)] + \
         [(torch.bfloat16, i) for i in range(n16)]
+    steps = 0 if "--init" in sys.argv[1:] else 10
     for dtype, i in runs:
-        print(json.dumps(run(dtype, i, dev)), flush=True)
+        print(json.dumps(run(dtype, i, dev, steps)), flush=True)
 
 
 if __name__ == "__main__":

@@ -639,7 +639,7 @@ def _step_grads(m, x, t, reference):
                                   for n, p in m.named_parameters()}
 
 
-def _check_step_against_reference(m, x, t, dtype):
+def _check_step_against_reference(m, x, t, dtype, zero_bias=True):
     """One training step's loss and every gradient leaf against the same
     step through reference=True, as chip_smoke.py's check_train_step
     holds them, in the L2 norm: |g - r| <= rel |r| + 3 |r' - r|, r' the
@@ -648,7 +648,9 @@ def _check_step_against_reference(m, x, t, dtype):
     the 'batch' model's K1-K7, whose weight gradients are small
     differences of large float32 sums); the bias of a conv that feeds a
     batch norm, whose exact gradient is 0, within ``zero`` of its weight
-    gradient's norm. Returns the kernels' step's launch counts."""
+    gradient's norm (``zero_bias`` False: held like the other leaves, as
+    under a group norm of several channels a group, where that gradient
+    is no exact 0). Returns the kernels' step's launch counts."""
     bf16 = dtype == torch.bfloat16
     tol = 5e-2 if bf16 else 1e-4
     rel, ulp, zero = (1e-2, 2.0 ** -8, 1e-2) if bf16 else \
@@ -665,7 +667,7 @@ def _check_step_against_reference(m, x, t, dtype):
         r = ref[name]
         if not bool(torch.isfinite(g).all()):
             bad.append((name, "not finite"))
-        elif name.endswith(".bias") and "norm" not in name \
+        elif zero_bias and name.endswith(".bias") and "norm" not in name \
                 and name != "conv_final.bias":
             wnorm = float(ref[name[:-len("bias")] + "weight"].norm())
             q = max(float(g.norm()), float(r.norm())) / wnorm
@@ -2111,6 +2113,238 @@ def test_cuda_upconv_bnact_per_sample_matches_plain(dtype, cin, cout, kd,
     _assert_per_sample_stats(got, s, q, rs, rq, dtype)
 
 
+# ---------------------------------------------------------------------------
+# The per-sample backward of row 13, K4, K5, K6 and K7 (training group and
+# instance norm): (N, C) statistics cotangents and (N, C) prologue vectors
+# in, (N, C) dinv and dshift out, each row against the plain version's;
+# dinv and dshift (and dx) the same bits on a rerun and for a sample run
+# alone (each block's partial row, summed in a fixed order); dW and db
+# global as in the batch form.
+# ---------------------------------------------------------------------------
+
+def _ps_cts(n, c, dev, g):
+    """(N, C) statistics cotangents, rows of different scales."""
+    scale = torch.arange(1, n + 1, dtype=torch.float32).view(n, 1)
+    return ((1e-3 * scale * torch.randn(n, c, generator=g)).to(dev),
+            (1e-4 * scale * torch.randn(n, c, generator=g)).to(dev))
+
+
+def _assert_rows(got, ref):
+    assert got.shape == ref.shape and got.dim() == 2
+    for i in range(got.shape[0]):
+        _assert_sum(got[i], ref[i])
+
+
+def _assert_bwd(got, ref, what):
+    """A backward result (dxs or dx, dinv, dshift, dW, db), item by item:
+    dx within the kernel tolerance, (N, C) rows and global sums within
+    the sums' tolerance."""
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if b is None:
+            assert a is None, (what, k)
+        elif isinstance(b, (list, tuple)):
+            for ai, bi in zip(a, b):
+                _assert_kernel(ai, bi)
+        elif b.dtype != torch.float32 or b.dim() > 2:
+            _assert_kernel(a, b)
+        elif b.dim() == 2:
+            _assert_rows(a, b)
+        else:
+            _assert_sum(a, b)
+
+
+def _assert_bwd_repeats(run, out, i, keep):
+    """The items ``keep`` of a per-sample backward result are the same
+    bits on a rerun, and sample ``i``'s rows the same bits when it runs
+    alone (``run(i)``)."""
+    again, alone = run(None), run(i)
+    torch.cuda.synchronize()
+    for k in keep:
+        a, b, c = out[k], again[k], alone[k]
+        if isinstance(a, (list, tuple)):
+            a, b, c = a[0], b[0], c[0]
+        assert torch.equal(a, b), k
+        assert torch.equal(a[i], c[0]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cins,kd,act,cout,nd,hw", PS_CONV_CASES)
+def test_cuda_conv_bnact_per_sample_backward_matches_plain(dtype, cins, kd,
+                                                           act, cout, nd,
+                                                           hw):
+    """K4 and K5 with (N, C_in) prologue vectors and (N, C_out)
+    statistics cotangents, on the tensor-core bodies in bf16 and the
+    CUDA-core bodies in float32 (K4's kd = 3 bf16 cases through the
+    pre-pass)."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(sum(cins) + cout + kd + 7)
+    xs = [_per_sample_x(nd + hw, c, dtype, dev, g) for c in cins]
+    w = (0.1 * torch.randn(cout, sum(cins), kd, 3, 3, generator=g)).to(dev)
+    inv, shift = _per_sample_pro(nd[0], sum(cins), dev, g)
+    y = _per_sample_x(nd + hw, cout, dtype, dev, g)
+    dy = (0.1 * torch.randn(*y.shape, generator=g)).to(dev, dtype)
+    ds, dq = _ps_cts(nd[0], cout, dev, g)
+    for kfn, pfn in ((fused.conv_bnact_dgrad_kernel,
+                      fused.conv_bnact_dgrad_plain),
+                     (fused.conv_bnact_wgrad_kernel,
+                      fused.conv_bnact_wgrad_plain)):
+        def run(i):
+            if i is None:
+                return kfn(xs, inv, shift, w, y, dy, ds, dq, act)
+            return kfn([_slice(x, i) for x in xs], _slice(inv, i),
+                       _slice(shift, i), w, _slice(y, i), _slice(dy, i),
+                       _slice(ds, i), _slice(dq, i), act)
+        fused.reset_launches()
+        got = run(None)
+        name = "conv_bnact_dgrad" if kfn is fused.conv_bnact_dgrad_kernel \
+            else "conv_bnact_wgrad"
+        assert fused.LAUNCHES[name] == 1 and fused.PS_LAUNCHES == {name: 1}
+        ref = pfn(xs, inv, shift, w, y, dy, ds, dq, act)
+        torch.cuda.synchronize()
+        _assert_bwd(got, ref, name)
+        if name == "conv_bnact_dgrad":
+            assert got[1].shape == (nd[0], sum(cins))
+            _assert_bwd_repeats(run, got, 1, (0, 1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,pro", [
+    ((6, 8, 64, 64), 1, False), ((3, 3, 45, 37), 1, True),
+    ((5, 4, 40, 96), 3, True)])
+def test_cuda_conv1_bwd_per_sample_matches_plain(shape, cin, pro, dtype,
+                                                 input_grad):
+    """Row 13's kernel with (N, C_out) statistics cotangents (its
+    persistent blocks walk tiles of several samples and restage each
+    sample's rows) and, with ``input_grad`` and an (N, C_in) prologue,
+    (N, C_in) dinv and dshift from each tile's partial row. Its dx adds
+    the ring voxels' shares by shared-memory atomics, as in the batch
+    form, so dx (and dinv, dshift from it) may differ in the last bits
+    between runs: no path of a model runs it with dx and a prologue."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(sum(shape) + cin + 13)
+    xs = [_per_sample_x(shape, cin, dtype, dev, g)]
+    w = (0.3 * torch.randn(32, cin, 1, 3, 3, generator=g)).to(dev)
+    inv = shift = None
+    act = "linear"
+    if pro:
+        inv, shift = _per_sample_pro(shape[0], cin, dev, g)
+        act = "relu"
+    y = _per_sample_x(shape, 32, dtype, dev, g)
+    dy = (0.1 * torch.randn(*y.shape, generator=g)).to(dev, dtype)
+    ds, dq = _ps_cts(shape[0], 32, dev, g)
+
+    def run(i):
+        if i is None:
+            return fused.conv1_bwd_kernel(xs, inv, shift, w, y, dy, ds, dq,
+                                          act, input_grad)
+        return fused.conv1_bwd_kernel(
+            [_slice(xs[0], i)], _slice(inv, i), _slice(shift, i), w,
+            _slice(y, i), _slice(dy, i), _slice(ds, i), _slice(dq, i), act,
+            input_grad)
+    fused.reset_launches()
+    got = run(None)
+    assert fused.PS_LAUNCHES == {"conv1_bwd": 1}
+    ref = fused.conv1_bwd_plain(xs, inv, shift, w, y, dy, ds, dq, act,
+                                input_grad)
+    torch.cuda.synchronize()
+    _assert_bwd(got, ref, "conv1_bwd")
+    if input_grad and pro:
+        assert got[1].shape == (shape[0], cin)
+        # A sample run alone: its rows as in the batch.
+        i = shape[0] - 1
+        alone = run(i)
+        torch.cuda.synchronize()
+        _assert_kernel(alone[0][0][0], ref[0][0][i])
+        _assert_sum(alone[1][0], ref[1][i])
+        _assert_sum(alone[2][0], ref[2][i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,c,nd,hw", [
+    ((1, 2, 2), 32, (3, 4), (6, 10)), ((2, 2, 2), 64, (2, 4), (6, 10)),
+    ((2, 2, 2), 128, (3, 2), (6, 10)), ((1, 2, 2), 32, (2, 44), (44, 44))])
+def test_cuda_pool_bnact_per_sample_backward_matches_plain(dtype, window, c,
+                                                           nd, hw, skip):
+    """K6 with (N, C) prologue vectors: dx exact, as the batch form, and
+    (N, C) dinv, dshift from its per-sample grid."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(c + nd[1])
+    x = _per_sample_x(nd + hw, c, dtype, dev, g)
+    inv, shift = _per_sample_pro(nd[0], c, dev, g)
+    pooled = (nd[0], nd[1] // window[0], hw[0] // 2, hw[1] // 2, c)
+    dp = (0.1 * torch.randn(*pooled, generator=g)).to(dev, dtype)
+    dsk = (0.1 * torch.randn(*x.shape, generator=g)).to(dev, dtype) \
+        if skip else None
+
+    def run(i):
+        if i is None:
+            return fused.pool_bnact_bwd_kernel(x, inv, shift, "relu", window,
+                                               dp, dsk)
+        return fused.pool_bnact_bwd_kernel(
+            _slice(x, i), _slice(inv, i), _slice(shift, i), "relu", window,
+            _slice(dp, i), _slice(dsk, i))
+    fused.reset_launches()
+    got = run(None)
+    assert fused.PS_LAUNCHES == {"pool_bnact_bwd": 1}
+    ref = fused.pool_bnact_bwd_plain(x, inv, shift, "relu", window, dp, dsk)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    _assert_rows(got[1], ref[1])
+    _assert_rows(got[2], ref[2])
+    _assert_bwd_repeats(run, got, 1, (1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,body", [
+    (torch.float32, "cuda-core"), (torch.bfloat16, "tc"),
+    (torch.bfloat16, "cuda-core")])
+@pytest.mark.parametrize("cin,cout,kd,pro,nd,hw", PS_UPCONV_CASES)
+def test_cuda_upconv_bnact_per_sample_backward_matches_plain(dtype, body,
+                                                             cin, cout, kd,
+                                                             pro, nd, hw):
+    """K7 with (N, C_out) statistics cotangents (the bf16 pre-pass reads
+    each voxel's sample's row) and an (N, C_in) prologue: the dgrad's
+    per-sample grid at sample sizes that are no multiple of a block, its
+    (N, C_in) dinv, dshift; the tensor-core bodies in bf16, the
+    CUDA-core bodies in float32 and, on request, in bf16."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(cin + kd + hw[0] + 5)
+    x = _per_sample_x(nd + hw, cin, dtype, dev, g)
+    w = (0.1 * torch.randn(cin, cout, kd, 2, 2, generator=g)).to(dev)
+    inv = shift = None
+    act = "linear"
+    if pro:
+        inv, shift = _per_sample_pro(nd[0], cin, dev, g)
+        act = "relu"
+    yshape = (nd[0], kd * nd[1], 2 * hw[0], 2 * hw[1], cout)
+    y = _per_sample_x(yshape[:-1], cout, dtype, dev, g)
+    dy = (0.1 * torch.randn(*yshape, generator=g)).to(dev, dtype)
+    ds, dq = _ps_cts(nd[0], cout, dev, g)
+
+    def run(i):
+        if i is None:
+            return fused.upconv_bnact_bwd_kernel(x, inv, shift, w, y, dy, ds,
+                                                 dq, act, True, body)
+        return fused.upconv_bnact_bwd_kernel(
+            _slice(x, i), _slice(inv, i), _slice(shift, i), w, _slice(y, i),
+            _slice(dy, i), _slice(ds, i), _slice(dq, i), act, True, body)
+    fused.reset_launches()
+    got = run(None)
+    assert fused.BODY_LAUNCHES == {("upconv_bnact_bwd", body): 1}
+    assert fused.PS_LAUNCHES == {"upconv_bnact_bwd": 1}
+    ref = fused.upconv_bnact_bwd_plain(x, inv, shift, w, y, dy, ds, dq, act)
+    torch.cuda.synchronize()
+    _assert_bwd(got, ref, "upconv_bnact_bwd")
+    if pro:
+        assert got[1].shape == (nd[0], cin)
+        _assert_bwd_repeats(run, got, 1, (0, 1, 2))
+
+
 def _group_unet(norm, dtype, dev, seed=0):
     """The headline structure with ``norm`` and random affine
     parameters."""
@@ -2135,8 +2369,10 @@ def test_cuda_unet_group_norm_matches_reference_forward(dtype, norm):
     """The headline structure with a group norm serves on the kernels'
     per-sample mode: K1 (row 3 once), K2 and K3 as under 'batch', no
     CUDA-core K1 in bf16, the same bits on a second call, and the forward
-    tracks forward(reference=True). Training through its kernel levels
-    raises."""
+    tracks forward(reference=True). A training step through its kernel
+    levels runs every backward kernel in the per-sample mode
+    (``test_cuda_unet_group_norm_training_matches_reference`` holds it
+    against the reference)."""
     dev = _cuda()
     m = _group_unet(norm, dtype, dev)
     x = torch.randn(2, 8, 24, 40, 1,
@@ -2159,8 +2395,51 @@ def test_cuda_unet_group_norm_matches_reference_forward(dtype, norm):
     assert float((y.float() - ref.float()).abs().max()) <= \
         tol * float(ref.float().abs().max())
     m.train()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        m(x)
+    fused.reset_launches()
+    m(x).float().square().mean().backward()
+    bwd = ("conv_bnact_dgrad", "conv_bnact_wgrad", "conv1_bwd",
+           "pool_bnact_bwd", "upconv_bnact_bwd")
+    assert all(fused.LAUNCHES[k] > 0 for k in bwd)
+    assert {k: fused.PS_LAUNCHES.get(k, 0) for k in fused.LAUNCHES} == \
+        fused.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", ["group", "instance"])
+def test_cuda_unet_group_norm_training_matches_reference(dtype, norm):
+    """One training step of the group and instance models through the
+    kernels' per-sample mode against the same step through
+    reference=True (``_check_step_against_reference``; under 'group' a
+    conv's bias gradient is no exact 0, so it is held like the other
+    leaves): every launch of K1-K7 and row 13's in the per-sample mode,
+    and the step's (N, C) prologue gradients the same bits on a rerun."""
+    dev = _cuda()
+    m = _group_unet(norm, dtype, dev)
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    x[1] *= 3.0
+    t = (x[..., 0] > 0).long()
+    launches = _check_step_against_reference(m, x, t, dtype,
+                                             zero_bias=norm != "group")
+    assert launches["conv1_bwd"] == 1 and launches["pool_bnact_bwd"] == 2
+    assert launches["upconv_bnact_bwd"] == 2
+    assert {k: fused.PS_LAUNCHES.get(k, 0) for k in launches} == launches
+    # The same bits of every gradient that reaches a prologue, the kernel
+    # levels' norm parameters, with cuDNN's deterministic algorithms on
+    # the library levels (some of its backward algorithms add with
+    # atomics).
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, g1 = _step_grads(m, x, t, False)
+        _, g2 = _step_grads(m, x, t, False)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for name in g1:
+        if (name.startswith("down_convs.0") or name.startswith(
+                "down_convs.1")) and ".norm" in name:
+            assert torch.equal(g1[name], g2[name]), name
 
 
 @pytest.mark.cuda

@@ -29,10 +29,10 @@
   relative, each gradient 1e-3 of its leaf's scale + 1e-6, as
   tests/test_torch_train.py). Scaling sample 1 by 10 leaves sample 0's
   output unchanged (bitwise). The converter round trips through both
-  JAX trees exactly. Training through a kernel level raises
-  NotImplementedError; a group count that does not divide a level's
-  channels sends the level to the library, whose ``GroupNorm`` raises
-  flax's error.
+  JAX trees exactly. Training through a kernel level runs (its step
+  against JAX's is tests/test_torch_group_train.py's); a group count that
+  does not divide a level's channels sends the level to the library,
+  whose ``GroupNorm`` raises flax's error.
 """
 
 import jax
@@ -247,31 +247,6 @@ def test_plain_per_sample_op_matches_jax_kernel(case, dtype, monkeypatch):
         _close_rows(p, r, dtype)
         # The rows differ: the statistics are those of each sample.
         assert not np.allclose(np.asarray(r)[0], np.asarray(r)[1])
-
-
-def test_per_sample_ops_refuse_a_gradient():
-    """Each op refuses a gradient through its per-sample mode before
-    anything runs; a wrong per-sample shape is a ValueError."""
-    x = torch.randn(2, 2, 4, 4, 32, requires_grad=True)
-    inv, shift = torch.ones(2, 32), torch.zeros(2, 32)
-    w = torch.zeros(32, 32, 1, 3, 3)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        fused.conv_bnact([x], inv, shift, w, torch.zeros(32), "relu")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        fused.conv_bnact([x], None, None, w, torch.zeros(32), "relu",
-                         want_stats="per_sample")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        fused.pool_bnact(x, inv, shift, "relu", (1, 2, 2))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        fused.upconv_bnact(x, inv, shift, torch.zeros(32, 32, 1, 2, 2),
-                           torch.zeros(32), "relu")
-    with torch.no_grad():
-        with pytest.raises(ValueError, match="prologue vector shape"):
-            fused.pool_bnact(x, torch.ones(3, 32), torch.zeros(3, 32),
-                             "relu", (1, 2, 2))
-        with pytest.raises(ValueError, match="want_stats"):
-            fused.conv_bnact([x], None, None, w, torch.zeros(32), "relu",
-                             want_stats="per_channel")
 
 
 # ---------------------------------------------------------------------------
@@ -489,15 +464,18 @@ def test_port_group_library_step_matches_jax(runs):
     _assert_trees(grads["params"], jg)
 
 
-def test_port_group_kernel_training_raises(runs):
-    """Training through a kernel level with group norm raises before any
-    kernel runs; the same model without a gradient (serving in train
-    mode) runs."""
+def test_port_group_kernel_training_runs(runs):
+    """Training through a kernel level with group norm runs the
+    per-sample ops' backward: every parameter gets a finite gradient
+    (tests/test_torch_group_train.py holds the step against JAX's)."""
     m = UNet(device="cpu", pallas_flat=True, **dict(KW,
                                                     normalization="group"))
+    m.load_state_dict(runs["group"]["m0"].state_dict())
     x = torch.from_numpy(runs["x"])
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        m.train()(x)
+    m.train()(x).float().square().mean().backward()
+    for name, p in m.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), \
+            name
     with torch.no_grad():
         assert m(x).shape == SHAPE[:-1] + (2,)
 
