@@ -14,9 +14,12 @@ those of the headline 3D UNet with ``activation='silu'`` and
 flat executor (rows 26/27: ``flat_conv3`` on K1, K4 and K5 without a
 prologue), and those of the headline 3D UNet with ``vup=True``, whose L0
 decoder never stores the upconv of the L1 carry (rows 1's vup mode, 9,
-22 and 23: ``ops/vup.py``), and the headline 3D UNet's serving path with
-``normalization='group'`` (and one 'instance' forward), whose kernel
-levels run the per-sample mode of K1, row 3's kernel, K2 and K3.
+22 and 23: ``ops/vup.py``), the headline 3D UNet's paths with
+``normalization='group'`` (and 'instance'), whose kernel levels run the
+per-sample mode of K1-K7 and row 3's and row 13's kernels, and those of
+the group model with ``vup=True`` (the vup entries per sample) and of
+the 2D UNet with ``normalization='group'`` (rows 16, 17, 19 and 20 per
+sample).
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the hand-written kernels of ``elektronn3_tpu_torch/csrc`` with
@@ -63,7 +66,14 @@ levels run the per-sample mode of K1, row 3's kernel, K2 and K3.
    and the row-11 upconv from a dense L1), held against their plain
    versions in bf16 and float32 and timed, each in turns with the same
    kernel's batch form with statistics ("+stats batch") at the same
-   shape; listed, not summed in the totals;
+   shape; the same for the 2D model's kernel levels at batch 8 of
+   (640, 640) (rows 3, 1, 4, 16, 19 and 7 forward; 13, 8, 14, 17 and 20
+   backward); and the vup entries' per-sample mode at bench.py's up_2
+   (all five) and the Predictor request's batch of two tiles
+   (``conv_vup`` and row 22): the tensor-core body timed in turns with
+   its batch twin, the CUDA-core body in bf16 and float32, each
+   per-sample call's (N, C) outputs (and dcarry, dskip) the same bits on
+   a rerun and for a sample alone; listed, not summed in the totals;
 5b. holds the 'batchp' batch norm's kernels against their plain versions
    at (R, C) = the activation seen as rows, bf16 and f32: K8-K11 at the
    'batchp' headline step's library levels ((85184, 128): L2 and up_0,
@@ -166,7 +176,25 @@ levels run the per-sample mode of K1, row 3's kernel, K2 and K3.
     vup mode recorded at the bench shapes; then the same timed step with
     ``vup`` off and on in turn (off, on, on, off), each arm's peak
     allocated memory beside the other's (the vup arm must hold at least
-    150 MB less: it never stores the 174.4 MB upconv output).
+    150 MB less: it never stores the 174.4 MB upconv output);
+19. the headline UNet with ``normalization='group'`` and ``vup=True``
+    (bf16): steps 6 and 7 with ``conv_vup`` and row 22's pass once a
+    model call, every launch in the per-sample mode, rows 1-vup and 22
+    recorded per sample at the request's two tiles; steps 8 (without
+    the plain arm) with the five entries once a step, every launch per
+    sample, rows 1-vup, 9, 22 and 23 recorded per sample, the step
+    against ``reference=True`` in float32 and bfloat16, one step's
+    per-sample prologue gradients the same bits on a rerun; then the
+    step with ``vup`` off and on in turn and each arm's peak allocated
+    memory (the vup arm at least 150 MB under);
+20. the 2D UNet with ``normalization='group'`` (bf16): step 10's
+    requests with every launch per sample, rows 16 and 19 per sample,
+    and the last image served alone against in the batch (5e-2 of
+    max|p|); step 8 (without the plain arm) at batch 8 of (640, 640)
+    with every launch per sample, rows 16, 17, 19 and 20 per sample, the
+    per-sample prologue gradients the same bits on a rerun, its device
+    time by kernel, and the same model with ``pallas_flat=False`` timed
+    beside it and the 2D 'batch' step.
 
 Each time is a mean from CUDA events after a warm-up, over at least 3
 calls and as many as fill 20 ms (at most 100). K1 over the network
@@ -209,9 +237,9 @@ Any failed check raises, and the script exits non-zero. The last lines
 are a JSON object with each kernel's numbers (``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` sum the bfloat16 variants that
 ``totals_over`` names; ``variants`` lists every
-variant's own numbers; ``launches`` sums the sixteen paths whose
+variant's own numbers; ``launches`` sums the paths whose
 counts ``launches_by_path`` gives, ``launches_by_body`` the serving and
-training paths' by body; the vup entries launch on the two vup paths
+training paths' by body; the vup entries launch on the vup paths
 alone), the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.
 """
@@ -468,10 +496,24 @@ GROUP_TRAIN_SHAPES = {
     "15/ps": ("pool_bnact_bwd", 64, (2, 2, 2)),
     "18/ps": ("upconv_bnact_bwd", 128, 64, 2, False),
     "21/ps": ("upconv_bnact_bwd", 64, 32, 1, True)}
+# The 2D group model (rows 16, 17, 19, 20 per sample) and the group vup
+# model (rows 1-vup, 9, 22, 23 per sample, by the carry's shape).
+GROUP_2D_SHAPES = {"16/ps": ROW_SHAPES[16], "17/ps": ROW_SHAPES[17],
+                   "19/ps": ROW_SHAPES[19], "20/ps": ROW_SHAPES[20]}
+GROUP_VUP_TRAIN_SHAPES = {f"{r}/ps": ROW_SHAPES[r]
+                          for r in ("1/vup", 9, "9/wgrad", 22, 23)}
+GROUP_VUP_SERVE_SHAPES = {"1/vup request ps": ("conv_vup", (2, *L1, 64)),
+                          "22/request ps": ("upconv_stats", (2, *L1, 64))}
 ROW_SHAPES.update({r: ("per_sample",) + k for r, k in
-                   {**GROUP_SERVE_SHAPES, **GROUP_TRAIN_SHAPES}.items()})
+                   {**GROUP_SERVE_SHAPES, **GROUP_TRAIN_SHAPES,
+                    **GROUP_2D_SHAPES, **GROUP_VUP_TRAIN_SHAPES,
+                    **GROUP_VUP_SERVE_SHAPES}.items()})
 GROUP_SERVE_ROWS = tuple(GROUP_SERVE_SHAPES)
 GROUP_TRAIN_ROWS = tuple(GROUP_TRAIN_SHAPES)
+GROUP_2D_SERVE_ROWS = ("16/ps", "19/ps")
+GROUP_2D_TRAIN_ROWS = tuple(GROUP_2D_SHAPES)
+GROUP_VUP_SERVE_ROWS = tuple(GROUP_VUP_SERVE_SHAPES)
+GROUP_VUP_TRAIN_ROWS = tuple(GROUP_VUP_TRAIN_SHAPES)
 VUP_TRAIN_ROWS = ("1/vup", 9, "9/wgrad", 22, 23)
 VUP_SERVE_ROWS = ("1/vup tile", "1/vup request")
 FLAT_SERVE_ROWS = (26, "26/merge")
@@ -668,6 +710,24 @@ PS_VARIANTS = [
      False, BATCH),
     ("upconv", "bench up_2 (1,2,2) 64->32 [row 7]", TL1, (64,), 32, 1, True,
      BATCH),
+    # The 2D model's kernel levels at batch 8 of (640, 640) on the D=1
+    # view (its C=128 L2 under the gate: up_1 from L2's dense output).
+    ("conv", "2D L0 conv1 1->32 kd1 [row 3]", P0, (1,), 32, 1, False,
+     BATCH),
+    ("conv", "2D L0 conv2 32->32 kd1 [row 1]", P0, (32,), 32, 1, True,
+     BATCH),
+    ("conv", "2D up_2 merge 32+32->32 kd1 [row 1]", P0, (32, 32), 32, 1,
+     True, BATCH),
+    ("conv", "2D L1 conv2 64->64 kd1 [row 4]", P1, (64,), 64, 1, True,
+     BATCH),
+    ("conv", "2D up_1 merge 64+64->64 kd1 [row 4]", P1, (64, 64), 64, 1,
+     True, BATCH),
+    ("pool", "2D L1 pool (1,2,2) C=64 [row 16]", P1, (64,), 64, (1, 2, 2),
+     True, BATCH),
+    ("upconv", "2D up_1 (1,2,2) 128->64 dense [row 19]", P2, (128,), 64, 1,
+     False, BATCH),
+    ("upconv", "2D up_2 (1,2,2) 64->32 [row 7]", P1, (64,), 32, 1, True,
+     BATCH),
 ]
 # The per-sample backward (training group and instance norm) of row 13,
 # K4, K5, K6 and K7 at bench.py's training shapes (batch 8), as the
@@ -695,6 +755,16 @@ PS_BWD_VARIANTS = [
      64, 2, False),
     ("upconv", "bench up_2 (1,2,2) 64->32 [row 21]", TL1, (64,), 32, 1,
      True),
+    # The 2D model's (batch 8 of (640, 640), the D=1 view).
+    ("conv", "2D L0 conv1 1->32 kd1 [row 13]", P0, (1,), 32, 1, False),
+    ("conv", "2D L0 conv2 32->32 kd1 [row 8]", P0, (32,), 32, 1, True),
+    ("conv", "2D L1 conv2 64->64 kd1 [row 14]", P1, (64,), 64, 1, True),
+    ("conv", "2D up_1 merge 64+64->64 kd1 [row 14]", P1, (64, 64), 64, 1,
+     True),
+    ("pool", "2D L1 pool (1,2,2) C=64 +dskip [row 17]", P1, (64,), 64,
+     (1, 2, 2), True),
+    ("upconv", "2D up_1 (1,2,2) 128->64 dense [row 20]", P2, (128,), 64, 1,
+     False),
 ]
 # Training shapes (batch 8) of rows 11/12 on the headline model (L0's
 # decoder upconv from L1's dense output, where L1 declines) and of the
@@ -1867,7 +1937,14 @@ def record_shapes(fused, bn=None):
 
     def wrap_vup(n):
         def f(carry, *rest):
-            seen[(vup_names[n], tuple(carry.shape))] += 1
+            key = (vup_names[n], tuple(carry.shape))
+            seen[key] += 1
+            # the per-sample mode: an (N, C) prologue or statistics
+            # cotangent, or per-sample statistics
+            if "per_sample" in [r for r in rest if isinstance(r, str)] or any(
+                    isinstance(r, torch.Tensor) and r.dim() == 2
+                    for r in rest):
+                seen[("per_sample",) + key] += 1
             return vup_real[n](carry, *rest)
         return f
     names = ("pool_bnact_fwd_kernel", "pool_bnact_bwd_kernel",
@@ -1961,8 +2038,7 @@ def vup_kernel_phase(vup, stats):
     each computes less than the kernel (no prologue, no chain), "lib*".
     The bound counts the upconv recompute as work: 2 * 64 * 32 FLOP per
     output voxel for each use of the upconv output."""
-    from elektronn3_tpu_torch.ops.fused import channel_stats, prologue
-    grad = torch.nn.grad
+    from elektronn3_tpu_torch.ops.fused import channel_stats
     for seed, (label, cshape, sshape, train) in enumerate(VUP_VARIANTS):
         for dtype in (torch.bfloat16, torch.float32):
             bf16 = dtype == torch.bfloat16
@@ -1980,32 +2056,8 @@ def vup_kernel_phase(vup, stats):
             f_up, f_merge = 2.0 * m * 64 * 32, 2.0 * m * 64 * 32 * 9
             libs = {}
             if bf16:
-                a_c = lib_view(prologue(carry, up[1], up[2], "relu")
-                               .to(dtype))
-                u = lib_view(vup._upconv_plain(*up, "relu"))
-                a_m = lib_input([u.permute(0, 2, 3, 4, 1), skip], args[6],
-                                args[7], "relu")
-                wuq, buq = up[3].to(dtype), up[4].to(dtype)
-                wq, bq = args[8].to(dtype), args[9].to(dtype)
-                st = (1, 2, 2)
-                convt = F.conv_transpose3d
-                libs["conv_vup"] = lambda: (
-                    convt(a_c, wuq, buq, stride=st),
-                    F.conv3d(a_m, wq, bq, padding=(0, 1, 1)))
-                libs["upconv_stats"] = lambda: torch.batch_norm_stats(
-                    convt(a_c, wuq, buq, stride=st), 1e-5)
-                dyv = lib_view(rnd(*sshape, scale=0.1).to(dtype))
-
-                def convt_bwd():    # u's values serve as its cotangent
-                    return (F.conv3d(u, wuq, stride=st),
-                            grad.conv3d_weight(u, wuq.shape, a_c, stride=st))
-                libs["upconv_stats_bwd"] = convt_bwd
-                libs["conv_vup_dgrad"] = lambda: (
-                    grad.conv3d_input(a_m.shape, wq, dyv, padding=(0, 1, 1)),
-                    convt_bwd())
-                libs["conv_vup_wgrad"] = lambda: grad.conv3d_weight(
-                    a_m, wq.shape, dyv, padding=(0, 1, 1))
-                libs = {k: cuda_ms(f) for k, f in libs.items()}
+                libs = {k: cuda_ms(f) for k, f in vup_library_calls(
+                    vup, up, args, rnd, dtype).items()}
             for want in (False, True) if train else (False,):
                 run = lambda: vup.conv_vup_fwd_kernel(   # noqa
                     *args, "relu", "relu", want)
@@ -2077,6 +2129,237 @@ def vup_kernel_phase(vup, stats):
             torch.cuda.empty_cache()
 
 
+def vup_library_calls(vup, up, args, rnd, dtype):
+    """The vup entries' library yardsticks (bf16, cuDNN through torch,
+    channels-last), each computing less than the entry (no prologue, no
+    chain; "lib*"): ``conv_transpose3d`` plus ``conv3d`` on the prologued
+    inputs for ``conv_vup``; ``conv_transpose3d`` plus
+    ``torch.batch_norm_stats`` for ``upconv_stats``; the two convs'
+    backward calls for the backward entries. ``up`` and ``args`` as
+    ``vup.conv_vup`` takes them ((C,) or (N, C) vectors)."""
+    from elektronn3_tpu_torch.ops.fused import prologue
+    grad = torch.nn.grad
+    carry, skip = up[0], args[5]
+    a_c = lib_view(prologue(carry, up[1], up[2], "relu").to(dtype))
+    u = lib_view(vup._upconv_plain(*up, "relu"))
+    a_m = lib_input([u.permute(0, 2, 3, 4, 1), skip], args[6], args[7],
+                    "relu")
+    wuq, buq = up[3].to(dtype), up[4].to(dtype)
+    wq, bq = args[8].to(dtype), args[9].to(dtype)
+    st = (1, 2, 2)
+    convt = F.conv_transpose3d
+    dyv = lib_view(rnd(*skip.shape, scale=0.1).to(dtype))
+
+    def convt_bwd():    # u's values serve as its cotangent
+        return (F.conv3d(u, wuq, stride=st),
+                grad.conv3d_weight(u, wuq.shape, a_c, stride=st))
+    return {
+        "conv_vup": lambda: (convt(a_c, wuq, buq, stride=st),
+                             F.conv3d(a_m, wq, bq, padding=(0, 1, 1))),
+        "upconv_stats": lambda: torch.batch_norm_stats(
+            convt(a_c, wuq, buq, stride=st), 1e-5),
+        "upconv_stats_bwd": convt_bwd,
+        "conv_vup_dgrad": lambda: (
+            grad.conv3d_input(a_m.shape, wq, dyv, padding=(0, 1, 1)),
+            convt_bwd()),
+        "conv_vup_wgrad": lambda: grad.conv3d_weight(
+            a_m, wq.shape, dyv, padding=(0, 1, 1))}
+
+
+# The vup entries' per-sample mode (the group vup model): (label, carry
+# shape, skip shape, training) at bench.py's up_2 (training: every
+# entry) and the Predictor's request of two tiles (serving: conv_vup with
+# per-sample statistics and row 22's pass). Each on the 'tc' body in
+# bf16, timed in turns with its batch twin, and on the 'cuda-core' body
+# in bf16 and float32.
+PS_VUP_VARIANTS = [
+    ("vup bench up_2 64->32 [rows 1-vup/9/22/23]", (BATCH, *TL1, 64),
+     (BATCH, *PATCH, 32), True),
+    ("vup request up_2 64->32 [rows 1-vup/22]", (2, *L1, 64),
+     (2, *TILE, 32), False),
+]
+PS_VUP_BODIES = ((torch.bfloat16, "tc"), (torch.bfloat16, "cuda-core"),
+                 (torch.float32, "cuda-core"))
+
+
+def _ps_vup_inputs(seed, cshape, sshape, dtype):
+    """(rnd, up, args) of :func:`vup_kernel_phase` with (N, C) prologue
+    rows for the carry and the merge, each sample of its own scale."""
+    rnd = rand_on_card(seed)
+    n = cshape[0]
+    scale = torch.arange(1, n + 1, device="cuda").view(n, 1, 1, 1, 1)
+    up = ((scale * rnd(*cshape)).to(dtype), rnd(n, 64),
+          rnd(n, 64, scale=0.5),
+          rnd(64, 32, 1, 2, 2, scale=(2.0 / (96 * 4)) ** 0.5),
+          rnd(32, scale=0.1))
+    args = (*up, (scale * rnd(*sshape)).to(dtype), rnd(n, 64),
+            rnd(n, 64, scale=0.5),
+            rnd(32, 64, 1, 3, 3, scale=(2.0 / (96 * 9)) ** 0.5),
+            rnd(32, scale=0.1))
+    return rnd, up, args
+
+
+def _batch_twin(args):
+    """The batch form of a per-sample call: row 0 of every (N, C)
+    vector."""
+    return tuple(a[0].contiguous() if isinstance(a, torch.Tensor)
+                 and a.dim() == 2 else a for a in args)
+
+
+def _sample_alone(args, i):
+    """Sample i's slice of every batched argument (activations and (N, C)
+    rows; each weight's first dimension is a channel count above N)."""
+    n = args[0].shape[0]
+    return tuple(a[i:i + 1].clone() if isinstance(a, torch.Tensor)
+                 and a.dim() > 1 and a.shape[0] == n else a for a in args)
+
+
+def check_ps_repeat(run, args, out, keep, what):
+    """The outputs ``keep`` of a per-sample call the same bits on a rerun
+    and, for the last sample, when it runs alone."""
+    i = args[0].shape[0] - 1
+    again, alone = run(args), run(_sample_alone(args, i))
+    torch.cuda.synchronize()
+    for k in keep:
+        if not torch.equal(out[k], again[k]):
+            raise AssertionError(f"{what}: output {k} not the same bits on "
+                                 "a rerun")
+        if not torch.equal(out[k][i], alone[k][0]):
+            raise AssertionError(f"{what}: output {k} of sample {i} not the "
+                                 "same bits when it runs alone")
+
+
+@contextlib.contextmanager
+def recompute_as_k3(vup, fused, on):
+    """With ``on``, the plain versions' upconv output u is K3's (the
+    kernel's) stored output, whose bits the vup entries' recompute of the
+    body ``vup.vup_body`` picks reproduces (bf16: ``vup_mma``; float32:
+    ``upconv_value8``). The plain u (one library transposed conv) may sit
+    one unit in the last place from it, which moves a relu's decision
+    where u * inv0 + shift0 is within that unit of 0 and so changes that
+    voxel's gradient by its whole value: the dgrad's reference then takes
+    the kernel's relu decisions and differs from the kernel only in its
+    sums' order."""
+    real = vup._upconv_plain
+
+    def k3(carry, invc, shiftc, wu, bu, act_c):
+        return fused.upconv_bnact_fwd_kernel(carry, invc, shiftc, wu, bu,
+                                             act_c, False)[0]
+    if on:
+        vup._upconv_plain = k3
+    try:
+        yield
+    finally:
+        vup._upconv_plain = real
+
+
+def per_sample_vup_phase(vup, fused, stats, backward):
+    """The vup entries' per-sample mode (:data:`PS_VUP_VARIANTS`): the
+    forward (``conv_vup`` with per-sample statistics, ``upconv_stats``
+    per sample) or, with ``backward``, the training variant's backward
+    entries with (N, C) statistics cotangents (dcarry and dskip
+    elementwise; dinv, dshift, dinvc, dshiftc row by row; dW, db, dwu,
+    dbu as sums), on each of :data:`PS_VUP_BODIES`, against the plain
+    versions; each per-sample call one per-sample launch, and its
+    per-sample outputs (and dcarry, dskip) the same bits on a rerun and
+    for a sample alone. On the 'tc' body the batch twin ((C,) vectors
+    and cotangents) is checked too and the two timed in turns
+    (per-sample, batch, batch, per-sample); lib* as
+    :func:`vup_kernel_phase`'s."""
+    from elektronn3_tpu_torch.ops.fused import channel_stats
+    for seed, (label, cshape, sshape, train) in enumerate(PS_VUP_VARIANTS):
+        if backward and not train:
+            continue
+        for dtype, body in PS_VUP_BODIES:
+            bf16 = dtype == torch.bfloat16
+            peak = PEAK_BF16 if bf16 else PEAK_F32
+            rnd, up, args = _ps_vup_inputs(700 + seed, cshape, sshape, dtype)
+            n = cshape[0]
+            m = args[5].numel() // 32
+            f_up, f_merge = 2.0 * m * 64 * 32, 2.0 * m * 64 * 32 * 9
+            twin = body == "tc"
+            libs = vup_library_calls(vup, up, args, rnd, dtype) \
+                if bf16 else {}
+            if backward:
+                y = vup.conv_vup_fwd_plain(*args, "relu", "relu")[0]
+                bargs = (*args[:9], y, rnd(*y.shape, scale=0.1).to(dtype),
+                         rnd(n, 32, scale=1e-3), rnd(n, 32, scale=1e-4))
+                sargs = (*up, rnd(n, 32, scale=1e-3),
+                         rnd(n, 32, scale=1e-4))
+                entries = [
+                    ("conv_vup_dgrad", bargs, 3 * f_up + f_merge, (0, 5),
+                     (0, 1, 2, 5, 6, 7), ("relu", "relu")),
+                    ("conv_vup_wgrad", bargs, f_up + f_merge, (), (),
+                     ("relu", "relu")),
+                    ("upconv_stats_bwd", sargs, 3 * f_up, (0,), (0, 1, 2),
+                     ("relu",))]
+            else:
+                entries = [("conv_vup", args, f_up + f_merge, (0,),
+                            (0, 1, 2), ("relu", "relu")),
+                           ("upconv_stats", up, f_up, (), (0, 1),
+                            ("relu",))]
+            what_body = "" if body == "tc" else f" {body} body"
+            for name, fargs, flops, elementwise, keep, tail in entries:
+                kfn = getattr(vup, f"{name}_kernel" if name != "conv_vup"
+                              else "conv_vup_fwd_kernel")
+                pfn = getattr(vup, f"{name}_plain" if name != "conv_vup"
+                              else "conv_vup_fwd_plain")
+                extra = () if backward else ("per_sample",)
+                forms = [("per-sample", fargs, extra)]
+                if twin:
+                    forms.append(("batch", _batch_twin(fargs),
+                                  () if backward else (True,)))
+                rows = []
+                for form, a, ex in forms:
+                    def run(a_, ex=ex):
+                        return kfn(*a_, *tail, *ex, body=body)
+                    plain = functools.partial(pfn, *a, *tail, *ex)
+                    what = f"{name} {label} {form} {dtype}{what_body}"
+                    fused.reset_launches()
+                    got = run(a)
+                    if form == "per-sample" and \
+                            fused.PS_LAUNCHES != {name: 1}:
+                        raise AssertionError(f"{what}: per-sample launches "
+                                             f"{fused.PS_LAUNCHES}")
+                    with recompute_as_k3(vup, fused,
+                                         name == "conv_vup_dgrad"
+                                         and body == vup.vup_body(
+                                             dtype, 64, 32)):
+                        ref = plain()
+                    torch.cuda.synchronize()
+                    err = 0.0
+                    for i, (g_, r_) in enumerate(zip(got, ref)):
+                        if r_ is None:
+                            continue
+                        w_ = f"{what} output {i}"
+                        if i in elementwise:
+                            err = max(err, check_close(g_, r_, dtype, w_))
+                        elif name != "conv_vup" or not bf16:
+                            err = max(err, check_rows_sum(g_, r_, w_))
+                    if name == "conv_vup":   # the stored output's sums
+                        ks, kq = channel_stats(got[0], form == "per-sample")
+                        err = max(err, check_rows_sum(got[1], ks, what),
+                                  check_rows_sum(got[2], kq, what))
+                    if form == "per-sample":
+                        check_ps_repeat(run, a, got, keep, what)
+                    bnd = bound(flops, peak, a, got)
+                    del got, ref
+                    lib = cuda_ms(libs[name]) if bf16 else None
+                    rows.append([form, err, functools.partial(run, a),
+                                 plain, bnd, lib, []])
+                for r in rows + rows[::-1]:     # in turns: A, B, B, A
+                    r[6].append(cuda_ms(r[2]))
+                for form, err, _, plain, bnd, lib, ms in rows:
+                    stats.add(name, f"{label} {form}{what_body}", dtype, err,
+                              sum(ms) / len(ms), cuda_ms(plain), bnd, lib,
+                              False, lib_op="the vup entries' library "
+                              "calls (vup_kernel_phase)", body=body)
+            del up, args, libs, entries
+            if backward:
+                del y, bargs, sargs
+            torch.cuda.empty_cache()
+
+
 def check_vup_bodies(launches, bodies, what):
     """Every vup entry a bf16 path launched ran its tensor-core body
     (``vup.vup_body``'s 'tc' at the headline's C_carry 64, C_up 32): the
@@ -2133,11 +2416,12 @@ def sf64_unet(UNet, seed, dtype=torch.bfloat16, pallas_flat="auto"):
                 generator=torch.Generator().manual_seed(seed))
 
 
-def unet_2d(UNet, seed, dtype=torch.bfloat16):
+def unet_2d(UNet, seed, dtype=torch.bfloat16, normalization="batch",
+            pallas_flat="auto"):
     """examples/train_simple2d.py's model."""
     return UNet(in_channels=1, out_channels=2, n_blocks=4, start_filts=32,
-                activation="relu", normalization="batch", dim=2,
-                dtype=dtype, device="cuda",
+                activation="relu", normalization=normalization, dim=2,
+                dtype=dtype, device="cuda", pallas_flat=pallas_flat,
                 generator=torch.Generator().manual_seed(seed))
 
 
@@ -2197,14 +2481,15 @@ def seeded_volume():
 
 
 def predictor_phase(build, what, Predictor, fused, rows, kernels=SERVING,
-                    bn=None, per_call=None):
+                    bn=None, per_call=None, per_sample=False):
     """A model of ``build``: the forward check on one input tile, then
     Predictor requests on a seeded (1, 1, 64, 256, 256) volume: a warm-up
     request (launches of the forward check and that request recorded by
     shape: ``rows``), bf16 probabilities timed with the launch counts
     reset just before (every kernel of ``kernels`` launched; with
     ``per_call``, each of K1-K7 exactly ``per_call.get(kernel, 0)``
-    times per model call of that request), a uint8 argmax."""
+    times per model call of that request; with ``per_sample``, every
+    launch in the per-sample mode), a uint8 argmax."""
     model = build(0, torch.bfloat16).eval()
     randomize_norms(model, 1)
     x = torch.randn((1, *TILE, 1),
@@ -2234,6 +2519,8 @@ def predictor_phase(build, what, Predictor, fused, rows, kernels=SERVING,
           f"{dt:.3f} s = {vol.size / dt / 1e6:.2f} MVox/s; {len(calls)} "
           f"model calls; launches {launches}", flush=True)
     PREDICTED[what] = (probs, vol.size / dt / 1e6)
+    if per_sample:
+        check_per_sample(launches, fused, f"{what} serving")
     check_k1_bodies(launches, BODY_LAUNCHES[f"predictor_{what}"],
                     f"{what} serving",
                     len(calls) if "conv1_fwd" in kernels else None)
@@ -2251,6 +2538,18 @@ def predictor_phase(build, what, Predictor, fused, rows, kernels=SERVING,
     check_probs(probs, ids, (1, 2, 64, 256, 256), what)
     check_launched(launches, kernels, f"{what} serving")
     return launches
+
+
+def check_per_sample(launches, fused, what):
+    """Every launch counted in ``launches`` (K1-K7, row 13's and the vup
+    entries) was in the per-sample mode (``fused.PS_LAUNCHES``), and
+    there was one."""
+    want = {k: n for k, n in launches.items() if k in fused.LAUNCHES and n}
+    got = {k: fused.PS_LAUNCHES.get(k, 0) for k in want}
+    if not want or got != want:
+        raise AssertionError(f"{what}: per-sample launches {got}, all "
+                             f"launches {want}")
+    print(f"{what}: every launch in the per-sample mode: {got}", flush=True)
 
 
 def predictor_group_phase(build, build_instance, Predictor, fused):
@@ -2294,16 +2593,22 @@ def predictor_group_phase(build, build_instance, Predictor, fused):
     return launches
 
 
-def predictor_2d_phase(UNet, Predictor, fused):
+def predictor_2d_phase(UNet, Predictor, fused, normalization="batch"):
     """The 2D model: the forward check on a batch of 8 images, then a
     whole-image request on (8, 1, 640, 640) and a tiled request on
     (1, 1, 2560, 2560), each after a warm-up request; the launch counts
-    cover the two timed requests."""
-    model = unet_2d(UNet, 0).eval()
+    cover the two timed requests. With a group ``normalization`` (path
+    "2D group"): rows 16 and 19 per sample, every launch per sample, and
+    an image's probabilities served alone against in the batch."""
+    group = normalization != "batch"
+    what = "2D group" if group else "2D"
+    model = unet_2d(UNet, 0, normalization=normalization).eval()
     randomize_norms(model, 1)
     x = torch.randn((BATCH, *IMAGE, 1),
                     generator=torch.Generator().manual_seed(2)).cuda()
-    check_forward(model, x, "2D UNet bf16 forward")
+    if group:
+        x[1] *= 3.0
+    check_forward(model, x, f"{what} UNet bf16 forward")
     del x
     torch.cuda.empty_cache()
 
@@ -2318,7 +2623,8 @@ def predictor_2d_phase(UNet, Predictor, fused):
         whole.predict(images)                          # warm-up requests
         tiled.predict(big)
     torch.cuda.synchronize()
-    check_rows(seen, (16, 19), "predictor 2D (warm-up requests)")
+    check_rows(seen, GROUP_2D_SERVE_ROWS if group else (16, 19),
+               f"predictor {what} (warm-up requests)")
     fused.reset_launches()
     t0 = time.perf_counter()
     probs = whole.predict(images)
@@ -2327,8 +2633,10 @@ def predictor_2d_phase(UNet, Predictor, fused):
     probs_big = tiled.predict(big)
     dt_t = time.perf_counter() - t0
     launches = launch_counts(fused)
-    BODY_LAUNCHES["predictor_2D"] = dict(fused.BODY_LAUNCHES)
-    print(f"predictor 2D: whole-image bf16 probabilities {probs.shape} in "
+    BODY_LAUNCHES[f"predictor_{what}"] = dict(fused.BODY_LAUNCHES)
+    if group:
+        check_per_sample(launches, fused, f"{what} serving")
+    print(f"predictor {what}: whole-image bf16 probabilities {probs.shape} in "
           f"{dt_w:.3f} s = {images.size / dt_w / 1e6:.2f} MPix/s; tiled "
           f"{probs_big.shape} (tile 512, overlap 64, batch 4) in "
           f"{dt_t:.3f} s = {big.size / dt_t / 1e6:.2f} MPix/s; launches "
@@ -2337,14 +2645,30 @@ def predictor_2d_phase(UNet, Predictor, fused):
     ids = Predictor(model, argmax_with_threshold=True,
                     **tiled_kw).predict(big)
     dt_ids = time.perf_counter() - t0
-    print(f"predictor 2D: tiled uint8 argmax {ids.shape} in {dt_ids:.3f} s"
-          f" = {big.size / dt_ids / 1e6:.2f} MPix/s", flush=True)
+    print(f"predictor {what}: tiled uint8 argmax {ids.shape} in "
+          f"{dt_ids:.3f} s = {big.size / dt_ids / 1e6:.2f} MPix/s",
+          flush=True)
     ids_whole = Predictor(model, argmax_with_threshold=True,
                           float16=True).predict(images)
-    check_probs(probs, ids_whole, (BATCH, 2, *IMAGE), "2D whole-image")
-    check_probs(probs_big, ids, (1, 2, 2560, 2560), "2D tiled")
-    check_launched(launches, SERVING, "2D serving")
-    check_k1_bodies(launches, BODY_LAUNCHES["predictor_2D"], "2D serving")
+    check_probs(probs, ids_whole, (BATCH, 2, *IMAGE), f"{what} whole-image")
+    check_probs(probs_big, ids, (1, 2, 2560, 2560), f"{what} tiled")
+    check_launched(launches, SERVING, f"{what} serving")
+    check_k1_bodies(launches, BODY_LAUNCHES[f"predictor_{what}"],
+                    f"{what} serving")
+    if group:
+        # Each image is a sample with its own statistics: served alone,
+        # its probabilities are those of the batch (the kernel levels'
+        # bits; the library levels' convs may pick other algorithms by
+        # batch: the bf16 forward tolerance).
+        alone = whole.predict(images[-1:])
+        err = float(np.abs(alone[0] - probs[-1]).max())
+        if err > 5e-2 * float(np.abs(probs[-1]).max()):
+            raise AssertionError(f"{what}: an image alone against in the "
+                                 f"batch: max abs err {err}")
+        print(f"predictor {what}: the last image alone against in the "
+              f"batch of {BATCH}: max abs err {err:.4e} (bound 5e-2 x "
+              "max|p|)", flush=True)
+    PREDICTED[what] = (probs, images.size / dt_w / 1e6)
     return launches
 
 
@@ -2534,11 +2858,11 @@ def train_phase(build, shape, what, unit, CEDiceLoss, train_step, fused,
           flush=True)
     check_launched(launches, kernels, f"{what} training")
     if per_sample:
-        want = {k: launches[k] for k in K1_K7 if k in fused.LAUNCHES}
+        want = {k: launches[k] for k in kernels if k in fused.LAUNCHES}
         if {k: ps_launches.get(k, 0) for k in want} != want:
             raise AssertionError(f"{what} training: per-sample launches "
                                  f"{ps_launches}, all launches {want}")
-        print(f"train {what}: every launch of K1-K7 and row 13's in the "
+        print(f"train {what}: every launch of {', '.join(want)} in the "
               f"per-sample mode over {STEPS} steps: {ps_launches}",
               flush=True)
     check_k1_bodies(launches, bodies, f"{what} training",
@@ -2580,24 +2904,30 @@ def ps_grad_repeat(model, crit, batch, fused, what):
     parameters and batch (cuDNN's deterministic algorithms on the library
     levels, some of whose backward algorithms add with atomics, so that
     each kernel sees the same inputs twice)."""
-    names = ("conv_bnact_dgrad_kernel", "conv1_bwd_kernel",
-             "pool_bnact_bwd_kernel", "upconv_bnact_bwd_kernel")
-    real = {n: getattr(fused, n) for n in names}
+    from elektronn3_tpu_torch.ops import vup
+    # (module, entry, its outputs that are prologue gradients)
+    entries = [(fused, n, (1, 2)) for n in (
+        "conv_bnact_dgrad_kernel", "conv1_bwd_kernel",
+        "pool_bnact_bwd_kernel", "upconv_bnact_bwd_kernel")] + [
+        (vup, "conv_vup_dgrad_kernel", (1, 2, 6, 7)),
+        (vup, "upconv_stats_bwd_kernel", (1, 2))]
+    real = {n: getattr(mod, n) for mod, n, _ in entries}
+    items = {n: i for _, n, i in entries}
     got = []
 
     def spy(n):
         def f(*a, **k):
             out = real[n](*a, **k)
-            got.extend(v.clone() for v in out[1:3] if v is not None
-                       and v.dim() == 2)
+            got.extend(out[i].clone() for i in items[n] if out[i] is not None
+                       and out[i].dim() == 2)
             return out
         return f
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     runs = []
     try:
-        for n in names:
-            setattr(fused, n, spy(n))
+        for mod, n, _ in entries:
+            setattr(mod, n, spy(n))
         for _ in range(2):
             got.clear()
             model.zero_grad(set_to_none=True)
@@ -2606,8 +2936,8 @@ def ps_grad_repeat(model, crit, batch, fused, what):
             runs.append(list(got))
     finally:
         torch.backends.cudnn.deterministic = det
-        for n in names:
-            setattr(fused, n, real[n])
+        for mod, n, _ in entries:
+            setattr(mod, n, real[n])
     same = len(runs[0]) == len(runs[1]) and all(
         torch.equal(a, b) for a, b in zip(*runs))
     print(f"train {what}: {len(runs[0])} per-sample dinv/dshift outputs of "
@@ -2647,7 +2977,8 @@ def step_breakdown(what, train_step, model, crit, opt, batches):
 
 
 def group_train_phase(build, build_library, what, CEDiceLoss, train_step,
-                      fused):
+                      fused, shape=(BATCH, *PATCH, 1), rows=GROUP_TRAIN_ROWS,
+                      unit="MVox", beside="3D"):
     """The headline model with ``what`` norm trained at bench.py's step on
     the kernels' per-sample mode (:func:`train_phase` without its plain
     arm: every launch of K1-K7 and row 13's per sample, the per-sample
@@ -2656,12 +2987,12 @@ def group_train_phase(build, build_library, what, CEDiceLoss, train_step,
     per-sample dinv/dshift the same bits on a rerun; with
     ``build_library`` the step's device time by kernel, and then the same
     model with ``pallas_flat=False`` (the library plan: no kernel
-    launched) timed with the same loop."""
-    shape = (BATCH, *PATCH, 1)
+    launched) timed with the same loop, beside the 'batch' model's step
+    of the same shape (``beside``; the 2D group model: ``shape``, ``rows``
+    and ``unit`` its own)."""
     launches, model, crit, opt, batches = train_phase(
-        build, shape, what, "MVox", CEDiceLoss, train_step, fused,
-        GROUP_TRAIN_ROWS, zero_bias=what != "group", per_sample=True,
-        plain=False)
+        build, shape, what, unit, CEDiceLoss, train_step, fused, rows,
+        zero_bias=what == "instance", per_sample=True, plain=False)
     ps_grad_repeat(model, crit, batches[0], fused, what)
     if build_library is None:
         return launches
@@ -2680,9 +3011,10 @@ def group_train_phase(build, build_library, what, CEDiceLoss, train_step,
                              f"{launch_counts(fused)}")
     k, _, k2 = STEP_MS[what]
     print(f"train {what} pallas_flat=False: step {dt * 1e3:9.2f} ms = "
-          f"{int(np.prod(shape)) / dt / 1e6:7.2f} MVox/s; beside the kernel "
-          f"plan in this run: kernels {k:.2f}, kernels again {k2:.2f} ms; "
-          f"the 'batch' headline step {STEP_MS['3D'][0]:.2f} ms", flush=True)
+          f"{int(np.prod(shape)) / dt / 1e6:7.2f} {unit}/s; beside the "
+          f"kernel plan in this run: kernels {k:.2f}, kernels again "
+          f"{k2:.2f} ms; the 'batch' model's step ({beside}) "
+          f"{STEP_MS[beside][0]:.2f} ms", flush=True)
     del lib, lopt, batches
     torch.cuda.empty_cache()
     return launches
@@ -2865,7 +3197,7 @@ def silu_library_phase(build, CEDiceLoss, train_step, fused):
     return launches
 
 
-def vup_pair_phase(build, CEDiceLoss, train_step, fused):
+def vup_pair_phase(build, CEDiceLoss, train_step, fused, what="vup"):
     """The headline step at bench.py's shapes with ``vup`` off and on in
     turn (off, on, on, off), each arm a fresh model of the same seed, the
     same timed loop and batches as train_phase's, the peak allocated
@@ -2886,17 +3218,66 @@ def vup_pair_phase(build, CEDiceLoss, train_step, fused):
         del model, opt
         torch.cuda.empty_cache()
     for on in (False, True):
-        print(f"train vup={on!s:5s}: step " + ", ".join(
+        print(f"train {what} vup={on!s:5s}: step " + ", ".join(
             f"{ms:.2f}" for ms, _ in readings[on]) + " ms; peak allocated "
             + ", ".join(f"{b / 1e6:.1f}" for _, b in readings[on])
             + " MB", flush=True)
     saved = min(b for _, b in readings[False]) - max(
         b for _, b in readings[True])
-    print(f"train vup: peak allocated {saved / 1e6:.1f} MB under vup=False "
-          f"(batch {BATCH} of {PATCH}, bf16)", flush=True)
+    print(f"train {what}: peak allocated {saved / 1e6:.1f} MB under "
+          f"vup=False (batch {BATCH} of {PATCH}, bf16)", flush=True)
     if saved < 150e6:
-        raise AssertionError(f"vup step's peak only {saved / 1e6:.1f} MB "
-                             "under vup=False's")
+        raise AssertionError(f"{what} step's peak only {saved / 1e6:.1f} MB"
+                             " under vup=False's")
+
+
+def group_vup_phase(build, Predictor, CEDiceLoss, train_step, fused):
+    """The headline model with group norm and ``vup=True`` (random affine
+    parameters, bf16): served (:func:`predictor_phase`: ``conv_vup`` and
+    row 22's pass once a model call, every launch per sample, rows 1-vup
+    and 22 per sample at the request's batch of two tiles, the vup entries
+    on their 'tc' bodies), trained at bench.py's step (:func:`train_phase`
+    without its plain arm: the five entries once a step, every launch of
+    K1-K7, row 13's and the vup entries per sample, rows 1-vup, 9, 22 and
+    23 per sample, the step against ``reference=True`` in float32 and
+    bf16), the per-sample prologue gradients the same bits on a rerun,
+    and the step with ``vup`` off and on in turn, each arm's peak
+    allocated memory (:func:`vup_pair_phase`: the vup arm 150 MB under)."""
+    launches = {}
+    launches["predictor_group_vup"] = predictor_phase(
+        build, "group vup", Predictor, fused, GROUP_VUP_SERVE_ROWS,
+        SERVING + ("conv_vup", "upconv_stats"),
+        per_call={"conv_bnact": 11, "conv1_fwd": 1, "pool_bnact": 3,
+                  "upconv_bnact": 2, "conv_vup": 1, "upconv_stats": 1},
+        per_sample=True)
+    check_vup_bodies(launches["predictor_group_vup"],
+                     BODY_LAUNCHES["predictor_group vup"],
+                     "group vup serving")
+    torch.cuda.empty_cache()
+    launches["train_group_vup"], model, crit, opt, batches = train_phase(
+        build, (BATCH, *PATCH, 1), "group vup", "MVox", CEDiceLoss,
+        train_step, fused, GROUP_VUP_TRAIN_ROWS, K1_K7 + VUP_KERNELS,
+        zero_bias=False, per_sample=True, plain=False)
+    per_step = {"conv_bnact": 7, "conv1_fwd": 1, "pool_bnact": 2,
+                "upconv_bnact": 1, "conv_bnact_dgrad": 6,
+                "conv_bnact_wgrad": 6, "conv1_bwd": 1, "pool_bnact_bwd": 2,
+                "upconv_bnact_bwd": 1, **dict.fromkeys(VUP_KERNELS, 1)}
+    want = {k: per_step.get(k, 0) * STEPS for k in SOURCES}
+    if launches["train_group_vup"] != want:
+        raise AssertionError(f"group vup training launches "
+                             f"{launches['train_group_vup']}, expected "
+                             f"{want}")
+    check_vup_bodies(launches["train_group_vup"],
+                     BODY_LAUNCHES["train_group vup"], "group vup training")
+    ps_grad_repeat(model, crit, batches[0], fused, "group vup")
+    k, _, k2 = STEP_MS["group vup"]
+    print(f"train group vup: step {k:.2f}, again {k2:.2f} ms beside the "
+          f"group step {STEP_MS['group'][0]:.2f} and the vup step "
+          f"{STEP_MS['vup'][0]:.2f} ms in this run", flush=True)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    vup_pair_phase(build, CEDiceLoss, train_step, fused, "group vup")
+    return launches
 
 
 def input_grad_phase(build, CEDiceLoss, train_step, fused):
@@ -3099,6 +3480,17 @@ def main():
         return headline_unet(UNet, seed, dtype, activation="silu",
                              pallas_flat=False)
 
+    def build_group_vup(seed, dtype, vup=True):
+        return headline_unet(UNet, seed, dtype, normalization="group",
+                             vup=vup)
+
+    def build_2d_group(seed, dtype):
+        return unet_2d(UNet, seed, dtype, normalization="group")
+
+    def build_2d_group_library(seed, dtype):
+        return unet_2d(UNet, seed, dtype, normalization="group",
+                       pallas_flat=False)
+
     def build_vup(seed, dtype, vup=True):
         return headline_unet(UNet, seed, dtype, vup=vup)
 
@@ -3116,8 +3508,10 @@ def main():
     kernel_phase(fused, stats, VARIANTS_CONV1, total=False)
     mark("kernels: tile, bench, 2D")
     per_sample_phase(fused, stats)
+    per_sample_vup_phase(vup, fused, stats, backward=False)
     mark("kernels: per-sample forward")
     per_sample_bwd_phase(fused, stats)
+    per_sample_vup_phase(vup, fused, stats, backward=True)
     mark("kernels: per-sample backward")
     train_kernel_phase(fused, stats, TRAIN_VARIANTS_SF64, total=False,
                        serve=False)
@@ -3263,12 +3657,25 @@ def main():
     torch.cuda.empty_cache()
     trainer_phase(build_vup, (1, *PATCH), "vup", CEDiceLoss, Trainer)
     vup_pair_phase(build_vup, CEDiceLoss, train_step, fused)
+    mark("vup paths")
+
+    launches.update(group_vup_phase(build_group_vup, Predictor, CEDiceLoss,
+                                    train_step, fused))
+    mark("group vup paths")
+    launches["predictor_2d_group"] = predictor_2d_phase(
+        UNet, Predictor, fused, normalization="group")
+    torch.cuda.empty_cache()
+    launches["train_2d_group"] = group_train_phase(
+        build_2d_group, build_2d_group_library, "2D group", CEDiceLoss,
+        train_step, fused, shape=(BATCH, *IMAGE, 1),
+        rows=GROUP_2D_TRAIN_ROWS, unit="MPix", beside="2D")
+    torch.cuda.empty_cache()
+    mark("2D group paths")
     stray = {p: {k: n[k] for k in VUP_KERNELS if n[k]}
              for p, n in launches.items() if "vup" not in p}
     if any(stray.values()):
         raise AssertionError(f"vup entries launched off the vup paths: "
                              f"{stray}")
-    mark("vup paths")
     print(f"phases (wall s, {sum(PHASE_S.values()):.1f} in all): "
           + "; ".join(f"{k} {v}" for k, v in PHASE_S.items()), flush=True)
 

@@ -47,7 +47,11 @@
 // epilogue recomputes u for act' and dinv0, and stores
 // E = round(gm * inv0), the cotangent of the upconv output, where dx0
 // would go. Every other instantiation compiles exactly as before. They run
-// float32, and bf16 where vup.vup_body names the CUDA-core bodies.
+// float32, and bf16 where vup.vup_body names the CUDA-core bodies. Their
+// per-sample mode (group and instance norm) has instantiations of its own
+// (VPS = true): the merge's prologue row inv[0] of the block's sample
+// (pro_ns) and the carry's prologue row (vup_ns), which the batch form's
+// code never reads.
 #pragma once
 
 #include "common.cuh"
@@ -102,6 +106,7 @@ struct ConvArgs {
   int pro_ns;
   float* part;
   int st_ns;          // dgrad, per sample: the (n, cin[0]) ds, dq stride
+  int vup_ns;         // vup, per sample: the carry's (n, cc) rows' stride
 };
 
 // Load the CK = 8 staged values of voxel ``vox`` from channel ``cb`` of
@@ -137,28 +142,34 @@ __device__ __forceinline__ void load_operand(const ConvArgs& a, int i,
 // The staged value of virtual input 0 (vup forward): the prologue
 // act(u * inv0 + shift0) of the recomputed upconv output u at voxel
 // (nz, gh, gw), nz the n * d + depth index; not yet rounded.
+// ``po`` and ``pc``: the sample's rows of the merge's and the carry's
+// prologue (0 in the batch form).
 template <typename T>
 __device__ __forceinline__ void vup_operand(const ConvArgs& a, int64_t nz,
                                             int gh, int gw, int cb,
-                                            float* v) {
+                                            float* v, int64_t po,
+                                            int64_t pc) {
   const int64_t cv = vup_parent(nz, gh, gw, a.h, a.wd);
-  upconv_value8<T>(a.vup, cv, vup_sub(gh, gw), cb, v);
+  upconv_value8_row<T>(a.vup, cv, vup_sub(gh, gw), cb, v, pc);
+  const float* inv0 = a.inv[0] + po;
+  const float* shift0 = a.shift[0] + po;
 #pragma unroll
   for (int c = 0; c < CK; ++c)
-    v[c] = prologue(v[c], a.inv[0][cb + c], a.shift[0][cb + c], a.act);
+    v[c] = prologue(v[c], inv0[cb + c], shift0[cb + c], a.act);
 }
 
 // One staged value group of operand i at voxel (gh, gw) of plane
 // ``plane`` (= nz * h): load_operand, or the vup forward's virtual
-// input 0.
-template <bool DG, bool VUP, typename T>
+// input 0 (VPS: at the sample's rows po, pc).
+template <bool DG, bool VUP, typename T, bool VPS = false>
 __device__ __forceinline__ void stage_operand(const ConvArgs& a, int i,
                                               int64_t plane, int64_t nz,
                                               int gh, int gw, int cb,
-                                              float* v, int64_t po) {
+                                              float* v, int64_t po,
+                                              int64_t pc = 0) {
   if constexpr (VUP && !DG) {
     if (i == 0) {
-      vup_operand<T>(a, nz, gh, gw, cb, v);
+      vup_operand<T>(a, nz, gh, gw, cb, v, VPS ? po : 0, VPS ? pc : 0);
       return;
     }
   }
@@ -169,13 +180,14 @@ __device__ __forceinline__ void stage_operand(const ConvArgs& a, int i,
 // from their float32 sums ``acc``. Forward: bias, store, and (ST) the
 // rounded values' sums into st (8 sums, then 8 sums of squares). Dgrad:
 // the prologue gradient as described at the top (``po``: the sample's
-// prologue row); st gets dinv then dshift. ST is a template argument so
-// that the forward without statistics (serving) keeps no sums in
-// registers.
+// prologue row; ``pc`` the carry's, of the vup recompute); st gets dinv
+// then dshift. ST is a template argument so that the forward without
+// statistics (serving) keeps no sums in registers.
 template <bool DG, bool ST, typename T, bool VUP = false>
 __device__ __forceinline__ void epilogue8(const ConvArgs& a, int64_t vox,
                                           int o, const float* acc,
-                                          float* st, int64_t po = 0) {
+                                          float* st, int64_t po = 0,
+                                          int64_t pc = 0) {
   if (!DG) {
     float r[8];
 #pragma unroll
@@ -198,9 +210,9 @@ __device__ __forceinline__ void epilogue8(const ConvArgs& a, int64_t vox,
     if (i == 0) {  // the recomputed upconv output, the forward's bits
       const int ww = (int)(vox % a.wd);
       const int64_t t = vox / a.wd;
-      upconv_value8<T>(a.vup, vup_parent(t / a.h, (int)(t % a.h), ww, a.h,
-                                         a.wd),
-                       vup_sub((int)(t % a.h), ww), cl, x);
+      upconv_value8_row<T>(a.vup, vup_parent(t / a.h, (int)(t % a.h), ww,
+                                             a.h, a.wd),
+                           vup_sub((int)(t % a.h), ww), cl, x, pc);
     } else {
       load8(static_cast<const T*>(a.xe[i]) + vox * ci + cl, x);
     }
@@ -233,7 +245,7 @@ __device__ __forceinline__ void flush_block_sums(float (*red)[COG],
   }
 }
 
-template <bool DG, bool ST, typename T, bool VUP = false>
+template <bool DG, bool ST, typename T, bool VUP = false, bool VPS = false>
 __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   __shared__ float s_in[CK][HH][HW];
   __shared__ __align__(16) float s_w[9][CK][COG];
@@ -253,6 +265,8 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
   const int ct = a.cin[0] + a.cin[1];
   // The sample's prologue row (forward) or ds, dq row (dgrad).
   const int64_t po = (int64_t)n * (DG ? a.st_ns : a.pro_ns);
+  // The vup per-sample instantiations: the carry's prologue row.
+  const int64_t pc = VPS ? (int64_t)n * a.vup_ns : 0;
   if (threadIdx.x < 2 * COG) s_red[threadIdx.x / COG][threadIdx.x % COG] = 0;
 
   float acc[RPT][COG];
@@ -277,8 +291,9 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
           const int gw = w0 + hx - 1;
           float v[CK];
           if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd) {
-            stage_operand<DG, VUP, T>(a, i, plane, (int64_t)n * a.d + zd,
-                                      gh, gw, cb, v, po);
+            stage_operand<DG, VUP, T, VPS>(a, i, plane,
+                                           (int64_t)n * a.d + zd, gh, gw,
+                                           cb, v, po, pc);
 #pragma unroll
             for (int c = 0; c < CK; ++c)
               v[c] = (cb + c < ci) ? round_to<T>(v[c]) : 0.0f;
@@ -344,7 +359,7 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
 #pragma unroll
     for (int q = 0; q < COG / 8; ++q)
       epilogue8<DG, ST, T, VUP>(a, vox, co0 + 8 * q, &acc[r][8 * q],
-                                st[q], (int64_t)n * a.pro_ns);
+                                st[q], (int64_t)n * a.pro_ns, pc);
   }
   if (!ST) return;
   float st0[COG], st1[COG];
@@ -390,7 +405,7 @@ __global__ void __launch_bounds__(NT) conv_body_kernel(const ConvArgs a) {
 // block sums (statistics, or dinv and dshift). grid.x walks the (h, w)
 // tiles of every (n, depth) slab, the slab index outermost, so N * D is
 // not bounded by grid.y's 65535; a grid.x past 2^31 - 1 is refused.
-template <bool DG, bool ST, bool VUP = false>
+template <bool DG, bool ST, bool VUP = false, bool VPS = false>
 cudaError_t launch_conv_body_st(const ConvArgs& a, int dtype,
                                 cudaStream_t s) {
   const int64_t tiles =
@@ -399,24 +414,25 @@ cudaError_t launch_conv_body_st(const ConvArgs& a, int dtype,
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, 1, a.cout / COG);
   if (dtype != DT_BF16) {
-    conv_body_kernel<DG, ST, float, VUP><<<grid, NT, 0, s>>>(a);
+    conv_body_kernel<DG, ST, float, VUP, VPS><<<grid, NT, 0, s>>>(a);
   } else if constexpr (DG && !VUP) {
     return cudaErrorInvalidValue;   // K4's bf16 body is dgrad_tc.cu
   } else {
-    conv_body_kernel<DG, ST, __nv_bfloat16, VUP><<<grid, NT, 0, s>>>(a);
+    conv_body_kernel<DG, ST, __nv_bfloat16, VUP, VPS><<<grid, NT, 0, s>>>(
+        a);
   }
   return cudaSuccess;
 }
 
-template <bool DG, bool VUP = false>
+template <bool DG, bool VUP = false, bool VPS = false>
 int launch_conv_body(const ConvArgs& a, int dtype, cudaStream_t s) {
   cudaError_t rc;
   if constexpr (DG)
-    rc = launch_conv_body_st<true, true, VUP>(a, dtype, s);
+    rc = launch_conv_body_st<true, true, VUP, VPS>(a, dtype, s);
   else if (a.s != nullptr)
-    rc = launch_conv_body_st<false, true, VUP>(a, dtype, s);
+    rc = launch_conv_body_st<false, true, VUP, VPS>(a, dtype, s);
   else
-    rc = launch_conv_body_st<false, false, VUP>(a, dtype, s);
+    rc = launch_conv_body_st<false, false, VUP, VPS>(a, dtype, s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -86,9 +86,13 @@ struct WgradArgs {
 // layout, and the code, they compile to without it.
 struct WgradVupArgs : WgradArgs {
   VupArgs vup;
+  int vup_ns;          // per sample: the carry's (n, cc) rows' stride
 };
 
-template <typename T, typename Args = WgradArgs>
+// VPS: the vup instantiation's per-sample mode, which reads the carry's
+// prologue row of the tile's sample (vup_ns); the batch form's code does
+// not change.
+template <typename T, typename Args = WgradArgs, bool VPS = false>
 __global__ void __launch_bounds__(WNT) conv_wgrad_kernel(const Args a) {
   constexpr bool VUP = std::is_same<Args, WgradVupArgs>::value;
   __shared__ float s_a[WCI][WTH + 2][WTW + 2];
@@ -155,7 +159,11 @@ __global__ void __launch_bounds__(WNT) conv_wgrad_kernel(const Args a) {
       if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.wd) {
         const int c0 = cb + 8 * g;
         if constexpr (VUP) {
-          if (i == 0)
+          if (i == 0 && VPS)
+            upconv_value8_row<T>(a.vup,
+                                 vup_parent(nd + dz, gh, gw, a.h, a.wd),
+                                 vup_sub(gh, gw), c0, v, nd / a.d * a.vup_ns);
+          else if (i == 0)
             upconv_value8<T>(a.vup, vup_parent(nd + dz, gh, gw, a.h, a.wd),
                              vup_sub(gh, gw), c0, v);
           else
@@ -320,7 +328,7 @@ namespace {
 
 // K5's grid: enough voxel splits for 4 blocks an SM over the (channel
 // group, depth tap) blocks, at most one a tile.
-template <typename Args>
+template <typename Args, bool VPS = false>
 int launch_wgrad(const Args& a, int dtype, void* stream) {
   const int groups = a.groups0 + (a.cin[1] + WCI - 1) / WCI;
   const int per_split = groups * (a.cout / WCO) * a.kd;
@@ -332,9 +340,9 @@ int launch_wgrad(const Args& a, int dtype, void* stream) {
   const dim3 grid((unsigned)splits, groups * (a.cout / WCO), a.kd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == e3::DT_BF16)
-    conv_wgrad_kernel<__nv_bfloat16, Args><<<grid, WNT, 0, s>>>(a);
+    conv_wgrad_kernel<__nv_bfloat16, Args, VPS><<<grid, WNT, 0, s>>>(a);
   else
-    conv_wgrad_kernel<float, Args><<<grid, WNT, 0, s>>>(a);
+    conv_wgrad_kernel<float, Args, VPS><<<grid, WNT, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -379,16 +387,19 @@ extern "C" int e3_conv_bnact_wgrad(int dtype, int nin, const void* x0,
 }
 
 // K5 of the vup merge conv: input 0 is the recomputed upconv output of
-// the carry (cu channels), input 1 the skip (cs); kd = 1.
+// the carry (cu channels), input 1 the skip (cs); kd = 1. The per-sample
+// mode: ``pro_ns`` (cu + cs), ``cc_ns`` (cc) and ``st_ns`` (cout) for the
+// (n, .) rows of the merge's prologue, the carry's and ds, dq, on the
+// per-sample instantiations; dW and db stay global.
 extern "C" int e3_conv_vup_wgrad(int dtype, const void* carry, int cc,
                                  const float* invc, const float* shiftc,
-                                 const float* wu, const float* bu, int cu,
-                                 int actc, const void* skip, int cs,
+                                 int cc_ns, const float* wu, const float* bu,
+                                 int cu, int actc, const void* skip, int cs,
                                  const float* inv, const float* shift,
-                                 const void* dy, const void* y,
+                                 int pro_ns, const void* dy, const void* y,
                                  const float* ds, const float* dq,
-                                 int cout, float* dw, float* db, int n,
-                                 int d, int h, int wd, int act,
+                                 int st_ns, int cout, float* dw, float* db,
+                                 int n, int d, int h, int wd, int act,
                                  void* stream) {
   WgradVupArgs a = {};
   a.x[1] = skip;
@@ -412,5 +423,10 @@ extern "C" int e3_conv_vup_wgrad(int dtype, const void* carry, int cc,
   a.kd = 1;
   a.act = act;
   a.vup = vup_args(carry, cc, invc, shiftc, wu, bu, cu, actc);
-  return launch_wgrad(a, dtype, stream);
+  a.pro_ns = pro_ns;
+  a.st_ns = ds != nullptr ? st_ns : 0;
+  a.vup_ns = cc_ns;
+  if (pro_ns == 0 && a.st_ns == 0 && cc_ns == 0)
+    return launch_wgrad(a, dtype, stream);
+  return launch_wgrad<WgradVupArgs, true>(a, dtype, stream);
 }

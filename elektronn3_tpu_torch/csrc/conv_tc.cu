@@ -80,6 +80,10 @@
 // What bounds it: the merge conv's bytes and FLOPs as K1's, plus the
 // recompute, 2 x cc x 4 cu FLOP a carry voxel of the halo (about 1.3 x
 // the upconv's own work at TH x TW = 8 x 32), on the tensor cores.
+// Its per-sample mode (group and instance norm; ConvTcVupPsArgs, an
+// instantiation of its own) stages the merge's prologue row of the
+// block's sample, as K1's does, and the carry's (cc_ns), and gives the
+// statistics per sample as K1's per-sample mode does.
 #include <type_traits>
 
 #include "conv_tc.cuh"
@@ -116,12 +120,17 @@ struct ConvTcArgs {
 // and the code, they compile to without it.
 struct ConvTcVupArgs : ConvTcArgs {
   const __nv_bfloat16* carry;   // (n, d, h / 2, w / 2, cc) raw carry
-  const float* invc;            // (cc,) its prologue
-  const float* shiftc;
+  const float* invc;            // (cc,) its prologue, or per sample
+  const float* shiftc;          // (n, cc) rows at the stride cc_ns
   const __nv_bfloat16* wup;     // (cc / 16, 4 cu, 16) packed upconv weight
   const float* bu;              // (cu,) float32 bias
   int cc, actc;
+  int cc_ns;
 };
+
+// The vup instantiation's per-sample mode: the same arguments, a type of
+// its own, so that the batch form's code stays as it was.
+struct ConvTcVupPsArgs : ConvTcVupArgs {};
 
 // The recompute of the vup instantiation: the carry voxels under a tile's
 // halo slab, (th / 2 + 2) x (tw / 2 + 2) of them in m16 tiles, at an odd
@@ -237,7 +246,9 @@ __device__ __forceinline__ void load_step(const ConvTcArgs& a, const Geo& g,
 // under the tile's halo slab, prologued and rounded, into the staged
 // slab of each k16 step of u (``s_u``: [cu / 16][npos][APITCH]), before
 // the K loop. ``scratch`` holds the carry tile and the weight chunk;
-// ``s_vec`` the carry's prologue and u's bias.
+// ``s_vec`` the carry's prologue (VPS: the row of the block's sample) and
+// u's bias.
+template <bool VPS>
 __device__ __forceinline__ void vup_stage_u(const ConvTcVupArgs& a,
                                             const Geo& g, int th, int tw,
                                             int h0, int w0,
@@ -261,9 +272,10 @@ __device__ __forceinline__ void vup_stage_u(const ConvTcVupArgs& a,
   float* s_invc = s_vec;
   float* s_shiftc = s_invc + a.cc;
   float* s_bu = s_shiftc + a.cc;
+  const int64_t pc = VPS ? g.nn * a.cc_ns : 0;
   for (int c = tid; c < a.cc; c += NT) {
-    s_invc[c] = a.invc[c];
-    s_shiftc[c] = a.shiftc[c];
+    s_invc[c] = a.invc[pc + c];
+    s_shiftc[c] = a.shiftc[pc + c];
   }
   for (int c = tid; c < cu; c += NT) s_bu[c] = a.bu[c];
   for (int p = tid; p < v.mt * 16 * (a.cc / 8); p += NT) {
@@ -343,7 +355,8 @@ __device__ __forceinline__ void vup_stage_u(const ConvTcVupArgs& a,
 
 template <int COB, bool PRO, bool ST, typename Args = ConvTcArgs>
 __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const Args a) {
-  constexpr bool VUP = std::is_same<Args, ConvTcVupArgs>::value;
+  constexpr bool VUP = std::is_base_of<ConvTcVupArgs, Args>::value;
+  constexpr bool VPS = std::is_same<Args, ConvTcVupPsArgs>::value;
   using C = Cfg<COB>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tw = a.tw;
@@ -400,8 +413,9 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const Args a) {
                       KST * (g.abytes + C::BSTAGE), g.npos, th, tw,
                       a.cin[0], a.cc);
     uoff = l.u_off;
-    vup_stage_u(a, g, th, tw, h0, w0, smem + l.scratch_off, smem + l.u_off,
-                s_inv, s_shift, reinterpret_cast<float*>(smem + l.vec_off));
+    vup_stage_u<VPS>(a, g, th, tw, h0, w0, smem + l.scratch_off,
+                     smem + l.u_off, s_inv, s_shift,
+                     reinterpret_cast<float*>(smem + l.vec_off));
   }
 
   // Each lane's ldmatrix row of m16 tile mi at tap (0, 0), and of its B
@@ -547,7 +561,7 @@ __global__ void __launch_bounds__(NT, 2) conv_tc_kernel(const Args a) {
 template <int COB, bool PRO, bool ST, typename Args = ConvTcArgs>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   size_t smem = conv_tc_smem<COB>(a.tw, a.cin[0] + a.cin[1]);
-  if constexpr (std::is_same<Args, ConvTcVupArgs>::value)
+  if constexpr (std::is_base_of<ConvTcVupArgs, Args>::value)
     smem = vup_layout<COB>(a).total;
   const cudaError_t rc = cudaFuncSetAttribute(
       conv_tc_kernel<COB, PRO, ST, Args>,
@@ -576,6 +590,12 @@ template <int COB>
 cudaError_t launch_vup(const ConvTcVupArgs& a, cudaStream_t st) {
   if (Cfg<COB>::M % (2 * a.tw) || (Cfg<COB>::M / a.tw) % 2)
     return cudaErrorInvalidValue;   // the tile's origin must be even
+  if (a.pro_ns != 0 || a.cc_ns != 0 || a.part != nullptr) {
+    ConvTcVupPsArgs p;
+    static_cast<ConvTcVupArgs&>(p) = a;
+    return a.s != nullptr ? launch<COB, true, true, ConvTcVupPsArgs>(p, st)
+                          : launch<COB, true, false, ConvTcVupPsArgs>(p, st);
+  }
   return a.s != nullptr ? launch<COB, true, true, ConvTcVupArgs>(a, st)
                         : launch<COB, true, false, ConvTcVupArgs>(a, st);
 }
@@ -669,17 +689,24 @@ extern "C" int e3_conv_bnact_tc(int nin, const void* x0, int c0,
 // over the concat) must be given; ``s`` and ``q`` as e3_conv_bnact_tc's.
 // ``tw`` is the tile width (16 or 32: vup.vup_tile's). Needs cc % 32 ==
 // 0 and cc <= 128, cu in {32, 64}, cs % 16 == 0, cout % 32 == 0 and even
-// h and wd; (n, d, h, wd) are the skip's dims.
+// h and wd; (n, d, h, wd) are the skip's dims. The per-sample mode:
+// ``pro_ns`` (cu + cs) and ``cc_ns`` (cc) for the (n, .) rows of the
+// merge's prologue and the carry's, and a workspace ``ws``
+// (ps_workspace_floats of n samples, e3_conv_bnact_tc_ps_parts rows of
+// 2 cout) for the statistics per sample as (n, 2, cout) in ``s``, as
+// e3_conv_bnact_tc's.
 extern "C" int e3_conv_vup_tc(const void* carry, int cc, const float* invc,
-                              const float* shiftc, const void* wup,
-                              const float* bu, int cu, int actc,
-                              const void* skip, int cs, const float* inv,
-                              const float* shift, const void* wp,
-                              const float* bias, void* y, float* s, float* q,
-                              int n, int d, int h, int wd, int cout, int act,
+                              const float* shiftc, int cc_ns,
+                              const void* wup, const float* bu, int cu,
+                              int actc, const void* skip, int cs,
+                              const float* inv, const float* shift,
+                              int pro_ns, const void* wp, const float* bias,
+                              void* y, float* s, float* q, float* ws, int n,
+                              int d, int h, int wd, int cout, int act,
                               int tw, void* stream) {
   if (cc % 32 || cc > 128 || (cu != 32 && cu != 64) || cs % 16 || cout % 32
-      || h % 2 || wd % 2 || inv == nullptr || (tw != 16 && tw != 32))
+      || h % 2 || wd % 2 || inv == nullptr || (tw != 16 && tw != 32)
+      || (ws != nullptr && tw != conv_tc_tw(wd)))   // the partial rows' tiles
     return static_cast<int>(cudaErrorInvalidValue);
   ConvTcVupArgs a = {};
   a.x[1] = static_cast<const __nv_bfloat16*>(skip);
@@ -691,8 +718,10 @@ extern "C" int e3_conv_vup_tc(const void* carry, int cc, const float* invc,
   a.wp = static_cast<const __nv_bfloat16*>(wp);
   a.bias = bias;
   a.y = static_cast<__nv_bfloat16*>(y);
-  a.s = s;
+  a.s = ws != nullptr ? ws : s;   // the statistics' instantiation
   a.q = q;
+  a.pro_ns = pro_ns;
+  a.part = ws;
   a.n = n;
   a.d = d;
   a.h = h;
@@ -701,6 +730,7 @@ extern "C" int e3_conv_vup_tc(const void* carry, int cc, const float* invc,
   a.kd = 1;
   a.act = act;
   a.tw = tw;
+  a.cc_ns = cc_ns;
   a.carry = static_cast<const __nv_bfloat16*>(carry);
   a.invc = invc;
   a.shiftc = shiftc;
@@ -716,5 +746,8 @@ extern "C" int e3_conv_vup_tc(const void* carry, int cc, const float* invc,
     rc = launch_vup<64>(a, st);
   else
     rc = launch_vup<32>(a, st);
+  if (rc == cudaSuccess && ws != nullptr)
+    rc = ps_reduce(ws, n, e3_conv_bnact_tc_ps_parts(d, h, wd, cout),
+                   2 * cout, s, st);
   return static_cast<int>(rc);
 }

@@ -34,17 +34,42 @@
 // for K1 and K4, plus the recompute: 2 * 64 * 32 FLOP per staged voxel
 // (the upconv's own work, about 1.3 times over for the halo), with the
 // carry and the upconv weights read through L1.
+//
+// The per-sample mode (group and instance norm; JAX's per-sample vup
+// kernels, flat_fused.py:968): every prologue vector and statistics
+// cotangent is an (n, C) row read at its sample stride (``pro_ns`` for
+// the merge's (n, cu + cs), ``cc_ns`` for the carry's (n, cc), ``st_ns``
+// for ds, dq), on instantiations of their own (VPS), and the statistics
+// (forward) or dinv and dshift (dgrad) come per sample from the blocks'
+// partial rows in a workspace ``ws``, summed by ps_reduce in a fixed
+// order (a block is one (n, depth) plane's tile). The chain's dinvc and
+// dshiftc are K7's per-sample ones (e3_conv_vup_chain).
 #include "conv_bnact.cuh"
+#include "ps_reduce.cuh"
 
+namespace {
+
+// The blocks of a sample: its d planes' tiles (e3_conv_bnact_ps_parts).
+int64_t vup_ps_parts(int d, int h, int wd) {
+  return (int64_t)d * ((h + TH - 1) / TH) * ((wd + TW - 1) / TW);
+}
+
+}  // namespace
+
+// The forward. Per sample (``pro_ns``, ``cc_ns`` or ``ws`` given): the
+// (n, .) rows as above, ``inv1``/``shift1`` pointing cu floats into the
+// merge's rows, and with ``ws`` the statistics (n, 2, cout) in ``s``
+// (``q`` unused), as e3_conv_bnact's.
 extern "C" int e3_conv_vup(int dtype, const void* carry, int cc,
                            const float* invc, const float* shiftc,
-                           const float* wu, const float* bu, int cu,
-                           int actc, const void* skip, int cs,
+                           int cc_ns, const float* wu, const float* bu,
+                           int cu, int actc, const void* skip, int cs,
                            const float* inv0, const float* shift0,
                            const float* inv1, const float* shift1,
-                           const float* wt, const float* bias, void* y,
-                           float* s, float* q, int n, int d, int h, int wd,
-                           int cout, int act, void* stream) {
+                           int pro_ns, const float* wt, const float* bias,
+                           void* y, float* s, float* q, float* ws, int n,
+                           int d, int h, int wd, int cout, int act,
+                           void* stream) {
   ConvArgs a = {};
   a.x[1] = skip;
   a.inv[0] = inv0;
@@ -57,8 +82,10 @@ extern "C" int e3_conv_vup(int dtype, const void* carry, int cc,
   a.wt = wt;
   a.bias = bias;
   a.y = y;
-  a.s = s;
+  a.s = ws != nullptr ? ws : s;   // the statistics' instantiation
   a.q = q;
+  a.pro_ns = pro_ns;
+  a.part = ws;
   a.n = n;
   a.d = d;
   a.h = h;
@@ -67,20 +94,32 @@ extern "C" int e3_conv_vup(int dtype, const void* carry, int cc,
   a.kd = 1;
   a.act = act;
   a.vup = vup_args(carry, cc, invc, shiftc, wu, bu, cu, actc);
-  return launch_conv_body<false, true>(a, dtype,
-                                       static_cast<cudaStream_t>(stream));
+  a.vup_ns = cc_ns;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pro_ns == 0 && cc_ns == 0 && ws == nullptr)
+    return launch_conv_body<false, true>(a, dtype, st);
+  int rc = launch_conv_body<false, true, true>(a, dtype, st);
+  if (rc == 0 && ws != nullptr)
+    rc = static_cast<int>(ps_reduce(ws, n, vup_ps_parts(d, h, wd),
+                                    2 * cout, s, st));
+  return rc;
 }
 
+// The dgrad. Per sample: ds, dq rows at ``st_ns``, the merge's prologue
+// at ``pro_ns``, the carry's at ``cc_ns``, and with ``ws`` dinv and
+// dshift per sample as (n, 2, cu + cs) in ``dinv`` (``dshift`` unused).
 extern "C" int e3_conv_vup_dgrad(int dtype, const void* dy, const void* y,
-                                 const float* ds, const float* dq, int cdy,
-                                 const float* wt, const void* carry, int cc,
+                                 const float* ds, const float* dq,
+                                 int st_ns, int cdy, const float* wt,
+                                 const void* carry, int cc,
                                  const float* invc, const float* shiftc,
-                                 const float* wu, const float* bu, int cu,
-                                 int actc, const void* skip, int cs,
+                                 int cc_ns, const float* wu, const float* bu,
+                                 int cu, int actc, const void* skip, int cs,
                                  const float* inv, const float* shift,
-                                 void* e, void* dskip, float* dinv,
-                                 float* dshift, int n, int d, int h, int wd,
-                                 int act, void* stream) {
+                                 int pro_ns, void* e, void* dskip,
+                                 float* dinv, float* dshift, float* ws,
+                                 int n, int d, int h, int wd, int act,
+                                 void* stream) {
   ConvArgs a = {};
   a.x[0] = dy;
   a.cin[0] = cdy;
@@ -88,6 +127,9 @@ extern "C" int e3_conv_vup_dgrad(int dtype, const void* dy, const void* y,
   a.yv = y;
   a.ds = ds;
   a.dq = dq;
+  a.st_ns = ds != nullptr ? st_ns : 0;
+  a.pro_ns = pro_ns;
+  a.part = ws;
   a.wt = wt;
   a.xe[1] = skip;
   a.ce[0] = cu;
@@ -106,6 +148,13 @@ extern "C" int e3_conv_vup_dgrad(int dtype, const void* dy, const void* y,
   a.kd = 1;
   a.act = act;
   a.vup = vup_args(carry, cc, invc, shiftc, wu, bu, cu, actc);
-  return launch_conv_body<true, true>(a, dtype,
-                                      static_cast<cudaStream_t>(stream));
+  a.vup_ns = cc_ns;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.st_ns == 0 && pro_ns == 0 && cc_ns == 0 && ws == nullptr)
+    return launch_conv_body<true, true>(a, dtype, st);
+  int rc = launch_conv_body<true, true, true>(a, dtype, st);
+  if (rc == 0 && ws != nullptr)
+    rc = static_cast<int>(ps_reduce(ws, n, vup_ps_parts(d, h, wd),
+                                    2 * (cu + cs), dinv, st));
+  return rc;
 }

@@ -68,7 +68,22 @@
 // mma.sync rather than wgmma, as in the other tensor-core bodies: K4's
 // A operand is a shifted window of the staged slab per tap, and the four
 // GEMMs chain through shared memory in one block.
+//
+// The per-sample mode (group and instance norm; PS, instantiations of
+// their own; JAX's per_sample = inv.ndim == 3, flat_fused.py:968): ds,
+// dq, the merge's prologue and the carry's are (n, C) rows at their
+// sample strides, read by each item from its sample's rows (device
+// memory through L1) where the batch form reads the block's staged
+// ones. An item lies in one (n, depth) plane, so in one sample: its
+// dinv and dshift columns and (with u's columns) its chain's dinvc and
+// dshiftc sums go, the warps added in turn, into the partial row of its
+// tile (slot d * tiles of a sample, ps_reduce.cuh), which ps_reduce sums
+// in a fixed order into (n, 2, C): no float atomics across blocks, so
+// the same bits on every run and for every batch size. dWu stays global.
+#include <type_traits>
+
 #include "conv_tc.cuh"
+#include "ps_reduce.cuh"
 #include "upconv_vup.cuh"
 
 namespace {
@@ -106,6 +121,17 @@ struct VdArgs {
   int64_t items;             // tiles x nz
 };
 
+// The per-sample mode's arguments (a type of their own, so that the batch
+// form's code stays as it was): the rows' sample strides (ds, dq: cdy;
+// the merge's prologue: cu + cs; the carry's: cc), and the partial rows
+// of dinv, dshift (n, parts, 2 (cu + cs)) and of dinvc, dshiftc (n,
+// parts, 2 cc), parts = d * tiles a sample.
+struct VdPsArgs : VdArgs {
+  int st_ns, pro_ns, cc_ns;
+  float* part;
+  float* partc;
+};
+
 // Shared memory: the ring, slot-major (slot s: its dy slab, its y slab
 // and its 9 taps of weights; an item's steps take slots 0, 1, 0, ...,
 // and after its K loop slot 1 holds E's rows, [VBM][EP]), the packed
@@ -138,9 +164,10 @@ struct Item {
   bool vz;
 };
 
-template <int CC, int CU>
+template <int CC, int CU, typename Args = VdArgs>
 __global__ void __launch_bounds__(NT, 1)
-conv_vup_dgrad_tc_kernel(const VdArgs a) {
+conv_vup_dgrad_tc_kernel(const Args a) {
+  constexpr bool PS = std::is_same<Args, VdPsArgs>::value;
   using K = ChainCfg<CC, CU>;
   // E's rows and the skip tile each fit in a ring slot (at least 18 x
   // 18 slab voxels a slab).
@@ -312,6 +339,23 @@ conv_vup_dgrad_tc_kernel(const VdArgs a) {
 
   for (int64_t it = blockIdx.x; it < a.items; it += gridDim.x) {
     const Item t = item_at(it);
+    // The rows the item reads: the block's staged ones, or (PS) its
+    // sample's.
+    // PS: the item's sample and its tile's partial-row slot there.
+    const float* rds = s_ds;
+    const float* rdq = s_dq;
+    const float* rinvc = s_invc;
+    const float* rshiftc = s_shiftc;
+    int64_t po = 0, prow = 0;
+    if constexpr (PS) {
+      const int64_t smp = t.nd / a.d;
+      prow = it / a.nz;   // (smp, slot): the tile's index over the batch
+      rds = a.ds + smp * a.st_ns;
+      rdq = a.dq + smp * a.st_ns;
+      rinvc = a.invc + smp * a.cc_ns;
+      rshiftc = a.shiftc + smp * a.cc_ns;
+      po = smp * a.pro_ns;
+    }
     __syncthreads();   // the previous item's reads of shared memory done
     set_off(t);
     if (t.vz) set_cv(t);
@@ -340,7 +384,7 @@ conv_vup_dgrad_tc_kernel(const VdArgs a) {
         const int o = so + (p >> 1) * APITCH + (p & 1) * 16;
         dytot_half(reinterpret_cast<uint4*>(smem + o),
                    reinterpret_cast<const uint4*>(smem + o + abytes),
-                   s_ds + c, s_dq + c, s_off[p >> 1] >= 0, nullptr);
+                   rds + c, rdq + c, s_off[p >> 1] >= 0, nullptr);
       }
       __syncthreads();
       tap_mma9<COB>(acc, arow, so, brow + so, hw);
@@ -354,7 +398,7 @@ conv_vup_dgrad_tc_kernel(const VdArgs a) {
         const int ch = i % (CC / 8);
         uint4* dst = reinterpret_cast<uint4*>(s_ac + r * K::XP + ch * 16);
         *dst = *reinterpret_cast<const uint4*>(s_x + r * K::XP + ch * 16);
-        prologue_half(dst, s_invc + ch * 8, s_shiftc + ch * 8, a.actc,
+        prologue_half(dst, rinvc + ch * 8, rshiftc + ch * 8, a.actc,
                       s_cv[r] >= 0);
       }
       __syncthreads();
@@ -396,8 +440,8 @@ conv_vup_dgrad_tc_kernel(const VdArgs a) {
       sx[nj][0] = sx[nj][1] = sg[nj][0] = sg[nj][1] = 0.0f;
       if (co >= ct) continue;            // the weight's zero padding
       const bool isu = co < a.cu;
-      const float inv0 = a.inv[co], inv1 = a.inv[co + 1];
-      const float sh0 = a.shift[co], sh1 = a.shift[co + 1];
+      const float inv0 = a.inv[po + co], inv1 = a.inv[po + co + 1];
+      const float sh0 = a.shift[po + co], sh1 = a.shift[po + co + 1];
       unsigned char* eb = s_e + co * 2;                     // u's columns
       const unsigned char* kb = s_sk + (co - a.cu - sk0) * 2;   // the skip's
       __nv_bfloat16* dp = a.dskip + v00 * a.cs + co - a.cu;
@@ -445,7 +489,32 @@ conv_vup_dgrad_tc_kernel(const VdArgs a) {
           sx[nj][e] += __shfl_xor_sync(0xffffffffu, sx[nj][e], o);
           sg[nj][e] += __shfl_xor_sync(0xffffffffu, sg[nj][e], o);
         }
-    if (gr == 0) {
+    if constexpr (PS) {
+      // The warp rows in turn (the warps of a row hold distinct
+      // columns), then the item's columns into its tile's partial row.
+      for (int w = 0; w < C::WARPS_M; ++w) {
+        if (wm == w && gr == 0) {
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int co = t.co0 + wn * 32 + nj * 8 + 2 * t4 + e;
+              if (co >= ct) continue;
+              s_red[co] += sx[nj][e];
+              s_red[a.ctp + co] += sg[nj][e];
+            }
+        }
+        __syncthreads();
+      }
+      float* const row = a.part + prow * 2 * ct;
+      for (int c = tid; c < COB; c += NT) {
+        const int co = t.co0 + c;
+        if (co >= ct) continue;
+        row[co] = s_red[co];
+        row[ct + co] = s_red[a.ctp + co];
+        s_red[co] = s_red[a.ctp + co] = 0.0f;
+      }
+    } else if (gr == 0) {
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
@@ -466,7 +535,7 @@ conv_vup_dgrad_tc_kernel(const VdArgs a) {
       for (int nj = 0; nj < K::NJ2; ++nj)
         si[nj][0] = si[nj][1] = ss[nj][0] = ss[nj][1] = 0.0f;
       chain_gemm2<CC, CU>(lanes, wn2, acc2);
-      chain_dcarry<CC>(acc2, s_x, s_invc, s_shiftc, a.actc, wm2, wn2, lane,
+      chain_dcarry<CC>(acc2, s_x, rinvc, rshiftc, a.actc, wm2, wn2, lane,
                        [&](int r) -> int64_t { return s_cv[r]; }, a.dcarry,
                        si, ss);
 #pragma unroll
@@ -478,7 +547,27 @@ conv_vup_dgrad_tc_kernel(const VdArgs a) {
             si[nj][e] += __shfl_xor_sync(0xffffffffu, si[nj][e], o);
             ss[nj][e] += __shfl_xor_sync(0xffffffffu, ss[nj][e], o);
           }
-      if (gr == 0) {
+      if constexpr (PS) {
+        // GEMM 2's warp rows in turn, then the tile's partial row.
+        for (int w = 0; w < 4; ++w) {
+          if (wm2 == w && gr == 0) {
+#pragma unroll
+            for (int nj = 0; nj < K::NJ2; ++nj)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = wn2 * (CC / 2) + nj * 8 + 2 * t4 + e;
+                s_redc[c] += si[nj][e];
+                s_redc[CC + c] += ss[nj][e];
+              }
+          }
+          __syncthreads();
+        }
+        float* const row = a.partc + prow * 2 * CC;
+        for (int c = tid; c < 2 * CC; c += NT) {
+          row[c] = s_redc[c];
+          s_redc[c] = 0.0f;
+        }
+      } else if (gr == 0) {
 #pragma unroll
         for (int nj = 0; nj < K::NJ2; ++nj)
 #pragma unroll
@@ -493,6 +582,7 @@ conv_vup_dgrad_tc_kernel(const VdArgs a) {
   }
 
   chain_dw_flush<CC, CU>(acc3, a.dwu, warp, lane);
+  if (PS) return;   // the prologue gradients went into the partial rows
   __syncthreads();
   for (int c = tid; c < ct; c += NT) {
     atomicAdd(a.dinv + c, s_red[c]);
@@ -516,10 +606,10 @@ int sm_count() {
 }
 
 // One wave of blocks at the kernel's occupancy, at most one an item.
-template <int CC, int CU>
-cudaError_t launch(const VdArgs& a, cudaStream_t stream) {
+template <int CC, int CU, typename Args>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int smem = VdLayout<CC, CU>(a.tw, a.cdy, a.ctp).total;
-  auto kern = conv_vup_dgrad_tc_kernel<CC, CU>;
+  auto kern = conv_vup_dgrad_tc_kernel<CC, CU, Args>;
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return rc;
@@ -535,14 +625,40 @@ cudaError_t launch(const VdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int CC>
-cudaError_t launch_cu(const VdArgs& a, cudaStream_t st) {
+template <int CC, typename Args>
+cudaError_t launch_cu(const Args& a, cudaStream_t st) {
   if (a.cu == 32) return launch<CC, 32>(a, st);
   if (a.cu == 64) return launch<CC, 64>(a, st);
   return cudaErrorInvalidValue;
 }
 
+template <typename Args>
+cudaError_t launch_cc(const Args& a, int cc, cudaStream_t st) {
+  switch (cc) {
+    case 32: return launch_cu<32>(a, st);
+    case 64: return launch_cu<64>(a, st);
+    case 96: return launch_cu<96>(a, st);
+    case 128: return launch_cu<128>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The tile width of K4's geometry at a level of width wd (K1's rule, as
+// vup.vup_tile gives it): 16 or 32, the fewer wasted columns (32 on a
+// tie).
+int vd_tw(int wd) {
+  return ((wd + 15) / 16) * 16 < ((wd + 31) / 32) * 32 ? 16 : 32;
+}
+
 }  // namespace
+
+// The per-sample mode's partial rows a sample (ps_reduce.cuh): the
+// tiles of its d planes, for dinv, dshift and for dinvc, dshiftc alike.
+extern "C" int64_t e3_conv_vup_dgrad_tc_ps_parts(int d, int h, int wd) {
+  const int tw = vd_tw(wd);
+  const int th = C::M / tw;
+  return (int64_t)d * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
+}
 
 // Row 9's input gradients, bf16 body. ``dy`` (n, d, h, w, cdy) and the
 // forward output ``y``; ``ds``, ``dq`` (cdy,) the statistics cotangents
@@ -554,17 +670,30 @@ cudaError_t launch_cu(const VdArgs& a, cudaStream_t st) {
 // dinvc, dshiftc (cc,), dwu (2, 2, cc, cu), dinv, dshift (cu + cs,), the
 // float32 ones zeroed by the caller. ``tw``: the tile width (16 or 32,
 // vup.vup_tile's at 256 voxels). Needs cdy % 16 == 0, cc in {32, 64, 96,
-// 128}, cu in {32, 64}, cs % 32 == 0 and even h and wd.
+// 128}, cu in {32, 64}, cs % 32 == 0 and even h and wd. The per-sample
+// mode (workspaces ``ws`` and ``wsc`` given): ds, dq (n, cdy), inv, shift
+// (n, cu + cs) and invc, shiftc (n, cc) rows at the strides ``st_ns``,
+// ``pro_ns`` and ``cc_ns``, which must be those row lengths; ``ws``
+// (ps_workspace_floats of n samples, e3_conv_vup_dgrad_tc_ps_parts rows
+// of 2 (cu + cs)) gives dinv, dshift per sample as (n, 2, cu + cs) in
+// ``dinv``, ``wsc`` (the same parts, rows of 2 cc) dinvc, dshiftc as
+// (n, 2, cc) in ``dinvc`` (``dshift``, ``dshiftc`` unused, neither
+// zeroed); dwu stays global; ``tw`` must be the rule's (vd_tw).
 extern "C" int e3_conv_vup_dgrad_tc(
-    const void* dy, const void* y, const float* ds, const float* dq, int cdy,
-    const void* wp, const void* carry, int cc, const float* invc,
-    const float* shiftc, const void* wup, const float* bu, int cu, int actc,
-    const void* skip, int cs, const float* inv, const float* shift,
-    void* dcarry, float* dinvc, float* dshiftc, float* dwu, void* dskip,
-    float* dinv, float* dshift, int n, int d, int h, int wd, int act, int tw,
-    void* stream) {
+    const void* dy, const void* y, const float* ds, const float* dq,
+    int st_ns, int cdy, const void* wp, const void* carry, int cc,
+    const float* invc, const float* shiftc, int cc_ns, const void* wup,
+    const float* bu, int cu, int actc, const void* skip, int cs,
+    const float* inv, const float* shift, int pro_ns, void* dcarry,
+    float* dinvc, float* dshiftc, float* wsc, float* dwu, void* dskip,
+    float* dinv, float* dshift, float* ws, int n, int d, int h, int wd,
+    int act, int tw, void* stream) {
+  const bool ps = ws != nullptr;
   if (cdy % 16 || cs % 32 || h % 2 || wd % 2 || (tw != 16 && tw != 32)
-      || ds == nullptr || dq == nullptr || inv == nullptr)
+      || ds == nullptr || dq == nullptr || inv == nullptr
+      || (ws != nullptr) != (wsc != nullptr)
+      || (ps && (st_ns != cdy || pro_ns != cu + cs || cc_ns != cc
+                 || tw != vd_tw(wd) || n > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   VdArgs a = {};
   a.g = static_cast<const __nv_bfloat16*>(dy);
@@ -603,13 +732,19 @@ extern "C" int e3_conv_vup_dgrad_tc(
   a.items = (int64_t)n * d * ((h + th - 1) / th) * ((wd + tw - 1) / tw)
       * a.nz;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t rc;
-  switch (cc) {
-    case 32: rc = launch_cu<32>(a, st); break;
-    case 64: rc = launch_cu<64>(a, st); break;
-    case 96: rc = launch_cu<96>(a, st); break;
-    case 128: rc = launch_cu<128>(a, st); break;
-    default: rc = cudaErrorInvalidValue;
+  if (!ps) return static_cast<int>(launch_cc(a, cc, st));
+  VdPsArgs p;
+  static_cast<VdArgs&>(p) = a;
+  p.st_ns = st_ns;
+  p.pro_ns = pro_ns;
+  p.cc_ns = cc_ns;
+  p.part = ws;
+  p.partc = wsc;
+  cudaError_t rc = launch_cc(p, cc, st);
+  if (rc == cudaSuccess) {
+    const int64_t parts = e3_conv_vup_dgrad_tc_ps_parts(d, h, wd);
+    rc = ps_reduce(ws, n, parts, 2 * (cu + cs), dinv, st);
+    if (rc == cudaSuccess) rc = ps_reduce(wsc, n, parts, 2 * cc, dinvc, st);
   }
   return static_cast<int>(rc);
 }

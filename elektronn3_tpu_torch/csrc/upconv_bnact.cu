@@ -74,6 +74,14 @@
 //     K7's db of E goes to a scratch that the caller drops.
 //   Each upconv recompute runs once per output value; the chain reads E
 //   (in the activation dtype, as JAX rounds it) once per use.
+//   Their per-sample mode (group and instance norm; JAX's
+//   want_stats='per_sample', flat_fused64.py:2930): the carry's prologue
+//   and ds, dq are (n, C) rows at their sample strides; the pass runs a
+//   grid of (chunk of a sample, channel block, sample), PASS_VOX carry
+//   voxels a chunk, on instantiations of its own, and row 22's sums come
+//   per sample from the chunks' partial rows through ps_reduce, in a
+//   fixed order; the chain is K7's per-sample CUDA-core mode (dinvc,
+//   dshiftc per sample); dWu and dbu stay global.
 #include "common.cuh"
 #include "ps_reduce.cuh"
 #include "upconv_vup.cuh"
@@ -620,6 +628,89 @@ __global__ void __launch_bounds__(NT) upconv_pass_kernel(const UpArgs a) {
   }
 }
 
+// The per-sample pass's chunk: carry voxels of one sample a block takes
+// (16 in flight, 32 steps).
+constexpr int PASS_VOX = 512;
+
+// The pass's per-sample mode (its own kernel, so that the batch form's
+// code stays as it was): block (chunk, channel block, sample) takes the
+// chunk's voxels of sample blockIdx.z, the carry's prologue row and
+// (row 23) the ds, dq rows of that sample; row 22's sums go into its
+// partial row (slot blockIdx.x), the warps added in turn; row 23's dbu
+// stays global.
+template <typename T, bool DYT>
+__global__ void __launch_bounds__(NT) upconv_pass_ps_kernel(const UpArgs a) {
+  __shared__ float s_red[2][COG];
+  const int g = threadIdx.x % 4;
+  const int sub = (threadIdx.x / 4) % 4;
+  const int co0 = blockIdx.y * COG;
+  const int64_t v0 = blockIdx.z * a.spv + (int64_t)blockIdx.x * PASS_VOX;
+  const int64_t send = (blockIdx.z + 1) * a.spv;   // the sample's end
+  const int64_t vend = v0 + PASS_VOX < send ? v0 + PASS_VOX : send;
+  const int64_t pc = blockIdx.z * a.pro_ns;   // the carry's rows
+  const float* ds = a.ds + blockIdx.z * a.st_ns;
+  const float* dq = a.dq + blockIdx.z * a.st_ns;
+  if (threadIdx.x < 2 * COG) s_red[threadIdx.x / COG][threadIdx.x % COG] = 0;
+  float st[8], sq[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) st[j] = sq[j] = 0.0f;
+  for (int64_t v = v0 + threadIdx.x / 16; v < vend; v += NT / 16) {
+    float y[8];
+    upconv_value8_row<T>(a.vup, v, sub, co0 + 8 * g, y, pc);
+    if constexpr (DYT) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[j] = dy_tot(0.0f, y[j], ds[co0 + 8 * g + j], dq[co0 + 8 * g + j]);
+        st[j] += y[j];
+      }
+      store8(static_cast<T*>(a.dx) + out_voxel(a, v, sub) * a.cout + co0
+                 + 8 * g,
+             y);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        st[j] += y[j];
+        sq[j] = fmaf(y[j], y[j], sq[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      st[j] += __shfl_xor_sync(0xffffffffu, st[j], off);
+      sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], off);
+    }
+  __syncthreads();  // s_red's initialization is visible
+  if constexpr (DYT) {
+    if (threadIdx.x % 32 < 4) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) atomicAdd(&s_red[0][8 * g + j], st[j]);
+    }
+    __syncthreads();
+    if (threadIdx.x < COG)
+      atomicAdd(a.s + co0 + threadIdx.x, s_red[0][threadIdx.x]);
+    return;
+  }
+  // The warps in turn, then the chunk's partial row of its sample.
+  for (int w = 0; w < NT / 32; ++w) {
+    if (threadIdx.x / 32 == w && threadIdx.x % 32 < 4) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s_red[0][8 * g + j] += st[j];
+        s_red[1][8 * g + j] += sq[j];
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < COG) {
+    float* const row = a.part
+        + ((int64_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * a.cout + co0;
+    row[threadIdx.x] = s_red[0][threadIdx.x];
+    row[a.cout + threadIdx.x] = s_red[1][threadIdx.x];
+  }
+}
+
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -779,9 +870,13 @@ extern "C" int e3_upconv_bnact_bwd(int dtype, const void* x,
 
 namespace {
 
+// The vup entries' K7 arguments. ``cc_ns``: the per-sample mode's
+// carry prologue rows (K7's pro_ns, its rows found by the sample's
+// voxels sv), 0 for the batch form.
 UpArgs vup_up_args(const void* carry, const float* invc,
-                   const float* shiftc, const float* wu, const float* bu,
-                   int n, int d, int h, int wd, int cc, int cu, int actc) {
+                   const float* shiftc, int cc_ns, const float* wu,
+                   const float* bu, int n, int d, int h, int wd, int cc,
+                   int cu, int actc) {
   UpArgs a = {};
   a.x = carry;
   a.inv = invc;
@@ -796,11 +891,14 @@ UpArgs vup_up_args(const void* carry, const float* invc,
   a.kd = 1;
   a.act = actc;
   a.vup = vup_args(carry, cc, invc, shiftc, wu, bu, cu, actc);
+  a.pro_ns = cc_ns;
+  a.spv = a.sv = (int64_t)d * h * wd;
   return a;
 }
 
-// The one-pass kernel over the carry's voxels, at most 8 blocks an SM.
-template <bool DYT>
+// The one-pass kernel over the carry's voxels, at most 8 blocks an SM;
+// in the per-sample mode (PS) its (chunk, channel block, sample) grid.
+template <bool DYT, bool PS = false>
 int launch_upconv_pass(const UpArgs& a, int dtype, void* stream) {
   const int64_t total = (int64_t)a.n * a.d * a.h * a.wd;
   int64_t blocks = (total + NT / 16 - 1) / (NT / 16);
@@ -809,78 +907,135 @@ int launch_upconv_pass(const UpArgs& a, int dtype, void* stream) {
   if (blocks < 1) blocks = 1;
   const dim3 grid((unsigned)blocks, a.cout / COG);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == e3::DT_BF16)
+  if (PS) {
+    if (a.n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 pgrid((unsigned)((a.spv + PASS_VOX - 1) / PASS_VOX),
+                     a.cout / COG, a.n);
+    if (dtype == e3::DT_BF16)
+      upconv_pass_ps_kernel<__nv_bfloat16, DYT><<<pgrid, NT, 0, st>>>(a);
+    else
+      upconv_pass_ps_kernel<float, DYT><<<pgrid, NT, 0, st>>>(a);
+  } else if (dtype == e3::DT_BF16) {
     upconv_pass_kernel<__nv_bfloat16, DYT><<<grid, NT, 0, st>>>(a);
-  else
+  } else {
     upconv_pass_kernel<float, DYT><<<grid, NT, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7's two kernels on the chain's E; with ``ws`` (the per-sample mode)
+// dinvc and dshiftc come per sample as (n, 2, cc) in ``a.dinv``.
+int launch_chain(UpArgs& a, int dtype, float* ws, void* stream) {
+  a.part = ws;
+  int rc = launch_upconv_bwd(a, dtype, stream);
+  if (rc == 0 && ws != nullptr)
+    rc = static_cast<int>(ps_reduce(
+        ws, a.n, e3_upconv_bnact_bwd_ps_parts(a.d, a.h, a.wd), 2 * a.cin,
+        a.dinv, static_cast<cudaStream_t>(stream)));
+  return rc;
 }
 
 }  // namespace
 
+// The per-sample mode's partial rows a sample of row 22's CUDA-core pass
+// (ps_reduce.cuh): its chunks of PASS_VOX carry voxels.
+extern "C" int64_t e3_upconv_stats_ps_parts(int d, int h, int wd) {
+  return ((int64_t)d * h * wd + PASS_VOX - 1) / PASS_VOX;
+}
+
 // Row 22: s and q (cu,) must be zeroed by the caller. (n, d, h, wd) are
-// the carry's dims.
+// the carry's dims. The per-sample mode: ``cc_ns`` (cc) for the carry's
+// prologue rows of (n, cc) and a workspace ``ws`` (ps_workspace_floats of
+// n samples, e3_upconv_stats_ps_parts rows of 2 cu): the sums per sample,
+// in a fixed order, as (n, 2, cu) in ``s`` (``q`` unused, nothing
+// zeroed).
 extern "C" int e3_upconv_stats(int dtype, const void* carry,
                                const float* invc, const float* shiftc,
-                               const float* wu, const float* bu, float* s,
-                               float* q, int n, int d, int h, int wd, int cc,
-                               int cu, int actc, void* stream) {
-  UpArgs a = vup_up_args(carry, invc, shiftc, wu, bu, n, d, h, wd, cc, cu,
-                         actc);
+                               int cc_ns, const float* wu, const float* bu,
+                               float* s, float* q, float* ws, int n, int d,
+                               int h, int wd, int cc, int cu, int actc,
+                               void* stream) {
+  UpArgs a = vup_up_args(carry, invc, shiftc, cc_ns, wu, bu, n, d, h, wd, cc,
+                         cu, actc);
   a.s = s;
   a.q = q;
-  return launch_upconv_pass<false>(a, dtype, stream);
+  if (ws == nullptr && cc_ns == 0)
+    return launch_upconv_pass<false>(a, dtype, stream);
+  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  a.part = ws;
+  const int rc = launch_upconv_pass<false, true>(a, dtype, stream);
+  if (rc != 0) return rc;
+  return static_cast<int>(ps_reduce(ws, n, e3_upconv_stats_ps_parts(d, h, wd),
+                                    2 * cu, s,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 // Row 23: from the statistics cotangents ds, dq (cu,), E = round(ds +
 // 2 y dq) into ``e`` (n, d, 2 h, 2 wd, cu) and its float32 sum into dbu,
 // then the chain into dcarry, dinvc, dshiftc and dwu. dbu, dinvc,
 // dshiftc, dwu and ``db`` (cu,; K7's sum of E, not a result) must be
-// zeroed by the caller.
+// zeroed by the caller. The per-sample mode: ``cc_ns`` (cc) and ``st_ns``
+// (cu) for the (n, .) rows of the carry's prologue and of ds, dq, with a
+// workspace ``ws`` (ps_workspace_floats of n samples,
+// e3_upconv_bnact_bwd_ps_parts(d, h, wd) rows of 2 cc): dinvc and dshiftc
+// per sample, in a fixed order, as (n, 2, cc) in ``dinvc`` (``dshiftc``
+// unused); dwu and dbu global.
 extern "C" int e3_upconv_stats_bwd(int dtype, const void* carry,
                                    const float* invc, const float* shiftc,
-                                   const float* wu, const float* bu,
-                                   const float* ds, const float* dq,
-                                   void* e, void* dcarry, float* dinvc,
-                                   float* dshiftc, float* dwu, float* dbu,
-                                   float* db, int n, int d, int h, int wd,
-                                   int cc, int cu, int actc, void* stream) {
-  UpArgs a = vup_up_args(carry, invc, shiftc, wu, bu, n, d, h, wd, cc, cu,
-                         actc);
+                                   int cc_ns, const float* wu,
+                                   const float* bu, const float* ds,
+                                   const float* dq, int st_ns, void* e,
+                                   void* dcarry, float* dinvc,
+                                   float* dshiftc, float* ws, float* dwu,
+                                   float* dbu, float* db, int n, int d,
+                                   int h, int wd, int cc, int cu, int actc,
+                                   void* stream) {
+  const bool ps = cc_ns != 0 || st_ns != 0 || ws != nullptr;
+  if (ps && (cc_ns != cc || st_ns != cu || ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  UpArgs a = vup_up_args(carry, invc, shiftc, cc_ns, wu, bu, n, d, h, wd, cc,
+                         cu, actc);
   a.ds = ds;
   a.dq = dq;
+  a.st_ns = st_ns;
   a.dx = e;
   a.s = dbu;
-  const int rc = launch_upconv_pass<true>(a, dtype, stream);
+  const int rc = ps ? launch_upconv_pass<true, true>(a, dtype, stream)
+                    : launch_upconv_pass<true>(a, dtype, stream);
   if (rc != 0) return rc;
-  UpArgs c = vup_up_args(carry, invc, shiftc, wu, nullptr, n, d, h, wd, cc,
-                         cu, actc);
+  UpArgs c = vup_up_args(carry, invc, shiftc, cc_ns, wu, nullptr, n, d, h,
+                         wd, cc, cu, actc);
   c.dy = e;
   c.dx = dcarry;
   c.dinv = dinvc;
   c.dshift = dshiftc;
   c.dw = dwu;
   c.db = db;
-  return launch_upconv_bwd(c, dtype, stream);
+  return launch_chain(c, dtype, ws, stream);
 }
 
 // Row 9's chain: from E (n, d, 2 h, 2 wd, cu), the rounded cotangent of
 // the upconv output, into dcarry, dinvc, dshiftc and dwu (zeroed by the
-// caller); ``db`` (cu,) receives K7's sum of E and is not a result.
+// caller); ``db`` (cu,) receives K7's sum of E and is not a result. The
+// per-sample mode: ``cc_ns`` (cc) for the carry's prologue rows of
+// (n, cc), with a workspace ``ws`` as e3_upconv_stats_bwd's: dinvc and
+// dshiftc per sample as (n, 2, cc) in ``dinvc``.
 extern "C" int e3_conv_vup_chain(int dtype, const void* carry,
                                  const float* invc, const float* shiftc,
-                                 const float* wu, const void* e,
+                                 int cc_ns, const float* wu, const void* e,
                                  void* dcarry, float* dinvc, float* dshiftc,
-                                 float* dwu, float* db, int n, int d, int h,
-                                 int wd, int cc, int cu, int actc,
-                                 void* stream) {
-  UpArgs a = vup_up_args(carry, invc, shiftc, wu, nullptr, n, d, h, wd, cc,
-                         cu, actc);
+                                 float* ws, float* dwu, float* db, int n,
+                                 int d, int h, int wd, int cc, int cu,
+                                 int actc, void* stream) {
+  if ((cc_ns != 0 || ws != nullptr) && (cc_ns != cc || ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  UpArgs a = vup_up_args(carry, invc, shiftc, cc_ns, wu, nullptr, n, d, h,
+                         wd, cc, cu, actc);
   a.dy = e;
   a.dx = dcarry;
   a.dinv = dinvc;
   a.dshift = dshiftc;
   a.dw = dwu;
   a.db = db;
-  return launch_upconv_bwd(a, dtype, stream);
+  return launch_chain(a, dtype, ws, stream);
 }

@@ -45,8 +45,8 @@ namespace e3 {
 
 struct VupArgs {
   const void* carry;    // (n, d, h / 2, w / 2, cc) raw carry, dtype T
-  const float* invc;    // (cc,) the carry's prologue
-  const float* shiftc;
+  const float* invc;    // (cc,) the carry's prologue (or its sample's
+  const float* shiftc;  // row, at an offset upconv_value8_row is given)
   const float* wu;      // (2, 2, cc, cu) float32 weights (values of T)
   const float* bu;      // (cu,) float32 bias
   int cc, cu, actc;     // cc % 8 == 0, cu % 8 == 0
@@ -96,6 +96,48 @@ __device__ __forceinline__ void upconv_value8(const VupArgs& u, int64_t cv,
     for (int j = 0; j < 8; ++j) {
       const float av = round_to<T>(prologue(xv[j], u.invc[ci + j],
                                             u.shiftc[ci + j], u.actc));
+      const float4* wr =
+          reinterpret_cast<const float4*>(wp + (int64_t)(ci + j) * u.cu);
+      const float4 w0 = __ldg(wr);
+      const float4 w1 = __ldg(wr + 1);
+      acc[0] = fmaf(av, w0.x, acc[0]);
+      acc[1] = fmaf(av, w0.y, acc[1]);
+      acc[2] = fmaf(av, w0.z, acc[2]);
+      acc[3] = fmaf(av, w0.w, acc[3]);
+      acc[4] = fmaf(av, w1.x, acc[4]);
+      acc[5] = fmaf(av, w1.y, acc[5]);
+      acc[6] = fmaf(av, w1.z, acc[6]);
+      acc[7] = fmaf(av, w1.w, acc[7]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[k] = round_to<T>(acc[k] + u.bu[c0 + k]);
+}
+
+// upconv_value8 with the carry's prologue row at offset ``po`` (the
+// per-sample mode: the voxel's sample's row; 0 for the (cc,) vectors).
+// The same sums, written out again rather than through upconv_value8 or
+// a copy of ``u``: both of those moved the registers of the batch
+// bodies that call this with ``po`` = 0 (ptxas, on the card).
+template <typename T>
+__device__ __forceinline__ void upconv_value8_row(const VupArgs& u,
+                                                  int64_t cv, int sub,
+                                                  int c0, float* out,
+                                                  int64_t po) {
+  const T* cp = static_cast<const T*>(u.carry) + cv * u.cc;
+  const float* wp = u.wu + (int64_t)sub * u.cc * u.cu + c0;
+  const float* ic = u.invc + po;   // the sample's rows
+  const float* sc = u.shiftc + po;
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
+  for (int ci = 0; ci < u.cc; ci += 8) {
+    float xv[8];
+    load8(cp + ci, xv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float av = round_to<T>(prologue(xv[j], ic[ci + j], sc[ci + j],
+                                            u.actc));
       const float4* wr =
           reinterpret_cast<const float4*>(wp + (int64_t)(ci + j) * u.cu);
       const float4 w0 = __ldg(wr);

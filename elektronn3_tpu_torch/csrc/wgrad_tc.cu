@@ -89,7 +89,12 @@
 // 180 of the 240 values the GEMM computes (about a third more
 // recompute, 3.7 GFLOP on top of the merge's 11 at bench.py's up_2).
 // Slices of the skip input are staged as above. What bounds it: the
-// bytes of carry, skip, dy and y (0.182 ms at that shape).
+// bytes of carry, skip, dy and y (0.182 ms at that shape). Its per-sample
+// mode is the PS instantiation of the vup type: the block restages the
+// rows of the merge's prologue, of ds, dq and of the carry's prologue
+// (cc_ns) in shared memory where its walk enters another sample (read
+// from device memory at every tile, they spilled it at its register
+// cap: 17.7% over the batch twin at bench.py's up_2 on an H100).
 #include <type_traits>
 
 #include "tc.cuh"
@@ -148,6 +153,7 @@ struct WgTcVupArgs : WgTcArgs {
   int cc, cu, actc;
   int combos_u;                 // the combos of u's slices (the first)
   int splits_u;                 // blocks per such combo
+  int cc_ns;                    // per sample: (n, cc) rows' stride, or 0
 };
 
 // The recompute's tile: the carry voxels under a TH x TW tile's halo
@@ -398,6 +404,7 @@ wgrad_tc_kernel(const Args a) {
   load(split, 0);
   cp_async_commit();
   int slot = 0;
+  int64_t staged = -1;   // VUP && PS: the sample whose rows are staged
   for (int64_t t = split; t < ntiles; t += splits, slot ^= 1) {
     cp_async_wait<0>();  // tile t has landed
     __syncthreads();     // for every thread; the other slot is free
@@ -405,6 +412,32 @@ wgrad_tc_kernel(const Args a) {
     cp_async_commit();
     unsigned char* sx = smem + slot * STAGE;
     unsigned char* sg = sx + SLAB;
+    if constexpr (VUP && PS) {
+      // The tile's sample's rows (the carry's prologue, the slice's of
+      // the merge's, ds and dq) into the block's staged ones where the
+      // walk enters another sample (a sample holds thousands of tiles):
+      // the passes then read shared memory, as the batch form's do.
+      const int64_t smp = tile_at(a, t, dzp).oplane / a.d;
+      if (smp != staged) {
+        if (vup0)
+          for (int c = tid; c < a.cc; c += NT) {
+            s_invc[c] = a.invc[smp * a.cc_ns + c];
+            s_shiftc[c] = a.shiftc[smp * a.cc_ns + c];
+          }
+        if (PRO)
+          for (int c = tid; c < cw; c += NT) {
+            s_inv[c] = a.inv[smp * a.pro_ns + coff + cb + c];
+            s_shift[c] = a.shift[smp * a.pro_ns + coff + cb + c];
+          }
+        if (DYT && a.st_ns)
+          for (int c = tid; c < COB; c += NT) {
+            s_ds[c] = a.ds[smp * a.st_ns + co0 + c];
+            s_dq[c] = a.dq[smp * a.st_ns + co0 + c];
+          }
+        __syncthreads();
+        staged = smp;
+      }
+    }
     if constexpr (VUP) {
       if (vup0) {
         // The carry tile's prologue, in place: rounded a.
@@ -425,7 +458,7 @@ wgrad_tc_kernel(const Args a) {
       const float* pshift = s_shift;
       const float* pds = s_ds;
       const float* pdq = s_dq;
-      if constexpr (PS) {
+      if constexpr (PS && !VUP) {
         const int64_t smp = tl.oplane / a.d;
         if (a.pro_ns) {
           pinv = a.inv + smp * a.pro_ns + coff + cb;
@@ -630,6 +663,10 @@ cudaError_t launch_cob_ps(const WgTcArgs& a, cudaStream_t st) {
 
 template <int COB>
 cudaError_t launch_vup(const WgTcVupArgs& a, cudaStream_t st) {
+  if (a.pro_ns != 0 || a.st_ns != 0 || a.cc_ns != 0)
+    return a.ds != nullptr
+        ? launch<COB, true, true, WgTcVupArgs, true>(a, st)
+        : launch<COB, true, false, WgTcVupArgs, true>(a, st);
   return a.ds != nullptr ? launch<COB, true, true, WgTcVupArgs>(a, st)
                          : launch<COB, true, false, WgTcVupArgs>(a, st);
 }
@@ -713,16 +750,21 @@ extern "C" int e3_conv_bnact_wgrad_tc(int nin, const void* x0, int c0,
 // ``shift`` ((cu + cs,), over the concat) must be given; ``ds``/``dq``
 // and the pre-pass's scratch ``e`` as in e3_conv_bnact_wgrad_tc. Needs
 // cc % 32 == 0 and cc <= 128, cu in {32, 64}, cs % 16 == 0 and
-// cout % 32 == 0; (n, d, h, wd) are the skip's dims.
+// cout % 32 == 0; (n, d, h, wd) are the skip's dims. The per-sample
+// mode: ``pro_ns`` (cu + cs), ``cc_ns`` (cc) and ``st_ns`` (cout) for the
+// (n, .) rows of the merge's prologue, the carry's and ds, dq, on the
+// PS instantiations; dW and db stay global.
 extern "C" int e3_conv_vup_wgrad_tc(const void* carry, int cc,
                                     const float* invc, const float* shiftc,
-                                    const void* wup, const float* bu, int cu,
-                                    int actc, const void* skip, int cs,
+                                    int cc_ns, const void* wup,
+                                    const float* bu, int cu, int actc,
+                                    const void* skip, int cs,
                                     const float* inv, const float* shift,
-                                    const void* dy, const void* y,
-                                    const float* ds, const float* dq,
-                                    void* e, int cout, float* dw, float* db,
-                                    int n, int d, int h, int wd, int act,
+                                    int pro_ns, const void* dy,
+                                    const void* y, const float* ds,
+                                    const float* dq, int st_ns, void* e,
+                                    int cout, float* dw, float* db, int n,
+                                    int d, int h, int wd, int act,
                                     void* stream) {
   if (cc % 32 || cc > 128 || (cu != 32 && cu != 64) || cs % 16
       || cout % 32 || h % 2 || wd % 2 || inv == nullptr)
@@ -731,6 +773,7 @@ extern "C" int e3_conv_vup_wgrad_tc(const void* carry, int cc,
   a.x[1] = static_cast<const __nv_bfloat16*>(skip);
   a.inv = inv;
   a.shift = shift;
+  a.pro_ns = pro_ns;
   a.cin[0] = cu;
   a.cin[1] = cs;
   a.groups0 = cu / CS;
@@ -738,6 +781,7 @@ extern "C" int e3_conv_vup_wgrad_tc(const void* carry, int cc,
   a.y = static_cast<const __nv_bfloat16*>(y);
   a.ds = ds;
   a.dq = dq;
+  a.st_ns = ds != nullptr ? st_ns : 0;
   a.dw = dw;
   a.db = db;
   a.n = n;
@@ -747,6 +791,7 @@ extern "C" int e3_conv_vup_wgrad_tc(const void* carry, int cc,
   a.cout = cout;
   a.kd = 1;
   a.act = act;
+  a.cc_ns = cc_ns;
   a.carry = static_cast<const __nv_bfloat16*>(carry);
   a.invc = invc;
   a.shiftc = shiftc;
@@ -761,11 +806,13 @@ extern "C" int e3_conv_vup_wgrad_tc(const void* carry, int cc,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ds != nullptr && e != nullptr) {
     const cudaError_t rc = e3::launch_dytot(
-        a.dy, a.y, ds, dq, 0, 0, static_cast<__nv_bfloat16*>(e), db,
-        (int64_t)n * d * h * wd, cout, st);
+        a.dy, a.y, ds, dq, a.st_ns, (int64_t)d * h * wd,
+        static_cast<__nv_bfloat16*>(e), db, (int64_t)n * d * h * wd, cout,
+        st);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     a.dy = static_cast<const __nv_bfloat16*>(e);
     a.ds = a.dq = nullptr;
+    a.st_ns = 0;
     a.db = nullptr;
   }
   const cudaError_t rc = cob == 64 ? launch_vup<64>(a, st)

@@ -33,7 +33,8 @@ JAX UNet's ``pallas_flat`` plans its executors:
   :func:`~elektronn3_tpu_torch.ops.vup.conv_vup` recomputes the
   (1, 2, 2) upconv of the carry as the merge conv reads it, and
   :func:`~elektronn3_tpu_torch.ops.vup.upconv_stats` gives its batch
-  statistics in training (rows 1's vup mode, 9, 22 and 23). The same
+  statistics in training, or its per-sample statistics under a group
+  norm in training and eval (rows 1's vup mode, 9, 22 and 23). The same
   parameters and batch-statistics slots as the materializing path;
 - under ``pallas_flat=True``, a planar 3D level of C=32 or 64 whose
   activation has no kernel prologue (silu, swish, gelu, tanh) runs
@@ -95,8 +96,9 @@ its consumers apply (N, C) prologue vectors (``gn_prologue``, JAX's
 the kernels in that mode: the backward kernels take the (N, C)
 statistics cotangents that autograd carries back through
 ``gn_prologue`` and give (N, C) prologue gradients, as JAX's
-``per_sample`` backward kernels do. ``vup=True`` and a 2D model on the
-kernels refuse group norm.
+``per_sample`` backward kernels do. So do the vup path's five entries
+(``vup=True``) and a 2D model's kernel levels (the same ops on the D=1
+view).
 """
 
 from __future__ import annotations
@@ -411,15 +413,24 @@ class UpConv(nn.Module):
 
     def _vup_upconv_prologue(self, dec: FusedActs, wu: torch.Tensor,
                              act: str, reference: bool):
-        """(inv, shift) of the never-stored upconv output's batch norm:
-        from the statistics pass in training (JAX's
-        ``_VupUpconv.stats``), the running statistics in eval (JAX runs
-        no pass there). Batch norm only: ``UNet`` refuses ``vup`` with a
-        group norm."""
+        """(inv, shift) of the never-stored upconv output's norm: a batch
+        norm's from the statistics pass in training (JAX's
+        ``_VupUpconv.stats``) and its running statistics in eval (JAX
+        runs no pass there); a group norm's, (N, C) per sample, from the
+        pass's per-sample statistics in training and in eval, as JAX runs
+        it wherever ``_want_stats`` asks (elektronn3_tpu/models/unet.py:
+        1191), over u's voxels of a sample, four a carry voxel."""
         norm = self.norm0
         if norm is None:
             return identity_prologue(self.upconv.out_channels,
                                      dec.raw.device)
+        if isinstance(norm, GroupNorm):
+            s, q = vup.upconv_stats(dec.raw, dec.inv, dec.shift, wu,
+                                    self.upconv.bias, act,
+                                    want_stats=fused.PER_SAMPLE,
+                                    reference=reference)
+            return gn_prologue(norm, s, q, 4 * dec.raw[0, ..., 0].numel(),
+                               norm.num_groups)
         if not norm.training:
             return bn_eval_prologue(norm)
         s, q = vup.upconv_stats(dec.raw, dec.inv, dec.shift, wu,
@@ -535,10 +546,9 @@ class UNet(nn.Module):
     ``full_norm=True``, ``logit_dtype=None``, with ``dim`` 3 or 2,
     normalization 'batch', 'batchp' or 'none' ('batchp' plans its kernel
     levels as 'batch' does; as in JAX, no 'batchp' level is flat), and
-    for ``dim=3`` 'group' (8 groups), 'group<G>' and 'instance'
-    (:class:`GroupNorm`, eps 1e-6: a kernel level serves on the
-    kernels' per-sample mode; training needs ``pallas_flat=False``, and
-    ``vup`` and ``dim=2`` on the kernels are not ported yet),
+    'group' (8 groups), 'group<G>' and 'instance' (:class:`GroupNorm`,
+    eps 1e-6: a kernel level serves and trains on the kernels'
+    per-sample mode, with ``vup`` and in 2D too),
     activations 'relu', 'leaky' (kernel levels), 'silu', 'swish',
     'gelu', 'tanh' (flat levels under ``pallas_flat=True``) and the
     rest of ``get_activation`` (library levels), ``pallas_flat``
@@ -601,18 +611,9 @@ class UNet(nn.Module):
         if planar_blocks and (max(planar_blocks) >= n_blocks
                               or min(planar_blocks) < 0):
             raise ValueError("planar_blocks has invalid value range")
-        group = norm_kind(normalization, start_filts)[0] == "group"
+        # The names raise here, before any weight exists.
+        norm_kind(normalization, start_filts)
         get_activation(activation)
-        if group and vup:
-            raise NotImplementedError(
-                "UNet(vup=True) with group or instance norm: the vup path's "
-                "per-sample mode is not ported yet (ROADMAP.md, Queue 2 "
-                "item 8(c))")
-        if group and dim == 2 and pallas_flat is not False:
-            raise NotImplementedError(
-                "UNet(dim=2) with group or instance norm on the kernels is "
-                "not ported yet (ROADMAP.md, Queue 2 item 8(c)); "
-                "pallas_flat=False runs it on the library ops")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(

@@ -84,32 +84,35 @@ _SIGNATURES = {
     "e3_bn_bwd_reduce": (_I, _P, _P, _P, _P, _P, _F, _P, _P, _L, _I, _I,
                          _I, _I, _P),
     "e3_bn_bwd_dx": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _P),
-    "e3_conv_vup": (_I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
-                    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "e3_conv_vup_dgrad": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                          _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _P),
-    "e3_conv_vup_wgrad": (_I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P,
-                          _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                          _I, _P),
-    "e3_conv_vup_chain": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _I, _I, _P),
-    "e3_upconv_stats": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _P),
-    "e3_upconv_stats_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "e3_upconv_stats_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "e3_conv_vup_wgrad_tc": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
-                             _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                             _I, _P),
-    "e3_conv_vup_tc": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
-                       _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "e3_conv_vup_dgrad_tc": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                             _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _I, _I, _I, _I, _I, _I, _P),
-    "e3_upconv_stats_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _P),
+    "e3_conv_vup": (_I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P,
+                    _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, _P),
+    "e3_conv_vup_dgrad": (_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
+                          _P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                          _P, _I, _I, _I, _I, _I, _P),
+    "e3_conv_vup_wgrad": (_I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P,
+                          _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,
+                          _I, _I, _P),
+    "e3_conv_vup_chain": (_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_upconv_stats": (_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _P),
+    "e3_upconv_stats_bwd": (_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _P),
+    "e3_upconv_stats_bwd_tc": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_vup_wgrad_tc": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P,
+                             _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I,
+                             _I, _I, _I, _I, _P),
+    "e3_conv_vup_tc": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _I,
+                       _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "e3_conv_vup_dgrad_tc": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
+                             _P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P),
+    "e3_upconv_stats_tc": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P),
 }
 
 # The per-sample mode's partial rows a sample of each kernel (forward:
@@ -126,6 +129,9 @@ _PS_PARTS = {
     "e3_conv_bnact_dgrad_tc_ps_parts": (_I, _I, _I, _I),
     "e3_upconv_bnact_bwd_tc_ps_parts": (_I, _I, _I),
     "e3_upconv_bnact_bwd_ps_parts": (_I, _I, _I),
+    "e3_upconv_stats_ps_parts": (_I, _I, _I),
+    "e3_upconv_stats_tc_ps_parts": (_I, _I, _I),
+    "e3_conv_vup_dgrad_tc_ps_parts": (_I, _I, _I),
     "e3_ps_workspace_floats": (_I, _L, _I),
 }
 

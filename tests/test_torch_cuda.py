@@ -2460,3 +2460,261 @@ def test_cuda_group_predictor_does_not_depend_on_batch_size():
     assert outs[0].shape == (1, 2, 16, 96, 96)
     assert float(abs(outs[0] - outs[1]).max()) <= 5e-2
     assert (outs[1] == outs[2]).all()
+
+
+# ---------------------------------------------------------------------------
+# The vup path's per-sample mode (group and instance norm under vup=True):
+# its five entries with (N, C) prologue rows for the carry and the merge,
+# (N, C) statistics and statistics cotangents, on the tensor-core bodies in
+# bf16 and the CUDA-core bodies in both dtypes, against their plain
+# versions; the per-sample sums and gradients the same bits on a rerun and
+# for a sample run alone.
+# ---------------------------------------------------------------------------
+
+# ((N, D, H, W) of the merge level, C_carry, C_up): the shapes of
+# VUP_SHAPES; three samples of 70 carry voxels (no multiple of a 64-voxel
+# tile, so row 22's and 23's tiles end inside each sample); the largest
+# template case (C_up 64: two items a tile in row 9's dgrad).
+PS_VUP_CASES = [((2, 3, 10, 14), 64, 32), ((3, 2, 10, 14), 64, 32),
+                ((1, 2, 18, 70), 64, 32), ((2, 2, 10, 14), 128, 64)]
+PS_VUP_BODIES = [(torch.bfloat16, "tc"), (torch.bfloat16, "cuda-core"),
+                 (torch.float32, "cuda-core")]
+
+
+def _ps_vup_case(dev, dtype, shape, cc, cu, seed):
+    """(up, merge): the carry with (N, C_cc) prologue rows, the upconv,
+    and the skip with the (N, C_cu + 32) merge prologue and 32-channel
+    merge conv, each sample of its own scale."""
+    n, d, h, w = shape
+    g = torch.Generator().manual_seed(seed)
+    carry = _per_sample_x((n, d, h // 2, w // 2), cc, dtype, dev, g)
+    invc, shiftc = _per_sample_pro(n, cc, dev, g)
+    up = (carry, invc, shiftc,
+          (0.2 * torch.randn(cc, cu, 1, 2, 2, generator=g)).to(dev),
+          (0.1 * torch.randn(cu, generator=g)).to(dev))
+    skip = _per_sample_x((n, d, h, w), 32, dtype, dev, g)
+    inv, shift = _per_sample_pro(n, cu + 32, dev, g)
+    merge = (skip, inv, shift,
+             (0.1 * torch.randn(32, cu + 32, 1, 3, 3, generator=g)).to(dev),
+             torch.randn(32, generator=g).to(dev))
+    return up, merge, g
+
+
+def _ps_slice(args, i):
+    """Sample i's slice of every batched argument: the activations and
+    the (N, C) rows (each weight's first dimension is a channel count
+    above N)."""
+    n = args[0].shape[0]
+    return tuple(_slice(a, i) if isinstance(a, torch.Tensor) and a.dim() > 1
+                 and a.shape[0] == n else a for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,body", PS_VUP_BODIES, ids=str)
+@pytest.mark.parametrize("shape,cc,cu", PS_VUP_CASES, ids=str)
+def test_cuda_vup_per_sample_forward_matches_plain(shape, cc, cu, dtype,
+                                                   body):
+    """``conv_vup`` with per-sample statistics (row 1's vup mode) and
+    ``upconv_stats`` per sample (row 22), one per-sample launch each on
+    ``body``: the output within the kernel tolerance, each (N, C) row of
+    the statistics against the plain sums of the kernel's own stored
+    output (float32: and against the plain statistics), every output the
+    same bits on a rerun and for a sample alone."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    up, merge, _ = _ps_vup_case(dev, dtype, shape, cc, cu, sum(shape) + cu)
+    args = (*up, *merge)
+    fused.reset_launches()
+
+    def run_fwd(i):
+        a = args if i is None else _ps_slice(args, i)
+        return vup.conv_vup_fwd_kernel(*a, "relu", "relu", "per_sample",
+                                       body=body)
+
+    def run_stats(i):
+        a = up if i is None else _ps_slice(up, i)
+        return vup.upconv_stats_kernel(*a, "relu", "per_sample", body=body)
+    got, s, q = run_fwd(None)
+    su, qu = run_stats(None)
+    assert fused.BODY_LAUNCHES == {("conv_vup", body): 1,
+                                   ("upconv_stats", body): 1}
+    assert fused.PS_LAUNCHES == {"conv_vup": 1, "upconv_stats": 1}
+    ref, rs, rq = vup.conv_vup_fwd_plain(*args, "relu", "relu", "per_sample")
+    rsu, rqu = vup.upconv_stats_plain(*up, "relu", "per_sample")
+    torch.cuda.synchronize()
+    _assert_kernel(got, ref)
+    _assert_per_sample_stats(got, s, q, rs, rq, dtype)
+    assert su.shape == (shape[0], cu)
+    _assert_rows(su, rsu)
+    _assert_rows(qu, rqu)
+    i = shape[0] - 1
+    _assert_per_sample_repeats(run_fwd, (got, s, q), i)
+    _assert_per_sample_repeats(run_stats, (su, qu), i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,body", PS_VUP_BODIES, ids=str)
+@pytest.mark.parametrize("shape,cc,cu", PS_VUP_CASES, ids=str)
+def test_cuda_vup_per_sample_backward_matches_plain(shape, cc, cu, dtype,
+                                                    body):
+    """``conv_vup_dgrad`` and ``conv_vup_wgrad`` (row 9) with (N, C)
+    statistics cotangents, and ``upconv_stats_bwd`` (row 23) with (N, C_u)
+    ones, on ``body``, each one per-sample launch: dcarry and dskip
+    within the kernel tolerance, each (N, C) row of dinv, dshift, dinvc
+    and dshiftc and the global dW, db, dwu and dbu within the sums'
+    tolerance; dcarry, dskip and the (N, C) rows the same bits on a rerun
+    and for a sample alone."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    up, merge, g = _ps_vup_case(dev, dtype, shape, cc, cu,
+                                sum(shape) + cu + 1)
+    skip, inv, shift, wt, _ = merge
+    n = shape[0]
+    y = vup.conv_vup_fwd_plain(*up, *merge, "relu", "relu")[0]
+    dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, dtype)
+    ds, dq = _ps_cts(n, 32, dev, g)
+    dsu, dqu = _ps_cts(n, cu, dev, g)
+    bargs = (*up, skip, inv, shift, wt, y, dy, ds, dq)
+    sargs = (*up, dsu, dqu)
+
+    def runner(fn, a0):
+        def run(i):
+            a = a0 if i is None else _ps_slice(a0, i)
+            tail = ("relu", "relu") if fn is not vup.upconv_stats_bwd_kernel \
+                else ("relu",)
+            return fn(*a, *tail, body=body)
+        return run
+    fused.reset_launches()
+    runs = {name: runner(fn, a) for name, fn, a in (
+        ("conv_vup_dgrad", vup.conv_vup_dgrad_kernel, bargs),
+        ("conv_vup_wgrad", vup.conv_vup_wgrad_kernel, bargs),
+        ("upconv_stats_bwd", vup.upconv_stats_bwd_kernel, sargs))}
+    got = {k: r(None) for k, r in runs.items()}
+    assert fused.PS_LAUNCHES == dict.fromkeys(runs, 1)
+    assert fused.BODY_LAUNCHES == {(k, body): 1 for k in runs}
+    ref = {"conv_vup_dgrad": vup.conv_vup_dgrad_plain(*bargs, "relu", "relu"),
+           "conv_vup_wgrad": vup.conv_vup_wgrad_plain(*bargs, "relu", "relu"),
+           "upconv_stats_bwd": vup.upconv_stats_bwd_plain(*sargs, "relu")}
+    torch.cuda.synchronize()
+    # dcarry and dskip elementwise, (N, C) rows row by row, the rest (the
+    # weight and bias gradients, float32 sums over the batch) as sums, as
+    # test_cuda_vup_backward_matches_plain holds them.
+    elementwise = {"conv_vup_dgrad": (0, 5), "conv_vup_wgrad": (),
+                   "upconv_stats_bwd": (0,)}
+    for k in runs:
+        for i, (a, r) in enumerate(zip(got[k], ref[k])):
+            if i in elementwise[k]:
+                _assert_kernel(a, r)
+            elif r.dim() == 2:
+                _assert_rows(a, r)
+            else:
+                _assert_sum(a, r)
+    d = got["conv_vup_dgrad"]
+    assert d[1].shape == (n, cc) and d[6].shape == (n, cu + 32)
+    # (dcarry, dinvc, dshiftc, ., ., dskip, dinv, dshift); row 23's
+    # (dcarry, dinvc, dshiftc)
+    _assert_bwd_repeats(runs["conv_vup_dgrad"], d, n - 1, (0, 1, 2, 5, 6, 7))
+    _assert_bwd_repeats(runs["upconv_stats_bwd"], got["upconv_stats_bwd"],
+                        n - 1, (0, 1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", ["group", "instance"])
+def test_cuda_unet_vup_group_matches_reference(dtype, norm):
+    """The headline structure with ``vup=True`` and a group norm: a step
+    launches the five vup entries once each, every launch in the
+    per-sample mode, no upconv into L0, and tracks reference=True
+    (``_check_step_against_reference``); the eval forward runs the
+    statistics pass and the vup merge conv per sample, the same bits on a
+    second call, and tracks reference=True."""
+    dev = _cuda()
+    m = _group_unet(norm, dtype, dev)
+    m.vup = True
+    x = torch.randn(2, 8, 24, 40, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    x[1] *= 3.0
+    t = (x[..., 0] > 0).long()
+    launches = _check_step_against_reference(m, x, t, dtype,
+                                             zero_bias=norm != "group")
+    assert launches == {**dict.fromkeys(launches, 0), "conv_bnact": 7,
+                        "pool_bnact": 2, "upconv_bnact": 1,
+                        "conv_bnact_dgrad": 6, "conv_bnact_wgrad": 6,
+                        "conv1_bwd": 1, "pool_bnact_bwd": 2,
+                        "upconv_bnact_bwd": 1, "conv_vup": 1,
+                        "conv_vup_dgrad": 1, "conv_vup_wgrad": 1,
+                        "upconv_stats": 1, "upconv_stats_bwd": 1}
+    assert {k: fused.PS_LAUNCHES.get(k, 0) for k in launches} == launches
+    m.eval()
+    fused.reset_launches()
+    y = m(x)
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              "conv_bnact": 7, "pool_bnact": 2,
+                              "upconv_bnact": 1, "conv_vup": 1,
+                              "upconv_stats": 1}
+    assert fused.PS_LAUNCHES == {k: v for k, v in fused.LAUNCHES.items()
+                                 if v}
+    assert torch.equal(m(x), y)
+    ref = m(x, reference=True)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vup", [False, True])
+def test_cuda_unet_2d_group_matches_reference(dtype, vup):
+    """The 2D model (``dim=2``, four levels) with a group norm: its L0-L2
+    kernel levels (rows 16, 17, 19, 20 and the C=128 level's) run every
+    launch of a training step in the per-sample mode, with ``vup`` too,
+    and the step tracks reference=True; the eval forward the same bits on
+    a second call."""
+    from elektronn3_tpu_torch.models import UNet
+    dev = _cuda()
+    m = UNet(n_blocks=4, start_filts=32, dim=2, dtype=dtype,
+             normalization="group", vup=vup, pallas_flat=True, device=dev,
+             generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 48, 64, 1,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    x[1] *= 3.0
+    t = (x[..., 0] > 0).long()
+    assert m.level_kinds(x.shape) == ["kernels"] * 3 + ["library"]
+    launches = _check_step_against_reference(m, x, t, dtype,
+                                             zero_bias=False)
+    assert launches["pool_bnact_bwd"] == 3 and launches["conv1_bwd"] == 1
+    assert launches["conv_vup_dgrad"] == int(vup)
+    assert {k: fused.PS_LAUNCHES.get(k, 0) for k in launches} == launches
+    m.eval()
+    y = m(x)
+    assert torch.equal(m(x), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_vup_per_sample_mixed_vectors_match_plain(dtype):
+    """A per-sample launch whose carry prologue is (C,) (repeated into the
+    kernel's rows) and whose merge prologue and statistics cotangents are
+    (N, C): dinvc and dshiftc come back (C,), the samples' rows summed,
+    against the plain versions, which broadcast the (C,) vector."""
+    from elektronn3_tpu_torch.ops import vup
+    dev = _cuda()
+    up, merge, g = _ps_vup_case(dev, dtype, (2, 3, 10, 14), 64, 32, 21)
+    up = (up[0], up[1][0].contiguous(), up[2][0].contiguous(), *up[3:])
+    y = vup.conv_vup_fwd_plain(*up, *merge, "relu", "relu")[0]
+    dy = (0.1 * torch.randn(y.shape, generator=g)).to(dev, dtype)
+    ds, dq = _ps_cts(2, 32, dev, g)
+    bargs = (*up, *merge[:4], y, dy, ds, dq, "relu", "relu")
+    fused.reset_launches()
+    got = vup.conv_vup_dgrad_kernel(*bargs)
+    assert fused.PS_LAUNCHES == {"conv_vup_dgrad": 1}
+    ref = vup.conv_vup_dgrad_plain(*bargs)
+    torch.cuda.synchronize()
+    assert got[1].shape == (64,) and got[6].shape == (2, 64)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        if i in (0, 5):
+            _assert_kernel(a, r)
+        elif r.dim() == 2:
+            _assert_rows(a, r)
+        else:
+            _assert_sum(a, r)

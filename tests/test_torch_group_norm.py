@@ -515,15 +515,11 @@ def test_converter_round_trip_group_is_exact(runs, pf):
 def test_group_count_not_dividing_a_level_goes_to_the_library():
     """'group3' divides no level's channels: every level declines the
     kernels (JAX's ``_norm_fused_ok``) and the library's GroupNorm raises
-    flax's error; vup and the 2D model's kernels refuse group norm."""
+    flax's error."""
     m = UNet(device="cpu", pallas_flat=True, normalization="group3", **KW)
     assert m.level_kinds(SHAPE) == ["library"] * 4
     with pytest.raises(ValueError, match="does not divide"):
         with torch.no_grad():
             m.eval()(torch.zeros(SHAPE))
-    with pytest.raises(NotImplementedError, match="vup"):
-        UNet(device="meta", normalization="group", vup=True, **KW)
-    with pytest.raises(NotImplementedError, match="dim=2"):
-        UNet(device="meta", normalization="instance", dim=2, n_blocks=2)
     UNet(device="meta", normalization="instance", dim=2, n_blocks=2,
          pallas_flat=False)

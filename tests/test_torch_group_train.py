@@ -15,8 +15,9 @@ per-sample mode, against the JAX package's, on the CPU.
   last place of each value plus 1e-4 of the scale; each row of a (B, C)
   gradient (dinv, dshift) 1e-4 (float32) or 1e-3 (bfloat16) of its row's
   scale.
-- The per-sample ops give gradients; the vup path and the 2D model's
-  kernels still refuse group norm.
+- The per-sample ops give gradients (the vup path's and the 2D model's
+  per-sample mode is tests/test_torch_vup_group.py's and
+  tests/test_torch_2d_group.py's).
 - Model level: the headline structure (n_blocks=4, start_filts=32,
   planar L0) at input (2, 4, 12, 16, 1) with 'group', 'group4' and
   'instance', random affine parameters: one training step of the kernel
@@ -333,19 +334,6 @@ def test_per_sample_ops_return_gradients():
     with pytest.raises(ValueError, match="want_stats"):
         fused.conv_bnact([x], None, None, w, b, "relu",
                          want_stats="per_channel")
-
-
-@pytest.mark.parametrize("kw", [dict(vup=True), dict(dim=2, n_blocks=2)],
-                         ids=["vup", "dim=2"])
-@pytest.mark.parametrize("norm", ["group", "instance"])
-def test_group_refusals_that_stay(norm, kw):
-    """The vup path and the 2D model's kernels still refuse group and
-    instance norm (ROADMAP Queue 2 item 8(c)), before any weight
-    exists."""
-    with pytest.raises(NotImplementedError, match="8\\(c\\)"):
-        UNet(device="meta", normalization=norm,
-             **{**dict(in_channels=1, out_channels=2, start_filts=32),
-                **kw})
 
 
 # ---------------------------------------------------------------------------

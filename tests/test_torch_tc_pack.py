@@ -526,3 +526,50 @@ def test_vup_wrappers_refuse_cpu_tensors(entry, body):
         else:
             vup.conv_vup_dgrad_kernel(*up, *merge, y, y, ds, dq, "relu",
                                       "relu", body=body)
+
+
+def _c_declarations():
+    """Every ``extern "C"`` entry of the kernel sources with the ctypes
+    type of each parameter, read from its declaration."""
+    import ctypes
+    import re
+    from elektronn3_tpu_torch.ops import _build
+    src = "".join((_build.CSRC / s).read_text() for s in _build.SOURCES)
+    decls = {}
+    for m in re.finditer(r'extern "C" (?:int|int64_t) (e3_\w+)\(([^)]*)\)',
+                         src):
+        types = []
+        for arg in (a.strip() for a in m.group(2).split(",")):
+            if "*" in arg:
+                types.append(ctypes.c_void_p)
+            elif arg.startswith("int64_t"):
+                types.append(ctypes.c_int64)
+            elif arg.startswith("int"):
+                types.append(ctypes.c_int)
+            else:
+                assert arg.startswith("float"), arg
+                types.append(ctypes.c_float)
+        decls[m.group(1)] = tuple(types)
+    return decls
+
+
+def _entries():
+    from elektronn3_tpu_torch.ops import _build
+    return sorted({**_build._SIGNATURES, **_build._PS_PARTS})
+
+
+@pytest.mark.parametrize("name", _entries())
+def test_ctypes_argtypes_match_the_c_declaration(name):
+    """Each entry's ctypes argtypes (``_build._SIGNATURES``,
+    ``_build._PS_PARTS``) are its C declaration's parameters, type by
+    type: a pointer passed as a 32-bit int would be cut, and an argument
+    out of place would reach the kernel as another."""
+    from elektronn3_tpu_torch.ops import _build
+    table = {**_build._SIGNATURES, **_build._PS_PARTS}
+    assert _c_declarations()[name] == tuple(table[name])
+
+
+def test_every_c_entry_has_argtypes():
+    from elektronn3_tpu_torch.ops import _build
+    assert set(_c_declarations()) == set(_build._SIGNATURES) | set(
+        _build._PS_PARTS)
