@@ -106,6 +106,24 @@ sample).
    float32 and bfloat16;
 9. runs ``Trainer.run(max_steps=4)`` on a small in-memory dataset into a
    temporary directory and resumes a second Trainer from what it wrote;
+   then ``trainer_full_phase``: ``Trainer.run(max_steps=8)`` of the
+   headline UNet (bf16) on 8 patches of bench.py's (44, 88, 88) at
+   batch 2, validating 5 patches (batches of 2, 2, 1) with
+   ``default_metrics()`` and ``AUROC`` after each epoch, under a
+   ``CyclicLR`` with a minimum of the rate after step 6, with
+   ``extra_save_steps=(3,)``, ``profile_steps=(2, 4)`` and an 8-tile
+   preview; it checks the files written (``_initial``, ``_final``,
+   ``_best``, ``_step3``, ``_minlr_step6``, the ``model*.pt``, the
+   log), K1, row 3, K2 and K3 launched in each validation batch, the
+   validation logits against ``reference=True`` (5e-2 of max|ref|), the
+   Trainer's validation stats against its own recount from those
+   logits, a ``conv_tc`` kernel in the profiler's trace, ``apply_swa``
+   with a ``bn_loader`` (new running statistics, finite validation
+   logits) and a second swap restoring the parameters bit for bit, and
+   a resumed Trainer's next rate and ``best_val_loss``; it prints each
+   epoch's split (train, validate, log, preview, checkpoint seconds),
+   the validation MVox/s and which of tensorboard, tqdm, matplotlib and
+   sklearn the machine lacks;
    then the headline UNet with ``input_grad=True`` on inputs that
    require a gradient: timed steps (row 13's kernel with dx once a
    step), the input's gradient of one step against ``reference=True``,
@@ -3406,6 +3424,224 @@ def trainer_phase(build, sample, what, CEDiceLoss, Trainer):
               flush=True)
 
 
+OPTIONAL_PACKAGES = ("tensorboard", "tqdm", "matplotlib", "sklearn")
+FULL_VALID = 5          # trainer_full_phase's validation patches (2, 2, 1)
+FULL_STEPS = 8          # its run: two epochs of 8 patches at batch 2
+FULL_TILE = dict(preview_tile_shape=(32, 64, 64),
+                 preview_overlap_shape=(8, 16, 16))
+FULL_PREVIEW = (1, 1, 64, 128, 128)   # its preview: 8 tiles
+FULL_TRACED = "conv_tc"               # a kernel its profiler trace names
+
+
+def _strict_minima(sched, steps):
+    """The steps after which the Trainer sees a strict minimum of the
+    rate of a fresh ``sched`` (its ``_handle_lr``)."""
+    lrs = [sched.get_lr()] + [sched.step() for _ in range(steps)]
+    return [k for k in range(2, steps + 1)
+            if lrs[k - 2] > lrs[k - 1] < lrs[k]]
+
+
+def trainer_full_phase(build, CEDiceLoss, fused):
+    """``Trainer.run`` on ``build``'s model (the headline UNet, bf16) at
+    ``bench.py``'s patch, with everything the Trainer has: 8 training
+    patches at batch 2 (two epochs of four steps), 5 validation patches
+    (batches of 2, 2 and 1) with ``default_metrics()`` and ``AUROC``, a
+    ``CyclicLR`` with a minimum of the rate inside ``run(max_steps=8)``,
+    ``extra_save_steps=(3,)``, ``profile_steps=(2, 4)`` and a preview of
+    8 tiles. Checks the files the run wrote; K1, row 3, K2 and K3 in
+    each validation batch (the last, of 1, too); the validation logits
+    against ``reference=True`` (5e-2 of max|ref|); the Trainer's
+    validation stats against a recount from those logits; a ``conv_tc``
+    kernel in the profiler's trace; ``apply_swa`` (new running
+    statistics, finite validation logits, the parameters back bit for
+    bit after a second swap); a resumed Trainer's next rate and
+    ``best_val_loss``. Prints each epoch's split, the validation MVox/s
+    and the optional packages the card's machine lacks. Returns the
+    run's launches (counts at 0 just before it)."""
+    import importlib.util
+    import os
+    from elektronn3_tpu_torch.training import CyclicLR, Trainer, metrics
+    lacks = [m for m in OPTIONAL_PACKAGES
+             if importlib.util.find_spec(m) is None]
+    print(f"trainer full: the card's machine lacks {lacks}", flush=True)
+    sample = (1, *PATCH)
+    train, valid = Patches(8, sample, 11), Patches(FULL_VALID, sample, 12)
+    valid_metrics = {**metrics.default_metrics(), "val_AUROC":
+                     metrics.AUROC()}
+
+    def cyclic():
+        return CyclicLR(1e-4, 1e-3, step_size_up=2)
+
+    minima = _strict_minima(cyclic(), FULL_STEPS)
+    if not minima:
+        raise AssertionError("trainer full: the schedule has no minimum")
+    preview = torch.randn(FULL_PREVIEW,
+                          generator=torch.Generator().manual_seed(13)).numpy()
+    with tempfile.TemporaryDirectory() as root:
+        model = build(21, torch.bfloat16)
+        tr = Trainer(model, CEDiceLoss(1.0, 1.0), train_dataset=train,
+                     valid_dataset=valid, valid_metrics=valid_metrics,
+                     batch_size=2, save_root=root, exp_name="full",
+                     schedulers={"lr": cyclic()}, extra_save_steps=(3,),
+                     profile_steps=(2, 4), preview_batch=preview,
+                     preview_interval=1, inference_kwargs={"batch_size": 2},
+                     nan_check_interval=4, **FULL_TILE)
+        # each validation forward: (input, logits, its launches)
+        batches, in_val = [], [False]
+
+        def pre(mod, args):
+            if in_val[0]:
+                batches.append([args[0], None, launch_counts(fused)])
+
+        def post(mod, args, out):
+            if in_val[0]:
+                before = batches[-1][2]
+                batches[-1][1:] = [out, {k: n - before[k] for k, n in
+                                         launch_counts(fused).items()}]
+        hooks = [model.register_forward_pre_hook(pre),
+                 model.register_forward_hook(post)]
+        validate, epoch = tr._validate, tr._epoch
+
+        def validate_recorded():
+            batches.clear()
+            in_val[0] = True
+            try:
+                return validate()
+            finally:
+                in_val[0] = False
+
+        def epoch_printed(*a):
+            epoch(*a)
+            sec = tr.last_seconds
+            vox = FULL_VALID * int(np.prod(PATCH))
+            print(f"trainer full: epoch {tr.epoch} (step {tr.step}) "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in sec.items())
+                  + f"; validation {vox / sec['validate'] / 1e6:.2f} "
+                  f"MVox/s; stats " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in tr.last_stats.items()
+                      if k != "tr_loss"), flush=True)
+        tr._validate, tr._epoch = validate_recorded, epoch_printed
+        fused.reset_launches()
+        tr.run(max_steps=FULL_STEPS)
+        launches = launch_counts(fused)
+        print(f"trainer full: launches over the run {launches}", flush=True)
+        check_launched(launches, K1_K7, "trainer full")
+
+        names = set(os.listdir(tr.save_path))
+        suffixes = ["", "_initial", "_final", "_best", "_step3"] + [
+            f"_minlr_step{k}" for k in minima]
+        want = {f"{kind}{s}.{ext}" for s in suffixes
+                for kind, ext in (("state_dict", "pth"), ("model", "pt"))}
+        want |= {"elektronn3_tpu_torch.log", "profile"}
+        if not want <= names:
+            raise AssertionError(f"trainer full: missing files "
+                                 f"{sorted(want - names)}")
+        print(f"trainer full: wrote {sorted(names)}", flush=True)
+
+        if [b[0].shape[0] for b in batches] != [2, 2, 1]:
+            raise AssertionError(f"trainer full: validation batches "
+                                 f"{[tuple(b[0].shape) for b in batches]}")
+        model.eval()
+        for i, (x, out, n) in enumerate(batches):
+            check_launched(n, SERVING, f"trainer full validation batch {i} "
+                           f"(N={x.shape[0]})")
+            with torch.inference_mode():
+                ref = model(x, reference=True)
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            if not (bool(torch.isfinite(out).all()) and err <= 5e-2 * scale):
+                raise AssertionError(f"trainer full: validation batch {i} "
+                                     f"vs reference: err {err}, max|ref| "
+                                     f"{scale}")
+        model.train()
+        print(f"trainer full: validation batches (N = 2, 2, 1) each "
+              f"launched {SERVING}; logits within 5e-2 x max|ref| of "
+              "reference=True", flush=True)
+
+        # the phase's own recount of the kernel pass
+        crit = CEDiceLoss(1.0, 1.0)
+        targets = [torch.as_tensor(valid.target[i:i + 2]).cuda()
+                   for i in range(0, FULL_VALID, 2)]
+        with torch.inference_mode():
+            losses = torch.stack([crit(b[1], t).float()
+                                  for b, t in zip(batches, targets)])
+        recount = {"val_loss": float(np.mean(losses.cpu().tolist()))}
+        for name, ev in valid_metrics.items():
+            if getattr(ev, "supports_streaming", False):
+                cm = sum(metrics.confusion_matrix(
+                    t, torch.argmax(b[1], -1), 2, nan_when_empty=False,
+                    ignore=ev.ignore) for b, t in zip(batches, targets))
+                recount[name] = float(ev.from_cm(cm))
+            else:
+                recount[name] = float(ev(torch.cat(targets), torch.cat(
+                    [b[1] for b in batches])))
+        got = {k: tr.last_stats[k] for k in recount}
+        if got != recount:
+            raise AssertionError(f"trainer full: validation stats {got}, "
+                                 f"recount {recount}")
+        print(f"trainer full: validation stats equal the recount {got}",
+              flush=True)
+
+        traces = [os.path.join(tr.save_path, "profile", f) for f in
+                  os.listdir(os.path.join(tr.save_path, "profile"))]
+        text = "".join(open(f).read() for f in traces)
+        if FULL_TRACED not in text:
+            raise AssertionError(f"trainer full: no {FULL_TRACED} kernel "
+                                 f"in {traces}")
+        print(f"trainer full: profiler trace {traces} ({len(text)} bytes) "
+              f"names {FULL_TRACED} {text.count(FULL_TRACED)} times",
+              flush=True)
+
+        norms = [m for m in model.modules()
+                 if isinstance(m, torch.nn.BatchNorm3d)]
+        stats0 = [m.running_mean.clone() for m in norms]
+        params0 = {k: p.detach().clone()
+                   for k, p in model.named_parameters()}
+        bn_loader = [{"inp": torch.as_tensor(train.inp[i:i + 2]).cuda()
+                      .movedim(1, -1).contiguous()} for i in (0, 2, 4)]
+        tr.apply_swa(bn_loader)
+        moved = sum(not torch.equal(a, m.running_mean)
+                    for a, m in zip(stats0, norms))
+        swapped = sum(not torch.equal(params0[k], p)
+                      for k, p in model.named_parameters())
+        stats = tr._validate()
+        if not (moved == len(norms) and swapped and all(
+                bool(torch.isfinite(b[1]).all()) for b in batches)
+                and np.isfinite(stats["val_loss"])):
+            raise AssertionError(f"trainer full: apply_swa moved {moved} of "
+                                 f"{len(norms)} norms, {swapped} "
+                                 f"parameters, val {stats}")
+        tr.apply_swa()
+        if not all(torch.equal(params0[k], p)
+                   for k, p in model.named_parameters()):
+            raise AssertionError("trainer full: a second swap did not "
+                                 "restore the parameters")
+        print(f"trainer full: apply_swa (average of {tr.swa.n_avg}, "
+              f"minima after steps {minima}) swapped {swapped} parameters "
+              f"and moved all {moved} running means; validation with it "
+              f"{stats['val_loss']:.4f} (finite); the second swap "
+              "restored every parameter bit for bit", flush=True)
+        for h in hooks:
+            h.remove()
+
+        tr2 = Trainer(build(22, torch.bfloat16), CEDiceLoss(1.0, 1.0),
+                      train_dataset=train, schedulers={"lr": cyclic()},
+                      save_root=root, exp_name="resumed",
+                      enable_tensorboard=False)
+        tr2.load_state(os.path.join(tr.save_path, "state_dict_final.pth"))
+        nxt = (copy.deepcopy(tr.lr_scheduler).step(),
+               copy.deepcopy(tr2.lr_scheduler).step())
+        if tr2.best_val_loss != tr.best_val_loss or nxt[0] != nxt[1] \
+                or tr2.step != FULL_STEPS:
+            raise AssertionError(f"trainer full: resumed best_val_loss "
+                                 f"{tr2.best_val_loss} vs "
+                                 f"{tr.best_val_loss}, next rate {nxt}")
+        print(f"trainer full: resumed at step {tr2.step}, next rate "
+              f"{nxt[1]:.3e}, best_val_loss {tr2.best_val_loss:.4f} as the "
+              "first Trainer's", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3534,9 +3770,13 @@ def main():
     del model, opt, batches
     torch.cuda.empty_cache()
     trainer_phase(build3d, (1, *PATCH), "3D", CEDiceLoss, Trainer)
+    mark("3D paths")
+    launches["trainer_full"] = trainer_full_phase(build3d, CEDiceLoss, fused)
+    torch.cuda.empty_cache()
+    mark("trainer full")
     launches["train_input_grad"] = input_grad_phase(
         build_input_grad, CEDiceLoss, train_step, fused)
-    mark("3D paths")
+    mark("3D input_grad")
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()

@@ -367,9 +367,11 @@ def test_trainer_runs_and_resumes(tmp_path):
                  nan_check_interval=3)
     tr.run(max_steps=4)
     assert tr.step == 4 and tr.epoch == 2
-    files = sorted(os.listdir(tmp_path / "run"))
-    assert files == ["state_dict.pth", "state_dict_final.pth",
-                     "state_dict_initial.pth"]
+    files = sorted(f for f in os.listdir(tmp_path / "run")
+                   if not f.startswith("events.out.tfevents"))
+    assert files == ["elektronn3_tpu_torch.log", "model.pt",
+                     "model_final.pt", "model_initial.pt", "state_dict.pth",
+                     "state_dict_final.pth", "state_dict_initial.pth"]
     initial = _small_unet(0).state_dict()
     assert not torch.equal(initial["down_convs.0.conv1.weight"],
                            model.state_dict()["down_convs.0.conv1.weight"])

@@ -221,6 +221,13 @@ def test_port_package_never_imports_jax():
             "elektronn3_tpu_torch.ops.pallas_conv, "
             "elektronn3_tpu_torch.ops.vup, "
             "elektronn3_tpu_torch.training, "
+            "elektronn3_tpu_torch.training.metrics, "
+            "elektronn3_tpu_torch.training.schedulers, "
+            "elektronn3_tpu_torch.training.optim, "
+            "elektronn3_tpu_torch.training.handlers, "
+            "elektronn3_tpu_torch.training.plotting, "
+            "elektronn3_tpu_torch.training.recalibration, "
+            "elektronn3_tpu_torch.training.train_utils, "
             "elektronn3_tpu_torch.modules.loss;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'elektronn3_tpu')];"
