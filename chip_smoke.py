@@ -124,6 +124,27 @@ sample).
    epoch's split (train, validate, log, preview, checkpoint seconds),
    the validation MVox/s and which of tensorboard, tqdm, matplotlib and
    sklearn the machine lacks;
+   then ``pipeline_phase``, the data pipeline (``elektronn3_tpu_torch.
+   data``) on two synthetic (160, 448, 448) cubes (float32 raw, int16
+   labels; ``benchmark/make_synthetic_neurodata.py``'s ``make_cube``):
+   the card's warp of 16 ``DeviceWarpPatchLoader`` samples (8 affine, 8
+   perspective) against the host's C++ ``warp_interp`` and the numpy
+   ``map_coordinates_*`` (1e-4 of max|ref|, labels equal off .5 ties, no
+   voxel outside a perspective sample's window); ``Trainer.run`` of the
+   headline UNet (bf16, batch 8 of (44, 88, 88), the neurodata example's
+   CE + Dice loss) fed by ``PatchCreator`` (host warp, the example's
+   transforms, ``warp_prob=0.2`` perspective, 4 worker processes) and
+   by ``DeviceWarpPatchLoader`` (``normalize`` on the card): 20 timed
+   steps after 3, each run's launches equal to step 8's over as many
+   steps, finite losses, the first batch the same bits from a second
+   loader of the same seed; each run's ms a step, MVox/s, the card's
+   idle share over 6 more steps (torch.profiler, the workers still
+   busy) beside those steps' own ms a step, the host's cores and
+   torch's threads, and the per-batch split
+   (host sampling, H2D, warp, train and its launches' host time; H2D
+   MB); and, where h5py is installed,
+   ``examples/train_unet_neurodata_torch.py`` for 3 steps on the cubes
+   written as HDF5;
    then the headline UNet with ``input_grad=True`` on inputs that
    require a gradient: timed steps (row 13's kernel with dx once a
    step), the input's gradient of one step against ``reference=True``,
@@ -267,6 +288,7 @@ import contextlib
 import copy
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3459,7 +3481,6 @@ def trainer_full_phase(build, CEDiceLoss, fused):
     and the optional packages the card's machine lacks. Returns the
     run's launches (counts at 0 just before it)."""
     import importlib.util
-    import os
     from elektronn3_tpu_torch.training import CyclicLR, Trainer, metrics
     lacks = [m for m in OPTIONAL_PACKAGES
              if importlib.util.find_spec(m) is None]
@@ -3642,6 +3663,414 @@ def trainer_full_phase(build, CEDiceLoss, fused):
     return launches
 
 
+# The data pipeline feeding the headline UNet's Trainer (pipeline_phase).
+PIPE_SRC = (160, 448, 448)   # make_synthetic_neurodata.py's cube: the
+                             # neurodata set's scale
+PIPE_NORM = (155.291411, 41.812504)   # the neurodata example's Normalize
+PIPE_WARMUP = 3              # Trainer steps before the timed STEPS
+PIPE_SPLIT = 6               # batches timed phase by phase
+PIPE_PROFILED = 6            # Trainer steps after the timed ones, under
+                             # torch.profiler for the card's idle share
+PIPE_WORKERS = 4             # PatchCreator's worker processes
+# Batches a PatchCreator epoch holds beyond the steps run: the workers'
+# prefetch (torch's 2 each) and 2 more, so that the workers still make
+# batches through the profiled steps.
+PIPE_AHEAD = PIPE_WORKERS * 2 + 2
+PIPE_WARP_TOL = 1e-4         # the card's warp against the host's, of max|ref|
+# Nearest-neighbour labels: the card and numpy round halves to even, the
+# C++ kernel away from zero, and the three compute the coordinates in
+# other orders; voxels this close to a .5 tie are not compared.
+PIPE_TIE = 1e-3
+
+
+def make_cube(rng, shape=PIPE_SRC, uint8=False):
+    """``benchmark/make_synthetic_neurodata.py``'s ``make_cube``: smoothed
+    multi-scale noise as membrane-like raw data (float32 around 155, or
+    uint8) and int16 'barrier' labels where its ridges are."""
+    small = rng.normal(size=(shape[0] // 8, shape[1] // 16,
+                             shape[2] // 16)).astype(np.float32)
+    vol = np.repeat(np.repeat(np.repeat(small, 8, 0), 16, 1), 16, 2)
+    for ax in range(3):
+        vol = (vol + np.roll(vol, 1, ax) + np.roll(vol, -1, ax)) / 3.0
+    lab = (np.abs(vol) < 0.25).astype(np.int16)
+    raw = (155.0 + 41.0 * vol + 5.0 * rng.normal(size=shape)
+           ).astype(np.float32)
+    if uint8:
+        raw = np.clip(np.rint(raw), 0, 255).astype(np.uint8)
+    return raw, lab
+
+
+def neurodata_transform(T):
+    """``examples/train_unet_neurodata_torch.py``'s training transforms."""
+    return T.Compose([
+        T.SqueezeTarget(dim=0), T.Normalize(mean=PIPE_NORM[0],
+                                            std=PIPE_NORM[1]),
+        T.RandomGrayAugment(channels=[0], prob=0.3),
+        T.RandomGammaCorrection(gamma_std=0.25, channels=[0], prob=0.3),
+        T.AdditiveGaussianNoise(sigma=0.1, channels=[0], prob=0.3)])
+
+
+def neurodata_criterion():
+    from elektronn3_tpu_torch.modules.loss import (
+        CombinedLoss, CrossEntropyLoss, DiceLoss)
+    return CombinedLoss([CrossEntropyLoss(), DiceLoss(apply_softmax=True)],
+                        weight=[0.5, 0.5])
+
+
+def pipeline_warp_check(data, sources):
+    """(a) The card's warp of 16 ``DeviceWarpPatchLoader`` samples
+    (``warp_prob=1``; 8 affine, 8 perspective) against the host's C++
+    ``warp_interp`` and the numpy ``map_coordinates_*`` on the same
+    ``M_inv`` and ``lo``: inputs within PIPE_WARP_TOL of max|ref|, labels
+    equal but near .5 ties, and on the perspective samples no voxel
+    outside the window that was read."""
+    from elektronn3_tpu_torch.data import coord_transforms as ct
+    from elektronn3_tpu_torch.data import native, warp
+    grid = ct.make_dest_coords(PATCH)
+    for persp in (False, True):
+        loader = data.DeviceWarpPatchLoader(
+            *sources, PATCH, batch_size=BATCH, warp_prob=1.0,
+            warp_kwargs=dict(sample_aniso=True, warp_amount=1.0,
+                             perspective=persp), aniso_factor=2,
+            seed=21 + persp)
+        host = loader.sample_batch()
+        windows, t_windows, M_invs, los = loader.to_device(host)
+        inp = warp.warp_interpolate_batch(windows[:, 0], M_invs, los,
+                                          PATCH).cpu().numpy()
+        lab = warp.warp_interpolate_batch(t_windows[:, 0], M_invs, los,
+                                          PATCH, discrete=True).cpu().numpy()
+        clamped = warp.out_of_window(M_invs, los, PATCH, loader.window_shape)
+        errs, ties, n_persp = [], 0, 0
+        for n in range(BATCH):
+            w = host[0][n, 0].astype(np.float32)
+            tw = host[1][n, 0].astype(np.float32)
+            M_inv, lo = host[2][n], host[3][n]
+            n_persp += bool(np.any(M_inv[3, :3] != 0))
+            src = np.tensordot(grid, M_inv, axes=[[-1], [1]])
+            src = (src[..., :3] / src[..., 3:4]).astype(np.float32)
+            frac = (src - lo) % 1
+            keep = ~np.any(np.abs(frac - 0.5) < PIPE_TIE, axis=-1)
+            ties += int((~keep).sum())
+            for what, ref, ref_lab in (
+                    ("C++", native.warp_interp(w, M_inv, PATCH, lo, persp,
+                                               False),
+                     native.warp_interp(tw, M_inv, PATCH, lo, persp, True)),
+                    ("numpy", ct.map_coordinates_linear(w, src, lo),
+                     ct.map_coordinates_nearest(tw, src, lo))):
+                err = float(np.max(np.abs(inp[n] - ref))
+                            / np.max(np.abs(ref)))
+                errs.append(err)
+                if not err <= PIPE_WARP_TOL:
+                    raise AssertionError(f"card warp sample {n} against "
+                                         f"{what}: {err:.2e} of max|ref|")
+                bad = int((lab[n] != ref_lab)[keep].sum())
+                if bad:
+                    raise AssertionError(f"card warp sample {n}: {bad} labels "
+                                         f"differ from {what}'s off ties")
+        if persp and (clamped or n_persp != BATCH):
+            raise AssertionError(f"perspective samples: {n_persp} of {BATCH}"
+                                 f" perspective, {clamped} voxels outside "
+                                 f"their windows")
+        print(f"pipeline warp ({'perspective' if persp else 'affine'}): "
+              f"{BATCH} card warps of {PATCH} from windows "
+              f"{loader.window_shape} against C++ and numpy: max err "
+              f"{max(errs):.2e} of max|ref|, labels equal off {ties} "
+              f"near-tie voxels, {clamped} voxels outside their windows, "
+              f"{loader.n_failed} retried draws", flush=True)
+
+
+def idle_share(prof, seconds):
+    """1 - (the union of the card's records in ``prof``: kernels, copies,
+    memsets) / ``seconds`` of wall time."""
+    busy, end = 0.0, -np.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type.name == "CUDA"):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return 1 - busy / 1e6 / seconds
+
+
+def timed_trainer_run(tr, fused, warmup=PIPE_WARMUP):
+    """``tr.run(max_steps=warmup + STEPS + PIPE_PROFILED)``, the counts at
+    0 and the clock started after step ``warmup``, then PIPE_PROFILED
+    steps under torch.profiler (CUDA records only); returns (seconds of
+    the STEPS steps, their launches, their launches by body, (the card's
+    idle share in the profiled steps, their seconds), the first batch
+    the Trainer trained on)."""
+    from torch.profiler import ProfilerActivity, profile
+    state, first = {"n": 0}, []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    batch = tr._batch
+
+    def recording_batch(b):
+        out = batch(b)
+        if not first:
+            first.append(tuple(t.clone() for t in out))
+        return out
+
+    def hook(opt, args, kwargs):
+        state["n"] += 1
+        if state["n"] == warmup:
+            torch.cuda.synchronize()
+            fused.reset_launches()
+            state["t0"] = time.perf_counter()
+        elif state["n"] == warmup + STEPS:
+            torch.cuda.synchronize()
+            state["t1"] = time.perf_counter()
+            state["launches"] = launch_counts(fused)
+            state["bodies"] = dict(fused.BODY_LAUNCHES)
+            prof.start()
+            torch.cuda.synchronize()
+            state["t2"] = time.perf_counter()
+        elif state["n"] == warmup + STEPS + PIPE_PROFILED:
+            torch.cuda.synchronize()
+            state["t3"] = time.perf_counter()
+            prof.stop()
+
+    tr._batch = recording_batch
+    handle = tr.optimizer.register_step_post_hook(hook)
+    steps = warmup + STEPS + PIPE_PROFILED
+    try:
+        tr.run(max_steps=steps)
+    finally:
+        handle.remove()
+        tr._batch = batch
+    losses = tr.last_stats["tr_loss"]
+    if tr.step != steps or len(losses) != tr.step \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"Trainer.run: step {tr.step}, losses {losses}")
+    profiled = state["t3"] - state["t2"]
+    return (state["t1"] - state["t0"], state["launches"], state["bodies"],
+            (idle_share(prof, profiled), profiled), first[0])
+
+
+def check_fed_run(what, seconds, launches, bodies, idle, want, repeat,
+                  smi):
+    """A fed run's launches are ``want``, the headline train path's over
+    as many steps, on the same bodies; its first batch repeats. ``idle``
+    is (the card's idle share, seconds) of the profiled steps."""
+    check_launched(launches, K1_K7, what)
+    if launches != want or bodies != BODY_LAUNCHES["train_3D"]:
+        raise AssertionError(f"{what}: launches {launches}, bodies {bodies};"
+                             f" the headline train path's {want}, "
+                             f"{BODY_LAUNCHES['train_3D']}")
+    if not all(torch.equal(a, b) for a, b in repeat):
+        raise AssertionError(f"{what}: the first batch does not repeat "
+                             "under the same seed")
+    vox = BATCH * int(np.prod(PATCH))
+    print(f"pipeline {what}: {STEPS} Trainer steps after {PIPE_WARMUP}: "
+          f"{seconds / STEPS * 1e3:.2f} ms/step = "
+          f"{vox * STEPS / seconds / 1e6:.2f} MVox/s (batch {BATCH} of "
+          f"{PATCH}, bf16; the bench step {STEP_MS['3D'][0]:.2f} ms) on "
+          f"{smi}; the card idle {idle[0]:.1%} of {PIPE_PROFILED} more "
+          f"steps (torch.profiler) at {idle[1] / PIPE_PROFILED * 1e3:.2f} "
+          f"ms/step; launches over {STEPS} steps as the headline "
+          f"train path's; the first batch repeats bit for bit", flush=True)
+
+
+def print_split(what, split, mb, smi):
+    print(f"pipeline {what} per batch (ms, median of {PIPE_SPLIT}): "
+          + ", ".join(f"{k} {np.median(v):.2f}" for k, v in split.items())
+          + f"; H2D {mb:.2f} MB a batch; on {smi}", flush=True)
+
+
+def patch_creator_run(data, cubes, UNet, fused, want, smi):
+    """(b) The headline UNet's Trainer fed by PatchCreator (host warp in
+    the C++ kernels, the neurodata example's transforms, warp_prob=0.2,
+    perspective) through 4 worker processes."""
+    from elektronn3_tpu_torch.training import Trainer, train_step
+
+    class CubeCreator(data.PatchCreator):
+        """PatchCreator over the cubes in memory (no HDF5 files)."""
+
+        def open_files(self):
+            return ([data.ArrayDataSource(r) for r, _ in cubes],
+                    [data.ArrayDataSource(t) for _, t in cubes])
+
+    ds = CubeCreator(
+        input_sources=[("cube", "raw")] * 2,
+        target_sources=[("cube", "lab")] * 2, patch_shape=PATCH,
+        aniso_factor=2,
+        epoch_size=(PIPE_WARMUP + STEPS + PIPE_PROFILED + PIPE_AHEAD)
+        * BATCH,
+        warp_prob=0.2, warp_kwargs=dict(sample_aniso=True, perspective=True,
+                                        warp_amount=1.0),
+        transform=neurodata_transform(data.transforms))
+    model = headline_unet(UNet, 31)
+    crit = neurodata_criterion()
+    with tempfile.TemporaryDirectory() as root:
+        tr = Trainer(model, crit, train_dataset=ds, batch_size=BATCH,
+                     num_workers=PIPE_WORKERS, seed=0, save_root=root,
+                     exp_name="patch_creator", enable_tensorboard=False)
+        seconds, launches, bodies, idle, first = timed_trainer_run(tr,
+                                                                   fused)
+        tr.epoch = 0   # the run's first epoch again, from a new loader
+        again = tr._batch(next(iter(tr._loader())))
+        check_fed_run("PatchCreator", seconds, launches, bodies, idle, want,
+                      zip(first, again), smi)
+        split = collections.defaultdict(list)
+        tr.epoch = 1
+        it = iter(tr._loader())
+        next(it)   # the workers' start
+        mb = 0.0
+        for _ in range(PIPE_SPLIT):
+            t0 = time.perf_counter()
+            b = next(it)
+            t1 = time.perf_counter()
+            inp, target = tr._batch(b)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            train_step(model, crit, tr.optimizer, inp, target)
+            te = time.perf_counter()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            split[f"host wait ({PIPE_WORKERS} workers)"].append(
+                (t1 - t0) * 1e3)
+            split["H2D"].append((t2 - t1) * 1e3)
+            split["warp (on the host)"].append(0.0)
+            split["train"].append((t3 - t2) * 1e3)
+            split["its launches on the host"].append((te - t2) * 1e3)
+            mb = (b["inp"].nbytes + b["target"].nbytes) / 1e6
+        del it
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for i in range(BATCH):
+                ds[i]
+            split["host sampling (1 process)"].append(
+                (time.perf_counter() - t0) * 1e3)
+        print_split("PatchCreator", split, mb, smi)
+        print(f"pipeline PatchCreator: warp stats in this process "
+              f"{ds.warp_stats}", flush=True)
+    return launches, bodies
+
+
+def device_loader_run(data, sources, UNet, fused, want, smi):
+    """(c) The same Trainer fed by DeviceWarpPatchLoader: window reads
+    on the host, warp and normalization on the card (pipeline_probe.py's
+    loader)."""
+    from elektronn3_tpu_torch.training import Trainer, train_step
+
+    def loader():
+        return data.DeviceWarpPatchLoader(
+            *sources, PATCH, batch_size=BATCH, warp_prob=0.2,
+            warp_kwargs=dict(sample_aniso=True, warp_amount=1.0),
+            aniso_factor=2, epoch_size=PIPE_WARMUP + STEPS + PIPE_PROFILED,
+            normalize=PIPE_NORM, seed=0)
+
+    model = headline_unet(UNet, 31)
+    crit = neurodata_criterion()
+    with tempfile.TemporaryDirectory() as root:
+        ld = loader()
+        tr = Trainer(model, crit, train_dataset=ld, batch_size=BATCH,
+                     seed=0, save_root=root, exp_name="device_loader",
+                     enable_tensorboard=False)
+        seconds, launches, bodies, idle, first = timed_trainer_run(tr,
+                                                                   fused)
+        again = tr._batch(next(iter(loader())))
+        check_fed_run("DeviceWarpPatchLoader", seconds, launches, bodies,
+                      idle, want, zip(first, again), smi)
+        split = collections.defaultdict(list)
+        probe = loader()
+        for _ in range(PIPE_SPLIT):
+            t0 = time.perf_counter()
+            host = probe.sample_batch()
+            t1 = time.perf_counter()
+            dev = probe.to_device(host)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            b = probe.process(*dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            inp, target = tr._batch(b)
+            train_step(model, crit, tr.optimizer, inp, target)
+            te = time.perf_counter()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for k, v in (("host sampling", t1 - t0), ("H2D", t2 - t1),
+                         ("warp", t3 - t2), ("train", t4 - t3),
+                         ("its launches on the host", te - t3)):
+                split[k].append(v * 1e3)
+        mb = sum(a.nbytes for a in host) / 1e6
+        print_split("DeviceWarpPatchLoader", split, mb, smi)
+        print(f"pipeline DeviceWarpPatchLoader: {ld.n_failed} retried and "
+              f"{ld.n_ok} accepted draws in the run", flush=True)
+    return launches, bodies
+
+
+def example_run(cubes):
+    """``examples/train_unet_neurodata_torch.py`` for 3 steps on the
+    synthetic cubes as HDF5 files (raw_2, the validation cube, a copy of
+    raw_0), where h5py is installed; HOME points into the same temporary
+    directory, where the Trainer writes its run."""
+    import importlib.util
+    if importlib.util.find_spec("h5py") is None:
+        print("pipeline example: h5py is not installed on this machine; "
+              "examples/train_unet_neurodata_torch.py not run", flush=True)
+        return
+    import h5py
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        for i, (raw, lab) in enumerate(cubes + cubes[:1]):
+            with h5py.File(os.path.join(root, f"raw_{i}.h5"), "w") as f:
+                f.create_dataset("raw", data=raw)
+            with h5py.File(os.path.join(root, f"barrier_int16_{i}.h5"),
+                           "w") as f:
+                f.create_dataset("lab", data=lab)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "examples/train_unet_neurodata_torch.py", "-d",
+             root, "-m", "3", "--bf16", "-j", "2", "-n", "example"],
+            cwd=repo, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, HOME=root, PYTHONPATH=repo))
+        final = os.path.join(root, "e3tpu_training", "example",
+                             "state_dict_final.pth")
+        if res.returncode != 0 or not os.path.isfile(final):
+            raise AssertionError(f"the example failed ({res.returncode}):\n"
+                                 f"{res.stderr[-3000:]}")
+        info = torch.load(final, weights_only=False)["info"]
+        print(f"pipeline example: examples/train_unet_neurodata_torch.py -m 3"
+              f" --bf16 on the synthetic HDF5 cubes ran in "
+              f"{time.perf_counter() - t0:.1f} s to step {info['step']}",
+              flush=True)
+
+
+def pipeline_phase(UNet, fused, want, smi):
+    """The data pipeline at full width: two synthetic (160, 448, 448)
+    cubes; (a) the card's warp against the host's; (b) and (c) the
+    headline UNet's Trainer fed by PatchCreator and by
+    DeviceWarpPatchLoader, each launching ``want`` (the headline train
+    path's launches) over its timed steps; the example. Returns the two
+    runs' launches."""
+    from elektronn3_tpu_torch import data
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    cubes = [make_cube(rng) for _ in range(2)]
+    sources = ([data.ArrayDataSource(r) for r, _ in cubes],
+               [data.ArrayDataSource(t) for _, t in cubes])
+    print(f"pipeline data: 2 cubes {PIPE_SRC} (raw float32, labels int16, "
+          f"foreground {np.mean([l.mean() for _, l in cubes]):.3f}) made "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"pipeline host: os.cpu_count() {os.cpu_count()}, "
+          f"{len(os.sched_getaffinity(0))} cores for this process, "
+          f"torch.get_num_threads() {torch.get_num_threads()}", flush=True)
+    pipeline_warp_check(data, sources)
+    out = {}
+    launches, bodies = patch_creator_run(data, cubes, UNet, fused, want,
+                                         smi)
+    out["train_patch_creator"] = launches
+    BODY_LAUNCHES["train_patch_creator"] = bodies
+    torch.cuda.empty_cache()
+    launches, bodies = device_loader_run(data, sources, UNet, fused, want,
+                                         smi)
+    out["train_device_loader"] = launches
+    BODY_LAUNCHES["train_device_loader"] = bodies
+    torch.cuda.empty_cache()
+    example_run(cubes)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3774,6 +4203,8 @@ def main():
     launches["trainer_full"] = trainer_full_phase(build3d, CEDiceLoss, fused)
     torch.cuda.empty_cache()
     mark("trainer full")
+    launches.update(pipeline_phase(UNet, fused, launches["train"], smi))
+    mark("data pipeline")
     launches["train_input_grad"] = input_grad_phase(
         build_input_grad, CEDiceLoss, train_step, fused)
     mark("3D input_grad")

@@ -14,6 +14,9 @@ Subpackages mirror the JAX package:
   loader
 - ``training``: the train step and the ``Trainer`` loop
 - ``inference``: tiled prediction (``Predictor``)
+- ``data``: data sources, coordinate warping (host C++ kernels of
+  ``native/warp_kernels.cpp``), transforms, ``PatchCreator``, the loader
+  and ``DeviceWarpPatchLoader`` with its warp on the card
 """
 
 from elektronn3_tpu_torch.logger import logger

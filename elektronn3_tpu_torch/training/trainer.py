@@ -10,11 +10,13 @@ elektronn3/training/trainer.py), with its arguments:
 - The default optimizer matches the JAX Trainer's optax ``adamw`` at lr
   1e-3 with optax's weight decay of 1e-4 (``torch.optim.AdamW``'s own
   default, 0.01, is not that value).
-- Batches come from ``torch.utils.data.DataLoader`` over a map-style
+- Batches come from ``data.pipeline.DataLoader`` over a map-style
   dataset of dicts ``{"inp": (C, *spatial), "target": (*spatial)}``
-  (shuffled under ``seed``, the last incomplete batch dropped; ``inp``
-  moved to channels-last, the layout of the models), or from a
-  loader-style iterable that yields channels-last batches itself.
+  (shuffled under ``seed``, each sample made under its own numpy seed,
+  the last incomplete batch dropped; ``inp`` moved to channels-last, the
+  layout of the models; pinned for the copy to the card), for example
+  ``data.PatchCreator``, or from a loader-style iterable that yields
+  channels-last batches itself.
 - Losses stay on the device and are fetched, and checked for NaN, every
   ``nan_check_interval`` steps in one stacked copy: the loop's only
   host sync, but for a plateau-style scheduler, which reads the loss of
@@ -50,9 +52,8 @@ Not ported yet (ROADMAP.md Queue 1): the deployment artifact (JAX's
 StableHLO export; the kernels are ctypes calls that ``torch.export``
 cannot trace: its own item), the KNOSSOS preview and ``write_to_kzip``
 (item 9), ``preview_offset`` (the Predictor's ``offset``, item 4),
-``mesh`` and ``shard_strategy`` (multi-GPU, item 7), the
-``PatchCreator``-fed script ``examples/train_unet_neurodata.py`` (item
-3) and ``FixMatchSegLoss`` (item 6; the ``ss_criterion`` hook is here).
+``mesh`` and ``shard_strategy`` (multi-GPU, item 7) and
+``FixMatchSegLoss`` (item 6; the ``ss_criterion`` hook is here).
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from elektronn3_tpu_torch.data.pipeline import DataLoader
 from elektronn3_tpu_torch.logger import change_log_file_to, logger
 from elektronn3_tpu_torch.training.metrics import confusion_matrix
 from elektronn3_tpu_torch.training.optim import (
@@ -197,7 +199,9 @@ class Trainer:
         hparams: logged once with ``add_hparams``.
         tb_hist_interval: parameter and gradient histograms every N
             epochs; 0 never.
-        seed: seeds the order of the batches.
+        seed: seeds the order of the batches and each sample's draws
+            from numpy's global random state (sample ``i`` of epoch
+            ``e`` under ``seed + e * len(dataset) + i``).
         tqdm_kwargs: for the progress bar, where ``tqdm`` is installed.
         profile_steps: (start, end): ``torch.profiler`` traces the steps
             after ``start`` up to ``end`` into ``save_path/profile``.
@@ -284,6 +288,7 @@ class Trainer:
         self.tqdm_kwargs = dict(tqdm_kwargs or {})
         self.profile_steps = profile_steps
         self._profiler = None
+        self._unlabeled_loader = None
         self.example_input = None if example_input is None \
             else np.asarray(example_input)
         self.device = _device_of(model)
@@ -363,45 +368,55 @@ class Trainer:
     # Batches
     # ------------------------------------------------------------------
 
-    def _data_loader(self, dataset, shuffle: bool, seed: int = 0,
-                     drop_last: bool = True):
-        return torch.utils.data.DataLoader(
-            dataset, batch_size=self.batch_size, shuffle=shuffle,
-            drop_last=drop_last, num_workers=self.num_workers,
-            generator=torch.Generator().manual_seed(seed) if shuffle
-            else None, pin_memory=self.device.type == "cuda")
+    def _map_loader(self, dataset, **kwargs) -> DataLoader:
+        """The channels-last loader of a map-style dataset (pinned for a
+        card): the JAX Trainer's ``DataLoader``, whose ``seed`` rule
+        gives a seeded run the same batches again and keeps workers from
+        repeating each other's draws."""
+        return DataLoader(dataset, batch_size=self.batch_size,
+                          num_workers=self.num_workers,
+                          pin_memory=self.device.type == "cuda", **kwargs)
 
     def _loader(self):
-        """(batches, whether their inputs are channels-first)."""
+        """This epoch's loader: a loader-style training set itself, else
+        the map-style set's ``DataLoader`` at epoch ``self.epoch``, in
+        torch's sampler order under ``torch.Generator`` seed ``seed +
+        epoch``."""
         if hasattr(self.train_dataset, "__iter__") \
                 and not hasattr(self.train_dataset, "__getitem__"):
-            return self.train_dataset, False   # channels-last batches
-        loader = self._data_loader(self.train_dataset, True,
-                                   self.seed + self.epoch)
+            return self.train_dataset
+        loader = self._map_loader(
+            self.train_dataset, seed=self.seed,
+            generator=torch.Generator().manual_seed(self.seed + self.epoch))
+        loader.set_epoch(self.epoch)
         if len(loader) == 0:
             raise ValueError("the training dataset holds fewer samples than "
                              "one batch")
-        return loader, True
+        return loader
 
     def _unlabeled_batches(self):
-        loader = self._data_loader(self.unlabeled_dataset, True,
-                                   self.seed + 1)
+        """Unlabeled inputs without end, cycling one loader (as JAX
+        does) that lives as long as the Trainer: each pass, in this epoch
+        or a later one, is a new epoch of its draws."""
+        if self._unlabeled_loader is None:
+            self._unlabeled_loader = self._map_loader(
+                self.unlabeled_dataset, seed=self.seed + 1)
         while True:
-            for batch in loader:
-                yield self._inp(batch["inp"], channels_first=True)
+            for batch in self._unlabeled_loader:
+                yield self._inp(batch["inp"])
 
-    def _inp(self, inp, channels_first: bool) -> torch.Tensor:
-        """A batch's input on the device, channels-last; bfloat16 under
+    def _inp(self, inp) -> torch.Tensor:
+        """A channels-last batch input on the device; bfloat16 under
         ``mixed_precision`` or for a bfloat16 model (JAX's input
         dtype)."""
         inp = torch.as_tensor(inp).to(self.device, non_blocking=True)
         if self.mixed_precision \
                 or getattr(self.model, "dtype", None) == torch.bfloat16:
             inp = inp.to(torch.bfloat16)
-        return inp.movedim(1, -1).contiguous() if channels_first else inp
+        return inp
 
-    def _batch(self, batch, channels_first: bool = True):
-        inp = self._inp(batch["inp"], channels_first)
+    def _batch(self, batch):
+        inp = self._inp(batch["inp"])
         target = batch.get("target")
         if target is not None:
             target = torch.as_tensor(target).to(self.device,
@@ -489,7 +504,7 @@ class Trainer:
         pending = []
         running_vx = 0
         t0 = time.perf_counter()
-        loader, channels_first = self._loader()
+        loader = self._loader()
         unlabeled = self._unlabeled_batches() \
             if self.unlabeled_dataset is not None else None
         batches = loader
@@ -502,7 +517,7 @@ class Trainer:
         except ImportError:
             pass
         for batch in batches:
-            inp, target = self._batch(batch, channels_first)
+            inp, target = self._batch(batch)
             lr = self.lr_scheduler.get_lr()
             if self._inject_lr:
                 for group in self.optimizer.param_groups:
@@ -606,8 +621,8 @@ class Trainer:
         distinct ``ignore``, summed on the device; the others the
         outputs, concatenated on the device. The losses and counts are
         fetched once, after the last batch."""
-        loader = self._data_loader(self.valid_dataset, False,
-                                   drop_last=False)
+        loader = self._map_loader(self.valid_dataset, shuffle=False,
+                                  seed=self.seed, drop_last=False)
         streaming = {name: ev for name, ev in self.valid_metrics.items()
                      if getattr(ev, "supports_streaming", False)}
         nonstreaming = {name: ev for name, ev in self.valid_metrics.items()

@@ -228,7 +228,20 @@ def test_port_package_never_imports_jax():
             "elektronn3_tpu_torch.training.plotting, "
             "elektronn3_tpu_torch.training.recalibration, "
             "elektronn3_tpu_torch.training.train_utils, "
-            "elektronn3_tpu_torch.modules.loss;"
+            "elektronn3_tpu_torch.modules.loss, "
+            "elektronn3_tpu_torch.data, "
+            "elektronn3_tpu_torch.data.sources, "
+            "elektronn3_tpu_torch.data.native, "
+            "elektronn3_tpu_torch.data.coord_transforms, "
+            "elektronn3_tpu_torch.data.transforms, "
+            "elektronn3_tpu_torch.data.transforms.random, "
+            "elektronn3_tpu_torch.data.transforms.transforms, "
+            "elektronn3_tpu_torch.data.transforms.random_blurring, "
+            "elektronn3_tpu_torch.data.utils, "
+            "elektronn3_tpu_torch.data.cnndata, "
+            "elektronn3_tpu_torch.data.pipeline, "
+            "elektronn3_tpu_torch.data.warp, "
+            "elektronn3_tpu_torch.data.device_pipeline;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'elektronn3_tpu')];"
             "assert not bad, bad")
