@@ -149,6 +149,34 @@ sample).
    require a gradient: timed steps (row 13's kernel with dx once a
    step), the input's gradient of one step against ``reference=True``,
    and zeros from the default ``input_grad=False`` (JAX's fused conv1);
+9a. the rest of the Predictor and the UNet options serving needs:
+   ``predictor_tta_phase``, the headline UNet served with flip
+   test-time augmentation (``augmentations=8``) on step 7's volume:
+   eight times the model calls and the launches of the same request
+   without it, its probabilities within 1e-2 of the host's softmax of
+   the average of eight requests' logits on flipped volumes (flipped
+   back), both requests' MVox/s and each one's six phases
+   (``collect_phase_times``: ``h2d``, ``compute``, ``d2h``,
+   ``host_assemble``, ``device_call``, ``host_scatter``), and the same
+   request with the model loaded from ``save_model``'s file and with the
+   weights loaded from a reference-style ``state_dict.pth`` (``module.``
+   prefixes) into a model of other weights, both the in-memory request's
+   bits; ``valid_phase``, the headline UNet with ``conv_mode='valid'``
+   (every level on the library, as JAX plans it): a tiled
+   ``offset='auto'`` request, tiles (4, 52, 52) of a (44, 244, 244)
+   volume, the probed offset (20, 44, 44) checked and the first tile
+   against the model on its input (1e-2), timed steps at batch 8 of
+   (44, 140, 140) and one step against ``reference=True`` as in step 8;
+   ``merge_add_phase``, the headline UNet with ``merge_mode='add'``: the
+   forward check on the tile with every decoder merge on K1 over a
+   weight doubled along C_in, a Predictor request, one step's K1, K4
+   and K5 launches on the merges, then step 8 (without the plain arm);
+   and ``options_phase``: one timed step at the bench of the headline
+   UNet with ``up_mode='resizeconv_linear'``, ``attention=True``,
+   ``checkpointing=True`` and ``'policy'`` beside the plain one (level
+   kinds, ms, peak memory, each checkpointed peak under the plain one),
+   and a checkpointed float32 step against the plain one as step 8
+   holds the kernels against the reference;
 10. the 2D UNet (n_blocks=4, start_filts=32, dim=2, batch norm,
     bfloat16): ``forward`` against ``forward(reference=True)`` on a
     batch of 8 (640, 640) images; a whole-image Predictor request on
@@ -2439,12 +2467,14 @@ def randomize_norms(model, seed):
 
 def headline_unet(UNet, seed, dtype=torch.bfloat16, normalization="batch",
                   pallas_flat="auto", activation="relu", vup=False,
-                  input_grad=False):
+                  input_grad=False, **options):
+    """The headline 3D UNet; ``options`` are the UNet's other arguments
+    (``conv_mode``, ``merge_mode``, ``up_mode``, ...)."""
     return UNet(in_channels=1, out_channels=2, n_blocks=4, start_filts=32,
                 planar_blocks=(0,), activation=activation,
                 normalization=normalization, dtype=dtype, device="cuda",
                 pallas_flat=pallas_flat, vup=vup, input_grad=input_grad,
-                generator=torch.Generator().manual_seed(seed))
+                generator=torch.Generator().manual_seed(seed), **options)
 
 
 def sf64_unet(UNet, seed, dtype=torch.bfloat16, pallas_flat="auto"):
@@ -4071,6 +4101,335 @@ def pipeline_phase(UNet, fused, want, smi):
     return out
 
 
+
+# The rest of the Predictor and the UNet options serving needs.
+TTA_FLIPS = 8            # predictor_tta_phase: the 3D default flips
+TTA_TOL = 1e-2           # its probabilities against the host's average
+# valid_phase: JAX's valid coverage shape (benchmark/coverage_bench.py
+# --conv-mode valid): the headline UNet takes (44, 140, 140) to
+# (4, 52, 52), an offset of (20, 44, 44); the request's volume is 1 x 3
+# x 3 such tiles, each the offset wider on each side.
+VALID_PATCH = (44, 140, 140)
+VALID_OUT = (4, 52, 52)
+VALID_VOLUME = (44, 244, 244)
+VALID_STEPS = 5
+OPTION_STEPS = 5
+
+
+def _flipped_logits(model, Predictor, vol, axes):
+    """The host's view of one flip: the logits (float32) of a request on
+    ``vol`` flipped along NC(D)HW ``axes``, flipped back."""
+    pred = Predictor(model, apply_softmax=False, out_dtype=np.float32,
+                     **PREDICT_KW)
+    out = pred.predict(np.ascontiguousarray(np.flip(vol, axes)))
+    return np.flip(out, axes) if axes else out
+
+
+def predictor_tta_phase(build, Predictor, fused, save_model):
+    """The headline model served with flip test-time augmentation
+    (``augmentations=8``) on the seeded volume: eight times the model
+    calls and the launches of the request without it, the probabilities
+    against the host's average of eight requests of flipped volumes'
+    logits (``TTA_TOL``), MVox/s of both requests, the six phases of a
+    ``collect_phase_times=True`` request of each, and the Predictor
+    loading the model from ``save_model``'s file and the weights from a
+    reference-style ``state_dict.pth`` (``module.`` prefixes) into a
+    model of other weights: the in-memory request's bits."""
+    from elektronn3_tpu_torch.inference import DEFAULT_AUGMENTATIONS_3D
+    model = build(0, torch.bfloat16).eval()
+    randomize_norms(model, 1)
+    vol = seeded_volume()
+    plain = Predictor(model, **PREDICT_KW)
+    tta = Predictor(model, augmentations=TTA_FLIPS, **PREDICT_KW)
+    counts, times, outs = {}, {}, {}
+    for what, pred in (("plain", plain), ("tta", tta)):
+        pred.predict(vol)                                  # warm-up
+        torch.cuda.synchronize()
+        calls = []
+        hook = model.register_forward_hook(lambda *a: calls.append(1))
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        outs[what] = pred.predict(vol)
+        times[what] = time.perf_counter() - t0
+        hook.remove()
+        counts[what] = (len(calls), launch_counts(fused))
+    (calls_p, launches_p), (calls_t, launches_t) = counts["plain"], \
+        counts["tta"]
+    print(f"predictor tta: {TTA_FLIPS} flips: {calls_t} model calls, "
+          f"{vol.size / times['tta'] / 1e6:.2f} MVox/s ({times['tta']:.3f} "
+          f"s); without: {calls_p} calls, "
+          f"{vol.size / times['plain'] / 1e6:.2f} MVox/s "
+          f"({times['plain']:.3f} s); launches {launches_t}", flush=True)
+    if calls_t != TTA_FLIPS * calls_p or any(
+            launches_t[k] != TTA_FLIPS * launches_p[k] for k in launches_p):
+        raise AssertionError(f"TTA: {calls_t} model calls and launches "
+                             f"{launches_t} against {TTA_FLIPS} x {calls_p} "
+                             f"and {launches_p}")
+    check_launched(launches_t, SERVING, "tta serving")
+    logits = np.mean([_flipped_logits(model, Predictor, vol, axes)
+                      for axes in DEFAULT_AUGMENTATIONS_3D[:TTA_FLIPS]],
+                     axis=0, dtype=np.float32)
+    host = np.exp(logits - logits.max(1, keepdims=True))
+    host /= host.sum(1, keepdims=True)
+    err = float(np.abs(outs["tta"] - host).max())
+    if not (np.isfinite(outs["tta"]).all() and err <= TTA_TOL):
+        raise AssertionError(f"TTA probabilities against the host's "
+                             f"average: max abs err {err}")
+    print(f"predictor tta: probabilities against the host's average of "
+          f"{TTA_FLIPS} flipped requests' logits: max abs err {err:.4e} "
+          f"(bound {TTA_TOL})", flush=True)
+    for what, aug in (("plain", None), ("tta", TTA_FLIPS)):
+        pred = Predictor(model, augmentations=aug, collect_phase_times=True,
+                         **PREDICT_KW)
+        t0 = time.perf_counter()
+        pred.predict(vol)
+        dt = time.perf_counter() - t0
+        print(f"predictor tta: {what} request with collect_phase_times: "
+              f"{vol.size / dt / 1e6:.2f} MVox/s ({dt:.3f} s); phases (s) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          pred.last_phase_times.items()), flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "model_final.pt")
+        save_model(model, path)
+        from_file = Predictor(path, **PREDICT_KW).predict(vol)
+        ref_path = os.path.join(root, "state_dict.pth")
+        torch.save({"model_state_dict": {
+            "module." + k: t for k, t in model.state_dict().items()}},
+            ref_path)
+        other = build(5, torch.bfloat16)
+        from_state = Predictor(other, state=ref_path,
+                               **PREDICT_KW).predict(vol)
+    for what, got in (("model=<save_model file>", from_file),
+                      ("state=<reference state_dict.pth>", from_state)):
+        if not np.array_equal(got, outs["plain"]):
+            raise AssertionError(f"Predictor({what}): max abs err "
+                                 f"{np.abs(got - outs['plain']).max()} "
+                                 "against the in-memory model")
+        print(f"predictor tta: Predictor({what}) gives the in-memory "
+              "request's bits", flush=True)
+    return launches_t
+
+
+def valid_phase(build, Predictor, CEDiceLoss, train_step, fused):
+    """The headline model with ``conv_mode='valid'`` (every level on the
+    library ops, as JAX plans it): a tiled ``offset='auto'`` request
+    (tiles (4, 52, 52) of a (44, 244, 244) volume; the probed offset
+    printed and checked, the first tile against the model on its input),
+    timed ``train_step``s at batch 8 of (44, 140, 140) and one step
+    against ``reference=True``."""
+    model = build(0, torch.bfloat16).eval()
+    randomize_norms(model, 1)
+    shape = (BATCH, *VALID_PATCH, 1)
+    kinds = model.level_kinds(shape)
+    print(f"valid: levels at {shape[1:-1]} {kinds}, decoder "
+          f"{model.decoder_kinds(shape)}", flush=True)
+    if kinds != ["library"] * 4:
+        raise AssertionError(f"valid: level kinds {kinds}")
+    vol = torch.randn((1, 1, *VALID_VOLUME),
+                      generator=torch.Generator().manual_seed(8)).numpy()
+    pred = Predictor(model, tile_shape=VALID_OUT, offset="auto",
+                     float16=True, batch_size=3)
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    probs = pred.predict(vol)
+    dt = time.perf_counter() - t0
+    offset = pred._offset_by_rank[5]
+    want = tuple((v - o) // 2 for v, o in zip(VALID_PATCH, VALID_OUT))
+    out_shape = (1, 2) + tuple(v - 2 * o for v, o in
+                               zip(VALID_VOLUME, offset))
+    print(f"valid: probed offset {offset}; request {vol.shape} -> "
+          f"{probs.shape} in {dt:.3f} s ({vol.size / dt / 1e6:.2f} MVox/s "
+          f"input, {probs[:, :1].size / dt / 1e6:.2f} output); launches "
+          f"{launch_counts(fused)}", flush=True)
+    if offset != want or probs.shape != out_shape \
+            or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - 1).max() > 1e-2:
+        raise AssertionError(f"valid request: offset {offset}, output "
+                             f"{probs.shape}")
+    with torch.inference_mode():
+        tile = torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+            vol[:, :, :VALID_PATCH[0], :VALID_PATCH[1], :VALID_PATCH[2]],
+            1, -1))).cuda()
+        first = torch.softmax(model(tile).float(), -1).movedim(-1, 1).cpu()
+    err = float(np.abs(first.numpy() - probs[:, :, :VALID_OUT[0],
+                                             :VALID_OUT[1],
+                                             :VALID_OUT[2]]).max())
+    if err > TTA_TOL:
+        raise AssertionError(f"valid: first tile against the model: {err}")
+    print(f"valid: first tile against the model on its input: max abs err "
+          f"{err:.4e} (bound {TTA_TOL})", flush=True)
+    del model, pred
+    crit = CEDiceLoss(1.0, 1.0)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(shape, generator=g, device="cuda")
+    y = torch.randint(0, 2, (BATCH,) + VALID_OUT, generator=g,
+                      device="cuda")
+    model = build(4, torch.bfloat16)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    dt = timed_steps(train_step, model, crit, opt, [(x, y)], False,
+                     warmup=2, steps=VALID_STEPS)
+    print(f"valid: train step {dt * 1e3:.2f} ms = "
+          f"{x.numel() / dt / 1e6:.2f} MVox/s input "
+          f"({y.numel() / dt / 1e6:.2f} output; batch {BATCH} of "
+          f"{VALID_PATCH} -> {VALID_OUT}, bf16), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB", flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    # Every level is a library level: the exactly-0 bias gradient of L0
+    # conv1 (one input channel) is summed by cuDNN from the bf16 dx of
+    # its batch norm, as on the silu model's library L0 conv1 (train
+    # silu's bound, 1e-1).
+    check_train_step(build, crit, x, y, zero_bf16=1e-1)
+
+
+def merge_add_phase(build, Predictor, CEDiceLoss, train_step, fused):
+    """The headline model with ``merge_mode='add'``: its forward against
+    ``reference=True`` on the tile with every decoder merge conv on K1
+    with the weight doubled along C_in, a Predictor request, and one
+    training step at the bench with the merges' K1, K4 and K5 launches
+    recorded (main then runs :func:`train_phase`'s timed and checked
+    steps, ``check_train_step`` in bf16 and float32)."""
+    model = build(0, torch.bfloat16).eval()
+    randomize_norms(model, 1)
+    x = torch.randn((1, *TILE, 1),
+                    generator=torch.Generator().manual_seed(2)).cuda()
+    print(f"add: levels at the tile {model.level_kinds(x.shape)}",
+          flush=True)
+    merges = []
+    real = fused.conv_bnact
+
+    def spy(xs, inv, shift, w, *a, **k):
+        if len(xs) == 2:
+            merges.append((tuple(xi.shape[-1] for xi in xs),
+                           tuple(w.shape)))
+        return real(xs, inv, shift, w, *a, **k)
+    fused.conv_bnact = spy
+    try:
+        check_forward(model, x, "add UNet bf16 forward")
+    finally:
+        fused.conv_bnact = real
+    del x
+    torch.cuda.empty_cache()
+    print(f"add: merge convs on K1 (inputs' channels, weight) {merges}",
+          flush=True)
+    if not merges or any(w[1] != sum(c) for c, w in merges):
+        raise AssertionError(f"add: merges {merges}")
+    vol = seeded_volume()
+    pred = Predictor(model, **PREDICT_KW)
+    pred.predict(vol)
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    probs = pred.predict(vol)
+    dt = time.perf_counter() - t0
+    launches = launch_counts(fused)
+    print(f"predictor add: {vol.size / dt / 1e6:.2f} MVox/s; launches "
+          f"{launches}", flush=True)
+    if not np.isfinite(probs).all():
+        raise AssertionError("add request: non-finite probabilities")
+    check_launched(launches, SERVING, "add serving")
+    del pred
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    model.train()
+    with record_shapes(fused) as seen:
+        train_step(model, CEDiceLoss(1.0, 1.0), opt,
+                   *bench_batches((BATCH, *PATCH, 1))[0])
+        torch.cuda.synchronize()
+    on_merges = {k: n for k, n in seen.items() if k[0] in (
+        "conv_bnact", "conv_bnact_dgrad", "conv_bnact_wgrad")
+        and len(k[1]) == 2}
+    print("train add: one step's launches on the merge convs (kernel, "
+          "inputs' channels, C_out, kd, prologue): " + ", ".join(
+              f"{k} {n}" for k, n in sorted(on_merges.items())), flush=True)
+    if {k[0] for k in on_merges} != {"conv_bnact", "conv_bnact_dgrad",
+                                     "conv_bnact_wgrad"}:
+        raise AssertionError(f"add training: merge launches {on_merges}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _zero_bias(name):
+    """A conv bias that feeds a batch norm: its gradient is exactly 0."""
+    return name.endswith(".bias") and "norm" not in name \
+        and name != "conv_final.bias"
+
+
+def options_phase(build, CEDiceLoss, train_step, fused):
+    """One timed ``train_step`` at the bench of the headline model with
+    ``up_mode='resizeconv_linear'``, ``attention=True``,
+    ``checkpointing=True`` and ``'policy'``, beside the plain model's:
+    each one's level kinds, ms a step and peak memory (a checkpointed
+    step's must be under the plain one's); then a checkpointed float32
+    step against the plain float32 step from the same weights and batch,
+    as ``check_train_step`` holds the kernels against the reference: the
+    loss within 1e-5 (relative), each gradient leaf within 1e-3 |r| +
+    NOISE_FACTOR |r' - r| (r' the plain step on an input moved by one
+    ulp: the recompute's batch statistics sum in another order), the
+    exactly-0 biases within 1e-4 of their weight gradient."""
+    crit = CEDiceLoss(1.0, 1.0)
+    batches = bench_batches((BATCH, *PATCH, 1))
+    peaks = {}
+    for what, opts in (("plain", {}),
+                       ("resizeconv_linear",
+                        dict(up_mode="resizeconv_linear")),
+                       ("attention", dict(attention=True)),
+                       ("checkpointing", dict(checkpointing=True)),
+                       ("checkpointing policy",
+                        dict(checkpointing="policy"))):
+        model = build(4, torch.bfloat16, **opts)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fused.reset_launches()
+        dt = timed_steps(train_step, model, crit, opt, batches, False,
+                         warmup=2, steps=OPTION_STEPS)
+        peaks[what] = torch.cuda.max_memory_allocated() / 1e6
+        shape = batches[0][0].shape
+        print(f"option {what}: levels {model.level_kinds(shape)}, decoder "
+              f"{model.decoder_kinds(shape)}; step {dt * 1e3:.2f} ms = "
+              f"{batches[0][0].numel() / dt / 1e6:.2f} MVox/s; peak "
+              f"{peaks[what]:.1f} MB; launches {launch_counts(fused)}",
+              flush=True)
+        del model, opt
+    torch.cuda.empty_cache()
+    x, y = batches[0]
+    noise = torch.randn(x.shape, generator=torch.Generator(
+        device=x.device).manual_seed(11), device=x.device)
+    loss0, ref = _step_grads(build(4, torch.float32), crit, x, y, False)
+    _, moved = _step_grads(build(4, torch.float32), crit,
+                           x * (1 + 2.0 ** -23 * noise), y, False)
+    failures = []
+    for what, opts in (("checkpointing", dict(checkpointing=True)),
+                       ("checkpointing policy",
+                        dict(checkpointing="policy"))):
+        loss, grads = _step_grads(build(4, torch.float32, **opts), crit, x,
+                                  y, False)
+        worst, worst_zero = (0.0, ""), 0.0
+        for n, g in grads.items():
+            r = ref[n]
+            if _zero_bias(n):
+                w = float(ref[n[:-len("bias")] + "weight"].norm())
+                worst_zero = max(worst_zero, float(g.norm()) / w)
+                continue
+            b = 1e-3 * float(r.norm()) \
+                + NOISE_FACTOR * float((moved[n] - r).norm())
+            worst = max(worst, (float((g - r).norm()) / max(b, 1e-30), n))
+        print(f"option {what}: peak {peaks[what]:.1f} MB against the plain "
+              f"step's {peaks['plain']:.1f} MB; float32 step against the "
+              f"plain step: loss {loss:.6f} vs {loss0:.6f}, worst gradient "
+              f"err/bound {worst[0]:.3f} ({worst[1]}), biases before a "
+              f"batch norm at most {worst_zero:.2e} of their weight "
+              "gradient", flush=True)
+        if abs(loss - loss0) > 1e-5 * abs(loss0) or worst[0] > 1 \
+                or worst_zero > 1e-4 or peaks[what] >= peaks["plain"]:
+            failures.append(f"{what}: loss {loss} vs {loss0}, gradient "
+                            f"err/bound {worst}, zero biases {worst_zero}, "
+                            f"peak {peaks[what]} MB")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4086,7 +4445,7 @@ def main():
     from elektronn3_tpu_torch.modules.loss import CEDiceLoss
     from elektronn3_tpu_torch.ops import (_build, fused, pallas_bn,
                                          pallas_conv, vup)
-    from elektronn3_tpu_torch.training import Trainer, train_step
+    from elektronn3_tpu_torch.training import Trainer, save_model, train_step
 
     print(f"card: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}",
           flush=True)
@@ -4162,6 +4521,15 @@ def main():
     def build_input_grad(seed, dtype, on=True):
         return headline_unet(UNet, seed, dtype, input_grad=on)
 
+    def build_valid(seed, dtype):
+        return headline_unet(UNet, seed, dtype, conv_mode="valid")
+
+    def build_add(seed, dtype):
+        return headline_unet(UNet, seed, dtype, merge_mode="add")
+
+    def build_option(seed, dtype, **options):
+        return headline_unet(UNet, seed, dtype, **options)
+
     stats = Stats()
     kernel_phase(fused, stats, VARIANTS, total=True)
     train_kernel_phase(fused, stats, TRAIN_VARIANTS, total=True,
@@ -4208,6 +4576,24 @@ def main():
     launches["train_input_grad"] = input_grad_phase(
         build_input_grad, CEDiceLoss, train_step, fused)
     mark("3D input_grad")
+    launches["predictor_tta"] = predictor_tta_phase(build3d, Predictor,
+                                                    fused, save_model)
+    torch.cuda.empty_cache()
+    mark("predictor tta")
+    valid_phase(build_valid, Predictor, CEDiceLoss, train_step, fused)
+    torch.cuda.empty_cache()
+    mark("valid")
+    launches["predictor_add"] = merge_add_phase(
+        build_add, Predictor, CEDiceLoss, train_step, fused)
+    launches["train_add"], model, crit, opt, batches = train_phase(
+        build_add, (BATCH, *PATCH, 1), "add", "MVox", CEDiceLoss,
+        train_step, fused, plain=False)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    mark("merge add")
+    options_phase(build_option, CEDiceLoss, train_step, fused)
+    torch.cuda.empty_cache()
+    mark("options")
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()

@@ -12,12 +12,18 @@ state_dict, in both directions.
 - per-parent flax ``BatchNorm_<n>`` slots (``PallasBatchNorm_<n>`` for
   ``normalization='batchp'``: every level of the XLA executor, the
   library levels of the fused one) map, in order of n, onto the port's
-  ``norm{k}`` modules: ``scale``/``bias`` params become
+  ``norm{k}`` modules in order of k (``full_norm=False`` leaves gaps in
+  k, as in the reference, and none in n; JAX's importer matches them by
+  order too): ``scale``/``bias`` params become
   ``weight``/``bias``, ``batch_stats`` ``mean``/``var`` become
   ``running_mean``/``running_var``; a group or instance norm's
   ``GroupNorm_<n>`` slots (params only: no batch statistics) map the
   same way, in the order both JAX executors create them (the fused one's
-  ``_stats_prologue`` names them as the XLA one's flax auto-names).
+  ``_stats_prologue`` names them as the XLA one's flax auto-names);
+- a block's ``PReLU_0`` ``slope`` (one learned slope a block,
+  ``activation='prelu'``) is the port's ``act.weight``; the resizeconv
+  ``upconv/conv``, the attention gate's ``attention/{theta,phi,psi,
+  out_proj}`` and the other convs are plain convs.
 
 ``flax_from_state_dict`` goes back: it fills the tree of given flax
 variables from torch tensors, so the port's running statistics after a
@@ -43,6 +49,8 @@ from torch import nn
 
 _NORM_RE = re.compile(
     r"^(?:Batch|Group|Layer|Instance|PallasBatch)Norm_(\d+)$")
+_TORCH_NORM_RE = re.compile(r"^norm(\d+)$")
+_PRELU = "PReLU_0"
 
 
 def conv_weight_from_flax(kernel) -> np.ndarray:
@@ -117,19 +125,39 @@ def _norm_slots(params: Mapping) -> Dict[Tuple[str, ...], list]:
     return slots
 
 
-def _torch_key(path: Tuple[str, ...], slots) -> str:
-    """flax leaf path (without the collection) -> torch state_dict key."""
+def torch_norm_names(keys) -> Dict[Tuple[str, ...], list]:
+    """Per parent module path (in flax names), the ``norm{k}`` module
+    names among the torch state_dict ``keys``, in order of k."""
+    names: Dict[Tuple[str, ...], list] = {}
+    for key in keys:
+        mod, _ = _flax_module_path(key)
+        if mod and _TORCH_NORM_RE.match(mod[-1]) \
+                and mod[-1] not in names.setdefault(mod[:-1], []):
+            names[mod[:-1]].append(mod[-1])
+    for lst in names.values():
+        lst.sort(key=lambda n: int(n[len("norm"):]))
+    return names
+
+
+def _torch_key(path: Tuple[str, ...], slots, norms) -> str:
+    """flax leaf path (without the collection) -> torch state_dict key;
+    the parent's n-th norm slot is its n-th torch norm of ``norms``."""
     out = []
     for d, p in enumerate(path[:-1]):
         m = re.fullmatch(r"(down|up)_(\d+)", p)
         if m:
             out += [m.group(1) + "_convs", m.group(2)]
         elif _NORM_RE.match(p):
-            out.append(f"norm{slots[path[:d]].index(p)}")
+            pos = slots[path[:d]].index(p)
+            have = norms.get(path[:d], [])
+            out.append(have[pos] if pos < len(have) else f"norm{pos}")
+        elif p == _PRELU:
+            out.append("act")
         else:
             out.append(p)
     leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",
-            "mean": "running_mean", "var": "running_var"}[path[-1]]
+            "mean": "running_mean", "var": "running_var",
+            "slope": "weight"}[path[-1]]
     return ".".join(out + [leaf])
 
 
@@ -146,11 +174,12 @@ def flax_from_state_dict(tensors: Mapping[str, Any],
     flax grad tree. Raises on a missing key or a shape mismatch."""
     params = _flatten(variables["params"])
     slots = _norm_slots(params)
+    norms = torch_norm_names(tensors)
     out: Dict[str, Dict] = {}
     for coll in collections:
         tree: Dict = {}
         for path, ref in _flatten(variables.get(coll, {})).items():
-            key = _torch_key(path, slots)
+            key = _torch_key(path, slots, norms)
             if key not in tensors:
                 raise KeyError(f"{'/'.join((coll,) + path)}: no tensor "
                                f"{key!r}")
@@ -160,6 +189,8 @@ def flax_from_state_dict(tensors: Mapping[str, Any],
             if path[-1] == "kernel":
                 v = (convtranspose_weight_to_flax(v) if path[-2] == "upconv"
                      else conv_weight_to_flax(v))
+            if path[-1] == "slope":
+                v = v.reshape(np.shape(ref))
             if v.shape != np.shape(ref):
                 raise ValueError(f"{key}: shape {v.shape} != flax "
                                  f"{np.shape(ref)}")
@@ -181,15 +212,20 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     slots = _norm_slots(params)
+    target = model.state_dict()
+    norms = torch_norm_names(target)
 
     out = {}
-    for key, ref in model.state_dict().items():
+    for key, ref in target.items():
         mod, leaf = _flax_module_path(key)
         if leaf == "num_batches_tracked":
             out[key] = ref.clone()
             continue
-        if mod and re.fullmatch(r"norm\d+", mod[-1]):
-            parent, k = mod[:-1], int(mod[-1][len("norm"):])
+        if mod and mod[-1] == "act":
+            val = np.asarray(params[mod[:-1] + (_PRELU, "slope")])
+        elif mod and _TORCH_NORM_RE.match(mod[-1]):
+            parent = mod[:-1]
+            k = norms[parent].index(mod[-1])
             if k >= len(slots.get(parent, [])):
                 raise KeyError(f"{key}: no flax norm slot {k} under "
                                f"{'/'.join(parent)}")

@@ -55,6 +55,14 @@ JAX UNet's ``pallas_flat`` plans its executors:
   (K8-K11), as they run ``PallasBatchNorm`` in JAX, while a kernel
   level takes its statistics from its convs as under ``'batch'``.
 
+The configuration surface follows JAX's structural declines: under
+``conv_mode='valid'`` or ``attention=True`` every level runs the library
+ops; a resizeconv ``up_mode`` runs its decoder levels on the library
+(:meth:`UNet.decoder_kinds`; a kernel encoder level's skip is then
+materialized); ``merge_mode='add'`` keeps the plan, its kernel merge
+convs running K1 over [upconv output, skip] with the weight doubled
+along C_in.
+
 ``pallas_flat`` is the JAX argument: False runs every level on the
 library ops; True every level the kernels take by structure, and the
 flat levels; ``'auto'`` (the default) the kernel levels alone, except
@@ -103,6 +111,7 @@ view).
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -110,13 +119,16 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from elektronn3_tpu_torch.modules.flat_norm import (
     bn_eval_prologue, bn_train_prologue, flat_batch_norm, gn_prologue,
     identity_prologue, norm_kind)
 from elektronn3_tpu_torch.modules.layers import (
-    GroupNorm, apply_norm, ceil_maxpool, conv_kernel, get_activation,
-    get_normalization, pool_window)
+    GridAttention, GroupNorm, apply_norm, ceil_maxpool, conv_kernel,
+    get_activation, get_normalization, pool_window, resize_linear,
+    resize_nearest)
 from elektronn3_tpu_torch.ops import fused, vup
 from elektronn3_tpu_torch.ops.flat_conv import flat_conv3, pool_flat
 from elektronn3_tpu_torch.ops.fused import FusedActs
@@ -127,7 +139,7 @@ _KERNEL_ACTS = {"relu": "relu", "leaky": "leaky", "lrelu": "leaky"}
 # The flat executor's activations: JAX's _FLAT_SAFE_ACTS
 # (elektronn3_tpu/models/unet.py:72-73) without those that have a
 # kernel prologue (their levels run the kernels) and without 'prelu'
-# (not ported).
+# (its levels run the library ops).
 _FLAT_ACTS = ("silu", "swish", "gelu", "tanh")
 # Under pallas_flat='auto', a C=128 level of fewer voxels (D * H * W)
 # than this runs the library ops: JAX's _FUSED128_MIN_VOX
@@ -146,6 +158,14 @@ _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONVT = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 _CONV_FN = {2: F.conv2d, 3: F.conv3d}
 _CONVT_FN = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+# The JAX UNet's option values (elektronn3_tpu/models/unet.py:117-120).
+UP_MODES = ("transpose", "resizeconv_nearest", "resizeconv_linear",
+            "resizeconv_nearest1", "resizeconv_linear1")
+MERGE_MODES = ("concat", "add")
+CONV_MODES = ("same", "valid")
+# The ops whose outputs checkpointing='policy' keeps (JAX's
+# save_only_these_names("conv_out"): the convs' outputs).
+_SAVED_OPS = (torch.ops.aten.convolution.default,)
 
 
 def _lift(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -225,8 +245,9 @@ def _xavier_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 def _init_conv(conv: nn.Module, gen: torch.Generator) -> None:
     _xavier_(conv.weight, gen)
-    with torch.no_grad():
-        conv.bias.zero_()
+    if conv.bias is not None:
+        with torch.no_grad():
+            conv.bias.zero_()
 
 
 def _plain_conv(x: torch.Tensor, conv: nn.Module, dtype: torch.dtype,
@@ -250,16 +271,20 @@ def _kernel_params(conv: nn.Module, dtype: torch.dtype, dim: int,
     return _w5(conv.weight, dim), conv.bias
 
 
-def _norm_pro(norm: Optional[nn.Module], out) -> Tuple[
-        torch.Tensor, torch.Tensor]:
+def _norm_pro(norm: Optional[nn.Module], out,
+              batch: Optional[int] = None) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
     """The (inv, shift) prologue of a kernel op's output ``out``: (y, s,
     q) in training, where the norm takes the batch statistics (s, q),
     else the output alone, whose norm takes the running statistics; a
     group norm's output is (y, s, q) with per-sample (N, C) statistics
-    always, and its prologue is per sample (``gn_prologue``)."""
+    always, and its prologue is per sample (``gn_prologue``). Without a
+    norm (``'none'``, or a position ``full_norm=False`` leaves bare) the
+    identity, per sample with ``batch`` (a level whose other prologues
+    are per sample)."""
     y = out[0] if isinstance(out, tuple) else out
     if norm is None:
-        return identity_prologue(y.shape[-1], y.device)
+        return identity_prologue(y.shape[-1], y.device, batch)
     if isinstance(norm, GroupNorm):
         return gn_prologue(norm, out[1], out[2], y[0, ..., 0].numel(),
                            norm.num_groups)
@@ -286,18 +311,84 @@ def _side_stats(out) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     return out[1:] if isinstance(out, tuple) else None
 
 
+def _ps_batch(norm: Optional[nn.Module], n: int) -> Optional[int]:
+    """The batch of a level's per-sample prologues (``n`` under a group
+    norm, whose prologues are (N, C)), else None."""
+    return n if isinstance(norm, GroupNorm) else None
+
+
+def _act_module(activation: str, device) -> Optional[nn.Module]:
+    """A block's own activation module: 'prelu' (a learned slope shared
+    by the block's activations, as flax's one ``PReLU_0`` a block) or
+    'rrelu'; None for the stateless activations."""
+    act = get_activation(activation, device)
+    return act if isinstance(act, nn.Module) else None
+
+
+def _norm_or_none(on: bool, normalization: str, channels: int, device,
+                  dim: int) -> Optional[nn.Module]:
+    """A norm where ``on`` (``full_norm`` for the positions it governs),
+    else None: the reference's bare positions, whose ``norm{k}`` names
+    then leave a gap."""
+    return get_normalization(normalization, channels, device, dim) \
+        if on else None
+
+
+def _checkpointed(block: nn.Module, policy: bool, *args):
+    """``block(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward, all of them, or
+    with ``policy`` all but the convs' outputs (JAX's
+    ``checkpointing='policy'``). The recompute leaves the block's
+    buffers (running statistics) as the forward left them."""
+    first = [True]
+
+    def run(*a):
+        recompute = not first[0]
+        first[0] = False
+        bufs = list(block.buffers())
+        kept = [b.clone() for b in bufs]
+        try:
+            return block(*a)
+        finally:
+            # The recompute (cut short once it has what the backward
+            # needs) restores the buffers; the forward copies the other
+            # way, so that both passes run the same ops (the selective
+            # checkpoint replays the forward's op by op).
+            with torch.no_grad():
+                for b, k in zip(bufs, kept):
+                    if recompute:
+                        b.copy_(k)
+                    else:
+                        k.copy_(b)
+
+    kw = {}
+    if policy:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            lambda ctx, op, *a, **k: CheckpointPolicy.MUST_SAVE
+            if op in _SAVED_OPS else CheckpointPolicy.PREFER_RECOMPUTE)
+    return checkpoint(run, *args, use_reentrant=False, **kw)
+
+
+def _conv_pad(ks: Sequence[int], conv_mode: str):
+    return tuple(k // 2 for k in ks) if conv_mode == "same" else 0
+
+
 class DownConv(nn.Module):
     """Two convolutions + optional max pool (reference unet.py:202-253):
-    conv -> norm -> act -> conv -> norm -> act -> pool."""
+    conv -> norm -> act -> conv -> norm -> act -> pool. Without
+    ``full_norm`` conv1's norm (``norm0``) is left out; ``conv_mode=
+    'valid'`` convolves without padding."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  pooling: bool = True, planar: bool = False,
                  activation: str = "relu", normalization: str = "batch",
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[torch.device] = None, dim: int = 3):
+                 device: Optional[torch.device] = None, dim: int = 3,
+                 full_norm: bool = True, conv_mode: str = "same"):
         super().__init__()
         ks = conv_kernel(3, dim, planar)
-        pad = tuple(k // 2 for k in ks)
+        pad = _conv_pad(ks, conv_mode)
         self.pooling = pooling
         self.planar = planar
         self.activation = activation
@@ -307,10 +398,11 @@ class DownConv(nn.Module):
                                 device=device)
         self.conv2 = _CONV[dim](out_channels, out_channels, ks, padding=pad,
                                 device=device)
-        self.norm0 = get_normalization(normalization, out_channels, device,
-                                       dim)
+        self.norm0 = _norm_or_none(full_norm, normalization, out_channels,
+                                   device, dim)
         self.norm1 = get_normalization(normalization, out_channels, device,
                                        dim)
+        self.act = _act_module(activation, device)
 
     def forward(self, x: torch.Tensor, kind: str = "library",
                 reference: bool = False, input_grad: bool = True):
@@ -334,7 +426,8 @@ class DownConv(nn.Module):
                                     "linear", want_stats=_stats(self.norm0),
                                     reference=reference,
                                     input_grad=input_grad)
-            inv1, shift1 = _norm_pro(self.norm0, out1)
+            inv1, shift1 = _norm_pro(self.norm0, out1,
+                                     _ps_batch(self.norm1, x.shape[0]))
             w2, b2 = _kernel_params(self.conv2, self.dtype, self.dim)
             out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
                                     want_stats=_stats(self.norm1),
@@ -348,7 +441,8 @@ class DownConv(nn.Module):
                 pool_window(3, self.planar or self.dim == 2),
                 reference=reference)
             return _drop(pooled, self.dim), FusedActs(y2, inv2, shift2)
-        act = get_activation(self.activation)
+        act = self.act if self.act is not None \
+            else get_activation(self.activation)
         if not input_grad and x.requires_grad:
             x = _ZeroGrad.apply(x)
         y = _plain_conv(x, self.conv1, self.dtype, self.dim)
@@ -371,43 +465,96 @@ class DownConv(nn.Module):
         return y, y
 
 
+class ResizeConv(nn.Module):
+    """Upsampling by a 2x resize (nearest or linear) and a conv, the JAX
+    package's ``ResizeConv`` (reference unet.py:411-449): the conv is
+    3x3(x3) ('same' padding, planar on a planar level) or 1x1(x1)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, planar: bool = False, dim: int = 3,
+                 mode: str = "nearest", dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        if kernel_size not in (1, 3):
+            raise ValueError(f"kernel_size={kernel_size} not supported. "
+                             "Choose 1 or 3.")
+        ks = conv_kernel(3, dim, planar) if kernel_size == 3 else (1,) * dim
+        self.factor = pool_window(dim, planar)
+        self.mode = mode
+        self.dtype = dtype
+        self.dim = dim
+        self.conv = _CONV[dim](in_channels, out_channels, ks,
+                               padding=tuple(k // 2 for k in ks),
+                               device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "nearest":
+            up = resize_nearest(x, self.factor)
+        else:
+            up = resize_linear(x, [s * f for s, f in
+                                   zip(x.shape[1:-1], self.factor)])
+        return _plain_conv(up, self.conv, self.dtype, self.dim)
+
+
 class UpConv(nn.Module):
-    """Transposed-conv upsampling, concat merge with the skip, two
-    convolutions (reference unet.py:328-409): upconv -> norm -> act ->
-    concat -> conv -> norm -> act -> conv -> norm -> act."""
+    """Upsampling, merge with the skip, two convolutions (reference
+    unet.py:328-409): upconv -> norm -> act -> merge -> conv -> norm ->
+    act -> conv -> norm -> act. ``up_mode`` 'transpose' upsamples by a
+    transposed conv, the resizeconv modes by :class:`ResizeConv`;
+    ``merge_mode`` 'concat' concatenates [upsampled, skip], 'add' adds
+    them (conv1 then takes C input channels, not 2 C); with
+    ``attention`` the skip passes :class:`GridAttention` gated by the
+    deeper level's output first; without ``full_norm`` the upconv's and
+    conv1's norms (``norm0``, ``norm1``) are left out."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  planar: bool = False, activation: str = "relu",
                  normalization: str = "batch",
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[torch.device] = None, dim: int = 3):
+                 device: Optional[torch.device] = None, dim: int = 3,
+                 full_norm: bool = True, conv_mode: str = "same",
+                 up_mode: str = "transpose", merge_mode: str = "concat",
+                 attention: bool = False):
         super().__init__()
         ks = conv_kernel(3, dim, planar)
-        pad = tuple(k // 2 for k in ks)
+        pad = _conv_pad(ks, conv_mode)
         win = pool_window(dim, planar)
         self.planar = planar
         self.activation = activation
         self.dtype = dtype
         self.dim = dim
-        self.upconv = _CONVT[dim](in_channels, out_channels, win, stride=win,
-                                  device=device)
-        self.conv1 = _CONV[dim](2 * out_channels, out_channels, ks,
-                                padding=pad, device=device)
+        self.merge_mode = merge_mode
+        if up_mode == "transpose":
+            self.upconv = _CONVT[dim](in_channels, out_channels, win,
+                                      stride=win, device=device)
+        else:
+            self.upconv = ResizeConv(
+                in_channels, out_channels, 1 if up_mode.endswith("1") else 3,
+                planar, dim, "nearest" if "nearest" in up_mode else "linear",
+                dtype, device)
+        merged = 2 * out_channels if merge_mode == "concat" else out_channels
+        self.conv1 = _CONV[dim](merged, out_channels, ks, padding=pad,
+                                device=device)
         self.conv2 = _CONV[dim](out_channels, out_channels, ks, padding=pad,
                                 device=device)
-        self.norm0 = get_normalization(normalization, out_channels, device,
-                                       dim)
-        self.norm1 = get_normalization(normalization, out_channels, device,
-                                       dim)
+        self.norm0 = _norm_or_none(full_norm, normalization, out_channels,
+                                   device, dim)
+        self.norm1 = _norm_or_none(full_norm, normalization, out_channels,
+                                   device, dim)
         self.norm2 = get_normalization(normalization, out_channels, device,
                                        dim)
+        self.attention = GridAttention(out_channels, in_channels, dim,
+                                       dtype=dtype, device=device) \
+            if attention else None
+        self.act = _act_module(activation, device)
 
     def _vup_ok(self, dec) -> bool:
         """Whether this 'kernels' level takes the vup branch (JAX's
         ``vup_ok``, its TPU tiling and lane gates aside): an in-plane
         (kd=1) level of 32 channels whose deeper input is the carried
         activation of a 64-channel kernel decoder level."""
-        return (self.upconv.out_channels == 32
+        return (self.merge_mode == "concat"
+                and self.upconv.out_channels == 32
                 and (self.planar or self.dim == 2)
                 and isinstance(dec, FusedActs) and dec.raw.shape[-1] == 64)
 
@@ -422,8 +569,9 @@ class UpConv(nn.Module):
         1191), over u's voxels of a sample, four a carry voxel."""
         norm = self.norm0
         if norm is None:
-            return identity_prologue(self.upconv.out_channels,
-                                     dec.raw.device)
+            return identity_prologue(self.upconv.out_channels, dec.raw.device,
+                                     _ps_batch(self.norm2,
+                                               dec.raw.shape[0]))
         if isinstance(norm, GroupNorm):
             s, q = vup.upconv_stats(dec.raw, dec.inv, dec.shift, wu,
                                     self.upconv.bias, act,
@@ -440,7 +588,8 @@ class UpConv(nn.Module):
     def _kernel_tail(self, out1, act: str, reference: bool) -> FusedActs:
         """A kernel decoder level after its merge conv: conv2 on the
         merge's carried output, and the level's carry."""
-        inv1, shift1 = _norm_pro(self.norm1, out1)
+        inv1, shift1 = _norm_pro(self.norm1, out1, _ps_batch(
+            self.norm2, _raw(out1).shape[0]))
         w2, b2 = _kernel_params(self.conv2, self.dtype, self.dim)
         out2 = fused.conv_bnact([_raw(out1)], inv1, shift1, w2, b2, act,
                                 want_stats=_stats(self.norm2),
@@ -455,7 +604,9 @@ class UpConv(nn.Module):
         decoder level); ``kind`` is the level's
         (:meth:`UNet.level_kinds`); ``vup_on`` the model's ``vup``.
         Returns :class:`FusedActs` (5-D) on 'kernels', a tensor
-        otherwise."""
+        otherwise. A 'library' level takes a skip of :class:`FusedActs`
+        (its encoder level on the kernels, as a resizeconv decoder's)
+        materialized."""
         if kind == "kernels":
             act = _KERNEL_ACTS[self.activation]
             # The upconv takes the float32 weight and bias in every JAX
@@ -463,6 +614,11 @@ class UpConv(nn.Module):
             # upconv122_bn_flat64, upconv122_from_flat64).
             wu = _w5(self.upconv.weight, self.dim)
             w1, b1 = _kernel_params(self.conv1, self.dtype, self.dim)
+            if self.merge_mode == "add":
+                # JAX's dup_weights: conv(u + e) as the conv of [u, e]
+                # with the weight twice along C_in; autograd of the
+                # concat sums the two halves of K5's dW.
+                w1 = torch.cat([w1, w1], dim=1)
             if vup_on and self._vup_ok(dec):
                 # JAX's batch-statistics slot order (unet.py:1182-1207):
                 # the upconv's norm, then conv1's, then conv2's.
@@ -483,7 +639,8 @@ class UpConv(nn.Module):
                     _lift(dec, self.dim), None, None, wu, self.upconv.bias,
                     "linear", want_stats=_stats(self.norm0),
                     reference=reference)
-            invu, shiftu = _norm_pro(self.norm0, outu)
+            invu, shiftu = _norm_pro(self.norm0, outu, _ps_batch(
+                self.norm2, enc.raw.shape[0]))
             # The merge conv's prologue is the concat of the upconv
             # output's and the skip's, (C,) or per sample (N, C).
             out1 = fused.conv_bnact(
@@ -491,20 +648,31 @@ class UpConv(nn.Module):
                 torch.cat([shiftu, enc.shift], dim=-1), w1, b1, act,
                 want_stats=_stats(self.norm1), reference=reference)
             return self._kernel_tail(out1, act, reference)
-        act = get_activation(self.activation)
+        act = self.act if self.act is not None \
+            else get_activation(self.activation)
         if isinstance(dec, FusedActs):
             dec = _drop(fused.materialize(dec, _KERNEL_ACTS[self.activation]),
                         self.dim)
-        up = _CONVT_FN[self.dim](
-            dec.movedim(-1, 1), self.upconv.weight.to(self.dtype),
-            self.upconv.bias.to(self.dtype), stride=self.upconv.stride)
-        enc, up = autocrop(enc, up.movedim(1, -1))
+        if isinstance(enc, FusedActs):
+            enc = _drop(fused.materialize(enc, _KERNEL_ACTS[self.activation]),
+                        self.dim)
+        if isinstance(self.upconv, ResizeConv):
+            up = self.upconv(dec)
+        else:
+            up = _CONVT_FN[self.dim](
+                dec.movedim(-1, 1), self.upconv.weight.to(self.dtype),
+                self.upconv.bias.to(self.dtype), stride=self.upconv.stride
+            ).movedim(1, -1)
+        enc, up = autocrop(enc, up)
+        if self.attention is not None:
+            enc, _ = self.attention(enc, dec)
         if kind == "flat":
             # JAX's flat UpConv (elektronn3_tpu/models/unet.py:1245-1278):
             # the upconv on the library (XLA there), FlatBatchNorm, the
             # merge conv over [up, enc] and conv2 through flat_conv3.
             up = act(flat_batch_norm(self.norm0, up))
-            out1 = flat_conv3([up, enc], self.conv1.weight, self.conv1.bias,
+            merged = [up, enc] if self.merge_mode == "concat" else [up + enc]
+            out1 = flat_conv3(merged, self.conv1.weight, self.conv1.bias,
                               want_stats=_stats(self.norm1),
                               reference=reference)
             y = act(flat_batch_norm(self.norm1, _raw(out1),
@@ -515,7 +683,8 @@ class UpConv(nn.Module):
             return act(flat_batch_norm(self.norm2, _raw(out2),
                                        _side_stats(out2)))
         up = act(apply_norm(self.norm0, up, reference))
-        y = torch.cat([up, enc], dim=-1)
+        y = torch.cat([up, enc], dim=-1) if self.merge_mode == "concat" \
+            else up + enc
         y = act(apply_norm(self.norm1, _plain_conv(y, self.conv1, self.dtype,
                                                    self.dim), reference))
         return act(apply_norm(self.norm2, _plain_conv(y, self.conv2,
@@ -541,9 +710,23 @@ class UNet(nn.Module):
     (``device="cpu"``), so a model never runs on the CPU unasked. The
     ``Predictor`` and the ``Trainer`` follow the model's device.
 
-    Ported configuration surface: the JAX UNet's defaults
-    ``up_mode='transpose'``, ``merge_mode='concat'``, ``conv_mode='same'``,
-    ``full_norm=True``, ``logit_dtype=None``, with ``dim`` 3 or 2,
+    Ported configuration surface: ``up_mode`` 'transpose' (the default)
+    and the four resizeconv modes (:class:`ResizeConv`; their decoder
+    levels run the library ops, as JAX's fused decoders take only
+    'transpose', while the encoder levels keep their kind:
+    :meth:`decoder_kinds`), ``merge_mode`` 'concat' (the default) or
+    'add' (a kernel decoder level runs its merge conv as K1 over [up,
+    skip] with the weight doubled along C_in, JAX's ``dup_weights``;
+    ``vup`` is off for such levels, as in JAX), ``conv_mode`` 'same'
+    (the default) or 'valid' (every level on the library ops, as JAX
+    declines its executors; :func:`autocrop` center-crops the skips),
+    ``attention`` (:class:`GridAttention` on each decoder level's skip;
+    every level on the library ops, as in JAX), ``full_norm`` (False:
+    only the norm after each block's last conv), ``checkpointing``
+    (True: each block's activations recomputed in the backward through
+    ``torch.utils.checkpoint``; 'policy': all but the convs' outputs;
+    the same numbers, less memory), ``logit_dtype`` (None: bfloat16 for
+    a bfloat16 model, float32 otherwise), with ``dim`` 3 or 2,
     normalization 'batch', 'batchp' or 'none' ('batchp' plans its kernel
     levels as 'batch' does; as in JAX, no 'batchp' level is flat), and
     'group' (8 groups), 'group<G>' and 'instance' (:class:`GroupNorm`,
@@ -551,7 +734,11 @@ class UNet(nn.Module):
     per-sample mode, with ``vup`` and in 2D too),
     activations 'relu', 'leaky' (kernel levels), 'silu', 'swish',
     'gelu', 'tanh' (flat levels under ``pallas_flat=True``) and the
-    rest of ``get_activation`` (library levels), ``pallas_flat``
+    rest of ``get_activation`` (library levels; 'prelu' with one learned
+    slope a block, JAX's ``PReLU_0``, also where JAX's
+    ``pallas_flat=True`` runs its flat executor, whose numbers the
+    library ops give too; 'rrelu' with random slopes in training),
+    ``pallas_flat``
     True, False or 'auto' (see the module docstring;
     :meth:`level_kinds` gives the levels), and ``vup`` True or False
     (default False, as JAX's ``E3TPU_VUP``; the port reads no
@@ -582,7 +769,11 @@ class UNet(nn.Module):
     the port's vup takes every even H and W its kernel levels take.
     Where JAX declines for one of these, the port runs the kernels, and
     its result is still JAX's (tests/test_torch_headline_rows.py holds
-    one shape for each, tests/test_torch_vup.py the vup one).
+    one shape for each, tests/test_torch_vup.py the vup one). Likewise
+    JAX's C=64 fused decoder takes only ``merge_mode='concat'``, a limit
+    of its executor, so under 'add' JAX runs those decoder levels on XLA
+    while the port runs them on the kernels with the doubled weight
+    (tests/test_torch_unet_surface.py holds the result against JAX's).
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 2,
@@ -593,10 +784,27 @@ class UNet(nn.Module):
                  device: Union[None, str, torch.device] = None,
                  generator: Optional[torch.Generator] = None,
                  pallas_flat: Union[bool, str] = "auto",
-                 vup: bool = False, input_grad: bool = False):
+                 vup: bool = False, input_grad: bool = False,
+                 up_mode: str = "transpose", merge_mode: str = "concat",
+                 conv_mode: str = "same", attention: bool = False,
+                 full_norm: bool = True,
+                 checkpointing: Union[bool, str] = False,
+                 logit_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if n_blocks < 1:
             raise ValueError("n_blocks must be > 0")
+        if up_mode not in UP_MODES:
+            raise ValueError(f'"{up_mode}" is not a valid mode for '
+                             "upsampling")
+        if merge_mode not in MERGE_MODES:
+            raise ValueError(f'"{merge_mode}" is not a valid mode for '
+                             "merging")
+        if conv_mode not in CONV_MODES:
+            raise ValueError(f'"{conv_mode}" is not a valid conv_mode')
+        if not (checkpointing is True or checkpointing is False
+                or checkpointing == "policy"):
+            raise ValueError(f"checkpointing must be True, False or "
+                             f"'policy', got {checkpointing!r}")
         if vup is not True and vup is not False:
             raise ValueError(f"vup must be True or False, got {vup!r}")
         if input_grad is not True and input_grad is not False:
@@ -632,10 +840,18 @@ class UNet(nn.Module):
         self.pallas_flat = pallas_flat
         self.vup = vup
         self.input_grad = input_grad
+        self.up_mode = up_mode
+        self.merge_mode = merge_mode
+        self.conv_mode = conv_mode
+        self.attention = attention
+        self.full_norm = full_norm
+        self.checkpointing = checkpointing
+        self.logit_dtype = logit_dtype
         self._plans: Dict[tuple, List[str]] = {}
 
         common = dict(activation=activation, normalization=normalization,
-                      dtype=dtype, device=device, dim=dim)
+                      dtype=dtype, device=device, dim=dim,
+                      full_norm=full_norm, conv_mode=conv_mode)
         self.down_convs = nn.ModuleList()
         outs = in_channels
         for i in range(n_blocks):
@@ -650,7 +866,9 @@ class UNet(nn.Module):
             outs = ins // 2
             level = n_blocks - 2 - i
             self.up_convs.append(UpConv(
-                ins, outs, planar=level in self.planar_blocks, **common))
+                ins, outs, planar=level in self.planar_blocks,
+                up_mode=up_mode, merge_mode=merge_mode, attention=attention,
+                **common))
         self.conv_final = _CONV[dim](outs, out_channels, 1, device=device)
 
         gen = generator if generator is not None \
@@ -660,9 +878,11 @@ class UNet(nn.Module):
                 _init_conv(m, gen)
 
     def _logit_dtype(self) -> torch.dtype:
-        """bf16 logits for a bf16 model (they halve the logit volume's
-        traffic; the Predictor upcasts before softmax), float32
-        otherwise."""
+        """``logit_dtype`` if given, else bf16 logits for a bf16 model
+        (they halve the logit volume's traffic; the Predictor upcasts
+        before softmax) and float32 otherwise (JAX's ``_logit_dtype``)."""
+        if self.logit_dtype is not None:
+            return self.logit_dtype
         return torch.bfloat16 if self.dtype == torch.bfloat16 \
             else torch.float32
 
@@ -680,6 +900,12 @@ class UNet(nn.Module):
         planar = self._planar(i)
         if self.pallas_flat is False:
             return "pallas_flat=False runs the library ops"
+        if self.conv_mode != "same":
+            # JAX: its executors share one geometry between a conv's
+            # input and output; valid convs shrink every level.
+            return f"conv_mode={self.conv_mode!r} runs the library ops"
+        if self.attention:
+            return "attention=True runs the library ops"
         kind, groups = norm_kind(self.normalization, ch)
         if kind == "group" and ch % groups:
             # JAX's _norm_fused_ok: the library level's GroupNorm raises
@@ -714,6 +940,7 @@ class UNet(nn.Module):
         planar 3D level of C=32 or 64, 'batch' or 'none' norm, an
         activation of ``_FLAT_ACTS``, even H and W."""
         return (self.pallas_flat is True and self.dim == 3
+                and self.conv_mode == "same" and not self.attention
                 and i in self.planar_blocks
                 and self.start_filts * 2 ** i in (32, 64)
                 and self.normalization in ("batch", "none")
@@ -761,7 +988,8 @@ class UNet(nn.Module):
         ``_JAX_FUSED_ROWS_TRAIN`` flat rows) for a one-channel input of
         W <= 128 that its 2D H-tiling leaves whole."""
         if self.input_grad or self.in_channels != 1 \
-                or self.start_filts != 32:
+                or self.start_filts != 32 or self.conv_mode != "same" \
+                or self.attention:
             return True
         auto_bf16 = self.pallas_flat == "auto" \
             and self.dtype == torch.bfloat16
@@ -813,6 +1041,17 @@ class UNet(nn.Module):
         self._plans[key] = kinds
         return kinds
 
+    def decoder_kinds(self, shape: Sequence[int]) -> List[str]:
+        """The kind of each decoder level (index = encoder level, the
+        bottom level has none) for an input of ``shape``: its encoder
+        level's (:meth:`level_kinds`) under ``up_mode='transpose'``, else
+        'library' (JAX fuses no resizeconv decoder; a kernel encoder
+        level's skip is then materialized)."""
+        kinds = self.level_kinds(shape)[:-1]
+        if self.up_mode == "transpose":
+            return kinds
+        return ["library"] * len(kinds)
+
     def plan(self, shape: Sequence[int]) -> List[bool]:
         """Per-level kernel plan for an input of ``shape``: True where
         :meth:`level_kinds` says 'kernels'."""
@@ -830,6 +1069,14 @@ class UNet(nn.Module):
         with torch.no_grad():
             return self._forward(x, reference)
 
+    def _block(self, block: nn.Module, *args):
+        """A block's forward, checkpointed in a training forward that
+        builds a graph when ``checkpointing`` asks (JAX remats each
+        block the same way)."""
+        if self.checkpointing and self.training and torch.is_grad_enabled():
+            return _checkpointed(block, self.checkpointing == "policy", *args)
+        return block(*args)
+
     def _forward(self, x: torch.Tensor, reference: bool) -> torch.Tensor:
         if x.dim() != self.dim + 2 or x.shape[-1] != self.in_channels:
             layout = "N, D, H, W" if self.dim == 3 else "N, H, W"
@@ -837,16 +1084,19 @@ class UNet(nn.Module):
                 f"Input shape {tuple(x.shape)}: expected channels-last "
                 f"({layout}, {self.in_channels}).")
         kinds = self.level_kinds(x.shape)
+        dec_kinds = self.decoder_kinds(x.shape)
         input_grad = self._conv1_input_grad(x.shape)
         x = x.to(self.dtype).contiguous()
         skips = []
         for i, down in enumerate(self.down_convs):
-            x, skip = down(x, kinds[i], reference, input_grad or i > 0)
+            x, skip = self._block(down, x, kinds[i], reference,
+                                  input_grad or i > 0)
             skips.append(skip)
         x = skips.pop()   # the bottom level does not pool
         for i, up in enumerate(self.up_convs):
             level = self.n_blocks - 2 - i
-            x = up(skips[level], x, kinds[level], reference, self.vup)
+            x = self._block(up, skips[level], x, dec_kinds[level], reference,
+                            self.vup)
         if isinstance(x, FusedActs):
             # Both JAX heads round the weight and bias to the model
             # dtype before the float32 GEMM (head_bnact_from_flat at

@@ -1,8 +1,9 @@
-"""Core building blocks: activations, normalization, kernel helpers.
+"""Core building blocks: activations, normalization, kernel helpers,
+resizing and the grid attention gate.
 
 Counterpart of the JAX package's ``modules/layers.py`` (reference
-elektronn3/models/unet.py:77-199). Tensors are channels-last NDHWC (NHWC
-in 2D), as in the JAX package; a block that needs PyTorch's
+elektronn3/models/unet.py:77-199, :452-547). Tensors are channels-last
+NDHWC (NHWC in 2D), as in the JAX package; a block that needs PyTorch's
 channels-first convention views them with ``movedim`` and no copy.
 """
 
@@ -45,13 +46,54 @@ _ACTIVATIONS = {
 }
 
 
-def get_activation(activation: Union[str, Callable]) -> Callable:
-    """Resolve an activation name (or callable) to a callable.
-    'prelu' and 'rrelu' (learned or random slopes) are not ported yet."""
+class PReLU(nn.Module):
+    """Parametric ReLU with one learned slope (a 0-d ``weight``, 0.25 at
+    first), the JAX package's ``PReLU``: ``where(x >= 0, x, slope * x)``,
+    the slope rounded to ``x``'s dtype."""
+
+    def __init__(self, init_slope: float = 0.25,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((), init_slope,
+                                              device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+class RReLU(nn.Module):
+    """Randomized leaky ReLU, the JAX package's ``RReLU``: in training a
+    slope per element drawn uniformly from [lower, upper] by torch's
+    generator of ``x``'s device (which ``torch.utils.checkpoint``
+    replays in a recompute), in eval the mean slope (lower + upper) / 2."""
+
+    def __init__(self, lower: float = 1.0 / 8, upper: float = 1.0 / 3):
+        super().__init__()
+        self.lower = lower
+        self.upper = upper
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return torch.where(x >= 0, x,
+                               (self.lower + self.upper) / 2 * x)
+        slope = torch.empty_like(x).uniform_(self.lower, self.upper)
+        return torch.where(x >= 0, x, slope * x)
+
+
+def get_activation(activation: Union[str, Callable],
+                   device: Optional[torch.device] = None) -> Callable:
+    """Resolve an activation name (or callable) to a callable. 'prelu'
+    and 'rrelu' give a new module (a learned slope, random slopes) that
+    the caller owns, as the JAX package's ``get_activation`` does."""
     if callable(activation):
         return activation
+    name = activation.lower()
+    if name == "prelu":
+        return PReLU(device=device)
+    if name == "rrelu":
+        return RReLU()
     try:
-        return _ACTIVATIONS[activation.lower()]
+        return _ACTIVATIONS[name]
     except KeyError:
         raise ValueError(f"Unknown activation: {activation!r}") from None
 
@@ -188,3 +230,108 @@ def _to_tuple(x, n: int) -> Tuple[int, ...]:
     if len(t) != n:
         raise ValueError(f"expected {n} sizes, got {t}")
     return t
+
+
+def resize_nearest(x: torch.Tensor, factor: Sequence[int]) -> torch.Tensor:
+    """Nearest-neighbour upsampling of a channels-last tensor's spatial
+    axes by integer factors (each voxel repeated), the JAX package's
+    ``resize_nearest``."""
+    for axis, f in enumerate(factor, start=1):
+        if f != 1:
+            x = torch.repeat_interleave(x, f, dim=axis)
+    return x
+
+
+def _linear_weights(n_in: int, n_out: int,
+                    device: torch.device) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of ``jax.image.resize``'s 'linear'
+    method along one axis (``compute_weight_mat`` with the triangle
+    kernel, antialiased: widened by n_in / n_out when shrinking), half-
+    pixel centres, each column normalized to sum 1."""
+    inv = n_in / n_out
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(
+        n_in, dtype=torch.float32, device=device)[:, None]).abs()
+    w = torch.clamp_min(1.0 - dist / max(inv, 1.0), 0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_linear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """(Bi-/tri-)linear resize of a channels-last tensor's spatial axes
+    to ``size``: ``jax.image.resize(method='linear')`` (antialiased when
+    shrinking), the JAX package's ``resize_linear`` and its attention
+    gate's resizes. Computed in float32, rounded to ``x``'s dtype once;
+    an axis whose size does not change is left as it is."""
+    y = x.float()
+    for axis, n_out in enumerate(size, start=1):
+        n_in = y.shape[axis]
+        if n_in != n_out:
+            w = _linear_weights(n_in, n_out, y.device)
+            y = torch.tensordot(y, w, dims=([axis], [0])).movedim(-1, axis)
+    return y.to(x.dtype)
+
+
+def _same_pad_conv(x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor], stride: Sequence[int],
+                   ) -> torch.Tensor:
+    """A strided conv of a channels-last tensor with flax's 'SAME'
+    padding (output ceil(n / stride); an odd padding's extra voxel at
+    the high end)."""
+    dim = x.dim() - 2
+    pads = []
+    for n, k, s in zip(reversed(x.shape[1:-1]), reversed(weight.shape[2:]),
+                       reversed(stride)):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    xc = F.pad(x.movedim(-1, 1), pads)
+    conv = F.conv2d if dim == 2 else F.conv3d
+    return conv(xc, weight, bias, stride=tuple(stride)).movedim(1, -1)
+
+
+class GridAttention(nn.Module):
+    """Additive grid attention gate for a U-Net decoder level, the JAX
+    package's ``GridAttention`` (reference unet.py:452-547,
+    arXiv:1804.03999): ``theta`` (a stride-2 2x2(x2) conv of the skip,
+    no bias, 'SAME' padding), ``phi`` (1x1 of the gating signal, resized
+    linearly to theta's shape where it differs), ``psi`` (1x1 to one
+    channel) of ``relu(theta + phi)``, its sigmoid resized linearly to
+    the skip's shape as the attention map, and ``out_proj`` (1x1) of the
+    gated skip; ``in_channels // 2`` channels in between (JAX's
+    defaults). Convs compute in ``dtype``; returns (out, attention)."""
+
+    def __init__(self, in_channels: int, gating_channels: int, dim: int = 3,
+                 dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        conv = nn.Conv2d if dim == 2 else nn.Conv3d
+        inter = max(1, in_channels // 2)
+        self.dim = dim
+        self.dtype = dtype
+        self.sub = (2,) * dim
+        self.theta = conv(in_channels, inter, self.sub, stride=self.sub,
+                          bias=False, device=device)
+        self.phi = conv(gating_channels, inter, 1, device=device)
+        self.psi = conv(inter, 1, 1, device=device)
+        self.out_proj = conv(in_channels, in_channels, 1, device=device)
+
+    def _conv1x1(self, x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
+        return _same_pad_conv(x, conv.weight.to(self.dtype),
+                              conv.bias.to(self.dtype), (1,) * self.dim)
+
+    def forward(self, x: torch.Tensor, g: torch.Tensor,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = x.to(self.dtype)
+        theta = _same_pad_conv(x, self.theta.weight.to(self.dtype), None,
+                               self.sub)
+        phi = self._conv1x1(g.to(self.dtype), self.phi)
+        if phi.shape[1:-1] != theta.shape[1:-1]:
+            phi = resize_linear(phi, theta.shape[1:-1])
+        psi = self._conv1x1(F.relu(theta + phi), self.psi)
+        att = resize_linear(torch.sigmoid(psi), x.shape[1:-1])
+        return self._conv1x1(x * att, self.out_proj), att

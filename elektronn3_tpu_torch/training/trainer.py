@@ -51,8 +51,7 @@ elektronn3/training/trainer.py), with its arguments:
 Not ported yet (ROADMAP.md Queue 1): the deployment artifact (JAX's
 StableHLO export; the kernels are ctypes calls that ``torch.export``
 cannot trace: its own item), the KNOSSOS preview and ``write_to_kzip``
-(item 9), ``preview_offset`` (the Predictor's ``offset``, item 4),
-``mesh`` and ``shard_strategy`` (multi-GPU, item 7) and
+(item 9), ``mesh`` and ``shard_strategy`` (multi-GPU, item 7) and
 ``FixMatchSegLoss`` (item 6; the ``ss_criterion`` hook is here).
 """
 
@@ -183,11 +182,11 @@ class Trainer:
         ipython_shell: drop into IPython on an exception or Ctrl-C.
         out_channels: the class count (``num_classes``).
         preview_batch, preview_interval, preview_tile_shape,
-            preview_overlap_shape, inference_kwargs: preview inference
-            of a channels-first numpy batch every ``preview_interval``
-            epochs with the port's ``Predictor(**inference_kwargs)``,
-            tiled as given. ``preview_offset`` raises
-            ``NotImplementedError``.
+            preview_overlap_shape, preview_offset, inference_kwargs:
+            preview inference of a channels-first numpy batch every
+            ``preview_interval`` epochs with the port's
+            ``Predictor(**inference_kwargs)``, tiled as given, with
+            ``preview_offset`` as its ``offset`` (a valid-conv model's).
         extra_save_steps: steps after which a ``_step{k}`` snapshot is
             written.
         mixed_precision: the input rounded to bfloat16 (a bfloat16 model
@@ -253,10 +252,6 @@ class Trainer:
     ):
         if nan_check_interval < 1:
             raise ValueError("nan_check_interval must be >= 1")
-        if preview_offset is not None:
-            raise NotImplementedError(
-                "preview_offset needs the Predictor's offset (valid "
-                "convolutions), not ported yet: ROADMAP.md Queue 1 item 4")
         if device is not None:
             model.to(device)
         self.model = model
@@ -274,6 +269,7 @@ class Trainer:
         self.preview_batch = preview_batch
         self.preview_tile_shape = preview_tile_shape
         self.preview_overlap_shape = preview_overlap_shape
+        self.preview_offset = preview_offset
         self.preview_interval = preview_interval
         self.inference_kwargs = dict(inference_kwargs or {})
         self.extra_save_steps = list(extra_save_steps)
@@ -752,7 +748,8 @@ class Trainer:
 
     def _run_preview_inference(self) -> np.ndarray:
         """Predict ``preview_batch`` with the port's Predictor (tiled by
-        ``preview_tile_shape``/``preview_overlap_shape``; explicit
+        ``preview_tile_shape``/``preview_overlap_shape``, offset by
+        ``preview_offset``; explicit
         ``inference_kwargs`` win), hand it to the preview handler or
         log its argmax, and return it (channels-first). The model's
         training mode is restored after (reference
@@ -764,6 +761,8 @@ class Trainer:
             pkw.setdefault("tile_shape", self.preview_tile_shape)
         if self.preview_overlap_shape is not None:
             pkw.setdefault("overlap_shape", self.preview_overlap_shape)
+        if self.preview_offset is not None:
+            pkw.setdefault("offset", self.preview_offset)
         was_training = self.model.training
         try:
             out = Predictor(self.model, **pkw).predict(self.preview_batch)

@@ -23,7 +23,8 @@ restores the scheduler's next rate and ``best_val_loss``; the loop
 syncs with the host only in its batched NaN check (and, under a
 plateau scheduler, once a step); ``ss_criterion`` in both conventions
 against JAX's (a stub consistency criterion, one step); ``save_model``
-and ``load_model``; ``preview_offset`` raises.
+and ``load_model``; ``preview_offset`` is the preview Predictor's
+``offset``, and one the model does not shrink by raises there.
 """
 
 import copy
@@ -363,10 +364,25 @@ def test_loop_syncs_only_in_the_nan_check(tmp_path, monkeypatch, plateau):
 
 
 def test_preview_offset_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        Trainer(_small_model(), ploss.CEDiceLoss(), train_dataset=Patches(2),
-                save_root=str(tmp_path), exp_name="off",
-                preview_offset=(0, 0, 0))
+    """A valid-conv model's preview takes ``preview_offset`` as the
+    Predictor's offset: the right one gives the direct Predictor's
+    result, a wrong one (tiles that the model shrinks by another amount)
+    raises in the preview."""
+    model = _small_model(conv_mode="valid", start_filts=4)
+    batch = np.random.default_rng(3).normal(size=(1, 1, 12, 32, 32)) \
+        .astype(np.float32)
+    for offset in ((2, 8, 8), (1, 8, 8)):
+        tr = Trainer(model, ploss.CEDiceLoss(), train_dataset=Patches(2),
+                     save_root=str(tmp_path), exp_name=f"off{offset[0]}",
+                     enable_tensorboard=False, preview_batch=batch,
+                     preview_tile_shape=(4, 8, 8), preview_offset=offset)
+        if offset == (1, 8, 8):
+            with pytest.raises(ValueError):
+                tr._run_preview_inference()
+            continue
+        ref = Predictor(model, tile_shape=(4, 8, 8),
+                        offset=offset).predict(batch)
+        assert np.array_equal(tr._run_preview_inference(), ref)
 
 
 def test_save_model_and_load_model_round_trip(tmp_path):
