@@ -176,7 +176,21 @@ sample).
    ``checkpointing=True`` and ``'policy'`` beside the plain one (level
    kinds, ms, peak memory, each checkpointed peak under the plain one),
    and a checkpointed float32 step against the plain one as step 8
-   holds the kernels against the reference;
+   holds the kernels against the reference, then the checkpointed
+   steps (True and 'policy') on the kernels against the same steps
+   through ``reference=True`` under step 8's float32 and bf16 bounds
+   (the recompute reads back the forward's statistics);
+9b. ``resunet_phase``: the headline ResUNet without residual blocks
+   (res0, which is the UNet) through steps 7 and 8, each path's
+   launches and one tile forward's and bench step's launches by shape
+   the headline UNet's; with one residual block a level (every level on
+   the library ops) a Predictor request and timed steps that launch no
+   kernel, and step 8's check; and ``loss_zoo_phase``: timed headline
+   steps under each loss the port adds (focal, softmax BCE, mixed,
+   masked and distance-weighted MSE, the GAP triplet, Lovász, active
+   contour, norpf Dice) beside CEDiceLoss's, K1-K7 launched, then
+   ``Trainer.run`` with an unlabeled set and ``FixMatchSegLoss``, which
+   gets the Trainer's generator as ``rng`` each step;
 10. the 2D UNet (n_blocks=4, start_filts=32, dim=2, batch norm,
     bfloat16): ``forward`` against ``forward(reference=True)`` on a
     batch of 8 (640, 640) images; a whole-image Predictor request on
@@ -2751,7 +2765,8 @@ def _step_grads(model, crit, x, y, reference):
                                   for n, p in model.named_parameters()}
 
 
-def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True):
+def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True,
+                     what=""):
     """One step's loss, parameter gradients and new running statistics
     on the kernel path against the same step through reference=True,
     from equal parameters and running statistics, in float32 and in
@@ -2770,8 +2785,10 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True):
     leaves, as under a group norm of several channels a group, where
     that gradient is no exact 0). The loss within 1e-4 (float32) or 1e-2
     (bf16) relative; each running statistic within 1e-3 (float32) or
-    5e-2 (bf16) of its max."""
+    5e-2 (bf16) of its max. Returns the worst gradient err/bound by
+    dtype ('float32', 'bfloat16'); ``what`` labels the printed lines."""
     failures = []
+    worst_q = {}
     for dtype, rel, ulp, zero in ((torch.float32, 1e-3, 2.0 ** -23, 1e-4),
                                   (torch.bfloat16, 1e-2, 2.0 ** -8,
                                    zero_bf16)):
@@ -2812,6 +2829,7 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True):
                 failures.append(f"{dtype} grad {name}: |g - r| {err} > "
                                 f"bound {bound_} (noise {nz}, |r| {rn})")
         rows.sort(reverse=True)
+        worst_q[str(dtype)[6:]] = rows[0][0]
         for q, n, e, nz, rn in rows:
             print(f"  leaf {str(dtype)[6:]:8s} {n:28s} |g-r| {e:.3e}  "
                   f"noise |r'-r| {nz:.3e}  |r| {rn:.3e}  err/noise "
@@ -2830,7 +2848,8 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True):
             if brel > (5e-2 if bf16 else 1e-3):
                 failures.append(f"{dtype} running statistic {name}: "
                                 f"relative err {brel}")
-        print(f"train: one {str(dtype)[6:]} step vs reference=True: loss "
+        print(f"train{what}: one {str(dtype)[6:]} step vs reference=True: "
+              f"loss "
               f"{lk:.6f} vs {lr:.6f}; {len(rows)} gradients, worst "
               f"err/bound: " + ", ".join(
                   f"{n} {q:.3f} (|g-r| {e:.3e}, noise {nz:.3e}, "
@@ -2845,6 +2864,7 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True):
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("; ".join(failures))
+    return worst_q
 
 
 def timed_steps(train_step, model, crit, opt, batches, reference,
@@ -4428,6 +4448,213 @@ def options_phase(build, CEDiceLoss, train_step, fused):
                             f"peak {peaks[what]} MB")
     if failures:
         raise AssertionError("; ".join(failures))
+    # The checkpointed step on the kernels against the same checkpointed
+    # step through reference=True, in float32 and bf16, under
+    # check_train_step's bounds: the recompute must normalise with the
+    # forward's statistics (fused.StatsTape), not with atomic sums taken
+    # again in another order.
+    for what, opts in (("checkpointing", dict(checkpointing=True)),
+                       ("checkpointing policy",
+                        dict(checkpointing="policy"))):
+        worst = check_train_step(functools.partial(build, **opts), crit, x,
+                                 y, what=f" {what}")
+        print(f"option {what}: the kernel step against reference=True, "
+              f"both checkpointed: worst gradient err/bound "
+              f"{worst['float32']:.3f} (float32), {worst['bfloat16']:.3f} "
+              "(bf16)", flush=True)
+
+
+RES_KW = dict(enc_res_blocks=1, dec_res_blocks=1)   # the residual ResUNet
+
+
+def resunet_phase(ResUNet, UNet, Predictor, CEDiceLoss, train_step, fused,
+                  headline):
+    """The headline ResUNet in both forms. Without residual blocks
+    (res0, the UNet): the Predictor and :func:`train_phase` (forward
+    check, timed and checked steps), each path's launches equal to the
+    headline UNet's (``headline``: its 'predictor' and 'train'
+    launches), and one eval forward on the tile and one training step
+    at the bench launching K1-K7 and row 13's at exactly the headline's
+    shapes and counts (``record_shapes``). With one residual block a
+    level (``RES_KW``, every level on the library ops): a Predictor
+    request and timed steps with no launch of any kernel of K1-K7, row
+    13's or the vup entries, and ``check_train_step``."""
+    def res0(seed, dtype):
+        return headline_unet(ResUNet, seed, dtype)
+
+    def res1(seed, dtype):
+        return headline_unet(ResUNet, seed, dtype, **RES_KW)
+
+    out = {"predictor_res0": predictor_phase(res0, "res0", Predictor, fused,
+                                             ("24/222",))}
+    out["train_res0"], model, crit, opt, batches = train_phase(
+        res0, (BATCH, *PATCH, 1), "res0", "MVox", CEDiceLoss, train_step,
+        fused)
+    del model, opt
+    torch.cuda.empty_cache()
+    for path in ("predictor", "train"):
+        if out[f"{path}_res0"] != headline[path]:
+            raise AssertionError(f"res0 {path} launches "
+                                 f"{out[f'{path}_res0']} != the headline "
+                                 f"UNet's {headline[path]}")
+    tile = torch.randn((1, *TILE, 1),
+                       generator=torch.Generator().manual_seed(2)).cuda()
+    shapes = []
+    for build in (functools.partial(headline_unet, UNet), res0):
+        m = build(4, torch.bfloat16)
+        with record_shapes(fused) as seen:
+            with torch.inference_mode():
+                m.eval()(tile)
+            train_step(m, crit, torch.optim.Adam(m.parameters(), lr=1e-3),
+                       *batches[0])
+            torch.cuda.synchronize()
+        shapes.append(dict(seen))
+        del m
+        torch.cuda.empty_cache()
+    if shapes[0] != shapes[1] or not shapes[0]:
+        raise AssertionError(f"res0 launches by shape {shapes[1]} != the "
+                             f"headline UNet's {shapes[0]}")
+    print(f"res0: launches by (kernel, shape) on a tile forward and a "
+          f"bench step the headline UNet's, {len(shapes[0])} shapes, "
+          f"{sum(shapes[0].values())} launches", flush=True)
+
+    model = res1(0, torch.bfloat16).eval()
+    randomize_norms(model, 1)
+    vol = seeded_volume()
+    pred = Predictor(model, **PREDICT_KW)
+    pred.predict(vol)
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    probs = pred.predict(vol)
+    dt = time.perf_counter() - t0
+    served = launch_counts(fused)
+    print(f"predictor res1: levels {model.level_kinds((1, *TILE, 1))}; "
+          f"bf16 probabilities in {dt:.3f} s = {vol.size / dt / 1e6:.2f} "
+          f"MVox/s; launches {served}", flush=True)
+    if not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - 1).max() > 1e-2:
+        raise AssertionError("res1 request: bad probabilities")
+    del pred, model
+    torch.cuda.empty_cache()
+    model = res1(4, torch.bfloat16)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    dt = timed_steps(train_step, model, crit, opt, batches, False,
+                     fused.reset_launches, warmup=2, steps=OPTION_STEPS)
+    trained = launch_counts(fused)
+    STEP_MS["res1"] = (dt * 1e3,)
+    print(f"train res1: step {dt * 1e3:.2f} ms = "
+          f"{batches[0][0].numel() / dt / 1e6:.2f} MVox/s (batch {BATCH} "
+          f"of {PATCH}, bf16, CEDiceLoss, Adam); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB; launches "
+          f"{trained}; the headline UNet's step in this run "
+          f"{STEP_MS['3D'][0]:.2f} ms, res0's {STEP_MS['res0'][0]:.2f} ms",
+          flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    if any(served.values()) or any(trained.values()):
+        raise AssertionError(f"res1 launched kernels: serving {served}, "
+                             f"training {trained}")
+    # Every level on the library ops: L0 conv1's bias gradient (one input
+    # channel, a small weight gradient), exactly 0 before its batch norm,
+    # is cuDNN's sum over L0's 2,725,888 voxels of the bf16 dx, on both
+    # sides alike (1.586e-2 of the weight gradient's norm on an H100 at
+    # 700 W, as the silu model's library conv1 in train_phase): the
+    # silu phase's 1e-1 for it; the kernel-plan models keep 1e-2.
+    check_train_step(res1, crit, *batches[0], zero_bf16=1e-1, what=" res1")
+    out["predictor_res1"], out["train_res1"] = served, trained
+    return out
+
+
+def _signed_distance(y):
+    """A float regression target from class ids: -1 inside (class 1), +1
+    outside, two channels (the logits' shape)."""
+    d = 1.0 - 2.0 * y.float()
+    return torch.stack([d, -d], -1)
+
+
+def loss_zoo_phase(build, loss, train_step, fused, Trainer):
+    """Timed training steps of the headline UNet (bf16, Adam, bench.py's
+    batches) under each loss of the zoo that the port adds, each with
+    K1-K7 and row 13's launched and a finite loss, beside CEDiceLoss's
+    step; then ``Trainer.run`` with an unlabeled set and
+    ``FixMatchSegLoss`` as ``ss_criterion``, whose every call gets the
+    Trainer's generator as ``rng`` and the model as ``apply_fn`` (three
+    forwards a step)."""
+    batches = bench_batches((BATCH, *PATCH, 1))
+    mix = torch.tensor([True, False] * (BATCH // 2))
+    ce_dice = loss.CombinedLoss([loss.CrossEntropyLoss(), loss.DiceLoss()])
+    cases = {
+        "CEDiceLoss": loss.CEDiceLoss(1.0, 1.0),
+        "FocalLoss": loss.FocalLoss(weight=[0.3, 1.0]),
+        "SoftmaxBCELoss": loss.SoftmaxBCELoss(),
+        "MixedCombinedLoss": lambda o, t: loss.MixedCombinedLoss(
+            ce_dice, loss.FocalLoss())(o, t, mix),
+        "MaskedMSELoss": lambda o, t: loss.MaskedMSELoss()(
+            o, _signed_distance(t), (t > 0)[..., None].expand(o.shape)),
+        "DistanceWeightedMSELoss": lambda o, t: loss.DistanceWeightedMSELoss(
+            fg_weight=10.0, mask_borders=8)(o, _signed_distance(t)),
+        "GAPTripletMarginLoss": lambda o, t: loss.GAPTripletMarginLoss()(
+            o[:BATCH // 2], o[:BATCH // 2].flip(2), o[BATCH // 2:]),
+        "LovaszLoss": loss.LovaszLoss(),
+        "ACLoss": loss.ACLoss(),
+        "NorpfDiceLoss": loss.NorpfDiceLoss(),
+    }
+    out = {}
+    for name, crit in cases.items():
+        model = build(4, torch.bfloat16)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        dt = timed_steps(train_step, model, crit, opt, batches, False,
+                         fused.reset_launches, warmup=2, steps=OPTION_STEPS)
+        launches = launch_counts(fused)
+        final = float(train_step(model, crit, opt, *batches[0]))
+        STEP_MS[f"loss {name}"] = (dt * 1e3,)
+        print(f"loss {name}: headline step {dt * 1e3:.2f} ms = "
+              f"{batches[0][0].numel() / dt / 1e6:.2f} MVox/s; loss "
+              f"{final:.5f}; launches {launches}", flush=True)
+        check_launched(launches, K1_K7, f"loss {name} training")
+        if not np.isfinite(final):
+            raise AssertionError(f"loss {name}: non-finite loss {final}")
+        out[f"train_loss_{name}"] = launches
+        del model, opt
+        torch.cuda.empty_cache()
+
+    class Recording(loss.FixMatchSegLoss):
+        def __call__(self, inp, rng=None, apply_fn=None):
+            self.seen.append((rng, apply_fn))
+            return super().__call__(inp, rng=rng, apply_fn=apply_fn)
+
+    fm = Recording()
+    fm.seen = []
+    calls = []
+    with tempfile.TemporaryDirectory() as root:
+        model = build(5, torch.bfloat16)
+        hook = model.register_forward_hook(lambda *a: calls.append(1))
+        tr = Trainer(model, loss.CEDiceLoss(1.0, 1.0),
+                     train_dataset=Patches(8, (1, *PATCH)),
+                     unlabeled_dataset=Patches(8, (1, *PATCH), seed=1),
+                     ss_criterion=fm, batch_size=2, save_root=root,
+                     exp_name="fixmatch", nan_check_interval=2, seed=7,
+                     enable_tensorboard=False)
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        tr.run(max_steps=4)
+        dt = time.perf_counter() - t0
+        launches = launch_counts(fused)
+        hook.remove()
+    print(f"loss FixMatchSegLoss: Trainer.run(max_steps=4) at batch 2 of "
+          f"{PATCH} with 2 unlabeled patches a step: {dt:.2f} s; losses "
+          f"{[round(v, 4) for v in tr.last_stats['tr_loss']]}; "
+          f"{len(calls)} model calls; launches {launches}", flush=True)
+    if tr.step != 4 or len(fm.seen) != 4 or len(calls) != 12 \
+            or not all(r is tr._ss_rng and f is model for r, f in fm.seen) \
+            or not np.isfinite(tr.last_stats["tr_loss"]).all():
+        raise AssertionError(f"FixMatch Trainer.run: step {tr.step}, "
+                             f"{len(fm.seen)} ss calls, {len(calls)} model "
+                             f"calls, losses {tr.last_stats['tr_loss']}")
+    check_launched(launches, K1_K7, "FixMatch Trainer.run")
+    out["trainer_fixmatch"] = launches
+    return out
 
 
 def main():
@@ -4440,8 +4667,9 @@ def main():
         check=True).stdout.strip().splitlines()[0]
 
     from elektronn3_tpu_torch.inference import Predictor
-    from elektronn3_tpu_torch.models import UNet
+    from elektronn3_tpu_torch.models import ResUNet, UNet
     from elektronn3_tpu_torch.models import unet as unet_mod
+    from elektronn3_tpu_torch.modules import loss as loss_mod
     from elektronn3_tpu_torch.modules.loss import CEDiceLoss
     from elektronn3_tpu_torch.ops import (_build, fused, pallas_bn,
                                          pallas_conv, vup)
@@ -4594,6 +4822,14 @@ def main():
     options_phase(build_option, CEDiceLoss, train_step, fused)
     torch.cuda.empty_cache()
     mark("options")
+    launches.update(resunet_phase(ResUNet, UNet, Predictor, CEDiceLoss,
+                                  train_step, fused, launches))
+    torch.cuda.empty_cache()
+    mark("resunet")
+    launches.update(loss_zoo_phase(build3d, loss_mod, train_step, fused,
+                                   Trainer))
+    torch.cuda.empty_cache()
+    mark("loss zoo")
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()

@@ -5,19 +5,23 @@ what is ported (reference elektronn3/data/__init__.py:1-3).
 - ``coord_transforms``: random warp matrices and ``warp_slice`` on the
   host, in the C++ kernels of ``native`` (``native/warp_kernels.cpp``)
 - ``transforms``: host-side ``t(inp, target)`` augmentations
-- ``cnndata``: ``PatchCreator`` and ``get_preview_batch``
+- ``cnndata``: ``PatchCreator``, ``get_preview_batch`` and the 2D
+  datasets ``SimpleNeuroData2d``, ``Segmentation2d``,
+  ``Reconstruction2d`` and ``TripletData2d``
 - ``pipeline``: ``DataLoader`` and ``prefetch_to_device``
 - ``warp`` and ``device_pipeline``: ``DeviceWarpPatchLoader``, whose
   warp runs on the card
 
-Not ported yet: the 2D datasets (``SimpleNeuroData2d``,
-``Segmentation2d``, ``Reconstruction2d``, ``TripletData2d``) and
-``knossos``.
+Not ported yet: ``knossos``.
 """
 
 from elektronn3_tpu_torch.data import transforms
 from elektronn3_tpu_torch.data.cnndata import (
     PatchCreator,
+    Reconstruction2d,
+    Segmentation2d,
+    SimpleNeuroData2d,
+    TripletData2d,
     calculate_class_weights,
     get_preview_batch,
 )
@@ -37,6 +41,7 @@ from elektronn3_tpu_torch.data.sources import (
 
 __all__ = ["ArrayDataSource", "DataLoader", "DataSource",
            "DeviceWarpPatchLoader", "HDF5DataSource", "PatchCreator",
-           "calculate_class_weights", "default_collate",
+           "Reconstruction2d", "Segmentation2d", "SimpleNeuroData2d",
+           "TripletData2d", "calculate_class_weights", "default_collate",
            "get_preview_batch", "prefetch_to_device", "slice_3d",
            "to_channels_last", "transforms"]

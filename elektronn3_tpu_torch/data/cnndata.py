@@ -1,13 +1,17 @@
-"""Datasets for 3D dense-prediction training.
+"""Datasets for 2D and 3D dense-prediction training.
 
 Counterpart of the JAX package's ``data/cnndata.py`` (reference
 elektronn3/data/cnndata.py):
 
 - PatchCreator        (:34-455)  the main 3D training dataset
 - get_preview_batch   (:457-497)
+- SimpleNeuroData2d   (:499-570)  z-slices of an HDF5 volume pair
+- Segmentation2d      (:573-681)  image files and their label files
+- Reconstruction2d    (:684-732)  image files, the target the input
+- TripletData2d       (:735-813)  anchor, positive and negative views
 
-Not ported yet: the 2D datasets (``SimpleNeuroData2d``,
-``Segmentation2d``, ``Reconstruction2d``, ``TripletData2d``).
+``h5py`` and ``imageio`` are imported when a 2D dataset is made, not
+with this module.
 
 The datasets yield numpy dicts with channels-first arrays, as the
 host-side transforms take them; the loader (``data/pipeline.py`` or
@@ -368,6 +372,178 @@ def get_preview_batch(
         for n in range(inp_np.shape[0]):
             inp_np[n], _ = transform(inp_np[n], None)
     return inp_np.astype(floatX)
+
+
+class SimpleNeuroData2d:
+    """The z-slices of a 3D HDF5 volume pair, in memory: slices before
+    z = 90 for training, the rest for validation (reference
+    cnndata.py:499-570). ``inp`` is (D, H, W) or (C, D, H, W), the
+    target (D, H, W) (or its first channel); a sample is the slice's
+    ``transform(inp, target)``."""
+
+    def __init__(self, inp_path: str, target_path: str,
+                 inp_key: str = "raw", target_key: str = "lab",
+                 train: bool = True, inp_dtype=np.float32,
+                 target_dtype=np.int64,
+                 transform: Callable = transforms.Identity(),
+                 out_channels: Optional[int] = None):
+        import h5py
+        self.transform = transform
+        self.out_channels = out_channels
+        cut_z = 90  # the training/validation plane (reference :521)
+        with h5py.File(os.path.expanduser(inp_path), "r") as f:
+            inp = f[inp_key][()].astype(inp_dtype)
+        with h5py.File(os.path.expanduser(target_path), "r") as f:
+            target = f[target_key][()].astype(target_dtype)
+        if inp.ndim == 3:
+            inp = inp[None]
+        if target.ndim == 4:
+            target = target[0]
+        zs = slice(None, cut_z) if train else slice(cut_z, None)
+        self.inp = inp[:, zs]
+        self.target = target[zs]
+        self.close_files = lambda: None
+
+    def __getitem__(self, index):
+        inp, target = self.transform(self.inp[:, index], self.target[index])
+        return {"inp": np.ascontiguousarray(inp, floatX),
+                "target": np.ascontiguousarray(target)}
+
+    def __len__(self):
+        return self.target.shape[0]
+
+
+def _load_image_file(path) -> np.ndarray:
+    import imageio.v2 as imageio
+    return np.asarray(imageio.imread(os.path.expanduser(str(path))))
+
+
+def _image_chw(path, dtype) -> np.ndarray:
+    """An image file as (C, H, W): a gray image gets a channel axis, an
+    (H, W, C) one is moved to channels first."""
+    img = _load_image_file(path).astype(dtype)
+    return img[None] if img.ndim == 2 else np.moveaxis(img, -1, 0)
+
+
+def _transformed(transform, inp, target):
+    """``transform(inp, target)``, drawn again while it drops the sample
+    (``transforms._DropSample``)."""
+    while True:
+        try:
+            return transform(inp, target)
+        except transforms._DropSample:
+            continue
+
+
+class Segmentation2d:
+    """Images and their label images from lists of file paths (png, tif
+    and what else ``imageio`` reads), in memory (reference
+    cnndata.py:573-681). An input path may be a list of single-channel
+    layers, stacked as channels; an (H, W, C) image becomes (C, H, W).
+    A label image's first channel is taken; ``invert_targets`` makes 0
+    the foreground. ``offset`` (o_h, o_w) crops the target of a
+    valid-conv model after the transform; ``epoch_multiplier`` repeats
+    the list."""
+
+    def __init__(self, inp_paths: Sequence, target_paths: Sequence,
+                 transform: Callable = transforms.Identity(),
+                 offset: Sequence[int] = (0, 0), inp_dtype=np.float32,
+                 target_dtype=np.int64, invert_targets: bool = False,
+                 out_channels: Optional[int] = None,
+                 epoch_multiplier: int = 1):
+        if len(inp_paths) != len(target_paths):
+            raise ValueError("one target path per input path")
+        self.inp_paths = list(inp_paths)
+        self.target_paths = list(target_paths)
+        self.transform = transform
+        self.offset = np.asarray(offset)
+        self.inp_dtype = inp_dtype
+        self.target_dtype = target_dtype
+        self.invert_targets = invert_targets
+        self.out_channels = out_channels
+        self.epoch_multiplier = epoch_multiplier
+        self.inps = []
+        self.targets = []
+        for ip, tp in zip(self.inp_paths, self.target_paths):
+            if isinstance(ip, (list, tuple)):
+                layers = [_load_image_file(p).astype(inp_dtype) for p in ip]
+                inp = np.stack([a if a.ndim == 2 else a[..., 0]
+                                for a in layers])
+            else:
+                inp = _image_chw(ip, inp_dtype)
+            target = _load_image_file(tp).astype(target_dtype)
+            if target.ndim == 3:
+                target = target[..., 0]
+            if invert_targets:
+                target = (target == 0).astype(target_dtype)
+            self.inps.append(inp)
+            self.targets.append(target)
+
+    def __getitem__(self, index):
+        index %= len(self.inps)
+        inp, target = _transformed(self.transform, self.inps[index],
+                                   self.targets[index])
+        if np.any(self.offset > 0):
+            o = self.offset
+            target = target[..., o[0]:target.shape[-2] - o[0],
+                            o[1]:target.shape[-1] - o[1]]
+        return {"inp": np.ascontiguousarray(inp, floatX),
+                "target": np.ascontiguousarray(target, self.target_dtype),
+                "fname": str(self.inp_paths[index])}
+
+    def __len__(self):
+        return len(self.inps) * self.epoch_multiplier
+
+
+class Reconstruction2d:
+    """Image files as inputs and targets, for autoencoders: the target
+    is a copy of the transformed input (reference cnndata.py:684-732)."""
+
+    def __init__(self, inp_paths: Sequence,
+                 transform: Callable = transforms.Identity(),
+                 inp_dtype=np.float32, epoch_multiplier: int = 1):
+        self.inp_paths = list(inp_paths)
+        self.transform = transform
+        self.inp_dtype = inp_dtype
+        self.epoch_multiplier = epoch_multiplier
+        self.inps = [_image_chw(p, inp_dtype) for p in self.inp_paths]
+
+    def __getitem__(self, index):
+        inp, _ = self.transform(self.inps[index % len(self.inps)], None)
+        inp = np.ascontiguousarray(inp, floatX)
+        return {"inp": inp, "target": inp.copy()}
+
+    def __len__(self):
+        return len(self.inps) * self.epoch_multiplier
+
+
+class TripletData2d(Segmentation2d):
+    """Triplets of :class:`Segmentation2d`'s images (reference
+    cnndata.py:735-813): the anchor and the positive are two draws of
+    ``transform`` on one image, the negative one of another image,
+    chosen uniformly from ``rng`` (a numpy ``Generator``; a fresh one
+    seeded 0 if None), where JAX draws from numpy's global state. The
+    transforms draw from numpy's global state, as everywhere."""
+
+    def __init__(self, *args, rng: Optional[np.random.Generator] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        if len(self.inps) < 2:
+            raise ValueError("TripletData2d needs at least two images")
+        self.rng = rng if rng is not None else np.random.default_rng(0)
+
+    def __getitem__(self, index):
+        index %= len(self.inps)
+        neg_index = int(self.rng.integers(0, len(self.inps) - 1))
+        if neg_index >= index:
+            neg_index += 1
+
+        def aug(i):
+            a, _ = _transformed(self.transform, self.inps[i], None)
+            return np.ascontiguousarray(a, floatX)
+
+        return {"anchor": aug(index), "pos": aug(index),
+                "neg": aug(neg_index)}
 
 
 def calculate_class_weights(targets, mode: str = "inverse"):

@@ -20,6 +20,11 @@ state_dict, in both directions.
   ``GroupNorm_<n>`` slots (params only: no batch statistics) map the
   same way, in the order both JAX executors create them (the fused one's
   ``_stats_prologue`` names them as the XLA one's flax auto-names);
+- the ResUNet's ConvBlock stacks: the port's ``convs.{j}`` is flax's
+  ``conv_{j}`` (``down_{i}/conv_{j}/conv1``, its ``proj`` a plain conv),
+  and an ``UpBlock``'s own norm (flax ``up_{i}/BatchNorm_0``, the
+  port's ``up_convs.{i}.norm0``) is matched apart from its blocks' norms
+  (each block is a parent of its own);
 - a block's ``PReLU_0`` ``slope`` (one learned slope a block,
   ``activation='prelu'``) is the port's ``act.weight``; the resizeconv
   ``upconv/conv``, the attention gate's ``attention/{theta,phi,psi,
@@ -106,6 +111,9 @@ def _flax_module_path(key: str) -> Tuple[Tuple[str, ...], str]:
             out.append(("down_" if p == "down_convs" else "up_")
                        + parts[i + 1])
             i += 2
+        elif p == "convs":
+            out.append("conv_" + parts[i + 1])
+            i += 2
         else:
             out.append(p)
             i += 1
@@ -147,6 +155,8 @@ def _torch_key(path: Tuple[str, ...], slots, norms) -> str:
         m = re.fullmatch(r"(down|up)_(\d+)", p)
         if m:
             out += [m.group(1) + "_convs", m.group(2)]
+        elif re.fullmatch(r"conv_\d+", p):
+            out += ["convs", p[len("conv_"):]]
         elif _NORM_RE.match(p):
             pos = slots[path[:d]].index(p)
             have = norms.get(path[:d], [])

@@ -15,6 +15,14 @@ checkpoint is unwrapped and checked, and no tensor is transformed:
   (``model*.pts``); or any of these already loaded;
 - ``module.`` prefixes (DataParallel) are stripped and
   ``num_batches_tracked`` is dropped (the model keeps its own);
+- a ResUNet checkpoint nests each level's ConvBlocks as ``convs.{j}``
+  (``down_convs.{i}.convs.{j}.conv1``, a ``proj`` where the channels
+  change), which the port's ResUNet with residual blocks keeps; a model
+  without ``convs.{j}`` modules (the UNet, or a ResUNet without residual
+  blocks) takes a checkpoint of one plain ConvBlock a level with its
+  ``convs.0`` collapsed into the level (JAX's importer,
+  ``elektronn3_tpu/models/torch_import.py:167-181``), the block's norms
+  counted after the level's own (an ``UpBlock``'s ``norm0``);
 - the ``norm{k}`` modules of each parent are matched to the model's in
   order of k, as JAX's importer matches them to its flax slots: a
   ``full_norm=False`` model leaves gaps in k;
@@ -66,6 +74,33 @@ def read_state_dict(src: Any) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _collapse_single_blocks(sd: Dict[str, torch.Tensor]
+                            ) -> Dict[str, torch.Tensor]:
+    """``sd`` with each ``{parent}.convs.0.`` collapsed into
+    ``{parent}.``: a block's ``norm{k}`` becomes the parent's
+    ``norm{k + n}``, n one more than the parent's own highest norm index
+    (0 without one), so that its norms keep their order after the
+    parent's own."""
+    own: Dict[str, int] = {}
+    for key in sd:
+        parts = key.split(".")
+        if len(parts) >= 3 and _TORCH_NORM_RE.match(parts[-2]) \
+                and "convs" not in parts:
+            parent = ".".join(parts[:-2])
+            own[parent] = max(own.get(parent, -1), int(parts[-2][4:]))
+    out = {}
+    for key, val in sd.items():
+        if ".convs.0." not in key:
+            out[key] = val
+            continue
+        parent, rest = key.split(".convs.0.", 1)
+        first, _, leaf = rest.partition(".")
+        if _TORCH_NORM_RE.match(first) and leaf and "." not in leaf:
+            rest = f"norm{int(first[4:]) + own.get(parent, -1) + 1}.{leaf}"
+        out[f"{parent}.{rest}"] = val
+    return out
+
+
 def load_torch_state_dict(src: Any, model: nn.Module,
                           strict: bool = True) -> Dict[str, torch.Tensor]:
     """A complete ``state_dict`` for ``model`` from the checkpoint
@@ -73,6 +108,8 @@ def load_torch_state_dict(src: Any, model: nn.Module,
     model's; pass it to ``model.load_state_dict``."""
     sd = read_state_dict(src)
     target = model.state_dict()
+    if not any(".convs." in k for k in target):
+        sd = _collapse_single_blocks(sd)
     src_norms = torch_norm_names(sd)
     tgt_norms = torch_norm_names(target)
     out = {k: v.clone() for k, v in target.items()}

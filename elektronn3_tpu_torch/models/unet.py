@@ -339,16 +339,22 @@ def _checkpointed(block: nn.Module, policy: bool, *args):
     its activations are recomputed in the backward, all of them, or
     with ``policy`` all but the convs' outputs (JAX's
     ``checkpointing='policy'``). The recompute leaves the block's
-    buffers (running statistics) as the forward left them."""
+    buffers (running statistics) as the forward left them, and its
+    kernel ops normalise with the statistics the forward computed
+    (:class:`~elektronn3_tpu_torch.ops.fused.StatsTape`): a batch norm's
+    atomic sums would come out in another order."""
     first = [True]
+    tape = fused.StatsTape()
 
     def run(*a):
         recompute = not first[0]
         first[0] = False
+        tape.replay = recompute
         bufs = list(block.buffers())
         kept = [b.clone() for b in bufs]
         try:
-            return block(*a)
+            with fused.taping(tape):
+                return block(*a)
         finally:
             # The recompute (cut short once it has what the backward
             # needs) restores the buffers; the forward copies the other
@@ -849,33 +855,41 @@ class UNet(nn.Module):
         self.logit_dtype = logit_dtype
         self._plans: Dict[tuple, List[str]] = {}
 
-        common = dict(activation=activation, normalization=normalization,
-                      dtype=dtype, device=device, dim=dim,
-                      full_norm=full_norm, conv_mode=conv_mode)
-        self.down_convs = nn.ModuleList()
-        outs = in_channels
-        for i in range(n_blocks):
-            ins = outs
-            outs = start_filts * 2 ** i
-            self.down_convs.append(DownConv(
-                ins, outs, pooling=i < n_blocks - 1,
-                planar=i in self.planar_blocks, **common))
-        self.up_convs = nn.ModuleList()
-        for i in range(n_blocks - 1):
-            ins = outs
-            outs = ins // 2
-            level = n_blocks - 2 - i
-            self.up_convs.append(UpConv(
-                ins, outs, planar=level in self.planar_blocks,
-                up_mode=up_mode, merge_mode=merge_mode, attention=attention,
-                **common))
-        self.conv_final = _CONV[dim](outs, out_channels, 1, device=device)
+        self.down_convs, self.up_convs = self._levels(device)
+        self.conv_final = _CONV[dim](start_filts, out_channels, 1,
+                                     device=device)
 
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         for m in self.modules():
             if isinstance(m, (_CONV[dim], _CONVT[dim])):
                 _init_conv(m, gen)
+
+    def _levels(self, device) -> Tuple[nn.ModuleList, nn.ModuleList]:
+        """The encoder levels (``DownConv``) and decoder levels
+        (``UpConv``, deepest first)."""
+        common = dict(activation=self.activation,
+                      normalization=self.normalization, dtype=self.dtype,
+                      device=device, dim=self.dim, full_norm=self.full_norm,
+                      conv_mode=self.conv_mode)
+        down_convs = nn.ModuleList()
+        outs = self.in_channels
+        for i in range(self.n_blocks):
+            ins = outs
+            outs = self.start_filts * 2 ** i
+            down_convs.append(DownConv(
+                ins, outs, pooling=i < self.n_blocks - 1,
+                planar=i in self.planar_blocks, **common))
+        up_convs = nn.ModuleList()
+        for i in range(self.n_blocks - 1):
+            ins = outs
+            outs = ins // 2
+            level = self.n_blocks - 2 - i
+            up_convs.append(UpConv(
+                ins, outs, planar=level in self.planar_blocks,
+                up_mode=self.up_mode, merge_mode=self.merge_mode,
+                attention=self.attention, **common))
+        return down_convs, up_convs
 
     def _logit_dtype(self) -> torch.dtype:
         """``logit_dtype`` if given, else bf16 logits for a bf16 model
@@ -1077,12 +1091,15 @@ class UNet(nn.Module):
             return _checkpointed(block, self.checkpointing == "policy", *args)
         return block(*args)
 
-    def _forward(self, x: torch.Tensor, reference: bool) -> torch.Tensor:
+    def _check_input(self, x: torch.Tensor) -> None:
         if x.dim() != self.dim + 2 or x.shape[-1] != self.in_channels:
             layout = "N, D, H, W" if self.dim == 3 else "N, H, W"
             raise ValueError(
                 f"Input shape {tuple(x.shape)}: expected channels-last "
                 f"({layout}, {self.in_channels}).")
+
+    def _forward(self, x: torch.Tensor, reference: bool) -> torch.Tensor:
+        self._check_input(x)
         kinds = self.level_kinds(x.shape)
         dec_kinds = self.decoder_kinds(x.shape)
         input_grad = self._conv1_input_grad(x.shape)

@@ -147,6 +147,66 @@ def reset_launches() -> None:
     PS_LAUNCHES.clear()
 
 
+class StatsTape:
+    """The statistics side outputs of one checkpointed block's forward,
+    kept for its recompute. The batch-mode statistics of K1, K3 and the
+    vup entries are float32 atomic sums, whose order differs from run to
+    run; a recompute that summed them again would normalise with other
+    numbers than the forward did, and the backward would differentiate
+    another forward. So the forward records each op's (sum, sumsq), and
+    the recompute, which runs the same ops in the same order, reads them
+    back in place of its own. Active only inside :func:`taping` (the
+    UNet's checkpointed blocks); elsewhere no op looks at it."""
+
+    def __init__(self):
+        self.kept = []
+        self.replay = False
+        self.pos = 0
+
+    def __call__(self, s: Optional[torch.Tensor],
+                 q: Optional[torch.Tensor]) -> None:
+        if s is None:
+            return
+        # Both passes run the same tensor ops (a selective checkpoint
+        # matches the recompute's ops to the forward's one by one).
+        ks, kq = torch.empty_like(s), torch.empty_like(q)
+        if self.replay:
+            ks, kq = self.kept[self.pos]
+            self.pos += 1
+            s.copy_(ks)
+            q.copy_(kq)
+        else:
+            ks.copy_(s)
+            kq.copy_(q)
+            self.kept.append((ks, kq))
+
+
+_TAPES = []   # the active tapes, innermost last
+
+
+class taping:
+    """Context under which the statistics ops record into ``tape`` (its
+    first pass) or read back from it (``tape.replay``, from the start)."""
+
+    def __init__(self, tape: StatsTape):
+        self.tape = tape
+
+    def __enter__(self):
+        self.tape.pos = 0
+        _TAPES.append(self.tape)
+        return self.tape
+
+    def __exit__(self, *exc):
+        _TAPES.pop()
+        return False
+
+
+def tape_stats(s: Optional[torch.Tensor], q: Optional[torch.Tensor]) -> None:
+    """Record or replay an op's statistics on the active tape, if any."""
+    if _TAPES:
+        _TAPES[-1](s, q)
+
+
 def _count(kernel: str, body: Optional[str] = None,
            per_sample: bool = False) -> None:
     """One launch of ``kernel`` (on ``body``; in the per-sample
@@ -970,6 +1030,7 @@ class _ConvBnAct(torch.autograd.Function):
         ctx.plain = _plain(x0, reference)
         fwd = conv_bnact_fwd_plain if ctx.plain else conv_bnact_fwd_kernel
         y, s, q = fwd(xs, inv, shift, weight, bias, act, want_stats)
+        tape_stats(s, q)
         ctx.save_for_backward(x0, x1, inv, shift, weight, y)
         ctx.act = act
         ctx.input_grad = input_grad
@@ -1426,6 +1487,7 @@ class _UpconvBnAct(torch.autograd.Function):
         fwd = upconv_bnact_fwd_plain if ctx.plain \
             else upconv_bnact_fwd_kernel
         y, s, q = fwd(x, inv, shift, weight, bias, act, want_stats)
+        tape_stats(s, q)
         ctx.save_for_backward(x, inv, shift, weight, y)
         ctx.act = act
         ctx.bias_dtype = bias.dtype

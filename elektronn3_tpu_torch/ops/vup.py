@@ -93,7 +93,7 @@ from elektronn3_tpu_torch.ops.fused import (
     _stat_cts, _stream, _vec, _want, channel_stats, conv_bnact_dgrad_gm,
     conv_bnact_fwd_plain, conv_bnact_wgrad_plain, pack_conv_weight,
     pack_dgrad_weight, pack_upconv_weight, upconv_bnact_bwd_plain,
-    upconv_bnact_fwd_plain, PER_SAMPLE)
+    tape_stats, upconv_bnact_fwd_plain, PER_SAMPLE)
 
 
 def _vup_contract(carry: torch.Tensor, wu: torch.Tensor,
@@ -718,6 +718,7 @@ class _ConvVup(torch.autograd.Function):
         fwd = conv_vup_fwd_plain if ctx.plain else conv_vup_fwd_kernel
         y, s, q = fwd(carry, invc, shiftc, wu, bu, skip, inv, shift, weight,
                       bias, act, act_c, want_stats)
+        tape_stats(s, q)
         # The upconv output is not saved: the backward recomputes it.
         ctx.save_for_backward(carry, invc, shiftc, wu, bu, skip, inv, shift,
                               weight, y)
@@ -752,6 +753,7 @@ class _UpconvStats(torch.autograd.Function):
         ctx.plain = _plain(carry, reference)
         fwd = upconv_stats_plain if ctx.plain else upconv_stats_kernel
         s, q = fwd(carry, invc, shiftc, wu, bu, act_c, want_stats)
+        tape_stats(s, q)
         ctx.save_for_backward(carry, invc, shiftc, wu, bu)
         ctx.act_c = act_c
         ctx.set_materialize_grads(False)

@@ -51,8 +51,7 @@ elektronn3/training/trainer.py), with its arguments:
 Not ported yet (ROADMAP.md Queue 1): the deployment artifact (JAX's
 StableHLO export; the kernels are ctypes calls that ``torch.export``
 cannot trace: its own item), the KNOSSOS preview and ``write_to_kzip``
-(item 9), ``mesh`` and ``shard_strategy`` (multi-GPU, item 7) and
-``FixMatchSegLoss`` (item 6; the ``ss_criterion`` hook is here).
+(item 9), and ``mesh`` and ``shard_strategy`` (multi-GPU, item 7).
 """
 
 from __future__ import annotations
@@ -98,20 +97,23 @@ def _step(model: nn.Module, criterion: Callable,
           optimizer: torch.optim.Optimizer, inp: torch.Tensor,
           target: torch.Tensor, reference: bool = False,
           unlabeled: Optional[torch.Tensor] = None,
-          ss_criterion: Optional[Callable] = None):
+          ss_criterion: Optional[Callable] = None,
+          ss_rng: Optional[torch.Generator] = None):
     """:func:`train_step` returning (loss, logits), both detached. With
     ``unlabeled`` and ``ss_criterion`` the loss adds the semi-supervised
     term in JAX's two conventions: a criterion with an ``apply_fn``
-    attribute is called as ``ss_criterion(unlabeled, apply_fn=f)`` with
-    ``f`` the model in training mode, any other on the unlabeled
-    logits."""
+    attribute (``FixMatchSegLoss``) is called as ``ss_criterion(
+    unlabeled, rng=ss_rng, apply_fn=f)`` with ``f`` the model in
+    training mode (``rng`` only where its call takes one), any other on
+    the unlabeled logits."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     out = model(inp, reference=True) if reference else model(inp)
     loss = criterion(out, target)
     if unlabeled is not None and ss_criterion is not None:
         if hasattr(ss_criterion, "apply_fn"):
-            loss = loss + ss_criterion(unlabeled, apply_fn=model)
+            kw = {"rng": ss_rng} if _takes(ss_criterion, "rng") else {}
+            loss = loss + ss_criterion(unlabeled, apply_fn=model, **kw)
         else:
             loss = loss + ss_criterion(model(unlabeled))
     loss = loss.float()
@@ -133,6 +135,16 @@ def train_step(model: nn.Module, criterion: Callable,
 
 def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
+
+
+def _takes(fn: Callable, name: str) -> bool:
+    """Whether ``fn`` takes a keyword argument ``name``."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    return name in params or any(p.kind == p.VAR_KEYWORD
+                                 for p in params.values())
 
 
 def _accepts_metric(step: Callable) -> bool:
@@ -160,7 +172,9 @@ class Trainer:
             ``train_dataset`` may also be an iterable (no
             ``__getitem__``) of channels-last batches, used as it is.
         unlabeled_dataset, ss_criterion: semi-supervised training (see
-            :func:`_step` for the two conventions).
+            :func:`_step` for the two conventions); a criterion's draws
+            (``FixMatchSegLoss``'s augmentations) come from one
+            generator seeded ``seed``, passed as ``rng`` every step.
         valid_metrics: name -> evaluator ``(target, logits) -> value``
             (``metrics.py``; the streaming ones stream).
         save_root, exp_name: files go to ``save_root/exp_name``, which
@@ -285,6 +299,7 @@ class Trainer:
         self.profile_steps = profile_steps
         self._profiler = None
         self._unlabeled_loader = None
+        self._ss_rng = torch.Generator().manual_seed(seed)
         self.example_input = None if example_input is None \
             else np.asarray(example_input)
         self.device = _device_of(model)
@@ -521,7 +536,7 @@ class Trainer:
             loss, out = _step(
                 self.model, self.criterion, self.optimizer, inp, target,
                 unlabeled=None if unlabeled is None else next(unlabeled),
-                ss_criterion=self.ss_criterion)
+                ss_criterion=self.ss_criterion, ss_rng=self._ss_rng)
             self._last_sample = (inp, target, out)
             pending.append(loss)
             if len(pending) >= self.nan_check_interval:
