@@ -275,7 +275,34 @@ sample).
     with every launch per sample, rows 16, 17, 19 and 20 per sample, the
     per-sample prologue gradients the same bits on a rerun, its device
     time by kernel, and the same model with ``pallas_flat=False`` timed
-    beside it and the 2D 'batch' step.
+    beside it and the 2D 'batch' step;
+21. ``multigpu_phase``, the port's multi-GPU path (``parallel/``) with
+    the headline UNet (bf16, random norms) at bench.py's global batch of
+    8 of (44, 88, 88): (a) one NCCL rank on the card (world 1, so each
+    collective is an identity): ``Trainer(mesh=make_mesh())`` takes 3
+    SGD steps from a saved state between two no-mesh Trainers from the
+    same state (each loss, parameter and running statistic of the mesh run as
+    near the first no-mesh run as the second is, times 3, plus 1e-3 of
+    its max, at least 1e-5: the kernels' atomic sums vary from run to
+    run, and a conv bias that feeds a batch norm starts at 0 and moves
+    by their rounding alone), and
+    ``Predictor(mesh=..., shard_mode='tiles')`` and ``'spatial'`` (H over
+    a 'space' axis, halo 32) each serve the seeded volume within 1e-2 of
+    the unsharded request; (b) two gloo ranks sharing the card
+    (``parallel.launch``, processes of their own), batch 4 each, rank
+    1's rows 3 x + 1 of rank 0's draw (each rank's own batch statistics
+    far from the global ones): one ``train_step(mesh=...)`` held against
+    the one-process batch-8 step within ``check_train_step``'s bf16
+    bounds (the moved-input noise of the one-process step), the
+    parameters after it the same bits on both ranks, K1, K4 and K5
+    launched on both, and a control step with the norm sites blind to
+    the statistics group (per-rank statistics) that must fail the same
+    check; a 'tiles' request against
+    the unsharded one (1e-2) and a 'spatial' one (H over the two ranks,
+    halo 32) against it on the voxels whose receptive field (probed on
+    a narrow copy of the architecture) lies inside shard + halo, the
+    error elsewhere printed. Each sub-phase's wall seconds, the backend
+    and the world size are printed.
 
 Each time is a mean from CUDA events after a warm-up, over at least 3
 calls and as many as fill 20 ms (at most 100). K1 over the network
@@ -4657,6 +4684,332 @@ def loss_zoo_phase(build, loss, train_step, fused, Trainer):
     return out
 
 
+MG_STEPS = 3     # multigpu_phase's Trainer steps
+MG_HALO = 32     # its spatial requests' halo along H
+
+
+def rf_radius_h(UNet):
+    """The headline UNet's receptive-field half width along H, probed: a
+    copy of its architecture two filters wide (tanh, no norm, float32,
+    library ops) and the extent along H of the nonzero gradient of one
+    output voxel with respect to the input."""
+    m = UNet(in_channels=1, out_channels=1, n_blocks=4, start_filts=2,
+             planar_blocks=(0,), activation="tanh", normalization="none",
+             dtype=torch.float32, device="cuda", pallas_flat=False,
+             generator=torch.Generator().manual_seed(9)).train()
+    x = torch.randn((1, 8, 256, 16, 1), device="cuda", requires_grad=True)
+    # 16 neighbouring voxels: every alignment to the pools' windows
+    m(x)[0, 4, 120:136, 8, 0].sum().backward()
+    rows = torch.nonzero(x.grad[0].abs().sum((0, 2, 3))).flatten()
+    return int(max(120 - rows.min(), rows.max() - 135))
+
+
+def _trainer_3(UNet, CEDiceLoss, Trainer, fused, state, data, root, name,
+               mesh=None):
+    """A headline Trainer from ``state`` run MG_STEPS steps of batch 8,
+    SGD (Adam would turn the atomics' rounding of a gradient near 0
+    into a step of the full rate, in either direction); (trainer, wall
+    s, launches)."""
+    m = headline_unet(UNet, 21)
+    m.load_state_dict(state)
+    tr = Trainer(m, CEDiceLoss(1.0, 1.0),
+                 optimizer=torch.optim.SGD(m.parameters(), lr=1e-2,
+                                           momentum=0.9),
+                 train_dataset=data,
+                 batch_size=BATCH, save_root=root, exp_name=name,
+                 enable_tensorboard=False, nan_check_interval=1, mesh=mesh,
+                 seed=3)
+    fused.reset_launches()
+    t = time.perf_counter()
+    tr.run(max_steps=MG_STEPS)
+    torch.cuda.synchronize()
+    return tr, time.perf_counter() - t, launch_counts(fused)
+
+
+def _mg_distance(a, b):
+    """Max abs difference per float tensor of two state dicts."""
+    return {k: float((a[k].float() - b[k].float()).abs().max())
+            for k in a if a[k].is_floating_point()}
+
+
+def multigpu_rank(spec_path):
+    """One rank of ``multigpu_phase`` (b), in a process of its own on
+    ``cuda:0`` over gloo: one ``train_step(mesh=...)`` of its 4 rows of
+    the batch-8 step, then a 'tiles' and a 'spatial' request of the
+    stepped model; writes what the phase compares next to the spec."""
+    import torch.distributed as dist
+    from elektronn3_tpu_torch.inference import Predictor
+    from elektronn3_tpu_torch.models import UNet
+    from elektronn3_tpu_torch.modules.loss import CEDiceLoss
+    from elektronn3_tpu_torch.ops import fused
+    from elektronn3_tpu_torch.parallel import make_mesh
+    from elektronn3_tpu_torch.training import default_optimizer, train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    model = headline_unet(UNet, 21)
+    model.load_state_dict(spec["state"])
+    mesh = make_mesh()
+    x, y = spec["x"].cuda(), spec["y"].cuda()
+    opt = default_optimizer(model)
+    train_step(model, CEDiceLoss(1.0, 1.0), opt, x, y, mesh=mesh)  # warm-up
+    model.load_state_dict(spec["state"])
+    opt = default_optimizer(model)
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    t = time.perf_counter()
+    loss = train_step(model, CEDiceLoss(1.0, 1.0), opt, x, y, mesh=mesh)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = launch_counts(fused)
+    out = dict(loss=float(loss), step_s=step_s, launches=launches,
+               backend=dist.get_backend(), world=dist.get_world_size(),
+               grads={n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()},
+               state={k: v.cpu() for k, v in model.state_dict().items()})
+    model.eval()
+    for mode, m, kw in (("tiles", mesh, {}),
+                        ("spatial", make_mesh({"space": 2}),
+                         dict(shard_axis=3, halo=MG_HALO))):
+        t = time.perf_counter()
+        out[mode] = Predictor(model, mesh=m, shard_mode=mode, **kw,
+                              **PREDICT_KW).predict(spec["vol"])
+        out[mode + "_s"] = time.perf_counter() - t
+    # The control: the same step with every batch norm blind to the
+    # statistics group (each rank's own statistics, as a rank that
+    # skipped the psum in bn_train_prologue or apply_norm would have;
+    # the logits' gather and the gradients' sum still run).
+    from elektronn3_tpu_torch.modules import flat_norm, layers
+    model.load_state_dict(spec["state"])
+    opt = default_optimizer(model)
+    real = flat_norm.current_stats_group, layers.current_stats_group
+    flat_norm.current_stats_group = layers.current_stats_group = \
+        lambda: None
+    try:
+        loss = train_step(model, CEDiceLoss(1.0, 1.0), opt, x, y, mesh=mesh)
+    finally:
+        flat_norm.current_stats_group, layers.current_stats_group = real
+    out["control"] = dict(
+        loss=float(loss),
+        grads={n: p.grad.float().cpu() for n, p in model.named_parameters()},
+        state={k: v.cpu() for k, v in model.state_dict().items()})
+    torch.save(out, os.path.join(os.path.dirname(spec_path),
+                                 f"rank{dist.get_rank()}.pt"))
+
+
+def _step_failures(got_loss, got_grads, got_state, ref, moved):
+    """A data-parallel step against the one-process step ``ref`` (loss,
+    grads, state) under check_train_step's bf16 rule: the loss within
+    1e-2 relative; per gradient leaf |g - r| <= 1e-2 |r| + NOISE_FACTOR
+    |r' - r| in the L2 norm, r' the one-process step on the moved input
+    ``moved``; a conv bias that feeds a batch norm (exact gradient 0) at
+    most 1e-2 of its weight gradient's norm; each running statistic
+    within 5e-2 of its max. Returns the worst gradient err/bound and the
+    checks that failed."""
+    failures, worst = [], 0.0
+    lr_, grads, state = ref
+    if not (np.isfinite(got_loss) and abs(got_loss - lr_) <= 1e-2 * abs(lr_)):
+        failures.append(f"loss {got_loss} vs {lr_}")
+    for name, r in grads.items():
+        g = got_grads[name]
+        if name.endswith(".bias") and name != "conv_final.bias" \
+                and "norm" not in name:
+            q = float(g.norm()) / float(grads[name[:-4] + "weight"].norm())
+            if not bool(torch.isfinite(g).all()) or q > 1e-2:
+                failures.append(f"grad {name} (exactly 0): {q}")
+            continue
+        bound_ = 1e-2 * float(r.norm()) + NOISE_FACTOR * float(
+            (moved[name] - r).norm())
+        err = float((g - r).norm())
+        worst = max(worst, err / max(bound_, 1e-30))
+        if not bool(torch.isfinite(g).all()) or err > bound_:
+            failures.append(f"grad {name}: {err} > {bound_}")
+    for k, b in state.items():
+        if "running" in k:
+            rel = float((got_state[k].float() - b.float()).abs().max()) \
+                / float(b.float().abs().max())
+            if rel > 5e-2:
+                failures.append(f"running statistic {k}: {rel}")
+    return worst, failures
+
+
+def _hold_step(got_loss, got_grads, got_state, ref, moved, what):
+    """:func:`_step_failures`, raising if a check failed; returns the
+    worst gradient err/bound."""
+    worst, failures = _step_failures(got_loss, got_grads, got_state, ref,
+                                     moved)
+    if failures:
+        raise AssertionError(f"{what}: " + "; ".join(failures))
+    return worst
+
+
+def multigpu_phase(UNet, Predictor, CEDiceLoss, Trainer, train_step, fused,
+                   smi):
+    """Step 21 of the module docstring. Returns the launches of (a)'s
+    mesh Trainer run and of (b)'s step on each rank, by path."""
+    import torch.distributed as dist
+    from elektronn3_tpu_torch.parallel import (init_distributed, launch,
+                                               make_mesh)
+    print(f"multigpu: card {smi}", flush=True)
+    radius = rf_radius_h(UNet)
+    base = headline_unet(UNet, 21)
+    randomize_norms(base, 22)
+    state = copy.deepcopy(base.state_dict())
+    vol = seeded_volume()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) one NCCL rank on the card
+        t0 = time.perf_counter()
+        init_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            backend, world = dist.get_backend(), dist.get_world_size()
+            t = time.perf_counter()
+            dist.all_reduce(torch.zeros(1, device="cuda"))  # NCCL's setup
+            torch.cuda.synchronize()
+            print(f"multigpu (a): the first collective (NCCL's communicator "
+                  f"setup) {time.perf_counter() - t:.3f} s", flush=True)
+            data = Patches(BATCH * MG_STEPS, (1, *PATCH), seed=4)
+            runs = [_trainer_3(UNet, CEDiceLoss, Trainer, fused, state, data,
+                               tmp, name, mesh)
+                    for name, mesh in (("plain", None), ("mesh", make_mesh()),
+                                       ("plain2", None))]
+            (a, _, _), (b, b_s, out["train_mesh1"]), (a2, a_s, _) = runs
+            la, lb, la2 = (np.array(t.last_stats["tr_loss"])
+                           for t in (a, b, a2))
+            if not np.abs(lb - la).max() <= NOISE_FACTOR * np.abs(
+                    la2 - la).max() + 1e-3 * np.abs(la).max():
+                raise AssertionError(f"multigpu (a): mesh losses {lb}, "
+                                     f"no-mesh {la} and {la2}")
+            sa, sb, sa2 = (t.model.state_dict() for t in (a, b, a2))
+            d_mesh, d_noise = _mg_distance(sb, sa), _mg_distance(sa2, sa)
+            bad = [k for k in d_mesh if d_mesh[k] > NOISE_FACTOR * d_noise[k]
+                   + 1e-3 * max(float(sa[k].float().abs().max()), 1e-2)]
+            if bad:
+                raise AssertionError(
+                    f"multigpu (a): the mesh Trainer's {bad[:4]} differ from "
+                    f"the no-mesh one's: {[d_mesh[k] for k in bad[:4]]}, "
+                    f"run to run {[d_noise[k] for k in bad[:4]]}")
+            check_launched(out["train_mesh1"], ("conv_bnact", "conv1_fwd",
+                                                "conv_bnact_dgrad",
+                                                "conv_bnact_wgrad"),
+                           "world-1 mesh training")
+            print(f"multigpu (a): backend {backend}, world {world}: "
+                  f"Trainer(mesh) {MG_STEPS} steps of batch {BATCH} in "
+                  f"{b_s:.2f} s (no mesh {a_s:.2f} s); losses {lb.tolist()} "
+                  f"vs {la.tolist()} (rerun {la2.tolist()}); worst tensor "
+                  f"distance {max(d_mesh.values()):.3e} (run to run "
+                  f"{max(d_noise.values()):.3e}); launches "
+                  f"{out['train_mesh1']}", flush=True)
+            del a, b, a2, runs
+            base.eval()
+            ref = Predictor(base, **PREDICT_KW).predict(vol)
+            for mode, mesh, kw in (("tiles", make_mesh(), {}),
+                                   ("spatial", make_mesh({"space": 1}),
+                                    dict(shard_axis=3, halo=MG_HALO))):
+                t = time.perf_counter()
+                got = Predictor(base, mesh=mesh, shard_mode=mode, **kw,
+                                **PREDICT_KW).predict(vol)
+                dt = time.perf_counter() - t
+                err = float(np.abs(got - ref).max())
+                print(f"multigpu (a): Predictor '{mode}' request {got.shape} "
+                      f"in {dt:.3f} s ({vol.size / dt / 1e6:.2f} MVox/s); "
+                      f"max abs err {err:.3e} vs unsharded", flush=True)
+                if got.shape != ref.shape or not err <= 1e-2:
+                    raise AssertionError(f"multigpu (a) '{mode}': err {err}")
+        finally:
+            dist.destroy_process_group()
+        print(f"multigpu (a): {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (b) two gloo ranks sharing the card, batch 4 each
+        t0 = time.perf_counter()
+        g = torch.Generator().manual_seed(8)
+        x = torch.randn((BATCH, *PATCH, 1), generator=g)
+        # rank 1's rows from another distribution than rank 0's, so that
+        # each rank's own batch statistics are far from the global ones
+        x[BATCH // 2:] = 3 * x[BATCH // 2:] + 1
+        y = torch.randint(0, 2, (BATCH, *PATCH), generator=g)
+        torch.save(dict(state=state, x=x, y=y, vol=vol),
+                   os.path.join(tmp, "spec.pt"))
+        launch("chip_smoke:multigpu_rank", 2, [os.path.join(tmp, "spec.pt")],
+               device="cuda:0", backend="gloo", timeout=400, workdir=tmp)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        t_ranks = time.perf_counter() - t0
+        xc, yc = x.cuda(), y.cuda()
+        crit = CEDiceLoss(1.0, 1.0)
+
+        def one_step(inp):
+            m = headline_unet(UNet, 21)
+            m.load_state_dict(state)
+            loss, grads = _step_grads(m, crit, inp, yc, False)
+            return loss, {k: v.cpu() for k, v in grads.items()}, \
+                {k: v.cpu() for k, v in m.state_dict().items()}
+        ref = one_step(xc)
+        noise = torch.randn(xc.shape, generator=torch.Generator(
+            device="cuda").manual_seed(11), device="cuda")
+        moved = one_step(xc * (1 + 2.0 ** -8 * noise))[1]
+        for r, got in enumerate(ranks):
+            worst = _hold_step(got["loss"], got["grads"], got["state"], ref,
+                               moved, f"multigpu (b) rank {r}")
+            check_launched(got["launches"], ("conv_bnact", "conv_bnact_dgrad",
+                                             "conv_bnact_wgrad"),
+                           f"rank {r} of the two-rank step")
+            out[f"train_dp2_rank{r}"] = got["launches"]
+            print(f"multigpu (b) rank {r}: backend {got['backend']}, world "
+                  f"{got['world']}: step of 4 rows in {got['step_s']:.3f} s, "
+                  f"loss {got['loss']:.6f} vs one process {ref[0]:.6f}, "
+                  f"worst gradient err/bound {worst:.3f}; launches "
+                  f"{got['launches']}", flush=True)
+            c = got["control"]
+            c_worst, c_fail = _step_failures(c["loss"], c["grads"],
+                                             c["state"], ref, moved)
+            print(f"multigpu (b) rank {r}: control with per-rank batch "
+                  f"statistics: loss {c['loss']:.6f}, worst gradient "
+                  f"err/bound {c_worst:.3f}, {len(c_fail)} checks fail "
+                  f"({'; '.join(c_fail[:3])})", flush=True)
+            if not c_fail:
+                raise AssertionError(
+                    f"multigpu (b) rank {r}: the step with per-rank batch "
+                    f"statistics passes the check of the global step")
+        diff = [k for k in ranks[0]["state"]
+                if not torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])]
+        if diff:
+            raise AssertionError(f"multigpu (b): ranks differ in {diff[:4]}")
+        stepped = headline_unet(UNet, 21)
+        stepped.load_state_dict(ranks[0]["state"])
+        stepped.eval()
+        plain = Predictor(stepped, **PREDICT_KW).predict(vol)
+        # voxels whose receptive field lies inside shard + halo: away from
+        # each tile's shard boundary (H = 128 of its 256 input rows, 64 of
+        # its core's 128) by more than radius - halo
+        core, cut = PREDICT_KW["tile_shape"][1], PREDICT_KW["tile_shape"][1] // 2
+        h = np.arange(vol.shape[3]) % core
+        inside = np.abs(h + 0.5 - cut) > max(radius - MG_HALO, 0)
+        if not inside.any():
+            raise AssertionError(f"multigpu (b): no voxel's receptive field "
+                                 f"(radius {radius}) lies inside a shard "
+                                 f"and its halo {MG_HALO}")
+        for r, got in enumerate(ranks):
+            err_t = float(np.abs(got["tiles"] - plain).max())
+            diff_s = np.abs(got["spatial"] - plain)
+            err_in = float(diff_s[:, :, :, inside].max())
+            err_out = float(diff_s[:, :, :, ~inside].max()) \
+                if (~inside).any() else 0.0
+            print(f"multigpu (b) rank {r}: 'tiles' request in "
+                  f"{got['tiles_s']:.3f} s, max abs err {err_t:.3e}; "
+                  f"'spatial' in {got['spatial_s']:.3f} s, max abs err "
+                  f"{err_in:.3e} where the receptive field (radius "
+                  f"{radius}) lies inside shard + halo ({int(inside.sum())}"
+                  f" of {inside.size} H rows), {err_out:.3e} elsewhere",
+                  flush=True)
+            if not (err_t <= 1e-2 and err_in <= 1e-2):
+                raise AssertionError(f"multigpu (b) rank {r}: tiles err "
+                                     f"{err_t}, spatial err {err_in}")
+        print(f"multigpu (b): {time.perf_counter() - t0:.1f} s (ranks "
+              f"{t_ranks:.1f} s with their start)", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4830,6 +5183,10 @@ def main():
                                    Trainer))
     torch.cuda.empty_cache()
     mark("loss zoo")
+    launches.update(multigpu_phase(UNet, Predictor, CEDiceLoss, Trainer,
+                                   train_step, fused, smi))
+    torch.cuda.empty_cache()
+    mark("multi-GPU")
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()

@@ -202,7 +202,8 @@ def _placeable(x) -> bool:
 
 
 def prefetch_to_device(iterator, size: int = 2, device=None,
-                       inp_dtype: Optional[torch.dtype] = None):
+                       inp_dtype: Optional[torch.dtype] = None,
+                       sharding=None):
     """Wrap a batch iterator: copy up to ``size`` batches ahead to
     ``device`` (default the current CUDA device).
 
@@ -217,6 +218,9 @@ def prefetch_to_device(iterator, size: int = 2, device=None,
     the numerics the model would give it anyway; an integer 'inp' (uint8
     raw) travels at its own width. Other values pass through.
     ``device="cpu"`` converts to tensors and copies nothing.
+    ``sharding`` (``parallel.batch_sharding(mesh)``): only this rank's
+    rows of each array are copied (``replicated(mesh)``: all of them),
+    JAX's ``device_put`` of the batch with that sharding.
     """
     device = torch.device("cuda" if device is None else device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -230,6 +234,8 @@ def prefetch_to_device(iterator, size: int = 2, device=None,
                 if not _placeable(x):
                     out[k] = x
                     continue
+                if sharding is not None and np.ndim(x):
+                    x = sharding.local(x)
                 t = x if isinstance(x, torch.Tensor) \
                     else torch.from_numpy(np.ascontiguousarray(x))
                 wide = not t.is_floating_point() and t.dtype != torch.bool \

@@ -22,10 +22,16 @@ everything is channels-last.
   forward with ``offset='auto'``) makes the tiles' overlap the offset
   and the output smaller than the input by it on each side.
 
-Not ported yet: mesh sharding (``mesh``, ``shard_mode``, ``shard_axis``,
-``halo``: ROADMAP.md Queue 1 item 7) and JAX's ``.e3tpu`` and
-``.stablehlo`` model files (the port's is ``save_model``'s ``.pt``; an
-exported graph is Queue 1 item 10).
+With a ``mesh`` (``parallel.make_mesh``) every rank of the mesh runs the
+same request and returns the full output, as JAX's one controller does:
+``shard_mode='tiles'`` splits each call's tile batch over the 'data'
+axis (padded to equal parts with the last tile, gathered without the
+padding), ``'spatial'`` splits a spatial axis over the 'space' axis with
+halo exchange (``parallel.sharded_spatial_apply``).
+
+Not ported yet: JAX's ``.e3tpu`` and ``.stablehlo`` model files (the
+port's is ``save_model``'s ``.pt``; an exported graph is Queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -38,6 +44,10 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+
+from elektronn3_tpu_torch.parallel.collectives import gather
+from elektronn3_tpu_torch.parallel.halo import sharded_spatial_apply
+from elektronn3_tpu_torch.parallel.mesh import shard_rows
 
 logger = logging.getLogger("elektronn3_tpu_torch")
 
@@ -183,8 +193,7 @@ _TORCH_OUT = {np.dtype(np.uint8): torch.uint8,
 class Predictor:
     """Tiled, batched inference of a channels-last model on large inputs.
 
-    Args (the JAX Predictor's, reference inference.py:246, but mesh
-    sharding):
+    Args (the JAX Predictor's, reference inference.py:246):
         model: an ``nn.Module`` mapping channels-last ``(N, *spatial,
             C)`` to ``(N, *spatial, C_out)`` logits (the port's UNet, 3D
             or 2D; put in eval mode), a plain callable on channels-last
@@ -246,6 +255,19 @@ class Predictor:
             :func:`tiled_apply`'s ``host_assemble``, ``device_call`` and
             ``host_scatter``. The synchronizations cost the overlap of
             the host with the card: leave it off in production.
+        mesh: a ``parallel.Mesh`` to shard each model call over; every
+            rank of it must make the same requests, and each gets the
+            full output.
+        shard_mode: 'tiles': the tile batch of each call split over the
+            mesh's 'data' axis (a tile count that the axis does not
+            divide is padded with repeats of the last tile, which are
+            dropped); 'spatial': the NC(D)HW axis ``shard_axis`` of each
+            call's input split over the 'space' axis, each shard
+            extended by ``halo`` slices of its neighbours' (zeros at the
+            volume's ends), for a same-conv model whose receptive field's
+            half width ``halo`` covers. ``ValueError`` for another mode,
+            for 'spatial' without ``halo`` or with flip TTA (a flip
+            across the sharded axis would stay on one rank).
     """
 
     def __init__(
@@ -268,6 +290,10 @@ class Predictor:
             strict_shapes: bool = False,
             verbose: bool = False,
             collect_phase_times: bool = False,
+            mesh=None,
+            shard_mode: str = "spatial",
+            shard_axis: int = 2,
+            halo: Optional[int] = None,
     ):
         if isinstance(model, str):
             if model.endswith((".e3tpu", ".stablehlo")):
@@ -340,6 +366,30 @@ class Predictor:
         # Probed offsets by input rank, written only after a probe ran.
         self._offset_by_rank: Dict[int, Tuple[int, ...]] = {}
 
+        self.mesh = mesh
+        self.shard_mode = shard_mode
+        self.shard_axis = shard_axis
+        self.halo = halo
+        self._tiles = None      # the 'data' axis of 'tiles' sharding
+        self._spatial = None    # the sharded forward of 'spatial'
+        if mesh is not None and shard_mode == "spatial":
+            if halo is None:
+                raise ValueError("halo is required with spatial sharding")
+            if self.augmentations:
+                raise ValueError(
+                    "flip-TTA is not supported with spatial mesh "
+                    "sharding (flips across the sharded axis would be "
+                    "device-local)")
+            # shard_axis is in NC(D)HW terms; channels-last it is one less.
+            self._spatial = sharded_spatial_apply(
+                self._forward_cl, mesh, halo, spatial_axis=shard_axis - 1,
+                axis_name="space")
+        elif mesh is not None and shard_mode == "tiles":
+            self._tiles = mesh.axis("data")
+        elif mesh is not None:
+            raise ValueError(f"shard_mode must be 'spatial' or 'tiles', "
+                             f"got {shard_mode!r}")
+
     def _resolve_augmentations(self, ndim: int):
         """The flip spec for an input of ``ndim`` axes (N, C, *spatial):
         an int takes the first N defaults of its rank."""
@@ -357,8 +407,19 @@ class Predictor:
                  crop_lo: Optional[Tuple[int, ...]] = None,
                  crop_size: Optional[Tuple[int, ...]] = None
                  ) -> torch.Tensor:
-        """Model (averaged over the flips) + heads + crop + cast, on the
-        device; returns the channels-first result still on the device."""
+        """Model (averaged over the flips) + heads + cast + crop, on the
+        device, spatially sharded under 'spatial'; returns the
+        channels-first result still on the device."""
+        out = self._spatial(x_cl) if self._spatial is not None \
+            else self._forward_cl(x_cl)
+        if crop_lo is not None:
+            out = out[(slice(None),) + tuple(
+                slice(lo, lo + sz) for lo, sz in zip(crop_lo, crop_size))]
+        return out.movedim(-1, 1).contiguous()
+
+    def _forward_cl(self, x_cl: torch.Tensor) -> torch.Tensor:
+        """Model (averaged over the flips) + heads + cast to the output
+        dtype, channels-last."""
         out = self.model(x_cl).float()
         augmentations = self._resolve_augmentations(x_cl.dim())
         if augmentations:
@@ -375,15 +436,19 @@ class Predictor:
                 out = torch.argmax(out, dim=-1, keepdim=True)
             else:
                 out = out[..., 1:2] > self.argmax_with_threshold
-        if crop_lo is not None:
-            out = out[(slice(None),) + tuple(
-                slice(lo, lo + sz) for lo, sz in zip(crop_lo, crop_size))]
-        return out.to(self.out_dtype).movedim(-1, 1).contiguous()
+        return out.to(self.out_dtype)
 
     def _predict(self, inp_ncf: np.ndarray,
                  crop_lo: Optional[Tuple[int, ...]] = None,
                  crop_size: Optional[Tuple[int, ...]] = None) -> np.ndarray:
-        """One device call on an (N, C, *spatial) numpy batch."""
+        """One device call on an (N, C, *spatial) numpy batch; under
+        'tiles' on this rank's part of it, the parts gathered."""
+        n = inp_ncf.shape[0]
+        if self._tiles is not None:
+            pad = -n % self._tiles.size
+            if pad:
+                inp_ncf = np.concatenate([inp_ncf] + [inp_ncf[-1:]] * pad)
+            inp_ncf = shard_rows(inp_ncf, self._tiles)
         host = torch.from_numpy(
             np.ascontiguousarray(np.moveaxis(inp_ncf, 1, -1)))
         if self.float16:
@@ -391,14 +456,15 @@ class Predictor:
         pt = self.last_phase_times
         with torch.inference_mode():
             if pt is None:
-                out = self._forward(host.to(self.device), crop_lo,
-                                    crop_size).cpu()
+                out = gather(self._forward(host.to(self.device), crop_lo,
+                                           crop_size), self._tiles).cpu()
             else:
                 t0 = time.perf_counter()
                 x = host.to(self.device)
                 self._sync()
                 t1 = time.perf_counter()
-                out = self._forward(x, crop_lo, crop_size)
+                out = gather(self._forward(x, crop_lo, crop_size),
+                             self._tiles)
                 self._sync()
                 t2 = time.perf_counter()
                 out = out.cpu()
@@ -408,7 +474,7 @@ class Predictor:
                     pt[key] = pt.get(key, 0.0) + dt
         if out.dtype == torch.bfloat16:
             out = out.float()
-        return out.numpy()
+        return out[:n].numpy()
 
     def predict(self, inp: np.ndarray) -> np.ndarray:
         """Predict on an (N, C, *spatial) / (C, *spatial) / (*spatial)

@@ -132,6 +132,9 @@ from elektronn3_tpu_torch.modules.layers import (
 from elektronn3_tpu_torch.ops import fused, vup
 from elektronn3_tpu_torch.ops.flat_conv import flat_conv3, pool_flat
 from elektronn3_tpu_torch.ops.fused import FusedActs
+from elektronn3_tpu_torch.parallel.collectives import (
+    current_stats_group, stats_group)
+from elektronn3_tpu_torch.parallel.mesh import active_mesh
 
 logger = logging.getLogger("elektronn3_tpu_torch")
 
@@ -345,6 +348,9 @@ def _checkpointed(block: nn.Module, policy: bool, *args):
     atomic sums would come out in another order."""
     first = [True]
     tape = fused.StatsTape()
+    # The recompute runs in the backward, outside the forward's
+    # statistics group: it re-enters the one the forward ran in.
+    axis = current_stats_group()
 
     def run(*a):
         recompute = not first[0]
@@ -353,7 +359,7 @@ def _checkpointed(block: nn.Module, policy: bool, *args):
         bufs = list(block.buffers())
         kept = [b.clone() for b in bufs]
         try:
-            with fused.taping(tape):
+            with fused.taping(tape), stats_group(axis):
                 return block(*a)
         finally:
             # The recompute (cut short once it has what the backward
@@ -754,6 +760,12 @@ class UNet(nn.Module):
     C=32 kernel decoder level over a C=64 carry computes (see the
     module docstring).
 
+    ``axis_name`` (default None) is JAX's ``UNet.axis_name``
+    (elektronn3_tpu/models/unet.py:1367-1375): the mesh axis over which
+    a training forward sums the batch-norm statistics of every level,
+    kernel, flat and library alike (see :meth:`forward`); the
+    ``Trainer`` under a mesh does so whatever it is.
+
     ``input_grad`` (default False, only a bool: anything else raises
     ``ValueError``) is JAX's ``UNet.input_grad``
     (elektronn3_tpu/models/unet.py:1389-1396): where JAX runs its fused
@@ -795,7 +807,8 @@ class UNet(nn.Module):
                  conv_mode: str = "same", attention: bool = False,
                  full_norm: bool = True,
                  checkpointing: Union[bool, str] = False,
-                 logit_dtype: Optional[torch.dtype] = None):
+                 logit_dtype: Optional[torch.dtype] = None,
+                 axis_name: Optional[str] = None):
         super().__init__()
         if n_blocks < 1:
             raise ValueError("n_blocks must be > 0")
@@ -853,6 +866,7 @@ class UNet(nn.Module):
         self.full_norm = full_norm
         self.checkpointing = checkpointing
         self.logit_dtype = logit_dtype
+        self.axis_name = axis_name
         self._plans: Dict[tuple, List[str]] = {}
 
         self.down_convs, self.up_convs = self._levels(device)
@@ -1077,8 +1091,20 @@ class UNet(nn.Module):
         autograd graph in training, with running statistics and no graph
         in eval. ``reference=True`` runs every kernel's plain PyTorch
         version instead, on any device (to hold the kernels against it
-        on the card)."""
+        on the card).
+
+        In training with ``axis_name`` set and a mesh active (``with
+        mesh:``), every batch norm sums its statistics over that mesh
+        axis (:class:`~elektronn3_tpu_torch.parallel.collectives.
+        stats_group`): ``x`` is this rank's shard of the batch and the
+        statistics are the global batch's, JAX's ``axis_name`` under
+        ``shard_map``. Without an active mesh the name binds nothing and
+        the statistics are this process's."""
         if self.training:
+            mesh = active_mesh() if self.axis_name is not None else None
+            if mesh is not None:
+                with stats_group(mesh.axis(self.axis_name)):
+                    return self._forward(x, reference)
             return self._forward(x, reference)
         with torch.no_grad():
             return self._forward(x, reference)

@@ -20,7 +20,9 @@ outside autograd.
 Group and instance norm (``FlatGNStats``) take per-sample statistics,
 (B, C) sums from the kernels' ``want_stats='per_sample'``, in training
 and in eval alike (there is no running state), and give (B, C)
-prologue vectors (:func:`gn_prologue`).
+prologue vectors (:func:`gn_prologue`). They take no collective under a
+mesh: each sample's statistics are its own (``FlatGNStats`` has no
+``axis_name``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from torch import nn
 
 from elektronn3_tpu_torch.ops.fused import channel_stats
 from elektronn3_tpu_torch.ops.pallas_bn import update_running
+from elektronn3_tpu_torch.parallel.collectives import (
+    current_stats_group, psum)
 
 
 def bn_eval_prologue(norm: nn.Module) -> Tuple[torch.Tensor,
@@ -66,7 +70,17 @@ def bn_train_prologue(norm: nn.Module, s: torch.Tensor,
     running statistics take the unclamped variance, as in JAX; the
     prologue clamps it at 0 against cancellation. Differentiable in
     ``s``, ``q`` and the affine parameters, which is how the statistics
-    cotangents reach the kernels."""
+    cotangents reach the kernels.
+
+    Inside a :class:`~elektronn3_tpu_torch.parallel.collectives.
+    stats_group` the sums are summed over its ranks (``psum``, whose
+    backward sums the statistics cotangents) and ``count`` is multiplied
+    by its size before the mean: the global batch's statistics, JAX's
+    ``FlatBNStats``/``FlatBatchNorm`` under an ``axis_name``."""
+    axis = current_stats_group()
+    if axis is not None:
+        s, q = psum(torch.stack([s, q]), axis).unbind(0)
+        count = count * axis.size
     mean = s / count
     var = q / count - mean * mean
     update_running_stats(norm, mean, var)

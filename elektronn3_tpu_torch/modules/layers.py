@@ -19,6 +19,8 @@ from elektronn3_tpu_torch.modules.flat_norm import (
     bn_eval_prologue, norm_kind, update_running_stats)
 from elektronn3_tpu_torch.modules.pallas_norm import (
     PallasBatchNorm, PallasBatchNorm2d, PallasBatchNorm3d)
+from elektronn3_tpu_torch.parallel.collectives import (
+    current_stats_group, psum)
 
 
 def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
@@ -178,12 +180,28 @@ def apply_norm(norm_layer: Optional[nn.Module], x: torch.Tensor,
     bias`` and differentiable through the statistics; the running
     statistics get flax's momentum update (see ``update_running_stats``).
     ``F.batch_norm(training=True)`` would update ``running_var`` with
-    the unbiased variance instead."""
+    the unbiased variance instead.
+
+    Inside a :class:`~elektronn3_tpu_torch.parallel.collectives.
+    stats_group` the training statistics are the global batch's: the
+    per-rank ``E[x]`` and ``E[x^2]`` averaged over its ranks before the
+    variance (flax's ``nn.BatchNorm(axis_name=...)``, a ``pmean``); the
+    rounding points and the running update stay as above. A 'batchp'
+    norm there raises ``ValueError`` when the group has more than one
+    rank: its kernels reduce one rank's rows (JAX's 'batchp' takes no
+    ``axis_name`` and so normalizes each shard by itself under
+    ``shard_map``, which the port does not copy)."""
     if norm_layer is None:
         return x
     if isinstance(norm_layer, GroupNorm):
         return norm_layer(x)
+    axis = current_stats_group() if norm_layer.training else None
     if isinstance(norm_layer, PallasBatchNorm):
+        if axis is not None and axis.size > 1:
+            raise ValueError(
+                "normalization='batchp' takes no statistics across ranks; "
+                f"its batch norm cannot train over the {axis.size} ranks of "
+                f"axis {axis.name!r} (use normalization='batch')")
         return norm_layer(x.contiguous(), reference)
     if not norm_layer.training:
         inv, shift = bn_eval_prologue(norm_layer)
@@ -191,7 +209,11 @@ def apply_norm(norm_layer: Optional[nn.Module], x: torch.Tensor,
     xf = x.float()
     dims = tuple(range(x.dim() - 1))
     mean = xf.mean(dims)
-    var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+    meansq = (xf * xf).mean(dims)
+    if axis is not None:
+        mean, meansq = (psum(torch.stack([mean, meansq]), axis)
+                        / axis.size).unbind(0)
+    var = torch.clamp_min(meansq - mean * mean, 0.0)
     update_running_stats(norm_layer, mean, var)
     mul = torch.rsqrt(var + norm_layer.eps) * norm_layer.weight.float()
     return ((xf - mean) * mul + norm_layer.bias.float()).to(x.dtype)

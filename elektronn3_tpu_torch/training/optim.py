@@ -23,6 +23,9 @@ import torch
 from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
+from elektronn3_tpu_torch.parallel.collectives import stats_group
+from elektronn3_tpu_torch.parallel.mesh import shard_rows
+
 
 class Padam(torch.optim.Optimizer):
     """Partially adaptive Adam:
@@ -150,7 +153,8 @@ def _batch_input(batch, device) -> torch.Tensor:
 
 
 def bn_update(loader, model: nn.Module,
-              max_batches: Optional[int] = None) -> nn.Module:
+              max_batches: Optional[int] = None,
+              mesh=None) -> nn.Module:
     """Re-estimate the batch norms' running statistics as the mean of
     the statistics of ``loader``'s batches (dicts with a channels-last
     'inp', or the inputs themselves; at most ``max_batches``).
@@ -162,7 +166,12 @@ def bn_update(loader, model: nn.Module,
     averaged cumulatively, the JAX package's method. Afterwards the
     buffers hold the averages and the model its former mode. A model
     without batch norm comes back unchanged. Updates ``model`` in place
-    and returns it."""
+    and returns it.
+
+    With ``mesh`` (a ``parallel.Mesh``), every rank iterates the same
+    global batches, runs the forward on its rows of each, and the batch
+    norms sum their statistics over the mesh's first axis: every rank
+    ends with the global batches' statistics (all ranks must call it)."""
     norms = batch_norms(model)
     if not norms:
         return model
@@ -171,6 +180,7 @@ def bn_update(loader, model: nn.Module,
             raise ValueError("bn_update needs each batch norm's momentum; "
                              f"{m} has momentum=None")
     device = next(model.parameters()).device
+    axis = None if mesh is None else mesh.axis(mesh.axis_names[0])
     orig = [(m.running_mean.detach().clone(), m.running_var.detach().clone())
             for m in norms]
     counts = [m.num_batches_tracked.detach().clone() for m in norms]
@@ -186,7 +196,12 @@ def bn_update(loader, model: nn.Module,
                 for m, (mean, var) in zip(norms, orig):
                     m.running_mean.copy_(mean)
                     m.running_var.copy_(var)
-                model(_batch_input(batch, device))
+                inp = _batch_input(batch, device)
+                if axis is None:
+                    model(inp)
+                else:
+                    with stats_group(axis):
+                        model(shard_rows(inp, axis))
                 raw = [((m.running_mean.float() - (1 - m.momentum) * mean)
                         / m.momentum,
                         (m.running_var.float() - (1 - m.momentum) * var)

@@ -47,16 +47,21 @@ elektronn3/training/trainer.py), with its arguments:
   Trainer), the run's log ``elektronn3_tpu_torch.log``, TensorBoard
   events and a ``torch.profiler`` Chrome trace of the ``profile_steps``
   window under ``profile/``.
+- ``mesh`` (``parallel.make_mesh``): data parallelism over the mesh's
+  first axis, one process a rank, JAX's ``shard_map`` step. See
+  :func:`train_step`.
 
 Not ported yet (ROADMAP.md Queue 1): the deployment artifact (JAX's
 StableHLO export; the kernels are ctypes calls that ``torch.export``
-cannot trace: its own item), the KNOSSOS preview and ``write_to_kzip``
-(item 9), and ``mesh`` and ``shard_strategy`` (multi-GPU, item 7).
+cannot trace: its own item) and the KNOSSOS preview and
+``write_to_kzip`` (item 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import functools
 import importlib
 import importlib.util
 import inspect
@@ -73,6 +78,10 @@ from torch import nn
 
 from elektronn3_tpu_torch.data.pipeline import DataLoader
 from elektronn3_tpu_torch.logger import change_log_file_to, logger
+from elektronn3_tpu_torch.parallel.collectives import (
+    all_gather, gather, psum, stats_group, sum_gradients)
+from elektronn3_tpu_torch.parallel.distributed import process_index
+from elektronn3_tpu_torch.parallel.mesh import Axis, Mesh, shard_rows
 from elektronn3_tpu_torch.training.metrics import confusion_matrix
 from elektronn3_tpu_torch.training.optim import (
     SWA, bn_update, kept_norm_buffers)
@@ -93,44 +102,86 @@ def default_optimizer(model: nn.Module, lr: float = 1e-3,
                              eps=1e-8, weight_decay=1e-4)
 
 
+def _global_forward(model: nn.Module, inp: torch.Tensor,
+                    dp: Optional[Axis], reference: bool = False,
+                    ) -> torch.Tensor:
+    """The logits of the global batch ``inp``. Under the data axis
+    ``dp``: the model on this rank's rows with its batch-norm statistics
+    summed over the axis, the logits all-gathered (every rank then holds
+    the global batch's, and its gradient flows back to this rank's rows
+    only)."""
+    if dp is None:
+        return model(inp, reference=True) if reference else model(inp)
+    with stats_group(dp):
+        local = shard_rows(inp, dp)
+        out = model(local, reference=True) if reference else model(local)
+    return all_gather(out, dp)
+
+
 def _step(model: nn.Module, criterion: Callable,
           optimizer: torch.optim.Optimizer, inp: torch.Tensor,
           target: torch.Tensor, reference: bool = False,
           unlabeled: Optional[torch.Tensor] = None,
           ss_criterion: Optional[Callable] = None,
-          ss_rng: Optional[torch.Generator] = None):
+          ss_rng: Optional[torch.Generator] = None,
+          dp: Optional[Axis] = None):
     """:func:`train_step` returning (loss, logits), both detached. With
     ``unlabeled`` and ``ss_criterion`` the loss adds the semi-supervised
     term in JAX's two conventions: a criterion with an ``apply_fn``
     attribute (``FixMatchSegLoss``) is called as ``ss_criterion(
     unlabeled, rng=ss_rng, apply_fn=f)`` with ``f`` the model in
     training mode (``rng`` only where its call takes one), any other on
-    the unlabeled logits."""
+    the unlabeled logits. ``dp``: the data axis (see :func:`train_step`);
+    ``f`` is then the sharded, gathered forward of a global batch."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    out = model(inp, reference=True) if reference else model(inp)
+    out = _global_forward(model, inp, dp, reference)
     loss = criterion(out, target)
     if unlabeled is not None and ss_criterion is not None:
+        fwd = model if dp is None \
+            else functools.partial(_global_forward, model, dp=dp)
         if hasattr(ss_criterion, "apply_fn"):
             kw = {"rng": ss_rng} if _takes(ss_criterion, "rng") else {}
-            loss = loss + ss_criterion(unlabeled, apply_fn=model, **kw)
+            loss = loss + ss_criterion(unlabeled, apply_fn=fwd, **kw)
         else:
-            loss = loss + ss_criterion(model(unlabeled))
+            loss = loss + ss_criterion(fwd(unlabeled))
     loss = loss.float()
     loss.backward()
+    sum_gradients(model.parameters(), dp)
     optimizer.step()
     return loss.detach(), out.detach()
+
+
+def data_axis(mesh: Optional[Mesh]) -> Optional[Axis]:
+    """The axis a mesh shards the batch over: its first (JAX's
+    ``mesh.axis_names[0]``); None without a mesh."""
+    return None if mesh is None else mesh.axis(mesh.axis_names[0])
 
 
 def train_step(model: nn.Module, criterion: Callable,
                optimizer: torch.optim.Optimizer, inp: torch.Tensor,
                target: torch.Tensor, *,
-               reference: bool = False) -> torch.Tensor:
+               reference: bool = False,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One optimization step on a channels-last batch; returns the loss
     as a detached float32 device tensor (no host sync). ``reference``
     runs the model with ``reference=True`` (the UNet's plain versions of
-    its kernels, to time or check the kernels against)."""
-    return _step(model, criterion, optimizer, inp, target, reference)[0]
+    its kernels, to time or check the kernels against).
+
+    ``mesh``: data parallelism over its first axis, with JAX's
+    ``shard_map`` semantics. ``inp`` and ``target`` are the GLOBAL batch
+    on every rank; each rank runs the model on its block of rows with
+    the batch-norm statistics of every level summed over the axis, the
+    logits are all-gathered and every rank computes the loss of the
+    global batch; after the backward the parameter gradients are
+    all-reduced with a SUM (one flat buffer a dtype), which is the
+    gradient of that global loss (the gradient of each rank's share
+    sums to it; a DDP-style mean would divide it by the axis size, and
+    per-rank losses averaged would change any loss that is not a mean
+    over voxels, as Dice or a class-weighted cross entropy). So every
+    rank steps to the same parameters and running statistics."""
+    return _step(model, criterion, optimizer, inp, target, reference,
+                 dp=data_axis(mesh))[0]
 
 
 def _device_of(model: nn.Module) -> torch.device:
@@ -159,8 +210,8 @@ class Trainer:
     """Training loop with validation, schedules, snapshots, TensorBoard
     and preview inference.
 
-    Args (the JAX Trainer's, but ``mesh``, ``shard_strategy``,
-    ``worker_type`` and ``knossos_preview_config``):
+    Args (the JAX Trainer's, but ``worker_type`` and
+    ``knossos_preview_config``):
         model: a channels-last model (``elektronn3_tpu_torch.models.UNet``)
             on the device to train on.
         criterion: ``(logits, target) -> scalar`` loss.
@@ -220,6 +271,25 @@ class Trainer:
             after ``start`` up to ``end`` into ``save_path/profile``.
         nan_check_interval: steps between the batched loss fetches and
             NaN checks (1 checks every step).
+        mesh: a ``parallel.Mesh``: data parallelism over its first axis
+            (:func:`train_step`), one process a rank, every rank
+            building the same Trainer. ``batch_size`` is the GLOBAL
+            batch, as in JAX: every rank draws the same batches from
+            ``seed`` and keeps its rows, so the samples are JAX's.
+            Validation splits each batch over the ranks too (padded to
+            equal parts; the streaming confusion counts all-reduced,
+            the loss and the other metrics from the gathered logits);
+            :meth:`apply_swa`'s ``bn_update`` sums its statistics over
+            the ranks; random draws in the forward ('rrelu') come from
+            a generator of each rank and step, JAX's ``fold_in`` of the
+            axis index. Files, the log, TensorBoard, the profiler trace
+            and preview inference come from rank 0 alone; the gradient
+            histograms' pass runs on every rank.
+        shard_strategy: 'auto', 'gspmd' or 'shard_map' (else
+            ``ValueError``, with a mesh): JAX's two partitionings of its
+            step. Both give the global batch's statistics, loss and
+            gradient there, and the port has the one implementation
+            above for all three.
     """
 
     def __init__(
@@ -259,6 +329,8 @@ class Trainer:
             enable_videos: bool = False,
             hparams: Optional[Dict[str, Any]] = None,
             tb_hist_interval: int = 1,
+            mesh: Optional[Mesh] = None,
+            shard_strategy: str = "auto",
             seed: int = 0,
             tqdm_kwargs: Optional[Dict] = None,
             profile_steps: Optional[Tuple[int, int]] = None,
@@ -266,6 +338,19 @@ class Trainer:
     ):
         if nan_check_interval < 1:
             raise ValueError("nan_check_interval must be >= 1")
+        self.mesh = mesh
+        self.shard_strategy = shard_strategy
+        self._dp = data_axis(mesh)
+        if mesh is not None:
+            if shard_strategy not in ("auto", "gspmd", "shard_map"):
+                raise ValueError(
+                    f"shard_strategy must be 'auto', 'gspmd' or "
+                    f"'shard_map', got {shard_strategy!r}")
+            if batch_size % self._dp.size:
+                raise ValueError(
+                    f"batch_size {batch_size} does not split over the "
+                    f"{self._dp.size} ranks of axis {self._dp.name!r}")
+        self._rank0 = process_index() == 0
         if device is not None:
             model.to(device)
         self.model = model
@@ -340,6 +425,15 @@ class Trainer:
                 datetime.datetime.now().strftime("%y-%m-%d_%H-%M-%S")
         self.exp_name = exp_name
         self.save_path = os.path.join(self.save_root, exp_name)
+        self.tb = None
+        # Known on every rank alike: the histograms' gradient pass runs
+        # collectives on all of them when rank 0 writes its histograms.
+        self._tb_enabled = enable_tensorboard and \
+            importlib.util.find_spec("tensorboard") is not None
+        # the default sample images are matplotlib figures
+        self._can_plot = importlib.util.find_spec("matplotlib") is not None
+        if not self._rank0:
+            return
         if os.path.isdir(self.save_path) and os.listdir(self.save_path):
             raise RuntimeError(f"{self.save_path} already exists and is not "
                                "empty. Please choose a different exp_name.")
@@ -351,29 +445,26 @@ class Trainer:
             logger.exception("could not move the log file into the run")
         logger.info(f"Writing files to {self.save_path}")
 
-        self.tb = None
-        if enable_tensorboard:
-            try:
-                from torch.utils.tensorboard import SummaryWriter
-                tb_path = self.save_path if tensorboard_root_path is None \
-                    else os.path.join(
-                        os.path.expanduser(tensorboard_root_path), exp_name)
-                self.tb = SummaryWriter(tb_path, flush_secs=20)
-                if self.hparams:
-                    self.tb.add_hparams(hparam_dict=self.hparams,
-                                        metric_dict={})
-            except ImportError:
-                logger.warning(
-                    "tensorboard not available; disabling TB logging.")
-        # the default sample images are matplotlib figures
-        self._can_plot = importlib.util.find_spec("matplotlib") is not None
+        if self._tb_enabled:
+            from torch.utils.tensorboard import SummaryWriter
+            tb_path = self.save_path if tensorboard_root_path is None \
+                else os.path.join(
+                    os.path.expanduser(tensorboard_root_path), exp_name)
+            self.tb = SummaryWriter(tb_path, flush_secs=20)
+            if self.hparams:
+                self.tb.add_hparams(hparam_dict=self.hparams,
+                                    metric_dict={})
+        elif enable_tensorboard:
+            logger.warning("tensorboard not available; disabling TB logging.")
         if self.tb is not None and not self._can_plot \
                 and sample_plotting_handler is None:
             logger.warning("matplotlib not available; TensorBoard gets no "
                            "sample images.")
         num_params = sum(p.numel() for p in model.parameters())
         logger.info(f"Model: {model.__class__.__name__} "
-                    f"({num_params / 1e6:.2f}M params)")
+                    f"({num_params / 1e6:.2f}M params)"
+                    + ("" if mesh is None else f", data-parallel over "
+                       f"{self._dp.size} ranks of {mesh}"))
 
     # ------------------------------------------------------------------
     # Batches
@@ -485,7 +576,7 @@ class Trainer:
         self._log_basic(stats, misc)
         self._log_to_tensorboard(stats, misc)
         lap("log")
-        if self.preview_batch is not None \
+        if self.preview_batch is not None and self._rank0 \
                 and self.epoch % self.preview_interval == 0:
             try:
                 self._run_preview_inference()
@@ -533,10 +624,12 @@ class Trainer:
             if self._inject_lr:
                 for group in self.optimizer.param_groups:
                     group["lr"] = lr
-            loss, out = _step(
-                self.model, self.criterion, self.optimizer, inp, target,
-                unlabeled=None if unlabeled is None else next(unlabeled),
-                ss_criterion=self.ss_criterion, ss_rng=self._ss_rng)
+            with self._rank_rng():
+                loss, out = _step(
+                    self.model, self.criterion, self.optimizer, inp, target,
+                    unlabeled=None if unlabeled is None else next(unlabeled),
+                    ss_criterion=self.ss_criterion, ss_rng=self._ss_rng,
+                    dp=self._dp)
             self._last_sample = (inp, target, out)
             pending.append(loss)
             if len(pending) >= self.nan_check_interval:
@@ -566,10 +659,30 @@ class Trainer:
             if stats["tr_loss"] else np.nan
         return stats, misc
 
+    @contextlib.contextmanager
+    def _rank_rng(self):
+        """Under a data axis of several ranks, the forward's random draws
+        ('rrelu') from the default generators of the CPU and this rank's
+        card seeded by (``seed``, step, rank) and restored after: JAX's
+        ``fold_in(rng, axis_index)``, so that the ranks' draws differ."""
+        if self._dp is None or self._dp.size == 1:
+            yield
+            return
+        cuda = self.device.type == "cuda"
+        seed = int(np.random.SeedSequence(
+            [self.seed, self.step, self._dp.index]).generate_state(1)[0])
+        with torch.random.fork_rng(devices=[self.device] if cuda else []):
+            torch.random.default_generator.manual_seed(seed)
+            if cuda:
+                torch.cuda.default_generators[
+                    self.device.index or 0].manual_seed(seed)
+            yield
+
     def _profile_window(self) -> None:
         """Start ``torch.profiler`` after step ``start``, stop it once
-        ``end`` steps are done (reference trainer.py:610-622)."""
-        if self.profile_steps is None:
+        ``end`` steps are done (reference trainer.py:610-622); rank 0
+        alone."""
+        if self.profile_steps is None or not self._rank0:
             return
         start, end = self.profile_steps
         if self.step == start and self._profiler is None:
@@ -631,7 +744,14 @@ class Trainer:
         falls. The streaming evaluators take one (C, 4) count matrix a
         distinct ``ignore``, summed on the device; the others the
         outputs, concatenated on the device. The losses and counts are
-        fetched once, after the last batch."""
+        fetched once, after the last batch.
+
+        Under a data axis each batch is padded (repeating its last row)
+        to equal parts, each rank runs its part, and the logits are
+        gathered without the padding: the loss and the non-streaming
+        metrics are the global batch's on every rank; the counts come
+        from each rank's own rows and are all-reduced once at the
+        end."""
         loader = self._map_loader(self.valid_dataset, shuffle=False,
                                   seed=self.seed, drop_last=False)
         streaming = {name: ev for name, ev in self.valid_metrics.items()
@@ -647,22 +767,24 @@ class Trainer:
             with torch.inference_mode():
                 for batch in loader:
                     inp, target = self._batch(batch)
-                    out = self.model(inp)
+                    out, own, rows = self._eval_forward(inp)
                     losses.append(self.criterion(out, target).float())
                     self._last_val_sample = (inp, target, out)
                     if target is None:
                         continue
                     if streaming:
-                        pred = torch.argmax(out, -1)
+                        pred = torch.argmax(own, -1)
                         for ign in ignores:
                             cm = confusion_matrix(
-                                target, pred, out.shape[-1],
+                                target[rows], pred, out.shape[-1],
                                 nan_when_empty=False, ignore=ign)
                             counts[ign] = cm if ign not in counts \
                                 else counts[ign] + cm
                     if nonstreaming:
                         outs.append(out)
                         targets.append(target)
+                counts = {ign: psum(cm, self._dp)
+                          for ign, cm in counts.items()}
         finally:
             self.model.train(was_training)
         vals = torch.stack(losses).cpu().tolist() if losses else []
@@ -683,12 +805,31 @@ class Trainer:
                     stats[name] = np.nan
         return stats
 
+    def _eval_forward(self, inp: torch.Tensor):
+        """(logits of the global batch, this rank's logits, the slice of
+        its rows) of an eval forward; see :meth:`_validate`."""
+        n = inp.shape[0]
+        if self._dp is None:
+            out = self.model(inp)
+            return out, out, slice(0, n)
+        size, i = self._dp.size, self._dp.index
+        m = -(-n // size)
+        if m * size > n:
+            inp = torch.cat([inp, inp[-1:].expand(
+                (m * size - n,) + tuple(inp.shape[1:]))])
+        own = self.model(shard_rows(inp, self._dp))
+        lo, hi = min(i * m, n), min((i + 1) * m, n)
+        return gather(own, self._dp)[:n], own[:hi - lo], slice(lo, hi)
+
     # ------------------------------------------------------------------
     # Logging
     # ------------------------------------------------------------------
 
     def _log_basic(self, stats, misc) -> None:
-        """Console and log-file line (reference trainer.py:907-917)."""
+        """Console and log-file line (reference trainer.py:907-917), on
+        rank 0."""
+        if not self._rank0:
+            return
         tr_loss = stats.get("tr_loss_mean", np.nan)
         val_loss = stats.get("val_loss", np.nan)
         lr = misc.get("learning_rate", np.nan)
@@ -701,7 +842,17 @@ class Trainer:
 
     def _log_to_tensorboard(self, stats, misc) -> None:
         """Scalars, sample images and histograms (reference
-        trainer.py:919-986)."""
+        trainer.py:919-986). The other ranks run only their share of the
+        histograms' gradient pass."""
+        hist = self._tb_enabled and self.tb_hist_interval \
+            and self.epoch % self.tb_hist_interval == 0
+        # Every rank runs the gradient pass here, before anything that
+        # rank 0 alone does or that swallows an exception: a rank that
+        # skipped its collectives would pair the others' with its next
+        # step's.
+        grads = self._histogram_grads() \
+            if hist and (self.tb is not None or self._dp is not None) \
+            else None
         if self.tb is None:
             return
         for k, v in {**stats, **misc}.items():
@@ -728,23 +879,32 @@ class Trainer:
                         "out": _host(out.movedim(-1, 1))}, group=group)
                 except Exception:
                     logger.exception("default sample plotting failed")
-        if self.tb_hist_interval \
-                and self.epoch % self.tb_hist_interval == 0:
+        if hist:
             try:
-                self._tb_log_histograms()
+                self._tb_log_histograms(grads)
             except Exception:
                 logger.exception("histogram logging failed")
 
-    def _tb_log_histograms(self) -> None:
+    def _tb_log_histograms(self, grads=None) -> None:
         """Histograms of the parameters and of their gradients on the
-        last training batch (reference trainer.py:977-986). The gradient
-        pass is a training-mode forward whose update of the batch norms'
-        running statistics is undone (JAX discards its new
-        ``batch_stats``); ``.grad`` is left alone."""
+        last training batch (reference trainer.py:977-986); ``grads`` is
+        :meth:`_histogram_grads`'s result (None: run it here)."""
         for name, p in self.model.named_parameters():
             self.tb.add_histogram(f"param/{name}", _host(p), self.step)
+        if grads is None:
+            grads = self._histogram_grads()
+        for name, g in grads:
+            if g is not None:
+                self.tb.add_histogram(f"grad/{name}", _host(g), self.step)
+
+    def _histogram_grads(self):
+        """(name, gradient) of the loss of the last training batch for
+        each trainable parameter (summed over the data axis). The pass
+        is a training-mode forward whose update of the batch norms'
+        running statistics is undone (JAX discards its new
+        ``batch_stats``); ``.grad`` is left alone."""
         if self._last_sample is None or self._last_sample[1] is None:
-            return
+            return []
         inp, target, _ = self._last_sample
         named = [(n, p) for n, p in self.model.named_parameters()
                  if p.requires_grad]
@@ -752,14 +912,15 @@ class Trainer:
         with kept_norm_buffers(self.model):
             self.model.train()
             try:
-                loss = self.criterion(self.model(inp), target).float()
+                loss = self.criterion(
+                    _global_forward(self.model, inp, self._dp),
+                    target).float()
                 grads = torch.autograd.grad(loss, [p for _, p in named],
                                             allow_unused=True)
             finally:
                 self.model.train(was_training)
-        for (name, _), g in zip(named, grads):
-            if g is not None:
-                self.tb.add_histogram(f"grad/{name}", _host(g), self.step)
+        return [(name, None if g is None else psum(g, self._dp))
+                for (name, _), g in zip(named, grads)]
 
     def _run_preview_inference(self) -> np.ndarray:
         """Predict ``preview_batch`` with the port's Predictor (tiled by
@@ -800,8 +961,11 @@ class Trainer:
                     val_loss=np.nan) -> str:
         """Write ``state_dict{suffix}.pth`` (model, optimizer, the rate
         scheduler's state and ``info``, for :meth:`load_state`) and
-        ``model{suffix}.pt`` (:func:`save_model`); returns the first's
-        path."""
+        ``model{suffix}.pt`` (:func:`save_model`), on rank 0; returns
+        the first's path."""
+        path = os.path.join(self.save_path, f"state_dict{suffix}.pth")
+        if not self._rank0:
+            return path
         log = logger.info if verbose else logger.debug
         info = {
             "step": self.step,
@@ -811,7 +975,6 @@ class Trainer:
             "inference_kwargs": self.inference_kwargs,
             "model_class": self.model.__class__.__name__,
         }
-        path = os.path.join(self.save_path, f"state_dict{suffix}.pth")
         torch.save({
             "model_state_dict": self.model.state_dict(),
             "optimizer_state_dict": self.optimizer.state_dict(),
@@ -843,8 +1006,8 @@ class Trainer:
         """Swap the SWA average into the model's parameters (a second
         call swaps the former ones back) and, given ``bn_loader``,
         re-estimate the batch norms on at most ``max_batches`` of its
-        batches (:func:`~.optim.bn_update`; reference
-        trainer.py:681-705)."""
+        batches (:func:`~.optim.bn_update`, over the Trainer's mesh;
+        reference trainer.py:681-705)."""
         if self.swa is None or self.swa.avg_params is None:
             logger.warning("No SWA state accumulated yet.")
             return
@@ -854,7 +1017,8 @@ class Trainer:
             for k, p in params.items():
                 p.copy_(new[k])
         if bn_loader is not None:
-            bn_update(bn_loader, self.model, max_batches=max_batches)
+            bn_update(bn_loader, self.model, max_batches=max_batches,
+                      mesh=self.mesh)
 
     def _shell(self):  # pragma: no cover
         import IPython

@@ -524,15 +524,14 @@ def test_loader_style_dataset_and_mixed_precision(tmp_path, how):
 
 
 def test_trainer_takes_jax_arguments():
-    """JAX's Trainer arguments but the multi-device and KNOSSOS ones, in
-    JAX's order; the exports of JAX's ``training`` package for what is
-    ported."""
+    """JAX's Trainer arguments but the worker-type and KNOSSOS ones, in
+    JAX's order (``mesh`` and ``shard_strategy`` are ported: multi-GPU);
+    the exports of JAX's ``training`` package for what is ported."""
     import inspect
 
     from elektronn3_tpu import training as jtraining
     from elektronn3_tpu_torch import training as ptraining
-    left_out = {"mesh", "shard_strategy", "worker_type",
-                "knossos_preview_config"}
+    left_out = {"worker_type", "knossos_preview_config"}
     jargs = [a for a in inspect.signature(JTrainer.__init__).parameters
              if a not in left_out]
     assert list(inspect.signature(Trainer.__init__).parameters) == jargs
