@@ -336,6 +336,23 @@ epilogue that no single call has, the library op on the
 already-prologued input ("lib*" in the line; K6 with the skip's
 cotangent: the pool's backward plus the add of the two gradients).
 
+22. ``zoo_phase``, the model zoo (ROADMAP Queue 1 item 8; no hand-written
+    kernel: cuDNN, cuBLAS and ATen, so its paths' launch counts are 0):
+    VNet(fac=1), UNet3dLite, fcn8s, FCN8s (vgg16), FCDenseNet103, MSDNet
+    (40 layers, 3D) and StackedConv2Scalar, each at full width: a
+    Predictor request (UNet3dLite's tiled over (1, 1, 64, 512, 512) with
+    its valid-conv offset; the classifier's an eval forward), 3 + 10 bf16
+    Adam steps (CEDiceLoss, cross entropy for the classifier; step ms,
+    MVox/s or MPix/s, peak MB), and one float32 step on the card held
+    against the same step on the CPU from the same weights (loss and
+    logits within 1e-4, gradients per ``_zoo_hold``: 1e-3 of a leaf
+    plus the card's own noise and 1e-4 of the whole gradient); then WSConv,
+    EvoNorm B0/S0, the L1 norms and GatherExcite forward and backward at
+    (8, 44, 88, 88, 32) against the CPU, and the reversible
+    AxialImageTransformer(64, depth 6, 8 heads) on batch 8 of (64, 64)
+    against plain autograd through its blocks: gradients within 1e-3,
+    peak memory lower.
+
 ``--profile`` also profiles three kernel-path training steps of each
 model (the 'batchp' one too, and its ``pallas_flat=False`` step at batch
 2) with ``torch.profiler`` and prints the
@@ -5010,6 +5027,327 @@ def multigpu_phase(UNet, Predictor, CEDiceLoss, Trainer, train_step, fused,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The model zoo (no hand-written kernel: cuDNN, cuBLAS and ATen)
+# ---------------------------------------------------------------------------
+
+ZOO_WARMUP = 3                     # zoo_phase's untimed bf16 steps
+ZOO_STEPS = 10                     # and timed ones
+ZOO_NOISE = 1e-6                   # input noise of the card's own step
+
+
+def _zoo_cases(Z):
+    """(name, builder(dtype, device), bf16 training batch shape, float32
+    check batch shape, unit, classes, request) of zoo_phase: every model
+    at its full width; the float32 card-against-CPU check at batch 1
+    (VNet's and fcn8s' on a crop that keeps their pools whole), so the
+    CPU's step stays within seconds, but the classifier's at its batch
+    of 16: its last batch norms see one value a sample."""
+    def build(ctor, **kw):
+        return lambda dtype, device: ctor(dtype=dtype, device=device, **kw)
+    return [
+        ("VNet", build(Z.VNet, fac=1), (2, 64, 128, 128, 1),
+         (1, 32, 64, 64, 1), "MVox", 2, (1, 1, 64, 128, 128)),
+        ("UNet3dLite", build(Z.UNet3dLite), (8, 22, 140, 140, 1),
+         (1, 22, 140, 140, 1), "MVox", 2, (1, 1, 64, 512, 512)),
+        ("fcn8s", build(Z.fcn8s, n_classes=2, red_fac=16),
+         (4, 64, 128, 128, 1), (1, 32, 64, 64, 1), "MVox", 2,
+         (1, 1, 64, 128, 128)),
+        ("FCN8s", build(Z.FCN8s, n_class=2, backbone="vgg16",
+                        in_channels=3), (8, 224, 224, 3), (1, 224, 224, 3),
+         "MPix", 2, (8, 3, 224, 224)),
+        ("FCDenseNet103", lambda dtype, device: Z.FCDenseNet103(
+            12, 3, dtype=dtype, device=device), (4, 224, 224, 3),
+         (1, 224, 224, 3), "MPix", 12, (4, 3, 224, 224)),
+        ("MSDNet", build(Z.MSDNet, num_layers=40, volumetric=True),
+         (2, 44, 88, 88, 1), (1, 44, 88, 88, 1), "MVox", 2,
+         (1, 1, 44, 88, 88)),
+        ("StackedConv2Scalar", build(Z.StackedConv2Scalar, in_channels=1,
+                                     n_classes=5), (16, 1, 128, 128, 1),
+         (16, 1, 128, 128, 1), "MPix", 5, None),
+    ]
+
+
+def _zoo_targets(model, x, classes, g):
+    """Random targets of the model's output shape: (N,) class ids for a
+    classifier, else one id a voxel of its (valid-conv smaller) output."""
+    with torch.no_grad():
+        shape = model(x[:1]).shape
+    if len(shape) == 2:
+        return torch.randint(0, classes, x.shape[:1], generator=g,
+                             device=x.device)
+    return torch.randint(0, classes, (x.shape[0],) + tuple(shape[1:-1]),
+                         generator=g, device=x.device)
+
+
+def _zoo_step(model, crit, x, y):
+    """(loss, logits, {name: grad}) of one float32 training forward and
+    backward, dropout off."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(x)
+    loss = crit(out, y)
+    loss.backward()
+    return (loss.detach().cpu(), out.detach().float().cpu(),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def _zoo_hold(card, cpu, moved, what):
+    """The card's float32 step against the CPU's: loss and logits within
+    1e-4 of max |CPU|. Each parameter's gradient, in the L2 norm, within
+    1e-3 |CPU| + NOISE_FACTOR |moved - card| + 1e-4 of the whole
+    gradient's norm, ``moved`` the card's step on an input moved by
+    ZOO_NOISE (as ``check_train_step``: the step's own rounding noise,
+    relu and max-pool decisions that flip), the last term for sums of
+    millions of cancelling float32 terms that two devices round apart
+    (the classifier's first batch-norm bias: 1.2e-3 of its own norm
+    apart on an H100 at 700 W, 1.8e-5 of the whole gradient's). A
+    gradient that is zero but for rounding (below 1e-5 of the whole
+    gradient's norm on the CPU, a conv bias feeding a batch norm) below
+    1e-4 of that norm on the card."""
+    (l1, o1, g1), (l0, o0, g0), (_, _, gm) = card, cpu, moved
+    errs = []
+    if abs(float(l1) - float(l0)) > 1e-4 * max(abs(float(l0)), 1e-12):
+        errs.append(f"loss {float(l1)} vs {float(l0)}")
+    e = float((o1 - o0).abs().max() / o0.abs().max().clamp_min(1e-30))
+    if e > 1e-4:
+        errs.append(f"logits {e:.3g}")
+    total = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                 for g in g0.values())))
+    worst, worst_q = 0.0, 0.0
+    for n, ref in g0.items():
+        r = float(ref.double().norm())
+        d = float((g1[n].double() - ref.double()).norm())
+        if r <= 1e-5 * total:
+            if float(g1[n].double().norm()) > 1e-4 * total:
+                errs.append(f"{n} not zero")
+            continue
+        mv = float((gm[n].double() - g1[n].double()).norm())
+        b = 1e-3 * r + NOISE_FACTOR * mv + 1e-4 * total
+        worst = max(worst, d / max(r, 1e-30))
+        worst_q = max(worst_q, d / b)
+        if d > b:
+            errs.append(f"{n} |d| {d:.3g} > {b:.3g} (|CPU| {r:.3g}, move "
+                        f"{mv:.3g}, whole {total:.3g})")
+    print(f"zoo {what}: float32 step card vs CPU: loss {float(l1):.6f} / "
+          f"{float(l0):.6f}, logits {e:.2e}, worst gradient err/|CPU| "
+          f"{worst:.2e}, worst err/bound {worst_q:.3f}", flush=True)
+    if errs:
+        raise AssertionError(f"zoo {what}: card vs CPU: {errs[:6]}")
+
+
+def zoo_model_run(name, build, shape, check_shape, unit, classes, request,
+                  Predictor, train_step, loss_mod, fused, smi):
+    """One zoo model: served (where it is dense), timed bf16 training
+    steps with Adam, and the float32 card-against-CPU step. Returns the
+    kernel launches of its serving and training."""
+    crit = loss_mod.CrossEntropyLoss() if request is None \
+        else loss_mod.CEDiceLoss(1.0, 1.0)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    torch.manual_seed(11)
+    model = build(torch.bfloat16, "cuda")
+    fused.reset_launches()
+    rate = ""
+    if request is not None:
+        vol = torch.randn(request, generator=g, device="cuda").cpu().numpy()
+        kw = dict(batch_size=8)
+        if name == "UNet3dLite":
+            kw.update(tile_shape=(22, 140, 140), offset=model.offset)
+        pred = Predictor(model, **kw)
+        pred.predict(vol[:1, :, :22] if name == "UNet3dLite" else vol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred.predict(vol)
+        dt = time.perf_counter() - t0
+        if not np.isfinite(out).all() or out.shape[:2] != (request[0],
+                                                           classes):
+            raise AssertionError(f"zoo {name}: request output "
+                                 f"{out.shape}, finite "
+                                 f"{np.isfinite(out).all()}")
+        rate = (f"; request {request}: {dt:.3f} s = "
+                f"{np.prod(request) / request[1] / dt / 1e6:.2f} "
+                f"{unit}/s")
+    else:
+        with torch.no_grad():
+            probe = model.eval()(torch.randn(shape, generator=g,
+                                             device="cuda"))
+        if probe.shape != (shape[0], classes) \
+                or not torch.isfinite(probe).all():
+            raise AssertionError(f"zoo {name}: eval logits {probe.shape}")
+    served = launch_counts(fused)
+    x = torch.randn(shape, generator=g, device="cuda")
+    y = _zoo_targets(model, x, classes, g)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launches()
+    dt = timed_steps(train_step, model, crit, opt, [(x, y)], False,
+                     warmup=ZOO_WARMUP, steps=ZOO_STEPS)
+    trained = launch_counts(fused)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    vox = np.prod(shape[:-1]) / (shape[1] if name == "StackedConv2Scalar"
+                                 else 1)
+    STEP_MS[f"zoo {name}"] = (dt * 1e3,)
+    print(f"zoo {name}: bf16 Adam step at batch {shape}: {dt * 1e3:.2f} ms "
+          f"= {vox / dt / 1e6:.2f} {unit}/s, peak {peak:.0f} MB{rate} "
+          f"({smi})", flush=True)
+    del model, opt, x, y
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(12)
+    cpu = build(torch.float32, "cpu")
+    card = build(torch.float32, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    gc = torch.Generator().manual_seed(13)
+    xc = torch.randn(check_shape, generator=gc)
+    yc = _zoo_targets(cpu, xc, classes, gc)
+    ref = _zoo_step(cpu, crit, xc, yc)
+    got = _zoo_step(card, crit, xc.cuda(), yc.cuda())
+    moved = _zoo_step(card, crit, (xc + ZOO_NOISE * torch.randn(
+        check_shape, generator=gc)).cuda(), yc.cuda())
+    _zoo_hold(got, ref, moved, name)
+    del cpu, card
+    torch.cuda.empty_cache()
+    for what, n in (("serving", served), ("training", trained)):
+        if any(n.values()):
+            raise AssertionError(f"zoo {name} {what} launched hand "
+                                 f"kernels: {n}")
+    return served, trained
+
+
+def zoo_module_run(PM, smi):
+    """The zoo's norm and conv modules at (8, 44, 88, 88, 32): forward
+    and backward on the card, timed, held against the CPU (float32),
+    and the reversible axial transformer's gradients against plain
+    autograd through its blocks, with both arms' peak memory."""
+    shape = (8, 44, 88, 88, 32)
+    mods = {
+        "WSConv": lambda d: PM.WSConv(32, 32, (3, 3, 3), device=d),
+        "EvoNorm B0": lambda d: PM.EvoNorm(32, "B0", device=d),
+        "EvoNorm S0": lambda d: PM.EvoNorm(32, "S0", device=d),
+        "L1BatchNorm": lambda d: PM.L1BatchNorm(32, device=d),
+        "L1GroupNorm": lambda d: PM.L1GroupNorm(32, device=d),
+        "GatherExcite": lambda d: PM.GatherExcite(
+            32, 4, True, True, spatial_dim=3, device=d),
+    }
+    gc = torch.Generator().manual_seed(21)
+    x = torch.randn(shape, generator=gc)
+    gy = torch.randn(shape, generator=gc)
+    for name, make in mods.items():
+        torch.manual_seed(22)
+        cpu = make("cpu").train()
+        card = make("cuda").train()
+        init = copy.deepcopy(cpu.state_dict())
+        card.load_state_dict(init)
+        # The conv runs the CPU on two samples: no batch statistics.
+        n = 2 if name == "WSConv" else shape[0]
+        xs = x[:n].clone().requires_grad_(True)
+        ref = cpu(xs)
+        (ref * gy[:n]).sum().backward()
+        xd = x.cuda().requires_grad_(True)
+        gyd = gy.cuda()
+
+        def fwd_bwd():
+            card.zero_grad(set_to_none=True)
+            xd.grad = None
+            (card(xd) * gyd).sum().backward()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(fwd_bwd)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        card.load_state_dict(init)      # the buffers before the timing
+        xd.grad = None
+        card.zero_grad(set_to_none=True)
+        out = card(xd)
+        (out * gyd).sum().backward()
+        pairs = [("out", out[:n], ref), ("dx", xd.grad[:n], xs.grad)]
+        if n == shape[0]:
+            pairs += [(p, q.grad, cpu.get_parameter(p).grad)
+                      for p, q in card.named_parameters()]
+            pairs += [(b, q, cpu.get_buffer(b))
+                      for b, q in card.named_buffers()]
+        # Relative norm errors: the output and the running statistics
+        # within 1e-4, the gradients within 1e-3.
+        errs = []
+        buffers = dict(card.named_buffers())
+        for what, a, b in pairs:
+            b = b.detach()
+            e = float((a.detach().cpu() - b).norm() / b.norm().clamp_min(
+                1e-30))
+            if e > (1e-4 if what == "out" or what in buffers else 1e-3):
+                errs.append(f"{what} {e:.3g}")
+        print(f"zoo module {name}: forward + backward at {shape} "
+              f"{ms:.2f} ms, peak {peak:.0f} MB ({smi})"
+              + (f"; card vs CPU on batch {n}" if n != shape[0] else
+                 "; card vs CPU") + (f": {errs}" if errs else ": ok"),
+              flush=True)
+        if errs:
+            raise AssertionError(f"zoo module {name}: card vs CPU {errs}")
+        del cpu, card, xd, out
+        torch.cuda.empty_cache()
+
+    torch.manual_seed(23)
+    ait = PM.AxialImageTransformer(64, 6, heads=8, num_dimensions=2,
+                                   device="cuda").train()
+    with torch.no_grad():
+        for m in ait.modules():
+            if hasattr(m, "g") and isinstance(m.g, torch.nn.Parameter):
+                m.g.uniform_(-0.5, 0.5)
+    xa = torch.randn(8, 64, 64, 64, device="cuda")
+    seq = ait.ReversibleSequence_0
+
+    def reversible():
+        ait.zero_grad(set_to_none=True)
+        ait(xa).square().mean().backward()
+
+    def plain():
+        ait.zero_grad(set_to_none=True)
+        a = b = xa
+        for f, gb in seq.blocks():
+            a = a + f(b)
+            b = b + gb(a)
+        ((a + b) / 2).square().mean().backward()
+
+    arms = {}
+    for what, fn in (("reversible", reversible), ("plain autograd", plain)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        grads = {n: p.grad.clone() for n, p in ait.named_parameters()}
+        ms = cuda_ms(fn)
+        arms[what] = (grads, peak)
+        print(f"zoo AxialImageTransformer(64, depth 6, 8 heads) {what}: "
+              f"batch 8 of (64, 64, 64) forward + backward {ms:.2f} ms, "
+              f"peak {peak:.0f} MB above the inputs ({smi})", flush=True)
+    (gr, pr), (gp, pp) = arms["reversible"], arms["plain autograd"]
+    worst = max(float((gr[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+                for n in gp)
+    print(f"zoo reversible vs plain gradients: worst {worst:.2e}; peak "
+          f"{pr:.0f} MB vs {pp:.0f} MB", flush=True)
+    if worst > 1e-3 or not pr < pp:
+        raise AssertionError(f"zoo reversible transformer: gradients "
+                             f"{worst:.3g}, peak {pr:.0f} vs {pp:.0f} MB")
+
+
+def zoo_phase(Predictor, train_step, loss_mod, fused, smi):
+    """ROADMAP Queue 1 item 8's model zoo and modules (no hand-written
+    kernel; their launch counts, all 0, go to ``launches_by_path``)."""
+    from elektronn3_tpu_torch import models as Z
+    from elektronn3_tpu_torch import modules as PM
+    out = {}
+    for name, build, shape, check_shape, unit, classes, request in \
+            _zoo_cases(Z):
+        out[f"predictor_zoo_{name}"], out[f"train_zoo_{name}"] = \
+            zoo_model_run(name, build, shape, check_shape, unit, classes,
+                          request, Predictor, train_step, loss_mod, fused,
+                          smi)
+    zoo_module_run(PM, smi)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5187,6 +5525,9 @@ def main():
                                    train_step, fused, smi))
     torch.cuda.empty_cache()
     mark("multi-GPU")
+    launches.update(zoo_phase(Predictor, train_step, loss_mod, fused, smi))
+    torch.cuda.empty_cache()
+    mark("model zoo")
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()

@@ -41,12 +41,41 @@ The JAX fused executors create a 2D model's parameters in the XLA
 path's 2D shapes (``_p2d``), so one tree serves both executors.
 Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing here
 imports JAX.
+
+The model zoo and its modules (every model but the UNet and the
+ResUNet: VNet, UNet3dLite, the FCNs, MSDNet, FC-DenseNet, the simple
+nets, and WSConv, EvoNorm, the L1 norms, GatherExcite, the axial
+attention modules on their own) take another rule: their torch modules
+carry flax's module names (``DownTransition_1.LUConv_0.Conv_0``,
+``dense_down_2.DenseLayer_3.BatchNorm_0``,
+``ReversibleSequence_0.f_layers_0.mod.axial_1.to_q``), so a state_dict
+key's module path, its dots read as flax's slashes, is the flax path,
+and the leaf follows from the module's type (:func:`_zoo_rule`):
+
+- ``Conv`` (and ``WSConv``): ``weight`` is ``kernel`` (*k, I / groups, O)
+  -> (O, I / groups, *k); ``ConvTranspose`` (and ``WSConvTranspose``):
+  ``kernel`` (*k, I, O) -> (I, O, *k), taps flipped; ``bias`` is
+  ``bias``;
+- ``nn.Linear`` (``Dense``): ``kernel`` (I, O) -> ``weight`` (O, I);
+- WS ``gain``: flax's (1, ..., O) reshaped to (O, 1, ...) (``WSConv``)
+  or (1, O, 1, ...) (``WSConvTranspose``);
+- ``BatchNorm``: ``scale``/``bias`` -> ``weight``/``bias``,
+  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
+- ``PReLU``: ``slope`` -> ``weight``;
+- every other parameter keeps its name in 'params' (EvoNorm's and the L1
+  norms' ``gamma``, ``beta``, ``v``; ``emb_{i}``; Rezero's ``g``), every
+  other buffer in 'batch_stats' (EvoNorm B0's ``running_var``,
+  ``L1BatchNorm``'s ``mean`` and ``dev``), reshaped where flax's shape
+  differs only by axes of size 1 (EvoNorm's (1, ..., C) against (C,)).
+
+Both directions walk the whole tree: a torch tensor without its flax
+leaf, or a flax leaf that no torch tensor takes, raises ``KeyError``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,13 +204,21 @@ def flax_from_state_dict(tensors: Mapping[str, Any],
                          variables: Mapping[str, Any],
                          collections: Sequence[str] = ("params",
                                                        "batch_stats"),
+                         model: Optional[nn.Module] = None,
                          ) -> Dict[str, Dict]:
     """The flax collections of ``variables`` (their tree, with numpy
     leaves) filled from ``tensors``, a mapping of the port's state_dict
     keys to tensors: the parameters and running statistics of
     ``model.state_dict()``, or ``{name: p.grad for name, p in
     model.named_parameters()}`` with ``collections=("params",)`` for the
-    flax grad tree. Raises on a missing key or a shape mismatch."""
+    flax grad tree. Raises on a missing key or a shape mismatch.
+
+    ``model``: the port model the tensors belong to; needed for the
+    model zoo's rule (see the module docstring), where every tensor of
+    ``collections`` must find its flax leaf too."""
+    if model is not None and _is_zoo(model):
+        return _zoo_flax_from_state_dict(tensors, variables, collections,
+                                         model)
     params = _flatten(variables["params"])
     slots = _norm_slots(params)
     norms = torch_norm_names(tensors)
@@ -218,7 +255,10 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     parameters and batch statistics of flax ``variables`` (a dict with
     'params' and 'batch_stats' of numpy-convertible arrays) of the
     equivalent JAX model. ``num_batches_tracked`` keeps the model's
-    value. Raises on a missing entry or a shape mismatch."""
+    value. Raises on a missing entry or a shape mismatch. A model of the
+    zoo takes its rule (see the module docstring)."""
+    if _is_zoo(model):
+        return _zoo_state_dict_from_flax(variables, model)
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     slots = _norm_slots(params)
@@ -255,4 +295,151 @@ def state_dict_from_flax(variables: Mapping[str, Any],
                              f"{tuple(ref.shape)}")
         out[key] = torch.as_tensor(np.array(val, dtype=np.float32),
                                    dtype=ref.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The model zoo: torch module path = flax module path
+# ---------------------------------------------------------------------------
+
+def _is_zoo(model: nn.Module) -> bool:
+    from elektronn3_tpu_torch.models.unet import UNet
+    return not isinstance(model, UNet)
+
+
+def _zoo_rule(module: nn.Module, name: str, is_buffer: bool
+              ) -> Tuple[str, str, str]:
+    """(collection, flax leaf, transform) of the tensor ``name`` held
+    directly by ``module``; transform is 'conv', 'convT', 'dense' or
+    'reshape'."""
+    from elektronn3_tpu_torch.modules.layers import (
+        BatchNorm, Conv, ConvTranspose, PReLU)
+    if isinstance(module, (Conv, ConvTranspose, nn.Linear)) \
+            and name == "weight":
+        kind = "conv" if isinstance(module, Conv) else \
+            "convT" if isinstance(module, ConvTranspose) else "dense"
+        return "params", "kernel", kind
+    if isinstance(module, BatchNorm):
+        return {"weight": ("params", "scale", "reshape"),
+                "bias": ("params", "bias", "reshape"),
+                "running_mean": ("batch_stats", "mean", "reshape"),
+                "running_var": ("batch_stats", "var", "reshape")}[name]
+    if isinstance(module, PReLU) and name == "weight":
+        return "params", "slope", "reshape"
+    return ("batch_stats" if is_buffer else "params"), name, "reshape"
+
+
+def _zoo_leaves(model: nn.Module
+               ) -> Dict[str, Tuple[str, Tuple[str, ...], str]]:
+    """Per state_dict key of a zoo model, its (collection, flax path,
+    transform)."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        prefix = tuple(mod_name.split(".")) if mod_name else ()
+        for is_buffer, named in ((False, mod.named_parameters(recurse=False)),
+                                 (True, mod.named_buffers(recurse=False))):
+            for name, _ in named:
+                if name == "num_batches_tracked":
+                    continue
+                coll, leaf, kind = _zoo_rule(mod, name, is_buffer)
+                out[".".join(prefix + (name,))] = (coll, prefix + (leaf,),
+                                                   kind)
+    return out
+
+
+def _to_torch_layout(v: np.ndarray, kind: str, shape) -> np.ndarray:
+    if kind == "conv":
+        return conv_weight_from_flax(v)
+    if kind == "convT":
+        return convtranspose_weight_from_flax(v)
+    if kind == "dense":
+        return np.ascontiguousarray(np.asarray(v).T)
+    return _reshape_ones(np.asarray(v), shape)
+
+
+def _to_flax_layout(v: np.ndarray, kind: str, shape) -> np.ndarray:
+    if kind == "conv":
+        return conv_weight_to_flax(v)
+    if kind == "convT":
+        return convtranspose_weight_to_flax(v)
+    if kind == "dense":
+        return np.ascontiguousarray(v.T)
+    return _reshape_ones(v, shape)
+
+
+def _reshape_ones(v: np.ndarray, shape) -> np.ndarray:
+    """``v`` in ``shape`` where the two differ only by axes of size 1."""
+    shape = tuple(shape)
+    if v.shape != shape and [d for d in v.shape if d != 1] \
+            == [d for d in shape if d != 1]:
+        return v.reshape(shape)
+    return v
+
+
+def _zoo_state_dict_from_flax(variables: Mapping[str, Any],
+                              model: nn.Module) -> Dict[str, torch.Tensor]:
+    flat = {coll: _flatten(variables.get(coll, {}))
+            for coll in ("params", "batch_stats")}
+    used = set()
+    target = model.state_dict()
+    leaves = _zoo_leaves(model)
+    out = {}
+    for key, ref in target.items():
+        if key.endswith("num_batches_tracked"):
+            out[key] = ref.clone()
+            continue
+        coll, path, kind = leaves[key]
+        if path not in flat[coll]:
+            raise KeyError(f"{key}: no flax leaf {coll}/{'/'.join(path)}")
+        used.add((coll, path))
+        val = _to_torch_layout(np.asarray(flat[coll][path], np.float32),
+                               kind, ref.shape)
+        if tuple(val.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: flax shape {tuple(val.shape)} != "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.as_tensor(np.array(val, dtype=np.float32),
+                                   dtype=ref.dtype)
+    left = [f"{c}/{'/'.join(p)}" for c in flat for p in flat[c]
+            if (c, p) not in used]
+    if left:
+        raise KeyError(f"flax leaves without a torch tensor: {left}")
+    return out
+
+
+def _zoo_flax_from_state_dict(tensors: Mapping[str, Any],
+                              variables: Mapping[str, Any],
+                              collections: Sequence[str],
+                              model: nn.Module) -> Dict[str, Dict]:
+    leaves = _zoo_leaves(model)
+    by_path = {(coll, path): (key, kind)
+               for key, (coll, path, kind) in leaves.items()}
+    used = set()
+    out: Dict[str, Dict] = {}
+    for coll in collections:
+        tree: Dict = {}
+        for path, ref in _flatten(variables.get(coll, {})).items():
+            if (coll, path) not in by_path:
+                raise KeyError(f"{coll}/{'/'.join(path)}: no torch tensor")
+            key, kind = by_path[(coll, path)]
+            if key not in tensors:
+                raise KeyError(f"{'/'.join((coll,) + path)}: no tensor "
+                               f"{key!r}")
+            used.add(key)
+            t = tensors[key]
+            # A copy: the tree must not alias the model's live buffers.
+            v = np.array(t.detach().float().cpu() if
+                         isinstance(t, torch.Tensor) else t, np.float32)
+            v = _to_flax_layout(v, kind, np.shape(ref))
+            if v.shape != np.shape(ref):
+                raise ValueError(f"{key}: shape {v.shape} != flax "
+                                 f"{np.shape(ref)}")
+            node = tree
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = v
+        out[coll] = tree
+    left = [k for k in tensors if k not in used and k in leaves
+            and leaves[k][0] in collections]
+    if left:
+        raise KeyError(f"torch tensors without a flax leaf: {left}")
     return out

@@ -128,7 +128,7 @@ from elektronn3_tpu_torch.modules.flat_norm import (
 from elektronn3_tpu_torch.modules.layers import (
     GridAttention, GroupNorm, apply_norm, ceil_maxpool, conv_kernel,
     get_activation, get_normalization, pool_window, resize_linear,
-    resize_nearest)
+    resize_nearest, resolve_device)
 from elektronn3_tpu_torch.ops import fused, vup
 from elektronn3_tpu_torch.ops.flat_conv import flat_conv3, pool_flat
 from elektronn3_tpu_torch.ops.fused import FusedActs
@@ -841,12 +841,7 @@ class UNet(nn.Module):
         # The names raise here, before any weight exists.
         norm_kind(normalization, start_filts)
         get_activation(activation)
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "UNet: no CUDA device, and the model runs on the card "
-                    "by default; pass device='cpu' to build it on the CPU.")
-            device = torch.device("cuda")
+        device = resolve_device(device, "UNet")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.n_blocks = n_blocks

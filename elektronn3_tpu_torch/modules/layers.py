@@ -9,7 +9,8 @@ channels-first convention views them with ``movedim`` and no copy.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+import math
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -203,9 +204,23 @@ def apply_norm(norm_layer: Optional[nn.Module], x: torch.Tensor,
                 f"its batch norm cannot train over the {axis.size} ranks of "
                 f"axis {axis.name!r} (use normalization='batch')")
         return norm_layer(x.contiguous(), reference)
-    if not norm_layer.training:
+    return batch_norm(norm_layer, x, norm_layer.training)
+
+
+def batch_norm(norm_layer: nn.Module, x: torch.Tensor, batch_stats: bool,
+               update: Optional[bool] = None) -> torch.Tensor:
+    """flax ``BatchNorm`` of a channels-last tensor by a module holding
+    ``weight``, ``bias``, ``running_mean``, ``running_var``, ``eps`` and
+    a torch-style ``momentum`` (the weight of the batch value: flax's
+    momentum 0.99 is 0.01), in float32, rounded to ``x``'s dtype once.
+    ``batch_stats``: normalize by the batch's mean and biased variance
+    (summed over the ranks of an active statistics group), else by the
+    running statistics. ``update`` (default: ``batch_stats``): give the
+    running statistics the batch's, without autograd."""
+    if not batch_stats:
         inv, shift = bn_eval_prologue(norm_layer)
         return (x.float() * inv + shift).to(x.dtype)
+    axis = current_stats_group()
     xf = x.float()
     dims = tuple(range(x.dim() - 1))
     mean = xf.mean(dims)
@@ -214,7 +229,8 @@ def apply_norm(norm_layer: Optional[nn.Module], x: torch.Tensor,
         mean, meansq = (psum(torch.stack([mean, meansq]), axis)
                         / axis.size).unbind(0)
     var = torch.clamp_min(meansq - mean * mean, 0.0)
-    update_running_stats(norm_layer, mean, var)
+    if update is None or update:
+        update_running_stats(norm_layer, mean, var)
     mul = torch.rsqrt(var + norm_layer.eps) * norm_layer.weight.float()
     return ((xf - mean) * mul + norm_layer.bias.float()).to(x.dtype)
 
@@ -299,21 +315,264 @@ def resize_linear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def _same_pad_conv(x: torch.Tensor, weight: torch.Tensor,
-                   bias: Optional[torch.Tensor], stride: Sequence[int],
-                   ) -> torch.Tensor:
-    """A strided conv of a channels-last tensor with flax's 'SAME'
-    padding (output ceil(n / stride); an odd padding's extra voxel at
-    the high end)."""
-    dim = x.dim() - 2
+def same_pads(shape: Sequence[int], kernel: Sequence[int],
+              stride: Sequence[int], dilation: Sequence[int] = None,
+              ) -> List[Tuple[int, int]]:
+    """flax's (XLA's) 'SAME' padding per spatial axis: output ceil(n /
+    stride), an odd padding's extra voxel at the high end."""
+    dilation = dilation or (1,) * len(kernel)
     pads = []
-    for n, k, s in zip(reversed(x.shape[1:-1]), reversed(weight.shape[2:]),
-                       reversed(stride)):
-        total = max((-(-n // s) - 1) * s + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    xc = F.pad(x.movedim(-1, 1), pads)
+    for n, k, s, d in zip(shape, kernel, stride, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pads(padding, shape, kernel, stride, dilation) -> List[Tuple[int, int]]:
+    """flax's ``padding`` ('SAME', 'VALID', an int, or one int or (lo,
+    hi) pair per axis) as (lo, hi) pairs."""
+    if isinstance(padding, str):
+        if padding.upper() == "SAME":
+            return same_pads(shape, kernel, stride, dilation)
+        if padding.upper() == "VALID":
+            return [(0, 0)] * len(shape)
+        raise ValueError(f"Unknown padding {padding!r}")
+    if isinstance(padding, int):
+        return [(padding, padding)] * len(shape)
+    return [(p, p) if isinstance(p, int) else tuple(p) for p in padding]
+
+
+def conv_cl(x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor], stride: Sequence[int] = None,
+            padding="SAME", dilation: Sequence[int] = None,
+            groups: int = 1) -> torch.Tensor:
+    """flax ``nn.Conv`` of a channels-last tensor (2 or 3 spatial axes)
+    by a torch-layout weight (O, I / groups, *k), with flax's
+    ``padding``."""
+    dim = x.dim() - 2
+    k = tuple(weight.shape[2:])
+    stride = tuple(stride or (1,) * dim)
+    dilation = tuple(dilation or (1,) * dim)
+    pads = _pads(padding, x.shape[1:-1], k, stride, dilation)
+    xc = F.pad(x.movedim(-1, 1), [p for lo_hi in reversed(pads)
+                                  for p in lo_hi])
     conv = F.conv2d if dim == 2 else F.conv3d
-    return conv(xc, weight, bias, stride=tuple(stride)).movedim(1, -1)
+    return conv(xc, weight, bias, stride=stride, dilation=dilation,
+                groups=groups).movedim(1, -1)
+
+
+def conv_transpose_cl(x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor],
+                      stride: Sequence[int], padding="SAME") -> torch.Tensor:
+    """flax ``nn.ConvTranspose`` (``lax.conv_transpose``, no kernel
+    transpose) of a channels-last tensor by a torch-layout weight (I, O,
+    *k) whose taps are flax's flipped (``convert.py``'s layout).
+
+    flax pads the stride-dilated input by (lo, hi) per axis
+    (``lax._conv_transpose_padding``: 'SAME' gives lo = k - 1 where
+    stride > k - 1, else ceil((k + s - 2) / 2), and hi = k + s - 2 - lo;
+    'VALID' lo = k - 1 and hi = k - 1 + max(s - k, 0)). torch's
+    ``conv_transpose`` with padding 0 pads k - 1 on both sides, so its
+    output is cropped (a negative ``F.pad``) or extended by zeros to
+    flax's, and the bias is added after. For k = 3, s = 2 and 'SAME'
+    that is torch's 2n + 1 outputs cut to the first 2n, not torch's
+    ``padding=1, output_padding=1``."""
+    dim = x.dim() - 2
+    k = tuple(weight.shape[2:])
+    stride = tuple(stride)
+    if isinstance(padding, str):
+        pads = []
+        for kk, s in zip(k, stride):
+            if padding.upper() == "SAME":
+                total = kk + s - 2
+                lo = kk - 1 if s > kk - 1 else -(-total // 2)
+            elif padding.upper() == "VALID":
+                total = kk + s - 2 + max(kk - s, 0)
+                lo = kk - 1
+            else:
+                raise ValueError(f"Unknown padding {padding!r}")
+            pads.append((lo, total - lo))
+    else:
+        pads = _pads(padding, x.shape[1:-1], k, stride, None)
+    convt = F.conv_transpose2d if dim == 2 else F.conv_transpose3d
+    y = convt(x.movedim(-1, 1), weight, None, stride=stride)
+    adjust = [a for (lo, hi), kk in zip(reversed(pads), reversed(k))
+              for a in (lo - (kk - 1), hi - (kk - 1))]
+    if any(adjust):
+        y = F.pad(y, adjust)
+    y = y.movedim(1, -1)
+    return y if bias is None else y + bias
+
+
+def resize_nearest_to(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """``jax.image.resize(method='nearest')`` of a channels-last
+    tensor's spatial axes to ``size``: half-pixel centres, source index
+    floor((i + 0.5) * n_in / n_out), which is torch's 'nearest-exact'
+    (not its 'nearest')."""
+    if tuple(x.shape[1:-1]) == tuple(size):
+        return x
+    y = F.interpolate(x.movedim(-1, 1), size=tuple(size),
+                      mode="nearest-exact")
+    return y.movedim(1, -1)
+
+
+def resolve_device(device, name: str) -> torch.device:
+    """``device``, or the CUDA card when it is None: a model runs on the
+    card unless the caller asks for the CPU, and raises without one."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{name}: no CUDA device, and the model runs on the card by "
+                "default; pass device='cpu' to build it on the CPU.")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's default kernel init (``lecun_normal``): a normal truncated
+    at two standard deviations, variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on channels-last tensors (2 or 3 spatial axes,
+    by ``kernel_size``): weight (O, I / groups, *k) in float32 (flax's
+    kernel (*k, I / groups, O) through ``convert.py``), bias (O,), both
+    cast to ``dtype`` at use, flax's ``padding`` ('SAME' by default),
+    ``strides``, ``kernel_dilation`` and ``feature_group_count``;
+    lecun-normal weights and zero biases, as flax's."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Sequence[int], strides=None, padding="SAME",
+                 kernel_dilation=None, feature_group_count: int = 1,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        k = tuple(kernel_size)
+        dim = len(k)
+        self.strides = _to_tuple(strides or 1, dim)
+        self.padding = padding
+        self.kernel_dilation = _to_tuple(kernel_dilation or 1, dim)
+        self.feature_group_count = feature_group_count
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            (features, in_channels // feature_group_count) + k,
+            device=device))
+        lecun_normal_(self.weight, math.prod(self.weight.shape[1:]))
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) \
+            if use_bias else None
+
+    def kernel(self) -> torch.Tensor:
+        return self.weight
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return conv_cl(x.to(self.dtype), self.kernel().to(self.dtype), bias,
+                       self.strides, self.padding, self.kernel_dilation,
+                       self.feature_group_count)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` on channels-last tensors: weight (I, O,
+    *k) with flax's taps flipped (``convert.py``), bias (O,), cast to
+    ``dtype`` at use, ``padding`` 'SAME' (flax's default) or 'VALID'
+    (:func:`conv_transpose_cl`); lecun-normal weights (flax's fan-in
+    over (*k, I)) and zero biases."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Sequence[int], strides=None, padding="SAME",
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        k = tuple(kernel_size)
+        self.strides = _to_tuple(strides or 1, len(k))
+        self.padding = padding
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty((in_channels, features) + k,
+                                               device=device))
+        lecun_normal_(self.weight, in_channels * math.prod(k))
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) \
+            if use_bias else None
+
+    def kernel(self) -> torch.Tensor:
+        return self.weight
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return conv_transpose_cl(x.to(self.dtype),
+                                 self.kernel().to(self.dtype), bias,
+                                 self.strides, self.padding)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``: ``nn.Linear`` with weight (O, I) (flax's
+    kernel (I, O) transposed), cast to ``dtype`` at use; lecun-normal
+    weights and zero biases."""
+
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None):
+        super().__init__(in_features, features, bias=use_bias, device=device)
+        self.dtype = dtype
+        lecun_normal_(self.weight, in_features)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last (channel) axis
+    (:func:`batch_norm`): ``weight``/``bias`` are flax's
+    ``scale``/``bias``, ``running_mean``/``running_var`` its
+    ``batch_stats`` ``mean``/``var``. ``momentum`` is flax's (0.99 by
+    default; the buffers keep that share of their old value).
+    ``use_running_average`` is flax's: None follows the module's mode
+    (batch statistics and the running update in training, the running
+    statistics in eval), False always takes the batch's (updating the
+    buffers in training only), True always the running ones."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99,
+                 eps: float = 1e-5,
+                 use_running_average: Optional[bool] = None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.num_features = num_features
+        self.flax_momentum = momentum
+        self.momentum = 1.0 - momentum     # torch's convention
+        self.eps = eps
+        self.use_running_average = use_running_average
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_features, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(num_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_running_average is None:
+            return batch_norm(self, x, self.training)
+        return batch_norm(self, x, not self.use_running_average,
+                          update=self.training)
+
+    def extra_repr(self) -> str:
+        return (f"{self.num_features}, momentum={self.flax_momentum}, "
+                f"eps={self.eps}, "
+                f"use_running_average={self.use_running_average}")
+
+
+def named_child(parent: nn.Module, name: str, module: nn.Module
+                ) -> nn.Module:
+    """Register ``module`` under the flax name ``name`` (``Conv_0``,
+    ``DenseLayer_3``), so the state_dict key's module path is the flax
+    path (``convert.py``'s rule for the model zoo); returns it."""
+    parent.add_module(name, module)
+    return module
 
 
 class GridAttention(nn.Module):
@@ -343,17 +602,130 @@ class GridAttention(nn.Module):
         self.out_proj = conv(in_channels, in_channels, 1, device=device)
 
     def _conv1x1(self, x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
-        return _same_pad_conv(x, conv.weight.to(self.dtype),
-                              conv.bias.to(self.dtype), (1,) * self.dim)
+        return conv_cl(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor, g: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.to(self.dtype)
-        theta = _same_pad_conv(x, self.theta.weight.to(self.dtype), None,
-                               self.sub)
+        theta = conv_cl(x, self.theta.weight.to(self.dtype), None, self.sub)
         phi = self._conv1x1(g.to(self.dtype), self.phi)
         if phi.shape[1:-1] != theta.shape[1:-1]:
             phi = resize_linear(phi, theta.shape[1:-1])
         psi = self._conv1x1(F.relu(theta + phi), self.psi)
         att = resize_linear(torch.sigmoid(psi), x.shape[1:-1])
         return self._conv1x1(x * att, self.out_proj), att
+
+
+class GatherExcite(nn.Module):
+    """Gather-Excite attention over a channels-last feature map (the JAX
+    package's ``GatherExcite``, reference modules/layers.py:15-96,
+    arXiv:1810.12348): ``x * sigmoid(excite(gather(x)))``, the map
+    resized linearly (:func:`resize_linear`) to ``x``'s spatial shape
+    where the gather shrank it.
+
+    Gather: ``extent == 0`` the global mean, after (``param_gather``)
+    stride-2 depthwise 3^d convs with flax's 'SAME' padding that halve
+    the map until an axis reaches 1; ``extent > 0`` an average pool of
+    window and stride ``extent``, or (``param_gather``) log2(extent)
+    such convs. Excite (``param_excite``): a 1^d conv with bias. The
+    convs are ``Conv_0`` ... in flax's order. JAX creates the global
+    gather's convs at its first call, as many as the input's shape
+    needs; here ``spatial_shape`` (the input's spatial shape, required
+    for ``extent == 0`` with ``param_gather``) fixes their number, and
+    an input that needs another number raises ``ValueError``."""
+
+    def __init__(self, channels: int, extent: int = 0,
+                 param_gather: bool = False, param_excite: bool = True,
+                 spatial_dim: int = 2, dtype: torch.dtype = torch.float32,
+                 spatial_shape: Optional[Sequence[int]] = None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.channels = channels
+        self.extent = extent
+        self.param_gather = param_gather
+        self.param_excite = param_excite
+        self.spatial_dim = spatial_dim
+        self.dtype = dtype
+        self.spatial_shape = None if spatial_shape is None \
+            else tuple(spatial_shape)
+        n_gather = 0
+        if param_gather:
+            if extent == 0:
+                if self.spatial_shape is None:
+                    raise ValueError(
+                        "GatherExcite(extent=0, param_gather=True) needs "
+                        "spatial_shape: its number of convs follows it")
+                n_gather = self._halvings(self.spatial_shape)
+            else:
+                n_gather = int(math.log2(extent))
+        self.n_gather = n_gather
+        for i in range(n_gather):
+            named_child(self, f"Conv_{i}", Conv(
+                channels, channels, (3,) * spatial_dim,
+                strides=(2,) * spatial_dim, padding="SAME",
+                feature_group_count=channels, dtype=dtype, device=device))
+        if param_excite:
+            named_child(self, f"Conv_{n_gather}", Conv(
+                channels, channels, (1,) * spatial_dim, dtype=dtype,
+                device=device))
+
+    @staticmethod
+    def _halvings(spatial: Sequence[int]) -> int:
+        n, shape = 0, list(spatial)
+        while min(shape) > 1:
+            shape = [-(-s // 2) for s in shape]
+            n += 1
+        return n
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spatial = tuple(x.shape[1:-1])
+        axes = tuple(range(1, x.dim() - 1))
+        x = x.to(self.dtype)
+        if self.param_gather:
+            if self.extent == 0 and self._halvings(spatial) != self.n_gather:
+                raise ValueError(
+                    f"GatherExcite: input spatial shape {spatial} needs "
+                    f"{self._halvings(spatial)} gather convs, built with "
+                    f"{self.n_gather} for {self.spatial_shape}")
+            g = x
+            for i in range(self.n_gather):
+                g = getattr(self, f"Conv_{i}")(g)
+            gathered = g.mean(axes, keepdim=True) if self.extent == 0 else g
+        elif self.extent == 0:
+            gathered = x.mean(axes, keepdim=True)
+        else:
+            pool = F.avg_pool2d if self.spatial_dim == 2 else F.avg_pool3d
+            gathered = pool(x.movedim(-1, 1), self.extent,
+                            self.extent).movedim(1, -1)
+        e = getattr(self, f"Conv_{self.n_gather}")(gathered) \
+            if self.param_excite else gathered
+        att = torch.sigmoid(e)
+        if tuple(att.shape[1:-1]) != spatial:
+            att = resize_linear(att, spatial)
+        return x * att
+
+
+class Identity(nn.Module):
+    """The identity (the JAX package's ``Identity``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def max_pool_cl(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """flax ``nn.max_pool`` of a channels-last tensor with stride =
+    window and 'VALID' padding (a ragged end is dropped)."""
+    pool = F.max_pool2d if len(window) == 2 else F.max_pool3d
+    return pool(x.movedim(-1, 1), tuple(window)).movedim(1, -1)
+
+
+def check_input(name: str, x: torch.Tensor, dim: int,
+                in_channels: Optional[int]) -> None:
+    """``ValueError`` unless ``x`` is a channels-last batch of ``dim``
+    spatial axes (and ``in_channels`` channels, where given)."""
+    if x.dim() != dim + 2 or (in_channels is not None
+                              and x.shape[-1] != in_channels):
+        layout = "N, D, H, W" if dim == 3 else "N, H, W"
+        want = in_channels if in_channels is not None else "C"
+        raise ValueError(f"{name}: input shape {tuple(x.shape)}: expected "
+                         f"channels-last ({layout}, {want}).")

@@ -109,12 +109,14 @@ def _global_forward(model: nn.Module, inp: torch.Tensor,
     ``dp``: the model on this rank's rows with its batch-norm statistics
     summed over the axis, the logits all-gathered (every rank then holds
     the global batch's, and its gradient flows back to this rank's rows
-    only)."""
+    only). A tuple ``inp`` is the model's positional inputs (a
+    classifier's image and scalar features), each of the batch's rows."""
+    args = inp if isinstance(inp, tuple) else (inp,)
+    kw = {"reference": True} if reference else {}
     if dp is None:
-        return model(inp, reference=True) if reference else model(inp)
+        return model(*args, **kw)
     with stats_group(dp):
-        local = shard_rows(inp, dp)
-        out = model(local, reference=True) if reference else model(local)
+        out = model(*(shard_rows(a, dp) for a in args), **kw)
     return all_gather(out, dp)
 
 
@@ -163,7 +165,8 @@ def train_step(model: nn.Module, criterion: Callable,
                target: torch.Tensor, *,
                reference: bool = False,
                mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """One optimization step on a channels-last batch; returns the loss
+    """One optimization step on a channels-last batch (a tuple ``inp``:
+    the model's positional inputs); returns the loss
     as a detached float32 device tensor (no host sync). ``reference``
     runs the model with ``reference=True`` (the UNet's plain versions of
     its kernels, to time or check the kernels against).
