@@ -353,6 +353,32 @@ cotangent: the pool's backward plus the add of the two gradients).
     against plain autograd through its blocks: gradients within 1e-3,
     peak memory lower.
 
+23. ROADMAP Queue 1 item 9, through the new trainers at full width
+    (each phase: the UNet's level plan; the launches of each timed step,
+    the same in every step and exactly the kernels the plan implies;
+    step ms, MVox/s or MPix/s, peak MB; one step's gradients against the
+    plain path by ``check_train_step``): ``n2v_phase``, the
+    Noise2Void UNet of examples/train_noise2void.py (n_blocks=3,
+    start_filts=32, bf16) at batch 4 of (32, 64, 64) and ratio 0.002,
+    fed by ``KnossosRawData`` ('in_memory') over a seeded uint8 stand-in
+    of a (128, 512, 512) KNOSSOS dataset (``CubeKD``), checked with the
+    masked MSE of a fixed mask; ``trainer_multi_phase``, the headline
+    UNet at bench.py's batch 8 as ``optimizer_iterations=2``
+    micro-batches of 4 with ``loss_crop`` (2, 8, 8) and a ``cube_meta``
+    weight, checked on both micro-batches' accumulated gradients;
+    ``triplet_phase``, the 2D UNet on 8 triplets of (640, 640), three
+    forwards a step through rows 16/17 and 19/20, its running
+    statistics against three training forwards of a copy, checked on
+    the three-forward loss; ``gnn_phase``, GCN, SAGE and GAT on a
+    Cora-sized graph, the multi-graph trainer on 64 graphs of about
+    1000 nodes and the minibatch trainer on an ogbn-arxiv-sized graph
+    (1024 seeds, fanout (10, 5); its host sampling share printed), each
+    with one float32 step on the card against the CPU's (GNN_TOL) and
+    no hand-written kernel launched; and ``config_phase``, a
+    ``TrainingConfig`` of the headline UNet through JSON and
+    ``build_trainer(worker_type='thread')``, two ``Trainer.run`` steps
+    on K1-K7, ``sync_overhead_s`` and ``device_memory_stats``.
+
 ``--profile`` also profiles three kernel-path training steps of each
 model (the 'batchp' one too, and its ``pallas_flat=False`` step at batch
 2) with ``torch.profiler`` and prints the
@@ -2810,7 +2836,7 @@ def _step_grads(model, crit, x, y, reference):
 
 
 def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True,
-                     what=""):
+                     what="", grads_fn=None, exact_zero=(), whole=0.0):
     """One step's loss, parameter gradients and new running statistics
     on the kernel path against the same step through reference=True,
     from equal parameters and running statistics, in float32 and in
@@ -2830,7 +2856,18 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True,
     that gradient is no exact 0). The loss within 1e-4 (float32) or 1e-2
     (bf16) relative; each running statistic within 1e-3 (float32) or
     5e-2 (bf16) of its max. Returns the worst gradient err/bound by
-    dtype ('float32', 'bfloat16'); ``what`` labels the printed lines."""
+    dtype ('float32', 'bfloat16'); ``what`` labels the printed lines.
+    ``grads_fn(model, crit, x, y, reference)`` -> (loss, gradients)
+    replaces :func:`_step_grads` (a trainer's own step: accumulated
+    micro-batches, three forwards); ``exact_zero`` names more leaves whose
+    exact gradient is 0, held like the biases above; ``whole`` adds that
+    share of the whole reference gradient's norm to each leaf's bound (a
+    loss whose gradient is the difference of nearly equal terms, as
+    ``_zoo_hold`` does for the zoo: the kernels' float32 sums, in
+    another order than the plain versions' and not the same bits from
+    run to run, leave a small leaf off by more than its own ulp
+    noise)."""
+    grads_fn = grads_fn or _step_grads
     failures = []
     worst_q = {}
     for dtype, rel, ulp, zero in ((torch.float32, 1e-3, 2.0 ** -23, 1e-4),
@@ -2839,22 +2876,25 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True,
         bf16 = dtype == torch.bfloat16
         model = build(4, dtype)
         ref_model = copy.deepcopy(model)
-        lk, grads = _step_grads(model, crit, x, y, False)
-        lr, ref = _step_grads(ref_model, crit, x, y, True)
+        lk, grads = grads_fn(model, crit, x, y, False)
+        lr, ref = grads_fn(ref_model, crit, x, y, True)
         noise = torch.randn(x.shape, generator=torch.Generator(
             device=x.device).manual_seed(11), device=x.device)
-        _, moved = _step_grads(copy.deepcopy(model), crit,
-                               x * (1 + ulp * noise), y, True)
+        _, moved = grads_fn(copy.deepcopy(model), crit,
+                            x * (1 + ulp * noise), y, True)
         torch.cuda.synchronize()
         if not (np.isfinite(lk) and abs(lk - lr) <= (1e-2 if bf16 else 1e-4)
                 * abs(lr)):
             failures.append(f"{dtype} loss {lk} vs reference {lr}")
         rows = []
         worst_zero = [0.0, 0.0]
+        floor = whole * float(torch.sqrt(sum(
+            (r.float() ** 2).sum() for r in ref.values())))
         for name, g in grads.items():
             r = ref[name]
-            if zero_bias and name.endswith(".bias") \
-                    and name != "conv_final.bias" and "norm" not in name:
+            if name in exact_zero or (
+                    zero_bias and name.endswith(".bias")
+                    and name != "conv_final.bias" and "norm" not in name):
                 wnorm = float(ref[name[:-len("bias")] + "weight"].norm())
                 qg, qr = float(g.norm()) / wnorm, float(r.norm()) / wnorm
                 q = max(qg, qr)
@@ -2867,7 +2907,7 @@ def check_train_step(build, crit, x, y, zero_bf16=1e-2, zero_bias=True,
             err = float((g - r).norm())
             rn = float(r.norm())
             nz = float((moved[name] - r).norm())
-            bound_ = rel * rn + NOISE_FACTOR * nz
+            bound_ = rel * rn + NOISE_FACTOR * nz + floor
             rows.append((err / max(bound_, 1e-30), name, err, nz, rn))
             if not bool(torch.isfinite(g).all()) or err > bound_:
                 failures.append(f"{dtype} grad {name}: |g - r| {err} > "
@@ -5348,6 +5388,547 @@ def zoo_phase(Predictor, train_step, loss_mod, fused, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# ROADMAP Queue 1 item 9: the Noise2Void, gradient-accumulation and
+# triplet trainers on the kernels, the GNN stack and the config layer.
+# ---------------------------------------------------------------------------
+
+N2V_PATCH = (32, 64, 64)        # examples/train_noise2void.py's patch
+N2V_BATCH = 4                   # and batch
+N2V_RATIO = 0.002               # and n2v_ratio
+N2V_CUBE = (128, 512, 512)      # the KNOSSOS stand-in's extent (z, y, x)
+MULTI_CROP = (2, 8, 8)          # trainer_multi_phase's loss_crop
+TRIPLETS = 8                    # triplet_phase's triplets a step
+ITEM9_WARMUP, ITEM9_STEPS = 2, 6  # each trainer phase's untimed, timed steps
+ITEM9_WORKERS = 2               # their loaders' workers (the examples')
+# Public graph sizes (no download: the graphs are synthetic, seeded).
+CORA = dict(n=2708, f=1433, e=10556, classes=7, split=(140, 500, 1000))
+ARXIV = dict(n=169_343, f=128, e=1_166_243, classes=40,
+             split=(90_941, 29_799, 48_603))
+GNN_TOL = 1e-4   # card against CPU, float32: of each leaf's max |ref|
+
+
+class CubeKD:
+    """An in-memory stand-in of ``knossos_utils.KnossosDataset``: a seeded
+    uint8 cube (blocks of 8 voxels of random grey with noise on top)."""
+    boundary = N2V_CUBE   # the adapter reads it as its (z, y, x) extent
+
+    def __init__(self, path, show_progress=False):
+        rng = np.random.default_rng(0)
+        coarse = rng.integers(40, 216, [s // 8 for s in N2V_CUBE],
+                              dtype=np.int16)
+        vol = coarse.repeat(8, 0).repeat(8, 1).repeat(8, 2)
+        vol += rng.integers(-30, 31, N2V_CUBE, dtype=np.int16)
+        self.vol = vol.clip(0, 255).astype(np.uint8)
+
+    def load_raw(self, offset, size, mag=1, datatype=None):
+        out = self.vol[tuple(slice(o, o + s) for o, s in zip(offset, size))]
+        return out if datatype is None else out.astype(datatype)
+
+
+def n2v_unet(UNet, seed, dtype=torch.bfloat16):
+    """examples/train_noise2void.py's model."""
+    return UNet(in_channels=1, out_channels=1, n_blocks=3, start_filts=32,
+                planar_blocks=(0,), activation="relu",
+                normalization="batch", dim=3, dtype=dtype, device="cuda",
+                generator=torch.Generator().manual_seed(seed))
+
+
+class MetaPatches(Patches):
+    """:class:`Patches` with a per-sample ``cube_meta`` (one NaN)."""
+
+    def __init__(self, n, shape, seed=0):
+        super().__init__(n, shape, seed)
+        self.meta = np.random.default_rng(seed + 1).uniform(
+            0.5, 2.0, (n, 1)).astype(np.float32)
+        self.meta[1] = np.nan
+
+    def __getitem__(self, i):
+        return {**super().__getitem__(i), "cube_meta": self.meta[i]}
+
+
+class TripletImages(torch.utils.data.Dataset):
+    """Seeded (1, H, W) triplets of independent images (a positive near
+    its anchor would make the step's gradient the small difference of
+    two nearly equal ones)."""
+
+    def __init__(self, n, shape, seed=0):
+        rng = np.random.default_rng(seed)
+        self.x = {k: rng.standard_normal((n, 1) + shape, np.float32)
+                  for k in ("anchor", "pos", "neg")}
+
+    def __len__(self):
+        return len(self.x["anchor"])
+
+    def __getitem__(self, i):
+        return {k: v[i] for k, v in self.x.items()}
+
+
+def stepwise_run(tr, fused, warmup, steps):
+    """``tr.run(max_steps=warmup + steps)`` with the launches recorded at
+    each optimizer step; the counts set to 0 and the clock started after
+    step ``warmup``. Returns (seconds of the timed steps, their
+    launches, the launches of each timed step, peak MB)."""
+    state = {"n": 0, "per": []}
+
+    def hook(opt, args, kwargs):
+        state["n"] += 1
+        if state["n"] == warmup:
+            torch.cuda.synchronize()
+            fused.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            state["last"] = launch_counts(fused)
+            state["t0"] = time.perf_counter()
+        elif state["n"] > warmup:
+            now = launch_counts(fused)
+            state["per"].append({k: now[k] - state["last"][k]
+                                 for k in now})
+            state["last"] = now
+            if state["n"] == warmup + steps:
+                torch.cuda.synchronize()
+                state["t1"] = time.perf_counter()
+    handle = tr.optimizer.register_step_post_hook(hook)
+    try:
+        tr.run(max_steps=warmup + steps)
+    finally:
+        handle.remove()
+    losses = tr.last_stats["tr_loss"]
+    if tr.step != warmup + steps or not np.isfinite(losses).all():
+        raise AssertionError(f"run: step {tr.step}, losses {losses}")
+    return (state["t1"] - state["t0"], launch_counts(fused), state["per"],
+            torch.cuda.max_memory_allocated() / 1e6)
+
+
+def check_item9_launches(what, launches, per, kernels, fused):
+    """Every kernel of ``kernels`` launched, no other (no vup entry, no
+    K8-K11), and each timed step's launches the same."""
+    check_launched(launches, kernels, what)
+    stray = {k: n for k, n in launches.items() if n and k not in kernels}
+    if stray:
+        raise AssertionError(f"{what}: kernels off its plan launched: "
+                             f"{stray}")
+    if any(p != per[0] for p in per):
+        raise AssertionError(f"{what}: launches differ by step: {per}")
+    print(f"{what}: launches a step (the same in each of {len(per)}): "
+          + ", ".join(f"{k} {n}" for k, n in per[0].items() if n),
+          flush=True)
+
+
+def check_plan(model, shape, want, what):
+    kinds = model.level_kinds(shape)
+    if kinds != want:
+        raise AssertionError(f"{what}: level plan {kinds}, expected {want}")
+    print(f"{what}: level plan at {shape}: {kinds}", flush=True)
+
+
+def n2v_phase(UNet, fused, smi):
+    """Noise2Void (``training/noise2void.py``) on the model, patch, batch
+    and ratio of examples/train_noise2void.py, bf16, fed by
+    ``KnossosRawData`` ('in_memory') over :class:`CubeKD`: the plan (L0
+    and L1 on the kernels), K1-K7 and rows 3/13 launched the same in
+    every step, and one step's gradients against the plain path with the
+    masked MSE of a fixed mask."""
+    from elektronn3_tpu_torch.data import knossos, transforms
+    from elektronn3_tpu_torch.modules.loss import masked_mse_loss
+    from elektronn3_tpu_torch.training.noise2void import (
+        Noise2VoidTrainer, mask_batch)
+    knossos.KnossosDataset = CubeKD
+    shape = (N2V_BATCH, *N2V_PATCH, 1)
+    raw = knossos.KnossosRawData(
+        "stand-in", patch_shape=N2V_PATCH, mode="in_memory",
+        epoch_size=N2V_BATCH * (ITEM9_WARMUP + ITEM9_STEPS),
+        transform=transforms.Normalize(mean=128.0, std=50.0))
+    model = n2v_unet(UNet, 3)
+    check_plan(model, shape, ["kernels", "kernels", "library"], "n2v")
+    with tempfile.TemporaryDirectory() as root:
+        tr = Noise2VoidTrainer(model, None, train_dataset=raw,
+                               batch_size=N2V_BATCH, n2v_ratio=N2V_RATIO,
+                               num_workers=ITEM9_WORKERS,
+                               save_root=root, exp_name="n2v",
+                               enable_tensorboard=False,
+                               nan_check_interval=ITEM9_STEPS)
+        dt, launches, per, peak = stepwise_run(tr, fused, ITEM9_WARMUP,
+                                               ITEM9_STEPS)
+    check_item9_launches("n2v training", launches, per, K1_K7, fused)
+    vox = np.prod(shape)
+    print(f"n2v: Noise2VoidTrainer step {dt / ITEM9_STEPS * 1e3:.2f} ms = "
+          f"{vox * ITEM9_STEPS / dt / 1e6:.2f} MVox/s (batch {N2V_BATCH} "
+          f"of {N2V_PATCH}, bf16, ratio {N2V_RATIO}, KNOSSOS in_memory "
+          f"{N2V_CUBE}), peak {peak:.1f} MB; losses "
+          f"{[round(v, 4) for v in tr.last_stats['tr_loss']]}", flush=True)
+    np.random.seed(1)
+    batch = np.stack([raw[i]["inp"] for i in range(N2V_BATCH)])
+    parts = mask_batch(batch, N2V_RATIO, np.random.default_rng(2))
+    x, target, mask = (torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(a, 1, -1))).cuda() for a in parts)
+    check_train_step(lambda seed, dtype: n2v_unet(UNet, seed, dtype),
+                     lambda out, t: masked_mse_loss(out, t, mask),
+                     x, target, what=" n2v")
+    return launches
+
+
+def trainer_multi_phase(UNet, CEDiceLoss, fused, smi):
+    """``TrainerMulti`` on the headline UNet: bench.py's batch 8 of
+    (44, 88, 88) as ``optimizer_iterations=2`` micro-batches of 4,
+    CEDiceLoss with ``loss_crop`` (2, 8, 8) and a ``cube_meta`` weight,
+    bf16, Adam: the kernels' dW and db accumulate in ``.grad`` over two
+    forwards and backwards before each step. One step's accumulated
+    gradients against the plain path."""
+    from elektronn3_tpu_torch.training import TrainerMulti
+    from elektronn3_tpu_torch.training._trainer_multi import (
+        crop_loss_region, cube_weight)
+    micro = BATCH // 2
+    # one epoch: the timed steps see no epoch's end (its checkpoint)
+    data = MetaPatches(2 * micro * (ITEM9_WARMUP + ITEM9_STEPS), (1, *PATCH),
+                       seed=5)
+    model = headline_unet(UNet, 3)
+    check_plan(model, (micro, *PATCH, 1),
+               ["kernels", "kernels", "library", "library"], "multi")
+    with tempfile.TemporaryDirectory() as root:
+        tr = TrainerMulti(model, CEDiceLoss(1.0, 1.0), train_dataset=data,
+                          batch_size=micro, optimizer_iterations=2,
+                          num_workers=ITEM9_WORKERS,
+                          loss_crop=MULTI_CROP, save_root=root,
+                          exp_name="multi", enable_tensorboard=False,
+                          nan_check_interval=2 * ITEM9_STEPS)
+        dt, launches, per, peak = stepwise_run(tr, fused, ITEM9_WARMUP,
+                                               ITEM9_STEPS)
+    check_item9_launches("multi training", launches, per, K1_K7, fused)
+    if per[0]["conv1_bwd"] != 2:
+        raise AssertionError(f"multi: row 13's kernel {per[0]['conv1_bwd']}"
+                             " times a step, expected once a micro-batch")
+    vox = BATCH * np.prod(PATCH)
+    print(f"multi: TrainerMulti step (2 micro-batches of {micro}) "
+          f"{dt / ITEM9_STEPS * 1e3:.2f} ms = "
+          f"{vox * ITEM9_STEPS / dt / 1e6:.2f} MVox/s (bf16, loss_crop "
+          f"{MULTI_CROP}, cube_meta), peak {peak:.1f} MB", flush=True)
+    crit = CEDiceLoss(1.0, 1.0)
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(data.inp[:BATCH], 1, -1))).cuda()
+    y = torch.from_numpy(data.target[:BATCH]).cuda()
+    weights = [cube_weight(data.meta[i:i + micro])
+               for i in range(0, BATCH, micro)]
+
+    def accumulated(model, crit, x, y, reference):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        total = 0.0
+        for xi, yi, w in zip(x.chunk(2), y.chunk(2), weights):
+            o, t = crop_loss_region(model(xi, reference=reference), yi,
+                                    MULTI_CROP)
+            loss = crit(o, t).float() * w
+            loss.backward()
+            total += float(loss.detach())
+        return total / 2, {n: p.grad.float() / 2
+                           for n, p in model.named_parameters()}
+    check_train_step(lambda seed, dtype: headline_unet(UNet, seed, dtype),
+                     crit, x, y, what=" multi (2 micro-batches)",
+                     grads_fn=accumulated)
+    return launches
+
+
+def triplet_phase(UNet, fused, smi):
+    """``TripletTrainer`` on the 2D UNet of examples/train_simple2d.py at
+    8 triplets of (640, 640), bf16: three training forwards through the
+    2D kernel levels (rows 16/17 and 19/20, K1-K7 on the D=1 view) and
+    one backward a step; the running statistics take three updates a
+    step. One step's gradients against the plain path (conv_final's bias
+    has an exact gradient of 0: the loss takes differences)."""
+    from elektronn3_tpu_torch.modules.loss import GAPTripletMarginLoss
+    from elektronn3_tpu_torch.training import TripletTrainer
+    # one epoch: the timed steps see no epoch's end (its checkpoint)
+    data = TripletImages(TRIPLETS * (ITEM9_WARMUP + ITEM9_STEPS), IMAGE,
+                         seed=6)
+    model = unet_2d(UNet, 3)
+    check_plan(model, (TRIPLETS, *IMAGE, 1),
+               ["kernels", "kernels", "library", "library"], "triplet")
+    with tempfile.TemporaryDirectory() as root:
+        tr = TripletTrainer(model, train_dataset=data, batch_size=TRIPLETS,
+                            num_workers=ITEM9_WORKERS,
+                            save_root=root, exp_name="triplet",
+                            enable_tensorboard=False,
+                            nan_check_interval=ITEM9_STEPS)
+        with record_shapes(fused) as seen:
+            dt, launches, per, peak = stepwise_run(tr, fused, ITEM9_WARMUP,
+                                                   ITEM9_STEPS)
+        check_item9_launches("triplet training", launches, per, K1_K7,
+                             fused)
+        check_rows(seen, (16, 17, 19, 20), "triplet training")
+        if (per[0]["conv1_fwd"], per[0]["conv1_bwd"]) != (3, 3):
+            raise AssertionError(f"triplet: rows 3 and 13 {per[0]}, "
+                                 "expected each once a forward")
+        # The running statistics of one step: three momentum updates, as
+        # three training forwards of a copy give them.
+        batch = {k: torch.from_numpy(np.ascontiguousarray(
+            np.moveaxis(v[:TRIPLETS], 1, -1))).cuda()
+            for k, v in data.x.items()}
+        ref = copy.deepcopy(model)
+        with torch.no_grad():
+            ref.train()
+            for k in ("anchor", "pos", "neg"):
+                ref(batch[k])
+        tr._train_batch(batch, None)
+        torch.cuda.synchronize()
+    worst = 0.0
+    for (n, b), (_, r) in zip(model.named_buffers(), ref.named_buffers()):
+        if b.dtype == torch.float32:
+            worst = max(worst, float((b - r).abs().max())
+                        / float(r.abs().max()))
+    # 1e-3: the kernels' float32 statistics sums vary in their last bits
+    # between two runs (4.5e-5 of max seen on an H100); one update more
+    # or less moves a running statistic by about 1e-2 of it (momentum
+    # 0.99).
+    if not worst <= 1e-3:
+        raise AssertionError(f"triplet: running statistics {worst} from "
+                             "three training forwards")
+    pix = 3 * TRIPLETS * np.prod(IMAGE)
+    print(f"triplet: TripletTrainer step (3 forwards of {TRIPLETS}) "
+          f"{dt / ITEM9_STEPS * 1e3:.2f} ms = "
+          f"{pix * ITEM9_STEPS / dt / 1e6:.2f} MPix/s (bf16, "
+          f"GAPTripletMarginLoss), peak {peak:.1f} MB; one step's running "
+          f"statistics against three training forwards: max rel err "
+          f"{worst:.2e}", flush=True)
+    x = torch.cat([torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(data.x[k][:TRIPLETS], 1, -1)))
+        for k in ("anchor", "pos", "neg")]).cuda()
+
+    def three_forwards(model, crit, x, y, reference):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        outs = [model(xi, reference=reference) for xi in x.chunk(3)]
+        loss = crit(*outs).float()
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone()
+                                      for n, p in model.named_parameters()}
+    # zero_bf16 0.5: the triplet loss's gradients are small, and in bf16
+    # the exactly-0 bias gradients keep a rounding residue of up to 0.262
+    # of their weight gradient on the reference path itself (conv_final's
+    # bias; 0.066 up_2's conv2). whole 1e-4: in float32 the last decoder
+    # norm's scale gradient (6.6e-4 of a leaf) came 0.87-1.06 of its
+    # bound in three calls (NVIDIA H100 80GB HBM3, 700.00 W).
+    check_train_step(lambda seed, dtype: unet_2d(UNet, seed, dtype),
+                     GAPTripletMarginLoss(), x, None, zero_bf16=0.5,
+                     whole=1e-4,
+                     what=" triplet (3 forwards)", grads_fn=three_forwards,
+                     exact_zero=("conv_final.bias",))
+    return launches
+
+
+def synthetic_graph(rng, n, f, e, classes, split, binary=False,
+                    symmetric=True):
+    """A seeded graph dict of ``n`` nodes, ``f`` features (binary at the
+    density of a bag of words, else normal), ``e`` directed edges (pairs
+    and their reverses with ``symmetric``), labels that shift the
+    features, and train, validation and test masks of ``split``'s
+    sizes."""
+    y = rng.integers(0, classes, n)
+    if binary:
+        x = (rng.random((n, f), np.float32) < 0.0127).astype(np.float32)
+    else:
+        x = rng.standard_normal((n, f), np.float32)
+    x[:, :classes] += np.eye(classes, dtype=np.float32)[y]
+    if symmetric:
+        half = rng.integers(0, n, (2, e // 2))
+        ei = np.concatenate([half, half[::-1]], 1)
+    else:
+        ei = rng.integers(0, n, (2, e))
+    g = {"x": x, "edge_index": ei.astype(np.int64), "y": y.astype(np.int64)}
+    order = rng.permutation(n)
+    lo = 0
+    for name, size in zip(("train_mask", "val_mask", "test_mask"), split):
+        m = np.zeros(n, bool)
+        m[order[lo:lo + size]] = True
+        g[name] = m
+        lo += size
+    return g
+
+
+def _hold_gnn(card, cpu, what):
+    """The card's step (loss, gradients) against the CPU's: within
+    GNN_TOL of each leaf's max |ref| (float32; ``index_add_`` sums with
+    atomics on the card, in another order than the CPU)."""
+    (lk, gk), (lc, gc) = card, cpu
+    worst = abs(lk - lc) / abs(lc)
+    if not worst <= GNN_TOL:
+        raise AssertionError(f"{what}: loss {lk} on the card, {lc} on the "
+                             "CPU")
+    for n, g in gc.items():
+        err = float((gk[n].cpu() - g).abs().max())
+        q = err / max(float(g.abs().max()), 1e-30)
+        worst = max(worst, q)
+        if not q <= GNN_TOL:
+            raise AssertionError(f"{what}: gradient {n} {err} of max "
+                                 f"{float(g.abs().max())}")
+    return worst
+
+
+def _gnn_grads(tr, step):
+    loss = step()
+    return float(loss), {n: p.grad.detach().clone()
+                         for n, p in tr.model.named_parameters()}
+
+
+def gnn_phase(fused, smi):
+    """The GNN stack (``modules/graph.py``, ``training/trainer_gnn*.py``;
+    no TPU kernel behind it in JAX: ATen's scatter and GEMM kernels) on
+    synthetic graphs of the public datasets' sizes, float32: GCN, SAGE
+    and GAT full batch on a Cora-sized graph, the multi-graph trainer on
+    64 graphs of about 1000 nodes, and the minibatch trainer on an
+    ogbn-arxiv-sized graph at 1024 seeds and fanout (10, 5). Each one
+    step on the card against the same step on the CPU (dropout 0)."""
+    from elektronn3_tpu_torch.modules.graph import GNN
+    from elektronn3_tpu_torch.training import (
+        trainer_gnn, trainer_gnn_batch, trainer_gnn_minibatch)
+    rng = np.random.default_rng(8)
+    cora = synthetic_graph(rng, binary=True, **CORA)
+    fused.reset_launches()
+    for conv in ("gcn", "sage", "gat"):
+        torch.manual_seed(1)
+        cpu = GNN(CORA["f"], hidden=64, out_channels=CORA["classes"],
+                  conv=conv, dropout=0.0, device="cpu")
+        card = copy.deepcopy(cpu).cuda()
+        tk = trainer_gnn.GNNTrainer(card, cora, lr=0.01)
+        tc = trainer_gnn.GNNTrainer(cpu, cora, lr=0.01)
+        worst = _hold_gnn(_gnn_grads(tk, tk._train_step),
+                          _gnn_grads(tc, tc._train_step), f"gnn {conv}")
+        card.dropout = 0.5
+        tk.run(3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = tk.run(20)
+        dt = (time.perf_counter() - t0) / 20
+        if not np.isfinite(stats["tr_loss"]):
+            raise AssertionError(f"gnn {conv}: {stats}")
+        print(f"gnn {conv} (Cora size: {CORA['n']} nodes, {CORA['f']} "
+              f"features, {CORA['e']} edges; hidden 64, dropout 0.5): "
+              f"epoch (step and eval) {dt * 1e3:.2f} ms = "
+              f"{CORA['n'] / dt / 1e6:.3f} M nodes/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB; card "
+              f"against CPU, worst err/max {worst:.2e}; val_acc "
+              f"{stats['val_acc']:.3f}", flush=True)
+    graphs = [synthetic_graph(rng, n=int(rng.integers(900, 1100)), f=32,
+                              e=8000, classes=6, split=(0, 0, 0))
+              for _ in range(64)]
+    for g in graphs:
+        for k in ("train_mask", "val_mask", "test_mask"):
+            del g[k]
+    torch.manual_seed(2)
+    cpu = GNN(32, hidden=64, out_channels=6, conv="sage", dropout=0.0,
+              device="cpu")
+    tb = trainer_gnn_batch.GNNTrainer(copy.deepcopy(cpu).cuda(), graphs)
+    tc = trainer_gnn_batch.GNNTrainer(cpu, graphs[:1])
+    worst = _hold_gnn(
+        _gnn_grads(tb, lambda: tb._train_step(tb.graphs[0])),
+        _gnn_grads(tc, lambda: tc._train_step(tc.graphs[0])), "gnn batch")
+    tb.run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = tb.run(1)
+    dt = (time.perf_counter() - t0) / len(graphs)
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    nodes = sum(len(g["y"]) for g in graphs) / len(graphs)
+    print(f"gnn batch (64 graphs of {nodes:.0f} nodes on average, 32 "
+          f"features, SAGE): step {dt * 1e3:.2f} ms = "
+          f"{nodes / dt / 1e6:.3f} M nodes/s (epoch and evaluate), peak "
+          f"{peak:.1f} MB; card "
+          f"against CPU, worst err/max {worst:.2e}; {stats}", flush=True)
+    arxiv = synthetic_graph(rng, symmetric=False, **ARXIV)
+    torch.manual_seed(3)
+    cpu = GNN(ARXIV["f"], hidden=256, out_channels=ARXIV["classes"],
+              conv="sage", dropout=0.0, device="cpu")
+    card = copy.deepcopy(cpu).cuda()
+    kw = dict(batch_size=1024, num_neighbors=(10, 5), seed=4)
+    tm = trainer_gnn_minibatch.GNNTrainer(card, arxiv, **kw)
+    tc = trainer_gnn_minibatch.GNNTrainer(cpu, arxiv, **kw)
+    worst = _hold_gnn(_gnn_grads(tm, lambda: tm.train_step()[0]),
+                      _gnn_grads(tc, lambda: tc.train_step()[0]),
+                      "gnn minibatch")
+    card.dropout = 0.5
+    tm.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host0, t0 = tm.host_seconds, time.perf_counter()
+    steps = 3
+    for _ in range(steps):
+        loss, _, _ = tm.train_step()
+    float(loss)
+    dt = (time.perf_counter() - t0) / steps
+    host = (tm.host_seconds - host0) / steps
+    ev = {**tm.evaluate(), **tm.validate_sampled(max_batches=2)}
+    if not all(np.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"gnn minibatch: {ev}")
+    print(f"gnn minibatch (ogbn-arxiv size: {ARXIV['n']} nodes, "
+          f"{ARXIV['e']} edges, {ARXIV['f']} features; 1024 seeds, fanout "
+          f"(10, 5), SAGE hidden 256): step {dt * 1e3:.2f} ms = "
+          f"{1024 / dt / 1e6:.4f} M seeds/s, of which host sampling "
+          f"{host * 1e3:.2f} ms ({100 * host / dt:.1f}%), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB; card against "
+          f"CPU, worst err/max {worst:.2e}; {ev}", flush=True)
+    launches = launch_counts(fused)
+    if any(launches.values()):
+        raise AssertionError(f"gnn: hand-written kernels launched: "
+                             f"{launches}")
+    return launches
+
+
+def config_phase(UNet, CEDiceLoss, fused, smi):
+    """The config layer: a ``TrainingConfig`` of the headline UNet (bf16)
+    saved to JSON, loaded and built with ``build_trainer(worker_type=
+    'thread')``; two ``Trainer.run`` steps on the card through K1-K7;
+    ``sync_overhead_s`` and ``device_memory_stats``."""
+    from elektronn3_tpu_torch.config import (
+        ModelConfig, OptimizerConfig, TrainingConfig)
+    from elektronn3_tpu_torch.utils import (
+        device_memory_stats, sync_overhead_s)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = TrainingConfig(
+            model=ModelConfig("UNet", dict(
+                in_channels=1, out_channels=2, n_blocks=4, start_filts=32,
+                planar_blocks=(0,), activation="relu",
+                normalization="batch", dim=3), dtype="bfloat16"),
+            optimizer=OptimizerConfig("adam", lr=1e-3), batch_size=2,
+            max_steps=2, save_root=root, exp_name="config",
+            trainer_kwargs={"enable_tensorboard": False})
+        path = os.path.join(root, "run.json")
+        cfg.save(path)
+        back = TrainingConfig.load(path)
+        if back.to_json() != cfg.to_json():
+            raise AssertionError("config: the JSON round trip changed it")
+        fused.reset_launches()
+        tr = back.build_trainer(CEDiceLoss(1.0, 1.0),
+                                train_dataset=Patches(4, (1, *PATCH)),
+                                worker_type="thread")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.run(max_steps=back.max_steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        launches = launch_counts(fused)
+        if not isinstance(tr.model, UNet) or tr.model.dtype != \
+                torch.bfloat16 or tr.worker_type != "thread" or \
+                tr.step != 2 or not np.isfinite(
+                    tr.last_stats["tr_loss"]).all():
+            raise AssertionError(f"config: built {type(tr.model)}, step "
+                                 f"{tr.step}, {tr.last_stats}")
+        if not os.path.isfile(os.path.join(tr.save_path, "config.json")):
+            raise AssertionError("config: no config.json in the run")
+    check_launched(launches, K1_K7, "config-built training")
+    stats = device_memory_stats()
+    vox = back.batch_size * np.prod(PATCH) * back.max_steps
+    print(f"config: TrainingConfig -> JSON -> build_trainer(worker_type="
+          f"'thread'), Trainer.run(2) at batch 2 of {PATCH} {dt:.2f} s "
+          f"(the run's files and both steps, {dt / 2 * 1e3:.2f} ms a step "
+          f"= {vox / dt / 1e6:.2f} MVox/s), peak {peak:.1f} MB, "
+          f"launches {launches}; "
+          f"sync_overhead_s {sync_overhead_s() * 1e6:.1f} us; "
+          f"device_memory_stats {stats}", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5528,6 +6109,22 @@ def main():
     launches.update(zoo_phase(Predictor, train_step, loss_mod, fused, smi))
     torch.cuda.empty_cache()
     mark("model zoo")
+    launches["train_n2v"] = n2v_phase(UNet, fused, smi)
+    torch.cuda.empty_cache()
+    mark("noise2void")
+    launches["train_multi"] = trainer_multi_phase(UNet, CEDiceLoss, fused,
+                                                  smi)
+    torch.cuda.empty_cache()
+    mark("trainer multi")
+    launches["train_triplet"] = triplet_phase(UNet, fused, smi)
+    torch.cuda.empty_cache()
+    mark("triplet")
+    launches["gnn"] = gnn_phase(fused, smi)
+    torch.cuda.empty_cache()
+    mark("gnn")
+    launches["train_config"] = config_phase(UNet, CEDiceLoss, fused, smi)
+    torch.cuda.empty_cache()
+    mark("config")
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()

@@ -11,8 +11,8 @@ what is ported (reference elektronn3/data/__init__.py:1-3).
 - ``pipeline``: ``DataLoader`` and ``prefetch_to_device``
 - ``warp`` and ``device_pipeline``: ``DeviceWarpPatchLoader``, whose
   warp runs on the card
-
-Not ported yet: ``knossos``.
+- ``knossos``: ``KnossosRawData`` and ``KnossosLabels`` (``knossos_utils``
+  imported when one is made)
 """
 
 from elektronn3_tpu_torch.data import transforms
@@ -26,6 +26,7 @@ from elektronn3_tpu_torch.data.cnndata import (
     get_preview_batch,
 )
 from elektronn3_tpu_torch.data.device_pipeline import DeviceWarpPatchLoader
+from elektronn3_tpu_torch.data.knossos import KnossosLabels, KnossosRawData
 from elektronn3_tpu_torch.data.pipeline import (
     DataLoader,
     default_collate,
@@ -40,7 +41,8 @@ from elektronn3_tpu_torch.data.sources import (
 )
 
 __all__ = ["ArrayDataSource", "DataLoader", "DataSource",
-           "DeviceWarpPatchLoader", "HDF5DataSource", "PatchCreator",
+           "DeviceWarpPatchLoader", "HDF5DataSource", "KnossosLabels",
+           "KnossosRawData", "PatchCreator",
            "Reconstruction2d", "Segmentation2d", "SimpleNeuroData2d",
            "TripletData2d", "calculate_class_weights", "default_collate",
            "get_preview_batch", "prefetch_to_device", "slice_3d",

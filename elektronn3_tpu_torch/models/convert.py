@@ -70,6 +70,12 @@ and the leaf follows from the module's type (:func:`_zoo_rule`):
 
 Both directions walk the whole tree: a torch tensor without its flax
 leaf, or a flax leaf that no torch tensor takes, raises ``KeyError``.
+
+The graph models (``modules.graph``: ``GNN`` and its ``conv_{i}``
+convolutions) take the same rule: ``Dense_0``, ``lin_self`` and
+``lin_neigh`` are ``Dense`` (kernel (I, O) -> weight (O, I)); GCN's
+separate ``bias`` and GAT's ``a_src`` and ``a_dst`` (heads, features)
+keep their names and shapes in 'params'.
 """
 
 from __future__ import annotations

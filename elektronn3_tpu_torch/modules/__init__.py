@@ -1,6 +1,6 @@
 """NN building blocks (activations, normalization, batch-norm
-prologues, the zoo's conv, norm and attention modules, losses) for the
-port's models. Exports the JAX package's ``modules`` names."""
+prologues, the zoo's conv, norm and attention modules, losses, the graph
+layers) for the port's models. Exports the JAX package's ``modules`` names."""
 
 from elektronn3_tpu_torch.modules.loss import (
     CEDiceLoss,
@@ -40,4 +40,10 @@ from elektronn3_tpu_torch.modules.axial_attention import (
     AxialPositionalEmbedding,
     ReversibleSequence,
     SelfAttention,
+)
+from elektronn3_tpu_torch.modules.graph import (
+    GATConv,
+    GCNConv,
+    GNN,
+    SAGEConv,
 )

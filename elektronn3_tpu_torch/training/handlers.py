@@ -165,3 +165,74 @@ def _tb_log_sample_videos(trainer, images: dict,
                     global_step=trainer.step)
     except Exception:
         logger.exception("video logging failed (is moviepy installed?)")
+
+
+def _tb_log_sample_images_all_img(trainer, images: dict,
+                                  z_plane: Optional[int] = None,
+                                  group: str = "sample") -> None:
+    """Every array of ``images`` as grayscale figures of sample 0 (the
+    middle z plane in 3D), one a channel for a multi-channel array;
+    (N, H, W) arrays are one channel. An ``fname`` entry titles them
+    (reference handlers.py:450-480)."""
+    if trainer.tb is None:
+        return
+    images = dict(images)
+    fname = images.pop("fname", None)
+    name = fname[0] if fname else ""
+    for key, img in images.items():
+        if img is None:
+            continue
+        img = np.asarray(img)[:1]
+        if img.ndim == 3:
+            img = img[:, None]
+        img2d = _get_batch2img_function(img, z_plane)(img)
+        if img2d.shape[0] == 1:
+            fig = plot_image(img2d[0], cmap="gray", filename=name or key)
+            _fig_to_tb(trainer.tb, f"{group}/{key}", fig, trainer.step)
+            continue
+        for c in range(img2d.shape[0]):
+            fig = plot_image(img2d[c], cmap="gray",
+                             filename=name or f"{key}{c}")
+            _fig_to_tb(trainer.tb, f"{group}/{key}{c}", fig, trainer.step)
+
+
+def write_to_kzip(trainer, pred_batch: np.ndarray) -> None:
+    """Write a preview prediction (N, D, H, W) of sample 0 as a KNOSSOS
+    .k.zip, ``save_path/preview_{step}.k.zip``, with its movement area
+    at ``trainer.knossos_preview_config``'s ``offset`` and ``size``
+    (reference handlers.py:124-158). Without ``knossos_utils`` (or a
+    class set as ``data.knossos.KnossosDataset``) a warning, and
+    nothing is written."""
+    from elektronn3_tpu_torch.data.knossos import _require_knossos
+    try:
+        kd_cls = _require_knossos()
+    except ImportError:
+        logger.warning("knossos_utils not available; skipping kzip export")
+        return
+    ks = getattr(trainer, "knossos_preview_config", None)
+    if not ks:
+        raise ValueError(
+            "kzip export requires trainer.knossos_preview_config with "
+            "'dataset', 'offset' and 'size' keys")
+    dataset_path = ks["dataset"] if isinstance(ks["dataset"], str) \
+        else ks["dataset"][0]
+    ds = kd_cls(dataset_path)
+    seg = np.asarray(pred_batch)[0].swapaxes(0, 2)   # zyx -> xyz
+    area_min, area_sz = ks["offset"], ks["size"]
+    anno_str = f"""<?xml version="1.0" encoding="UTF-8"?>
+<things>
+    <parameters>
+        <MovementArea min.x="{area_min[0]}" min.y="{area_min[1]}" \
+min.z="{area_min[2]}" size.x="{area_sz[0]}" size.y="{area_sz[1]}" \
+size.z="{area_sz[2]}"/>
+    </parameters>
+    <comments/>
+    <branchpoints/>
+</things>"""
+    kzip_path = f"{trainer.save_path}/preview_{trainer.step}.k.zip"
+    logger.info(f"Writing preview inference to {kzip_path}")
+    ds.save_to_kzip(
+        data=seg, data_mag=ks.get("mag", 1), kzip_path=kzip_path,
+        offset=ks["offset"], mags=ks.get("target_mags", [1, 2]),
+        gen_mergelist=False, upsample=False, fast_resampling=False,
+        annotation_str=anno_str)

@@ -7,8 +7,33 @@ elektronn3/training/train_utils.py:23-242), host-side numpy only.
 from __future__ import annotations
 
 import time
+from typing import Dict
 
 import numpy as np
+
+
+def create_preview_batch_from_knossos(
+        knossos_preview_config: Dict) -> np.ndarray:
+    """A (1, C, D, H, W) float32 preview batch read from the KNOSSOS
+    dataset(s) of ``knossos_preview_config`` (keys ``dataset``, one path
+    or a list, a channel each; ``size``, ``offset``, ``mag``,
+    ``target_mags``; optional ``scale_brightness``, the divisor).
+    Reference train_utils.py:23-48; needs ``knossos_utils`` (or a class
+    set as ``data.knossos.KnossosDataset``)."""
+    from elektronn3_tpu_torch.data.knossos import _require_knossos
+    config = knossos_preview_config
+    for k in ("dataset", "size", "offset", "mag", "target_mags"):
+        if k not in config:
+            raise ValueError(
+                f"Required key {k} missing from knossos_preview_config.")
+    kd_cls = _require_knossos()
+    datasets = config["dataset"]
+    if isinstance(datasets, str):
+        datasets = [datasets]
+    inp = np.stack([kd_cls(path).load_raw(
+        offset=config["offset"], size=config["size"], mag=config["mag"],
+        datatype=np.float32) for path in datasets], axis=0)[None]
+    return inp / config.get("scale_brightness", 1.0)
 
 
 class AccumulationArray:

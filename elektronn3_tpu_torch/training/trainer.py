@@ -53,8 +53,11 @@ elektronn3/training/trainer.py), with its arguments:
 
 Not ported yet (ROADMAP.md Queue 1): the deployment artifact (JAX's
 StableHLO export; the kernels are ctypes calls that ``torch.export``
-cannot trace: its own item) and the KNOSSOS preview and
-``write_to_kzip`` (item 9).
+cannot trace: its own item).
+
+Subclasses change one batch's work (:meth:`Trainer._train_batch`) and
+the loader's layout (:meth:`Trainer._loader`), and keep the loop: the
+Noise2Void, triplet and gradient-accumulation trainers.
 """
 
 from __future__ import annotations
@@ -213,8 +216,7 @@ class Trainer:
     """Training loop with validation, schedules, snapshots, TensorBoard
     and preview inference.
 
-    Args (the JAX Trainer's, but ``worker_type`` and
-    ``knossos_preview_config``):
+    Args (the JAX Trainer's):
         model: a channels-last model (``elektronn3_tpu_torch.models.UNet``)
             on the device to train on.
         criterion: ``(logits, target) -> scalar`` loss.
@@ -236,7 +238,8 @@ class Trainer:
         example_input: a channels-last input, kept as ``example_input``
             (the JAX Trainer initializes its model from it; the port's
             model comes initialized).
-        batch_size, num_workers: the DataLoaders'.
+        batch_size, num_workers, worker_type: the DataLoaders' (every
+            loader the Trainer makes: training, unlabeled, validation).
         lr: the rate of the default optimizer and of the default
             ``ConstantLR``.
         schedulers: name -> scheduler, each stepped once a step; the
@@ -264,6 +267,10 @@ class Trainer:
             images (``handler(trainer, inp, out)``).
         enable_videos: 3D samples as TensorBoard videos too.
         hparams: logged once with ``add_hparams``.
+        knossos_preview_config: kept as ``knossos_preview_config`` for
+            ``train_utils.create_preview_batch_from_knossos`` and
+            ``handlers.write_to_kzip``; the loop itself reads it nowhere,
+            as in JAX.
         tb_hist_interval: parameter and gradient histograms every N
             epochs; 0 never.
         seed: seeds the order of the batches and each sample's draws
@@ -311,6 +318,7 @@ class Trainer:
             example_input=None,
             batch_size: int = 1,
             num_workers: int = 0,
+            worker_type: str = "thread",
             lr: float = 1e-3,
             schedulers: Optional[Dict[str, LRScheduler]] = None,
             overlay_alpha: float = 0.2,
@@ -331,6 +339,7 @@ class Trainer:
             preview_plotting_handler: Optional[Callable] = None,
             enable_videos: bool = False,
             hparams: Optional[Dict[str, Any]] = None,
+            knossos_preview_config: Optional[Dict[str, Any]] = None,
             tb_hist_interval: int = 1,
             mesh: Optional[Mesh] = None,
             shard_strategy: str = "auto",
@@ -365,6 +374,7 @@ class Trainer:
         self.valid_metrics = valid_metrics or {}
         self.batch_size = batch_size
         self.num_workers = num_workers
+        self.worker_type = worker_type
         self.ignore_errors = ignore_errors
         self.ipython_shell = ipython_shell
         self.out_channels = self.num_classes = out_channels
@@ -380,6 +390,7 @@ class Trainer:
         self.preview_plotting_handler = preview_plotting_handler
         self.enable_videos = enable_videos
         self.hparams = dict(hparams or {})
+        self.knossos_preview_config = knossos_preview_config
         self.tb_hist_interval = tb_hist_interval
         self.seed = seed
         self.overlay_alpha = overlay_alpha
@@ -480,19 +491,21 @@ class Trainer:
         repeating each other's draws."""
         return DataLoader(dataset, batch_size=self.batch_size,
                           num_workers=self.num_workers,
+                          worker_type=self.worker_type,
                           pin_memory=self.device.type == "cuda", **kwargs)
 
-    def _loader(self):
+    def _loader(self, **kwargs):
         """This epoch's loader: a loader-style training set itself, else
         the map-style set's ``DataLoader`` at epoch ``self.epoch``, in
         torch's sampler order under ``torch.Generator`` seed ``seed +
-        epoch``."""
+        epoch`` (``kwargs``: the loader's layout, as ``channels_last``)."""
         if hasattr(self.train_dataset, "__iter__") \
                 and not hasattr(self.train_dataset, "__getitem__"):
             return self.train_dataset
         loader = self._map_loader(
             self.train_dataset, seed=self.seed,
-            generator=torch.Generator().manual_seed(self.seed + self.epoch))
+            generator=torch.Generator().manual_seed(self.seed + self.epoch),
+            **kwargs)
         loader.set_epoch(self.epoch)
         if len(loader) == 0:
             raise ValueError("the training dataset holds fewer samples than "
@@ -622,27 +635,17 @@ class Trainer:
         except ImportError:
             pass
         for batch in batches:
-            inp, target = self._batch(batch)
-            lr = self.lr_scheduler.get_lr()
-            if self._inject_lr:
-                for group in self.optimizer.param_groups:
-                    group["lr"] = lr
-            with self._rank_rng():
-                loss, out = _step(
-                    self.model, self.criterion, self.optimizer, inp, target,
-                    unlabeled=None if unlabeled is None else next(unlabeled),
-                    ss_criterion=self.ss_criterion, ss_rng=self._ss_rng,
-                    dp=self._dp)
-            self._last_sample = (inp, target, out)
+            loss, voxels, stepped = self._train_batch(batch, unlabeled)
             pending.append(loss)
             if len(pending) >= self.nan_check_interval:
                 self._fetch(pending, stats)
-            self.step += 1
-            running_vx += inp.numel()
-            self._profile_window()
-            self._scheduler_step(loss)
-            if self.step in self.extra_save_steps:
-                self._save_model(suffix=f"_step{self.step}")
+            running_vx += voxels
+            if stepped:
+                self.step += 1
+                self._profile_window()
+                self._scheduler_step(loss)
+                if self.step in self.extra_save_steps:
+                    self._save_model(suffix=f"_step{self.step}")
             if self.step >= max_steps:
                 logger.info(f"max_steps ({max_steps}) reached. Terminating.")
                 self.terminate = True
@@ -661,6 +664,29 @@ class Trainer:
         stats["tr_loss_mean"] = float(np.mean(stats["tr_loss"])) \
             if stats["tr_loss"] else np.nan
         return stats, misc
+
+    def _set_lr(self) -> None:
+        """The rate of this step into the optimizer, where the Trainer
+        owns the schedule."""
+        if self._inject_lr:
+            lr = self.lr_scheduler.get_lr()
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+
+    def _train_batch(self, batch, unlabeled):
+        """One batch of the loop: (loss as a detached device tensor,
+        voxels of the input, whether the optimizer stepped). Here one
+        supervised step, and the batch kept for the sample images."""
+        inp, target = self._batch(batch)
+        self._set_lr()
+        with self._rank_rng():
+            loss, out = _step(
+                self.model, self.criterion, self.optimizer, inp, target,
+                unlabeled=None if unlabeled is None else next(unlabeled),
+                ss_criterion=self.ss_criterion, ss_rng=self._ss_rng,
+                dp=self._dp)
+        self._last_sample = (inp, target, out)
+        return loss, inp.numel(), True
 
     @contextlib.contextmanager
     def _rank_rng(self):

@@ -2718,3 +2718,78 @@ def test_cuda_vup_per_sample_mixed_vectors_match_plain(dtype):
             _assert_rows(a, r)
         else:
             _assert_sum(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_trainer_multi_accumulates_kernel_gradients(dtype, tmp_path):
+    """``TrainerMulti`` on the kernels: the gradient its optimizer step
+    sees is the mean of the two micro-batches' gradients as their
+    backwards delivered them (K4, K5 and row 13's dW and db, recorded by
+    a hook on each parameter before they are added into ``.grad``), to
+    float32 rounding; rows 3 and 13 launch once a micro-batch. (Two
+    backwards of the same batch on the kernels are not the same bits:
+    their float32 sums run in another order each time.)"""
+    from elektronn3_tpu_torch.models import UNet
+    from elektronn3_tpu_torch.modules.loss import CEDiceLoss
+    from elektronn3_tpu_torch.training import TrainerMulti
+    dev = _cuda()
+    m = UNet(n_blocks=3, start_filts=32, planar_blocks=(0,), dtype=dtype,
+             device=dev, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    xs = [torch.randn(2, 8, 16, 16, 1, generator=g).to(dev, dtype)
+          for _ in range(2)]
+    ts = [(x[..., 0] > 0).long() for x in xs]
+    parts = {n: [] for n, _ in m.named_parameters()}
+    for n, p in m.named_parameters():
+        p.register_hook(lambda gr, n=n: parts[n].append(gr.float().clone()))
+    tr = TrainerMulti(m, CEDiceLoss(), optimizer=torch.optim.SGD(
+        m.parameters(), lr=0.0), optimizer_iterations=2, loss_crop=(1, 2, 2),
+        save_root=str(tmp_path), exp_name="multi", enable_tensorboard=False)
+    seen = {}
+    tr.optimizer.register_step_pre_hook(lambda opt, a, k: seen.update(
+        {n: p.grad.float().clone() for n, p in m.named_parameters()}))
+    fused.reset_launches()
+    for x, t in zip(xs, ts):
+        tr._train_batch({"inp": x, "target": t}, None)
+    assert fused.BODY_LAUNCHES.get(("conv_bnact", "conv1"), 0) == 2
+    assert fused.LAUNCHES["conv1_bwd"] == 2
+    assert fused.LAUNCHES["conv_bnact_wgrad"] > 0
+    for n, got in seen.items():
+        assert len(parts[n]) == 2, n
+        want = (parts[n][0] + parts[n][1]) / 2
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-6 * scale, n
+    assert all(p.grad is None for p in m.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv", ["gcn", "sage", "gat"])
+def test_cuda_gnn_step_matches_cpu(conv):
+    """A GNN step's loss and gradients on the card against the CPU's
+    from the same weights (float32; ``index_add_`` sums with atomics on
+    the card): within 1e-4 of each leaf's scale."""
+    import copy
+    from elektronn3_tpu_torch.modules.graph import GNN
+    from elektronn3_tpu_torch.training.trainer_gnn import masked_nll
+    dev = _cuda()
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(500, 24, generator=g)
+    ei = torch.randint(0, 500, (2, 3000), generator=g)
+    y = torch.randint(0, 5, (500,), generator=g)
+    torch.manual_seed(3)
+    cpu = GNN(24, hidden=32, out_channels=5, conv=conv, dropout=0.0,
+              device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    out = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        logits, _ = m(x.to(d), ei.to(d), train=True)
+        loss = masked_nll(logits, y.to(d))
+        loss.backward()
+        out.append((float(loss), {n: p.grad.cpu()
+                                  for n, p in m.named_parameters()}))
+    (lc, gc), (lk, gk) = out
+    assert abs(lk - lc) <= 1e-5 * abs(lc)
+    for n, r in gc.items():
+        assert float((gk[n] - r).abs().max()) <= \
+            1e-4 * float(r.abs().max()), n

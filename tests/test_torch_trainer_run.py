@@ -524,22 +524,23 @@ def test_loader_style_dataset_and_mixed_precision(tmp_path, how):
 
 
 def test_trainer_takes_jax_arguments():
-    """JAX's Trainer arguments but the worker-type and KNOSSOS ones, in
-    JAX's order (``mesh`` and ``shard_strategy`` are ported: multi-GPU);
-    the exports of JAX's ``training`` package for what is ported."""
+    """JAX's Trainer arguments, all of them, in JAX's order (``mesh``
+    and ``shard_strategy``: multi-GPU; ``worker_type`` and
+    ``knossos_preview_config`` since the Noise2Void, triplet and
+    gradient-accumulation trainers came); the exports of JAX's
+    ``training`` package."""
     import inspect
 
     from elektronn3_tpu import training as jtraining
     from elektronn3_tpu_torch import training as ptraining
-    left_out = {"worker_type", "knossos_preview_config"}
-    jargs = [a for a in inspect.signature(JTrainer.__init__).parameters
-             if a not in left_out]
+    jargs = list(inspect.signature(JTrainer.__init__).parameters)
     assert list(inspect.signature(Trainer.__init__).parameters) == jargs
     for name in ("Trainer", "NaNException", "Backup", "save_model",
                  "load_model", "SWA", "bn_update", "recalibrate_bn",
                  "metrics", "schedulers", "ConstantLR", "StepLR",
                  "ExponentialLR", "CosineAnnealingLR", "CyclicLR",
-                 "ReduceLROnPlateau", "SGDR"):
+                 "ReduceLROnPlateau", "SGDR", "Noise2VoidTrainer",
+                 "TripletTrainer", "TrainerMulti"):
         assert hasattr(jtraining, name) and hasattr(ptraining, name), name
     assert {"Padam", "LRScheduler", "train_step",
             "default_optimizer"} <= set(ptraining.__all__)
