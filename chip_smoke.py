@@ -301,8 +301,15 @@ sample).
     the unsharded one (1e-2) and a 'spatial' one (H over the two ranks,
     halo 32) against it on the voxels whose receptive field (probed on
     a narrow copy of the architecture) lies inside shard + halo, the
-    error elsewhere printed. Each sub-phase's wall seconds, the backend
-    and the world size are printed.
+    error elsewhere printed; then on both ranks the dry run's fsdp leg
+    (``parallel.dryrun.fsdp_step``: each large kernel split over the two
+    ranks on its output channels, JAX's ``_fsdp_spec``, gathered whole
+    for the forward) from the same state on the same rows, one SGD step
+    of rate 1, so that the whole parameters before less after are the
+    step's gradient: held against the one-process step by the same
+    bounds, each sharded leaf half its size, K1, K4 and K5 launched.
+    Each sub-phase's wall seconds, the backend and the world size are
+    printed.
 
 Each time is a mean from CUDA events after a warm-up, over at least 3
 calls and as many as fill 20 ms (at most 100). K1 over the network
@@ -378,6 +385,26 @@ cotangent: the pool's backward plus the add of the two gradients).
     ``TrainingConfig`` of the headline UNet through JSON and
     ``build_trainer(worker_type='thread')``, two ``Trainer.run`` steps
     on K1-K7, ``sync_overhead_s`` and ``device_memory_stats``.
+
+24. ``export_phase``, the deployment artifact (ROADMAP Queue 1 item 10,
+    JAX's ``export_stablehlo``): the headline UNet (bf16, random norms)
+    and its ``'batchp'`` twin, each exported by
+    ``training.export_program`` at one float32 Predictor input tile
+    (1, 128, 256, 256, 1) (the library plan; K9 as the node
+    ``e3tpu.bn_normalize`` under 'batchp'), the seconds of the export
+    with its save and of the load, and the file's MB printed; the 'batchp' program loaded in a
+    new interpreter that imports ``torch`` and ``ops.pallas_bn`` alone
+    (no ``models``, ``training`` or ``inference`` module loaded), its
+    output on a seeded tile the same bits as this process's; a
+    ``Predictor("<file>.pt2")`` request (tile (64, 128, 128), overlap
+    (32, 64, 64), batch 1) on step 7's volume against the model's own
+    request on the kernel plan (5e-2, bf16) and against the
+    ``pallas_flat=False`` model's (``EXPORT_TOL``), with K9 launched
+    exactly once per 'batchp' norm and program call and no other kernel,
+    both requests' MVox/s printed; then ``Trainer.run`` of the headline
+    UNet with ``example_input`` writes ``model_final.pt2``, which a
+    Predictor loads and serves against the trained model's library plan
+    (``EXPORT_TOL``).
 
 ``--profile`` also profiles three kernel-path training steps of each
 model (the 'batchp' one too, and its ``pallas_flat=False`` step at batch
@@ -4850,8 +4877,44 @@ def multigpu_rank(spec_path):
         loss=float(loss),
         grads={n: p.grad.float().cpu() for n, p in model.named_parameters()},
         state={k: v.cpu() for k, v in model.state_dict().items()})
+    out["fsdp"] = _fsdp_rank(model, spec["state"], CEDiceLoss(1.0, 1.0),
+                             x, y, mesh.axis("data"), fused)
     torch.save(out, os.path.join(os.path.dirname(spec_path),
                                  f"rank{dist.get_rank()}.pt"))
+
+
+def _fsdp_rank(model, state, crit, x, y, axis, fused):
+    """The dry run's fsdp leg on this rank at the headline geometry: one
+    SGD step of rate 1 from ``state`` after a warm-up step (the whole
+    parameters before less after: the step's gradient, which the phase
+    holds), its seconds, launches, the running statistics after it and
+    each leaf's size."""
+    from elektronn3_tpu_torch.parallel.dryrun import (
+        fsdp_dims, fsdp_gather, fsdp_shard, fsdp_step)
+    dims = fsdp_dims(model, axis.size)
+
+    def start():
+        model.load_state_dict(state)
+        params = fsdp_shard(model, dims, axis)
+        return params, torch.optim.SGD(params.values(), lr=1.0)
+    params, opt = start()
+    fsdp_step(model, params, dims, crit, opt, x, y, axis)   # warm-up
+    params, opt = start()
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    t = time.perf_counter()
+    loss = fsdp_step(model, params, dims, crit, opt, x, y, axis)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = launch_counts(fused)
+    with torch.no_grad():
+        whole = fsdp_gather(params, dims, axis)
+    return dict(loss=float(loss), step_s=step_s, launches=launches,
+                dims=dims, sizes={k: p.numel() for k, p in params.items()},
+                grads={k: (state[k].to(v.device).float()
+                           - v.detach().float()).cpu()
+                       for k, v in whole.items()},
+                state={k: v.cpu() for k, v in model.state_dict().items()})
 
 
 def _step_failures(got_loss, got_grads, got_state, ref, moved):
@@ -5032,6 +5095,28 @@ def multigpu_phase(UNet, Predictor, CEDiceLoss, Trainer, train_step, fused,
                 if not torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])]
         if diff:
             raise AssertionError(f"multigpu (b): ranks differ in {diff[:4]}")
+        for r, got in enumerate(ranks):
+            f = got["fsdp"]
+            worst = _hold_step(f["loss"], f["grads"], f["state"], ref, moved,
+                               f"multigpu (b) rank {r} fsdp")
+            split = [k for k, d in f["dims"].items() if d is not None]
+            half = [k for k in split
+                    if f["sizes"][k] * 2 != state[k].numel()]
+            if not split or half:
+                raise AssertionError(f"multigpu (b) rank {r} fsdp: split "
+                                     f"{split}, not halves {half}")
+            check_launched(f["launches"], ("conv_bnact", "conv_bnact_dgrad",
+                                           "conv_bnact_wgrad"),
+                           f"rank {r} of the two-rank fsdp step")
+            out[f"train_fsdp2_rank{r}"] = f["launches"]
+            print(f"multigpu (b) rank {r} fsdp: {len(split)} of "
+                  f"{len(f['dims'])} parameters split "
+                  f"({sum(f['sizes'][k] for k in split)} of "
+                  f"{sum(state[k].numel() for k in split)} elements held), "
+                  f"step of 4 rows in {f['step_s']:.3f} s, loss "
+                  f"{f['loss']:.6f} vs one process {ref[0]:.6f}, worst "
+                  f"gradient err/bound {worst:.3f}; launches "
+                  f"{f['launches']}", flush=True)
         stepped = headline_unet(UNet, 21)
         stepped.load_state_dict(ranks[0]["state"])
         stepped.eval()
@@ -5929,6 +6014,162 @@ def config_phase(UNet, CEDiceLoss, fused, smi):
     return launches
 
 
+# The program's bf16 probabilities against the pallas_flat=False model's
+# request on the same tiles: one bf16 unit of a probability near 1 (both
+# run the same library ops in the same order).
+EXPORT_TOL = 2.0 ** -8
+EXPORT_TILE = dict(PREDICT_KW, batch_size=1)   # the program's batch
+TRAINED_TILE = dict(tile_shape=(22, 44, 44), overlap_shape=(11, 22, 22),
+                    float16=True)   # the Trainer's program: PATCH
+
+
+_LOAD_ALONE = """
+import sys, torch
+import elektronn3_tpu_torch.ops.pallas_bn
+m = torch.export.load(sys.argv[1]).module()
+x = torch.load(sys.argv[2])
+torch.save(m(x).cpu(), sys.argv[3])
+bad = [k for k in sys.modules if k.startswith(tuple(
+    'elektronn3_tpu_torch.' + p for p in ('models', 'training',
+                                          'inference')))]
+assert not bad, bad
+"""
+
+
+def _request(pred, vol):
+    """(probabilities, MVox/s) of one timed request after a warm-up."""
+    pred.predict(vol)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = pred.predict(vol)
+    return probs, vol.size / (time.perf_counter() - t0) / 1e6
+
+
+def _hold_request(got, ref, bound, what):
+    err = float(np.abs(got - ref).max())
+    if got.shape != ref.shape or not np.isfinite(got).all() or err > bound:
+        raise AssertionError(f"{what}: {got.shape} vs {ref.shape}, max abs "
+                             f"err {err} > {bound}")
+    return err
+
+
+def export_phase(UNet, Predictor, CEDiceLoss, Trainer, fused, smi):
+    """Step 24 of the module docstring; returns the launches of the
+    'batchp' program's request."""
+    from elektronn3_tpu_torch.modules.pallas_norm import PallasBatchNorm
+    from elektronn3_tpu_torch.training import export_program, load_program
+    vol = seeded_volume()
+    root = os.path.dirname(os.path.abspath(__file__))
+    launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for norm in ("batch", "batchp"):
+            model = headline_unet(UNet, 0, normalization=norm).eval()
+            randomize_norms(model, 1)
+            path = os.path.join(tmp, f"unet_{norm}.pt2")
+            t0 = time.perf_counter()
+            export_program(model, (1, *TILE, 1), path)
+            t_export = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            program = load_program(path)
+            t_load = time.perf_counter() - t0
+            mb = os.path.getsize(path) / 1e6
+            nodes = sum(1 for n in program.graph.nodes
+                        if str(n.target) == "e3tpu.bn_normalize.default")
+            norms = sum(isinstance(m, PallasBatchNorm)
+                        for m in model.modules())
+            if nodes != norms or (norm == "batchp") != (norms > 0):
+                raise AssertionError(f"export {norm}: {nodes} K9 nodes for "
+                                     f"{norms} PallasBatchNorm modules")
+            if norm == "batchp":
+                x = torch.randn((1, *TILE, 1), generator=torch.Generator(
+                    ).manual_seed(5)).cuda()
+                with torch.inference_mode():
+                    y = program(x).cpu()
+                torch.save(x, os.path.join(tmp, "x.pt"))
+                del x
+                t0 = time.perf_counter()
+                subprocess.run(
+                    [sys.executable, "-c", _LOAD_ALONE, path,
+                     os.path.join(tmp, "x.pt"), os.path.join(tmp, "y.pt")],
+                    check=True, timeout=300,
+                    env=dict(os.environ, PYTHONPATH=root))
+                if not torch.equal(torch.load(os.path.join(tmp, "y.pt")), y):
+                    raise AssertionError("export batchp: the program loaded "
+                                         "alone gives other bits")
+                print(f"export {norm}: the program loaded and run by a new "
+                      f"interpreter with torch and ops.pallas_bn alone in "
+                      f"{time.perf_counter() - t0:.1f} s, the same bits",
+                      flush=True)
+            del program
+            ref, mvox = _request(Predictor(model, **EXPORT_TILE), vol)
+            library = copy.deepcopy(model)
+            library.pallas_flat = False
+            lib, lib_mvox = _request(Predictor(library, **EXPORT_TILE), vol)
+            del library
+            pred = Predictor(path, **EXPORT_TILE)
+            calls = []
+            pred.model.module.register_forward_pre_hook(
+                lambda *a: calls.append(1))
+            pred.predict(vol)                              # warm-up
+            torch.cuda.synchronize()
+            calls.clear()
+            fused.reset_launches()
+            t0 = time.perf_counter()
+            got = pred.predict(vol)
+            got_mvox = vol.size / (time.perf_counter() - t0) / 1e6
+            counts = launch_counts(fused)
+            want = {k: norms * len(calls) if k == "bn_normalize" else 0
+                    for k in counts}
+            if counts != want:
+                raise AssertionError(f"export {norm}: the program's request "
+                                     f"launched {counts}, expected {want}")
+            err_k = _hold_request(got, ref, 5e-2, f"export {norm} vs the "
+                                  "kernel plan")
+            err_l = _hold_request(got, lib, EXPORT_TOL, f"export {norm} vs "
+                                  "pallas_flat=False")
+            print(f"export {norm}: export_program (trace and save) at (1, "
+                  f"{TILE}, 1) {t_export:.2f} s, load_program {t_load:.2f} "
+                  f"s, {mb:.2f} MB, "
+                  f"{nodes} K9 nodes; Predictor(.pt2) {got.shape} "
+                  f"{got_mvox:.2f} MVox/s ({len(calls)} program calls, "
+                  f"launches {counts}) against the model's {mvox:.2f} "
+                  f"(kernel plan, max abs err {err_k:.3e}, bound 5e-2) and "
+                  f"the pallas_flat=False model's {lib_mvox:.2f} (max abs "
+                  f"err {err_l:.3e}, bound {EXPORT_TOL:.3e}); {smi}",
+                  flush=True)
+            if norm == "batchp":
+                launches = counts
+            del model, pred
+            torch.cuda.empty_cache()
+
+        model = headline_unet(UNet, 0)
+        tr = Trainer(model, CEDiceLoss(1.0, 1.0),
+                     train_dataset=Patches(2, (1, *PATCH)), batch_size=2,
+                     save_root=tmp, exp_name="export",
+                     example_input=np.zeros((1, *PATCH, 1), np.float32),
+                     enable_tensorboard=False)
+        t0 = time.perf_counter()
+        tr.run(max_steps=1)
+        t_run = time.perf_counter() - t0
+        path = os.path.join(tr.save_path, "model_final.pt2")
+        if not os.path.isfile(path):
+            raise AssertionError("export: Trainer.run wrote no "
+                                 "model_final.pt2")
+        small = vol[:, :, :44, :88, :88]
+        got, got_mvox = _request(Predictor(path, **TRAINED_TILE), small)
+        library = copy.deepcopy(tr.model).eval()
+        library.pallas_flat = False
+        lib, _ = _request(Predictor(library, batch_size=1, **TRAINED_TILE),
+                          small)
+        err = _hold_request(got, lib, EXPORT_TOL, "export: the Trainer's "
+                            "model_final.pt2")
+        print(f"export: Trainer.run(1) with example_input {(1, *PATCH, 1)} "
+              f"{t_run:.2f} s, model_final.pt2 served {got.shape} at "
+              f"{got_mvox:.2f} MVox/s, max abs err {err:.3e} against the "
+              f"trained model's library plan", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6125,6 +6366,10 @@ def main():
     launches["train_config"] = config_phase(UNet, CEDiceLoss, fused, smi)
     torch.cuda.empty_cache()
     mark("config")
+    launches["export"] = export_phase(UNet, Predictor, CEDiceLoss, Trainer,
+                                      fused, smi)
+    torch.cuda.empty_cache()
+    mark("export")
 
     launches["predictor_2d"] = predictor_2d_phase(UNet, Predictor, fused)
     torch.cuda.empty_cache()

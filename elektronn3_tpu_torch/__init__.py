@@ -28,5 +28,15 @@ Subpackages mirror the JAX package:
 
 from elektronn3_tpu_torch.logger import logger
 
-__all__ = ["logger"]
+__all__ = ["logger", "select_mpl_backend"]
 __version__ = "0.1.0"
+
+
+def select_mpl_backend() -> None:
+    """Select matplotlib's Agg backend where there is no display (JAX's
+    and the reference's ``select_mpl_backend``). matplotlib is imported
+    here, not with the package, which imports without it."""
+    import os
+    import matplotlib
+    if not os.environ.get("DISPLAY"):
+        matplotlib.use("Agg")

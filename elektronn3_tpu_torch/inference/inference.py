@@ -29,9 +29,11 @@ axis (padded to equal parts with the last tile, gathered without the
 padding), ``'spatial'`` splits a spatial axis over the 'space' axis with
 halo exchange (``parallel.sharded_spatial_apply``).
 
-Not ported yet: JAX's ``.e3tpu`` and ``.stablehlo`` model files (the
-port's is ``save_model``'s ``.pt``; an exported graph is Queue 1 item
-10).
+A model may also come as ``export_program``'s deployment artifact
+(``model*.pt2``, JAX's ``.stablehlo``): a program of one fixed input
+shape, which each call gets whole (:class:`Program`). JAX's own
+``.e3tpu`` and ``.stablehlo`` files do not load here: the port's are
+``save_model``'s ``.pt`` and that ``.pt2``.
 """
 
 from __future__ import annotations
@@ -190,6 +192,47 @@ _TORCH_OUT = {np.dtype(np.uint8): torch.uint8,
               np.dtype(np.float16): torch.float16}
 
 
+class Program:
+    """An exported program (``training.trainer.load_program``'s module)
+    as a model: one fixed channels-last float32 input shape (N, *spatial,
+    C), on the device it was exported on. A call takes any batch of that
+    sample shape: the input is cast to float32 and run N samples at a
+    time, the last part padded with zero samples whose outputs are
+    dropped (each sample's output depends on that sample alone in eval),
+    so the program always sees its own shape. Another sample shape raises
+    ``ValueError`` naming both shapes."""
+
+    def __init__(self, module: torch.nn.Module):
+        nodes = module.graph.nodes
+        x = next(n for n in nodes if n.op == "placeholder").meta["val"]
+        out = next(n for n in nodes if n.op == "output")
+        y = torch.utils._pytree.tree_leaves(out.args)[0].meta["val"]
+        self.module = module
+        self.shape = tuple(x.shape)
+        self.device = x.device
+        self.dim = len(self.shape) - 2
+        self.out_channels = y.shape[-1]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.shape[0]
+        if tuple(x.shape[1:]) != self.shape[1:]:
+            raise ValueError(
+                f"the exported program takes inputs of shape {self.shape}, "
+                f"got {tuple(x.shape)}: build the Predictor with its tile "
+                "shape (tile_shape + 2 * overlap_shape = the program's "
+                "spatial shape)")
+        x = x.float()
+        outs = []
+        for i in range(0, x.shape[0], n):
+            part = x[i:i + n]
+            pad = n - part.shape[0]
+            if pad:
+                part = torch.cat([part,
+                                  part.new_zeros((pad,) + self.shape[1:])])
+            outs.append(self.module(part.contiguous())[:n - pad])
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 class Predictor:
     """Tiled, batched inference of a channels-last model on large inputs.
 
@@ -199,7 +242,13 @@ class Predictor:
             or 2D; put in eval mode), a plain callable on channels-last
             tensors on ``device``, or the path of a port model file
             (``training.trainer.save_model``'s ``model*.pt``, rebuilt by
-            ``load_model`` on ``device``). JAX's ``.e3tpu`` and
+            ``load_model`` on ``device``), or of an exported program
+            (``export_program``'s ``model*.pt2``, JAX's ``.stablehlo``;
+            loaded by ``load_program`` and run as a :class:`Program`
+            only on the device it was exported on, ``ValueError`` for
+            another ``device``: build the Predictor with the program's
+            tile, and ``batch_size`` defaults to its batch). JAX's
+            ``.e3tpu`` and
             ``.stablehlo`` files raise ``ValueError``.
         state: weights for an ``nn.Module`` ``model``, loaded into it: a
             port ``state_dict``, or a reference checkpoint (a path or
@@ -299,11 +348,33 @@ class Predictor:
             if model.endswith((".e3tpu", ".stablehlo")):
                 raise ValueError(
                     f"{model}: a JAX model file; the port loads its own "
-                    "save_model files (model*.pt). An exported graph is "
-                    "ROADMAP.md Queue 1 item 10.")
-            from elektronn3_tpu_torch.training.trainer import load_model
-            model, _ = load_model(model, device=device)
-        if isinstance(model, nn.Module):
+                    "save_model files (model*.pt) and export_program's "
+                    "exported programs (model*.pt2).")
+            if model.endswith(".pt2"):
+                from elektronn3_tpu_torch.training.trainer import \
+                    load_program
+                model = Program(load_program(model))
+            else:
+                from elektronn3_tpu_torch.training.trainer import \
+                    load_model
+                model, _ = load_model(model, device=device)
+        if isinstance(model, Program):
+            if state is not None:
+                raise ValueError("state needs an nn.Module model")
+            if device is None:
+                device = model.device
+            else:
+                device = torch.device(device)
+                if device.type == model.device.type == "cuda" \
+                        and device.index is None:
+                    device = torch.device("cuda", torch.cuda.current_device())
+                if device != model.device:
+                    raise ValueError(
+                        f"the exported program runs on {model.device}, "
+                        f"where it was exported, not on {device}")
+            if batch_size is None:
+                batch_size = model.shape[0]
+        elif isinstance(model, nn.Module):
             if state is not None:
                 from elektronn3_tpu_torch.models.torch_import import \
                     load_torch_state_dict

@@ -26,7 +26,9 @@ step, so each pass is one launch:
   cotangents of the returned statistics are ignored, as in JAX: they
   feed only the running statistics;
 - :func:`batch_norm_inference`: K9 with the running statistics, ``inv =
-  rsqrt(var + eps)`` with NO clamp of ``var``.
+  rsqrt(var + eps)`` with NO clamp of ``var``, through the operator
+  ``e3tpu::bn_normalize`` (:data:`OP`), so that ``torch.export`` keeps
+  K9 in an exported eval forward (``training.trainer.export_program``).
 
 Each kernel has a wrapper ``*_kernel`` and a plain PyTorch version
 ``*_plain`` beside it (same signature, same rounding points: float32
@@ -257,6 +259,28 @@ def bn_normalize_kernel(x2d: torch.Tensor, scale: torch.Tensor,
     return y
 
 
+# K9 as the operator ``e3tpu::bn_normalize``, registered when this module
+# is imported: the CUDA kernel for a CUDA tensor, the plain version for a
+# CPU one, and a fake implementation (an empty tensor of ``x2d``'s shape
+# and dtype) for ``torch.export``, which traces with fake tensors and so
+# keeps the op as one node of the exported graph instead of calling
+# ``data_ptr()`` on them. A program that holds the node loads once this
+# module is imported (``training.trainer.load_program`` does so). Both
+# implementations look the function up by its name at each call, as the
+# other callers here do, so that a spy set on the module (chip_smoke.py's
+# shape recorder) sees the operator's calls too.
+OP = "e3tpu::bn_normalize"
+torch.library.define(OP, "(Tensor x2d, Tensor scale, Tensor shift) -> Tensor")
+torch.library.impl(OP, "cpu", lambda *a: bn_normalize_plain(*a))
+torch.library.impl(OP, "cuda", lambda *a: bn_normalize_kernel(*a))
+
+
+@torch.library.register_fake(OP)
+def _bn_normalize_fake(x2d: torch.Tensor, scale: torch.Tensor,
+                       shift: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x2d)
+
+
 # ---------------------------------------------------------------------------
 # K10 bn_bwd_reduce, K11 bn_bwd_dx (backward; row 31)
 # ---------------------------------------------------------------------------
@@ -417,6 +441,6 @@ def batch_norm_inference(x: torch.Tensor, gamma: torch.Tensor,
                          "runs without autograd)")
     scale, shift = _scale_shift(gamma, beta, mean.float(),
                                 torch.rsqrt(var.float() + eps))
-    normalize = bn_normalize_plain if _plain(x, reference) \
-        else bn_normalize_kernel
+    normalize = bn_normalize_plain if reference \
+        else torch.ops.e3tpu.bn_normalize
     return normalize(x2d, scale, shift).view(x.shape)

@@ -13,6 +13,7 @@ from elektronn3_tpu_torch.parallel.mesh import (
 )
 from elektronn3_tpu_torch.parallel.collectives import (
     all_gather,
+    gather_shards,
     psum,
     stats_group,
     sum_gradients,

@@ -28,6 +28,14 @@ The parameter gradients that follow are each rank's part of the sum
 over the shards; :func:`sum_gradients` all-reduces them with a SUM, not
 a mean, as JAX's gradient of the global loss is.
 
+:func:`gather_shards` is the third case: a parameter split over the
+ranks (the dry run's fsdp leg) is gathered whole for every rank's
+forward, and each rank's cotangent of it is only its own rows' part of
+the gradient. Its backward therefore sums the cotangents over the ranks
+and keeps this rank's block, JAX's transpose of ``all_gather``
+(``psum_scatter``); gloo has no reduce-scatter, so it all-reduces and
+slices.
+
 :class:`stats_group` is the counterpart of ``shard_map`` binding a
 batch axis: while one is entered, the batch norms of
 ``modules/flat_norm.py`` and ``modules/layers.py`` sum their statistics
@@ -95,6 +103,22 @@ class _AllGather(torch.autograd.Function):
         return g[lo:lo + ctx.rows], None, None
 
 
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        ctx.group, ctx.index, ctx.dim = group, index, dim
+        ctx.rows = x.shape[dim]
+        return _gather0(x.movedim(dim, 0), group).movedim(0, dim) \
+            .contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return (g.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None,
+                None, None)
+
+
 def psum(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axis`` on every one of them;
     its gradient is the same sum of the cotangents (see the module
@@ -111,6 +135,17 @@ def all_gather(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     if axis is None or axis.group is None:
         return x
     return _AllGather.apply(x, axis.group, axis.index)
+
+
+def gather_shards(x: torch.Tensor, axis: Optional[Axis],
+                  dim: int) -> torch.Tensor:
+    """Every rank's shard ``x`` of a parameter, concatenated along
+    ``dim`` in rank order, contiguous; its gradient is this rank's block
+    of the cotangents summed over the ranks (see the module
+    docstring)."""
+    if axis is None or axis.group is None:
+        return x
+    return _GatherShards.apply(x, axis.group, axis.index, dim)
 
 
 def _gather0(x: torch.Tensor, group) -> torch.Tensor:

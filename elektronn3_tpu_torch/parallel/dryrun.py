@@ -8,6 +8,13 @@ Counterpart of the JAX package's ``parallel/dryrun.py`` (and its
 - **dp**: a small batch-norm UNet on its library levels, one Adam step
   of ``train_step(mesh=...)`` on a batch split over the 'data' axis;
   the loss finite and the parameters the same on every rank.
+- **fsdp-style parameter sharding** (JAX's ``_fsdp_spec``): the same
+  step from the same start with each large kernel split over 'data' on
+  its output-channel axis (:func:`fsdp_dims`), each rank holding its
+  block and the block's Adam moments (:func:`fsdp_shard`), gathered
+  whole for the forward (:func:`fsdp_step`); the loss finite, the
+  gathered parameters the dp step's (1e-6), each sharded leaf and its
+  moments a 1/n share.
 - **sp**: the H axis split over a 'space' axis: each rank's shard with
   its neighbours' halo slabs (``exchange_halo``) equal to that block of
   the zero-padded input, the model's eval forward on shard + halo
@@ -21,18 +28,25 @@ Counterpart of the JAX package's ``parallel/dryrun.py`` (and its
   of each rank's shard, which must be the one-process plan of that
   shard; and, as JAX executes its quarter geometry on the CPU (its full
   step takes minutes there), one executed step at (22, 44, 44).
-
-JAX's fsdp-style parameter sharding is not in the port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import copy
+from typing import Callable, Dict, Optional
+
 import numpy as np
 import torch
+from torch import nn
+
+from elektronn3_tpu_torch.parallel.collectives import (
+    all_gather, gather, gather_shards, stats_group, sum_gradients)
+from elektronn3_tpu_torch.parallel.mesh import shard_rows
+
+FSDP_MIN_SIZE = 512   # JAX's _fsdp_spec: smaller parameters replicate
 
 
 def _same_on_every_rank(t: torch.Tensor, axis, what: str) -> None:
-    from elektronn3_tpu_torch.parallel.collectives import gather
     every = gather(t.detach().reshape(1, -1), axis)
     if not bool((every == every[:1]).all()):
         raise AssertionError(f"dry run: {what} differs between ranks")
@@ -40,6 +54,105 @@ def _same_on_every_rank(t: torch.Tensor, axis, what: str) -> None:
 
 def _params(model) -> torch.Tensor:
     return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def fsdp_dims(model: nn.Module, n: int) -> Dict[str, Optional[int]]:
+    """JAX's ``_fsdp_spec`` for each parameter of ``model`` over ``n``
+    ranks: the dim it is split along, or None where it is replicated.
+    JAX splits the last axis of a kernel of at least 2 axes and
+    ``FSDP_MIN_SIZE`` elements when ``n`` divides it: the output channels,
+    which are dim 0 of a torch conv or linear weight (C_out, C_in, k...)
+    and dim 1 of a transposed conv's (C_in, C_out, k...)."""
+    dims = {}
+    for prefix, mod in model.named_modules():
+        transposed = isinstance(mod, nn.modules.conv._ConvTransposeNd)
+        for name, p in mod.named_parameters(recurse=False):
+            d = 1 if transposed else 0
+            split = p.dim() >= 2 and p.numel() >= FSDP_MIN_SIZE \
+                and p.shape[d] % n == 0
+            dims[f"{prefix}.{name}" if prefix else name] = \
+                d if split else None
+    return dims
+
+
+def fsdp_shard(model: nn.Module, dims: Dict[str, Optional[int]], axis
+               ) -> Dict[str, nn.Parameter]:
+    """This rank's parameters of ``model`` as new leaves: its block
+    (``axis.index`` of ``axis.size``) of each parameter ``dims`` splits,
+    the others whole. An optimizer over them keeps each block's moments
+    on its rank alone."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach()
+        if dims[name] is not None:
+            t = t.chunk(axis.size, dims[name])[axis.index]
+        out[name] = nn.Parameter(t.contiguous().clone())
+    return out
+
+
+def fsdp_gather(params: Dict[str, torch.Tensor],
+                dims: Dict[str, Optional[int]], axis
+                ) -> Dict[str, torch.Tensor]:
+    """The whole parameters from every rank's blocks (``gather_shards``:
+    its backward leaves each rank the summed gradient of its block)."""
+    return {k: p if dims[k] is None else gather_shards(p, axis, dims[k])
+            for k, p in params.items()}
+
+
+def fsdp_step(model: nn.Module, params: Dict[str, nn.Parameter],
+              dims: Dict[str, Optional[int]], criterion: Callable,
+              optimizer: torch.optim.Optimizer, inp: torch.Tensor,
+              target: torch.Tensor, axis) -> torch.Tensor:
+    """One training step of the fsdp leg, ``train_step(mesh=...)``'s
+    with sharded parameters: ``model`` runs on this rank's rows of the
+    global batch ``inp`` with the whole parameters gathered from
+    ``params`` (``torch.func.functional_call``; its buffers, the running
+    statistics, are its own and update as they do there) and its batch
+    norms' statistics summed over ``axis``; the logits are all-gathered
+    and the loss is the global batch's; the replicated parameters'
+    gradients are summed over the axis (``sum_gradients``), the blocks'
+    come summed from the gather; ``optimizer`` (over ``params``) steps.
+    Returns the detached float32 loss."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    whole = fsdp_gather(params, dims, axis)
+    with stats_group(axis):
+        out = torch.func.functional_call(model, whole,
+                                         (shard_rows(inp, axis),))
+    loss = criterion(all_gather(out, axis), target).float()
+    loss.backward()
+    sum_gradients([p for k, p in params.items() if dims[k] is None], axis)
+    optimizer.step()
+    return loss.detach()
+
+
+def _fsdp_leg(start: nn.Module, stepped: nn.Module, crit, x, y, axis
+              ) -> None:
+    """The fsdp step of ``start`` (a copy of the dp leg's model before
+    its step) on the dp leg's batch, held against ``stepped``."""
+    dims = fsdp_dims(start, axis.size)
+    if not any(d is not None for d in dims.values()):
+        raise AssertionError("dry run: fsdp shards no parameter")
+    params = fsdp_shard(start, dims, axis)
+    opt = torch.optim.Adam(params.values(), lr=1e-3)
+    loss = fsdp_step(start, params, dims, crit, opt, x, y, axis)
+    if not np.isfinite(float(loss)):
+        raise AssertionError("dry run: fsdp step gave a non-finite loss")
+    ref = dict(stepped.named_parameters())
+    with torch.no_grad():
+        whole = fsdp_gather(params, dims, axis)
+    for name, p in params.items():
+        err = float((whole[name] - ref[name]).abs().max())
+        if whole[name].shape != ref[name].shape or not err <= 1e-6:
+            raise AssertionError(f"dry run: fsdp step's {name} is {err} "
+                                 "off the dp step's")
+        if dims[name] is not None:
+            share = ref[name].numel() // axis.size
+            sizes = [p.numel()] + [v.numel() for v in opt.state[p].values()
+                                   if v.dim()]
+            if sizes != [share] * 3:
+                raise AssertionError(f"dry run: fsdp leaf {name} and its "
+                                     f"moments hold {sizes}, not {share}")
 
 
 def run_dryrun(n_devices: str) -> None:
@@ -72,12 +185,16 @@ def run_dryrun(n_devices: str) -> None:
     # dp, library levels
     model = UNet(n_blocks=2, start_filts=4, planar_blocks=(0,),
                  normalization="batch", device="cpu")
+    start = copy.deepcopy(model)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-    loss = train_step(model, crit, opt, *batch((2 * n, 4, 16, 16, 1)),
-                      mesh=mesh)
+    x, y = batch((2 * n, 4, 16, 16, 1))
+    loss = train_step(model, crit, opt, x, y, mesh=mesh)
     if not np.isfinite(float(loss)):
         raise AssertionError("dry run: dp step gave a non-finite loss")
     _same_on_every_rank(_params(model), data, "dp parameters")
+
+    # fsdp: the same step from the same start, large kernels split
+    _fsdp_leg(start, model, crit, x, y, data)
 
     # sp: H split over a 'space' axis, halo exchange
     model.eval()

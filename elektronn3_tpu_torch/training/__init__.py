@@ -6,8 +6,8 @@ schedulers, optimizers and handlers (the JAX package's
 each with its own ``GNNTrainer``, as in JAX."""
 
 from elektronn3_tpu_torch.training.trainer import (
-    Backup, NaNException, Trainer, default_optimizer, load_model,
-    save_model, train_step)
+    Backup, NaNException, Trainer, default_optimizer, export_program,
+    load_model, load_program, save_model, train_step)
 from elektronn3_tpu_torch.training._trainer_multi import TrainerMulti
 from elektronn3_tpu_torch.training.noise2void import Noise2VoidTrainer
 from elektronn3_tpu_torch.training.triplettrainer import TripletTrainer
@@ -23,5 +23,6 @@ __all__ = ["Backup", "ConstantLR", "CosineAnnealingLR", "CyclicLR",
            "ExponentialLR", "LRScheduler", "NaNException",
            "Noise2VoidTrainer", "Padam", "ReduceLROnPlateau", "SGDR", "SWA",
            "StepLR", "Trainer", "TrainerMulti", "TripletTrainer",
-           "bn_update", "default_optimizer", "load_model", "metrics",
-           "recalibrate_bn", "save_model", "schedulers", "train_step"]
+           "bn_update", "default_optimizer", "export_program",
+           "load_model", "load_program", "metrics", "recalibrate_bn",
+           "save_model", "schedulers", "train_step"]

@@ -46,14 +46,14 @@ elektronn3/training/trainer.py), with its arguments:
   constructor arguments and weights, :func:`load_model` without the
   Trainer), the run's log ``elektronn3_tpu_torch.log``, TensorBoard
   events and a ``torch.profiler`` Chrome trace of the ``profile_steps``
-  window under ``profile/``.
+  window under ``profile/``; on the ``_final`` and ``_best`` snapshots,
+  given ``example_input``, also ``model{suffix}.pt2``, the deployment
+  artifact (:func:`export_program`, JAX's StableHLO export), which
+  :func:`load_program` and the ``Predictor`` load without the model's
+  code.
 - ``mesh`` (``parallel.make_mesh``): data parallelism over the mesh's
   first axis, one process a rank, JAX's ``shard_map`` step. See
   :func:`train_step`.
-
-Not ported yet (ROADMAP.md Queue 1): the deployment artifact (JAX's
-StableHLO export; the kernels are ctypes calls that ``torch.export``
-cannot trace: its own item).
 
 Subclasses change one batch's work (:meth:`Trainer._train_batch`) and
 the loader's layout (:meth:`Trainer._loader`), and keep the loop: the
@@ -63,6 +63,7 @@ Noise2Void, triplet and gradient-accumulation trainers.
 from __future__ import annotations
 
 import contextlib
+import copy
 import datetime
 import functools
 import importlib
@@ -237,7 +238,9 @@ class Trainer:
             must not exist or be empty.
         example_input: a channels-last input, kept as ``example_input``
             (the JAX Trainer initializes its model from it; the port's
-            model comes initialized).
+            model comes initialized); the ``_final`` and ``_best``
+            snapshots export the model at its shape
+            (``model{suffix}.pt2``, :func:`export_program`).
         batch_size, num_workers, worker_type: the DataLoaders' (every
             loader the Trainer makes: training, unlabeled, validation).
         lr: the rate of the default optimizer and of the default
@@ -989,9 +992,11 @@ class Trainer:
     def _save_model(self, suffix: str = "", verbose: bool = True,
                     val_loss=np.nan) -> str:
         """Write ``state_dict{suffix}.pth`` (model, optimizer, the rate
-        scheduler's state and ``info``, for :meth:`load_state`) and
-        ``model{suffix}.pt`` (:func:`save_model`), on rank 0; returns
-        the first's path."""
+        scheduler's state and ``info``, for :meth:`load_state`),
+        ``model{suffix}.pt`` (:func:`save_model`) and, for ``_final`` and
+        ``_best`` with ``example_input`` set, ``model{suffix}.pt2``
+        (:func:`export_program`; a failed export is logged and ends no
+        run, as in JAX), on rank 0; returns the first's path."""
         path = os.path.join(self.save_path, f"state_dict{suffix}.pth")
         if not self._rank0:
             return path
@@ -1014,6 +1019,17 @@ class Trainer:
         model_path = os.path.join(self.save_path, f"model{suffix}.pt")
         save_model(self.model, model_path, info=info)
         log(f"Saved model as {model_path}")
+        # The deployment artifact, on the terminal snapshots only (an
+        # export traces the model anew), as JAX writes its StableHLO.
+        if suffix in ("_final", "_best") and self.example_input is not None:
+            try:
+                program_path = os.path.join(self.save_path,
+                                            f"model{suffix}.pt2")
+                export_program(self.model, self.example_input.shape,
+                               program_path)
+                log(f"Saved the exported program as {program_path}")
+            except Exception:
+                logger.exception("torch.export of the model failed")
         return path
 
     def load_state(self, path: str) -> None:
@@ -1118,6 +1134,47 @@ def save_model(model: nn.Module, path: str,
                 "state_dict": model.state_dict(),
                 "info": info or {},
                 "format_version": 1}, path)
+
+
+def export_program(model: nn.Module, input_shape: Sequence[int],
+                   path: str) -> None:
+    """Write the eval forward of ``model`` as a ``torch.export`` program
+    (``torch.export.save``; suffix ``.pt2``), the counterpart of JAX's
+    ``export_stablehlo``: :func:`load_program` runs it without the
+    model's Python code. The export works on a copy, so the model's mode,
+    plan, parameters and running statistics stay as they are. Like JAX,
+    which exports the pure-XLA graph of its model, the copy runs
+    ``pallas_flat=False`` where the model has the attribute: the library
+    plan, every level on the library ops (JAX's fused executors do not
+    export). Under ``normalization='batchp'`` those levels' eval batch
+    norms stay kernel K9, the node ``e3tpu.bn_normalize`` (JAX's library
+    levels keep their Pallas batch norm too). The input is one float32
+    channels-last tensor of ``input_shape`` on the model's device: the
+    program takes that fixed shape (JAX's ``ShapeDtypeStruct``) and runs
+    on that kind of device."""
+    model = copy.deepcopy(model)
+    if hasattr(model, "pallas_flat"):
+        model.pallas_flat = False
+    model.eval()
+    x = torch.zeros(tuple(input_shape), dtype=torch.float32,
+                    device=_device_of(model))
+    with torch.no_grad():
+        program = torch.export.export(model, (x,))
+    # The zeros it was traced with are no part of the program (the
+    # input's shape and dtype stay in its graph; JAX's artifact keeps
+    # no input either): left in, they would be the file's largest entry.
+    program.example_inputs = None
+    torch.export.save(program, path)
+
+
+def load_program(path: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The program of :func:`export_program` as a callable from
+    channels-last ``(N, *spatial, C)`` to ``(N, *spatial, C_out)``
+    logits, at the exported shape (JAX's ``load_stablehlo``). Imports
+    ``ops.pallas_bn`` alone of this package, which registers the operator
+    a ``'batchp'`` program calls (K9)."""
+    import elektronn3_tpu_torch.ops.pallas_bn  # noqa: F401  (the op)
+    return torch.export.load(path).module()
 
 
 def load_model(path: str, device=None) -> Tuple[nn.Module, Dict]:

@@ -59,6 +59,12 @@ different machines or cards are not comparable. Shapes:
   back-to-back calls (the host's issue rate where a call is
   host-bound), and the device time of a call from torch.profiler (every
   device kernel it runs).
+Then K9 (bf16) at the 3D Predictor tile's and request's L3 rows, at
+bench.py's L2 and at the batch-8 L0, called through the operator
+``e3tpu::bn_normalize`` (``batch_norm_inference``'s call, the node of an
+exported 'batchp' program) and through its wrapper directly, in turns
+(op, direct, direct, op; a call of 50 back-to-back calls each), where the
+checkout registers the operator.
 Last, the headline UNet's training step at bench.py's shapes with
 ``vup`` on and off (step ms and peak allocated MB), and with
 ``normalization='batchp'`` at batch 8 and with ``pallas_flat=False`` at
@@ -238,6 +244,7 @@ def main():
     out += conv1_forward(r)
     out += pool_backward(r)
     out += bn_reductions()
+    out += bn_normalize_op()
     out += steps()
     print(os.path.basename(os.getcwd()) + ": " + "; ".join(
         f"{k} {v:.3f}" for k, v in out), flush=True)
@@ -375,6 +382,35 @@ def bn_reductions():
                 (f"K10 {label}", ms(k10, 50)), (f"K10 device {label}",
                                                  device_ms(k10))]
         del x, gy
+        torch.cuda.empty_cache()
+    return out
+
+
+K9_SHAPES = [("tile L3", 32_768, 256), ("request L3", 65_536, 256),
+             ("bench L2", 85_184, 128), ("b8 L0", 2_725_888, 32)]
+
+
+def bn_normalize_op():
+    """K9 (bf16) at K9_SHAPES through the operator and through its
+    wrapper, in turns: ms a call, or nothing where the checkout has no
+    operator."""
+    from elektronn3_tpu_torch.ops import pallas_bn as bn
+    if not hasattr(torch.ops.e3tpu, "bn_normalize"):
+        return []
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for label, r, c in K9_SHAPES:
+        x = torch.randn(r, c, generator=g, device="cuda").to(torch.bfloat16)
+        scale = torch.randn(c, generator=g, device="cuda")
+        shift = torch.randn(c, generator=g, device="cuda")
+        calls = {"op": lambda: torch.ops.e3tpu.bn_normalize(x, scale, shift),
+                 "direct": lambda: bn.bn_normalize_kernel(x, scale, shift)}
+        times = {k: [] for k in calls}
+        for k in ("op", "direct", "direct", "op"):
+            times[k].append(ms(calls[k], 50))
+        out += [(f"K9 {k} {label}", sum(v) / len(v)) for k, v in
+                times.items()]
+        del x
         torch.cuda.empty_cache()
     return out
 

@@ -515,6 +515,28 @@ def test_cuda_batch_norm_kernels_match_plain(dtype, c, r, bn_plan):
     assert {k: fused.LAUNCHES[k] for k in _NO_BN} == dict.fromkeys(_NO_BN, 1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,r", BN_CASES)
+def test_cuda_bn_normalize_op_is_the_kernel(dtype, c, r):
+    """K9 through the operator ``e3tpu::bn_normalize`` (the eval batch
+    norm's call, and the node of an exported 'batchp' program): bit for
+    bit the direct kernel call and the plain version on the card (both
+    multiply, then add, in float32 and round once), one launch counted
+    for each of the two kernel calls."""
+    dev = _cuda()
+    x, _, gamma, beta = _bn_case(dev, dtype, c, r)
+    scale, shift = gamma * 0.5, beta
+    fused.reset_launches()
+    got = torch.ops.e3tpu.bn_normalize(x, scale, shift)
+    direct = pallas_bn.bn_normalize_kernel(x, scale, shift)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["bn_normalize"] == 2
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, direct)
+    assert torch.equal(got, pallas_bn.bn_normalize_plain(x, scale, shift))
+
+
 def _bn_reductions(gy, x, gamma, beta):
     st = pallas_bn.bn_stats_kernel(x, gamma, beta, 1e-5)
     return st, pallas_bn.bn_bwd_reduce_kernel(gy, x, st[0], st[1], gamma,
