@@ -4233,6 +4233,234 @@ def pipeline_phase(UNet, fused, want, smi):
 
 
 
+# validate_phase: examples/validate_torch.py's defaults (-n 10 -b 4) and
+# patch, on synthetic cubes of its validation source's kind.
+VALIDATE_BATCHES, VALIDATE_BATCH = 10, 4
+VALIDATE_CUBE = (96, 256, 256)
+VALIDATE_TIE = 5e-2          # check_forward's bf16 bound, of max|ref|
+VALIDATE_RECOUNT_TOL = 1e-6
+PLAIN_FWD = ("conv_bnact_fwd_plain", "pool_bnact_fwd_plain",
+             "upconv_bnact_fwd_plain")
+
+
+def _host_metrics(script, target, logits):
+    """The script's five metrics recomputed with numpy from host
+    logits: per class (tp, tn, fp, fn), NaN for a class absent from the
+    target, the mean over the other classes, in percent."""
+    pred = logits.argmax(-1)
+    c = logits.shape[-1]
+    cm = np.array([[np.sum((pred == k) & (target == k)),
+                    np.sum((pred != k) & (target != k)),
+                    np.sum((pred == k) & (target != k)),
+                    np.sum((pred != k) & (target == k))] for k in range(c)],
+                  np.float64)
+    cm[(cm[:, 0] + cm[:, 3]) == 0] = np.nan
+    tp, tn, fp, fn = cm.T
+    with np.errstate(divide="ignore", invalid="ignore"):
+        per = {"val_accuracy": (tp + tn) / (tp + tn + fp + fn),
+               "val_precision": tp / (tp + fp),
+               "val_recall": tp / (tp + fn),
+               "val_DSC": 2 * tp / (2 * tp + fp + fn),
+               "val_IoU": tp / (tp + fp + fn)}
+    assert list(per) == list(script.VALID_METRICS)
+    return {k: float(np.nanmean(v) * 100) for k, v in per.items()}
+
+
+def validate_phase(UNet, fused, smi):
+    """``examples/validate_torch.py``'s ``validate()`` on the card: the
+    headline UNet (bf16, 'batch', its head's class-1 bias at the median
+    margin of a first batch, so that it predicts both classes) through
+    ``save_model`` and ``load_model(device="cuda")``, over the script's
+    ``valid_dataset`` and loader, with ``PatchCreator.open_files`` giving
+    synthetic cubes (the card's machine may have no h5py): 10 batches of
+    4 (44, 88, 88) patches. Every batch's forward launches K1 on its
+    tensor-core body, row 3's kernel, K2 and K3, the same counts each,
+    and no plain version runs; every argmax that differs from the
+    ``reference=True`` forward's is a near-tie of the reference's logits
+    (margin <= 5e-2 max|ref|); the five metrics recomputed on the host
+    from the same logits equal the card's. Runs the script itself where
+    h5py is installed. Returns the run's launches."""
+    import importlib.util
+    from elektronn3_tpu_torch import data
+    from elektronn3_tpu_torch.training import load_model, save_model
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "validate_torch", os.path.join(repo, "examples", "validate_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    rng = np.random.default_rng(7)
+    cubes = [make_cube(rng, VALIDATE_CUBE) for _ in range(2)]
+
+    class CubeCreator(data.PatchCreator):
+        """PatchCreator over the cubes in memory (no HDF5 files)."""
+
+        def open_files(self):
+            return ([data.ArrayDataSource(r) for r, _ in cubes],
+                    [data.ArrayDataSource(t) for _, t in cubes])
+
+    n = VALIDATE_BATCHES * VALIDATE_BATCH
+    real = data.PatchCreator
+    data.PatchCreator = CubeCreator   # the script's own dataset arguments
+    try:
+        ds = script.valid_dataset("synthetic", [0, 1], n)
+    finally:
+        data.PatchCreator = real
+
+    def loader():
+        return data.DataLoader(ds, batch_size=VALIDATE_BATCH, num_workers=2,
+                               shuffle=False, seed=0)
+
+    first = next(iter(loader()))
+    x0 = torch.as_tensor(first["inp"]).cuda()
+    model0 = headline_unet(UNet, 41)
+    randomize_norms(model0, 42)
+    with torch.inference_mode():
+        y0 = model0.eval()(x0).float()
+        model0.conv_final.bias[1] -= (y0[..., 1] - y0[..., 0]).median().to(
+            model0.conv_final.bias.dtype)
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "model_best.pt")
+        save_model(model0, path)
+        model, _ = load_model(path, device="cuda")
+    del model0
+    print(f"validate: levels at {tuple(x0.shape)} "
+          f"{model.level_kinds(x0.shape)}", flush=True)
+    with torch.inference_mode():
+        model.eval()(x0)              # warm-up: cuDNN's plans for L2/L3
+    torch.cuda.synchronize()
+
+    seen, calls = [], []
+    hook = model.register_forward_hook(
+        lambda m, a, out: calls.append(out.detach().clone()))
+
+    def recorded():
+        for b in loader():
+            seen.append(b)
+            yield b
+
+    plain = {name: 0 for name in PLAIN_FWD}
+    real_plain = {name: getattr(fused, name) for name in PLAIN_FWD}
+
+    def spy(name):
+        def counted(*a, **k):
+            plain[name] += 1
+            return real_plain[name](*a, **k)
+        return counted
+
+    for name in PLAIN_FWD:
+        setattr(fused, name, spy(name))
+    try:
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        vals = script.validate(model, recorded(),
+                               next(model.parameters()).device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts(fused)
+        bodies = dict(fused.BODY_LAUNCHES)
+    finally:
+        for name in PLAIN_FWD:
+            setattr(fused, name, real_plain[name])
+        hook.remove()
+    BODY_LAUNCHES["validate"] = bodies
+    if len(calls) != VALIDATE_BATCHES or len(seen) != VALIDATE_BATCHES:
+        raise AssertionError(f"validate: {len(calls)} forwards of "
+                             f"{len(seen)} batches")
+    if any(plain.values()):
+        raise AssertionError(f"validate: plain versions ran {plain}")
+    per = {k: launches[k] // VALIDATE_BATCHES for k in SERVING}
+    if any(v == 0 for v in per.values()) or any(
+            launches[k] != per[k] * VALIDATE_BATCHES for k in SERVING) or \
+            any(launches[k] for k in FUSED_KERNELS if k not in SERVING):
+        raise AssertionError(f"validate launches {launches}: not "
+                             f"{SERVING} each batch alone")
+    check_k1_bodies(launches, bodies, "validate", VALIDATE_BATCHES)
+    vox = n * int(np.prod(PATCH))
+    print(f"validate: {VALIDATE_BATCHES} batches of {VALIDATE_BATCH} "
+          f"{PATCH} in {dt:.3f} s = {vox / dt / 1e6:.2f} MVox/s (loader "
+          f"with 2 workers included) [{smi}]; launches per forward {per}, "
+          f"K1 bodies {bodies}; plain versions {plain}", flush=True)
+
+    flips, worst, targets, logits = 0, 0.0, [], []
+    for b, y in zip(seen, calls):
+        x = torch.as_tensor(b["inp"]).cuda()
+        with torch.inference_mode():
+            ref = model(x, reference=True).float()
+        yk = y.float()
+        if yk.shape != x.shape[:-1] + (2,) or not bool(
+                torch.isfinite(yk).all()):
+            raise AssertionError(f"validate: logits {tuple(yk.shape)}")
+        differ = yk.argmax(-1) != ref.argmax(-1)
+        margin = (ref[..., 1] - ref[..., 0]).abs()
+        bound = VALIDATE_TIE * ref.abs().max().item()
+        if differ.any():
+            m = margin[differ].max().item()
+            worst = max(worst, m / bound)
+            if m > bound:
+                raise AssertionError(
+                    f"validate: an argmax differs from the reference at a "
+                    f"margin {m:.4e} > {bound:.4e}")
+        flips += int(differ.sum())
+        targets.append(np.asarray(b["target"]))
+        logits.append(yk.cpu().numpy())
+    target = np.concatenate(targets)
+    if set(np.unique(target)) != {0, 1}:
+        raise AssertionError("validate: labels of one class")
+    host = _host_metrics(script, target, np.concatenate(logits))
+    for k, v in vals.items():
+        if not (np.isfinite(v) and abs(v - host[k]) <= VALIDATE_RECOUNT_TOL):
+            raise AssertionError(f"validate: {k} {v} on the card, {host[k]} "
+                                 "recounted on the host")
+    print(f"validate: {flips} of {vox} voxels' argmax differ from the "
+          f"reference forward, all near-ties (largest margin "
+          f"{worst:.3f} of the bound 5e-2 max|ref|); metrics "
+          + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+          + " (host recount equal within 1e-6)", flush=True)
+    validate_example_run(cubes)
+    print(f"validate: phase {time.perf_counter() - t_phase:.1f} s [{smi}]",
+          flush=True)
+    return launches
+
+
+def validate_example_run(cubes):
+    """``examples/validate_torch.py`` on the cubes as HDF5 files with a
+    saved headline UNet, where h5py is installed."""
+    import importlib.util
+    if importlib.util.find_spec("h5py") is None:
+        print("validate example: h5py is not installed on this machine; "
+              "examples/validate_torch.py not run", flush=True)
+        return
+    import h5py
+    from elektronn3_tpu_torch.models import UNet
+    from elektronn3_tpu_torch.training import save_model
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        for i, (raw, lab) in enumerate(cubes):
+            with h5py.File(os.path.join(root, f"raw_{i}.h5"), "w") as f:
+                f.create_dataset("raw", data=raw)
+            with h5py.File(os.path.join(root, f"barrier_int16_{i}.h5"),
+                           "w") as f:
+                f.create_dataset("lab", data=lab)
+        path = os.path.join(root, "model_best.pt")
+        save_model(headline_unet(UNet, 41), path)
+        outs = []
+        for _ in range(2):
+            res = subprocess.run(
+                [sys.executable, "examples/validate_torch.py", path, "-d",
+                 root, "-i", "0", "1"], cwd=repo, capture_output=True,
+                text=True, timeout=300, env=dict(os.environ, PYTHONPATH=repo))
+            if res.returncode != 0:
+                raise AssertionError(f"the example failed ({res.returncode})"
+                                     f":\n{res.stderr[-3000:]}")
+            outs.append(res.stdout)
+        if outs[0] != outs[1] or not outs[0].startswith("Validated on 40 "):
+            raise AssertionError(f"the example printed {outs}")
+        print("validate example: examples/validate_torch.py on the HDF5 "
+              "cubes, twice the same lines: " + " | ".join(
+                  outs[0].strip().splitlines()), flush=True)
+
+
 # The rest of the Predictor and the UNet options serving needs.
 TTA_FLIPS = 8            # predictor_tta_phase: the 3D default flips
 TTA_TOL = 1e-2           # its probabilities against the host's average
@@ -6314,6 +6542,9 @@ def main():
     mark("trainer full")
     launches.update(pipeline_phase(UNet, fused, launches["train"], smi))
     mark("data pipeline")
+    launches["validate"] = validate_phase(UNet, fused, smi)
+    torch.cuda.empty_cache()
+    mark("validate")
     launches["train_input_grad"] = input_grad_phase(
         build_input_grad, CEDiceLoss, train_step, fused)
     mark("3D input_grad")

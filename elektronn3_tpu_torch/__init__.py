@@ -26,9 +26,15 @@ Subpackages mirror the JAX package:
   halo exchange
 """
 
+import numpy as np
+
 from elektronn3_tpu_torch.logger import logger
 
-__all__ = ["logger", "select_mpl_backend"]
+# The float dtype of host-side (numpy) data: the transforms' outputs
+# (JAX's and the reference's ``floatX``).
+floatX = np.float32
+
+__all__ = ["floatX", "logger", "select_mpl_backend"]
 __version__ = "0.1.0"
 
 

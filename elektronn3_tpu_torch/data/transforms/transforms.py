@@ -27,6 +27,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from elektronn3_tpu_torch import floatX
 from elektronn3_tpu_torch.data.transforms.random import (
     HalfNormal,
     RandomSampler,
@@ -36,8 +37,6 @@ try:
     import scipy.ndimage as ndimage
 except ImportError:  # pragma: no cover
     ndimage = None
-
-floatX = np.float32
 
 
 class _DropSample(Exception):

@@ -258,13 +258,11 @@ def inputs(shape, seed=3):
     return rng.normal(size=shape).astype(np.float32)
 
 
-def jax_run(jm, variables, x, w, jit):
-    """(eval output, loss, grads, new batch_stats) of JAX's model: the
-    eval forward (``mutable`` batch statistics, which VNet's ContBN
-    updates in eval too, dropped) and one training step of the loss
-    ``sum(out * w)``."""
-    bs = variables.get("batch_stats", {})
-
+def jax_runner(jm, jit):
+    """JAX's model's eval forward (``mutable`` batch statistics, which
+    VNet's ContBN updates in eval too, dropped) and one training step of
+    the loss ``sum(out * w)``, as one function of (params, batch_stats,
+    x, w), jitted where the model traces."""
     def both(params, bs, x, w):
         def loss_fn(p):
             out, new = jm.apply({"params": p, "batch_stats": bs}, x,
@@ -276,8 +274,14 @@ def jax_run(jm, variables, x, w, jit):
                          train=False, mutable=["batch_stats"])
         return ev, loss, grads, new.get("batch_stats", {})
 
-    fn = jax.jit(both) if jit else both
-    out = fn(variables["params"], bs, jnp.asarray(x), jnp.asarray(w))
+    return jax.jit(both) if jit else both
+
+
+def jax_run(fn, variables, x, w):
+    """(eval output, loss, grads, new batch_stats) of JAX's model, by
+    its :func:`jax_runner` ``fn``."""
+    out = fn(variables["params"], variables.get("batch_stats", {}),
+             jnp.asarray(x), jnp.asarray(w))
     return jax.tree_util.tree_map(np.asarray, out)
 
 
@@ -311,7 +315,8 @@ def check_model(name, monkeypatch):
     loss.backward()
 
     tape.rates.clear()
-    jev, jloss, jgrads, jstats = jax_run(jm, variables, x, w, jit)
+    run = jax_runner(jm, jit)   # one lowering for both of its inputs
+    jev, jloss, jgrads, jstats = jax_run(run, variables, x, w)
     assert sorted(rates) == sorted(tape.rates), (rates, tape.rates)
     assert_close(ev, jev, FWD_TOL, f"{name} eval")
     # A sum's rounding scales with the sum of its terms' magnitudes.
@@ -321,7 +326,7 @@ def check_model(name, monkeypatch):
     if name in _ILL_CONDITIONED:
         xn = x + 1e-6 * np.random.default_rng(9).normal(
             size=x.shape).astype(np.float32)
-        noise = jax_run(jm, variables, xn, w, jit)[2]
+        noise = jax_run(run, variables, xn, w)[2]
     assert_grads(port_grads(port, variables), jgrads, name, noise)
     if jstats:
         new = flax_from_state_dict(port.state_dict(), variables,

@@ -38,7 +38,7 @@ from elektronn3_tpu_torch.models.convert import conv_weight_from_flax
 from elektronn3_tpu_torch.modules.flat_norm import flat_batch_norm
 from elektronn3_tpu_torch.modules.layers import get_activation
 from elektronn3_tpu_torch.ops import flat_conv, pallas_conv
-from test_torch_kernels import TOL, _spy_pallas
+from test_torch_kernels import TOL, _spy_pallas, _vjp
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -105,9 +105,8 @@ def test_flat_conv3_plain_matches_rows_26_27(kd, cins, cout, dtype, shape,
         return fc.from_flat(ys, H, W, padded=True)
 
     seen = _spy_pallas(monkeypatch, {"conv_flat", "_wgrad"})
-    jy, pull = jax.vjp(jfn, jnp.asarray(x, jdt), jnp.asarray(w),
-                       jnp.asarray(b))
-    jdx, jdw, jdb = pull(jnp.asarray(dy, jdt))
+    jy, (jdx, jdw, jdb) = _vjp(jfn, (jnp.asarray(x, jdt), jnp.asarray(w),
+                                     jnp.asarray(b)), jnp.asarray(dy, jdt))
     assert seen == {"conv_flat", "_wgrad"}
     assert jy.dtype == jdt
 
@@ -188,9 +187,8 @@ def test_pool_flat_splits_ties_as_jax(dtype):
     x = np.round(2 * rng.normal(size=(B, D, H, W, C))).astype(np.float32) / 2
     dp = _rounded(rng.normal(size=(B, D, H // 2, W // 2, C)), dtype)
     jdt = _JDT[dtype]
-    jy, pull = jax.vjp(lambda v: fc.pool_flat(fc.to_flat(v), H, W),
-                       jnp.asarray(x, jdt))
-    (jdx,) = pull(jnp.asarray(dp, jdt))
+    jy, (jdx,) = _vjp(lambda v: fc.pool_flat(fc.to_flat(v), H, W),
+                      (jnp.asarray(x, jdt),), jnp.asarray(dp, jdt))
     tx = torch.tensor(x, dtype=_TDT[dtype], requires_grad=True)
     py = flat_conv.pool_flat(tx)
     py.backward(torch.tensor(dp, dtype=_TDT[dtype]))

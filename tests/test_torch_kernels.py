@@ -265,6 +265,17 @@ def _stat_cts(yshape):
     return [yshape, (yshape[-1],), (yshape[-1],)]
 
 
+def _vjp(fn, args, cts):
+    """``fn(*args)`` and its pullback of the cotangents ``cts``, as one
+    compiled program: the bits of the eager ``jax.vjp`` for a kernel
+    entry, without lowering a kernel a second time where its backward
+    recomputes the forward."""
+    def run(args, cts):
+        out, pull = jax.vjp(fn, *args)
+        return out, pull(cts)
+    return jax.jit(run)(tuple(args), cts)
+
+
 def _grads(jfn, pfn, args, cts, wrt):
     """Outputs and the gradients of the arguments ``wrt`` (indices) of
     both functions for the same cotangents."""
@@ -275,8 +286,8 @@ def _grads(jfn, pfn, args, cts, wrt):
         for i, v in zip(wrt, sub):
             full[i] = v
         return jfn(*full)
-    jout, pull = jax.vjp(jpart, *[jargs[i] for i in wrt])
-    jg = pull(tuple(jnp.asarray(c) for c in cts))
+    jout, jg = _vjp(jpart, [jargs[i] for i in wrt],
+                    tuple(jnp.asarray(c) for c in cts))
     targs = [_t(a) for a in args]
     for i in wrt:
         targs[i].requires_grad_(True)

@@ -32,6 +32,7 @@ from elektronn3_tpu.ops import flat_conv as fc
 from elektronn3_tpu.ops import flat_fused as ffu
 from elektronn3_tpu.ops import flat_fused64 as f64
 from elektronn3_tpu_torch.ops import fused
+from test_torch_kernels import _vjp
 
 TOL = 1e-4
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -115,10 +116,11 @@ def test_plain_pool_skip_matches_jax_skip_primitive(row, dtype, act, tie,
     if not skip_ct:
         dsk = np.zeros_like(dsk)
     jdt = _JDT[dtype]
-    jout, pull = jax.vjp(_jax_fn(row, shape, act),
-                         jnp.asarray(x).astype(jdt), jnp.asarray(inv),
-                         jnp.asarray(shift))
-    jg = pull((jnp.asarray(dp).astype(jdt), jnp.asarray(dsk).astype(jdt)))
+    jout, jg = _vjp(_jax_fn(row, shape, act),
+                    (jnp.asarray(x).astype(jdt), jnp.asarray(inv),
+                     jnp.asarray(shift)),
+                    (jnp.asarray(dp).astype(jdt),
+                     jnp.asarray(dsk).astype(jdt)))
 
     tdt = _TDT[dtype]
     tx = torch.from_numpy(x).to(tdt).requires_grad_(True)

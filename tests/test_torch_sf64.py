@@ -53,7 +53,7 @@ from elektronn3_tpu_torch.modules import loss as ploss
 from elektronn3_tpu_torch.ops import fused
 from test_torch_2d import _jax_step
 from test_torch_kernels import (TOL, _bn, _close, _grads, _spy_pallas,
-                                _stat_cts)
+                                _stat_cts, _vjp)
 from test_torch_train import (LOSS_RTOL, _assert_trees, _batch,
                               _port_model, _port_step, _randomize)
 
@@ -218,8 +218,7 @@ def test_head_c64_matches_head_bnact_from_flat64(dtype):
             f64.lane_vec64(shift), w.astype(jdt), b.astype(jdt), H, W,
             "relu", out_dtype=jnp.float32)
     jargs = [jnp.asarray(a) for a in (x, inv, shift, w, b)]
-    jout, pull = jax.vjp(jfn, *jargs)
-    jg = pull(jnp.asarray(dy))
+    jout, jg = _vjp(jfn, jargs, jnp.asarray(dy))
     targs = [torch.from_numpy(a).requires_grad_(True)
              for a in (x, inv, shift, w, b)]
     xr = targs[0].to(tdt)
